@@ -1,0 +1,99 @@
+"""Megatron-style layers at tensor-parallel degree 1 (counterpart of
+paddle_tpu/distributed/meta_parallel/mp_layers.py).
+
+The port keeps the reference's parameter names and layouts: a Linear
+weight is ``[in, out]`` and computes ``x @ w + b``; the embedding table is
+``[num_embeddings, dim]``.  Sharding across cards comes with the
+tensor-parallel slice; here every layer holds its full weight.
+Parameters are created directly on ``device`` and initialised from an
+explicit ``torch.Generator``, so a multi-billion-parameter model is never
+materialised on the host.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+from torch import nn
+
+__all__ = ["ColumnParallelLinear", "RowParallelLinear",
+           "VocabParallelEmbedding"]
+
+
+def _xavier_normal(shape, *, device, dtype, generator) -> nn.Parameter:
+    fan_in, fan_out = shape
+    w = torch.empty(shape, device=device, dtype=dtype)
+    w.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)), generator=generator)
+    return nn.Parameter(w)
+
+
+class _Linear(nn.Module):
+    """``y = x @ weight + bias`` with ``weight [in, out]`` (the reference's
+    ``F.linear`` layout); bias starts at zero."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 has_bias: bool = True, *, device: torch.device,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = _xavier_normal((in_features, out_features),
+                                     device=device, dtype=dtype,
+                                     generator=generator)
+        if has_bias:
+            self.bias = nn.Parameter(torch.zeros(out_features,
+                                                 device=device, dtype=dtype))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x, self.weight)
+        if self.bias is not None:
+            y = y + self.bias
+        return y
+
+    def extra_repr(self) -> str:
+        return (f"in_features={self.in_features}, "
+                f"out_features={self.out_features}, "
+                f"bias={self.bias is not None}")
+
+
+class ColumnParallelLinear(_Linear):
+    """Column-split Linear; at tp=1 the whole ``[in, out]`` weight."""
+
+
+class RowParallelLinear(_Linear):
+    """Row-split Linear; at tp=1 the whole ``[in, out]`` weight."""
+
+
+class VocabParallelEmbedding(nn.Module):
+    """Embedding lookup with ``jnp.take``'s fill semantics
+    (mp_layers.py:137): a negative id wraps once (numpy-style), and an id
+    that is still out of range yields a NaN row.  Nothing raises, and on
+    the card no device-side assert can fire: every gathered index is
+    clamped in range before the lookup and the fill is applied after."""
+
+    def __init__(self, num_embeddings: int, embedding_dim: int, *,
+                 device: torch.device, dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        self.num_embeddings = num_embeddings
+        self.embedding_dim = embedding_dim
+        w = torch.empty((num_embeddings, embedding_dim), device=device,
+                        dtype=dtype)
+        w.normal_(0.0, 0.02, generator=generator)
+        self.weight = nn.Parameter(w)
+
+    def forward(self, ids: torch.Tensor) -> torch.Tensor:
+        n = self.num_embeddings
+        idx = ids.long()
+        idx = torch.where(idx < 0, idx + n, idx)
+        valid = (idx >= 0) & (idx < n)
+        rows = self.weight[idx.clamp(0, n - 1)]
+        return rows.masked_fill(~valid[..., None], float("nan"))
+
+    def extra_repr(self) -> str:
+        return f"{self.num_embeddings}, {self.embedding_dim}"

@@ -1,0 +1,115 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
+shared library with a plain C interface, at first use, into
+``kernels/_build/`` (ignored by git).  The library name carries a hash of
+the source and the flags, so an edited source rebuilds and a stale build
+is never loaded.  Libraries are loaded with ``ctypes``; every exported
+function declares its ``argtypes`` and ``restype`` here.
+
+Nothing is compiled or loaded when this module is imported.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, List
+
+__all__ = ["NVCC_FLAGS", "build", "load"]
+
+_HERE = Path(__file__).resolve().parent
+_CSRC = _HERE / "csrc"
+_BUILD = _HERE / "_build"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
+_F = ctypes.c_float
+
+# C signatures of the exported entry points, per source
+_SIGNATURES = {
+    "decode_attention": {
+        "decode_attention_launch": (
+            [_P, _P, _P, _P, _P,            # q, k, v, seq_lens, out
+             _I, _I, _I, _I, _I, _I, _I,    # dtype, B, sq, H, KVH, S, D
+             _L, _L, _L, _L, _L, _L, _L, _L, _L,   # q/k/v strides b, s, h
+             _F, _I, _P],                   # scale, causal, stream
+            _I),
+    },
+}
+
+_loaded: Dict[str, ctypes.CDLL] = {}
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found (on PATH or under CUDA_HOME/bin); "
+                       "the port's CUDA kernels are built at first use")
+
+
+def _library_path(name: str) -> Path:
+    src = (_CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
+    return _BUILD / f"lib{name}-{key[:16]}.so"
+
+
+def build(names: Iterable[str]) -> Dict[str, float]:
+    """Compile every library in ``names`` that is not built yet, one
+    ``nvcc`` per source, all started together.  Returns the wall seconds
+    each compile took (absent for libraries already built); raises with
+    the compiler's output when one fails."""
+    _BUILD.mkdir(exist_ok=True)
+    jobs: List[tuple] = []
+    for name in names:
+        out = _library_path(name)
+        if out.exists():
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               str(_CSRC / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                stderr=subprocess.STDOUT, text=True)
+        jobs.append((name, out, tmp, proc, time.perf_counter()))
+    seconds: Dict[str, float] = {}
+    failures = []
+    for name, out, tmp, proc, t0 in jobs:
+        log, _ = proc.communicate()
+        seconds[name] = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failures.append(f"nvcc failed for {name}.cu "
+                            f"(exit {proc.returncode}):\n{log}")
+            tmp.unlink(missing_ok=True)
+        else:
+            os.replace(tmp, out)     # atomic: concurrent builds agree
+    if failures:
+        raise RuntimeError("\n".join(failures))
+    return seconds
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, building it first if
+    needed."""
+    lib = _loaded.get(name)
+    if lib is not None:
+        return lib
+    build([name])
+    lib = ctypes.CDLL(str(_library_path(name)))
+    for fn_name, (argtypes, restype) in _SIGNATURES[name].items():
+        fn = getattr(lib, fn_name)
+        fn.argtypes = argtypes
+        fn.restype = restype
+    _loaded[name] = lib
+    return lib

@@ -1,0 +1,90 @@
+"""Carry GPT weights from the JAX package into the port.
+
+The port keeps the reference's parameter names and layouts (``[in, out]``
+Linear weights, ``[vocab, h]`` embeddings), so conversion is a key-for-key
+copy, checked against the parameter table of the GPT config.
+"""
+
+from __future__ import annotations
+
+import re
+from typing import Dict, Mapping, Optional, Tuple, Union
+
+import numpy as np
+import torch
+
+from ..device import resolve_device, resolve_dtype
+from .gpt import GPTConfig
+
+__all__ = ["state_dict_from_jax"]
+
+
+def _gpt_shapes(cfg: GPTConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every parameter name of ``GPTForCausalLM(cfg)`` with its shape."""
+    h, f = cfg.hidden_size, cfg.ffn_size
+    out = {"gpt.wte.weight": (cfg.vocab_size, h),
+           "gpt.wpe.weight": (cfg.max_seq_len, h)}
+    for i in range(cfg.num_layers):
+        p = f"gpt.h.{i}."
+        for name, (fan_in, fan_out) in (("qkv", (h, 3 * h)),
+                                        ("out_proj", (h, h)),
+                                        ("fc_in", (h, f)),
+                                        ("fc_out", (f, h))):
+            out[p + name + ".weight"] = (fan_in, fan_out)
+            if cfg.use_bias:
+                out[p + name + ".bias"] = (fan_out,)
+        for ln in ("ln_1", "ln_2"):
+            out[p + ln + ".weight"] = (h,)
+            out[p + ln + ".bias"] = (h,)
+    out["gpt.ln_f.weight"] = (h,)
+    out["gpt.ln_f.bias"] = (h,)
+    if not cfg.tie_embeddings:
+        out["lm_head.weight"] = (h, cfg.vocab_size)
+    return out
+
+
+def _infer_config(arrays: Mapping[str, np.ndarray]) -> GPTConfig:
+    for key in ("gpt.wte.weight", "gpt.wpe.weight", "gpt.h.0.fc_in.weight"):
+        if key not in arrays:
+            raise KeyError(f"missing key in the JAX arrays: {key!r}")
+    vocab, h = np.shape(arrays["gpt.wte.weight"])
+    layers = 1 + max(int(m.group(1)) for k in arrays
+                     if (m := re.match(r"gpt\.h\.(\d+)\.", k)))
+    return GPTConfig(
+        vocab_size=vocab, hidden_size=h, num_layers=layers,
+        max_seq_len=np.shape(arrays["gpt.wpe.weight"])[0],
+        ffn_mult=np.shape(arrays["gpt.h.0.fc_in.weight"])[1] // h,
+        use_bias="gpt.h.0.qkv.bias" in arrays,
+        tie_embeddings="lm_head.weight" not in arrays)
+
+
+def state_dict_from_jax(arrays: Mapping[str, np.ndarray],
+                        device: Union[None, str, torch.device],
+                        dtype: Union[None, str, torch.dtype],
+                        cfg: Optional[GPTConfig] = None
+                        ) -> Dict[str, torch.Tensor]:
+    """Tensors on ``device`` in ``dtype`` for the JAX GPT parameters
+    ``arrays`` (``{k: np.asarray(v) for k, v in
+    jax_model.state_dict().items()}``), ready for
+    ``model.load_state_dict``.
+
+    The keys and shapes are checked against ``cfg``'s parameter table
+    (inferred from the arrays when ``cfg`` is None): a missing or
+    unexpected key raises ``KeyError`` and a shape mismatch
+    ``ValueError``, each naming the key."""
+    want = _gpt_shapes(cfg if cfg is not None else _infer_config(arrays))
+    for k in want:
+        if k not in arrays:
+            raise KeyError(f"missing key in the JAX arrays: {k!r}")
+    for k in arrays:
+        if k not in want:
+            raise KeyError(f"unexpected key in the JAX arrays: {k!r}")
+    for k, shape in want.items():
+        got = tuple(np.shape(arrays[k]))
+        if got != shape:
+            raise ValueError(f"shape mismatch for {k!r}: JAX {got}, "
+                             f"port {shape}")
+    device = resolve_device(device)
+    dtype = resolve_dtype(dtype)
+    return {k: torch.as_tensor(np.array(arrays[k], dtype=np.float32)).to(
+        device=device, dtype=dtype) for k in want}

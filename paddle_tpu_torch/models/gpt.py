@@ -1,0 +1,256 @@
+"""GPT decoder LM (counterpart of paddle_tpu/models/gpt.py).
+
+The serving surface of the reference model: learned positions, pre-LN
+blocks with a fused ``[h, 3h]`` QKV projection and a GELU (tanh) MLP,
+tied output head, and the functional KV-cache decode step the serving
+engine drives.  Parameter names and layouts are the reference's, so a
+JAX ``state_dict`` loads key for key (``models/convert.py``).
+
+Every attention — the cached decode/prefill path and the uncached
+forward — goes through ``kernels.decode_attention_auto``: the CUDA
+kernel on the card, its plain PyTorch version on the CPU.  The uncached
+forward is the cache-free special case (keys = the chunk itself,
+``seq_len = s`` with the causal tail), i.e. plain causal attention.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..device import resolve_device, resolve_dtype
+from ..distributed.meta_parallel.mp_layers import (
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+from ..kernels.decode_attention import decode_attention_auto
+from ..nn.functional import gelu
+from ..nn.layers import Dropout, LayerList, LayerNorm
+from .kv_cache import append_kv, cache_lens
+
+__all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM",
+           "gpt_tiny", "gpt_small", "gpt3_6_7b"]
+
+Cache = Tuple[torch.Tensor, torch.Tensor, Union[int, torch.Tensor]]
+
+
+@dataclasses.dataclass
+class GPTConfig:
+    vocab_size: int = 50304
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    max_seq_len: int = 1024
+    ffn_mult: int = 4
+    dropout: float = 0.0
+    attn_dropout: float = 0.0
+    layer_norm_eps: float = 1e-5
+    tie_embeddings: bool = True
+    dtype: str = "float32"
+    use_bias: bool = True
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def ffn_size(self) -> int:
+        return self.hidden_size * self.ffn_mult
+
+    def num_params(self) -> int:
+        h, l, v = self.hidden_size, self.num_layers, self.vocab_size
+        per_block = 4 * h * h + 2 * h * self.ffn_size + \
+            (9 * h + 2 * self.ffn_size if self.use_bias else 4 * h)
+        emb = v * h + self.max_seq_len * h
+        head = 0 if self.tie_embeddings else v * h
+        return emb + l * per_block + 2 * h + head
+
+
+class GPTBlock(nn.Module):
+    """Pre-LN transformer decoder block."""
+
+    def __init__(self, cfg: GPTConfig, *, device: torch.device,
+                 dtype: torch.dtype, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        h = cfg.hidden_size
+        kw = dict(device=device, dtype=dtype)
+        self.ln_1 = LayerNorm(h, epsilon=cfg.layer_norm_eps, **kw)
+        self.qkv = ColumnParallelLinear(h, 3 * h, has_bias=cfg.use_bias,
+                                        generator=generator, **kw)
+        self.out_proj = RowParallelLinear(h, h, has_bias=cfg.use_bias,
+                                          generator=generator, **kw)
+        self.ln_2 = LayerNorm(h, epsilon=cfg.layer_norm_eps, **kw)
+        self.fc_in = ColumnParallelLinear(h, cfg.ffn_size,
+                                          has_bias=cfg.use_bias,
+                                          generator=generator, **kw)
+        self.fc_out = RowParallelLinear(cfg.ffn_size, h,
+                                        has_bias=cfg.use_bias,
+                                        generator=generator, **kw)
+        self.drop = Dropout(cfg.dropout, generator=generator)
+
+    def _attn(self, x: torch.Tensor, cache: Optional[Cache] = None):
+        cfg = self.cfg
+        b, s, h = x.shape
+        if self.training and cfg.attn_dropout:
+            raise NotImplementedError(
+                "attention dropout is not supported by the decode-attention "
+                "path; set attn_dropout=0 or call .eval()")
+        qkv = self.qkv(x).view(b, s, 3, cfg.num_heads, cfg.head_dim)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+        new_cache = None
+        if cache is not None:
+            pk, pv, pos = cache
+            # pos: int (dense batch) or [b] per-row offsets (continuous
+            # batching); seq_lens = pos + s with the causal tail gives
+            # query t of the chunk the keys up to pos + t
+            k, v = append_kv(pk, pv, k, v, pos)
+            new_cache = (k, v, pos + s)
+            lens = cache_lens(pos, s, b, device=x.device)
+        else:
+            lens = cache_lens(0, s, b, device=x.device)
+        out = decode_attention_auto(q, k, v, lens)
+        return self.out_proj(out.reshape(b, s, h)), new_cache
+
+    def forward(self, x: torch.Tensor, cache: Optional[Cache] = None):
+        a, new_cache = self._attn(self.ln_1(x), cache)
+        x = x + self.drop(a)
+        m = self.fc_out(gelu(self.fc_in(self.ln_2(x)), approximate=True))
+        x = x + self.drop(m)
+        if cache is not None:
+            return x, new_cache
+        return x
+
+
+class GPTModel(nn.Module):
+    def __init__(self, cfg: GPTConfig, *, device: torch.device,
+                 dtype: torch.dtype, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.wte = VocabParallelEmbedding(cfg.vocab_size, cfg.hidden_size,
+                                          generator=generator, **kw)
+        self.wpe = VocabParallelEmbedding(cfg.max_seq_len, cfg.hidden_size,
+                                          generator=generator, **kw)
+        self.drop = Dropout(cfg.dropout, generator=generator)
+        self.h = LayerList([GPTBlock(cfg, generator=generator, **kw)
+                            for _ in range(cfg.num_layers)])
+        self.ln_f = LayerNorm(cfg.hidden_size, epsilon=cfg.layer_norm_eps,
+                              **kw)
+
+    def embed(self, input_ids: torch.Tensor,
+              position_offset: Union[int, torch.Tensor] = 0) -> torch.Tensor:
+        """Token + position embeddings; ``position_offset`` is an int or a
+        ``[b]`` tensor of per-row offsets (ragged continuous batching).
+        Positions past the table give NaN rows, as in JAX."""
+        b, s = input_ids.shape
+        ar = torch.arange(s, device=input_ids.device)
+        if isinstance(position_offset, torch.Tensor) \
+                and position_offset.dim() >= 1:
+            pos = position_offset.to(input_ids.device).long()[:, None] + ar
+        else:
+            pos = (ar + int(position_offset))[None, :]
+        return self.drop(self.wte(input_ids) + self.wpe(pos))
+
+    def forward(self, input_ids: torch.Tensor,
+                caches: Optional[List[Cache]] = None):
+        x = self.embed(input_ids)
+        new_caches = []
+        for i, block in enumerate(self.h):
+            if caches is None:
+                x = block(x)
+            else:
+                x, c = block(x, caches[i])
+                new_caches.append(c)
+        x = self.ln_f(x)
+        return x if caches is None else (x, new_caches)
+
+
+class GPTForCausalLM(nn.Module):
+    """GPT with a tied (or separate) LM head.
+
+    Built on ``device`` (default: the current CUDA device; with no CUDA
+    device it raises and asks for ``device="cpu"``), in ``dtype``
+    (default: ``cfg.dtype``), with weights drawn from ``generator``
+    (default: a generator on ``device`` seeded with 0).  Parameters are
+    created on ``device`` directly."""
+
+    def __init__(self, cfg: GPTConfig,
+                 device: Union[None, str, torch.device] = None,
+                 dtype: Union[None, str, torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        dtype = resolve_dtype(dtype, cfg.dtype)
+        if generator is None:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(0)
+        self.cfg = cfg
+        self.gpt = GPTModel(cfg, device=device, dtype=dtype,
+                            generator=generator)
+        if not cfg.tie_embeddings:
+            self.lm_head = ColumnParallelLinear(
+                cfg.hidden_size, cfg.vocab_size, has_bias=False,
+                device=device, dtype=dtype, generator=generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.gpt.wte.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.gpt.wte.weight.dtype
+
+    def logits(self, hidden: torch.Tensor) -> torch.Tensor:
+        if self.cfg.tie_embeddings:
+            return torch.matmul(hidden, self.gpt.wte.weight.t())
+        return self.lm_head(hidden)
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.logits(self.gpt(input_ids))
+
+    # ---- decode (cached path) ------------------------------------------
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: Union[None, str, torch.dtype] = None
+                   ) -> List[Cache]:
+        cfg = self.cfg
+        dt = resolve_dtype(dtype) if dtype is not None else self.dtype
+        shape = (batch, max_len, cfg.num_heads, cfg.head_dim)
+        return [(torch.zeros(shape, dtype=dt, device=self.device),
+                 torch.zeros(shape, dtype=dt, device=self.device), 0)
+                for _ in range(cfg.num_layers)]
+
+    @torch.no_grad()
+    def decode_step(self, input_ids: torch.Tensor, caches: List[Cache],
+                    position: Union[int, torch.Tensor]):
+        """One incremental chunk: appends its K/V into ``caches`` in place
+        and returns ``(logits [b, s, vocab], new_caches)``."""
+        x = self.gpt.embed(input_ids, position)
+        new_caches = []
+        for block, cache in zip(self.gpt.h, caches):
+            x, c = block(x, cache)
+            new_caches.append(c)
+        x = self.gpt.ln_f(x)
+        return self.logits(x), new_caches
+
+    def generate(self, input_ids, max_new_tokens: int, **kw):
+        """Autoregressive decoding (models/generation.py)."""
+        from .generation import generate
+        return generate(self, input_ids, max_new_tokens, **kw)
+
+
+def gpt_tiny(**kw) -> GPTConfig:
+    return GPTConfig(vocab_size=256, hidden_size=64, num_layers=2,
+                     num_heads=4, max_seq_len=128, **kw)
+
+
+def gpt_small(**kw) -> GPTConfig:
+    return GPTConfig(vocab_size=50304, hidden_size=768, num_layers=12,
+                     num_heads=12, max_seq_len=1024, **kw)
+
+
+def gpt3_6_7b(**kw) -> GPTConfig:
+    # GPT-3 6.7B: 32 layers, 4096 hidden, 32 heads, 2048 seq
+    return GPTConfig(vocab_size=50304, hidden_size=4096, num_layers=32,
+                     num_heads=32, max_seq_len=2048, dtype="bfloat16", **kw)

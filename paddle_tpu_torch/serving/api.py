@@ -1,0 +1,285 @@
+"""Public serving surface: ``ServingEngine.submit()/step()/stream()``
+(counterpart of paddle_tpu/serving/api.py).
+
+The facade over ``engine.EngineCore``: request construction, streaming
+token callbacks, the synchronous ``serve_batch()`` convenience, and the
+metrics dict.  The engine runs on its model's device.  Typical use::
+
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt_small
+    from paddle_tpu_torch.serving import ServingEngine, SamplingParams
+
+    eng = ServingEngine(GPTForCausalLM(gpt_small()), num_slots=8)
+    h = eng.submit([12, 7, 99], max_new_tokens=32,
+                   sampling=SamplingParams(do_sample=True, top_p=0.9),
+                   eos_token_id=0)
+    for tok in eng.stream(h):          # steps the engine as it yields
+        ...
+    out = eng.result(h)                # RequestOutput
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Iterator, List, Optional, Sequence
+
+import numpy as np
+
+from .engine import EngineCore
+from .errors import RequestRejected
+from .metrics import ServingMetrics
+from .scheduler import PRIORITIES, Request, SamplingParams
+
+__all__ = ["ServingEngine", "RequestOutput", "Request", "SamplingParams"]
+
+
+@dataclasses.dataclass
+class RequestOutput:
+    """Completed (or in-flight) view of one request."""
+    request_id: int
+    prompt: np.ndarray
+    tokens: List[int]
+    finished: bool
+    finish_reason: Optional[str]      # "eos" | "length" | None
+    ttft_s: Optional[float]           # submit -> first token
+    prefix_hit_tokens: int = 0        # prompt tokens served from cache
+    # terminal disposition: one of "finished" | "cancelled" |
+    # "deadline_exceeded" | "rejected" | "failed" once done (None in
+    # flight); status_reason carries the why
+    status: Optional[str] = None
+    status_reason: Optional[str] = None
+
+    @property
+    def sequence(self) -> np.ndarray:
+        """prompt + generated tokens, the ``generate()``-shaped result."""
+        return np.concatenate(
+            [np.asarray(self.prompt, np.int64),
+             np.asarray(self.tokens, np.int64)])
+
+
+class ServingEngine:
+    """Continuous-batching serving over a causal LM exposing
+    ``init_cache``/``decode_step`` (``GPTForCausalLM``), on the model's
+    device.
+
+    ``num_slots`` fixes the decode batch; ``max_seq`` the per-slot KV
+    budget (default: the model's max_seq_len).  Prefix reuse
+    (``enable_prefix_cache``, default on): prompts sharing a block-aligned
+    prefix with earlier traffic skip its recompute.  ``prefill_chunk``
+    splits long suffixes into fixed-width chunks interleaved with decode
+    (one chunk per step).  ``max_prefill_tokens_per_step`` caps admission
+    prefill work per step; ``max_queue`` bounds the waiting queue.
+    """
+
+    def __init__(self, model, num_slots: int = 8,
+                 max_seq: Optional[int] = None, min_bucket: int = 16,
+                 max_prefills_per_step: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 max_prefill_tokens_per_step: Optional[int] = None,
+                 enable_prefix_cache: bool = True,
+                 block_len: int = 16,
+                 prefix_blocks: Optional[int] = None,
+                 registry=None, tracer=None,
+                 max_queue: Optional[int] = None):
+        self.core = EngineCore(
+            model, num_slots=num_slots, max_seq=max_seq,
+            min_bucket=min_bucket,
+            max_prefills_per_step=max_prefills_per_step,
+            prefill_chunk=prefill_chunk,
+            max_prefill_tokens_per_step=max_prefill_tokens_per_step,
+            enable_prefix_cache=enable_prefix_cache,
+            block_len=block_len, prefix_blocks=prefix_blocks,
+            metrics=ServingMetrics(registry=registry, tracer=tracer),
+            max_queue=max_queue)
+        self._requests = {}
+
+    # -------------------------------------------------------- submission
+    def submit(self, prompt, max_new_tokens: int = 16,
+               sampling: Optional[SamplingParams] = None,
+               eos_token_id: Optional[int] = None,
+               stream: Optional[Callable] = None,
+               deadline_s: Optional[float] = None,
+               ttft_deadline_s: Optional[float] = None,
+               priority: str = "interactive",
+               allowed_tokens: Optional[Sequence[int]] = None) -> int:
+        """Queue one request; returns its id (admission happens inside a
+        later ``step()``).
+
+        ``stream`` is called as ``stream(request, token)`` the moment
+        each token is harvested.  Everything knowable at submit time is
+        validated here (``ValueError``); backpressure raises
+        :class:`RequestRejected` with a retry-after hint.
+        ``deadline_s``/``ttft_deadline_s`` are seconds relative to this
+        call, checked every step.  ``allowed_tokens`` constrains decoding
+        to a token set through a per-slot vocab mask."""
+        if self.core.closed:
+            raise RuntimeError("engine is closed")
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        if prompt.size < 1:
+            raise ValueError(
+                "prompt is empty — at least one token is required")
+        if max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        max_seq = self.core.pool.max_seq
+        if prompt.size + max_new_tokens > max_seq:
+            raise ValueError(
+                f"prompt_len {prompt.size} + max_new_tokens "
+                f"{max_new_tokens} exceeds the pool max_seq {max_seq} — "
+                f"the request could never be placed; truncate the "
+                f"prompt or lower max_new_tokens")
+        for name, d in (("deadline_s", deadline_s),
+                        ("ttft_deadline_s", ttft_deadline_s)):
+            if d is not None and d < 0:
+                raise ValueError(f"{name} must be >= 0, got {d}")
+        sampling = sampling or SamplingParams()
+        sampling.validate()
+        if priority not in PRIORITIES:
+            raise ValueError(
+                f"priority must be one of {PRIORITIES}, got {priority!r}")
+        if allowed_tokens is not None:
+            allowed_tokens = np.unique(
+                np.asarray(allowed_tokens, np.int64).reshape(-1))
+            if allowed_tokens.size < 1:
+                raise ValueError(
+                    "allowed_tokens is empty — an unsatisfiable "
+                    "constraint can never emit a token; pass None for "
+                    "unconstrained decoding")
+            vocab = int(self.core.model.cfg.vocab_size)
+            lo, hi = int(allowed_tokens[0]), int(allowed_tokens[-1])
+            if lo < 0 or hi >= vocab:
+                raise ValueError(
+                    f"allowed_tokens must lie in [0, {vocab}) — got "
+                    f"range [{lo}, {hi}]")
+        sched = self.core.scheduler
+        req = Request(request_id=sched.next_request_id(),
+                      prompt=prompt, max_new_tokens=max_new_tokens,
+                      sampling=sampling,
+                      eos_token_id=eos_token_id, stream=stream,
+                      priority=priority,
+                      deadline_s=deadline_s,
+                      ttft_deadline_s=ttft_deadline_s,
+                      allowed_tokens=allowed_tokens)
+        try:
+            self.core.check_admission(req)
+        except RequestRejected as e:
+            e.output = RequestOutput(
+                request_id=req.request_id, prompt=req.prompt, tokens=[],
+                finished=True, finish_reason=None, ttft_s=None,
+                status="rejected", status_reason=e.reason)
+            raise
+        sched.submit(req)
+        self._requests[req.request_id] = req
+        self.core.metrics.on_submit()
+        return req.request_id
+
+    def cancel(self, request_id: int) -> RequestOutput:
+        """Unwind one request in any state, freeing its slot, staging
+        rows and radix pin at once; returns the terminal view
+        (idempotent)."""
+        req = self._requests.get(request_id)
+        if req is None:
+            raise KeyError(
+                f"unknown request_id {request_id} — never submitted to "
+                f"this engine, or already purged")
+        if not req.finished:
+            self.core.cancel(request_id)
+        return self.result(request_id)
+
+    # -------------------------------------------------------- execution
+    def step(self) -> int:
+        """One engine iteration (admit -> prefill -> decode ->
+        harvest/evict); returns the number of requests still in flight."""
+        return self.core.step()
+
+    def stream(self, request_id: int) -> Iterator[int]:
+        """Yield ``request_id``'s tokens as they are generated, stepping
+        the engine whenever the request has no unseen tokens yet."""
+        req = self._requests[request_id]
+        seen = 0
+        while True:
+            while seen < len(req.tokens):
+                yield req.tokens[seen]
+                seen += 1
+            if req.finished:
+                return
+            self.core.step()
+
+    def run_until_complete(self, max_steps: Optional[int] = None,
+                           stall_steps: Optional[int] = 64) -> int:
+        return self.core.run_until_complete(max_steps,
+                                            stall_steps=stall_steps)
+
+    # ----------------------------------------------------------- results
+    def result(self, request_id: int) -> RequestOutput:
+        req = self._requests[request_id]
+        ttft = None
+        if req.first_token_time is not None:
+            ttft = req.first_token_time - req.arrival_time
+        return RequestOutput(request_id=req.request_id, prompt=req.prompt,
+                             tokens=list(req.tokens), finished=req.finished,
+                             finish_reason=req.finish_reason, ttft_s=ttft,
+                             prefix_hit_tokens=req.prefix_hit_tokens,
+                             status=req.status,
+                             status_reason=req.status_reason)
+
+    def purge(self, request_id: int) -> RequestOutput:
+        """``result()`` + drop the engine's reference to the request
+        (cancelling it first if it is still in flight).  Long-running
+        servers consume results this way."""
+        req = self._requests[request_id]
+        if not req.finished:
+            self.core.cancel(request_id, reason="purged while in flight")
+        out = self.result(request_id)
+        del self._requests[request_id]
+        return out
+
+    def serve_batch(self, prompts: Sequence, max_new_tokens: int = 16,
+                    sampling: Optional[SamplingParams] = None,
+                    eos_token_id: Optional[int] = None,
+                    max_steps: Optional[int] = None) -> List[RequestOutput]:
+        """Submit every prompt, run to completion, return the (purged)
+        outputs in submission order.  A shared ``sampling`` spec is
+        copied per request with the seed offset by the prompt index."""
+        ids = [self.submit(p, max_new_tokens=max_new_tokens,
+                           sampling=dataclasses.replace(
+                               sampling, seed=sampling.seed + i)
+                           if sampling is not None else None,
+                           eos_token_id=eos_token_id)
+               for i, p in enumerate(prompts)]
+        self.run_until_complete(max_steps)
+        return [self.purge(i) for i in ids]
+
+    def prefix_probe(self, prompt) -> int:
+        """Longest radix-cached prefix of ``prompt`` in tokens, WITHOUT
+        admitting or pinning anything (0 when the cache is off or
+        cold)."""
+        return self.core.prefix_probe(prompt)
+
+    # ----------------------------------------------------------- metrics
+    @property
+    def metrics(self) -> ServingMetrics:
+        return self.core.metrics
+
+    @property
+    def registry(self):
+        """The engine's ``obs.MetricsRegistry``."""
+        return self.core.metrics.registry
+
+    @property
+    def tracer(self):
+        """The engine's ``obs.Tracer`` (request-lifecycle spans and the
+        event log)."""
+        return self.core.metrics.tracer
+
+    def metrics_dict(self) -> dict:
+        out = self.core.metrics.snapshot()
+        if self.core.prefix_cache is not None:
+            # lifetime radix-cache state; survives metrics.reset()
+            out["prefix_cache"] = self.core.prefix_cache.stats()
+        out["slot_churn"] = {"allocs": self.core.pool.alloc_count,
+                             "frees": self.core.pool.free_count}
+        return out
+
+    def close(self) -> None:
+        """Release the engine's device memory (KV slabs, staging rows);
+        results already produced stay readable, new work is refused."""
+        self.core.close()

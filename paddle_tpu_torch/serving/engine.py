@@ -1,0 +1,804 @@
+"""Continuous-batching engine core: the fixed-shape step loop
+(counterpart of paddle_tpu/serving/engine.py, at tensor-parallel degree 1
+on one card).
+
+Device work per step:
+
+  * ``prefill`` — one ``model.decode_step`` per CHUNK: ``[1, width]``
+    tokens appended into a per-request ``[1, max_seq]`` staging cache at
+    the chunk's offset; the last VALID token's logits seed sampling.
+    Width comes from the scheduler's chunk plan: without
+    ``prefill_chunk``, one pow2-bucketed chunk covers the whole uncached
+    suffix; with it, long suffixes run as fixed-width pieces, one chunk
+    per step, interleaved with decode.  Padding rows of a chunk write
+    their K/V past ``valid`` in the staging row and their queries mask
+    by the padded width — exactly as in the reference;
+  * ``block copy`` — the radix prefix cache's gather (matched prefix
+    blocks into the staging row at admission) and scatter (freshly
+    computed blocks out of the slot after prefill).  A cache-hit request
+    prefills ONLY its suffix;
+  * ``decode`` — ONE ``[num_slots, 1]`` step over the whole pool with
+    per-slot positions.  Free and mid-prefill slots ride along as
+    no-ops: their rows decode garbage nothing reads, every row's
+    position advances by one, and a free row's write lands clamped at
+    its row end (models/kv_cache.py) until the next adopt overwrites the
+    row wholesale.
+
+Host plane: ONE device->host readback per step phase — the decode
+harvest reads the sampled token vector once, and a step that completes
+prefills reads their batched first tokens once.  Admission, radix
+matching, eviction, eos/length bookkeeping and metrics run on host ints
+the engine already holds.
+
+Sampling: greedy rows take the argmax; sampling rows apply
+``temperature -> top_k -> top_p`` and draw from the request's OWN
+``torch.Generator`` (seeded from ``SamplingParams.seed``) in token order,
+the discipline of ``models.generation.generate`` — so a single-request
+engine run reproduces the port's ``generate(seed=...)``, sampling
+included.  A ``torch.Generator`` does not reproduce ``jax.random``
+streams, so seeded tokens differ from the JAX engine's by design.
+"""
+
+from __future__ import annotations
+
+import functools
+import time
+from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..models.generation import _categorical, _filter_top_p
+from .errors import EngineStalledError, RequestRejected
+from .kv_pool import BlockPool, KVPool
+from .metrics import ServingMetrics
+from .prefix_cache import MatchResult, PrefixCache
+from .scheduler import Request, Scheduler
+
+__all__ = ["EngineCore", "sample_rows", "finite_or_sentinel",
+           "NONFINITE_SENTINEL"]
+
+# token-readback encoding of the per-row logits health check: a row whose
+# logits hold a non-finite value reads back as this instead of a token id
+# (ids are >= 0), so detection rides the step's existing readback
+NONFINITE_SENTINEL = -1
+
+
+def finite_or_sentinel(logits: torch.Tensor,
+                       toks: torch.Tensor) -> torch.Tensor:
+    """``toks[r]`` where ``logits[r]`` is all-finite, else
+    :data:`NONFINITE_SENTINEL`."""
+    ok = torch.isfinite(logits).all(dim=-1)
+    return torch.where(ok, toks, torch.full_like(toks, NONFINITE_SENTINEL))
+
+
+def _filter_top_k_rows(logits: torch.Tensor, top_k) -> torch.Tensor:
+    """Per-row top-k: keep each row's ``top_k[r]`` highest logits
+    (``top_k[r] == 0`` keeps the whole row).  Rank masking — the stable
+    argsort of the stable descending argsort — resolves ties by vocab
+    order, as the reference does."""
+    order = torch.argsort(-logits, dim=-1, stable=True)
+    rank = torch.argsort(order, dim=-1, stable=True)
+    k = torch.as_tensor(np.asarray(top_k), dtype=torch.long,
+                        device=logits.device)[:, None]
+    keep = (rank < k) | (k <= 0)
+    return logits.masked_fill(~keep, float("-inf"))
+
+
+def sample_rows(generators: Sequence[Optional[torch.Generator]],
+                logits: torch.Tensor, do_sample, temperature, top_k, top_p,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Per-row token selection over ``logits [rows, vocab]`` (f32).
+
+    ``do_sample``, ``temperature``, ``top_k`` and ``top_p`` are per-row
+    HOST values (sequences or numpy arrays).  Greedy rows take the argmax;
+    sampling rows apply ``temperature -> top_k -> top_p`` (the pipeline of
+    ``generate``) and draw from their own ``generators[r]``, so one
+    request's randomness never depends on its slot neighbours.  ``mask
+    [rows, vocab] bool`` (constrained decoding) bans False columns before
+    everything."""
+    logits = logits.float()
+    if mask is not None:
+        logits = logits.masked_fill(~mask, float("-inf"))
+    out = torch.argmax(logits, dim=-1)
+    rows = np.flatnonzero(np.asarray(do_sample, bool))
+    if rows.size:
+        dev = logits.device
+        idx = torch.as_tensor(rows, device=dev)
+        temp = torch.as_tensor(np.asarray(temperature, np.float32)[rows],
+                               device=dev).clamp_min(1e-6)
+        scaled = logits[idx] / temp[:, None]
+        filtered = _filter_top_k_rows(scaled, np.asarray(top_k)[rows])
+        p = torch.as_tensor(np.asarray(top_p, np.float32)[rows],
+                            device=dev)[:, None]
+        # rows with top_p == 1.0 skip the nucleus filter exactly
+        filtered = torch.where(p >= 1.0, filtered,
+                               _filter_top_p(filtered, p))
+        for j, r in enumerate(rows):
+            out[r] = _categorical(filtered[j:j + 1], generators[r])[0]
+    return out
+
+
+class _Slot:
+    """Host mirror of one occupied pool slot."""
+
+    __slots__ = ("req", "match")
+
+    def __init__(self, req: Request, match: Optional[MatchResult] = None):
+        self.req = req
+        self.match = match          # pinned radix-cache path, if any
+
+
+class _Prefill:
+    """A request mid-prefill: its slot is allocated, its context grows in
+    a per-request staging cache (per-layer [1, max_seq] k/v rows seeded
+    from the radix cache's matched blocks), and the scheduler's chunk
+    plan drives one decode_step append per chunk."""
+
+    __slots__ = ("req", "slot", "ks", "vs", "plan", "next_chunk", "match",
+                 "last_logits")
+
+    def __init__(self, req: Request, slot: int, ks, vs, plan,
+                 match: Optional[MatchResult]):
+        self.req = req
+        self.slot = slot
+        self.ks = ks                # staging caches, appended per chunk
+        self.vs = vs
+        self.plan = plan            # [(offset, width, valid), ...]
+        self.next_chunk = 0
+        self.match = match
+        self.last_logits = None     # final chunk's last-token logits
+
+    @property
+    def done(self) -> bool:
+        return self.next_chunk >= len(self.plan)
+
+
+class EngineCore:
+    """Owns the pool, the radix prefix cache, the per-slot device state
+    and the step loop, on the model's device.  The public request surface
+    lives in ``serving.api.ServingEngine``."""
+
+    def __init__(self, model, num_slots: int = 8,
+                 max_seq: Optional[int] = None,
+                 min_bucket: int = 16,
+                 max_prefills_per_step: Optional[int] = None,
+                 prefill_chunk: Optional[int] = None,
+                 max_prefill_tokens_per_step: Optional[int] = None,
+                 enable_prefix_cache: bool = True,
+                 block_len: int = 16,
+                 prefix_blocks: Optional[int] = None,
+                 metrics: Optional[ServingMetrics] = None,
+                 max_queue: Optional[int] = None):
+        if prefill_chunk is not None and prefill_chunk < min_bucket:
+            raise ValueError(
+                f"prefill_chunk {prefill_chunk} must be >= min_bucket "
+                f"{min_bucket}")
+        if max_prefill_tokens_per_step is not None \
+                and max_prefill_tokens_per_step < 1:
+            raise ValueError("max_prefill_tokens_per_step must be >= 1")
+        if enable_prefix_cache and block_len < 1:
+            raise ValueError("block_len must be >= 1")
+        if max_queue is not None and max_queue < 1:
+            raise ValueError("max_queue must be >= 1 (or None)")
+        self.model = model
+        self.device = model.device
+        self.num_slots = num_slots
+        self.prefill_chunk = prefill_chunk
+        self.max_prefill_tokens_per_step = max_prefill_tokens_per_step
+        self.max_queue = max_queue
+        self.metrics = metrics or ServingMetrics()
+        # monotone work marker: tokens emitted, admissions, prefill
+        # chunks and terminal dispositions all bump it — the
+        # run_until_complete stall detector watches it flatline
+        self.progress_counter = 0
+        self._deadlines_possible = False        # skip the per-step scan
+        self._step_index = 0
+        self._step_in_flight = 0
+        self.closed = False
+        self._build_device_plane(max_seq, enable_prefix_cache, block_len,
+                                 prefix_blocks)
+        self.scheduler = Scheduler(num_slots, self.pool.max_seq,
+                                   min_bucket=min_bucket,
+                                   max_prefills_per_step=max_prefills_per_step)
+
+    def _build_device_plane(self, max_seq, enable_prefix_cache: bool,
+                            block_len: int, prefix_blocks) -> None:
+        """Allocate everything that lives on the device or mirrors it: the
+        KV pools, the prefix cache and the per-slot row state."""
+        model, num_slots = self.model, self.num_slots
+        self.pool = KVPool.create(model, num_slots, max_seq)
+        self.prefix_cache: Optional[PrefixCache] = None
+        self.block_pool: Optional[BlockPool] = None
+        if enable_prefix_cache:
+            # block_len must tile the slot row: round DOWN to a pow2, then
+            # halve until it divides max_seq
+            block_len = 1 << (block_len.bit_length() - 1)
+            while block_len > 1 and self.pool.max_seq % block_len:
+                block_len //= 2
+            # default pool size: as many blocks as the slot pool has rows
+            # of context — a second slab the size of the first
+            nb = prefix_blocks if prefix_blocks is not None else \
+                num_slots * (self.pool.max_seq // block_len)
+            self.block_pool = BlockPool.create(model, nb, block_len,
+                                               self.pool.max_seq)
+            self.prefix_cache = PrefixCache(self.block_pool)
+            self.prefix_cache.on_event = functools.partial(
+                self.metrics.tracer.event, lane=self.metrics.engine_lane)
+        self._slots: Dict[int, _Slot] = {}
+        self._prefills: List[_Prefill] = []      # FCFS, mid-prefill
+        # per-slot device row state (fixed [num_slots] shapes)
+        self._last_tok = torch.zeros((num_slots,), dtype=torch.int32,
+                                     device=self.device)
+        self._gens: List[Optional[torch.Generator]] = [None] * num_slots
+        # per-slot sampling params: host mirrors (sample_rows reads them
+        # on the host; only sampling rows touch the device)
+        self._do_sample = np.zeros((num_slots,), bool)
+        self._temperature = np.ones((num_slots,), np.float32)
+        self._top_k = np.zeros((num_slots,), np.int32)
+        self._top_p = np.ones((num_slots,), np.float32)
+        # per-slot allowed-token mask (constrained decoding): host rows,
+        # uploaded when dirtied; None on the device while every row is
+        # unconstrained
+        self._mask_host = np.ones(
+            (num_slots, int(model.cfg.vocab_size)), bool)
+        self._mask_dev: Optional[torch.Tensor] = None
+        self._mask_dirty = False
+
+    def close(self) -> None:
+        """Drop the engine's device buffers (KV slabs, staging rows, row
+        state) so their memory can be reused; the engine serves nothing
+        afterwards."""
+        for st in self._prefills:
+            st.ks = st.vs = None
+        self._prefills = []
+        self.pool.ks = self.pool.vs = []
+        if self.block_pool is not None:
+            self.block_pool.bks = self.block_pool.bvs = []
+        self._mask_dev = None
+        self.closed = True
+
+    def _lane(self, req: Request) -> int:
+        return self.metrics.request_lane(req.request_id)
+
+    # ----------------------------------------------------------- prefill
+    def _prefill_cost(self, req: Request) -> int:
+        """Tokens of prefill work admitting ``req`` costs THIS step: the
+        width of its first chunk, after the radix-cache match shrinks the
+        suffix."""
+        matched = self.prefix_cache.match_length(req.prompt) \
+            if self.prefix_cache is not None else 0
+        plan = self.scheduler.chunk_plan(matched, req.prompt_len,
+                                         self.prefill_chunk)
+        return plan[0][1]
+
+    def prefix_probe(self, prompt) -> int:
+        """Longest radix-cached prefix of ``prompt`` in tokens, without
+        admitting, pinning, or touching the device (0 when the cache is
+        off or cold)."""
+        if self.prefix_cache is None:
+            return 0
+        return self.prefix_cache.match_length(prompt)
+
+    def _begin_prefill(self, req: Request) -> None:
+        """Claim a slot, match + pin the longest cached prefix, seed the
+        staging cache from its block rows, and queue the suffix's chunk
+        plan.  No model FLOPs run here.  The slot and the pinned radix
+        path go back to their pools if anything between claim and
+        placement raises."""
+        t_admit = time.perf_counter()
+        slot = self.pool.alloc()
+        match = None
+        try:
+            matched = 0
+            t_match0 = t_match1 = t_admit
+            if self.prefix_cache is not None:
+                t_match0 = time.perf_counter()
+                match = self.prefix_cache.match(req.prompt)
+                matched = match.tokens
+                t_match1 = time.perf_counter()
+            t_gather0 = time.perf_counter()
+            if matched:
+                ks, vs = self.prefix_cache.load_staging(match)
+            else:
+                caches = self.model.init_cache(1, self.pool.max_seq)
+                ks = [c[0] for c in caches]
+                vs = [c[1] for c in caches]
+            t_gather1 = time.perf_counter()
+            plan = self.scheduler.chunk_plan(matched, req.prompt_len,
+                                             self.prefill_chunk)
+            self.scheduler.place(req, slot)
+            # hit/telemetry accounting only after placement: a failed
+            # admission is requeued and retried, and must not count twice
+            if matched:
+                req.prefix_hit_tokens = matched
+                self.metrics.on_prefix_hit(matched)
+            req.admit_time = t_admit
+            self.metrics.on_queue_wait(t_admit - req.arrival_time)
+            self.metrics.on_gather(t_gather1 - t_gather0)
+            tracer = self.metrics.tracer
+            if tracer.enabled:
+                lane = self._lane(req)
+                tracer.set_lane_name(lane, f"request {req.request_id}")
+                tracer.add_span("queued", lane, req.arrival_time, t_admit,
+                                prompt_len=req.prompt_len)
+                if self.prefix_cache is not None:
+                    tracer.add_span("prefix_match", lane, t_match0,
+                                    t_match1, hit_tokens=matched)
+                tracer.add_span("gather", lane, t_gather0, t_gather1,
+                                hit=bool(matched))
+            self._prefills.append(_Prefill(req, slot, ks, vs, plan, match))
+            self.progress_counter += 1          # admission = progress
+        except BaseException:
+            if match is not None:
+                self.prefix_cache.release(match)
+            self.pool.free(slot)
+            raise
+
+    def _run_chunk(self, st: _Prefill) -> None:
+        """Run one prefill chunk of ``st`` (queued on the device; no
+        readback)."""
+        off, width, valid = st.plan[st.next_chunk]
+        t0 = time.perf_counter()
+        ids = np.zeros((1, width), np.int64)
+        ids[0, :valid] = np.asarray(st.req.prompt[off:off + valid],
+                                    np.int64)
+        caches = [(k, v, off) for k, v in zip(st.ks, st.vs)]
+        logits, _ = self.model.decode_step(
+            torch.as_tensor(ids).to(self.device), caches, off)
+        t1 = time.perf_counter()
+        st.next_chunk += 1
+        st.req.prefill_chunks += 1
+        self.progress_counter += 1              # chunk ran = progress
+        self.metrics.on_prefill_chunk(valid, seconds=t1 - t0)
+        self.metrics.tracer.add_span(
+            "prefill_chunk", self._lane(st.req), t0, t1,
+            chunk=st.next_chunk - 1, width=width, tokens=valid)
+        if st.done:
+            st.last_logits = logits[0, valid - 1].float()
+
+    def _complete_prefill(self, st: _Prefill):
+        """Final chunk done: sample the first token from the request's own
+        generator and adopt the staging row into the pool slot.  Returns
+        ``(st, first_token)``; the caller batches the readbacks
+        (``_flush_staged``) and only then publishes the prompt blocks to
+        the radix cache, so KV whose prefill produced non-finite logits
+        is never cached."""
+        req, slot, s = st.req, st.slot, st.req.sampling
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(s.seed)
+        mask = None
+        if req.allowed_tokens is not None:
+            self._mask_host[slot] = False
+            self._mask_host[slot, np.asarray(req.allowed_tokens,
+                                             np.int64)] = True
+            self._mask_dirty = True
+            mask = torch.as_tensor(self._mask_host[slot][None]).to(
+                self.device)
+        first = sample_rows([gen], st.last_logits[None], [s.do_sample],
+                            [s.temperature], [s.top_k], [s.top_p],
+                            mask=mask)
+        first = finite_or_sentinel(st.last_logits[None], first)
+        self.pool.adopt(slot, list(zip(st.ks, st.vs)), req.prompt_len)
+        st.ks = st.vs = None                    # staging rows retire
+        self._slots[slot] = _Slot(req, match=st.match)
+        self._last_tok[slot] = first[0]
+        self._gens[slot] = gen
+        self._do_sample[slot] = s.do_sample
+        self._temperature[slot] = s.temperature
+        self._top_k[slot] = s.top_k
+        self._top_p[slot] = s.top_p
+        self.metrics.on_prefill(req.prompt_len - req.prefix_hit_tokens)
+        return st, first
+
+    def _advance_one(self, st: _Prefill, staged: List) -> None:
+        """Advance one mid-prefill request — to completion without
+        chunking, by exactly one chunk with it — appending the completed
+        ``(st, first_token)`` to ``staged``."""
+        if self.prefill_chunk is None:
+            while not st.done:
+                self._run_chunk(st)
+        else:
+            self._run_chunk(st)
+        if st.done:
+            self._prefills.remove(st)
+            staged.append(self._complete_prefill(st))
+
+    def _advance_prefills(self) -> int:
+        """Run this step's prefill work: without chunking every pending
+        prefill completes; with ``prefill_chunk`` exactly ONE chunk runs
+        per step.  Completed requests' first tokens come back in ONE
+        batched readback.  Returns tokens emitted."""
+        staged: List[Tuple[_Prefill, torch.Tensor]] = []
+        try:
+            if self.prefill_chunk is None:
+                while self._prefills:
+                    self._advance_one(self._prefills[0], staged)
+            elif self._prefills:
+                self._advance_one(self._prefills[0], staged)
+        finally:
+            # tokens already staged must be emitted even if a later
+            # prefill raised
+            emitted = self._flush_staged(staged)
+        return emitted
+
+    def _flush_staged(self, staged) -> int:
+        """THE batched first-token readback for this step's completed
+        prefills, then per request: non-finite containment (fail the
+        request, skip the radix insert), the deferred prefix-cache
+        insert, and the first-token emit."""
+        if not staged:
+            return 0
+        toks = torch.cat([f for _, f in staged]).cpu().numpy()
+        emitted = 0
+        flush_exc = None
+        for (st, _), tok in zip(staged, toks):
+            tok = int(tok)
+            if tok == NONFINITE_SENTINEL:
+                self.metrics.on_fault(
+                    "nan_logits", "non-finite logits at prefill "
+                    "completion", step=self._step_in_flight)
+                self._finalize(st.req, "failed",
+                               "non-finite logits at prefill completion")
+                continue   # slot reclaimed by _evict_finished this step
+            if self.prefix_cache is not None:
+                self.prefix_cache.insert(st.req.prompt, self.pool, st.slot)
+            # a raise for one request must not drop the others' first
+            # tokens: finish the loop, then re-raise the first error
+            try:
+                self._emit(st.slot, tok, first_token=True)
+            except Exception as e:
+                self.metrics.on_fault("harvest", repr(e),
+                                      step=self._step_in_flight)
+                self._finalize(st.req, "failed",
+                               f"token emit failed: {e!r}")
+                if flush_exc is None:
+                    flush_exc = e
+                continue
+            emitted += 1
+        if flush_exc is not None:
+            raise flush_exc
+        return emitted
+
+    # ------------------------------------------------------------ decode
+    def _decode_dispatch(self) -> torch.Tensor:
+        """ONE fixed-shape decode step over every slot; returns the
+        sampled token vector STILL ON THE DEVICE — the caller performs the
+        step's single readback."""
+        if self._mask_dirty:
+            self._mask_dev = None if self._mask_host.all() else \
+                torch.as_tensor(self._mask_host).to(self.device)
+            self._mask_dirty = False
+        pool = self.pool
+        caches = [(k, v, pool.seq_pos) for k, v in zip(pool.ks, pool.vs)]
+        logits, caches = self.model.decode_step(self._last_tok[:, None],
+                                                caches, pool.seq_pos)
+        pool.seq_pos = caches[0][2]
+        lg = logits[:, 0]
+        nxt = sample_rows(self._gens, lg, self._do_sample,
+                          self._temperature, self._top_k, self._top_p,
+                          mask=self._mask_dev)
+        # a poisoned row reads back as the sentinel through the step's
+        # existing single readback
+        self._last_tok = finite_or_sentinel(lg, nxt).to(torch.int32)
+        return self._last_tok
+
+    # -------------------------------------------------------- step loop
+    @torch.no_grad()
+    def step(self) -> int:
+        """One engine iteration: admit (radix match + staging), advance
+        prefill chunks, one decode step over all active slots, harvest
+        tokens / evict finished.  Returns the number of requests still in
+        flight (prefilling + running + queued).  The step's phase
+        breakdown lands as ``step.*`` spans and per-phase histograms; the
+        per-slot token readback is the step's only device sync."""
+        if self.closed:
+            raise RuntimeError("engine is closed")
+        t0 = time.perf_counter()
+        tracer = self.metrics.tracer
+        step_i = self._step_index
+        self._step_index += 1
+        self._step_in_flight = step_i
+        skips_before = self.scheduler.total_head_skips
+        new_tokens = 0
+        phases = []
+        sp = tracer.begin_span("serving.step",
+                               lane=self.metrics.engine_lane, step=step_i)
+        try:
+            if self._deadlines_possible:
+                self._expire_deadlines(time.perf_counter())
+            admitted = self.scheduler.admit(
+                self.pool.free_slots,
+                token_budget=self.max_prefill_tokens_per_step,
+                cost=self._prefill_cost)
+            for i, (req, _) in enumerate(admitted):
+                try:
+                    self._begin_prefill(req)
+                except BaseException:
+                    # admission failure must not LOSE requests: the
+                    # failing one and the rest of the popped batch go
+                    # back to the queue head
+                    self.scheduler.requeue_front(
+                        [r for r, _ in admitted[i:]])
+                    raise
+            t_admit = time.perf_counter()
+            new_tokens = self._advance_prefills()
+            t_prefill = time.perf_counter()
+            phases = [("admission", t0, t_admit),
+                      ("prefill", t_admit, t_prefill)]
+            if self._slots:
+                nxt = self._decode_dispatch()
+                t_decode = time.perf_counter()
+                toks = nxt.cpu().numpy()   # THE per-step device readback
+                t_readback = time.perf_counter()
+                # every slot's device state already advanced: a raise for
+                # one slot (a stream callback) must not drop the later
+                # slots' tokens — finish the loop, then re-raise
+                harvest_exc = None
+                for slot in sorted(self._slots):
+                    st = self._slots.get(slot)
+                    if st is None:
+                        continue   # reentrantly cancelled mid-loop
+                    try:
+                        new_tokens += self._harvest(slot, int(toks[slot]))
+                    except Exception as e:
+                        self.metrics.on_fault("harvest", repr(e),
+                                              step=step_i)
+                        self._finalize(st.req, "failed",
+                                       f"token emit failed: {e!r}")
+                        if harvest_exc is None:
+                            harvest_exc = e
+                phases += [("decode_dispatch", t_prefill, t_decode),
+                           ("readback", t_decode, t_readback)]
+                if harvest_exc is not None:
+                    raise harvest_exc
+            self._evict_finished()
+        finally:
+            tracer.end_span(sp)
+        skips = self.scheduler.total_head_skips
+        if skips > skips_before:
+            tracer.event("head_of_line_skip", lane=self.metrics.engine_lane,
+                         count=skips - skips_before, step=step_i)
+        self.metrics.record_step(
+            active_slots=len(self._slots), num_slots=self.num_slots,
+            queue_depth=self.scheduler.queue_depth,
+            new_tokens=new_tokens,
+            step_seconds=time.perf_counter() - t0,
+            step_index=step_i, phases=phases)
+        return self.scheduler.active + self.scheduler.queue_depth
+
+    def _emit(self, slot: int, tok: int, first_token: bool = False) -> None:
+        st = self._slots[slot]
+        req = st.req
+        req.tokens.append(tok)
+        self.progress_counter += 1              # token out = progress
+        now = time.perf_counter()
+        if first_token:
+            req.first_token_time = now
+            self.metrics.on_first_token(req.arrival_time, now=now)
+            tracer = self.metrics.tracer
+            if tracer.enabled:
+                lane = self._lane(req)
+                tracer.add_span("prefill", lane,
+                                req.admit_time or req.arrival_time, now,
+                                chunks=req.prefill_chunks,
+                                hit_tokens=req.prefix_hit_tokens)
+                tracer.event("first_token", lane=lane, t=now)
+        elif req.last_token_time is not None:
+            self.metrics.on_output_token(now - req.last_token_time)
+        req.last_token_time = now
+        if req.stream is not None:
+            req.stream(req, tok)
+        eos = req.eos_token_id
+        if eos is not None and tok == eos:
+            req.finished, req.finish_reason = True, "eos"
+        elif len(req.tokens) >= req.max_new_tokens:
+            req.finished, req.finish_reason = True, "length"
+
+    def _harvest(self, slot: int, tok: int) -> int:
+        st = self._slots.get(slot)
+        if st is None:
+            return 0  # reentrantly cancelled by a callback mid-harvest
+        if st.req.finished:
+            return 0  # finished at admit (eos/length on the first token)
+        if tok == NONFINITE_SENTINEL:
+            # fail exactly the implicated request; the slot is reclaimed
+            # by _evict_finished this same step
+            self.metrics.on_fault("nan_logits",
+                                  f"non-finite logits in decode "
+                                  f"(slot {slot})",
+                                  step=self._step_in_flight)
+            self._finalize(st.req, "failed", "non-finite logits in decode")
+            return 0
+        self._emit(slot, tok)
+        return 1
+
+    # --------------------------------------------- terminal dispositions
+    def _finalize(self, req: Request, status: str, reason: str,
+                  now: Optional[float] = None) -> None:
+        """Stamp one request's TERMINAL disposition — exactly once per
+        request.  Does NOT touch slots/pins: the call site owns whatever
+        unwinding its state demands."""
+        if req.finished and req.status is not None:
+            return                        # already terminal (idempotent)
+        if now is None:
+            now = time.perf_counter()
+        req.finished = True
+        req.status = status
+        req.status_reason = reason
+        req.finish_time = now
+        self.progress_counter += 1        # a disposition is progress
+        if status == "finished":
+            self.metrics.on_finish()
+        else:
+            self.metrics.on_terminal(status, reason, req.request_id,
+                                     now=now)
+        tracer = self.metrics.tracer
+        if tracer.enabled:
+            lane = self._lane(req)
+            if req.first_token_time is not None:
+                tracer.add_span("decode", lane, req.first_token_time, now,
+                                tokens=len(req.tokens))
+            tracer.add_span("request", lane, req.arrival_time, now,
+                            tokens=len(req.tokens),
+                            finish_reason=req.finish_reason or req.status)
+
+    def _clear_row(self, slot: int) -> None:
+        self._gens[slot] = None
+        self._do_sample[slot] = False
+        if not self._mask_host[slot].all():
+            self._mask_host[slot] = True      # constrained row retires
+            self._mask_dirty = True
+
+    def _release_slot(self, slot: int, now: float) -> Request:
+        """Return one occupied slot's resources — scheduler entry, radix
+        pin, pool slot, sampling row — in one place."""
+        req = self.scheduler.release(slot)
+        st = self._slots.pop(slot)
+        if st.match is not None:
+            self.prefix_cache.release(st.match)
+        self.pool.free(slot)
+        self._clear_row(slot)
+        tracer = self.metrics.tracer
+        if tracer.enabled:
+            tracer.event("slot_release", lane=self.metrics.engine_lane,
+                         t=now, slot=slot, request=req.request_id,
+                         reason=req.status_reason or req.finish_reason)
+        return req
+
+    def _abort_prefill(self, st: _Prefill, status: str,
+                       reason: str) -> None:
+        """Unwind one MID-PREFILL request (cancel / deadline): drop it
+        from the prefill queue, return its slot and radix pin, stamp the
+        terminal status.  Its staging rows die with the last reference."""
+        if st in self._prefills:
+            self._prefills.remove(st)
+        self._slots.pop(st.slot, None)
+        if st.match is not None:
+            self.prefix_cache.release(st.match)
+        self.scheduler.release(st.slot)
+        self.pool.free(st.slot)
+        self._clear_row(st.slot)
+        self._finalize(st.req, status, reason)
+
+    def cancel(self, request_id: int, status: str = "cancelled",
+               reason: str = "cancelled by client") -> bool:
+        """Unwind one request in ANY state — queued, mid-prefill, or
+        decoding — freeing its slot, staging rows and radix pin at once.
+        Returns True when it was found in flight (False: unknown or
+        already terminal)."""
+        req = self.scheduler.remove_waiting(request_id)
+        if req is not None:
+            self._finalize(req, status, reason)
+            return True
+        for st in list(self._prefills):
+            if st.req.request_id == request_id:
+                self._abort_prefill(st, status, reason)
+                return True
+        for slot, sl in list(self._slots.items()):
+            if sl.req.request_id == request_id and not sl.req.finished:
+                now = time.perf_counter()
+                self._finalize(sl.req, status, reason, now=now)
+                self._release_slot(slot, now)
+                return True
+        return False
+
+    def _expire_deadlines(self, now: float) -> None:
+        """Per-step deadline sweep (armed once any request carried a
+        deadline): queued requests past their budget never take a slot;
+        in-flight ones unwind like a cancel, status
+        ``deadline_exceeded``."""
+        for req in self.scheduler.expired_waiting(now):
+            self._finalize(req, "deadline_exceeded",
+                           req.deadline_violation(now) or
+                           "deadline exceeded", now=now)
+        for st in list(self._prefills):
+            v = st.req.deadline_violation(now)
+            if v is not None:
+                self._abort_prefill(st, "deadline_exceeded", v)
+        for slot, sl in list(self._slots.items()):
+            if sl.req.finished:
+                continue
+            v = sl.req.deadline_violation(now)
+            if v is not None:
+                self._finalize(sl.req, "deadline_exceeded", v, now=now)
+                self._release_slot(slot, now)
+
+    # ------------------------------------------------ submit-time gates
+    def check_admission(self, req: Request) -> None:
+        """Submit-time backpressure: bounded queue (``max_queue``) and
+        SLO-aware rejection when the projected TTFT already exceeds the
+        request's deadline.  Raises :class:`RequestRejected` with a
+        live-metrics retry hint."""
+        if self.max_queue is not None \
+                and self.scheduler.queue_depth >= self.max_queue:
+            excess = self.scheduler.queue_depth - self.max_queue + 1
+            self._reject(req, "queue_full",
+                         self.metrics.retry_after_hint(excess))
+        if req.ttft_deadline_s is not None:
+            projected = self.metrics.projected_ttft_s(
+                self.scheduler.queue_depth)
+            if projected is not None and projected > req.ttft_deadline_s:
+                self._reject(req, "slo_unattainable",
+                             self.metrics.retry_after_hint())
+        if req.deadline_s is not None or req.ttft_deadline_s is not None:
+            self._deadlines_possible = True
+
+    def _reject(self, req: Request, reason: str,
+                retry_after_s: Optional[float]) -> None:
+        req.finished = True
+        req.status = "rejected"
+        req.status_reason = reason
+        req.finish_time = time.perf_counter()
+        self.metrics.on_terminal("rejected", reason, req.request_id)
+        raise RequestRejected(reason, retry_after_s)
+
+    def _evict_finished(self) -> None:
+        for slot in [s for s, st in self._slots.items() if st.req.finished]:
+            now = time.perf_counter()
+            req = self._release_slot(slot, now)
+            if req.status is None:
+                # normal completion (eos/length); abnormal statuses were
+                # settled at their _finalize site
+                self._finalize(req, "finished", req.finish_reason, now=now)
+
+    # ----------------------------------------------------- conveniences
+    def stall_snapshot(self) -> Dict[str, object]:
+        """Host-state diagnostic attached to
+        :class:`~paddle_tpu_torch.serving.errors.EngineStalledError`."""
+        return {
+            "queue_depth": self.scheduler.queue_depth,
+            "active": self.scheduler.active,
+            "mid_prefill": len(self._prefills),
+            "free_slots": self.pool.free_slots,
+            "free_blocks": None if self.block_pool is None
+            else self.block_pool.free_blocks,
+            "seq_pos": self.pool.seq_pos.cpu().tolist(),
+            "progress_counter": self.progress_counter,
+            "steps": self._step_index,
+        }
+
+    def run_until_complete(self, max_steps: Optional[int] = None,
+                           stall_steps: Optional[int] = 64) -> int:
+        """Step until queue and slots drain; returns steps taken.
+        ``stall_steps`` consecutive steps without progress while work is
+        queued raise :class:`EngineStalledError` (None disables)."""
+        steps = 0
+        stalled = 0
+        last_progress = self.progress_counter
+        while self.scheduler.has_work():
+            if max_steps is not None and steps >= max_steps:
+                raise RuntimeError(
+                    f"serving did not drain within {max_steps} steps")
+            self.step()
+            steps += 1
+            if self.progress_counter != last_progress:
+                last_progress = self.progress_counter
+                stalled = 0
+            else:
+                stalled += 1
+                if stall_steps is not None and stalled >= stall_steps \
+                        and self.scheduler.has_work():
+                    raise EngineStalledError(stalled,
+                                             self.stall_snapshot())
+        return steps

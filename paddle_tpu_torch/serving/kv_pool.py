@@ -1,0 +1,206 @@
+"""Slot-pooled KV cache for continuous batching (counterpart of
+paddle_tpu/serving/kv_pool.py).
+
+One fixed allocation ``[num_slots, max_seq, kv_heads, head_dim]`` per
+layer per k/v holds EVERY in-flight request's context; a slot is one
+request's row.  The pool never reallocates: admission writes a freshly
+prefilled context into a free slot (``adopt``), eviction just returns the
+slot index to the free list (the stale rows are overwritten by the next
+occupant, and masked until then by the per-slot ``seq_pos`` that feeds
+decode attention).
+
+The reference donates its buffers to each compiled step so XLA updates
+them in place; the port updates the same tensors in place directly
+(``append_kv``, ``copy_``, ``index_copy_``), so pool memory stays one
+allocation for the engine's lifetime.
+"""
+
+from __future__ import annotations
+
+from typing import List, Tuple
+
+import numpy as np
+import torch
+
+from ..models.kv_cache import gather_block_rows, scatter_block_rows
+
+__all__ = ["KVPool", "BlockPool"]
+
+
+def _kv_heads(cfg) -> int:
+    return getattr(cfg, "kv_heads", None) or cfg.num_heads
+
+
+class KVPool:
+    """Fixed-shape KV slab + free-list slot accounting.
+
+    Device state:
+      * ``ks/vs``   — per-layer [num_slots, max_seq, kv_heads, head_dim];
+      * ``seq_pos`` — [num_slots] int32, each slot's current cache length
+        (the per-row ``pos`` the models append at AND, after the in-step
+        +1, the ``seq_lens`` decode attention masks by).
+
+    Host state: the free list.  Alloc/free are host-side list ops plus at
+    most one small device write — never a sync.
+    """
+
+    def __init__(self, num_slots: int, max_seq: int, num_layers: int,
+                 kv_heads: int, head_dim: int, *, device: torch.device,
+                 dtype: torch.dtype = torch.float32):
+        if num_slots < 1:
+            raise ValueError("num_slots must be >= 1")
+        self.num_slots = num_slots
+        self.max_seq = max_seq
+        self.num_layers = num_layers
+        self.device = device
+        shape = (num_slots, max_seq, kv_heads, head_dim)
+        self.ks: List[torch.Tensor] = [
+            torch.zeros(shape, dtype=dtype, device=device)
+            for _ in range(num_layers)]
+        self.vs: List[torch.Tensor] = [
+            torch.zeros(shape, dtype=dtype, device=device)
+            for _ in range(num_layers)]
+        self.seq_pos = torch.zeros((num_slots,), dtype=torch.int32,
+                                   device=device)
+        self._free: List[int] = list(range(num_slots - 1, -1, -1))
+        # lifetime slot-churn counters (reported by metrics_dict)
+        self.alloc_count = 0
+        self.free_count = 0
+
+    @classmethod
+    def create(cls, model, num_slots: int, max_seq=None) -> "KVPool":
+        """Size the pool from a causal LM's config, on the model's device
+        and in its dtype."""
+        cfg = model.cfg
+        return cls(num_slots, max_seq or cfg.max_seq_len, cfg.num_layers,
+                   _kv_heads(cfg), cfg.head_dim, device=model.device,
+                   dtype=model.dtype)
+
+    # ------------------------------------------------------------ slots
+    @property
+    def free_slots(self) -> int:
+        return len(self._free)
+
+    def alloc(self) -> int:
+        """Claim a free slot (lowest index first).  Raises if the pool is
+        full — the scheduler gates admission on ``free_slots``."""
+        if not self._free:
+            raise RuntimeError("KVPool exhausted: no free slot")
+        self.alloc_count += 1
+        return self._free.pop()
+
+    def free(self, slot: int) -> None:
+        if not 0 <= slot < self.num_slots:
+            raise ValueError(f"slot {slot} out of range")
+        if slot in self._free:
+            raise ValueError(f"slot {slot} already free (double free)")
+        self.free_count += 1
+        self._free.append(slot)
+        self._free.sort(reverse=True)
+        # park the freed row at position 0 so its ride-along decode writes
+        # start at the row head until the next adopt overwrites it
+        self.seq_pos[slot] = 0
+
+    def adopt(self, slot: int, layer_caches, length: int) -> None:
+        """Copy a freshly prefilled single-request cache (per-layer
+        ``(k [1, max_seq, h, d], v, ...)`` tuples) into ``slot`` and
+        record its ``length`` valid positions."""
+        for i, layer in enumerate(layer_caches):
+            self.ks[i][slot].copy_(layer[0][0])
+            self.vs[i][slot].copy_(layer[1][0])
+        self.seq_pos[slot] = length
+
+
+class BlockPool:
+    """The SECOND fixed-shape KV slab: per-layer
+    ``[num_blocks, block_len, kv_heads, head_dim]`` block rows holding
+    cached PREFIX context, shared across requests.  The radix tree
+    (serving/prefix_cache.py) owns which block holds which token span —
+    this class owns only the device memory and the two copies:
+
+      * ``load_row(idx)`` — gather ``max_seq // block_len`` block rows
+        into fresh ``[1, max_seq]`` staging rows (ids past the true match
+        gather stale rows that ``seq_lens`` masks downstream);
+      * ``store_row(pool, slot, dest)`` — split pool slot ``slot``'s row
+        into blocks and write block j to ``dest[j]``; entries equal to
+        ``num_blocks`` are dropped, so one call writes any subset of a
+        prompt's blocks.
+
+    Block lifecycle (alloc / free / refcount / LRU) is host-side list
+    accounting.
+    """
+
+    def __init__(self, num_blocks: int, block_len: int, max_seq: int,
+                 num_layers: int, kv_heads: int, head_dim: int, *,
+                 device: torch.device, dtype: torch.dtype = torch.float32):
+        if num_blocks < 1:
+            raise ValueError("num_blocks must be >= 1")
+        if block_len < 1:
+            raise ValueError("block_len must be >= 1")
+        if max_seq % block_len:
+            raise ValueError(
+                f"block_len {block_len} must divide max_seq {max_seq} "
+                f"(block boundaries must tile the slot row)")
+        self.num_blocks = num_blocks
+        self.block_len = block_len
+        self.max_seq = max_seq
+        self.num_layers = num_layers
+        self.blocks_per_row = max_seq // block_len
+        shape = (num_blocks, block_len, kv_heads, head_dim)
+        self.bks: List[torch.Tensor] = [
+            torch.zeros(shape, dtype=dtype, device=device)
+            for _ in range(num_layers)]
+        self.bvs: List[torch.Tensor] = [
+            torch.zeros(shape, dtype=dtype, device=device)
+            for _ in range(num_layers)]
+        self._free: List[int] = list(range(num_blocks - 1, -1, -1))
+
+    @classmethod
+    def create(cls, model, num_blocks: int, block_len: int,
+               max_seq: int) -> "BlockPool":
+        cfg = model.cfg
+        return cls(num_blocks, block_len, max_seq, cfg.num_layers,
+                   _kv_heads(cfg), cfg.head_dim, device=model.device,
+                   dtype=model.dtype)
+
+    # ------------------------------------------------------------ blocks
+    @property
+    def free_blocks(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_blocks(self) -> int:
+        return self.num_blocks - len(self._free)
+
+    def alloc(self) -> int:
+        if not self._free:
+            raise RuntimeError("BlockPool exhausted: no free block")
+        return self._free.pop()
+
+    def free(self, block: int) -> None:
+        if not 0 <= block < self.num_blocks:
+            raise ValueError(f"block {block} out of range")
+        if block in self._free:
+            raise ValueError(f"block {block} already free (double free)")
+        self._free.append(block)
+
+    # ------------------------------------------------------------ copies
+    def load_row(self, idx) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+        """Gather blocks ``idx`` ([blocks_per_row] ids, padded past the
+        match with any value) into per-layer ``[1, max_seq, h, d]``
+        staging rows."""
+        idx = torch.as_tensor(np.asarray(idx, np.int64)).to(
+            self.bks[0].device)
+        ks = [gather_block_rows(b, idx)[None] for b in self.bks]
+        vs = [gather_block_rows(b, idx)[None] for b in self.bvs]
+        return ks, vs
+
+    def store_row(self, pool: KVPool, slot: int, dest) -> None:
+        """Write pool slot ``slot``'s row into block rows ``dest``
+        ([blocks_per_row] host ints; entries == num_blocks are dropped),
+        in place."""
+        dest = np.asarray(dest, np.int64)
+        for b, k in zip(self.bks, pool.ks):
+            scatter_block_rows(b, k[slot], dest)
+        for b, v in zip(self.bvs, pool.vs):
+            scatter_block_rows(b, v[slot], dest)

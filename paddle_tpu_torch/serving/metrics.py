@@ -1,0 +1,357 @@
+"""Serving telemetry facade, updated by the engine OFF the hot path
+(counterpart of paddle_tpu/serving/metrics.py, covering the features the
+port serves).
+
+Every counter/gauge/histogram lives in an
+:class:`~paddle_tpu_torch.obs.MetricsRegistry` and every request carries
+a lifecycle span trace in a ring-buffered
+:class:`~paddle_tpu_torch.obs.Tracer`; ``snapshot()`` keeps the
+reference's dict keys for the instruments the port records.
+
+Every update is a host-side op on values the engine already holds: the
+engine's single per-step token readback stays its only device sync.
+
+CLOCK BASE: all timestamps entering this class MUST be
+``time.perf_counter()`` readings (``Request.arrival_time`` is stamped
+from that clock by ``Scheduler.submit``).
+"""
+
+from __future__ import annotations
+
+import math
+import time
+from typing import Dict, Optional, Sequence, Tuple
+
+from ..obs import Histogram, MetricsRegistry, Tracer
+
+__all__ = ["ServingMetrics"]
+
+# admission-projection clamps: a degenerate measurement window must
+# yield a FINITE, bounded hint
+MAX_RETRY_AFTER_S = 600.0
+MAX_PROJECTED_TTFT_S = 3600.0
+
+
+class ServingMetrics:
+    def __init__(self, registry: Optional[MetricsRegistry] = None,
+                 tracer: Optional[Tracer] = None):
+        self.registry = registry if registry is not None \
+            else MetricsRegistry()
+        self.tracer = tracer if tracer is not None else Tracer()
+        # disjoint lane block per engine: the step timeline sits on
+        # engine_lane, request r on engine_lane + 1 + r
+        self.engine_lane = self.tracer.claim_lane_block()
+        self.tracer.set_lane_name(self.engine_lane, "serving.engine",
+                                  pin=True)
+        self._bind()
+
+    def request_lane(self, request_id: int) -> int:
+        """Tracer lane for one request, folded into this engine's lane
+        block."""
+        return self.engine_lane + 1 + request_id % (Tracer.LANE_BLOCK - 1)
+
+    def _bind(self) -> None:
+        """Get-or-create this engine's instruments (binding never zeroes
+        a shared registry's instruments)."""
+        reg = self.registry
+        c, h, g = reg.counter, reg.histogram, reg.gauge
+
+        self._c_submitted = c("serving.requests_submitted",
+                              "requests accepted by submit()")
+        self._c_finished = c("serving.requests_finished",
+                             "requests that reached eos/length")
+        self._c_tokens = c("serving.tokens_generated",
+                           "output tokens harvested")
+        self._c_prefills = c("serving.prefills",
+                             "completed request prefills")
+        self._c_prefill_tokens = c("serving.prefill_tokens",
+                                   "prompt tokens actually prefilled "
+                                   "(uncached suffixes)")
+        self._c_prefill_chunks = c("serving.prefill_chunks",
+                                   "prefill chunks dispatched")
+        self._c_prefill_chunk_tokens = c("serving.prefill_chunk_tokens",
+                                         "real tokens covered by chunks")
+        self._c_prefix_hits = c("serving.prefix_hits",
+                                "admissions with a radix-cache match")
+        self._c_prefix_hit_tokens = c("serving.prefix_hit_tokens",
+                                      "prompt tokens served from cache")
+        self._c_steps = c("serving.steps", "engine step() iterations")
+        self._h_ttft = h("serving.ttft_s",
+                         "submit -> first generated token", unit="s")
+        self._h_tpot = h("serving.tpot_s",
+                         "per-output-token latency after the first",
+                         unit="s")
+        self._h_step = h("serving.step_s", "engine step wall time",
+                         unit="s")
+        self._h_chunk = h("serving.prefill_chunk_s",
+                          "prefill chunk dispatch wall time", unit="s")
+        self._h_queue_wait = h("serving.queue_wait_s",
+                               "submit -> admission", unit="s")
+        self._h_gather = h("serving.gather_s",
+                           "prefix block gather / staging init", unit="s")
+        self._g_queue_depth = g("serving.queue_depth",
+                                "waiting requests at the last step")
+        self._g_occupancy = g("serving.slot_occupancy",
+                              "occupied/total slots at the last step")
+        # terminal-status counters partition every submitted request:
+        # finished + cancelled + deadline_exceeded + failed (+ rejected,
+        # which never enters the queue) == submitted, once drained
+        self._c_cancelled = c("serving.requests_cancelled",
+                              "requests unwound by cancel()")
+        self._c_deadline = c("serving.requests_deadline_exceeded",
+                             "requests terminated by a blown deadline")
+        self._c_failed = c("serving.requests_failed",
+                           "requests terminally failed")
+        self._c_rejected = c("serving.requests_rejected",
+                             "submissions refused (backpressure/SLO)")
+        self._c_faults = c("serving.faults",
+                           "faults observed (non-finite logits, failed "
+                           "token emits)")
+        self._phase_h: Dict[str, Histogram] = {}
+        # per-ENGINE tallies feeding the derived rates (a shared registry's
+        # counters aggregate every engine bound to it)
+        self._busy_s = 0.0
+        self._queue_depth_sum = 0
+        self._occupancy_sum = 0.0
+        self._tokens_local = 0
+        self._steps_local = 0
+        self._finished_local = 0
+
+    # ------------------------------------------------------------ events
+    def on_submit(self, n: int = 1) -> None:
+        self._c_submitted.inc(n)
+
+    def on_prefill(self, prompt_len: int) -> None:
+        """One request's prefill completed; ``prompt_len`` counts only
+        the tokens the model actually ran (the uncached suffix)."""
+        self._c_prefills.inc()
+        self._c_prefill_tokens.inc(prompt_len)
+
+    def on_prefill_chunk(self, tokens: int,
+                         seconds: Optional[float] = None) -> None:
+        self._c_prefill_chunks.inc()
+        self._c_prefill_chunk_tokens.inc(tokens)
+        if seconds is not None:
+            self._h_chunk.observe(seconds)
+
+    def on_prefix_hit(self, tokens: int) -> None:
+        self._c_prefix_hits.inc()
+        self._c_prefix_hit_tokens.inc(tokens)
+
+    def on_queue_wait(self, seconds: float) -> None:
+        self._h_queue_wait.observe(seconds)
+
+    def on_gather(self, seconds: float) -> None:
+        self._h_gather.observe(seconds)
+
+    def on_first_token(self, arrival_t: float,
+                       now: Optional[float] = None) -> None:
+        """Record one TTFT sample; ``arrival_t`` MUST be a
+        ``time.perf_counter()`` reading (a mixed clock base raises)."""
+        if now is None:
+            now = time.perf_counter()
+        ttft = now - arrival_t
+        if ttft < 0:
+            raise ValueError(
+                f"on_first_token: arrival_t {arrival_t!r} is ahead of "
+                f"perf_counter now {now!r} — arrival timestamps must be "
+                f"time.perf_counter() readings")
+        self._h_ttft.observe(ttft)
+
+    def on_output_token(self, seconds: float) -> None:
+        self._h_tpot.observe(seconds)
+
+    def on_finish(self, n: int = 1) -> None:
+        self._c_finished.inc(n)
+        self._finished_local += n
+
+    def on_terminal(self, status: str, reason: str, request_id: int,
+                    now: Optional[float] = None) -> None:
+        """One request reached an ABNORMAL terminal status (normal
+        completion goes through :meth:`on_finish`)."""
+        counter = {"cancelled": self._c_cancelled,
+                   "deadline_exceeded": self._c_deadline,
+                   "failed": self._c_failed,
+                   "rejected": self._c_rejected}.get(status)
+        if counter is None:
+            raise ValueError(f"unknown terminal status {status!r}")
+        counter.inc()
+        self.tracer.event("request_" + status,
+                          lane=self.request_lane(request_id),
+                          t=now, request=request_id, reason=reason)
+
+    def on_fault(self, site: str, error: str, step: int = 0) -> None:
+        self._c_faults.inc()
+        self.tracer.event("fault", lane=self.engine_lane, site=site,
+                          error=error[:200], step=step)
+
+    # -------------------------------------------- admission projections
+    @property
+    def completion_rate(self) -> Optional[float]:
+        """Requests completed per second of engine busy time (None until
+        one finished, or when the window is degenerate)."""
+        if self._finished_local <= 0 or self._busy_s <= 0:
+            return None
+        rate = self._finished_local / self._busy_s
+        if not math.isfinite(rate) or rate <= 0.0:
+            return None
+        return rate
+
+    def retry_after_hint(self, excess: int = 1) -> Optional[float]:
+        rate = self.completion_rate
+        if rate is None:
+            return None
+        return min(max(excess, 1) / rate, MAX_RETRY_AFTER_S)
+
+    def projected_ttft_s(self, queue_depth: int) -> Optional[float]:
+        """Queue drain time ahead of a new arrival plus the live p50
+        TTFT (None with no history)."""
+        rate = self.completion_rate
+        if rate is None:
+            return None
+        base = self._h_ttft.quantile(0.50) or 0.0
+        return min(queue_depth / rate + base, MAX_PROJECTED_TTFT_S)
+
+    def record_step(self, active_slots: int, num_slots: int,
+                    queue_depth: int, new_tokens: int,
+                    step_seconds: float, step_index: int = 0,
+                    phases: Optional[Sequence[Tuple[str, float, float]]]
+                    = None) -> None:
+        """One engine step's accounting (after the token harvest);
+        ``phases`` are ``(name, start, end)`` perf_counter triples, each
+        recorded in ``serving.phase.<name>_s`` and as a ``step.<name>``
+        span on the engine lane."""
+        occupancy = active_slots / max(num_slots, 1)
+        self._c_steps.inc()
+        self._c_tokens.inc(new_tokens)
+        self._busy_s += step_seconds
+        self._queue_depth_sum += queue_depth
+        self._occupancy_sum += occupancy
+        self._tokens_local += new_tokens
+        self._steps_local += 1
+        self._g_queue_depth.set(queue_depth)
+        self._g_occupancy.set(occupancy)
+        self._h_step.observe(step_seconds)
+        for name, start, end in phases or ():
+            hp = self._phase_h.get(name)
+            if hp is None:
+                hp = self.registry.histogram(f"serving.phase.{name}_s",
+                                             f"step phase: {name}",
+                                             unit="s")
+                self._phase_h[name] = hp
+            hp.observe(end - start)
+            self.tracer.add_span(f"step.{name}", self.engine_lane, start,
+                                 end, step=step_index)
+
+    # --------------------------------------------------------- counters
+    @property
+    def requests_submitted(self) -> int:
+        return self._c_submitted.value
+
+    @property
+    def requests_finished(self) -> int:
+        return self._c_finished.value
+
+    @property
+    def tokens_generated(self) -> int:
+        return self._c_tokens.value
+
+    @property
+    def prefills(self) -> int:
+        return self._c_prefills.value
+
+    @property
+    def prefill_tokens(self) -> int:
+        return self._c_prefill_tokens.value
+
+    @property
+    def prefill_chunks(self) -> int:
+        return self._c_prefill_chunks.value
+
+    @property
+    def prefix_hits(self) -> int:
+        return self._c_prefix_hits.value
+
+    @property
+    def prefix_hit_tokens(self) -> int:
+        return self._c_prefix_hit_tokens.value
+
+    @property
+    def steps(self) -> int:
+        return self._c_steps.value
+
+    # ---------------------------------------------------------- derived
+    def _q_ms(self, hist: Histogram, q: float) -> Optional[float]:
+        v = hist.quantile(q)
+        return None if v is None else 1e3 * v
+
+    @property
+    def mean_ttft_ms(self) -> Optional[float]:
+        m = self._h_ttft.mean
+        return None if m is None else 1e3 * m
+
+    @property
+    def ttft_p50_ms(self) -> Optional[float]:
+        return self._q_ms(self._h_ttft, 0.50)
+
+    @property
+    def ttft_p99_ms(self) -> Optional[float]:
+        return self._q_ms(self._h_ttft, 0.99)
+
+    @property
+    def tpot_p50_ms(self) -> Optional[float]:
+        return self._q_ms(self._h_tpot, 0.50)
+
+    @property
+    def tpot_p99_ms(self) -> Optional[float]:
+        return self._q_ms(self._h_tpot, 0.99)
+
+    @property
+    def tokens_per_sec(self) -> Optional[float]:
+        if self._busy_s <= 0:
+            return None
+        return self._tokens_local / self._busy_s
+
+    @property
+    def batch_fill_ratio(self) -> Optional[float]:
+        if self._steps_local == 0:
+            return None
+        return self._occupancy_sum / self._steps_local
+
+    @property
+    def mean_queue_depth(self) -> Optional[float]:
+        if self._steps_local == 0:
+            return None
+        return self._queue_depth_sum / self._steps_local
+
+    # ---------------------------------------------------------- snapshot
+    def snapshot(self) -> Dict[str, object]:
+        """The reference's engine-counter dict, for the instruments the
+        port records.  The full instrument dump is
+        ``self.registry.snapshot()``."""
+        r = lambda v, nd=4: None if v is None else round(v, nd)
+        return {
+            "requests_submitted": self.requests_submitted,
+            "requests_finished": self.requests_finished,
+            "tokens_generated": self.tokens_generated,
+            "prefills": self.prefills,
+            "prefill_tokens": self.prefill_tokens,
+            "prefill_chunks": self.prefill_chunks,
+            "prefill_chunk_tokens": self._c_prefill_chunk_tokens.value,
+            "prefix_hits": self.prefix_hits,
+            "prefix_hit_tokens": self.prefix_hit_tokens,
+            "steps": self.steps,
+            "tokens_per_sec": r(self.tokens_per_sec, 1),
+            "mean_ttft_ms": r(self.mean_ttft_ms, 2),
+            "ttft_p50_ms": r(self.ttft_p50_ms, 2),
+            "ttft_p99_ms": r(self.ttft_p99_ms, 2),
+            "tpot_p50_ms": r(self.tpot_p50_ms, 3),
+            "tpot_p99_ms": r(self.tpot_p99_ms, 3),
+            "batch_fill_ratio": r(self.batch_fill_ratio),
+            "mean_queue_depth": r(self.mean_queue_depth, 2),
+            "requests_cancelled": self._c_cancelled.value,
+            "requests_deadline_exceeded": self._c_deadline.value,
+            "requests_failed": self._c_failed.value,
+            "requests_rejected": self._c_rejected.value,
+            "faults": self._c_faults.value,
+        }

@@ -1,0 +1,42 @@
+"""The PyTorch port imports neither JAX nor the JAX package.
+
+Runs in a fresh interpreter: import ``paddle_tpu_torch`` and every one
+of its submodules, then assert that no ``jax*`` and no ``paddle_tpu`` /
+``paddle_tpu.*`` module was loaded.
+"""
+
+import json
+import os
+import subprocess
+import sys
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import importlib, json, pkgutil, sys
+import paddle_tpu_torch
+names = ["paddle_tpu_torch"]
+for m in pkgutil.walk_packages(paddle_tpu_torch.__path__,
+                               "paddle_tpu_torch."):
+    importlib.import_module(m.name)
+    names.append(m.name)
+bad = sorted(n for n in sys.modules
+             if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu"))
+print(json.dumps({"imported": names, "bad": bad}))
+"""
+
+
+def test_port_imports_no_jax_and_no_reference_package(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=tmp_path,
+                         env=env, capture_output=True, text=True,
+                         timeout=300)
+    assert out.returncode == 0, out.stderr
+    res = json.loads(out.stdout.strip().splitlines()[-1])
+    assert res["bad"] == [], res["bad"]
+    for mod in ("paddle_tpu_torch.serving.api",
+                "paddle_tpu_torch.serving.engine",
+                "paddle_tpu_torch.models.gpt",
+                "paddle_tpu_torch.kernels.decode_attention",
+                "paddle_tpu_torch.obs.tracing"):
+        assert mod in res["imported"]
