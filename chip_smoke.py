@@ -11,16 +11,21 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      source, started together);
   2. kernels — each kernel's wrapper against its plain PyTorch version
      over a sweep of shapes and dtypes, then timed at the serving path's
-     shapes beside its plain version, one PyTorch library call computing
-     the same function (timed only as a yardstick) and its bound;
+     shapes beside its plain version, its bound and, where one exists, one
+     PyTorch library call computing the same function (timed only as a
+     yardstick): ``decode_attention``, then the decode-block pair
+     (``decode_block_attn``, ``decode_block_mlp``, and
+     ``decode_block_layer``), timed beside the port's unfused layer;
   3. serving — ``ServingEngine`` over ``GPTForCausalLM(gpt3_6_7b())`` at
      full width (random bf16 weights drawn on the card from a seeded
      generator): 8 requests, prefix-cache hits, chunked prefill, greedy
-     and seeded sampling.  Kernel launch counts are zeroed just before
-     and read just after, and must cover every layer of every prefill
-     chunk and decode step;
-  4. parity — an f32 model of gpt_small width at 2 layers: the engine's
-     greedy tokens equal ``generate``'s for 3 requests.
+     and seeded sampling, served twice on the same model: the unfused
+     decode step, then ``fused_decode=True``.  Kernel launch counts are
+     zeroed just before each run and read just after, and must cover
+     every layer of every prefill chunk and decode step;
+  4. parity — an f32 model of gpt_small width at 2 layers: the fused
+     and unfused engines' greedy tokens equal ``generate``'s for 3
+     requests.
 
 The last lines are a JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and
@@ -37,11 +42,15 @@ import sys
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+# the device every phase runs on
+DEVICE = "cuda"
 
 # published H100 SXM peaks (dense): HBM bandwidth and bf16 tensor rate;
 # f32 work outside the tensor cores peaks at 67 TFLOP/s
 HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bfloat16": 989e12, "float16": 989e12, "float32": 67e12}
+# the full-width serving engine
+ENGINE_KW = dict(num_slots=8, min_bucket=16, block_len=16, prefill_chunk=512)
 
 
 def log(msg: str) -> None:
@@ -56,21 +65,28 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
-    """Mean device time of ``fn`` in ms over ``iters`` back-to-back
-    calls, by CUDA events after a warm-up."""
+def time_ms(fn, iters: int = 20, warmup: int = 10, windows: int = 5) -> float:
+    """Device time of one call of ``fn`` in ms: the median over
+    ``windows`` windows of the mean over ``iters`` back-to-back calls, by
+    CUDA events, after a warm-up (one slow window, such as the first after
+    the card idled, does not move the median)."""
+    import statistics
+
     import torch
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    means = []
+    for _ in range(windows):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        means.append(start.elapsed_time(end) / iters)
+    return statistics.median(means)
 
 
 # ----------------------------------------------------------- attention
@@ -125,7 +141,7 @@ def phase_kernels(card: str):
         decode_attention, decode_attention_reference)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    dev = torch.device("cuda")
+    dev = torch.device(DEVICE)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
 
@@ -212,21 +228,300 @@ def phase_kernels(card: str):
     return rec, err_main
 
 
+# --------------------------------------------------------- decode block
+def block_case(g, *, b, s_max, heads, kv_heads, dh, ffn, dtype, wiring,
+               act="gelu_tanh", biases=None):
+    """Random inputs of one decode-block layer on the card: ``(x, k, v,
+    kw)`` where ``kw`` are ``decode_block_layer``'s keywords.  ``wiring``
+    "gpt" is LayerNorm, every bias, ``act``, MHA; "llama" is RMSNorm, no
+    bias, rotary, SwiGLU.  ``biases`` (a set of names) keeps only those
+    biases."""
+    import torch
+    dev = torch.device(DEVICE)
+    d = heads * dh
+
+    def r(*shape, scale=0.05):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+    gpt = wiring == "gpt"
+    kw = dict(kv_heads=kv_heads, head_dim=dh, norm="layer" if gpt else "rms",
+              eps1=1e-5, eps2=1e-5, norm1_w=r(d) + 1, norm1_b=r(d),
+              wq=r(d, heads * dh), wk=r(d, kv_heads * dh),
+              wv=r(d, kv_heads * dh), bq=r(heads * dh), bkv=r(kv_heads * dh),
+              bv=r(kv_heads * dh), wo=r(heads * dh, d), bo=r(d),
+              norm2_w=r(d) + 1, norm2_b=r(d), w1=r(d, ffn), b1=r(ffn),
+              w2=r(ffn, d), b2=r(d), act=act)
+    names = ("norm1_b", "bq", "bkv", "bv", "bo", "norm2_b", "b1", "b2")
+    keep = set(names) if gpt and biases is None else set(biases or ())
+    for n in names:
+        if n not in keep:
+            kw[n] = None
+    if not gpt:
+        kw["w_gate"] = r(d, ffn)
+        ang = torch.rand((b, dh // 2), generator=g, device=dev) * 3.0
+        kw["rope_cos"] = torch.cat([ang.cos()] * 2, -1)
+        kw["rope_sin"] = torch.cat([ang.sin()] * 2, -1)
+    x = r(b, 1, d, scale=1.0)
+    k = r(b, s_max, kv_heads, dh, scale=1.0)
+    v = r(b, s_max, kv_heads, dh, scale=1.0)
+    return x, k, v, kw
+
+
+_ATTN_KEYS = ("norm1_w", "norm1_b", "wq", "wk", "wv", "bq", "bkv", "bv")
+_MLP_KEYS = ("wo", "bo", "norm2_w", "norm2_b", "w1", "b1", "w2", "b2")
+
+
+def attn_call(fn, x, k, v, pos, kw, **extra):
+    """``decode_block_attn`` (or its plain version ``fn``) on a layer's
+    keywords."""
+    return fn(x, k, v, pos, *(kw[n] for n in _ATTN_KEYS),
+              kv_heads=kw["kv_heads"], head_dim=kw["head_dim"],
+              norm=kw["norm"], eps=kw["eps1"], rope_cos=kw.get("rope_cos"),
+              rope_sin=kw.get("rope_sin"), **extra)
+
+
+def mlp_call(fn, x, attn, kw, **extra):
+    """``decode_block_mlp`` (or its plain version ``fn``) on a layer's
+    keywords."""
+    return fn(x, attn, *(kw[n] for n in _MLP_KEYS), kw.get("w_gate"),
+              norm=kw["norm"], eps=kw["eps2"], act=kw["act"], **extra)
+
+
+def block_bounds(x, kw, seq_pos, s_max):
+    """Least time (ms) of each half at these inputs, and what bounds it.
+    Bytes: every weight, bias and norm vector once, the live K/V rows
+    ``kpos < min(pos, S-1)`` once, the fresh K/V rows written once, the
+    activations in and out once.  Operations: the projections' and the
+    attention's multiply-adds at these positions, over the peak rate of
+    the inputs' dtype."""
+    b, _, d = x.shape
+    es = x.element_size()
+    kv, dh = kw["kv_heads"], kw["head_dim"]
+    hd = kw["wq"].shape[1]
+    ffn = kw["w1"].shape[1]
+    gated = kw.get("w_gate") is not None
+    posw = [min(max(int(p), 0), s_max - 1) for p in seq_pos]
+
+    def n(*names):
+        return sum(kw[m].numel() for m in names if kw.get(m) is not None)
+    attn_bytes = es * (n(*_ATTN_KEYS) + b * d + b * hd
+                       + 2 * kv * dh * (sum(posw) + b))
+    attn_ops = 2 * b * d * (hd + 2 * kv * dh) + 4 * hd * sum(p + 1
+                                                             for p in posw)
+    mlp_bytes = es * (n(*_MLP_KEYS, "w_gate") + 2 * b * d + b * hd)
+    mlp_ops = 2 * b * (hd * d + d * ffn * (2 if gated else 1) + ffn * d)
+    peak = PEAK_FLOPS[str(x.dtype).replace("torch.", "")]
+    out = {}
+    for name, nbytes, ops in (("attn", attn_bytes, attn_ops),
+                              ("mlp", mlp_bytes, mlp_ops)):
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        t_ops = ops / peak * 1e3
+        out[name] = ((t_bytes, "bytes") if t_bytes >= t_ops
+                     else (t_ops, "operations"))
+        out[name + "_bytes"] = nbytes
+    return out
+
+
+def _ulp_ok(got, want, dtype) -> bool:
+    """Slabs agree: f32 within atol 1e-4; bf16 within one bf16 ulp of the
+    plain version's value (f32 projections summed in another order may
+    round the stored row differently)."""
+    import torch
+    got, want = got.float(), want.float()
+    if dtype == torch.float32:
+        return bool(torch.allclose(got, want, atol=1e-4, rtol=0.0))
+    ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
+                     - 7)
+    return bool(((got - want).abs() <= ulp).all())
+
+
+def phase_block_kernels(card: str):
+    """Hold ``decode_block_layer``, ``decode_block_attn`` and
+    ``decode_block_mlp`` against their plain versions over the sweep, then
+    time each half at the gpt3_6_7b decode shape beside its plain version,
+    its bound and the port's unfused layer.  Returns the records of the
+    two kernels (without launches)."""
+    import torch
+    from paddle_tpu_torch.kernels.decode_block import (
+        decode_block_attn, decode_block_attn_reference, decode_block_layer,
+        decode_block_mlp, decode_block_mlp_reference, decode_block_reference,
+        plan_decode_block)
+    from paddle_tpu_torch.models import gpt3_6_7b
+    from paddle_tpu_torch.models.gpt import GPTBlock
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    # f32: only the summation order differs; bf16: the attention output
+    # and y are cast once, the K/V rows may round one ulp apart
+    tol = {torch.float32: dict(atol=1e-4, rtol=0.0),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+    b, s_max = 4, 256
+    # (heads, kv_heads, head_dim, ffn, wiring, extra keywords, block_k)
+    cases = []
+    for dh in (64, 128):
+        cases.append((8, 8, dh, 4 * 8 * dh, "gpt", {}, None))
+        cases.append((8, 2, dh, 3 * 8 * dh, "llama", {}, None))
+    cases += [
+        (8, 8, 64, 2048, "gpt", dict(act="gelu"), None),            # exact
+        (8, 4, 128, 2048, "gpt", dict(biases={"bq", "bo", "b2"}), None),
+        (8, 2, 128, 1024, "llama", {}, 32),      # shared-memory tile path
+        (4, 4, 16, 256, "gpt", {}, None),        # gpt_tiny's head_dim
+    ]
+    worst = {}
+    n_checked = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for heads, kvh, dh, ffn, wiring, extra, bk in cases:
+            x, k0, v0, kw = block_case(g, b=b, s_max=s_max, heads=heads,
+                                       kv_heads=kvh, dh=dh, ffn=ffn,
+                                       dtype=dtype, wiring=wiring, **extra)
+            tiles = {} if bk is None else dict(block_k=bk)
+            ragged = torch.tensor([0, s_max // 2, s_max - 1, s_max],
+                                  dtype=torch.int32, device=dev)
+            scalar = torch.tensor(100, dtype=torch.int32, device=dev)
+            for pos in (ragged, scalar):
+                what = (f"dtype={dname} wiring={wiring} H={heads} KH={kvh} "
+                        f"Dh={dh} F={ffn} {extra} block_k={bk} "
+                        f"pos={pos.tolist()}")
+                posw = pos.expand(b).long().clamp(0, s_max - 1)
+                k1, v1 = k0.clone(), v0.clone()
+                y, _, _ = decode_block_layer(x, k1, v1, pos, **kw, **tiles)
+                k2, v2 = k0.clone(), v0.clone()
+                yr, _, _ = decode_block_reference(x, k2, v2, pos, **kw)
+                a1, _, _ = attn_call(decode_block_attn, x, k0.clone(),
+                                     v0.clone(), pos, kw, **tiles)
+                ar, _, _ = attn_call(decode_block_attn_reference, x,
+                                     k0.clone(), v0.clone(), pos, kw)
+                m1 = mlp_call(decode_block_mlp, x, ar, kw)
+                mr = mlp_call(decode_block_mlp_reference, x, ar, kw)
+                torch.cuda.synchronize()
+                for name, got, want in (("decode_block_layer", y, yr),
+                                        ("decode_block_attn", a1, ar),
+                                        ("decode_block_mlp", m1, mr)):
+                    err = (got.float() - want.float()).abs().max().item()
+                    key = f"{name} {dname}"
+                    worst[key] = max(worst.get(key, 0.0), err)
+                    if not torch.allclose(got.float(), want.float(),
+                                          **tol[dtype]):
+                        raise AssertionError(
+                            f"{name} disagrees with its plain version: "
+                            f"{what} max_abs_err={err}")
+                for name, got, want, before in (("k", k1, k2, k0),
+                                                ("v", v1, v2, v0)):
+                    if not _ulp_ok(got, want, dtype):
+                        err = (got.float() - want.float()).abs().max().item()
+                        raise AssertionError(
+                            f"decode_block_layer's {name} slab disagrees with "
+                            f"the plain version's: {what} max_abs_err={err}")
+                    changed = (got != before).flatten(2).any(-1)   # [b, S]
+                    changed[torch.arange(b, device=dev), posw] = False
+                    if bool(changed.any()):
+                        raise AssertionError(
+                            f"decode_block_layer changed a {name} slab row "
+                            f"other than min(pos, S-1): {what}")
+                n_checked += 1
+    log(f"[kernels] decode_block sweep: {n_checked} cases (f32/bf16 x GPT/"
+        f"Llama wiring x head_dim 64/128, exact gelu, mixed biases, the "
+        f"tile path, head_dim 16; ragged pos 0/mid/S-1/S and a scalar pos) "
+        f"within tolerance (f32 atol 1e-4; bf16 atol/rtol 2e-2, slabs one "
+        f"bf16 ulp, only row min(pos, S-1) changed); max abs err "
+        f"{json.dumps(worst)}")
+
+    # timing at the gpt3_6_7b decode shape: one layer of the served model
+    # (random bf16 weights), 8 slots of a 2048-row cache filled to 1024
+    cfg = gpt3_6_7b()
+    block = GPTBlock(cfg, device=dev, dtype=torch.bfloat16,
+                     generator=g).eval()
+    kw = block.decode_block_weights()
+    bsz, s_max = 8, cfg.max_seq_len
+    heads, dh = cfg.num_heads, cfg.head_dim
+    x = torch.randn((bsz, 1, cfg.hidden_size), generator=g,
+                    device=dev).to(torch.bfloat16)
+    k = torch.randn((bsz, s_max, heads, dh), generator=g,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn_like(k)
+    pos = torch.full((bsz,), 1024, dtype=torch.int32, device=dev)
+    plan, why = plan_decode_block(
+        max_seq=s_max, hidden=cfg.hidden_size, heads=heads, kv_heads=heads,
+        head_dim=dh, ffn=cfg.ffn_size, batch=bsz, itemsize=2)
+    if plan is None:
+        raise AssertionError(f"no decode-block plan at gpt3_6_7b: {why}")
+    bk, bf = plan["block_k"], plan["block_f"]
+    with torch.no_grad():
+        ar, _, _ = attn_call(decode_block_attn_reference, x, k, v, pos, kw)
+        a1, _, _ = attn_call(decode_block_attn, x, k, v, pos, kw, block_k=bk)
+        mr = mlp_call(decode_block_mlp_reference, x, ar, kw)
+        m1 = mlp_call(decode_block_mlp, x, ar, kw, block_f=bf)
+        torch.cuda.synchronize()
+        errs = {"attn": (a1.float() - ar.float()).abs().max().item(),
+                "mlp": (m1.float() - mr.float()).abs().max().item()}
+        for half, got, want in (("attn", a1, ar), ("mlp", m1, mr)):
+            if not torch.allclose(got.float(), want.float(),
+                                  **tol[torch.bfloat16]):
+                raise AssertionError(f"decode_block_{half} disagrees at the "
+                                     f"gpt3_6_7b shape: max_abs_err "
+                                     f"{errs[half]}")
+        cache = (k, v, pos)
+        times = {
+            "attn": time_ms(lambda: attn_call(decode_block_attn, x, k, v,
+                                              pos, kw, block_k=bk)),
+            "attn_plain": time_ms(lambda: attn_call(
+                decode_block_attn_reference, x, k, v, pos, kw)),
+            "mlp": time_ms(lambda: mlp_call(decode_block_mlp, x, ar, kw,
+                                            block_f=bf)),
+            "mlp_plain": time_ms(lambda: mlp_call(
+                decode_block_mlp_reference, x, ar, kw)),
+            "layer": time_ms(lambda: decode_block_layer(
+                x, k, v, pos, **kw, block_k=bk, block_f=bf)),
+            "unfused_layer": time_ms(lambda: block(x, cache)),
+        }
+    bounds = block_bounds(x, kw, pos.tolist(), s_max)
+    shape = (f"x[{bsz},1,{cfg.hidden_size}] kv[{bsz},{s_max},{heads},{dh}] "
+             f"pos 1024 bf16, gpt3_6_7b layer weights, block_k {bk}, "
+             f"block_f {bf}")
+    rec = {}
+    for half in ("attn", "mlp"):
+        bound, bound_by = bounds[half]
+        rec[half] = {"ms": times[half], "plain_ms": times[half + "_plain"],
+                     "bound_ms": bound, "bound_by": bound_by,
+                     "bound_bytes": bounds[half + "_bytes"],
+                     "max_abs_err": errs[half],
+                     "layer_ms": times["layer"],
+                     "unfused_layer_ms": times["unfused_layer"],
+                     "sweep_max_abs_err": {
+                         k_: e for k_, e in worst.items()
+                         if k_.startswith(f"decode_block_{half} ")},
+                     "shape": shape}
+        log(f"[kernels] decode_block_{half} {shape}: kernel "
+            f"{times[half]:.4f} ms, plain {times[half + '_plain']:.4f} ms, "
+            f"bound {bound:.4f} ms ({bound_by}, "
+            f"{bounds[half + '_bytes'] / 1e6:.1f} MB); max abs err "
+            f"{errs[half]:.3g} (card: {card})")
+    log(f"[kernels] one layer at that shape: fused pair "
+        f"{times['layer']:.4f} ms, unfused GPTBlock.forward "
+        f"{times['unfused_layer']:.4f} ms, bound "
+        f"{bounds['attn'][0] + bounds['mlp'][0]:.4f} ms (card: {card})")
+    del block, k, v
+    torch.cuda.empty_cache()
+    return rec
+
+
 # -------------------------------------------------------------- serving
 def phase_serving(card: str):
-    """Serve 8 requests through the port's ServingEngine at gpt3_6_7b
-    width; returns the kernel launch count of the run and the metrics."""
+    """Build GPT at gpt3_6_7b width once, then serve the same 8 requests
+    through ``ServingEngine`` twice on that model: the unfused decode
+    step, then (after that engine is closed) ``fused_decode=True``.
+    Returns each run's launch counts and metrics."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.kernels.decode_attention import decode_attention
     from paddle_tpu_torch.models import GPTForCausalLM, gpt3_6_7b
-    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+    from paddle_tpu_torch.serving import ServingEngine
 
     cfg = gpt3_6_7b()
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1234)
     t0 = time.perf_counter()
-    model = GPTForCausalLM(cfg, generator=gen).eval()
+    model = GPTForCausalLM(cfg, device=DEVICE, generator=gen).eval()
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
     log(f"[serving] gpt3_6_7b: {cfg.num_layers} layers, hidden "
@@ -234,8 +529,49 @@ def phase_serving(card: str):
         f"{cfg.vocab_size}, max_seq {cfg.max_seq_len}, bf16, "
         f"{n_params / 1e9:.3f}B params, built on the card in "
         f"{time.perf_counter() - t0:.1f} s (full depth, no cut)")
-    eng = ServingEngine(model, num_slots=8, min_bucket=16, block_len=16,
-                        prefill_chunk=512)
+    # a short round through each path first, so that neither measured
+    # run pays the card's first-call costs (library handles, allocator
+    # growth, the first call of each GEMM shape)
+    rs = np.random.RandomState(3)
+    warm = [rs.randint(0, cfg.vocab_size, (n,))
+            for n in (600, 64, 300, 130, 700, 64, 1000, 200)]
+    for fused in (False, True):
+        eng = ServingEngine(model, fused_decode=fused, **ENGINE_KW)
+        eng.serve_batch(warm, max_new_tokens=4)
+        eng.close()
+    runs = {path: serve_run(model, card, fused=path == "fused")
+            for path in ("unfused", "fused")}
+    u, f = runs["unfused"][1], runs["fused"][1]
+    log(f"[serving] fused vs unfused on the same model and requests: "
+        f"decode step p50 {f['decode_step_ms_p50']} vs "
+        f"{u['decode_step_ms_p50']} ms, {f['tokens_per_s']:.1f} vs "
+        f"{u['tokens_per_s']:.1f} tokens/s, TTFT p50 {f['ttft_p50_ms']} vs "
+        f"{u['ttft_p50_ms']} ms (card: {card})")
+    del model
+    torch.cuda.empty_cache()
+    return runs
+
+
+def serve_run(model, card: str, fused: bool):
+    """Serve 8 requests on ``model`` through the port's ServingEngine,
+    with the fused decode-block path or the unfused decode step; returns
+    the kernel launch counts of the run and the metrics.  Every launch
+    count is set to 0 just before the run and read just after it."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels.decode_attention import decode_attention
+    from paddle_tpu_torch.kernels.decode_block import (decode_block_attn,
+                                                       decode_block_mlp)
+    from paddle_tpu_torch.serving import SamplingParams, ServingEngine
+
+    cfg = model.cfg
+    path = "fused" if fused else "unfused"
+    tag = f"[serving:{path}]"
+    eng = ServingEngine(model, fused_decode=fused, **ENGINE_KW)
+    if (eng.decode_path, eng.decode_fallback_reason) != (path, None):
+        raise AssertionError(f"engine resolved decode_path "
+                             f"{eng.decode_path!r} (reason "
+                             f"{eng.decode_fallback_reason!r}), want {path!r}")
 
     rs = np.random.RandomState(7)
     prefix = rs.randint(0, cfg.vocab_size, (512,))
@@ -270,8 +606,10 @@ def phase_serving(card: str):
             step_ms.append((time.perf_counter() - t) * 1e3)
         return left
 
+    kernels = (decode_attention, decode_block_attn, decode_block_mlp)
     torch.cuda.synchronize()
-    decode_attention.launches = 0
+    for k in kernels:
+        k.launches = 0
     t_run = time.perf_counter()
     submit(wave1)
     # the second wave arrives once the first prefix holder has its first
@@ -284,38 +622,45 @@ def phase_serving(card: str):
         pass
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t_run
-    launches = decode_attention.launches
+    launches = {k.__name__: k.launches for k in kernels}
 
     m = eng.metrics_dict()
     reg = eng.registry
     decode_steps = reg.get("serving.phase.decode_dispatch_s").count
     chunks = m["prefill_chunks"]
-    want = cfg.num_layers * (chunks + decode_steps)
-    log(f"[serving] {len(ids)} requests, {chunks} prefill chunks, "
+    layers = cfg.num_layers
+    # prefill chunks always run decode_attention; decode steps run it on
+    # the unfused path and the decode-block pair on the fused one
+    want = {"decode_attention": layers * (chunks + (0 if fused
+                                                    else decode_steps)),
+            "decode_block_attn": layers * decode_steps if fused else 0,
+            "decode_block_mlp": layers * decode_steps if fused else 0}
+    log(f"{tag} {len(ids)} requests, {chunks} prefill chunks, "
         f"{decode_steps} decode steps, {m['steps']} engine steps in "
-        f"{run_s:.2f} s; decode_attention launches {launches} (want "
-        f"{cfg.num_layers} layers x ({chunks} + {decode_steps}) = {want})")
+        f"{run_s:.2f} s; launches {json.dumps(launches)} (want "
+        f"{layers} layers x chunks/steps = {json.dumps(want)})")
     if launches != want:
-        raise AssertionError(f"decode_attention launches {launches} != "
-                             f"{want}: the main path bypassed the kernel")
+        raise AssertionError(f"{tag} kernel launches {launches} != {want}: "
+                             f"the main path bypassed a kernel")
     for rid, (n, shared, seed) in ids.items():
         out = eng.result(rid)
         if not (out.finished and out.status == "finished"
                 and len(out.tokens) == 32):
-            raise AssertionError(f"request {rid} (len {n}) did not finish "
-                                 f"with 32 tokens: {out}")
+            raise AssertionError(f"{tag} request {rid} (len {n}) did not "
+                                 f"finish with 32 tokens: {out}")
         if not all(0 <= t < cfg.vocab_size for t in out.tokens):
-            raise AssertionError(f"request {rid} emitted an out-of-vocab "
-                                 f"token: {out.tokens}")
-        log(f"[serving] request {rid}: prompt {n}"
+            raise AssertionError(f"{tag} request {rid} emitted an "
+                                 f"out-of-vocab token: {out.tokens}")
+        log(f"{tag} request {rid}: prompt {n}"
             f"{' (shared prefix)' if shared else ''}, "
             f"{'seed ' + str(seed) if seed is not None else 'greedy'}, "
             f"prefix hit {out.prefix_hit_tokens}, ttft "
             f"{out.ttft_s * 1e3:.1f} ms, first tokens {out.tokens[:6]}")
     if m["prefix_hit_tokens"] <= 0:
-        raise AssertionError("no prefix-cache hit in the serving run")
+        raise AssertionError(f"{tag} no prefix-cache hit in the serving run")
     decode_ms = float(np.median(step_ms)) if step_ms else None
-    res = {"requests": len(ids), "prefill_chunks": chunks,
+    res = {"decode_path": eng.decode_path,
+           "requests": len(ids), "prefill_chunks": chunks,
            "decode_steps": decode_steps, "steps": m["steps"],
            "run_s": run_s, "tokens_generated": m["tokens_generated"],
            "tokens_per_s": m["tokens_generated"] / run_s,
@@ -324,7 +669,13 @@ def phase_serving(card: str):
            "decode_only_steps": len(step_ms),
            "prefix_hit_tokens": m["prefix_hit_tokens"],
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
-    log(f"[serving] {res['tokens_per_s']:.1f} tokens/s over the run, TTFT "
+    if fused:
+        hist = reg.get("kernel.decode_block_s")
+        if hist.count != decode_steps:
+            raise AssertionError(f"{tag} kernel.decode_block_s has "
+                                 f"{hist.count} samples, want {decode_steps}")
+        res["decode_block_dispatch_ms_p50"] = hist.quantile(0.5) * 1e3
+    log(f"{tag} {res['tokens_per_s']:.1f} tokens/s over the run, TTFT "
         f"p50 {m['ttft_p50_ms']} ms, decode step p50 "
         f"{decode_ms if decode_ms is None else round(decode_ms, 3)} ms "
         f"({len(step_ms)} decode-only steps), prefix hit tokens "
@@ -332,8 +683,6 @@ def phase_serving(card: str):
         f"(card: {card})")
     res["decode_profile"] = profile_decode(eng, cfg.vocab_size, card)
     eng.close()
-    del eng, model
-    torch.cuda.empty_cache()
     return launches, res
 
 
@@ -377,23 +726,25 @@ def profile_decode(eng, vocab: int, card: str, steps: int = 5) -> dict:
            "device_ms_per_step": busy_ms / steps,
            "busy_share": busy_ms / wall_ms if wall_ms else None,
            "top_kernels_ms_per_step": {k[:90]: v / steps for k, v in top}}
+    tag = f"[profile:{eng.decode_path}]"
     if busy_ms == 0.0:
-        log("[profile] the profiler saw no device time: device busy share "
-            "not measured")
+        log(f"{tag} the profiler saw no device time: device busy share "
+            f"not measured")
     else:
-        log(f"[profile] decode step, 8 slots busy, under torch.profiler: "
+        log(f"{tag} decode step, 8 slots busy, under torch.profiler: "
             f"{out['wall_ms_per_step']:.3f} ms wall, "
             f"{out['device_ms_per_step']:.3f} ms of kernels, device busy "
             f"share {out['busy_share']:.3f} (card: {card})")
         for name, ms in out["top_kernels_ms_per_step"].items():
-            log(f"[profile]   {ms:8.4f} ms/step  {name}")
+            log(f"{tag}   {ms:8.4f} ms/step  {name}")
     return out
 
 
 # --------------------------------------------------------------- parity
 def phase_parity() -> None:
-    """Engine greedy tokens == the port's generate tokens on an f32 model
-    of gpt_small width, 2 layers (TF32 off)."""
+    """On an f32 model of gpt_small width, 2 layers (TF32 off): the
+    fused-path engine's greedy tokens == the unfused engine's == the
+    port's ``generate`` tokens."""
     import dataclasses
 
     import numpy as np
@@ -403,24 +754,37 @@ def phase_parity() -> None:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = dataclasses.replace(gpt_small(), num_layers=2)
-    gen = torch.Generator(device="cuda")
+    gen = torch.Generator(device=DEVICE)
     gen.manual_seed(5)
-    model = GPTForCausalLM(cfg, dtype="float32", generator=gen).eval()
-    eng = ServingEngine(model, num_slots=3, min_bucket=16, block_len=16,
-                        prefill_chunk=64)
+    model = GPTForCausalLM(cfg, device=DEVICE, dtype="float32",
+                           generator=gen).eval()
     rs = np.random.RandomState(3)
     prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in (40, 150, 300)]
-    outs = eng.serve_batch(prompts, max_new_tokens=16)
-    for p, o in zip(prompts, outs):
+    tokens = {}
+    for fused in (False, True):
+        eng = ServingEngine(model, num_slots=3, min_bucket=16, block_len=16,
+                            prefill_chunk=64, fused_decode=fused)
+        want_path = "fused" if fused else "unfused"
+        if eng.decode_path != want_path:
+            raise AssertionError(f"parity engine resolved "
+                                 f"{eng.decode_path!r} "
+                                 f"({eng.decode_fallback_reason}), want "
+                                 f"{want_path!r}")
+        tokens[want_path] = [o.tokens for o in
+                             eng.serve_batch(prompts, max_new_tokens=16)]
+        eng.close()
+    for i, p in enumerate(prompts):
         want = model.generate(p[None], max_new_tokens=16)[0, len(p):]
         want = want.cpu().tolist()
-        if o.tokens != want:
-            raise AssertionError(f"engine tokens {o.tokens} != generate "
-                                 f"tokens {want} (prompt len {len(p)})")
-    log(f"[parity] gpt_small width, 2 layers, f32: engine greedy tokens == "
-        f"generate tokens for {len(prompts)} requests (prompt lengths "
+        for path, got in tokens.items():
+            if got[i] != want:
+                raise AssertionError(f"{path} engine tokens {got[i]} != "
+                                     f"generate tokens {want} (prompt len "
+                                     f"{len(p)})")
+    log(f"[parity] gpt_small width, 2 layers, f32: fused-engine greedy "
+        f"tokens == unfused-engine tokens == generate tokens for "
+        f"{len(prompts)} requests (prompt lengths "
         f"{[len(p) for p in prompts]}, 16 new tokens each)")
-    eng.close()
 
 
 def main() -> int:
@@ -446,16 +810,21 @@ def main() -> int:
         f"(per source: {json.dumps({k: round(v, 2) for k, v in built.items()})})")
 
     rec, err = phase_kernels(card)
-    launches, serving = phase_serving(card)
+    block = phase_block_kernels(card)
+    runs = phase_serving(card)
     phase_parity()
 
+    (launches_u, serving_u), (launches_f, serving_f) = (
+        runs["unfused"], runs["fused"])
     d = rec["decode"]
     kernels = [{
         "name": "decode_attention",
         "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/decode_attention.cu",
         "replaces": "paddle_tpu/kernels/decode_attention.py:42",
-        "launches": launches,
+        "launches": launches_u["decode_attention"],
+        "launches_by_path": {"unfused": launches_u["decode_attention"],
+                             "fused": launches_f["decode_attention"]},
         "max_abs_err": err,
         "ms": d["ms"], "plain_ms": d["plain_ms"],
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
@@ -463,6 +832,25 @@ def main() -> int:
         "shape": "decode q[8,1,32,128] kv[8,2048,32,128] seq_len 1024 bf16",
         "prefill": rec["prefill"],
     }]
+    for half, line in (("attn", 313), ("mlp", 562)):
+        name = f"decode_block_{half}"
+        r = block[half]
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/decode_block.cu",
+            "replaces": f"paddle_tpu/kernels/decode_block.py:{line}",
+            "launches": launches_f[name],
+            "max_abs_err": r["max_abs_err"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "library_ms": None,
+            "unfused_layer_ms": r["unfused_layer_ms"],
+            "layer_ms": r["layer_ms"],
+            "sweep_max_abs_err": r["sweep_max_abs_err"],
+            "shape": r["shape"],
+        })
+    serving = {"unfused": serving_u, "fused": serving_f}
     log(f"[done] {time.perf_counter() - t_start:.1f} s; serving "
         f"{json.dumps(serving)}")
     log(json.dumps({"kernels": kernels}))

@@ -45,6 +45,15 @@ _SIGNATURES = {
              _F, _I, _P],                   # scale, causal, stream
             _I),
     },
+    "decode_block": {
+        "decode_block_row_stats": (
+            [_P, _P, _L,                    # in, stats, row stride
+             _I, _I, _I, _I, _F, _P],       # rows, K, dtype, rms, eps, stream
+            _I),
+        # a pointer to GemvArgs / AttnArgs (decode_block.py mirrors them)
+        "decode_block_gemv": ([_P, _P], _I),
+        "decode_block_attention": ([_P, _P], _I),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

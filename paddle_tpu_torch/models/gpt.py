@@ -25,6 +25,7 @@ from ..device import resolve_device, resolve_dtype
 from ..distributed.meta_parallel.mp_layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
 from ..kernels.decode_attention import decode_attention_auto
+from ..kernels.decode_block import decode_block_layer, fusion_legal
 from ..nn.functional import gelu
 from ..nn.layers import Dropout, LayerList, LayerNorm
 from .kv_cache import append_kv, cache_lens
@@ -121,6 +122,40 @@ class GPTBlock(nn.Module):
         if cache is not None:
             return x, new_cache
         return x
+
+    def decode_block_weights(self) -> dict:
+        """This block as ``decode_block_layer``'s keywords: the fused
+        ``[h, 3h]`` QKV weight split into q | k | v column views (and its
+        bias likewise), LayerNorm, gelu_tanh, multi-head attention."""
+        cfg = self.cfg
+        h = cfg.hidden_size
+        wqkv = self.qkv.weight                  # [h, 3h]: q | k | v columns
+        bqkv = self.qkv.bias
+        bq, bk, bv = ((bqkv[:h], bqkv[h:2 * h], bqkv[2 * h:])
+                      if bqkv is not None else (None, None, None))
+        return dict(
+            kv_heads=cfg.num_heads, head_dim=cfg.head_dim,
+            norm="layer", eps1=cfg.layer_norm_eps, eps2=cfg.layer_norm_eps,
+            norm1_w=self.ln_1.weight, norm1_b=self.ln_1.bias,
+            wq=wqkv[:, :h], wk=wqkv[:, h:2 * h], wv=wqkv[:, 2 * h:],
+            bq=bq, bkv=bk, bv=bv,
+            wo=self.out_proj.weight, bo=self.out_proj.bias,
+            norm2_w=self.ln_2.weight, norm2_b=self.ln_2.bias,
+            w1=self.fc_in.weight, b1=self.fc_in.bias,
+            w2=self.fc_out.weight, b2=self.fc_out.bias,
+            act="gelu_tanh")
+
+    def fused_decode_step(self, x: torch.Tensor, cache: Cache):
+        """One decode token through the fused decode-block kernel pair
+        (kernels/decode_block.py): norm -> QKV -> KV append -> streaming
+        attention -> out-proj -> MLP.  ``cache`` is ``(k, v, pos)`` with an
+        int or per-row ``pos``; the slabs are updated in place.  Same
+        contract as ``forward(x, cache)`` at sq=1; callers gate on
+        ``fused_decode_supported``."""
+        pk, pv, pos = cache
+        y, k2, v2 = decode_block_layer(x, pk, pv, pos,
+                                       **self.decode_block_weights())
+        return y, (k2, v2, pos + 1)
 
 
 class GPTModel(nn.Module):
@@ -230,6 +265,36 @@ class GPTForCausalLM(nn.Module):
         new_caches = []
         for block, cache in zip(self.gpt.h, caches):
             x, c = block(x, cache)
+            new_caches.append(c)
+        x = self.gpt.ln_f(x)
+        return self.logits(x), new_caches
+
+    def fused_decode_supported(self, batch: int = 1,
+                               kv_len: Optional[int] = None,
+                               tp: int = 1):
+        """Static legality of the fused decode-block path for this model
+        at ``(batch, kv_len)``.  Returns ``(ok, reason)``."""
+        cfg = self.cfg
+        if cfg.dropout and self.training:
+            return False, "dropout active (training mode)"
+        return fusion_legal(
+            max_seq=kv_len or cfg.max_seq_len, hidden=cfg.hidden_size,
+            heads=cfg.num_heads, kv_heads=cfg.num_heads,
+            head_dim=cfg.head_dim, ffn=cfg.ffn_size, batch=batch,
+            dtype=self.dtype, tp=tp)
+
+    @torch.no_grad()
+    def fused_decode_step(self, input_ids: torch.Tensor, caches: List[Cache],
+                          position: Union[int, torch.Tensor]):
+        """``decode_step`` for one token per row through the fused
+        decode-block kernels: the embedding, final norm and logits are
+        shared with ``decode_step``; each layer body is the kernel pair
+        with the KV slabs updated in place.  ``position`` is an int or a
+        per-row ``[b]`` tensor."""
+        x = self.gpt.embed(input_ids, position)
+        new_caches = []
+        for block, cache in zip(self.gpt.h, caches):
+            x, c = block.fused_decode_step(x, cache)
             new_caches.append(c)
         x = self.gpt.ln_f(x)
         return self.logits(x), new_caches

@@ -68,6 +68,10 @@ class ServingEngine:
     splits long suffixes into fixed-width chunks interleaved with decode
     (one chunk per step).  ``max_prefill_tokens_per_step`` caps admission
     prefill work per step; ``max_queue`` bounds the waiting queue.
+    ``fused_decode`` opts the decode step into the fused decode-block
+    kernels (kernels/decode_block.py) where the model supports them and
+    they are legal at this engine's shape; ``decode_path`` /
+    ``decode_fallback_reason`` say what was resolved.
     """
 
     def __init__(self, model, num_slots: int = 8,
@@ -79,7 +83,8 @@ class ServingEngine:
                  block_len: int = 16,
                  prefix_blocks: Optional[int] = None,
                  registry=None, tracer=None,
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None,
+                 fused_decode: bool = False):
         self.core = EngineCore(
             model, num_slots=num_slots, max_seq=max_seq,
             min_bucket=min_bucket,
@@ -89,7 +94,7 @@ class ServingEngine:
             enable_prefix_cache=enable_prefix_cache,
             block_len=block_len, prefix_blocks=prefix_blocks,
             metrics=ServingMetrics(registry=registry, tracer=tracer),
-            max_queue=max_queue)
+            max_queue=max_queue, fused_decode=fused_decode)
         self._requests = {}
 
     # -------------------------------------------------------- submission
@@ -269,6 +274,19 @@ class ServingEngine:
         """The engine's ``obs.Tracer`` (request-lifecycle spans and the
         event log)."""
         return self.core.metrics.tracer
+
+    @property
+    def decode_path(self) -> str:
+        """``"fused"`` (the decode-block kernel pair) or ``"unfused"``
+        (``model.decode_step``): which decode step this engine runs,
+        resolved once at construction."""
+        return self.core.decode_path
+
+    @property
+    def decode_fallback_reason(self) -> Optional[str]:
+        """Why ``fused_decode=True`` fell back to ``"unfused"`` (None when
+        the fused path is active or the flag is off)."""
+        return self.core.decode_fallback_reason
 
     def metrics_dict(self) -> dict:
         out = self.core.metrics.snapshot()

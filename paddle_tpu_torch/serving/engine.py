@@ -48,6 +48,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels.decode_block import resolve_fused_decode
 from ..models.generation import _categorical, _filter_top_p
 from .errors import EngineStalledError, RequestRejected
 from .kv_pool import BlockPool, KVPool
@@ -169,7 +170,8 @@ class EngineCore:
                  block_len: int = 16,
                  prefix_blocks: Optional[int] = None,
                  metrics: Optional[ServingMetrics] = None,
-                 max_queue: Optional[int] = None):
+                 max_queue: Optional[int] = None,
+                 fused_decode: bool = False):
         if prefill_chunk is not None and prefill_chunk < min_bucket:
             raise ValueError(
                 f"prefill_chunk {prefill_chunk} must be >= min_bucket "
@@ -201,6 +203,16 @@ class EngineCore:
         self.scheduler = Scheduler(num_slots, self.pool.max_seq,
                                    min_bucket=min_bucket,
                                    max_prefills_per_step=max_prefills_per_step)
+        # fused decode-block path (kernels/decode_block.py): opt-in,
+        # resolved once here from static legality (shapes, dtype, shared
+        # memory plan) and reported once as the decode_block event
+        self.fused_decode = fused_decode
+        self.decode_path, self.decode_fallback_reason = \
+            self._resolve_decode_path()
+        self.metrics.on_decode_block(
+            active=self.decode_path == "fused",
+            reason=self.decode_fallback_reason, step=self._step_index,
+            tp=1)
 
     def _build_device_plane(self, max_seq, enable_prefix_cache: bool,
                             block_len: int, prefix_blocks) -> None:
@@ -461,6 +473,19 @@ class EngineCore:
         return emitted
 
     # ------------------------------------------------------------ decode
+    def _resolve_decode_path(self) -> Tuple[str, Optional[str]]:
+        """The decode implementation for THIS engine's shapes: with
+        ``fused_decode`` the fused decode-block kernels when the model
+        supports them and ``resolve_fused_decode`` finds them legal at
+        (num_slots, max_seq), else the unfused ``decode_step`` with the
+        refusal's reason.  Returns ``(path, fallback_reason)``; the reason
+        is None when fused engages or the flag is off."""
+        if not self.fused_decode:
+            return "unfused", None
+        ok, reason = resolve_fused_decode(self.model, batch=self.num_slots,
+                                          kv_len=self.pool.max_seq)
+        return ("fused", None) if ok else ("unfused", reason)
+
     def _decode_dispatch(self) -> torch.Tensor:
         """ONE fixed-shape decode step over every slot; returns the
         sampled token vector STILL ON THE DEVICE — the caller performs the
@@ -471,8 +496,10 @@ class EngineCore:
             self._mask_dirty = False
         pool = self.pool
         caches = [(k, v, pool.seq_pos) for k, v in zip(pool.ks, pool.vs)]
-        logits, caches = self.model.decode_step(self._last_tok[:, None],
-                                                caches, pool.seq_pos)
+        step_fn = self.model.fused_decode_step \
+            if self.decode_path == "fused" else self.model.decode_step
+        logits, caches = step_fn(self._last_tok[:, None], caches,
+                                 pool.seq_pos)
         pool.seq_pos = caches[0][2]
         lg = logits[:, 0]
         nxt = sample_rows(self._gens, lg, self._do_sample,
@@ -550,6 +577,8 @@ class EngineCore:
                             harvest_exc = e
                 phases += [("decode_dispatch", t_prefill, t_decode),
                            ("readback", t_decode, t_readback)]
+                if self.decode_path == "fused":
+                    self.metrics.on_decode_block_step(t_decode - t_prefill)
                 if harvest_exc is not None:
                     raise harvest_exc
             self._evict_finished()

@@ -89,6 +89,10 @@ class ServingMetrics:
                                "submit -> admission", unit="s")
         self._h_gather = h("serving.gather_s",
                            "prefix block gather / staging init", unit="s")
+        self._h_decode_block = h("kernel.decode_block_s",
+                                 "fused decode-block step dispatch wall "
+                                 "time (engine fused_decode path)",
+                                 unit="s")
         self._g_queue_depth = g("serving.queue_depth",
                                 "waiting requests at the last step")
         self._g_occupancy = g("serving.slot_occupancy",
@@ -143,6 +147,26 @@ class ServingMetrics:
 
     def on_gather(self, seconds: float) -> None:
         self._h_gather.observe(seconds)
+
+    def on_decode_block(self, active: bool, reason: Optional[str],
+                        step: int = 0, tp: int = 1) -> None:
+        """The engine resolved its decode path (emitted once, at
+        construction): ``active`` says whether the fused decode-block
+        kernels serve decode, ``reason`` carries the fallback cause when
+        ``fused_decode`` asked for fusion but legality refused (None when
+        fused engaged or the flag was off), ``tp`` the tensor-parallel
+        degree.  Lands as a ``decode_block`` event on the engine lane."""
+        self.tracer.event("decode_block", lane=self.engine_lane,
+                          active=active,
+                          reason=reason if reason is not None else "",
+                          step=step, tp=tp)
+
+    def on_decode_block_step(self, seconds: float) -> None:
+        """One fused-path decode dispatch's wall time (the engine calls
+        this only on steps whose decode ran the fused kernel pair, so the
+        ``kernel.decode_block_s`` histogram is separable from
+        ``serving.phase.decode_dispatch_s`` in one registry)."""
+        self._h_decode_block.observe(seconds)
 
     def on_first_token(self, arrival_t: float,
                        now: Optional[float] = None) -> None:

@@ -79,6 +79,7 @@ def test_auto_dispatch_on_cpu_and_wrapper_contract():
         decode_attention_reference(*args[:3], args[3][:2])
 
 
+@pytest.mark.cuda
 def test_kernel_matches_plain_version_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")

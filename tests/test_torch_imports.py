@@ -38,5 +38,6 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
                 "paddle_tpu_torch.serving.engine",
                 "paddle_tpu_torch.models.gpt",
                 "paddle_tpu_torch.kernels.decode_attention",
+                "paddle_tpu_torch.kernels.decode_block",
                 "paddle_tpu_torch.obs.tracing"):
         assert mod in res["imported"]
