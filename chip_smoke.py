@@ -25,7 +25,23 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      every layer of every prefill chunk and decode step;
   4. parity — an f32 model of gpt_small width at 2 layers: the fused
      and unfused engines' greedy tokens equal ``generate``'s for 3
-     requests.
+     requests;
+  5. train kernels — on an emptied card, the three flash-attention
+     kernels (forward, dq, dk/dv) and fused AdamW against their plain
+     versions over a sweep, then timed at the train path's shapes
+     (q/k/v [2, 2048, 32, 128] bf16 causal; AdamW on one [4096, 16384]
+     weight) beside the plain version, the bound and a library yardstick
+     (SDPA forward / backward, ``torch.optim.AdamW(fused=True)``);
+  6. train — ``GPTHybridTrainer`` at every width of gpt3_6_7b with 12 of
+     its 32 layers, batch 2 x 2048, ``FusedAdamW(multi_precision=True)``,
+     one repeated batch: 2 warm-up steps, then 6 steps with the counts
+     zeroed just before and read just after (each flash kernel 12 x 6,
+     fused_adamw parameter tensors x 6); the loss falls, every parameter
+     gets a finite gradient and every qkv weight a nonzero one; one step
+     under torch.profiler;
+  7. train parity — an f32 model of gpt_small width at 2 layers: two
+     ``FusedAdamW`` train steps on the card and on the CPU (plain
+     versions) from the same weights agree.
 
 The last lines are a JSON object describing every kernel, the card's
 ``nvidia-smi`` name and power limit, and
@@ -686,6 +702,20 @@ def serve_run(model, card: str, fused: bool):
     return launches, res
 
 
+def kernel_ms(prof) -> dict:
+    """Device milliseconds by kernel name from a finished torch.profiler
+    run."""
+    import torch
+    kernels = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us = getattr(e, "self_device_time_total", None)
+            if us is None:
+                us = e.self_cuda_time_total
+            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    return kernels
+
+
 def profile_decode(eng, vocab: int, card: str, steps: int = 5) -> dict:
     """Where a full-batch decode step's time goes, after the main run:
     fill all 8 slots with short greedy requests, then trace ``steps``
@@ -713,13 +743,7 @@ def profile_decode(eng, vocab: int, card: str, steps: int = 5) -> dict:
     eng.run_until_complete()
     for rid in rids:
         eng.purge(rid)
-    kernels = {}
-    for e in prof.key_averages():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            us = getattr(e, "self_device_time_total", None)
-            if us is None:
-                us = e.self_cuda_time_total
-            kernels[e.key] = kernels.get(e.key, 0.0) + us / 1e3
+    kernels = kernel_ms(prof)
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
     out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
@@ -787,6 +811,518 @@ def phase_parity() -> None:
         f"{[len(p) for p in prompts]}, 16 new tokens each)")
 
 
+# ------------------------------------------------------------ training
+# the train phases' configuration: every width of gpt3_6_7b, 12 of its 32
+# layers (a full-depth train step needs ~107 GB of parameter state alone)
+TRAIN_LAYERS = 12
+TRAIN_BATCH, TRAIN_SEQ = 2, 2048
+TRAIN_WARMUP, TRAIN_STEPS = 2, 6
+TRAIN_LR = 1e-4
+
+
+def _flash_case(g, dtype, b, sq, sk, h, kvh, d, packed=False):
+    """Random q/k/v/dO on the card; ``packed`` takes q/k/v as strided
+    views of one [b, s, 3, h, d] tensor, as the model's fused QKV
+    projection gives them."""
+    import torch
+    dev = torch.device(DEVICE)
+
+    def r(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+    if packed:
+        qkv = r(b, sq, 3, h, d)
+        q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+    else:
+        q, k, v = r(b, sq, h, d), r(b, sk, kvh, d), r(b, sk, kvh, d)
+    return q, k, v, r(b, sq, h, d)
+
+
+def _err(got, want):
+    """Max abs error over the entries that are finite in ``want``; raises
+    if the two disagree on which entries are finite."""
+    import torch
+    finite = torch.isfinite(want)
+    if not torch.equal(torch.isfinite(got), finite):
+        raise AssertionError("kernel and plain version disagree on which "
+                             "entries are finite (rows that see no key)")
+    if not bool(finite.any()):
+        return 0.0
+    return (got.float()[finite] - want.float()[finite]).abs().max().item()
+
+
+def flash_bounds(b, sq, sk, h, kvh, d, causal, es):
+    """Least time (ms) of each flash kernel at these shapes, and what
+    bounds it.  Operations: 2·d multiply-adds per visible (query, key)
+    pair for each product — forward 2 (QK^T, PV), dq 3 (QK^T, dO V^T,
+    dS K), dkv 4 (QK^T, dO V^T, P^T dO, dS^T Q) — over the bf16 tensor
+    rate.  Bytes: each input read once, each output written once."""
+    off = sk - sq
+    pairs = sum(max(0, min(sk, t + off + 1)) for t in range(sq)) \
+        if causal else sq * sk
+    q_b, kv_b, stat_b = b * sq * h * d * es, 2 * b * sk * kvh * d * es, \
+        b * h * sq * 4
+    work = {"flash_attention_fwd": (2, q_b + kv_b + q_b + stat_b),
+            "flash_attention_bwd_dq": (3, 2 * q_b + kv_b + 2 * stat_b + q_b),
+            "flash_attention_bwd_dkv": (4, 2 * q_b + kv_b + 2 * stat_b
+                                        + kv_b)}
+    peak = PEAK_FLOPS["bfloat16" if es == 2 else "float32"]
+    out = {}
+    for name, (products, nbytes) in work.items():
+        t_ops = products * 2 * b * h * d * pairs / peak * 1e3
+        t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+        out[name] = ((t_ops, "operations") if t_ops >= t_bytes
+                     else (t_bytes, "bytes"))
+    return out
+
+
+def phase_train_kernels(card: str):
+    """Hold the three flash kernels and fused AdamW against their plain
+    versions over a sweep, then time each at the train path's shapes
+    beside its plain version, its bound and one library call (a
+    yardstick only).  Returns each kernel's record (without launches)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels.fused_adamw import (fused_adamw,
+                                                      fused_adamw_reference)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(2)
+    # f32: only the summation order differs; bf16: the output cast and the
+    # 16-bit P / dS of the second products (FlashAttention-2's rounding),
+    # relative to the largest value of the result
+    rel = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
+    worst = {}
+    n = 0
+    # (B, Sq, Sk, H, KVH): Sq = Sk, Sq < Sk, Sq > Sk (rows that see no key
+    # when causal), ragged tails, GQA, B*H from 1 to 64
+    shapes = [(1, 128, 128, 1, 1), (2, 200, 200, 4, 2), (1, 64, 320, 2, 2),
+              (2, 256, 96, 2, 1), (2, 512, 512, 32, 32)]
+    for dtype in (torch.float32, torch.bfloat16):
+        dname = str(dtype).replace("torch.", "")
+        for d in (64, 128):
+            for b, sq, sk, h, kvh in shapes:
+                for causal in (True, False):
+                    q, k, v, do = _flash_case(g, dtype, b, sq, sk, h, kvh, d)
+                    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+                    ro, rl = fa.flash_attention_fwd_reference(q, k, v,
+                                                              causal=causal)
+                    delta = (do.float() * out.float()).sum(-1) \
+                        .transpose(1, 2).contiguous()
+                    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                   causal=causal)
+                    rdq = fa.flash_attention_bwd_dq_reference(
+                        q, k, v, do, lse, delta, causal=causal)
+                    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                        delta, causal=causal)
+                    rdk, rdv = fa.flash_attention_bwd_dkv_reference(
+                        q, k, v, do, lse, delta, causal=causal)
+                    torch.cuda.synchronize()
+                    what = (f"dtype={dname} D={d} B={b} Sq={sq} Sk={sk} "
+                            f"H={h} KVH={kvh} causal={causal}")
+                    for name, got, want in (
+                            ("flash_attention_fwd", out, ro),
+                            ("flash_attention_fwd lse", lse, rl),
+                            ("flash_attention_bwd_dq", dq, rdq),
+                            ("flash_attention_bwd_dkv dk", dk, rdk),
+                            ("flash_attention_bwd_dkv dv", dv, rdv)):
+                        err = _err(got, want)
+                        scale = max(1.0, want[torch.isfinite(want)].abs()
+                                    .max().item() if want.numel() else 0.0)
+                        key = f"{name} {dname}"
+                        worst[key] = max(worst.get(key, 0.0), err / scale)
+                        if err > rel[dtype] * scale:
+                            raise AssertionError(
+                                f"{name} disagrees with its plain version: "
+                                f"{what} max_abs_err={err} (scale {scale})")
+                    if causal and sq > sk:
+                        blind = sq - sk
+                        if bool(out[:, :blind].any()) or not bool(
+                                torch.isneginf(lse[:, :, :blind]).all()):
+                            raise AssertionError(f"rows that see no key must "
+                                                 f"give out 0, lse -inf: "
+                                                 f"{what}")
+                    n += 1
+    log(f"[train-kernels] flash sweep: {n} cases (f32/bf16 x head_dim "
+        f"64/128 x causal/full x Sq=Sk, Sq<Sk, Sq>Sk, ragged, GQA, B*H 1-64) "
+        f"within tolerance (max abs err over max(1, max |plain|): f32 1e-5, "
+        f"bf16 2e-2); worst relative errors {json.dumps(worst)}")
+
+    # AdamW: f32 and bf16 p, with and without decay, a length that is not
+    # a multiple of the vector width, a misaligned view (scalar path), the
+    # low-precision copy of a master
+    n_adam = 0
+    adam_worst = 0.0
+    for p_dtype, g_dtype, low, wd, length, offset in (
+            (torch.float32, torch.float32, False, 0.0, 1_000_003, 0),
+            (torch.float32, torch.bfloat16, True, 0.1, 1_000_003, 0),
+            (torch.bfloat16, torch.bfloat16, False, 0.1, 4099, 0),
+            (torch.float32, torch.float32, False, 0.1, 4099, 1),
+            (torch.float16, torch.float16, False, 0.0, 64, 0)):
+        base = torch.randn(length + offset, generator=g, device=dev)
+        p = base.to(p_dtype)[offset:]
+        grad = torch.randn(length, generator=g, device=dev).to(g_dtype)
+        m = torch.randn(length, generator=g, device=dev) * 1e-2
+        v = torch.rand(length, generator=g, device=dev) * 1e-3
+        lo = p.to(torch.bfloat16) if low else None
+        p2, m2, v2 = p.clone(), m.clone(), v.clone()
+        lo2 = lo.clone() if low else None
+        kw = dict(lr=1e-3, weight_decay=wd, step=7)
+        fused_adamw(p, grad, m, v, low=lo, **kw)
+        fused_adamw_reference(p2, grad, m2, v2, low=lo2, **kw)
+        torch.cuda.synchronize()
+        for name, got, want in (("p", p, p2), ("m", m, m2), ("v", v, v2),
+                                ("low", lo, lo2)):
+            if got is None:
+                continue
+            if got.dtype == torch.float32:
+                ok = torch.allclose(got, want, rtol=1e-6, atol=1e-7)
+            else:
+                ok = _ulp_ok(got, want, got.dtype)
+            if not ok:
+                err = (got.float() - want.float()).abs().max().item()
+                raise AssertionError(
+                    f"fused_adamw disagrees with its plain version on {name}: "
+                    f"p {p_dtype} g {g_dtype} wd {wd} n {length} offset "
+                    f"{offset} max_abs_err {err}")
+            adam_worst = max(adam_worst, (got.float() - want.float()).abs()
+                             .max().item())
+        n_adam += 1
+    log(f"[train-kernels] fused_adamw sweep: {n_adam} cases (p f32/bf16/f16, "
+        f"g f32/bf16, decay on/off, ragged lengths, a misaligned view, the "
+        f"low copy) within tolerance (f32 rtol 1e-6 / atol 1e-7, 16-bit one "
+        f"ulp); max abs err {adam_worst:.3g}")
+
+    # timing at the train shape: q/k/v [2, 2048, 32, 128] bf16 as views of
+    # the fused QKV projection, causal
+    from paddle_tpu_torch.models import gpt3_6_7b
+    cfg = gpt3_6_7b()
+    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.head_dim
+    q, k, v, do = _flash_case(g, torch.bfloat16, b, s, s, h, h, d,
+                              packed=True)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    ro, rl = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+    rdq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                              causal=True)
+    rdk, rdv = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                    causal=True)
+    torch.cuda.synchronize()
+    errs = {"flash_attention_fwd": max(_err(out, ro), _err(lse, rl)),
+            "flash_attention_bwd_dq": _err(dq, rdq),
+            "flash_attention_bwd_dkv": max(_err(dk, rdk), _err(dv, rdv))}
+    for name, (got, want) in {"flash_attention_fwd": (out, ro),
+                              "flash_attention_bwd_dq": (dq, rdq),
+                              "flash_attention_bwd_dkv": (dk, rdk)}.items():
+        scale = max(1.0, want.abs().max().item())
+        if errs[name] > rel[torch.bfloat16] * scale:
+            raise AssertionError(f"{name} disagrees at the train shape: "
+                                 f"max_abs_err {errs[name]}")
+    del ro, rl, rdq, rdk, rdv
+    times = {
+        "flash_attention_fwd": time_ms(
+            lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
+        "flash_attention_bwd_dq": time_ms(
+            lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                              causal=True)),
+        "flash_attention_bwd_dkv": time_ms(
+            lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                               causal=True)),
+    }
+    plain = {
+        "flash_attention_fwd": time_ms(
+            lambda: fa.flash_attention_fwd_reference(q, k, v, causal=True),
+            iters=3, warmup=2, windows=3),
+        "flash_attention_bwd_dq": time_ms(
+            lambda: fa.flash_attention_bwd_dq_reference(
+                q, k, v, do, lse, delta, causal=True),
+            iters=3, warmup=2, windows=3),
+        "flash_attention_bwd_dkv": time_ms(
+            lambda: fa.flash_attention_bwd_dkv_reference(
+                q, k, v, do, lse, delta, causal=True),
+            iters=3, warmup=2, windows=3),
+    }
+    # the library yardstick: SDPA forward, and SDPA's backward (dq, dk, dv
+    # together) on a retained graph, on the same views transposed
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    do_t = do.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do_t, retain_graph=True))
+    del o_lib, qt, kt, vt
+    bounds = flash_bounds(b, s, s, h, h, d, True, 2)
+    shape = f"q/k/v [{b},{s},{h},{d}] bf16 (views of a fused QKV), causal"
+    recs = {}
+    for name in times:
+        bound, bound_by = bounds[name]
+        lib = lib_fwd if name == "flash_attention_fwd" else None
+        recs[name] = {"ms": times[name], "plain_ms": plain[name],
+                      "bound_ms": bound, "bound_by": bound_by,
+                      "library_ms": lib, "max_abs_err": errs[name],
+                      "shape": shape,
+                      "sweep_max_rel_err": {
+                          k_: e for k_, e in worst.items()
+                          if k_.startswith(name)}}
+        log(f"[train-kernels] {name} {shape}: kernel {times[name]:.4f} ms, "
+            f"plain {plain[name]:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
+            f"max abs err {errs[name]:.3g} (card: {card})")
+    recs["flash_attention_bwd_dq"]["library_ms_dq_dkv_together"] = lib_bwd
+    recs["flash_attention_bwd_dkv"]["library_ms_dq_dkv_together"] = lib_bwd
+    log(f"[train-kernels] library yardsticks: SDPA forward {lib_fwd:.4f} ms; "
+        f"SDPA backward (dq, dk, dv together) {lib_bwd:.4f} ms vs the port's "
+        f"dq + dkv {times['flash_attention_bwd_dq'] + times['flash_attention_bwd_dkv']:.4f} ms "
+        f"(card: {card})")
+    del q, k, v, do, out, lse, delta, dq, dk, dv
+
+    # AdamW on one fc_in weight [4096, 16384]: f32 master, bf16 gradient,
+    # f32 moments, the bf16 parameter written in the same pass
+    numel = cfg.hidden_size * cfg.ffn_size
+    master = torch.randn(numel, generator=g, device=dev)
+    grad = torch.randn(numel, generator=g, device=dev).to(torch.bfloat16)
+    m = torch.zeros(numel, device=dev)
+    v = torch.zeros(numel, device=dev)
+    low = master.to(torch.bfloat16)
+    kw = dict(lr=1e-4, weight_decay=0.01, step=1)
+    adam_ms = time_ms(lambda: fused_adamw(master, grad, m, v, low=low, **kw))
+    adam_plain = time_ms(lambda: fused_adamw_reference(
+        master, grad, m, v, low=low, **kw), iters=5, warmup=2, windows=3)
+    # yardstick: torch.optim.AdamW(fused=True) on an f32 parameter with an
+    # f32 gradient (no master and no low copy: PyTorch's fused AdamW has
+    # neither)
+    tp = torch.nn.Parameter(master.clone())
+    tp.grad = grad.float()
+    topt = torch.optim.AdamW([tp], lr=1e-4, weight_decay=0.01, fused=True)
+    adam_lib = time_ms(topt.step)
+    del tp, topt
+    adam_bytes = numel * (4 + 2 + 4 + 4 + 4 + 4 + 4 + 2)
+    adam_bound = adam_bytes / HBM_BYTES_PER_S * 1e3
+    recs["fused_adamw"] = {
+        "ms": adam_ms, "plain_ms": adam_plain, "bound_ms": adam_bound,
+        "bound_by": "bytes", "library_ms": adam_lib,
+        "max_abs_err": adam_worst,
+        "shape": "one fc_in weight [4096,16384]: f32 master, bf16 grad, f32 "
+                 "m/v, bf16 parameter copy (28 B per element)"}
+    log(f"[train-kernels] fused_adamw on [{cfg.hidden_size},"
+        f"{cfg.ffn_size}] ({numel / 1e6:.1f}M elements, "
+        f"{adam_bytes / 1e9:.2f} GB): kernel {adam_ms:.4f} ms, plain "
+        f"{adam_plain:.4f} ms, torch.optim.AdamW(fused=True) {adam_lib:.4f} "
+        f"ms, bound {adam_bound:.4f} ms (bytes) (card: {card})")
+    del master, grad, m, v, low
+    torch.cuda.empty_cache()
+    return recs
+
+
+def phase_train(card: str):
+    """Train ``GPTHybridTrainer`` at every width of gpt3_6_7b, 12 layers,
+    batch 2 x 2048, with ``FusedAdamW(multi_precision=True)`` on one
+    repeated batch: warm-up steps, then the measured steps with every
+    kernel count set to 0 just before them and read just after.  Returns
+    the counts and the metrics."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
+    from paddle_tpu_torch.kernels.fused_adamw import fused_adamw
+    from paddle_tpu_torch.models import GPTHybridTrainer, gpt3_6_7b
+    from paddle_tpu_torch.optimizer import FusedAdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(gpt3_6_7b(), num_layers=TRAIN_LAYERS)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(4321)
+    t0 = time.perf_counter()
+    tr = GPTHybridTrainer(cfg, optimizer=FusedAdamW(
+        learning_rate=TRAIN_LR, multi_precision=True), device=DEVICE,
+        generator=gen)
+    torch.cuda.synchronize()
+    params = list(tr.model.parameters())
+    n_params = sum(p.numel() for p in params)
+    log(f"[train] gpt3_6_7b widths, {cfg.num_layers} of 32 layers: hidden "
+        f"{cfg.hidden_size}, {cfg.num_heads} heads x {cfg.head_dim}, ffn "
+        f"{cfg.ffn_size}, vocab {cfg.vocab_size}, bf16 with f32 masters and "
+        f"moments, {n_params / 1e9:.3f}B params in {len(params)} tensors, "
+        f"built in {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ}")
+    ids, labels = tr.make_batch(TRAIN_BATCH, TRAIN_SEQ, seed=0)
+    losses = [float(tr.train_step(ids, labels)) for _ in range(TRAIN_WARMUP)]
+    kernels = (flash_attention_fwd, flash_attention_bwd_dq,
+               flash_attention_bwd_dkv, fused_adamw)
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    step_ms = []
+    for _ in range(TRAIN_STEPS):
+        t = time.perf_counter()
+        losses.append(float(tr.train_step(ids, labels)))   # synchronises
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    want = {"flash_attention_fwd": cfg.num_layers * TRAIN_STEPS,
+            "flash_attention_bwd_dq": cfg.num_layers * TRAIN_STEPS,
+            "flash_attention_bwd_dkv": cfg.num_layers * TRAIN_STEPS,
+            "fused_adamw": len(params) * TRAIN_STEPS}
+    log(f"[train] losses {[round(x, 4) for x in losses]}; launches "
+        f"{json.dumps(launches)} (want {cfg.num_layers} layers x "
+        f"{TRAIN_STEPS} steps for each flash kernel, {len(params)} tensors x "
+        f"{TRAIN_STEPS} steps for fused_adamw)")
+    if launches != want:
+        raise AssertionError(f"[train] kernel launches {launches} != {want}: "
+                             f"the train step bypassed a kernel")
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"[train] losses must be finite and fall: "
+                             f"{losses}")
+    # one more forward/backward (not counted): every parameter gets a
+    # finite gradient, every layer's qkv weight a nonzero one; then one
+    # optimizer step over all of them, timed
+    loss = tr.model.loss(ids, labels)
+    loss.backward()
+    for name, p in tr.model.named_parameters():
+        if p.grad is None or not bool(torch.isfinite(p.grad).all()):
+            raise AssertionError(f"[train] {name} has no finite gradient")
+        if name.endswith("qkv.weight") and not bool((p.grad != 0).any()):
+            raise AssertionError(f"[train] {name} has an all-zero gradient: "
+                                 f"attention dropped it")
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    tr.opt.step()
+    end.record()
+    torch.cuda.synchronize()
+    opt_ms = start.elapsed_time(end)
+    tr.opt.clear_grad()
+    opt_bound = n_params * 28 / HBM_BYTES_PER_S * 1e3
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    p50 = float(np.median(step_ms))
+    tok_s = tokens / (p50 / 1e3)
+    flops_per_token = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size \
+        * TRAIN_SEQ
+    mfu = flops_per_token * tok_s / PEAK_FLOPS["bfloat16"]
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    res = {"layers": cfg.num_layers, "params": n_params,
+           "param_tensors": len(params), "batch": TRAIN_BATCH,
+           "seq": TRAIN_SEQ, "losses": losses, "step_ms": step_ms,
+           "step_ms_p50": p50, "tokens_per_s": tok_s, "mfu": mfu,
+           "optimizer_step_ms": opt_ms, "optimizer_step_bound_ms": opt_bound,
+           "peak_mem_gb": peak_gb}
+    log(f"[train] step p50 {p50:.1f} ms over {TRAIN_STEPS} steps "
+        f"({[round(x, 1) for x in step_ms]}), {tok_s:.0f} tokens/s, "
+        f"model-FLOP share {mfu:.3f} of 989 TFLOP/s; one FusedAdamW step over "
+        f"{n_params / 1e9:.3f}B params {opt_ms:.2f} ms (bound "
+        f"{opt_bound:.2f} ms, bytes); peak memory {peak_gb:.1f} GB "
+        f"(card: {card})")
+    res["profile"] = profile_train(tr, ids, labels, card)
+    del tr, loss, params
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def profile_train(tr, ids, labels, card: str) -> dict:
+    """One train step under torch.profiler: wall time, the device busy
+    share (summed kernel time over wall time) and the kernels that take
+    the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(tr.train_step(ids, labels))
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels = kernel_ms(prof)
+    busy_ms = sum(kernels.values())
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    # kernel time by kind: cuBLAS GEMMs, the port's flash and AdamW
+    # kernels, and everything else (eager elementwise, reductions, copies)
+    kinds = {"gemm": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
+             "flash": ("fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel"),
+             "adamw": ("adamw_kernel",)}
+    by_kind = {kind: 0.0 for kind in (*kinds, "other")}
+    for name, ms in kernels.items():
+        kind = next((k for k, pats in kinds.items()
+                     if any(x in name for x in pats)), "other")
+        by_kind[kind] += ms
+    out = {"wall_ms": wall_ms, "device_ms": busy_ms,
+           "busy_share": busy_ms / wall_ms if wall_ms else None,
+           "device_ms_by_kind": by_kind,
+           "top_kernels_ms": {k[:90]: v for k, v in top}}
+    if busy_ms == 0.0:
+        log("[profile:train] the profiler saw no device time: device busy "
+            "share not measured")
+    else:
+        log(f"[profile:train] one train step under torch.profiler: "
+            f"{wall_ms:.1f} ms wall, {busy_ms:.1f} ms of kernels, device busy "
+            f"share {out['busy_share']:.3f}; device ms by kind "
+            f"{json.dumps({k: round(v, 3) for k, v in by_kind.items()})} "
+            f"(card: {card})")
+        for name, ms in out["top_kernels_ms"].items():
+            log(f"[profile:train]   {ms:9.3f} ms  {name}")
+    return out
+
+
+def phase_train_parity() -> dict:
+    """An f32 model of gpt_small width, 2 layers, seq 256 (TF32 off): two
+    ``FusedAdamW`` train steps on the card (kernels) and the same steps
+    from the same weights on the CPU (plain versions).  Losses agree at
+    rtol 1e-5.  Parameters: Adam's step is lr times a ratio of gradient
+    moments, so an element whose gradient is near zero (rounding noise
+    and cancellation: the key slice of qkv.bias has an exact gradient of
+    0) turns a small relative difference of its gradient into one of
+    O(lr); every element is held to Adam's bound, 2·lr per step, and all
+    but 1e-4 of them to atol 1e-6 (1% of lr)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import GPTHybridTrainer, gpt_small
+    from paddle_tpu_torch.optimizer import FusedAdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(gpt_small(), num_layers=2)
+    lr, steps = 1e-4, 2
+    runs = {}
+    for where in ("cpu", DEVICE):
+        gen = torch.Generator(device=where)
+        gen.manual_seed(6)
+        tr = GPTHybridTrainer(cfg, optimizer=FusedAdamW(learning_rate=lr),
+                              device=where, generator=gen)
+        if where == "cpu":
+            weights = {k: v.clone() for k, v in tr.model.state_dict().items()}
+        tr.model.load_state_dict(weights)
+        ids, labels = tr.make_batch(2, 256, seed=1)
+        losses = [float(tr.train_step(ids, labels)) for _ in range(steps)]
+        runs[where] = (losses, {k: v.detach().cpu() for k, v in
+                                tr.model.state_dict().items()})
+        del tr
+    (lc, pc), (lg, pg) = runs["cpu"], runs[DEVICE]
+    if not np.allclose(lg, lc, rtol=1e-5, atol=0.0):
+        raise AssertionError(f"[train-parity] losses card {lg} vs CPU {lc}")
+    worst, off, total = 0.0, 0, 0
+    for k in pc:
+        diff = (pg[k] - pc[k]).abs()
+        worst = max(worst, diff.max().item())
+        off += int((diff > 1e-6).sum())
+        total += diff.numel()
+    if worst > 2 * lr * steps or off > 1e-4 * total:
+        raise AssertionError(f"[train-parity] parameters: max diff {worst}, "
+                             f"{off} of {total} elements beyond 1e-6")
+    log(f"[train-parity] gpt_small width, 2 layers, f32, seq 256, {steps} "
+        f"FusedAdamW steps: losses card {lg} vs CPU {lc} (rtol 1e-5); "
+        f"parameters max diff {worst:.3g} (bound 2·lr·steps = "
+        f"{2 * lr * steps:.1g}), {off} of {total} elements beyond 1e-6")
+    return {"losses_card": lg, "losses_cpu": lc, "param_max_diff": worst,
+            "param_elements_beyond_1e-6": off, "param_elements": total}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -813,6 +1349,14 @@ def main() -> int:
     block = phase_block_kernels(card)
     runs = phase_serving(card)
     phase_parity()
+    # the train phases start from an empty card
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    train_recs = phase_train_kernels(card)
+    train_launches, train = phase_train(card)
+    train["parity"] = phase_train_parity()
 
     (launches_u, serving_u), (launches_f, serving_f) = (
         runs["unfused"], runs["fused"])
@@ -850,9 +1394,21 @@ def main() -> int:
             "sweep_max_abs_err": r["sweep_max_abs_err"],
             "shape": r["shape"],
         })
+    for name, line, src in (
+            ("flash_attention_fwd", 77, "flash_attention"),
+            ("flash_attention_bwd_dq", 199, "flash_attention"),
+            ("flash_attention_bwd_dkv", 248, "flash_attention"),
+            ("fused_adamw", 25, "fused_adamw")):
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"paddle_tpu_torch/kernels/csrc/{src}.cu",
+            "replaces": f"paddle_tpu/kernels/{src}.py:{line}",
+            "launches": train_launches[name],
+            **train_recs[name]})
     serving = {"unfused": serving_u, "fused": serving_f}
     log(f"[done] {time.perf_counter() - t_start:.1f} s; serving "
-        f"{json.dumps(serving)}")
+        f"{json.dumps(serving)}; train {json.dumps(train)}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

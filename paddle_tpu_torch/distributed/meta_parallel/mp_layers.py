@@ -19,7 +19,7 @@ import torch
 from torch import nn
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding"]
+           "VocabParallelEmbedding", "parallel_cross_entropy"]
 
 
 def _xavier_normal(shape, *, device, dtype, generator) -> nn.Parameter:
@@ -97,3 +97,19 @@ class VocabParallelEmbedding(nn.Module):
 
     def extra_repr(self) -> str:
         return f"{self.num_embeddings}, {self.embedding_dim}"
+
+
+def parallel_cross_entropy(logits: torch.Tensor, label: torch.Tensor,
+                           ignore_index: int = -100) -> torch.Tensor:
+    """Per-token softmax cross entropy over the vocab (last) axis at tp=1
+    (mp_layers.py:222-242): a stable logsumexp in f32, the label's logit
+    picked, and a loss of 0 where ``label == ignore_index``."""
+    x = logits.float()
+    # the max only stabilises the sum: its gradient terms cancel exactly
+    m = x.amax(dim=-1, keepdim=True).detach()
+    lse = m + torch.log(torch.exp(x - m).sum(dim=-1, keepdim=True))
+    lbl = label.long()
+    valid = lbl != ignore_index
+    safe = torch.where(valid, lbl, 0)
+    picked = torch.gather(x, -1, safe[..., None])
+    return torch.where(valid, (lse - picked)[..., 0], 0.0)

@@ -54,6 +54,35 @@ _SIGNATURES = {
         "decode_block_gemv": ([_P, _P], _I),
         "decode_block_attention": ([_P, _P], _I),
     },
+    "flash_attention": {
+        "flash_attention_fwd": (
+            [_P, _P, _P, _P, _P,            # q, k, v, out, lse
+             _I, _I, _I, _I, _I, _I, _I,    # dtype, B, Sq, Sk, H, KVH, D
+             _L, _L, _L, _L, _L, _L, _L, _L, _L,   # q/k/v strides b, s, h
+             _F, _I, _P],                   # scale, causal, stream
+            _I),
+        "flash_attention_bwd_dq": (
+            [_P, _P, _P, _P, _P, _P, _P,    # q, k, v, dout, lse, delta, dq
+             _I, _I, _I, _I, _I, _I, _I,    # dtype, B, Sq, Sk, H, KVH, D
+             *[_L] * 12,                    # q/k/v/dout strides b, s, h
+             _F, _I, _P],                   # scale, causal, stream
+            _I),
+        "flash_attention_bwd_dkv": (
+            [_P, _P, _P, _P, _P, _P, _P, _P,   # q, k, v, dout, lse, delta,
+                                               # dk, dv
+             _I, _I, _I, _I, _I, _I, _I,    # dtype, B, Sq, Sk, H, KVH, D
+             *[_L] * 12,                    # q/k/v/dout strides b, s, h
+             _F, _I, _P],                   # scale, causal, stream
+            _I),
+    },
+    "fused_adamw": {
+        "fused_adamw_launch": (
+            [_P, _P, _P, _P, _P,            # p, g, m, v, low
+             _I, _I, _I, _L,                # p/g/low dtype, n
+             _F, _F, _F, _F, _F, _F, _F,    # lr, b1, b2, eps, wd, bc1, bc2
+             _I, _P],                       # vec, stream
+            _I),
+    },
 }
 
 _loaded: Dict[str, ctypes.CDLL] = {}

@@ -1,0 +1,1123 @@
+// Flash attention forward and backward for Hopper (sm_90a).
+//
+// Replaces the Pallas TPU kernels of paddle_tpu/kernels/flash_attention.py
+// (the variant without segment ids):
+//   * _fwd_kernel (:77, launched at :170)     -> flash_attention_fwd
+//   * _bwd_dq_kernel (:199, launched at :345) -> flash_attention_bwd_dq
+//   * _bwd_dkv_kernel (:248, launched at :373) -> flash_attention_bwd_dkv
+// Same functions: f32 scores, softmax and accumulation, one final cast;
+// the bottom-right causal mask kpos <= qpos + (Sk - Sq); a query row that
+// sees no key gives out = 0 and lse = -inf, and the backward takes
+// lse_safe = 0 for it.  delta = rowsum(dO * out) comes from the caller, as
+// in the reference (:311).
+//
+// Layouts: q/k/v/dO are read in place through their (batch, seq, head)
+// element strides, so views of a fused [b, s, 3, H, D] QKV projection need
+// no copy; the D stride is 1.  out/dq are contiguous [B, Sq, H, D], dk/dv
+// contiguous [B, Sk, KVH, D], lse/delta [B, H, Sq] f32.  Grouped-query heads
+// read kv head h / (H / KVH); the dk/dv block of a kv head sums over the
+// query heads of its group in a loop, so no atomics are needed and every
+// result is deterministic.
+//
+// What bounds it on an H100: at the train shape ([2, 2048, 32, 128] bf16,
+// causal) each kernel does ~70-140 GFLOP of matrix products over ~50 MB of
+// operands, far above the ~295 flop/byte the card needs to be
+// compute-bound: operations bound it (989 TFLOP/s bf16 on the tensor
+// cores).
+//
+// What the design does about that: the products run on the tensor cores
+// (mma.sync m16n8k16, f32 accumulation, the FlashAttention-2 register
+// layout: a warp owns 16 rows, its score tile lives in registers and is
+// re-packed in place as the A operand of the next product).  The sequential
+// grid axis of the TPU kernels (the carried m/l/acc scratch) becomes a loop
+// inside one block; blocks share nothing:
+//   * fwd: a block owns 64 queries of one (batch, head) and walks 64-key
+//     tiles up to the causal limit, staging each K/V tile once in shared
+//     memory for its 4 warps; online softmax in f32.
+//   * dq: the same walk with 32-key tiles; p = exp(s - lse) is recomputed,
+//     ds = p (dO V^T - delta), dq += ds K.
+//   * dkv: a block owns 64 keys of one (batch, kv head) and walks 32-query
+//     tiles from the first query that sees them, over every query head of
+//     its group: dv += p^T dO, dk += ds^T Q, with s^T = K Q^T computed
+//     transposed so both sums accumulate in registers.
+// P and dS are rounded to the input type for their second product, as
+// FlashAttention-2 does.  float32 inputs take plain FMA tiles (16 queries
+// or 32 keys per block).  Causal query tiles are issued longest first.
+// Later work: wgmma and TMA loads, ldmatrix fragments, larger tiles.
+
+#include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kWarps = 4;
+constexpr int kThreads = kWarps * 32;
+constexpr int kPad = 8;  // 16-bit row pad: conflict-free fragment reads
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+
+template <typename T> __device__ __forceinline__ T from_float(float x);
+template <> __device__ __forceinline__ float from_float<float>(float x) {
+  return x;
+}
+template <> __device__ __forceinline__ __half from_float<__half>(float x) {
+  return __float2half_rn(x);
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
+
+template <typename T, int N>
+struct alignas(sizeof(T) * N) Vec {
+  T v[N];
+};
+
+template <typename T, int N>
+__device__ __forceinline__ Vec<T, N> load_vec(const T* ptr) {
+  return *reinterpret_cast<const Vec<T, N>*>(ptr);
+}
+
+template <typename T, int N>
+__device__ __forceinline__ Vec<T, N> zero_vec() {
+  Vec<T, N> x;
+#pragma unroll
+  for (int e = 0; e < N; ++e) x.v[e] = from_float<T>(0.f);
+  return x;
+}
+
+template <typename T> struct Pair;
+template <> struct Pair<__nv_bfloat16> {
+  using type = __nv_bfloat162;
+  static __device__ __forceinline__ type make(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+};
+template <> struct Pair<__half> {
+  using type = __half2;
+  static __device__ __forceinline__ type make(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
+  typename Pair<T>::type v = Pair<T>::make(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack_elems(T lo, T hi) {
+  typename Pair<T>::type v;
+  v.x = lo;
+  v.y = hi;
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+template <typename T>
+__device__ __forceinline__ uint32_t u32(const T* ptr) {
+  return *reinterpret_cast<const uint32_t*>(ptr);
+}
+
+template <typename T>
+__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
+                                         uint32_t b0, uint32_t b1);
+template <>
+__device__ __forceinline__ void mma16816<__nv_bfloat16>(
+    float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+template <>
+__device__ __forceinline__ void mma16816<__half>(
+    float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+struct Params {
+  const void* q;
+  const void* k;
+  const void* v;
+  const void* dout;
+  const float* lse;    // [B, H, SQ] (backward input)
+  const float* delta;  // [B, H, SQ]
+  void* out;           // [B, SQ, H, D]
+  float* lse_out;      // [B, H, SQ]
+  void* dq;            // [B, SQ, H, D]
+  void* dk;            // [B, SK, KVH, D]
+  void* dv;
+  int B, H, KVH, SQ, SK;
+  long long q_sb, q_ss, q_sh;  // element strides; the D stride is 1
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  long long do_sb, do_ss, do_sh;
+  float scale;
+  int causal;
+};
+
+// one past the last key any query in [0, t_last] sees
+__device__ __forceinline__ int key_end(const Params& p, int t_last) {
+  if (!p.causal) return p.SK;
+  return max(0, min(p.SK, t_last + (p.SK - p.SQ) + 1));
+}
+
+// the first query that sees key `key`
+__device__ __forceinline__ int query_begin(const Params& p, int key) {
+  if (!p.causal) return 0;
+  return max(0, key - (p.SK - p.SQ));
+}
+
+__device__ __forceinline__ bool visible(const Params& p, int t, int key) {
+  return t < p.SQ && key < p.SK &&
+         (!p.causal || key <= t + (p.SK - p.SQ));
+}
+
+__device__ __forceinline__ long long row_stat(const Params& p, int b, int h,
+                                              int t) {
+  return ((long long)b * p.H + h) * p.SQ + t;
+}
+
+// stage `rows` rows of a [.., D] operand starting at row r0 into shared
+// memory rows of length LD (16-byte loads; rows >= limit are zero)
+template <typename T, int D, int LD>
+__device__ __forceinline__ void stage_rows(T (*dst)[LD], const T* base,
+                                           long long row_stride, int r0,
+                                           int rows, int limit) {
+  constexpr int VE = 16 / sizeof(T);
+  for (int i = threadIdx.x; i < rows * (D / VE); i += kThreads) {
+    const int r = i / (D / VE), c = (i % (D / VE)) * VE;
+    const int row = r0 + r;
+    Vec<T, VE> x = zero_vec<T, VE>();
+    if (row < limit) x = load_vec<T, VE>(base + row * row_stride + c);
+    *reinterpret_cast<Vec<T, VE>*>(&dst[r][c]) = x;
+  }
+}
+
+// ------------------------------------------------- forward, tensor cores
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) fwd_mma_kernel(const Params p) {
+  constexpr int BQ = 16 * kWarps, BK = 64;
+  constexpr int KS = D / 16, NS = BK / 8, NO = D / 8, LD = D + kPad;
+  __shared__ __align__(16) T k_s[BK][LD];
+  __shared__ __align__(16) T v_s[BK][LD];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
+  const int kend = key_end(p, min(q0 + BQ, p.SQ) - 1);
+  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+
+  // this lane's query rows: t0 = g and t1 = g + 8 of the warp's 16
+  const int t0 = q0 + warp * 16 + g, t1 = t0 + 8;
+  uint32_t qa[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int c = kk * 16 + 2 * tq;
+    qa[kk][0] = t0 < p.SQ ? u32(qp + t0 * p.q_ss + c) : 0u;
+    qa[kk][1] = t1 < p.SQ ? u32(qp + t1 * p.q_ss + c) : 0u;
+    qa[kk][2] = t0 < p.SQ ? u32(qp + t0 * p.q_ss + c + 8) : 0u;
+    qa[kk][3] = t1 < p.SQ ? u32(qp + t1 * p.q_ss + c + 8) : 0u;
+  }
+  float o[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  for (int k0 = 0; k0 < kend; k0 += BK) {
+    __syncthreads();  // the previous tile is consumed
+    stage_rows<T, D, LD>(k_s, kp, p.k_ss, k0, BK, kend);
+    stage_rows<T, D, LD>(v_s, vp, p.v_ss, k0, BK, kend);
+    __syncthreads();
+
+    float s[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const T* kr = &k_s[n * 8 + g][kk * 16 + 2 * tq];
+        mma16816<T>(s[n], qa[kk], u32(kr), u32(kr + 8));
+      }
+    }
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + n * 8 + 2 * tq + (c & 1);
+        s[n][c] = visible(p, c < 2 ? t0 : t1, key) ? s[n][c] * p.scale
+                                                    : -INFINITY;
+        mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
+      }
+    float m_safe[2], alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+      const float m_next = fmaxf(m[r], mx[r]);
+      // a row that has seen no key keeps m = -inf: subtract 0 instead
+      m_safe[r] = m_next == -INFINITY ? 0.f : m_next;
+      alpha[r] = expf(m[r] - m_safe[r]);
+      l[r] *= alpha[r];
+      m[r] = m_next;
+    }
+#pragma unroll
+    for (int n = 0; n < NO; ++n) {
+      o[n][0] *= alpha[0];
+      o[n][1] *= alpha[0];
+      o[n][2] *= alpha[1];
+      o[n][3] *= alpha[1];
+    }
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        s[n][c] = expf(s[n][c] - m_safe[c >> 1]);
+        l[c >> 1] += s[n][c];
+      }
+    // O += P V; P's A fragments are S n-tiles 2j and 2j + 1
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      const uint32_t pa[4] = {
+          pack_floats<T>(s[2 * j][0], s[2 * j][1]),
+          pack_floats<T>(s[2 * j][2], s[2 * j][3]),
+          pack_floats<T>(s[2 * j + 1][0], s[2 * j + 1][1]),
+          pack_floats<T>(s[2 * j + 1][2], s[2 * j + 1][3])};
+      const int kr = j * 16 + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int d = n * 8 + g;
+        mma16816<T>(o[n], pa, pack_elems<T>(v_s[kr][d], v_s[kr + 1][d]),
+                    pack_elems<T>(v_s[kr + 8][d], v_s[kr + 9][d]));
+      }
+    }
+  }
+
+  T* op = static_cast<T*>(p.out);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(kFull, l[r], 1);
+    l[r] += __shfl_xor_sync(kFull, l[r], 2);
+    const int t = r == 0 ? t0 : t1;
+    if (t < p.SQ) {
+      const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
+      T* row = op + (((long long)b * p.SQ + t) * p.H + h) * D;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * tq) =
+            pack_floats<T>(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      if (tq == 0)
+        p.lse_out[row_stat(p, b, h, t)] =
+            l[r] == 0.f ? -INFINITY : m[r] + logf(l[r]);
+    }
+  }
+}
+
+// ------------------------------------------------------ dq, tensor cores
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Params p) {
+  constexpr int BQ = 16 * kWarps, BK = 32;
+  constexpr int KS = D / 16, NS = BK / 8, NO = D / 8, LD = D + kPad;
+  __shared__ __align__(16) T k_s[BK][LD];
+  __shared__ __align__(16) T v_s[BK][LD];
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
+  const int kend = key_end(p, min(q0 + BQ, p.SQ) - 1);
+  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+
+  const int t0 = q0 + warp * 16 + g, t1 = t0 + 8;
+  uint32_t qa[KS][4], da[KS][4];
+#pragma unroll
+  for (int kk = 0; kk < KS; ++kk) {
+    const int c = kk * 16 + 2 * tq;
+    qa[kk][0] = t0 < p.SQ ? u32(qp + t0 * p.q_ss + c) : 0u;
+    qa[kk][1] = t1 < p.SQ ? u32(qp + t1 * p.q_ss + c) : 0u;
+    qa[kk][2] = t0 < p.SQ ? u32(qp + t0 * p.q_ss + c + 8) : 0u;
+    qa[kk][3] = t1 < p.SQ ? u32(qp + t1 * p.q_ss + c + 8) : 0u;
+    da[kk][0] = t0 < p.SQ ? u32(dop + t0 * p.do_ss + c) : 0u;
+    da[kk][1] = t1 < p.SQ ? u32(dop + t1 * p.do_ss + c) : 0u;
+    da[kk][2] = t0 < p.SQ ? u32(dop + t0 * p.do_ss + c + 8) : 0u;
+    da[kk][3] = t1 < p.SQ ? u32(dop + t1 * p.do_ss + c + 8) : 0u;
+  }
+  float lse_r[2], dl_r[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = r == 0 ? t0 : t1;
+    lse_r[r] = dl_r[r] = 0.f;
+    if (t < p.SQ) {
+      const float x = p.lse[row_stat(p, b, h, t)];
+      lse_r[r] = x == -INFINITY ? 0.f : x;  // lse_safe
+      dl_r[r] = p.delta[row_stat(p, b, h, t)];
+    }
+  }
+  float acc[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+
+  for (int k0 = 0; k0 < kend; k0 += BK) {
+    __syncthreads();
+    stage_rows<T, D, LD>(k_s, kp, p.k_ss, k0, BK, kend);
+    stage_rows<T, D, LD>(v_s, vp, p.v_ss, k0, BK, kend);
+    __syncthreads();
+
+    // S = Q K^T and dP = dO V^T for 16 queries x 32 keys
+    float s[NS][4], dp[NS][4];
+#pragma unroll
+    for (int n = 0; n < NS; ++n) {
+      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const T* kr = &k_s[n * 8 + g][kk * 16 + 2 * tq];
+        const T* vr = &v_s[n * 8 + g][kk * 16 + 2 * tq];
+        mma16816<T>(s[n], qa[kk], u32(kr), u32(kr + 8));
+        mma16816<T>(dp[n], da[kk], u32(vr), u32(vr + 8));
+      }
+    }
+    // dS = P (dP - delta), P = exp(s * scale - lse)
+#pragma unroll
+    for (int n = 0; n < NS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int key = k0 + n * 8 + 2 * tq + (c & 1), r = c >> 1;
+        const float pr = visible(p, r == 0 ? t0 : t1, key)
+                             ? expf(s[n][c] * p.scale - lse_r[r])
+                             : 0.f;
+        s[n][c] = pr * (dp[n][c] - dl_r[r]);
+      }
+    // dQ += dS K
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      const uint32_t pa[4] = {
+          pack_floats<T>(s[2 * j][0], s[2 * j][1]),
+          pack_floats<T>(s[2 * j][2], s[2 * j][3]),
+          pack_floats<T>(s[2 * j + 1][0], s[2 * j + 1][1]),
+          pack_floats<T>(s[2 * j + 1][2], s[2 * j + 1][3])};
+      const int kr = j * 16 + 2 * tq;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int d = n * 8 + g;
+        mma16816<T>(acc[n], pa, pack_elems<T>(k_s[kr][d], k_s[kr + 1][d]),
+                    pack_elems<T>(k_s[kr + 8][d], k_s[kr + 9][d]));
+      }
+    }
+  }
+
+  T* dqp = static_cast<T*>(p.dq);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int t = r == 0 ? t0 : t1;
+    if (t < p.SQ) {
+      T* row = dqp + (((long long)b * p.SQ + t) * p.H + h) * D;
+#pragma unroll
+      for (int n = 0; n < NO; ++n)
+        *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * tq) = pack_floats<T>(
+            acc[n][2 * r] * p.scale, acc[n][2 * r + 1] * p.scale);
+    }
+  }
+}
+
+// ----------------------------------------------------- dkv, tensor cores
+constexpr int kDkvKeys = 16 * kWarps;  // keys per block
+constexpr int kDkvQ = 32;              // queries per tile
+
+template <typename T, int D>
+constexpr size_t dkv_mma_smem() {
+  return (size_t)(2 * kDkvKeys + 2 * kDkvQ) * (D + kPad) * sizeof(T) +
+         2 * kDkvQ * sizeof(float);
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(kThreads) dkv_mma_kernel(const Params p) {
+  constexpr int BKEY = kDkvKeys, BQ = kDkvQ;
+  constexpr int KS = D / 16, NQ = BQ / 8, NO = D / 8, LD = D + kPad;
+  extern __shared__ __align__(16) unsigned char smem[];
+  T(*k_s)[LD] = reinterpret_cast<T(*)[LD]>(smem);
+  T(*v_s)[LD] = k_s + BKEY;
+  T(*q_s)[LD] = v_s + BKEY;
+  T(*do_s)[LD] = q_s + BQ;
+  float* lse_s = reinterpret_cast<float*>(do_s + BQ);
+  float* dl_s = lse_s + BQ;
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int b = blockIdx.x / p.KVH, kvh = blockIdx.x % p.KVH;
+  const int rep = p.H / p.KVH;
+  const int k0 = blockIdx.y * BKEY;  // early keys (most queries) first
+  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  stage_rows<T, D, LD>(k_s, kp, p.k_ss, k0, BKEY, p.SK);
+  stage_rows<T, D, LD>(v_s, vp, p.v_ss, k0, BKEY, p.SK);
+
+  // this lane's key rows: w = warp * 16 + g and w + 8
+  const int w = warp * 16 + g;
+  const int key0 = k0 + w, key1 = key0 + 8;
+  float dk[NO][4], dv[NO][4];
+#pragma unroll
+  for (int n = 0; n < NO; ++n)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
+  const int qb = query_begin(p, k0) / BQ * BQ;
+
+  for (int hh = 0; hh < rep; ++hh) {
+    const int h = kvh * rep + hh;
+    const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
+    for (int q0 = qb; q0 < p.SQ; q0 += BQ) {
+      __syncthreads();  // the previous tile is consumed (K/V are staged)
+      stage_rows<T, D, LD>(q_s, qp, p.q_ss, q0, BQ, p.SQ);
+      stage_rows<T, D, LD>(do_s, dop, p.do_ss, q0, BQ, p.SQ);
+      for (int i = threadIdx.x; i < BQ; i += kThreads) {
+        const int t = q0 + i;
+        float x = 0.f, dl = 0.f;
+        if (t < p.SQ) {
+          x = p.lse[row_stat(p, b, h, t)];
+          x = x == -INFINITY ? 0.f : x;
+          dl = p.delta[row_stat(p, b, h, t)];
+        }
+        lse_s[i] = x;
+        dl_s[i] = dl;
+      }
+      __syncthreads();
+
+      // S^T = K Q^T and dP^T = V dO^T for 16 keys x 32 queries
+      float st[NQ][4], dpt[NQ][4];
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) st[n][c] = dpt[n][c] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        const T* kr = &k_s[w][kk * 16 + 2 * tq];
+        const T* vr = &v_s[w][kk * 16 + 2 * tq];
+        const uint32_t ka[4] = {u32(kr), u32(kr + 8 * LD), u32(kr + 8),
+                                u32(kr + 8 * LD + 8)};
+        const uint32_t va[4] = {u32(vr), u32(vr + 8 * LD), u32(vr + 8),
+                                u32(vr + 8 * LD + 8)};
+#pragma unroll
+        for (int n = 0; n < NQ; ++n) {
+          const T* qr = &q_s[n * 8 + g][kk * 16 + 2 * tq];
+          const T* dr = &do_s[n * 8 + g][kk * 16 + 2 * tq];
+          mma16816<T>(st[n], ka, u32(qr), u32(qr + 8));
+          mma16816<T>(dpt[n], va, u32(dr), u32(dr + 8));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < NQ; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int qi = n * 8 + 2 * tq + (c & 1);
+          const float pt = visible(p, q0 + qi, c < 2 ? key0 : key1)
+                               ? expf(st[n][c] * p.scale - lse_s[qi])
+                               : 0.f;
+          dpt[n][c] = pt * (dpt[n][c] - dl_s[qi]);
+          st[n][c] = pt;
+        }
+      // dV += P^T dO and dK += dS^T Q (k = the tile's queries)
+#pragma unroll
+      for (int j = 0; j < BQ / 16; ++j) {
+        const uint32_t pa[4] = {
+            pack_floats<T>(st[2 * j][0], st[2 * j][1]),
+            pack_floats<T>(st[2 * j][2], st[2 * j][3]),
+            pack_floats<T>(st[2 * j + 1][0], st[2 * j + 1][1]),
+            pack_floats<T>(st[2 * j + 1][2], st[2 * j + 1][3])};
+        const uint32_t sa[4] = {
+            pack_floats<T>(dpt[2 * j][0], dpt[2 * j][1]),
+            pack_floats<T>(dpt[2 * j][2], dpt[2 * j][3]),
+            pack_floats<T>(dpt[2 * j + 1][0], dpt[2 * j + 1][1]),
+            pack_floats<T>(dpt[2 * j + 1][2], dpt[2 * j + 1][3])};
+        const int qr = j * 16 + 2 * tq;
+#pragma unroll
+        for (int n = 0; n < NO; ++n) {
+          const int d = n * 8 + g;
+          mma16816<T>(dv[n], pa,
+                      pack_elems<T>(do_s[qr][d], do_s[qr + 1][d]),
+                      pack_elems<T>(do_s[qr + 8][d], do_s[qr + 9][d]));
+          mma16816<T>(dk[n], sa, pack_elems<T>(q_s[qr][d], q_s[qr + 1][d]),
+                      pack_elems<T>(q_s[qr + 8][d], q_s[qr + 9][d]));
+        }
+      }
+    }
+  }
+
+  T* dkp = static_cast<T*>(p.dk);
+  T* dvp = static_cast<T*>(p.dv);
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int key = r == 0 ? key0 : key1;
+    if (key < p.SK) {
+      const long long off = (((long long)b * p.SK + key) * p.KVH + kvh) * D;
+#pragma unroll
+      for (int n = 0; n < NO; ++n) {
+        const int c = n * 8 + 2 * tq;
+        *reinterpret_cast<uint32_t*>(dkp + off + c) = pack_floats<T>(
+            dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dvp + off + c) =
+            pack_floats<T>(dv[n][2 * r], dv[n][2 * r + 1]);
+      }
+    }
+  }
+}
+
+// --------------------------------------------------- float32, FMA tiles
+constexpr int kFQ = 16;  // queries per tile
+constexpr int kFK = 32;  // keys per tile (one per lane)
+
+template <int D>
+__device__ __forceinline__ void stage_f32(float* dst, int ld,
+                                          const float* base,
+                                          long long row_stride, int r0,
+                                          int rows, int limit) {
+  for (int i = threadIdx.x; i < rows * (D / 4); i += kThreads) {
+    const int r = i / (D / 4), c = (i % (D / 4)) * 4;
+    const int row = r0 + r;
+    Vec<float, 4> x = zero_vec<float, 4>();
+    if (row < limit) x = load_vec<float, 4>(base + row * row_stride + c);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dst[r * ld + c + e] = x.v[e];
+  }
+}
+
+template <int D>
+constexpr size_t fwd_f32_smem() {
+  return sizeof(float) * (kFQ * D + kFK * (D + 1) + kFK * D + kFQ * kFK +
+                          3 * kFQ);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) fwd_f32_kernel(const Params p) {
+  constexpr int QPW = kFQ / kWarps, DPL = D / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);  // [kFQ][D], scaled
+  float* k_s = q_s + kFQ * D;                   // [kFK][D + 1]
+  float* v_s = k_s + kFK * (D + 1);             // [kFK][D]
+  float* p_s = v_s + kFK * D;                   // [kFQ][kFK]
+  float* m_s = p_s + kFQ * kFK;
+  float* l_s = m_s + kFQ;
+  float* alpha_s = l_s + kFQ;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFQ;
+  const int kend = key_end(p, min(q0 + kFQ, p.SQ) - 1);
+  const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* kp =
+      static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* vp =
+      static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+
+  stage_f32<D>(q_s, D, qp, p.q_ss, q0, kFQ, p.SQ);
+  for (int i = tid; i < kFQ; i += kThreads) {
+    m_s[i] = -INFINITY;
+    l_s[i] = 0.f;
+  }
+  __syncthreads();
+  // the reference scales q before the product (flash_attention.py:97)
+  for (int i = tid; i < kFQ * D; i += kThreads) q_s[i] *= p.scale;
+  float acc[QPW][DPL];
+#pragma unroll
+  for (int i = 0; i < QPW; ++i)
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[i][e] = 0.f;
+
+  for (int k0 = 0; k0 < kend; k0 += kFK) {
+    __syncthreads();
+    stage_f32<D>(k_s, D + 1, kp, p.k_ss, k0, kFK, kend);
+    stage_f32<D>(v_s, D, vp, p.v_ss, k0, kFK, kend);
+    __syncthreads();
+    {
+      float dot[QPW];
+#pragma unroll
+      for (int i = 0; i < QPW; ++i) dot[i] = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) {
+        const float kx = k_s[lane * (D + 1) + d];
+#pragma unroll
+        for (int i = 0; i < QPW; ++i)
+          dot[i] = fmaf(q_s[(warp + kWarps * i) * D + d], kx, dot[i]);
+      }
+#pragma unroll
+      for (int i = 0; i < QPW; ++i) {
+        const int qi = warp + kWarps * i;
+        p_s[qi * kFK + lane] =
+            visible(p, q0 + qi, k0 + lane) ? dot[i] : -INFINITY;
+      }
+    }
+    __syncthreads();
+    for (int qi = warp; qi < kFQ; qi += kWarps) {
+      const float s = p_s[qi * kFK + lane];
+      float mx = s;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+      const float m_prev = m_s[qi];
+      const float m_next = fmaxf(m_prev, mx);
+      const float m_safe = m_next == -INFINITY ? 0.f : m_next;
+      const float pr = expf(s - m_safe);
+      float sum = pr;
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(kFull, sum, off);
+      p_s[qi * kFK + lane] = pr;
+      __syncwarp();
+      if (lane == 0) {
+        const float alpha = expf(m_prev - m_safe);
+        l_s[qi] = alpha * l_s[qi] + sum;
+        m_s[qi] = m_next;
+        alpha_s[qi] = alpha;
+      }
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < QPW; ++i) {
+      const float alpha = alpha_s[warp + kWarps * i];
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[i][e] *= alpha;
+    }
+#pragma unroll 4
+    for (int r = 0; r < kFK; ++r) {
+      float vx[DPL];
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) vx[e] = v_s[r * D + lane + 32 * e];
+#pragma unroll
+      for (int i = 0; i < QPW; ++i) {
+        const float pr = p_s[(warp + kWarps * i) * kFK + r];
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[i][e] = fmaf(pr, vx[e], acc[i][e]);
+      }
+    }
+  }
+  __syncthreads();
+
+  float* op = static_cast<float*>(p.out);
+#pragma unroll
+  for (int i = 0; i < QPW; ++i) {
+    const int qi = warp + kWarps * i, t = q0 + qi;
+    if (t < p.SQ) {
+      const float l = l_s[qi];
+      const float inv = 1.f / (l == 0.f ? 1.f : l);
+#pragma unroll
+      for (int e = 0; e < DPL; ++e)
+        op[(((long long)b * p.SQ + t) * p.H + h) * D + lane + 32 * e] =
+            acc[i][e] * inv;
+      if (lane == 0)
+        p.lse_out[row_stat(p, b, h, t)] =
+            l == 0.f ? -INFINITY : m_s[qi] + logf(l);
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dq_f32_smem() {
+  return sizeof(float) *
+         (2 * kFQ * D + 2 * kFK * (D + 1) + kFQ * kFK + 2 * kFQ);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) dq_f32_kernel(const Params p) {
+  constexpr int QPW = kFQ / kWarps, DPL = D / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* q_s = reinterpret_cast<float*>(smem);  // [kFQ][D]
+  float* do_s = q_s + kFQ * D;                  // [kFQ][D]
+  float* k_s = do_s + kFQ * D;                  // [kFK][D + 1]
+  float* v_s = k_s + kFK * (D + 1);             // [kFK][D + 1]
+  float* ds_s = v_s + kFK * (D + 1);            // [kFQ][kFK]
+  float* lse_s = ds_s + kFQ * kFK;
+  float* dl_s = lse_s + kFQ;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
+  const int kvh = h / (p.H / p.KVH);
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * kFQ;
+  const int kend = key_end(p, min(q0 + kFQ, p.SQ) - 1);
+  const float* qp = static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+  const float* dop =
+      static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+  const float* kp =
+      static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* vp =
+      static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+
+  stage_f32<D>(q_s, D, qp, p.q_ss, q0, kFQ, p.SQ);
+  stage_f32<D>(do_s, D, dop, p.do_ss, q0, kFQ, p.SQ);
+  for (int i = tid; i < kFQ; i += kThreads) {
+    const int t = q0 + i;
+    float x = 0.f, dl = 0.f;
+    if (t < p.SQ) {
+      x = p.lse[row_stat(p, b, h, t)];
+      x = x == -INFINITY ? 0.f : x;
+      dl = p.delta[row_stat(p, b, h, t)];
+    }
+    lse_s[i] = x;
+    dl_s[i] = dl;
+  }
+  float acc[QPW][DPL];
+#pragma unroll
+  for (int i = 0; i < QPW; ++i)
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) acc[i][e] = 0.f;
+
+  for (int k0 = 0; k0 < kend; k0 += kFK) {
+    __syncthreads();
+    stage_f32<D>(k_s, D + 1, kp, p.k_ss, k0, kFK, kend);
+    stage_f32<D>(v_s, D + 1, vp, p.v_ss, k0, kFK, kend);
+    __syncthreads();
+    {
+      float ds[QPW], dp[QPW];
+#pragma unroll
+      for (int i = 0; i < QPW; ++i) ds[i] = dp[i] = 0.f;
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) {
+        const float kx = k_s[lane * (D + 1) + d];
+        const float vx = v_s[lane * (D + 1) + d];
+#pragma unroll
+        for (int i = 0; i < QPW; ++i) {
+          const int qi = warp + kWarps * i;
+          ds[i] = fmaf(q_s[qi * D + d], kx, ds[i]);
+          dp[i] = fmaf(do_s[qi * D + d], vx, dp[i]);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < QPW; ++i) {
+        const int qi = warp + kWarps * i;
+        const float pr = visible(p, q0 + qi, k0 + lane)
+                             ? expf(ds[i] * p.scale - lse_s[qi])
+                             : 0.f;
+        ds_s[qi * kFK + lane] = pr * (dp[i] - dl_s[qi]);
+      }
+    }
+    __syncthreads();
+#pragma unroll 4
+    for (int r = 0; r < kFK; ++r) {
+      float kx[DPL];
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) kx[e] = k_s[r * (D + 1) + lane + 32 * e];
+#pragma unroll
+      for (int i = 0; i < QPW; ++i) {
+        const float dsr = ds_s[(warp + kWarps * i) * kFK + r];
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) acc[i][e] = fmaf(dsr, kx[e], acc[i][e]);
+      }
+    }
+  }
+
+  float* dqp = static_cast<float*>(p.dq);
+#pragma unroll
+  for (int i = 0; i < QPW; ++i) {
+    const int t = q0 + warp + kWarps * i;
+    if (t < p.SQ) {
+#pragma unroll
+      for (int e = 0; e < DPL; ++e)
+        dqp[(((long long)b * p.SQ + t) * p.H + h) * D + lane + 32 * e] =
+            acc[i][e] * p.scale;
+    }
+  }
+}
+
+template <int D>
+constexpr size_t dkv_f32_smem() {
+  return sizeof(float) *
+         (2 * kFK * (D + 1) + 2 * kFQ * D + 2 * kFQ * kFK + 2 * kFQ);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads) dkv_f32_kernel(const Params p) {
+  constexpr int QPW = kFQ / kWarps, KPW = kFK / kWarps, DPL = D / 32;
+  extern __shared__ __align__(16) unsigned char smem[];
+  float* k_s = reinterpret_cast<float*>(smem);  // [kFK][D + 1]
+  float* v_s = k_s + kFK * (D + 1);             // [kFK][D + 1]
+  float* q_s = v_s + kFK * (D + 1);             // [kFQ][D]
+  float* do_s = q_s + kFQ * D;                  // [kFQ][D]
+  float* p_s = do_s + kFQ * D;                  // [kFQ][kFK]
+  float* ds_s = p_s + kFQ * kFK;                // [kFQ][kFK]
+  float* lse_s = ds_s + kFQ * kFK;
+  float* dl_s = lse_s + kFQ;
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int b = blockIdx.x / p.KVH, kvh = blockIdx.x % p.KVH;
+  const int rep = p.H / p.KVH;
+  const int k0 = blockIdx.y * kFK;
+  const float* kp =
+      static_cast<const float*>(p.k) + b * p.k_sb + kvh * p.k_sh;
+  const float* vp =
+      static_cast<const float*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  stage_f32<D>(k_s, D + 1, kp, p.k_ss, k0, kFK, p.SK);
+  stage_f32<D>(v_s, D + 1, vp, p.v_ss, k0, kFK, p.SK);
+
+  // accumulators: keys warp + kWarps * i, columns lane + 32 * e
+  float dk[KPW][DPL], dv[KPW][DPL];
+#pragma unroll
+  for (int i = 0; i < KPW; ++i)
+#pragma unroll
+    for (int e = 0; e < DPL; ++e) dk[i][e] = dv[i][e] = 0.f;
+  const int qb = query_begin(p, k0) / kFQ * kFQ;
+
+  for (int hh = 0; hh < rep; ++hh) {
+    const int h = kvh * rep + hh;
+    const float* qp =
+        static_cast<const float*>(p.q) + b * p.q_sb + h * p.q_sh;
+    const float* dop =
+        static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
+    for (int q0 = qb; q0 < p.SQ; q0 += kFQ) {
+      __syncthreads();
+      stage_f32<D>(q_s, D, qp, p.q_ss, q0, kFQ, p.SQ);
+      stage_f32<D>(do_s, D, dop, p.do_ss, q0, kFQ, p.SQ);
+      for (int i = tid; i < kFQ; i += kThreads) {
+        const int t = q0 + i;
+        float x = 0.f, dl = 0.f;
+        if (t < p.SQ) {
+          x = p.lse[row_stat(p, b, h, t)];
+          x = x == -INFINITY ? 0.f : x;
+          dl = p.delta[row_stat(p, b, h, t)];
+        }
+        lse_s[i] = x;
+        dl_s[i] = dl;
+      }
+      __syncthreads();
+      {
+        float s[QPW], dp[QPW];
+#pragma unroll
+        for (int i = 0; i < QPW; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll 8
+        for (int d = 0; d < D; ++d) {
+          const float kx = k_s[lane * (D + 1) + d];
+          const float vx = v_s[lane * (D + 1) + d];
+#pragma unroll
+          for (int i = 0; i < QPW; ++i) {
+            const int qi = warp + kWarps * i;
+            s[i] = fmaf(q_s[qi * D + d], kx, s[i]);
+            dp[i] = fmaf(do_s[qi * D + d], vx, dp[i]);
+          }
+        }
+#pragma unroll
+        for (int i = 0; i < QPW; ++i) {
+          const int qi = warp + kWarps * i;
+          const float pt = visible(p, q0 + qi, k0 + lane)
+                               ? expf(s[i] * p.scale - lse_s[qi])
+                               : 0.f;
+          p_s[qi * kFK + lane] = pt;
+          ds_s[qi * kFK + lane] = pt * (dp[i] - dl_s[qi]);
+        }
+      }
+      __syncthreads();
+      for (int qi = 0; qi < kFQ; ++qi) {
+        float qx[DPL], dx[DPL];
+#pragma unroll
+        for (int e = 0; e < DPL; ++e) {
+          qx[e] = q_s[qi * D + lane + 32 * e];
+          dx[e] = do_s[qi * D + lane + 32 * e];
+        }
+#pragma unroll
+        for (int i = 0; i < KPW; ++i) {
+          const int kj = warp + kWarps * i;
+          const float pt = p_s[qi * kFK + kj], dst = ds_s[qi * kFK + kj];
+#pragma unroll
+          for (int e = 0; e < DPL; ++e) {
+            dv[i][e] = fmaf(pt, dx[e], dv[i][e]);
+            dk[i][e] = fmaf(dst, qx[e], dk[i][e]);
+          }
+        }
+      }
+    }
+  }
+
+  float* dkp = static_cast<float*>(p.dk);
+  float* dvp = static_cast<float*>(p.dv);
+#pragma unroll
+  for (int i = 0; i < KPW; ++i) {
+    const int key = k0 + warp + kWarps * i;
+    if (key < p.SK) {
+      const long long off = (((long long)b * p.SK + key) * p.KVH + kvh) * D;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) {
+        dkp[off + lane + 32 * e] = dk[i][e] * p.scale;
+        dvp[off + lane + 32 * e] = dv[i][e];
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------- launches
+template <typename Kernel>
+cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s,
+                   const Params& p) {
+  if (smem > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  kernel<<<grid, dim3(kThreads), smem, s>>>(p);
+  return cudaGetLastError();
+}
+
+enum Which { kFwd, kDq, kDkv };
+
+template <typename T, int D>
+cudaError_t launch_d(Which which, const Params& p, cudaStream_t s) {
+  const dim3 by_q(p.B * p.H, (p.SQ + 16 * kWarps - 1) / (16 * kWarps));
+  if constexpr (sizeof(T) == 2) {
+    switch (which) {
+      case kFwd: return launch(fwd_mma_kernel<T, D>, by_q, 0, s, p);
+      case kDq: return launch(dq_mma_kernel<T, D>, by_q, 0, s, p);
+      case kDkv:
+        return launch(dkv_mma_kernel<T, D>,
+                      dim3(p.B * p.KVH, (p.SK + kDkvKeys - 1) / kDkvKeys),
+                      dkv_mma_smem<T, D>(), s, p);
+    }
+  } else {
+    const dim3 by_fq(p.B * p.H, (p.SQ + kFQ - 1) / kFQ);
+    switch (which) {
+      case kFwd: return launch(fwd_f32_kernel<D>, by_fq, fwd_f32_smem<D>(),
+                               s, p);
+      case kDq: return launch(dq_f32_kernel<D>, by_fq, dq_f32_smem<D>(),
+                              s, p);
+      case kDkv:
+        return launch(dkv_f32_kernel<D>,
+                      dim3(p.B * p.KVH, (p.SK + kFK - 1) / kFK),
+                      dkv_f32_smem<D>(), s, p);
+    }
+  }
+  return cudaErrorInvalidValue;
+}
+
+template <typename T>
+cudaError_t launch_t(Which which, const Params& p, int head_dim,
+                     cudaStream_t s) {
+  switch (head_dim) {
+    case 64: return launch_d<T, 64>(which, p, s);
+    case 128: return launch_d<T, 128>(which, p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int run(Which which, Params& p, int dtype, int head_dim, void* stream) {
+  if (p.B <= 0 || p.H <= 0) return cudaSuccess;
+  if (p.KVH <= 0 || p.H % p.KVH != 0) return cudaErrorInvalidValue;
+  if (which == kDkv ? p.SK <= 0 : p.SQ <= 0) return cudaSuccess;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (dtype) {
+    case 0: return launch_t<float>(which, p, head_dim, s);
+    case 1: return launch_t<__half>(which, p, head_dim, s);
+    case 2: return launch_t<__nv_bfloat16>(which, p, head_dim, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+Params make_params(const void* q, const void* k, const void* v, int B,
+                   int SQ, int SK, int H, int KVH, long long q_sb,
+                   long long q_ss, long long q_sh, long long k_sb,
+                   long long k_ss, long long k_sh, long long v_sb,
+                   long long v_ss, long long v_sh, float scale, int causal) {
+  Params p = {};
+  p.q = q;
+  p.k = k;
+  p.v = v;
+  p.B = B;
+  p.H = H;
+  p.KVH = KVH;
+  p.SQ = SQ;
+  p.SK = SK;
+  p.q_sb = q_sb;
+  p.q_ss = q_ss;
+  p.q_sh = q_sh;
+  p.k_sb = k_sb;
+  p.k_ss = k_ss;
+  p.k_sh = k_sh;
+  p.v_sb = v_sb;
+  p.v_ss = v_ss;
+  p.v_sh = v_sh;
+  p.scale = scale;
+  p.causal = causal;
+  return p;
+}
+
+}  // namespace
+
+// dtype: 0 float32, 1 float16, 2 bfloat16.  Each entry returns the
+// cudaError_t of its launch (0 on success); the Python wrapper raises on
+// anything else.
+extern "C" int flash_attention_fwd(
+    const void* q, const void* k, const void* v, void* out, float* lse,
+    int dtype, int batch, int sq, int sk, int heads, int kv_heads,
+    int head_dim, long long q_sb, long long q_ss, long long q_sh,
+    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+    long long v_ss, long long v_sh, float scale, int causal, void* stream) {
+  Params p = make_params(q, k, v, batch, sq, sk, heads, kv_heads, q_sb, q_ss,
+                         q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                         causal);
+  p.out = out;
+  p.lse_out = lse;
+  return run(kFwd, p, dtype, head_dim, stream);
+}
+
+extern "C" int flash_attention_bwd_dq(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, int dtype, int batch,
+    int sq, int sk, int heads, int kv_heads, int head_dim, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    long long do_sb, long long do_ss, long long do_sh, float scale,
+    int causal, void* stream) {
+  Params p = make_params(q, k, v, batch, sq, sk, heads, kv_heads, q_sb, q_ss,
+                         q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                         causal);
+  p.dout = dout;
+  p.lse = lse;
+  p.delta = delta;
+  p.do_sb = do_sb;
+  p.do_ss = do_ss;
+  p.do_sh = do_sh;
+  p.dq = dq;
+  return run(kDq, p, dtype, head_dim, stream);
+}
+
+extern "C" int flash_attention_bwd_dkv(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv, int dtype,
+    int batch, int sq, int sk, int heads, int kv_heads, int head_dim,
+    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+    long long v_sh, long long do_sb, long long do_ss, long long do_sh,
+    float scale, int causal, void* stream) {
+  Params p = make_params(q, k, v, batch, sq, sk, heads, kv_heads, q_sb, q_ss,
+                         q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
+                         causal);
+  p.dout = dout;
+  p.lse = lse;
+  p.delta = delta;
+  p.do_sb = do_sb;
+  p.do_ss = do_ss;
+  p.do_sh = do_sh;
+  p.dk = dk;
+  p.dv = dv;
+  return run(kDkv, p, dtype, head_dim, stream);
+}

@@ -56,12 +56,19 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
                      causal_tail: bool = True) -> torch.Tensor:
     """Launch the CUDA kernel on the current stream; returns a new
     ``[B, sq, H, D]`` tensor.  Raises on anything the kernel does not
-    take: tensors off the card, mixed devices or dtypes, a dtype other
-    than float32/float16/bfloat16, a head_dim other than 64/128, a last
-    dim that is not contiguous, or rows not on 16-byte boundaries.  q/k/v
-    are read in place through their strides (views from a fused QKV
-    projection are fine)."""
+    take: an input that requires grad while grad is enabled (the kernel
+    has no backward), tensors off the card, mixed devices or dtypes, a
+    dtype other than float32/float16/bfloat16, a head_dim other than
+    64/128, a last dim that is not contiguous, or rows not on 16-byte
+    boundaries.  q/k/v are read in place through their strides (views
+    from a fused QKV projection are fine)."""
     _check(q, k_cache, v_cache, seq_lens)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k_cache, v_cache)):
+        raise RuntimeError(
+            "decode_attention has no backward and would drop the gradient "
+            "of its inputs; call it under torch.no_grad() (training "
+            "attention goes through kernels.flash_attention)")
     dev = q.device
     if dev.type != "cuda":
         raise ValueError(f"decode_attention runs on CUDA tensors; got "

@@ -2,7 +2,8 @@ from .convert import state_dict_from_jax
 from .generation import generate
 from .gpt import (GPTBlock, GPTConfig, GPTForCausalLM, GPTModel, gpt3_6_7b,
                   gpt_small, gpt_tiny)
+from .trainer import GPTHybridTrainer
 
 __all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM",
-           "gpt_tiny", "gpt_small", "gpt3_6_7b", "generate",
-           "state_dict_from_jax"]
+           "GPTHybridTrainer", "gpt_tiny", "gpt_small", "gpt3_6_7b",
+           "generate", "state_dict_from_jax"]

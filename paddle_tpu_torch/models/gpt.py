@@ -6,11 +6,12 @@ tied output head, and the functional KV-cache decode step the serving
 engine drives.  Parameter names and layouts are the reference's, so a
 JAX ``state_dict`` loads key for key (``models/convert.py``).
 
-Every attention — the cached decode/prefill path and the uncached
-forward — goes through ``kernels.decode_attention_auto``: the CUDA
-kernel on the card, its plain PyTorch version on the CPU.  The uncached
-forward is the cache-free special case (keys = the chunk itself,
-``seq_len = s`` with the causal tail), i.e. plain causal attention.
+The cached decode/prefill path's attention goes through
+``kernels.decode_attention_auto``; the uncached (training) forward goes
+through ``nn.functional.scaled_dot_product_attention``, the flash kernels'
+``autograd.Function``, so gradients reach every projection.  Each is the
+CUDA kernel on the card and its plain PyTorch version on the CPU.
+``GPTForCausalLM.loss`` is the mean of ``parallel_cross_entropy``.
 """
 
 from __future__ import annotations
@@ -23,10 +24,11 @@ from torch import nn
 
 from ..device import resolve_device, resolve_dtype
 from ..distributed.meta_parallel.mp_layers import (
-    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding)
+    ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
+    parallel_cross_entropy)
 from ..kernels.decode_attention import decode_attention_auto
 from ..kernels.decode_block import decode_block_layer, fusion_legal
-from ..nn.functional import gelu
+from ..nn.functional import gelu, scaled_dot_product_attention
 from ..nn.layers import Dropout, LayerList, LayerNorm
 from .kv_cache import append_kv, cache_lens
 
@@ -96,23 +98,21 @@ class GPTBlock(nn.Module):
         b, s, h = x.shape
         if self.training and cfg.attn_dropout:
             raise NotImplementedError(
-                "attention dropout is not supported by the decode-attention "
-                "path; set attn_dropout=0 or call .eval()")
+                "attention dropout is not supported by the port's attention "
+                "kernels; set attn_dropout=0 or call .eval()")
         qkv = self.qkv(x).view(b, s, 3, cfg.num_heads, cfg.head_dim)
         q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
-        new_cache = None
-        if cache is not None:
-            pk, pv, pos = cache
-            # pos: int (dense batch) or [b] per-row offsets (continuous
-            # batching); seq_lens = pos + s with the causal tail gives
-            # query t of the chunk the keys up to pos + t
-            k, v = append_kv(pk, pv, k, v, pos)
-            new_cache = (k, v, pos + s)
-            lens = cache_lens(pos, s, b, device=x.device)
-        else:
-            lens = cache_lens(0, s, b, device=x.device)
-        out = decode_attention_auto(q, k, v, lens)
-        return self.out_proj(out.reshape(b, s, h)), new_cache
+        if cache is None:
+            out = scaled_dot_product_attention(q, k, v, is_causal=True)
+            return self.out_proj(out.reshape(b, s, h)), None
+        pk, pv, pos = cache
+        # pos: int (dense batch) or [b] per-row offsets (continuous
+        # batching); seq_lens = pos + s with the causal tail gives query t
+        # of the chunk the keys up to pos + t
+        k, v = append_kv(pk, pv, k, v, pos)
+        out = decode_attention_auto(q, k, v,
+                                    cache_lens(pos, s, b, device=x.device))
+        return self.out_proj(out.reshape(b, s, h)), (k, v, pos + s)
 
     def forward(self, x: torch.Tensor, cache: Optional[Cache] = None):
         a, new_cache = self._attn(self.ln_1(x), cache)
@@ -244,6 +244,12 @@ class GPTForCausalLM(nn.Module):
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
         return self.logits(self.gpt(input_ids))
+
+    def loss(self, input_ids: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+        """Causal LM loss, the mean over tokens of
+        ``parallel_cross_entropy`` (gpt.py:249-253)."""
+        return parallel_cross_entropy(self(input_ids), labels).mean()
 
     # ---- decode (cached path) ------------------------------------------
     def init_cache(self, batch: int, max_len: int,

@@ -1,0 +1,145 @@
+"""Optimizer base (counterpart of paddle_tpu/optimizer/optimizer.py).
+
+The reference's optimizers are pure ``update(grads, state, params)``
+rules over pytrees, with a stateful ``step()`` for eager scripts.  The
+port keeps the eager form only: an optimizer is bound to a module
+(``bind(layer)`` or ``parameters=``), its state lives in the optimizer,
+and ``step()`` updates the parameters in place from their ``.grad`` (or
+from a ``grads`` dict keyed like ``named_parameters()``).
+
+State names are the reference's: ``state["step"]`` (updates done),
+``state["slots"][name]`` (``moment1`` / ``moment2`` for Adam),
+``state["master"][name]`` (an f32 copy of a bf16/f16 parameter under
+``multi_precision``, else None).  The update order is the reference's
+(:105-125): the update runs on the master when there is one, with the
+gradient cast to f32, and the parameter is then cast back to its dtype.
+
+Not ported yet (ROADMAP queue 1): ``grad_clip`` and LR schedulers;
+constructing with either raises.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Tuple
+
+import torch
+from torch import nn
+
+__all__ = ["Optimizer"]
+
+
+class Optimizer:
+    """Base class.  Subclasses implement ``_init_slot(p)`` and
+    ``_update_param(g, p, slots, lr, step) -> new_p`` (f32 math, slots
+    updated in place), or override ``_apply`` for an in-place kernel."""
+
+    # L2 handling: classic optimizers add weight_decay * p to the
+    # gradient; AdamW decays decoupled from the update
+    _l2_mode = "l2"
+
+    def __init__(self, learning_rate=0.001, parameters=None,
+                 weight_decay=None, grad_clip=None,
+                 multi_precision: bool = False):
+        if grad_clip is not None:
+            raise NotImplementedError(
+                "grad_clip is not ported yet (ROADMAP queue 1); pass "
+                "grad_clip=None")
+        if isinstance(learning_rate, bool) or \
+                not isinstance(learning_rate, (int, float)):
+            raise NotImplementedError(
+                "LR schedulers are not ported yet (ROADMAP queue 1); pass "
+                "a float learning_rate")
+        self._lr = float(learning_rate)
+        self.weight_decay = (float(weight_decay)
+                             if isinstance(weight_decay, (int, float))
+                             else weight_decay)
+        self.multi_precision = multi_precision
+        self._params: Optional[List[Tuple[str, nn.Parameter]]] = None
+        self._state: Optional[dict] = None
+        if parameters is not None:
+            self.bind(parameters)
+
+    # ------------------------------------------------------------ binding
+    def bind(self, layer: nn.Module) -> "Optimizer":
+        """Bind to a module's parameters (names from ``named_parameters``).
+        Drops any state of an earlier binding."""
+        self._params = list(layer.named_parameters())
+        self._state = None
+        return self
+
+    def _bound(self) -> List[Tuple[str, nn.Parameter]]:
+        if self._params is None:
+            raise ValueError("Optimizer.step() needs bind(layer) or "
+                             "parameters= first")
+        return self._params
+
+    @property
+    def state(self) -> dict:
+        """``{"step": int, "slots": {name: {...}}, "master": {name:
+        Tensor or None}}``, created at the first ``step()``."""
+        if self._state is None:
+            self._state = self._init_state(self._bound())
+        return self._state
+
+    def _init_state(self, params) -> dict:
+        def master(p):
+            if self.multi_precision and p.dtype in (torch.float16,
+                                                    torch.bfloat16):
+                return p.detach().float().clone()
+            return None
+        return {"step": 0,
+                "slots": {n: self._init_slot(p) for n, p in params},
+                "master": {n: master(p) for n, p in params}}
+
+    # ------------------------------------------------------------ decay
+    def _decay_coef(self) -> float:
+        """The decay coefficient: a float, or an L2Decay-style object's
+        ``coeff``."""
+        wd = self.weight_decay
+        if wd is None:
+            return 0.0
+        if isinstance(wd, float):
+            return wd
+        return float(getattr(wd, "_coeff", getattr(wd, "coeff", 0.0)))
+
+    def _should_decay(self, name: str) -> bool:
+        return True
+
+    # ------------------------------------------------------------ update
+    @torch.no_grad()
+    def step(self, grads: Optional[Dict[str, torch.Tensor]] = None) -> None:
+        """One update of every bound parameter that has a gradient, in
+        place: ``grads[name]`` when a dict is given, else ``p.grad``."""
+        state = self.state
+        t = state["step"]
+        for name, p in self._bound():
+            g = p.grad if grads is None else grads.get(name)
+            if g is None:
+                continue
+            self._apply(name, p, g, state["slots"][name],
+                        state["master"][name], self._lr, t)
+        state["step"] = t + 1
+
+    def _apply(self, name, p, g, slots, master, lr, step) -> None:
+        compute_p = master if master is not None else p
+        g32 = g.float() if master is not None else g
+        l2 = self._decay_coef()
+        if l2 and self._l2_mode == "l2":
+            g32 = g32 + l2 * compute_p
+        new_p = self._update_param(g32, compute_p, slots, lr, step)
+        if l2 and self._l2_mode == "decoupled" and self._should_decay(name):
+            new_p = new_p.float() - lr * l2 * compute_p.float()
+        if master is not None:
+            master.copy_(new_p)
+        p.copy_(new_p)
+
+    def _init_slot(self, p) -> dict:
+        return {}
+
+    def _update_param(self, g, p, slots, lr, step):
+        raise NotImplementedError
+
+    def clear_grad(self) -> None:
+        """Drop the bound parameters' gradients."""
+        for _, p in self._bound():
+            p.grad = None

@@ -1,0 +1,203 @@
+"""Flash attention in the PyTorch port (paddle_tpu_torch/kernels/
+flash_attention.py) against the JAX package's Pallas kernels, run in
+interpret mode on the CPU, on identical numpy inputs.
+
+On CPU tensors each wrapper takes its plain version, so this holds the
+plain forward (out, lse), dq and dk/dv — the decomposition the CUDA
+kernels compute on the card — to ``_flash_fwd`` / ``_flash_bwd``, and the
+port's autograd path to ``jax.grad`` of ``flash_attention``.  Cases: causal
+with Sq = Sk, Sq < Sk, and Sq > Sk (rows that see no key: out 0, lse
+-inf, finite gradients).  Float32 throughout; atol 1e-5 (the two
+frameworks sum in different orders; the values are O(1)).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.kernels.flash_attention import (_flash_bwd, _flash_fwd,
+                                                flash_attention as
+                                                jax_flash_attention)
+from paddle_tpu.nn.functional.attention import \
+    sdpa_reference as jax_sdpa_reference
+from paddle_tpu_torch.kernels.flash_attention import (
+    flash_attention, flash_attention_bwd_dkv, flash_attention_bwd_dq,
+    flash_attention_fwd)
+from paddle_tpu_torch.nn.functional import (scaled_dot_product_attention,
+                                            sdpa_reference)
+
+ATOL = 1e-5
+B, H, D = 1, 2, 64
+BLOCK = 16
+CASES = {"sq_eq_sk": (32, 32), "sq_lt_sk": (16, 48), "sq_gt_sk": (48, 16)}
+
+
+def _to3(x):
+    """[B, S, H, D] -> the reference kernels' [B*H, S, D]."""
+    b, s, h, d = x.shape
+    return np.ascontiguousarray(x.transpose(0, 2, 1, 3).reshape(b * h, s, d))
+
+
+def _from3(x, b, h):
+    bh, s, d = x.shape
+    return np.asarray(x).reshape(b, h, s, d).transpose(0, 2, 1, 3)
+
+
+@pytest.fixture(scope="module", params=sorted(CASES))
+def case(request):
+    """One causal case through the JAX kernels (interpret mode): inputs,
+    (out, lse) of ``_flash_fwd`` and (dq, dk, dv) of ``_flash_bwd`` on the
+    same residuals and cotangent."""
+    sq, sk = CASES[request.param]
+    rs = np.random.RandomState(sq * 100 + sk)
+    q = rs.randn(B, sq, H, D).astype(np.float32)
+    k = rs.randn(B, sk, H, D).astype(np.float32)
+    v = rs.randn(B, sk, H, D).astype(np.float32)
+    g = rs.randn(B, sq, H, D).astype(np.float32)
+    scale = 1.0 / np.sqrt(D)
+    q3, k3, v3 = (jnp.asarray(_to3(x)) for x in (q, k, v))
+    out3, lse3 = _flash_fwd(q3, k3, v3, scale, True, BLOCK, BLOCK, True)
+    dq3, dk3, dv3 = _flash_bwd((q3, k3, v3, out3, lse3),
+                               jnp.asarray(_to3(g)), scale, True, BLOCK,
+                               BLOCK, True)
+    want = {"out": _from3(out3, B, H),
+            "lse": np.asarray(lse3).reshape(B, H, sq),
+            "dq": _from3(dq3, B, H), "dk": _from3(dk3, B, H),
+            "dv": _from3(dv3, B, H)}
+    return request.param, (q, k, v, g), want
+
+
+def _port_fwd_bwd(q, k, v, g):
+    tq, tk, tv, tg = (torch.as_tensor(x) for x in (q, k, v, g))
+    out, lse = flash_attention_fwd(tq, tk, tv, causal=True)
+    delta = (tg * out).sum(-1).transpose(1, 2)
+    dq = flash_attention_bwd_dq(tq, tk, tv, tg, lse, delta, causal=True)
+    dk, dv = flash_attention_bwd_dkv(tq, tk, tv, tg, lse, delta, causal=True)
+    return out, lse, dq, dk, dv
+
+
+def test_plain_forward_matches_pallas_interpret(case):
+    name, (q, k, v, g), want = case
+    out, lse, *_ = _port_fwd_bwd(q, k, v, g)
+    np.testing.assert_allclose(out.numpy(), want["out"], atol=ATOL)
+    np.testing.assert_array_equal(np.isinf(lse.numpy()),
+                                  np.isinf(want["lse"]))
+    np.testing.assert_allclose(lse.numpy(), want["lse"], atol=ATOL)
+    if name == "sq_gt_sk":
+        # the first Sq - Sk query rows see no key
+        blind = CASES[name][0] - CASES[name][1]
+        assert np.all(out.numpy()[:, :blind] == 0.0)
+        assert np.all(np.isneginf(lse.numpy()[:, :, :blind]))
+
+
+def test_plain_dq_dkv_match_pallas_interpret(case):
+    _, (q, k, v, g), want = case
+    _, _, dq, dk, dv = _port_fwd_bwd(q, k, v, g)
+    for got, key in ((dq, "dq"), (dk, "dk"), (dv, "dv")):
+        assert np.all(np.isfinite(got.numpy())), key
+        np.testing.assert_allclose(got.numpy(), want[key], atol=ATOL,
+                                   err_msg=key)
+
+
+def test_autograd_matches_jax_grad_gqa_rows_without_keys():
+    """The port's flash_attention autograd path against jax.grad of the
+    reference's flash_attention(interpret=True): grouped-query heads (4
+    query heads over 2 kv heads) and Sq > Sk (rows that see no key)."""
+    rs = np.random.RandomState(7)
+    sq, sk = 48, 32
+    q = rs.randn(1, sq, 4, D).astype(np.float32)
+    k = rs.randn(1, sk, 2, D).astype(np.float32)
+    v = rs.randn(1, sk, 2, D).astype(np.float32)
+    w = rs.randn(1, sq, 4, D).astype(np.float32)
+
+    def jloss(q, k, v):
+        out = jax_flash_attention(q, k, v, causal=True, block_q=BLOCK,
+                                  block_k=BLOCK, interpret=True)
+        return jnp.sum(out * w)
+    jval, jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+        *(jnp.asarray(x) for x in (q, k, v)))
+
+    tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
+    loss = (flash_attention(tq, tk, tv, causal=True) * torch.as_tensor(w)
+            ).sum()
+    loss.backward()
+    np.testing.assert_allclose(loss.item(), float(jval), rtol=1e-5)
+    for t, jg, name in zip((tq, tk, tv), jgrads, "qkv"):
+        assert t.grad.shape == t.shape
+        assert torch.isfinite(t.grad).all(), name
+        np.testing.assert_allclose(t.grad.numpy(), np.asarray(jg),
+                                   atol=ATOL, err_msg=f"d{name}")
+
+
+def test_sdpa_matches_jax_sdpa_reference():
+    """scaled_dot_product_attention (flash path) and the port's dense
+    sdpa_reference against the reference's sdpa_reference, causal with
+    Sq < Sk and grouped-query heads, where every row sees a key (the dense
+    form's f32-minimum mask then equals the flash kernels' -inf)."""
+    sq, sk, kh = 16, 48, 1
+    rs = np.random.RandomState(3)
+    q = rs.randn(2, sq, 2, D).astype(np.float32)
+    k = rs.randn(2, sk, kh, D).astype(np.float32)
+    v = rs.randn(2, sk, kh, D).astype(np.float32)
+    want = np.asarray(jax_sdpa_reference(
+        *(jnp.asarray(x) for x in (q, k, v)), is_causal=True))
+    args = [torch.as_tensor(x) for x in (q, k, v)]
+    np.testing.assert_allclose(
+        scaled_dot_product_attention(*args, is_causal=True).numpy(), want,
+        atol=ATOL)
+    np.testing.assert_allclose(
+        sdpa_reference(*args, is_causal=True).numpy(), want, atol=ATOL)
+
+
+def test_sdpa_refuses_mask_and_training_dropout():
+    x = torch.zeros(1, 4, 2, 64)
+    with pytest.raises(NotImplementedError, match="attn_mask"):
+        scaled_dot_product_attention(x, x, x,
+                                     attn_mask=torch.ones(4, 4).bool())
+    with pytest.raises(NotImplementedError, match="dropout"):
+        scaled_dot_product_attention(x, x, x, dropout_p=0.1)
+    # dropout outside training is a no-op, as in the reference
+    out = scaled_dot_product_attention(x, x, x, dropout_p=0.1,
+                                       training=False)
+    assert out.shape == x.shape
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_the_card():
+    """On a card: each of the three kernels against its plain version,
+    causal, Sq = Sk and Sq > Sk, GQA.  Max abs error over max(1, max
+    |plain|): f32 1e-5 (summation order), bf16 2e-2 (the output cast and
+    the 16-bit P and dS of the second products)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_dkv_reference, flash_attention_bwd_dq_reference,
+        flash_attention_fwd_reference)
+    rs = np.random.RandomState(0)
+    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
+        for sq, sk in ((128, 128), (192, 64)):
+            q, g = (torch.as_tensor(rs.randn(2, sq, 4, 128)).to("cuda", dtype)
+                    for _ in range(2))
+            k, v = (torch.as_tensor(rs.randn(2, sk, 2, 128)).to("cuda", dtype)
+                    for _ in range(2))
+            out, lse = flash_attention_fwd(q, k, v, causal=True)
+            ro, rl = flash_attention_fwd_reference(q, k, v, causal=True)
+            delta = (g.float() * out.float()).sum(-1).transpose(1, 2)
+            dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, causal=True)
+            rdq = flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                                   causal=True)
+            dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta,
+                                             causal=True)
+            rdk, rdv = flash_attention_bwd_dkv_reference(
+                q, k, v, g, lse, delta, causal=True)
+            torch.cuda.synchronize()
+            for got, want in ((out, ro), (lse, rl), (dq, rdq), (dk, rdk),
+                              (dv, rdv)):
+                finite = torch.isfinite(want)
+                assert torch.equal(torch.isfinite(got), finite)
+                got, want = got.float()[finite], want.float()[finite]
+                scale = max(1.0, want.abs().max().item())
+                assert (got - want).abs().max().item() <= rel * scale
