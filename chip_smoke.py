@@ -15,38 +15,52 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      PyTorch library call computing the same function (timed only as a
      yardstick): ``decode_attention``, then the decode-block pair
      (``decode_block_attn``, ``decode_block_mlp``, and
-     ``decode_block_layer``), timed beside the port's unfused layer;
+     ``decode_block_layer``), timed beside the port's unfused layer, then
+     the four fused-norm kernels (RMSNorm / LayerNorm forward and
+     backward) at the decode, prefill-chunk and train shapes;
   3. serving — ``ServingEngine`` over ``GPTForCausalLM(gpt3_6_7b())`` at
      full width (random bf16 weights drawn on the card from a seeded
      generator): 8 requests, prefix-cache hits, chunked prefill, greedy
      and seeded sampling, served twice on the same model: the unfused
      decode step, then ``fused_decode=True``.  Kernel launch counts are
      zeroed just before each run and read just after, and must cover
-     every layer of every prefill chunk and decode step;
+     every layer (and every norm) of every prefill chunk and decode step;
   4. parity — an f32 model of gpt_small width at 2 layers: the fused
      and unfused engines' greedy tokens equal ``generate``'s for 3
      requests;
-  5. train kernels — on an emptied card, the three flash-attention
+  5. Llama serving — the same over ``LlamaForCausalLM(llama_7b())`` at
+     full width and depth (Llama-2-7B, max_seq 4096): 8 requests of 128
+     to 3072 prompt tokens, unfused then ``fused_decode=True``;
+  6. Llama parity — an f32 GQA Llama (hidden 768, 12 heads over 4 kv
+     heads, 2 layers): engines == ``generate``, and two ``FusedAdamW``
+     train steps on the card and on the CPU agree;
+  7. train kernels — on an emptied card, the three flash-attention
      kernels (forward, dq, dk/dv) and fused AdamW against their plain
      versions over a sweep, then timed at the train path's shapes
      (q/k/v [2, 2048, 32, 128] bf16 causal; AdamW on one [4096, 16384]
      weight) beside the plain version, the bound and a library yardstick
      (SDPA forward / backward, ``torch.optim.AdamW(fused=True)``);
-  6. train — ``GPTHybridTrainer`` at every width of gpt3_6_7b with 12 of
+  8. train — ``GPTHybridTrainer`` at every width of gpt3_6_7b with 12 of
      its 32 layers, batch 2 x 2048, ``FusedAdamW(multi_precision=True)``,
      one repeated batch: 2 warm-up steps, then 6 steps with the counts
      zeroed just before and read just after (each flash kernel 12 x 6,
-     fused_adamw parameter tensors x 6); the loss falls, every parameter
-     gets a finite gradient and every qkv weight a nonzero one; one step
-     under torch.profiler;
-  7. train parity — an f32 model of gpt_small width at 2 layers: two
+     each LayerNorm kernel 25 x 6, fused_adamw parameter tensors x 6);
+     the loss falls, every parameter gets a finite gradient and every qkv
+     weight a nonzero one; one step under torch.profiler;
+  9. train parity — an f32 model of gpt_small width at 2 layers: two
      ``FusedAdamW`` train steps on the card and on the CPU (plain
-     versions) from the same weights agree.
+     versions) from the same weights agree;
+ 10. Llama train — ``LlamaForCausalLM(llama_7b())`` with 12 of its 32
+     layers, batch 1 x 4096: forward, ``loss``, backward, one
+     ``FusedAdamW(multi_precision=True)`` step; 2 warm-up and 6 counted
+     steps (each flash kernel 12, each RMSNorm kernel 25, fused_adamw 111
+     per step); the loss falls, gradients are finite and every RMSNorm
+     weight's is nonzero; one step under torch.profiler.
 
-The last lines are a JSON object describing every kernel, the card's
-``nvidia-smi`` name and power limit, and
-``{"ok": true, "device": {...}}``.  Needs one CUDA card; imports nothing
-of JAX.
+Each phase prints its peak device memory.  The last lines are a JSON
+object describing every kernel, the card's ``nvidia-smi`` name and power
+limit, and ``{"ok": true, "device": {...}}``.  Needs one CUDA card;
+imports nothing of JAX.
 """
 
 from __future__ import annotations
@@ -150,7 +164,7 @@ def sdpa_call(q, k_cache, v_cache, seq_lens, causal: bool = True):
 
 def phase_kernels(card: str):
     """Hold the kernel against its plain version over the sweep, then
-    time it at the serving path's two shapes.  Returns the kernel's
+    check and time it at the serving paths' shapes.  Returns the kernel's
     record (without launches) and the max abs error at those shapes."""
     import torch
     from paddle_tpu_torch.kernels.decode_attention import (
@@ -203,12 +217,18 @@ def phase_kernels(card: str):
         f"tolerance (f32 atol 1e-4; bf16/f16 atol/rtol 2e-2); max abs err "
         f"{json.dumps(worst)}")
 
-    # the serving path's shapes at gpt3_6_7b width (bf16): a decode step
-    # over 8 slots of a 2048-row cache filled to 1024, and a 512-wide
-    # prefill chunk whose last query sits at row 1536
+    # the serving paths' shapes (bf16): at gpt3_6_7b width, a decode step
+    # over 8 slots of a 2048-row cache filled to 1024 and a 512-wide
+    # prefill chunk whose last query sits at row 1536; at llama_7b width,
+    # a decode step over 8 slots of a 4096-row cache at ragged lengths up
+    # to 3104 (a 3072-token prompt and 32 new tokens) and the last 512-wide
+    # chunk of that prompt
     shapes = {
         "decode": ((8, 1, 32, 128), (8, 2048, 32, 128), [1024] * 8),
         "prefill": ((1, 512, 32, 128), (1, 2048, 32, 128), [1536]),
+        "llama_decode": ((8, 1, 32, 128), (8, 4096, 32, 128),
+                         [160, 672, 1056, 1568, 2080, 2592, 3104, 3104]),
+        "llama_prefill": ((1, 512, 32, 128), (1, 4096, 32, 128), [3072]),
     }
     rec = {}
     err_main = 0.0
@@ -235,9 +255,9 @@ def phase_kernels(card: str):
         rec[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                      "bound_by": bound_by, "library_ms": library_ms,
                      "max_abs_err": err,
-                     "q": list(qs), "kv": list(ks), "seq_lens": lens[:1]}
+                     "q": list(qs), "kv": list(ks), "seq_lens": lens}
         log(f"[kernels] decode_attention {name} q{list(qs)} kv{list(ks)} "
-            f"seq_len {lens[0]} bf16: kernel {ms:.4f} ms, plain "
+            f"seq_lens {lens} bf16: kernel {ms:.4f} ms, plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
             f"{bound:.4f} ms ({bound_by}); max abs err {err:.3g} "
             f"(card: {card})")
@@ -298,8 +318,10 @@ def attn_call(fn, x, k, v, pos, kw, **extra):
 def mlp_call(fn, x, attn, kw, **extra):
     """``decode_block_mlp`` (or its plain version ``fn``) on a layer's
     keywords."""
+    if "act" in kw:                     # a SwiGLU layer has none
+        extra["act"] = kw["act"]
     return fn(x, attn, *(kw[n] for n in _MLP_KEYS), kw.get("w_gate"),
-              norm=kw["norm"], eps=kw["eps2"], act=kw["act"], **extra)
+              norm=kw["norm"], eps=kw["eps2"], **extra)
 
 
 def block_bounds(x, kw, seq_pos, s_max):
@@ -352,10 +374,10 @@ def _ulp_ok(got, want, dtype) -> bool:
 
 def phase_block_kernels(card: str):
     """Hold ``decode_block_layer``, ``decode_block_attn`` and
-    ``decode_block_mlp`` against their plain versions over the sweep, then
-    time each half at the gpt3_6_7b decode shape beside its plain version,
-    its bound and the port's unfused layer.  Returns the records of the
-    two kernels (without launches)."""
+    ``decode_block_mlp`` against their plain versions over the sweep and
+    at one layer of each served model (gpt3_6_7b, llama_7b), and time each
+    half there beside its plain version, its bound and the model's unfused
+    layer.  Returns the records of the two kernels (without launches)."""
     import torch
     from paddle_tpu_torch.kernels.decode_block import (
         decode_block_attn, decode_block_attn_reference, decode_block_layer,
@@ -443,106 +465,382 @@ def phase_block_kernels(card: str):
         f"bf16 ulp, only row min(pos, S-1) changed); max abs err "
         f"{json.dumps(worst)}")
 
-    # timing at the gpt3_6_7b decode shape: one layer of the served model
-    # (random bf16 weights), 8 slots of a 2048-row cache filled to 1024
-    cfg = gpt3_6_7b()
-    block = GPTBlock(cfg, device=dev, dtype=torch.bfloat16,
-                     generator=g).eval()
-    kw = block.decode_block_weights()
-    bsz, s_max = 8, cfg.max_seq_len
-    heads, dh = cfg.num_heads, cfg.head_dim
-    x = torch.randn((bsz, 1, cfg.hidden_size), generator=g,
-                    device=dev).to(torch.bfloat16)
-    k = torch.randn((bsz, s_max, heads, dh), generator=g,
-                    device=dev).to(torch.bfloat16)
-    v = torch.randn_like(k)
-    pos = torch.full((bsz,), 1024, dtype=torch.int32, device=dev)
-    plan, why = plan_decode_block(
-        max_seq=s_max, hidden=cfg.hidden_size, heads=heads, kv_heads=heads,
-        head_dim=dh, ffn=cfg.ffn_size, batch=bsz, itemsize=2)
-    if plan is None:
-        raise AssertionError(f"no decode-block plan at gpt3_6_7b: {why}")
-    bk, bf = plan["block_k"], plan["block_f"]
-    with torch.no_grad():
-        ar, _, _ = attn_call(decode_block_attn_reference, x, k, v, pos, kw)
-        a1, _, _ = attn_call(decode_block_attn, x, k, v, pos, kw, block_k=bk)
-        mr = mlp_call(decode_block_mlp_reference, x, ar, kw)
-        m1 = mlp_call(decode_block_mlp, x, ar, kw, block_f=bf)
-        torch.cuda.synchronize()
-        errs = {"attn": (a1.float() - ar.float()).abs().max().item(),
-                "mlp": (m1.float() - mr.float()).abs().max().item()}
-        for half, got, want in (("attn", a1, ar), ("mlp", m1, mr)):
-            if not torch.allclose(got.float(), want.float(),
-                                  **tol[torch.bfloat16]):
-                raise AssertionError(f"decode_block_{half} disagrees at the "
-                                     f"gpt3_6_7b shape: max_abs_err "
-                                     f"{errs[half]}")
-        cache = (k, v, pos)
-        times = {
-            "attn": time_ms(lambda: attn_call(decode_block_attn, x, k, v,
-                                              pos, kw, block_k=bk)),
-            "attn_plain": time_ms(lambda: attn_call(
-                decode_block_attn_reference, x, k, v, pos, kw)),
-            "mlp": time_ms(lambda: mlp_call(decode_block_mlp, x, ar, kw,
-                                            block_f=bf)),
-            "mlp_plain": time_ms(lambda: mlp_call(
-                decode_block_mlp_reference, x, ar, kw)),
-            "layer": time_ms(lambda: decode_block_layer(
-                x, k, v, pos, **kw, block_k=bk, block_f=bf)),
-            "unfused_layer": time_ms(lambda: block(x, cache)),
-        }
-    bounds = block_bounds(x, kw, pos.tolist(), s_max)
-    shape = (f"x[{bsz},1,{cfg.hidden_size}] kv[{bsz},{s_max},{heads},{dh}] "
-             f"pos 1024 bf16, gpt3_6_7b layer weights, block_k {bk}, "
-             f"block_f {bf}")
-    rec = {}
+    # each served model's decode shape: one layer (random bf16 weights)
+    # over 8 slots of its full-length slabs, timed beside its plain
+    # version, its bound and the model's unfused layer.  gpt3_6_7b: a
+    # 2048-row cache filled to 1024, LayerNorm, gelu_tanh, every bias;
+    # llama_7b: a 4096-row cache at ragged positions near 3000 (the
+    # served prompts reach 3072), RMSNorm, rotary, SwiGLU at ffn 11008
+    from paddle_tpu_torch.models import llama_7b
+    from paddle_tpu_torch.models.llama import (LlamaDecoderLayer,
+                                               fused_rope_tables)
+    rec = {"attn": {}, "mlp": {}}
+    for model in ("gpt3_6_7b", "llama_7b"):
+        bsz = 8
+        if model == "gpt3_6_7b":
+            cfg = gpt3_6_7b()
+            layer = GPTBlock(cfg, device=dev, dtype=torch.bfloat16,
+                             generator=g).eval()
+            kw = layer.decode_block_weights()
+            heads, ffn = cfg.num_heads, cfg.ffn_size
+            pos = torch.full((bsz,), 1024, dtype=torch.int32, device=dev)
+        else:
+            cfg = llama_7b()
+            layer = LlamaDecoderLayer(cfg, device=dev, dtype=torch.bfloat16,
+                                      generator=g).eval()
+            heads, ffn = cfg.num_heads, cfg.intermediate_size
+            pos = torch.tensor([2976, 2990, 2999, 3000, 3013, 3047, 3080,
+                                3103], dtype=torch.int32, device=dev)
+            kw = layer.decode_block_weights()
+            kw["rope_cos"], kw["rope_sin"] = fused_rope_tables(pos, cfg)
+        s_max, dh, kvh = cfg.max_seq_len, cfg.head_dim, kw["kv_heads"]
+        x = torch.randn((bsz, 1, cfg.hidden_size), generator=g,
+                        device=dev).to(torch.bfloat16)
+        k = torch.randn((bsz, s_max, kvh, dh), generator=g,
+                        device=dev).to(torch.bfloat16)
+        v = torch.randn_like(k)
+        plan, why = plan_decode_block(
+            max_seq=s_max, hidden=cfg.hidden_size, heads=heads,
+            kv_heads=kvh, head_dim=dh, ffn=ffn, batch=bsz, itemsize=2,
+            gated=kw.get("w_gate") is not None)
+        if plan is None:
+            raise AssertionError(f"no decode-block plan at {model}: {why}")
+        bk, bf = plan["block_k"], plan["block_f"]
+        what = (f"{model} layer: x[{bsz},1,{cfg.hidden_size}] "
+                f"kv[{bsz},{s_max},{kvh},{dh}] pos {pos.tolist()} bf16")
+        with torch.no_grad():
+            k1, v1, k2, v2 = k.clone(), v.clone(), k.clone(), v.clone()
+            ar, _, _ = attn_call(decode_block_attn_reference, x, k2, v2, pos,
+                                 kw)
+            a1, _, _ = attn_call(decode_block_attn, x, k1, v1, pos, kw,
+                                 block_k=bk)
+            mr = mlp_call(decode_block_mlp_reference, x, ar, kw)
+            m1 = mlp_call(decode_block_mlp, x, ar, kw, block_f=bf)
+            torch.cuda.synchronize()
+            errs = {"attn": (a1.float() - ar.float()).abs().max().item(),
+                    "mlp": (m1.float() - mr.float()).abs().max().item()}
+            for half, got, want in (("attn", a1, ar), ("mlp", m1, mr)):
+                if not torch.allclose(got.float(), want.float(),
+                                      **tol[torch.bfloat16]):
+                    raise AssertionError(f"decode_block_{half} disagrees at "
+                                         f"the {what}: max_abs_err "
+                                         f"{errs[half]}")
+            # the fresh rows are 4096-long f32 dot products summed in
+            # another order, so a value near 0 (cancellation) may miss one
+            # bf16 ulp of itself: 1e-5 of the largest value plus one ulp
+            # (the norm kernels' bound, norm_excess)
+            posw = pos.long().clamp(0, s_max - 1)
+            for name, got, want, before in (("k", k1, k2, k), ("v", v1, v2,
+                                                                v)):
+                excess = norm_excess(got, want, 1e-5)
+                if excess > 0:
+                    err = (got.float() - want.float()).abs().max().item()
+                    raise AssertionError(f"decode_block_attn's {name} slab "
+                                         f"disagrees with the plain "
+                                         f"version's at the {what}: "
+                                         f"max_abs_err {err}, excess "
+                                         f"{excess}")
+                changed = (got != before).flatten(2).any(-1)
+                changed[torch.arange(bsz, device=dev), posw] = False
+                if bool(changed.any()):
+                    raise AssertionError(f"decode_block_attn changed a {name} "
+                                         f"slab row other than min(pos, S-1) "
+                                         f"at the {what}")
+            del k1, v1, k2, v2
+            if model == "gpt3_6_7b":
+                args = (x, (k, v, pos))
+            else:
+                # the unfused path's tables: bf16 [B, 1, head_dim/2]
+                cos, sin = (t.to(torch.bfloat16)[:, None, :dh // 2]
+                            for t in (kw["rope_cos"], kw["rope_sin"]))
+                args = (x, cos, sin, (k, v, pos))
+            times = {
+                "attn": time_ms(lambda: attn_call(decode_block_attn, x, k, v,
+                                                  pos, kw, block_k=bk)),
+                "attn_plain": time_ms(lambda: attn_call(
+                    decode_block_attn_reference, x, k, v, pos, kw)),
+                "mlp": time_ms(lambda: mlp_call(decode_block_mlp, x, ar, kw,
+                                                block_f=bf)),
+                "mlp_plain": time_ms(lambda: mlp_call(
+                    decode_block_mlp_reference, x, ar, kw)),
+                "layer": time_ms(lambda: decode_block_layer(
+                    x, k, v, pos, **kw, block_k=bk, block_f=bf)),
+                "unfused_layer": time_ms(lambda: layer(*args)),
+            }
+        bounds = block_bounds(x, kw, pos.tolist(), s_max)
+        shape = f"{what}, block_k {bk}, block_f {bf}"
+        for half in ("attn", "mlp"):
+            bound, bound_by = bounds[half]
+            rec[half][model] = {
+                "ms": times[half], "plain_ms": times[half + "_plain"],
+                "bound_ms": bound, "bound_by": bound_by,
+                "bound_bytes": bounds[half + "_bytes"],
+                "max_abs_err": errs[half], "layer_ms": times["layer"],
+                "unfused_layer_ms": times["unfused_layer"], "shape": shape}
+            log(f"[kernels] decode_block_{half} {shape}: kernel "
+                f"{times[half]:.4f} ms, plain {times[half + '_plain']:.4f} "
+                f"ms, bound {bound:.4f} ms ({bound_by}, "
+                f"{bounds[half + '_bytes'] / 1e6:.1f} MB); max abs err "
+                f"{errs[half]:.3g} (card: {card})")
+        log(f"[kernels] one {model} layer at that shape: fused pair "
+            f"{times['layer']:.4f} ms, unfused layer forward "
+            f"{times['unfused_layer']:.4f} ms, bound "
+            f"{bounds['attn'][0] + bounds['mlp'][0]:.4f} ms (card: {card})")
+        del layer, kw, k, v, args
+        torch.cuda.empty_cache()
     for half in ("attn", "mlp"):
-        bound, bound_by = bounds[half]
-        rec[half] = {"ms": times[half], "plain_ms": times[half + "_plain"],
-                     "bound_ms": bound, "bound_by": bound_by,
-                     "bound_bytes": bounds[half + "_bytes"],
-                     "max_abs_err": errs[half],
-                     "layer_ms": times["layer"],
-                     "unfused_layer_ms": times["unfused_layer"],
+        # the record's headline is the gpt3_6_7b shape, as in earlier runs
+        rec[half] = {**rec[half]["gpt3_6_7b"], "llama_7b": rec[half]["llama_7b"],
                      "sweep_max_abs_err": {
                          k_: e for k_, e in worst.items()
-                         if k_.startswith(f"decode_block_{half} ")},
-                     "shape": shape}
-        log(f"[kernels] decode_block_{half} {shape}: kernel "
-            f"{times[half]:.4f} ms, plain {times[half + '_plain']:.4f} ms, "
-            f"bound {bound:.4f} ms ({bound_by}, "
-            f"{bounds[half + '_bytes'] / 1e6:.1f} MB); max abs err "
-            f"{errs[half]:.3g} (card: {card})")
-    log(f"[kernels] one layer at that shape: fused pair "
-        f"{times['layer']:.4f} ms, unfused GPTBlock.forward "
-        f"{times['unfused_layer']:.4f} ms, bound "
-        f"{bounds['attn'][0] + bounds['mlp'][0]:.4f} ms (card: {card})")
-    del block, k, v
-    torch.cuda.empty_cache()
+                         if k_.startswith(f"decode_block_{half} ")}}
     return rec
 
 
+# ---------------------------------------------------------- fused norms
+NORM_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "layer_norm_fwd",
+                "layer_norm_bwd")
+NORM_EPS = 1e-5
+_MANTISSA = {"bfloat16": 7, "float16": 10}
+
+
+def norm_excess(got, want, rel: float) -> float:
+    """How far ``got`` lies outside its tolerance of ``want`` (<= 0:
+    inside): ``rel · max(1, max |want|)``, plus one ulp of each value
+    when ``got`` is a 16-bit type (the kernel and the plain version
+    round the same f32 arithmetic once; their sums differ in order)."""
+    import torch
+    g32, w32 = got.float(), want.float()
+    tol = rel * max(1.0, w32.abs().max().item())
+    excess = (g32 - w32).abs() - tol
+    bits = _MANTISSA.get(str(got.dtype).replace("torch.", ""))
+    if bits is not None:
+        excess = excess - torch.exp2(torch.floor(torch.log2(
+            w32.abs().clamp_min(1e-30))) - bits)
+    return excess.max().item()
+
+
+def norm_bound(name: str, rows: int, h: int, es: int, wes: int):
+    """Least time (ms) of one norm kernel call at these shapes, and what
+    bounds it.  Bytes: x (and g) read once, y (or dx) written once, w
+    (and b) read once, the f32 statistics written (forward) or read
+    (backward) once, dw (and db) written once.  Operations: the f32
+    arithmetic per element (forward RMS 4, LN 7; backward RMS 10, LN 14)
+    over the card's 67 TFLOP/s f32 rate."""
+    ln = name.startswith("layer")
+    n_vec = 2 if ln else 1
+    if name.endswith("fwd"):
+        nbytes = 2 * rows * h * es + n_vec * h * wes + n_vec * rows * 4
+        ops = (7 if ln else 4) * rows * h
+    else:
+        nbytes = 3 * rows * h * es + h * wes + n_vec * rows * 4 \
+            + n_vec * h * wes
+        ops = (14 if ln else 10) * rows * h
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS["float32"] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def norm_calls(x, w, b, gy):
+    """Each norm kernel's wrapper and its plain version on the same
+    inputs, as ``{kernel: [(output, got, want, rel)]}``; the backward
+    calls take the plain forward's statistics."""
+    import torch
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    ry, rrstd = fn.rms_norm_fwd_reference(x, w, NORM_EPS)
+    y, rstd = fn.rms_norm_fwd(x, w, NORM_EPS)
+    rdx, rdw = fn.rms_norm_bwd_reference(x, w, rrstd, gy)
+    dx, dw = fn.rms_norm_bwd(x, w, rrstd, gy)
+    rly, rmean, rlrstd = fn.layer_norm_fwd_reference(x, w, b, NORM_EPS)
+    ly, mean, lrstd = fn.layer_norm_fwd(x, w, b, NORM_EPS)
+    rldx, rldw, rldb = fn.layer_norm_bwd_reference(x, w, rmean, rlrstd, gy)
+    ldx, ldw, ldb = fn.layer_norm_bwd(x, w, rmean, rlrstd, gy)
+    torch.cuda.synchronize()
+    return {"rms_norm_fwd": [("y", y, ry, 1e-5), ("rstd", rstd, rrstd, 1e-5)],
+            "rms_norm_bwd": [("dx", dx, rdx, 1e-5), ("dw", dw, rdw, 1e-4)],
+            "layer_norm_fwd": [("y", ly, rly, 1e-5), ("mean", mean, rmean,
+                                                     1e-5),
+                               ("rstd", lrstd, rlrstd, 1e-5)],
+            "layer_norm_bwd": [("dx", ldx, rldx, 1e-5), ("dw", ldw, rldw,
+                                                        1e-4),
+                               ("db", ldb, rldb, 1e-4)]}
+
+
+def phase_norm_kernels(card: str):
+    """Hold the four fused-norm kernels against their plain versions over
+    the sweep (rows 1, 3, 8, 512, 4096 x h 64, 768, 4096, 1000 and 777 x
+    f32 / bf16 / f16, bf16 also with f32 weights), check that two
+    backward runs agree bit for bit (no atomics), then time each kernel
+    at the decode [8, 4096], prefill-chunk [512, 4096] and train
+    [4096, 4096] bf16 shapes beside its plain version, its bound and
+    PyTorch's own norm (forward, and its autograd backward).  Returns the
+    four kernels' records (without launches)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+
+    def inputs(rows, h, dtype, wdtype):
+        def r(*shape):
+            return torch.randn(shape, generator=g, device=dev)
+        return ((r(rows, h) * 2 + 0.5).to(dtype), (r(h) * 0.5 + 1).to(wdtype),
+                (r(h) * 0.3).to(wdtype), r(rows, h).to(dtype))
+
+    worst = {}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        wdtypes = (dtype, torch.float32) if dtype == torch.bfloat16 \
+            else (dtype,)
+        for wdtype in wdtypes:
+            for rows in (1, 3, 8, 512, 4096):
+                for h in (64, 768, 4096, 1000, 777):
+                    calls = norm_calls(*inputs(rows, h, dtype, wdtype))
+                    what = f"x {dtype} w {wdtype} rows={rows} h={h}"
+                    for kernel, outs in calls.items():
+                        for out, got, want, rel in outs:
+                            excess = norm_excess(got, want, rel)
+                            if excess > 0:
+                                err = (got.float() - want.float()).abs() \
+                                    .max().item()
+                                raise AssertionError(
+                                    f"{kernel} {out} disagrees with its "
+                                    f"plain version: {what} max_abs_err "
+                                    f"{err} (beyond tolerance by {excess})")
+                            key = (f"{kernel} {out} "
+                                   f"{str(dtype).replace('torch.', '')}")
+                            err = (got.float() - want.float()).abs().max() \
+                                .item()
+                            worst[key] = max(worst.get(key, 0.0), err)
+                    n += 1
+    log(f"[norm-kernels] sweep: {n} cases (rows 1/3/8/512/4096 x h "
+        f"64/768/4096/1000/777 x f32, bf16, bf16 with f32 weights, f16) "
+        f"within tolerance (over max(1, max |plain|): f32 1e-5, 16-bit "
+        f"1e-5 plus one output ulp, dw/db 1e-4); max abs err "
+        f"{json.dumps(worst)}")
+
+    x, w, b, gy = inputs(4096, 4096, torch.bfloat16, torch.bfloat16)
+    _, rstd = fn.rms_norm_fwd_reference(x, w, NORM_EPS)
+    _, mean, lrstd = fn.layer_norm_fwd_reference(x, w, b, NORM_EPS)
+    first = (fn.rms_norm_bwd(x, w, rstd, gy),
+             fn.layer_norm_bwd(x, w, mean, lrstd, gy))
+    second = (fn.rms_norm_bwd(x, w, rstd, gy),
+              fn.layer_norm_bwd(x, w, mean, lrstd, gy))
+    for a, c in zip(first, second):
+        if not all(torch.equal(p, q) for p, q in zip(a, c)):
+            raise AssertionError("two runs of a norm backward kernel on the "
+                                 "same inputs differ: the sums are not "
+                                 "deterministic")
+    log("[norm-kernels] two backward runs at [4096, 4096] bf16 agree bit "
+        "for bit (dx, dw, db)")
+
+    lib_rms = getattr(F, "rms_norm", None)
+    shapes = {"decode": 8, "prefill": 512, "train": 4096}
+    recs = {k: {"shapes": {}} for k in NORM_KERNELS}
+    h = 4096
+    for shape, rows in shapes.items():
+        x, w, b, gy = inputs(rows, h, torch.bfloat16, torch.bfloat16)
+        errs = {k: max((got.float() - want.float()).abs().max().item()
+                       for _, got, want, _ in outs)
+                for k, outs in norm_calls(x, w, b, gy).items()}
+        _, rstd = fn.rms_norm_fwd_reference(x, w, NORM_EPS)
+        _, mean, lrstd = fn.layer_norm_fwd_reference(x, w, b, NORM_EPS)
+        xr, wr, br = (t.detach().requires_grad_() for t in (x, w, b))
+        lib_ln_y = F.layer_norm(xr, (h,), wr, br, NORM_EPS)
+        lib_rms_y = None if lib_rms is None else lib_rms(xr, (h,), wr,
+                                                         NORM_EPS)
+        calls = {
+            "rms_norm_fwd": (
+                lambda: fn.rms_norm_fwd(x, w, NORM_EPS),
+                lambda: fn.rms_norm_fwd_reference(x, w, NORM_EPS),
+                None if lib_rms is None else
+                (lambda: lib_rms(x, (h,), w, NORM_EPS))),
+            "rms_norm_bwd": (
+                lambda: fn.rms_norm_bwd(x, w, rstd, gy),
+                lambda: fn.rms_norm_bwd_reference(x, w, rstd, gy),
+                None if lib_rms is None else
+                (lambda: torch.autograd.grad(lib_rms_y, (xr, wr), gy,
+                                             retain_graph=True))),
+            "layer_norm_fwd": (
+                lambda: fn.layer_norm_fwd(x, w, b, NORM_EPS),
+                lambda: fn.layer_norm_fwd_reference(x, w, b, NORM_EPS),
+                lambda: F.layer_norm(x, (h,), w, b, NORM_EPS)),
+            "layer_norm_bwd": (
+                lambda: fn.layer_norm_bwd(x, w, mean, lrstd, gy),
+                lambda: fn.layer_norm_bwd_reference(x, w, mean, lrstd, gy),
+                lambda: torch.autograd.grad(lib_ln_y, (xr, wr, br), gy,
+                                            retain_graph=True)),
+        }
+        for name, (kern, plain, lib) in calls.items():
+            bound, bound_by = norm_bound(name, rows, h, 2, 2)
+            r = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+                 "library_ms": None if lib is None else time_ms(lib),
+                 "bound_ms": bound, "bound_by": bound_by,
+                 "max_abs_err": errs[name],
+                 "shape": f"x [{rows},{h}] bf16, w/b [{h}] bf16"}
+            recs[name]["shapes"][shape] = r
+            log(f"[norm-kernels] {name} {r['shape']} ({shape}): kernel "
+                f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+                f"{'none' if r['library_ms'] is None else round(r['library_ms'], 4)} "
+                f"ms, bound {bound:.4f} ms ({bound_by}); max abs err "
+                f"{errs[name]:.3g} (card: {card})")
+        del lib_ln_y, lib_rms_y, xr, wr, br
+    for name, rec in recs.items():
+        rec.update(rec["shapes"]["train"])
+        rec["sweep_max_abs_err"] = {k: e for k, e in worst.items()
+                                    if k.startswith(name + " ")}
+    torch.cuda.empty_cache()
+    return recs
+
+
 # -------------------------------------------------------------- serving
-def phase_serving(card: str):
-    """Build GPT at gpt3_6_7b width once, then serve the same 8 requests
+# the requests each served model gets, in two waves: (prompt length,
+# shares the 512-token prefix, seed or None for greedy)
+SERVE_WAVES = {
+    "gpt": ([(1536, True, None), (128, False, None), (700, False, 11),
+             (300, False, None)],
+            [(1024, True, None), (900, True, 23), (640, True, None),
+             (1200, False, None)]),
+    # Llama-2-7B's 4096 context: one prompt runs past GPT's 2048
+    "llama": ([(3072, True, None), (128, False, None), (700, False, 11),
+               (300, False, None)],
+              [(2600, True, None), (900, True, 23), (640, True, None),
+               (1200, False, None)]),
+}
+
+
+def phase_serving(card: str, family: str):
+    """Build the family's published model at full width and depth once
+    (``gpt3_6_7b`` or ``llama_7b``), then serve the same 8 requests
     through ``ServingEngine`` twice on that model: the unfused decode
     step, then (after that engine is closed) ``fused_decode=True``.
     Returns each run's launch counts and metrics."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_6_7b
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         gpt3_6_7b, llama_7b)
     from paddle_tpu_torch.serving import ServingEngine
 
-    cfg = gpt3_6_7b()
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(1234)
     t0 = time.perf_counter()
-    model = GPTForCausalLM(cfg, device=DEVICE, generator=gen).eval()
+    if family == "gpt":
+        cfg = gpt3_6_7b()
+        model = GPTForCausalLM(cfg, device=DEVICE, generator=gen).eval()
+        widths = (f"hidden {cfg.hidden_size}, {cfg.num_heads} heads x "
+                  f"{cfg.head_dim}, ffn {cfg.ffn_size}")
+    else:
+        cfg = llama_7b()
+        model = LlamaForCausalLM(cfg, device=DEVICE, generator=gen).eval()
+        widths = (f"hidden {cfg.hidden_size}, {cfg.num_heads} heads x "
+                  f"{cfg.head_dim} ({cfg.kv_heads} kv heads), ffn "
+                  f"{cfg.intermediate_size}")
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f"[serving] gpt3_6_7b: {cfg.num_layers} layers, hidden "
-        f"{cfg.hidden_size}, {cfg.num_heads} heads x {cfg.head_dim}, vocab "
-        f"{cfg.vocab_size}, max_seq {cfg.max_seq_len}, bf16, "
+    name = "gpt3_6_7b" if family == "gpt" else "llama_7b"
+    log(f"[serving:{family}] {name}: {cfg.num_layers} layers, {widths}, "
+        f"vocab {cfg.vocab_size}, max_seq {cfg.max_seq_len}, bf16, "
         f"{n_params / 1e9:.3f}B params, built on the card in "
         f"{time.perf_counter() - t0:.1f} s (full depth, no cut)")
     # a short round through each path first, so that neither measured
@@ -555,11 +853,12 @@ def phase_serving(card: str):
         eng = ServingEngine(model, fused_decode=fused, **ENGINE_KW)
         eng.serve_batch(warm, max_new_tokens=4)
         eng.close()
-    runs = {path: serve_run(model, card, fused=path == "fused")
+    runs = {path: serve_run(model, card, fused=path == "fused",
+                            waves=SERVE_WAVES[family])
             for path in ("unfused", "fused")}
     u, f = runs["unfused"][1], runs["fused"][1]
-    log(f"[serving] fused vs unfused on the same model and requests: "
-        f"decode step p50 {f['decode_step_ms_p50']} vs "
+    log(f"[serving:{family}] fused vs unfused on the same model and "
+        f"requests: decode step p50 {f['decode_step_ms_p50']} vs "
         f"{u['decode_step_ms_p50']} ms, {f['tokens_per_s']:.1f} vs "
         f"{u['tokens_per_s']:.1f} tokens/s, TTFT p50 {f['ttft_p50_ms']} vs "
         f"{u['ttft_p50_ms']} ms (card: {card})")
@@ -568,21 +867,24 @@ def phase_serving(card: str):
     return runs
 
 
-def serve_run(model, card: str, fused: bool):
-    """Serve 8 requests on ``model`` through the port's ServingEngine,
-    with the fused decode-block path or the unfused decode step; returns
-    the kernel launch counts of the run and the metrics.  Every launch
-    count is set to 0 just before the run and read just after it."""
+def serve_run(model, card: str, fused: bool, waves):
+    """Serve the 8 requests of ``waves`` on ``model`` through the port's
+    ServingEngine, with the fused decode-block path or the unfused decode
+    step; returns the kernel launch counts of the run and the metrics.
+    Every launch count is set to 0 just before the run and read just
+    after it."""
     import numpy as np
     import torch
+    from paddle_tpu_torch.kernels import fused_norm as fn
     from paddle_tpu_torch.kernels.decode_attention import decode_attention
     from paddle_tpu_torch.kernels.decode_block import (decode_block_attn,
                                                        decode_block_mlp)
     from paddle_tpu_torch.serving import SamplingParams, ServingEngine
 
     cfg = model.cfg
+    llama = hasattr(model, "llama")
     path = "fused" if fused else "unfused"
-    tag = f"[serving:{path}]"
+    tag = f"[serving:{'llama' if llama else 'gpt'}:{path}]"
     eng = ServingEngine(model, fused_decode=fused, **ENGINE_KW)
     if (eng.decode_path, eng.decode_fallback_reason) != (path, None):
         raise AssertionError(f"engine resolved decode_path "
@@ -596,11 +898,7 @@ def serve_run(model, card: str, fused: bool):
         own = rs.randint(0, cfg.vocab_size, (n - 512 if shared else n,))
         return np.concatenate([prefix, own]) if shared else own
 
-    # (length, shares the 512-token prefix, seed or None for greedy)
-    wave1 = [(1536, True, None), (128, False, None), (700, False, 11),
-             (300, False, None)]
-    wave2 = [(1024, True, None), (900, True, 23), (640, True, None),
-             (1200, False, None)]
+    wave1, wave2 = waves
     ids = {}
     step_ms = []
 
@@ -622,7 +920,8 @@ def serve_run(model, card: str, fused: bool):
             step_ms.append((time.perf_counter() - t) * 1e3)
         return left
 
-    kernels = (decode_attention, decode_block_attn, decode_block_mlp)
+    kernels = (decode_attention, decode_block_attn, decode_block_mlp,
+               *(getattr(fn, k) for k in NORM_KERNELS))
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
@@ -645,16 +944,23 @@ def serve_run(model, card: str, fused: bool):
     decode_steps = reg.get("serving.phase.decode_dispatch_s").count
     chunks = m["prefill_chunks"]
     layers = cfg.num_layers
-    # prefill chunks always run decode_attention; decode steps run it on
-    # the unfused path and the decode-block pair on the fused one
-    want = {"decode_attention": layers * (chunks + (0 if fused
-                                                    else decode_steps)),
+    # prefill chunks always run decode_attention and the model's norm
+    # twice per layer plus the final one; decode steps run the same on the
+    # unfused path, and the decode-block pair plus the final norm on the
+    # fused one (the pair applies the layers' norms itself)
+    unfused_passes = chunks + (0 if fused else decode_steps)
+    norm = "rms_norm_fwd" if llama else "layer_norm_fwd"
+    want = {"decode_attention": layers * unfused_passes,
             "decode_block_attn": layers * decode_steps if fused else 0,
-            "decode_block_mlp": layers * decode_steps if fused else 0}
+            "decode_block_mlp": layers * decode_steps if fused else 0,
+            **{k: 0 for k in NORM_KERNELS}}
+    want[norm] = (2 * layers + 1) * unfused_passes + \
+        (decode_steps if fused else 0)
     log(f"{tag} {len(ids)} requests, {chunks} prefill chunks, "
         f"{decode_steps} decode steps, {m['steps']} engine steps in "
         f"{run_s:.2f} s; launches {json.dumps(launches)} (want "
-        f"{layers} layers x chunks/steps = {json.dumps(want)})")
+        f"{layers} layers x chunks/steps, {2 * layers + 1} norms per "
+        f"unfused pass = {json.dumps(want)})")
     if launches != want:
         raise AssertionError(f"{tag} kernel launches {launches} != {want}: "
                              f"the main path bypassed a kernel")
@@ -697,7 +1003,8 @@ def serve_run(model, card: str, fused: bool):
         f"({len(step_ms)} decode-only steps), prefix hit tokens "
         f"{m['prefix_hit_tokens']}, peak memory {res['peak_mem_gb']:.1f} GB "
         f"(card: {card})")
-    res["decode_profile"] = profile_decode(eng, cfg.vocab_size, card)
+    res["decode_profile"] = profile_decode(eng, cfg.vocab_size, card,
+                                           tag[len("[serving:"):-1])
     eng.close()
     return launches, res
 
@@ -716,7 +1023,8 @@ def kernel_ms(prof) -> dict:
     return kernels
 
 
-def profile_decode(eng, vocab: int, card: str, steps: int = 5) -> dict:
+def profile_decode(eng, vocab: int, card: str, label: str,
+                   steps: int = 5) -> dict:
     """Where a full-batch decode step's time goes, after the main run:
     fill all 8 slots with short greedy requests, then trace ``steps``
     decode-only steps with torch.profiler.  Reports the wall time per
@@ -750,7 +1058,7 @@ def profile_decode(eng, vocab: int, card: str, steps: int = 5) -> dict:
            "device_ms_per_step": busy_ms / steps,
            "busy_share": busy_ms / wall_ms if wall_ms else None,
            "top_kernels_ms_per_step": {k[:90]: v / steps for k, v in top}}
-    tag = f"[profile:{eng.decode_path}]"
+    tag = f"[profile:{label}]"
     if busy_ms == 0.0:
         log(f"{tag} the profiler saw no device time: device busy share "
             f"not measured")
@@ -765,23 +1073,42 @@ def profile_decode(eng, vocab: int, card: str, steps: int = 5) -> dict:
 
 
 # --------------------------------------------------------------- parity
-def phase_parity() -> None:
-    """On an f32 model of gpt_small width, 2 layers (TF32 off): the
-    fused-path engine's greedy tokens == the unfused engine's == the
-    port's ``generate`` tokens."""
+# the f32 Llama of the parity phases: GQA (12 heads over 4 kv heads) at
+# gpt_small-like width, 2 layers
+LLAMA_PARITY = dict(vocab_size=32000, hidden_size=768, intermediate_size=2048,
+                    num_layers=2, num_heads=12, num_kv_heads=4,
+                    max_seq_len=1024)
+
+
+def parity_model(family: str, device):
+    """The f32 model of the parity phases on ``device``, from the same
+    seeded generator on every device type: gpt_small width or
+    ``LLAMA_PARITY``, 2 layers."""
     import dataclasses
 
+    import torch
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaConfig,
+                                         LlamaForCausalLM, gpt_small)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(5)
+    if family == "gpt":
+        return GPTForCausalLM(dataclasses.replace(gpt_small(), num_layers=2),
+                              device=device, dtype="float32", generator=gen)
+    return LlamaForCausalLM(LlamaConfig(**LLAMA_PARITY), device=device,
+                            dtype="float32", generator=gen)
+
+
+def phase_parity(family: str) -> None:
+    """On the f32 parity model of ``family`` (TF32 off): the fused-path
+    engine's greedy tokens == the unfused engine's == the port's
+    ``generate`` tokens."""
     import numpy as np
     import torch
-    from paddle_tpu_torch.models import GPTForCausalLM, gpt_small
     from paddle_tpu_torch.serving import ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(gpt_small(), num_layers=2)
-    gen = torch.Generator(device=DEVICE)
-    gen.manual_seed(5)
-    model = GPTForCausalLM(cfg, device=DEVICE, dtype="float32",
-                           generator=gen).eval()
+    model = parity_model(family, DEVICE).eval()
+    cfg = model.cfg
     rs = np.random.RandomState(3)
     prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in (40, 150, 300)]
     tokens = {}
@@ -802,22 +1129,27 @@ def phase_parity() -> None:
         want = want.cpu().tolist()
         for path, got in tokens.items():
             if got[i] != want:
-                raise AssertionError(f"{path} engine tokens {got[i]} != "
-                                     f"generate tokens {want} (prompt len "
-                                     f"{len(p)})")
-    log(f"[parity] gpt_small width, 2 layers, f32: fused-engine greedy "
-        f"tokens == unfused-engine tokens == generate tokens for "
-        f"{len(prompts)} requests (prompt lengths "
-        f"{[len(p) for p in prompts]}, 16 new tokens each)")
+                raise AssertionError(f"{family} {path} engine tokens "
+                                     f"{got[i]} != generate tokens {want} "
+                                     f"(prompt len {len(p)})")
+    what = ("gpt_small width, 2 layers" if family == "gpt" else
+            f"Llama {json.dumps(LLAMA_PARITY)}")
+    log(f"[parity:{family}] {what}, f32: fused-engine greedy tokens == "
+        f"unfused-engine tokens == generate tokens for {len(prompts)} "
+        f"requests (prompt lengths {[len(p) for p in prompts]}, 16 new "
+        f"tokens each)")
 
 
 # ------------------------------------------------------------ training
-# the train phases' configuration: every width of gpt3_6_7b, 12 of its 32
-# layers (a full-depth train step needs ~107 GB of parameter state alone)
+# the train phases' configuration: every width of gpt3_6_7b (llama_7b),
+# 12 of its 32 layers (a full-depth train step needs ~107 GB of parameter
+# state alone)
 TRAIN_LAYERS = 12
 TRAIN_BATCH, TRAIN_SEQ = 2, 2048
 TRAIN_WARMUP, TRAIN_STEPS = 2, 6
 TRAIN_LR = 1e-4
+# Llama-2-7B's train batch: one sequence at its full 4096 context
+LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ = 1, 4096
 
 
 def _flash_case(g, dtype, b, sq, sk, h, kvh, d, packed=False):
@@ -877,9 +1209,10 @@ def flash_bounds(b, sq, sk, h, kvh, d, causal, es):
 
 def phase_train_kernels(card: str):
     """Hold the three flash kernels and fused AdamW against their plain
-    versions over a sweep, then time each at the train path's shapes
-    beside its plain version, its bound and one library call (a
-    yardstick only).  Returns each kernel's record (without launches)."""
+    versions over a sweep and at the GPT and Llama train paths' shapes,
+    and time each there beside its plain version, its bound and one
+    library call (a yardstick only).  Returns each kernel's record
+    (without launches)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -994,94 +1327,115 @@ def phase_train_kernels(card: str):
         f"low copy) within tolerance (f32 rtol 1e-6 / atol 1e-7, 16-bit one "
         f"ulp); max abs err {adam_worst:.3g}")
 
-    # timing at the train shape: q/k/v [2, 2048, 32, 128] bf16 as views of
-    # the fused QKV projection, causal
-    from paddle_tpu_torch.models import gpt3_6_7b
-    cfg = gpt3_6_7b()
-    b, s, h, d = TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads, cfg.head_dim
-    q, k, v, do = _flash_case(g, torch.bfloat16, b, s, s, h, h, d,
-                              packed=True)
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
-    ro, rl = fa.flash_attention_fwd_reference(q, k, v, causal=True)
-    rdq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
-                                              causal=True)
-    rdk, rdv = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                    causal=True)
-    torch.cuda.synchronize()
-    errs = {"flash_attention_fwd": max(_err(out, ro), _err(lse, rl)),
-            "flash_attention_bwd_dq": _err(dq, rdq),
-            "flash_attention_bwd_dkv": max(_err(dk, rdk), _err(dv, rdv))}
-    for name, (got, want) in {"flash_attention_fwd": (out, ro),
-                              "flash_attention_bwd_dq": (dq, rdq),
-                              "flash_attention_bwd_dkv": (dk, rdk)}.items():
-        scale = max(1.0, want.abs().max().item())
-        if errs[name] > rel[torch.bfloat16] * scale:
-            raise AssertionError(f"{name} disagrees at the train shape: "
-                                 f"max_abs_err {errs[name]}")
-    del ro, rl, rdq, rdk, rdv
-    times = {
-        "flash_attention_fwd": time_ms(
-            lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
-        "flash_attention_bwd_dq": time_ms(
-            lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                              causal=True)),
-        "flash_attention_bwd_dkv": time_ms(
-            lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                               causal=True)),
-    }
-    plain = {
-        "flash_attention_fwd": time_ms(
-            lambda: fa.flash_attention_fwd_reference(q, k, v, causal=True),
-            iters=3, warmup=2, windows=3),
-        "flash_attention_bwd_dq": time_ms(
-            lambda: fa.flash_attention_bwd_dq_reference(
-                q, k, v, do, lse, delta, causal=True),
-            iters=3, warmup=2, windows=3),
-        "flash_attention_bwd_dkv": time_ms(
-            lambda: fa.flash_attention_bwd_dkv_reference(
-                q, k, v, do, lse, delta, causal=True),
-            iters=3, warmup=2, windows=3),
-    }
-    # the library yardstick: SDPA forward, and SDPA's backward (dq, dk, dv
-    # together) on a retained graph, on the same views transposed
-    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
-                  for x in (q, k, v))
-    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
-    do_t = do.transpose(1, 2)
-    lib_bwd = time_ms(lambda: torch.autograd.grad(
-        o_lib, (qt, kt, vt), do_t, retain_graph=True))
-    del o_lib, qt, kt, vt
-    bounds = flash_bounds(b, s, s, h, h, d, True, 2)
-    shape = f"q/k/v [{b},{s},{h},{d}] bf16 (views of a fused QKV), causal"
+    # each train path's shape, bf16, causal, checked and timed beside the
+    # plain version, the bound and the library yardstick (SDPA forward,
+    # and SDPA's backward, dq, dk and dv together, on a retained graph, on
+    # the same tensors transposed): gpt3_6_7b's q/k/v [2, 2048, 32, 128]
+    # as views of the fused QKV projection, llama_7b's [1, 4096, 32, 128]
+    # from its separate projections and the rotary embedding
+    from paddle_tpu_torch.models import gpt3_6_7b, llama_7b
     recs = {}
-    for name in times:
-        bound, bound_by = bounds[name]
-        lib = lib_fwd if name == "flash_attention_fwd" else None
-        recs[name] = {"ms": times[name], "plain_ms": plain[name],
-                      "bound_ms": bound, "bound_by": bound_by,
-                      "library_ms": lib, "max_abs_err": errs[name],
-                      "shape": shape,
-                      "sweep_max_rel_err": {
-                          k_: e for k_, e in worst.items()
-                          if k_.startswith(name)}}
-        log(f"[train-kernels] {name} {shape}: kernel {times[name]:.4f} ms, "
-            f"plain {plain[name]:.4f} ms, bound {bound:.4f} ms ({bound_by}); "
-            f"max abs err {errs[name]:.3g} (card: {card})")
-    recs["flash_attention_bwd_dq"]["library_ms_dq_dkv_together"] = lib_bwd
-    recs["flash_attention_bwd_dkv"]["library_ms_dq_dkv_together"] = lib_bwd
-    log(f"[train-kernels] library yardsticks: SDPA forward {lib_fwd:.4f} ms; "
-        f"SDPA backward (dq, dk, dv together) {lib_bwd:.4f} ms vs the port's "
-        f"dq + dkv {times['flash_attention_bwd_dq'] + times['flash_attention_bwd_dkv']:.4f} ms "
-        f"(card: {card})")
-    del q, k, v, do, out, lse, delta, dq, dk, dv
+    for model, cfg, b, s, packed in (
+            ("gpt3_6_7b", gpt3_6_7b(), TRAIN_BATCH, TRAIN_SEQ, True),
+            ("llama_7b", llama_7b(), LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ,
+             False)):
+        h, d = cfg.num_heads, cfg.head_dim
+        kvh = getattr(cfg, "kv_heads", h)           # GPT is multi-head
+        q, k, v, do = _flash_case(g, torch.bfloat16, b, s, s, h, kvh, d,
+                                  packed=packed)
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        delta = (do.float() * out.float()).sum(-1).transpose(1, 2) \
+            .contiguous()
+        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                            causal=True)
+        ro, rl = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+        rdq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                                  causal=True)
+        rdk, rdv = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse,
+                                                        delta, causal=True)
+        torch.cuda.synchronize()
+        shape = (f"q/k/v [{b},{s},{h},{d}] bf16 "
+                 f"({'views of a fused QKV' if packed else 'separate'}), "
+                 f"causal ({model})")
+        errs = {}
+        for name, pairs in {
+                "flash_attention_fwd": ((out, ro), (lse, rl)),
+                "flash_attention_bwd_dq": ((dq, rdq),),
+                "flash_attention_bwd_dkv": ((dk, rdk), (dv, rdv))}.items():
+            errs[name] = max(_err(got, want) for got, want in pairs)
+            for got, want in pairs:
+                scale = max(1.0, want[torch.isfinite(want)].abs().max()
+                            .item())
+                if _err(got, want) > rel[torch.bfloat16] * scale:
+                    raise AssertionError(f"{name} disagrees at {shape}: "
+                                         f"max_abs_err {_err(got, want)} "
+                                         f"(scale {scale})")
+        del ro, rl, rdq, rdk, rdv
+        times = {
+            "flash_attention_fwd": time_ms(
+                lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
+            "flash_attention_bwd_dq": time_ms(
+                lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                                  causal=True)),
+            "flash_attention_bwd_dkv": time_ms(
+                lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                   causal=True)),
+        }
+        plain = {
+            "flash_attention_fwd": time_ms(
+                lambda: fa.flash_attention_fwd_reference(q, k, v,
+                                                         causal=True),
+                iters=3, warmup=2, windows=3),
+            "flash_attention_bwd_dq": time_ms(
+                lambda: fa.flash_attention_bwd_dq_reference(
+                    q, k, v, do, lse, delta, causal=True),
+                iters=3, warmup=2, windows=3),
+            "flash_attention_bwd_dkv": time_ms(
+                lambda: fa.flash_attention_bwd_dkv_reference(
+                    q, k, v, do, lse, delta, causal=True),
+                iters=3, warmup=2, windows=3),
+        }
+        qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                      for x in (q, k, v))
+        lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+            qt, kt, vt, is_causal=True))
+        o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        do_t = do.transpose(1, 2)
+        lib_bwd = time_ms(lambda: torch.autograd.grad(
+            o_lib, (qt, kt, vt), do_t, retain_graph=True))
+        del o_lib, qt, kt, vt
+        bounds = flash_bounds(b, s, s, h, kvh, d, True, 2)
+        for name in times:
+            bound, bound_by = bounds[name]
+            lib = lib_fwd if name == "flash_attention_fwd" else None
+            r = {"ms": times[name], "plain_ms": plain[name],
+                 "bound_ms": bound, "bound_by": bound_by,
+                 "library_ms": lib, "max_abs_err": errs[name],
+                 "shape": shape}
+            if name != "flash_attention_fwd":
+                r["library_ms_dq_dkv_together"] = lib_bwd
+            recs.setdefault(name, {})[model] = r
+            log(f"[train-kernels] {name} {shape}: kernel {times[name]:.4f} "
+                f"ms, plain {plain[name]:.4f} ms, bound {bound:.4f} ms "
+                f"({bound_by}); max abs err {errs[name]:.3g} (card: {card})")
+        log(f"[train-kernels] library yardsticks at {shape}: SDPA forward "
+            f"{lib_fwd:.4f} ms; SDPA backward (dq, dk, dv together) "
+            f"{lib_bwd:.4f} ms vs the port's dq + dkv "
+            f"{times['flash_attention_bwd_dq'] + times['flash_attention_bwd_dkv']:.4f}"
+            f" ms (card: {card})")
+        del q, k, v, do, out, lse, delta, dq, dk, dv
+        torch.cuda.empty_cache()
+    for name in list(recs):
+        # the record's headline is the gpt3_6_7b shape, as in earlier runs
+        recs[name] = {**recs[name]["gpt3_6_7b"],
+                      "llama_7b": recs[name]["llama_7b"],
+                      "sweep_max_rel_err": {k_: e for k_, e in worst.items()
+                                            if k_.startswith(name)}}
 
     # AdamW on one fc_in weight [4096, 16384]: f32 master, bf16 gradient,
     # f32 moments, the bf16 parameter written in the same pass
+    cfg = gpt3_6_7b()
     numel = cfg.hidden_size * cfg.ffn_size
     master = torch.randn(numel, generator=g, device=dev)
     grad = torch.randn(numel, generator=g, device=dev).to(torch.bfloat16)
@@ -1118,113 +1472,156 @@ def phase_train_kernels(card: str):
     return recs
 
 
-def phase_train(card: str):
-    """Train ``GPTHybridTrainer`` at every width of gpt3_6_7b, 12 layers,
-    batch 2 x 2048, with ``FusedAdamW(multi_precision=True)`` on one
-    repeated batch: warm-up steps, then the measured steps with every
-    kernel count set to 0 just before them and read just after.  Returns
-    the counts and the metrics."""
+def phase_train(card: str, family: str):
+    """Train the family's published widths with 12 of their 32 layers
+    (``TRAIN_LAYERS``) on one repeated batch with
+    ``FusedAdamW(multi_precision=True)``: ``GPTHybridTrainer`` on gpt3_6_7b
+    at batch 2 x 2048, or ``LlamaForCausalLM(llama_7b())`` through
+    ``llama_train_step`` at batch 1 x 4096.  Warm-up steps, then the
+    measured steps with every kernel count set to 0 just before them and
+    read just after.  Returns the counts and the metrics."""
     import dataclasses
 
     import numpy as np
     import torch
+    from paddle_tpu_torch.kernels import fused_norm as fn
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_dkv, flash_attention_bwd_dq, flash_attention_fwd)
     from paddle_tpu_torch.kernels.fused_adamw import fused_adamw
-    from paddle_tpu_torch.models import GPTHybridTrainer, gpt3_6_7b
+    from paddle_tpu_torch.models import (GPTHybridTrainer, LlamaForCausalLM,
+                                         gpt3_6_7b, llama_7b)
     from paddle_tpu_torch.optimizer import FusedAdamW
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(gpt3_6_7b(), num_layers=TRAIN_LAYERS)
     gen = torch.Generator(device=DEVICE)
     gen.manual_seed(4321)
     t0 = time.perf_counter()
-    tr = GPTHybridTrainer(cfg, optimizer=FusedAdamW(
-        learning_rate=TRAIN_LR, multi_precision=True), device=DEVICE,
-        generator=gen)
+    optimizer = FusedAdamW(learning_rate=TRAIN_LR, multi_precision=True)
+    tag = f"[train:{family}]"
+    if family == "gpt":
+        cfg = dataclasses.replace(gpt3_6_7b(), num_layers=TRAIN_LAYERS)
+        batch, seq = TRAIN_BATCH, TRAIN_SEQ
+        tr = GPTHybridTrainer(cfg, optimizer=optimizer, device=DEVICE,
+                              generator=gen)
+        model, opt, step = tr.model, tr.opt, tr.train_step
+        ids, labels = tr.make_batch(batch, seq, seed=0)
+        norm = "layer_norm"
+        widths = (f"gpt3_6_7b widths: hidden {cfg.hidden_size}, "
+                  f"{cfg.num_heads} heads x {cfg.head_dim}, ffn "
+                  f"{cfg.ffn_size}")
+        # every layer's qkv weight: attention's gradient reaches it
+        nonzero = [n for n, _ in model.named_parameters()
+                   if n.endswith("qkv.weight")]
+    else:
+        cfg = dataclasses.replace(llama_7b(), num_layers=TRAIN_LAYERS)
+        batch, seq = LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ
+        model = LlamaForCausalLM(cfg, device=DEVICE, generator=gen).train()
+        opt = optimizer.bind(model)
+
+        def step(ids, labels):
+            return llama_train_step(model, opt, ids, labels)
+        ids, labels = llama_batch(cfg.vocab_size, batch, seq, 0, DEVICE)
+        norm = "rms_norm"
+        widths = (f"llama_7b widths: hidden {cfg.hidden_size}, "
+                  f"{cfg.num_heads} heads x {cfg.head_dim}, ffn "
+                  f"{cfg.intermediate_size}")
+        # every RMSNorm weight: the norm backward kernel's dw reaches it
+        nonzero = [n for n, _ in model.named_parameters()
+                   if n.endswith("layernorm.weight")
+                   or n == "llama.norm.weight"]
     torch.cuda.synchronize()
-    params = list(tr.model.parameters())
+    params = list(model.parameters())
     n_params = sum(p.numel() for p in params)
-    log(f"[train] gpt3_6_7b widths, {cfg.num_layers} of 32 layers: hidden "
-        f"{cfg.hidden_size}, {cfg.num_heads} heads x {cfg.head_dim}, ffn "
-        f"{cfg.ffn_size}, vocab {cfg.vocab_size}, bf16 with f32 masters and "
-        f"moments, {n_params / 1e9:.3f}B params in {len(params)} tensors, "
-        f"built in {time.perf_counter() - t0:.1f} s; batch {TRAIN_BATCH} x "
-        f"{TRAIN_SEQ}")
-    ids, labels = tr.make_batch(TRAIN_BATCH, TRAIN_SEQ, seed=0)
-    losses = [float(tr.train_step(ids, labels)) for _ in range(TRAIN_WARMUP)]
+    log(f"{tag} {widths}, {cfg.num_layers} of 32 layers, vocab "
+        f"{cfg.vocab_size}, bf16 with f32 masters and moments, "
+        f"{n_params / 1e9:.3f}B params in {len(params)} tensors, built in "
+        f"{time.perf_counter() - t0:.1f} s; batch {batch} x {seq}")
+    losses = [float(step(ids, labels)) for _ in range(TRAIN_WARMUP)]
     kernels = (flash_attention_fwd, flash_attention_bwd_dq,
-               flash_attention_bwd_dkv, fused_adamw)
+               flash_attention_bwd_dkv, fused_adamw,
+               *(getattr(fn, k) for k in NORM_KERNELS))
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
     step_ms = []
     for _ in range(TRAIN_STEPS):
         t = time.perf_counter()
-        losses.append(float(tr.train_step(ids, labels)))   # synchronises
+        losses.append(float(step(ids, labels)))   # synchronises
         step_ms.append((time.perf_counter() - t) * 1e3)
     torch.cuda.synchronize()
     launches = {k.__name__: k.launches for k in kernels}
-    want = {"flash_attention_fwd": cfg.num_layers * TRAIN_STEPS,
-            "flash_attention_bwd_dq": cfg.num_layers * TRAIN_STEPS,
-            "flash_attention_bwd_dkv": cfg.num_layers * TRAIN_STEPS,
-            "fused_adamw": len(params) * TRAIN_STEPS}
-    log(f"[train] losses {[round(x, 4) for x in losses]}; launches "
-        f"{json.dumps(launches)} (want {cfg.num_layers} layers x "
-        f"{TRAIN_STEPS} steps for each flash kernel, {len(params)} tensors x "
-        f"{TRAIN_STEPS} steps for fused_adamw)")
+    layers = cfg.num_layers
+    norms = 2 * layers + 1
+    want = {"flash_attention_fwd": layers * TRAIN_STEPS,
+            "flash_attention_bwd_dq": layers * TRAIN_STEPS,
+            "flash_attention_bwd_dkv": layers * TRAIN_STEPS,
+            "fused_adamw": len(params) * TRAIN_STEPS,
+            **{k: 0 for k in NORM_KERNELS},
+            f"{norm}_fwd": norms * TRAIN_STEPS,
+            f"{norm}_bwd": norms * TRAIN_STEPS}
+    log(f"{tag} losses {[round(x, 4) for x in losses]}; launches "
+        f"{json.dumps(launches)} (want {layers} layers x {TRAIN_STEPS} "
+        f"steps for each flash kernel, {norms} norms x {TRAIN_STEPS} steps "
+        f"for {norm}_fwd/_bwd, {len(params)} tensors x {TRAIN_STEPS} steps "
+        f"for fused_adamw)")
     if launches != want:
-        raise AssertionError(f"[train] kernel launches {launches} != {want}: "
+        raise AssertionError(f"{tag} kernel launches {launches} != {want}: "
                              f"the train step bypassed a kernel")
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        raise AssertionError(f"[train] losses must be finite and fall: "
+        raise AssertionError(f"{tag} losses must be finite and fall: "
                              f"{losses}")
     # one more forward/backward (not counted): every parameter gets a
-    # finite gradient, every layer's qkv weight a nonzero one; then one
+    # finite gradient and each of ``nonzero`` a nonzero one; then one
     # optimizer step over all of them, timed
-    loss = tr.model.loss(ids, labels)
+    loss = model.loss(ids, labels)
     loss.backward()
-    for name, p in tr.model.named_parameters():
+    for name, p in model.named_parameters():
         if p.grad is None or not bool(torch.isfinite(p.grad).all()):
-            raise AssertionError(f"[train] {name} has no finite gradient")
-        if name.endswith("qkv.weight") and not bool((p.grad != 0).any()):
-            raise AssertionError(f"[train] {name} has an all-zero gradient: "
-                                 f"attention dropped it")
+            raise AssertionError(f"{tag} {name} has no finite gradient")
+        if name in nonzero and not bool((p.grad != 0).any()):
+            raise AssertionError(f"{tag} {name} has an all-zero gradient")
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    tr.opt.step()
+    opt.step()
     end.record()
     torch.cuda.synchronize()
     opt_ms = start.elapsed_time(end)
-    tr.opt.clear_grad()
+    opt.clear_grad()
     opt_bound = n_params * 28 / HBM_BYTES_PER_S * 1e3
-    tokens = TRAIN_BATCH * TRAIN_SEQ
+    tokens = batch * seq
     p50 = float(np.median(step_ms))
     tok_s = tokens / (p50 / 1e3)
-    flops_per_token = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size \
-        * TRAIN_SEQ
+    # N of PERF.md's formula counts the weights that enter a matmul: GPT's
+    # input embedding is tied to its head, Llama's is a lookup only
+    n_matmul = n_params - (model.llama.embed_tokens.weight.numel()
+                           if family == "llama" else 0)
+    flops_per_token = 6 * n_matmul + 12 * layers * cfg.hidden_size * seq
     mfu = flops_per_token * tok_s / PEAK_FLOPS["bfloat16"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    res = {"layers": cfg.num_layers, "params": n_params,
-           "param_tensors": len(params), "batch": TRAIN_BATCH,
-           "seq": TRAIN_SEQ, "losses": losses, "step_ms": step_ms,
-           "step_ms_p50": p50, "tokens_per_s": tok_s, "mfu": mfu,
-           "optimizer_step_ms": opt_ms, "optimizer_step_bound_ms": opt_bound,
-           "peak_mem_gb": peak_gb}
-    log(f"[train] step p50 {p50:.1f} ms over {TRAIN_STEPS} steps "
+    res = {"layers": layers, "params": n_params,
+           "param_tensors": len(params), "batch": batch, "seq": seq,
+           "losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
+           "tokens_per_s": tok_s, "mfu": mfu, "mfu_params": n_matmul,
+           "optimizer_step_ms": opt_ms,
+           "optimizer_step_bound_ms": opt_bound, "peak_mem_gb": peak_gb,
+           "nonzero_grads_checked": len(nonzero)}
+    log(f"{tag} step p50 {p50:.1f} ms over {TRAIN_STEPS} steps "
         f"({[round(x, 1) for x in step_ms]}), {tok_s:.0f} tokens/s, "
-        f"model-FLOP share {mfu:.3f} of 989 TFLOP/s; one FusedAdamW step over "
+        f"model-FLOP share {mfu:.3f} of 989 TFLOP/s (N = "
+        f"{n_matmul / 1e9:.3f}B matmul params); one FusedAdamW step over "
         f"{n_params / 1e9:.3f}B params {opt_ms:.2f} ms (bound "
         f"{opt_bound:.2f} ms, bytes); peak memory {peak_gb:.1f} GB "
         f"(card: {card})")
-    res["profile"] = profile_train(tr, ids, labels, card)
-    del tr, loss, params
+    res["profile"] = profile_train(step, ids, labels, card, family)
+    del model, opt, step, loss, params
+    if family == "gpt":
+        del tr
     torch.cuda.empty_cache()
     return launches, res
 
 
-def profile_train(tr, ids, labels, card: str) -> dict:
+def profile_train(step, ids, labels, card: str, family: str) -> dict:
     """One train step under torch.profiler: wall time, the device busy
     share (summed kernel time over wall time) and the kernels that take
     the most device time."""
@@ -1235,7 +1632,7 @@ def profile_train(tr, ids, labels, card: str) -> dict:
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        float(tr.train_step(ids, labels))
+        float(step(ids, labels))
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = kernel_ms(prof)
@@ -1245,7 +1642,9 @@ def profile_train(tr, ids, labels, card: str) -> dict:
     # kernels, and everything else (eager elementwise, reductions, copies)
     kinds = {"gemm": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
              "flash": ("fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel"),
-             "adamw": ("adamw_kernel",)}
+             "adamw": ("adamw_kernel",),
+             "norm": ("rms_fwd_kernel", "ln_fwd_kernel", "norm_bwd_kernel",
+                      "column_sum_kernel")}
     by_kind = {kind: 0.0 for kind in (*kinds, "other")}
     for name, ms in kernels.items():
         kind = next((k for k, pats in kinds.items()
@@ -1256,21 +1655,43 @@ def profile_train(tr, ids, labels, card: str) -> dict:
            "device_ms_by_kind": by_kind,
            "top_kernels_ms": {k[:90]: v for k, v in top}}
     if busy_ms == 0.0:
-        log("[profile:train] the profiler saw no device time: device busy "
-            "share not measured")
+        log(f"[profile:train:{family}] the profiler saw no device time: "
+            f"device busy share not measured")
     else:
-        log(f"[profile:train] one train step under torch.profiler: "
+        log(f"[profile:train:{family}] one train step under torch.profiler: "
             f"{wall_ms:.1f} ms wall, {busy_ms:.1f} ms of kernels, device busy "
             f"share {out['busy_share']:.3f}; device ms by kind "
             f"{json.dumps({k: round(v, 3) for k, v in by_kind.items()})} "
             f"(card: {card})")
         for name, ms in out["top_kernels_ms"].items():
-            log(f"[profile:train]   {ms:9.3f} ms  {name}")
+            log(f"[profile:train:{family}]   {ms:9.3f} ms  {name}")
     return out
 
 
-def phase_train_parity() -> dict:
-    """An f32 model of gpt_small width, 2 layers, seq 256 (TF32 off): two
+def llama_train_step(model, opt, ids, labels):
+    """The Llama train step a user writes: forward, ``loss``, backward,
+    one optimizer step, gradients cleared (``GPTHybridTrainer.train_step``
+    for GPT).  Returns the detached loss."""
+    loss = model.loss(ids, labels)
+    loss.backward()
+    opt.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def llama_batch(vocab: int, batch: int, seq: int, seed: int, device):
+    """``(ids, labels)``: the reference trainer's draw, ``RandomState(seed)
+    .randint(0, vocab, (batch, seq + 1))`` shifted by one."""
+    import numpy as np
+    import torch
+    ids = torch.as_tensor(np.random.RandomState(seed).randint(
+        0, vocab, (batch, seq + 1)), dtype=torch.long).to(device)
+    return ids[:, :-1].contiguous(), ids[:, 1:].contiguous()
+
+
+def phase_train_parity(family: str) -> dict:
+    """An f32 model of gpt_small width (``GPTHybridTrainer``) or the
+    parity Llama (``llama_train_step``), 2 layers, seq 256 (TF32 off): two
     ``FusedAdamW`` train steps on the card (kernels) and the same steps
     from the same weights on the CPU (plain versions).  Losses agree at
     rtol 1e-5.  Parameters: Adam's step is lr times a ratio of gradient
@@ -1287,25 +1708,37 @@ def phase_train_parity() -> dict:
     from paddle_tpu_torch.optimizer import FusedAdamW
 
     torch.backends.cuda.matmul.allow_tf32 = False
-    cfg = dataclasses.replace(gpt_small(), num_layers=2)
     lr, steps = 1e-4, 2
     runs = {}
     for where in ("cpu", DEVICE):
-        gen = torch.Generator(device=where)
-        gen.manual_seed(6)
-        tr = GPTHybridTrainer(cfg, optimizer=FusedAdamW(learning_rate=lr),
-                              device=where, generator=gen)
+        if family == "gpt":
+            gen = torch.Generator(device=where)
+            gen.manual_seed(6)
+            tr = GPTHybridTrainer(dataclasses.replace(gpt_small(),
+                                                      num_layers=2),
+                                  optimizer=FusedAdamW(learning_rate=lr),
+                                  device=where, generator=gen)
+            model = tr.model
+            ids, labels = tr.make_batch(2, 256, seed=1)
+            step = tr.train_step
+        else:
+            model = parity_model("llama", where).train()
+            opt = FusedAdamW(learning_rate=lr).bind(model)
+            ids, labels = llama_batch(model.cfg.vocab_size, 2, 256, 1, where)
+
+            def step(ids, labels, model=model, opt=opt):
+                return llama_train_step(model, opt, ids, labels)
         if where == "cpu":
-            weights = {k: v.clone() for k, v in tr.model.state_dict().items()}
-        tr.model.load_state_dict(weights)
-        ids, labels = tr.make_batch(2, 256, seed=1)
-        losses = [float(tr.train_step(ids, labels)) for _ in range(steps)]
+            weights = {k: v.clone() for k, v in model.state_dict().items()}
+        model.load_state_dict(weights)
+        losses = [float(step(ids, labels)) for _ in range(steps)]
         runs[where] = (losses, {k: v.detach().cpu() for k, v in
-                                tr.model.state_dict().items()})
-        del tr
+                                model.state_dict().items()})
+        del model, step
     (lc, pc), (lg, pg) = runs["cpu"], runs[DEVICE]
+    tag = f"[train-parity:{family}]"
     if not np.allclose(lg, lc, rtol=1e-5, atol=0.0):
-        raise AssertionError(f"[train-parity] losses card {lg} vs CPU {lc}")
+        raise AssertionError(f"{tag} losses card {lg} vs CPU {lc}")
     worst, off, total = 0.0, 0, 0
     for k in pc:
         diff = (pg[k] - pc[k]).abs()
@@ -1313,14 +1746,38 @@ def phase_train_parity() -> dict:
         off += int((diff > 1e-6).sum())
         total += diff.numel()
     if worst > 2 * lr * steps or off > 1e-4 * total:
-        raise AssertionError(f"[train-parity] parameters: max diff {worst}, "
-                             f"{off} of {total} elements beyond 1e-6")
-    log(f"[train-parity] gpt_small width, 2 layers, f32, seq 256, {steps} "
-        f"FusedAdamW steps: losses card {lg} vs CPU {lc} (rtol 1e-5); "
-        f"parameters max diff {worst:.3g} (bound 2·lr·steps = "
-        f"{2 * lr * steps:.1g}), {off} of {total} elements beyond 1e-6")
+        raise AssertionError(f"{tag} parameters: max diff {worst}, {off} of "
+                             f"{total} elements beyond 1e-6")
+    what = ("gpt_small width" if family == "gpt" else
+            f"Llama {json.dumps(LLAMA_PARITY)}")
+    log(f"{tag} {what}, 2 layers, f32, seq 256, {steps} FusedAdamW steps: "
+        f"losses card {lg} vs CPU {lc} (rtol 1e-5); parameters max diff "
+        f"{worst:.3g} (bound 2·lr·steps = {2 * lr * steps:.1g}), {off} of "
+        f"{total} elements beyond 1e-6")
     return {"losses_card": lg, "losses_cpu": lc, "param_max_diff": worst,
             "param_elements_beyond_1e-6": off, "param_elements": total}
+
+
+def run_phase(name: str, fn, *args):
+    """``fn(*args)``, then its wall time and its peak device memory (the
+    peak is reset just before it)."""
+    import torch
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    torch.cuda.synchronize()
+    log(f"[phase] {name}: {time.perf_counter() - t0:.1f} s, peak device "
+        f"memory {torch.cuda.max_memory_allocated() / 1e9:.1f} GB")
+    return out
+
+
+def free_card() -> None:
+    """Return what the finished phases held to the card."""
+    import gc
+
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main() -> int:
@@ -1345,21 +1802,31 @@ def main() -> int:
     log(f"[device] built {sources} in {time.perf_counter() - t0:.1f} s "
         f"(per source: {json.dumps({k: round(v, 2) for k, v in built.items()})})")
 
-    rec, err = phase_kernels(card)
-    block = phase_block_kernels(card)
-    runs = phase_serving(card)
-    phase_parity()
+    rec, err = run_phase("kernels", phase_kernels, card)
+    block = run_phase("block kernels", phase_block_kernels, card)
+    norm_recs = run_phase("norm kernels", phase_norm_kernels, card)
+    runs = run_phase("serving:gpt", phase_serving, card, "gpt")
+    run_phase("parity:gpt", phase_parity, "gpt")
+    free_card()
+    llama_runs = run_phase("serving:llama", phase_serving, card, "llama")
+    run_phase("parity:llama", phase_parity, "llama")
+    llama_parity = run_phase("train-parity:llama", phase_train_parity,
+                             "llama")
     # the train phases start from an empty card
-    import gc
-    gc.collect()
-    torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
-    train_recs = phase_train_kernels(card)
-    train_launches, train = phase_train(card)
-    train["parity"] = phase_train_parity()
+    free_card()
+    train_recs = run_phase("train kernels", phase_train_kernels, card)
+    train_launches, train = run_phase("train:gpt", phase_train, card, "gpt")
+    train["parity"] = run_phase("train-parity:gpt", phase_train_parity,
+                                "gpt")
+    free_card()
+    llama_launches, llama_train = run_phase("train:llama", phase_train, card,
+                                            "llama")
+    llama_train["parity"] = llama_parity
 
     (launches_u, serving_u), (launches_f, serving_f) = (
         runs["unfused"], runs["fused"])
+    (llama_u, llama_serving_u), (llama_f, llama_serving_f) = (
+        llama_runs["unfused"], llama_runs["fused"])
     d = rec["decode"]
     kernels = [{
         "name": "decode_attention",
@@ -1368,13 +1835,17 @@ def main() -> int:
         "replaces": "paddle_tpu/kernels/decode_attention.py:42",
         "launches": launches_u["decode_attention"],
         "launches_by_path": {"unfused": launches_u["decode_attention"],
-                             "fused": launches_f["decode_attention"]},
+                             "fused": launches_f["decode_attention"],
+                             "llama_unfused": llama_u["decode_attention"],
+                             "llama_fused": llama_f["decode_attention"]},
         "max_abs_err": err,
         "ms": d["ms"], "plain_ms": d["plain_ms"],
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
         "library_ms": d["library_ms"],
         "shape": "decode q[8,1,32,128] kv[8,2048,32,128] seq_len 1024 bf16",
         "prefill": rec["prefill"],
+        "llama_decode": rec["llama_decode"],
+        "llama_prefill": rec["llama_prefill"],
     }]
     for half, line in (("attn", 313), ("mlp", 562)):
         name = f"decode_block_{half}"
@@ -1385,6 +1856,8 @@ def main() -> int:
             "source": "paddle_tpu_torch/kernels/csrc/decode_block.cu",
             "replaces": f"paddle_tpu/kernels/decode_block.py:{line}",
             "launches": launches_f[name],
+            "launches_by_path": {"fused": launches_f[name],
+                                 "llama_fused": llama_f[name]},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -1393,6 +1866,7 @@ def main() -> int:
             "layer_ms": r["layer_ms"],
             "sweep_max_abs_err": r["sweep_max_abs_err"],
             "shape": r["shape"],
+            "llama_7b": r["llama_7b"],
         })
     for name, line, src in (
             ("flash_attention_fwd", 77, "flash_attention"),
@@ -1405,10 +1879,35 @@ def main() -> int:
             "source": f"paddle_tpu_torch/kernels/csrc/{src}.cu",
             "replaces": f"paddle_tpu/kernels/{src}.py:{line}",
             "launches": train_launches[name],
+            "launches_by_path": {"train": train_launches[name],
+                                 "llama_train": llama_launches[name]},
             **train_recs[name]})
-    serving = {"unfused": serving_u, "fused": serving_f}
+    # the norm kernels' main paths: Llama serving (unfused) and training
+    # for RMSNorm, GPT serving (unfused) and training for LayerNorm
+    by_path = {
+        "rms_norm_fwd": {"llama_unfused": llama_u, "llama_fused": llama_f,
+                         "llama_train": llama_launches},
+        "rms_norm_bwd": {"llama_train": llama_launches},
+        "layer_norm_fwd": {"unfused": launches_u, "fused": launches_f,
+                           "train": train_launches},
+        "layer_norm_bwd": {"train": train_launches},
+    }
+    for name, line in zip(NORM_KERNELS, (22, 30, 167, 179)):
+        paths = {path: counts[name] for path, counts in by_path[name].items()}
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/fused_norm.cu",
+            "replaces": f"paddle_tpu/kernels/fused_norm.py:{line}",
+            "launches": next(iter(paths.values())),
+            "launches_by_path": paths,
+            **norm_recs[name]})
+    serving = {"unfused": serving_u, "fused": serving_f,
+               "llama_unfused": llama_serving_u,
+               "llama_fused": llama_serving_f}
     log(f"[done] {time.perf_counter() - t_start:.1f} s; serving "
-        f"{json.dumps(serving)}; train {json.dumps(train)}")
+        f"{json.dumps(serving)}; train {json.dumps(train)}; llama train "
+        f"{json.dumps(llama_train)}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

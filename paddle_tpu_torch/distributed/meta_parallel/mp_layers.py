@@ -12,24 +12,19 @@ materialised on the host.
 
 from __future__ import annotations
 
-import math
 from typing import Optional
 
 import torch
 from torch import nn
 
+from ...nn.functional.input import embedding
+from ...nn.layers.common import Linear
+
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "VocabParallelEmbedding", "parallel_cross_entropy"]
 
 
-def _xavier_normal(shape, *, device, dtype, generator) -> nn.Parameter:
-    fan_in, fan_out = shape
-    w = torch.empty(shape, device=device, dtype=dtype)
-    w.normal_(0.0, math.sqrt(2.0 / (fan_in + fan_out)), generator=generator)
-    return nn.Parameter(w)
-
-
-class _Linear(nn.Module):
+class _Linear(Linear):
     """``y = x @ weight + bias`` with ``weight [in, out]`` (the reference's
     ``F.linear`` layout); bias starts at zero."""
 
@@ -37,28 +32,9 @@ class _Linear(nn.Module):
                  has_bias: bool = True, *, device: torch.device,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
-        super().__init__()
-        self.in_features = in_features
-        self.out_features = out_features
-        self.weight = _xavier_normal((in_features, out_features),
-                                     device=device, dtype=dtype,
-                                     generator=generator)
-        if has_bias:
-            self.bias = nn.Parameter(torch.zeros(out_features,
-                                                 device=device, dtype=dtype))
-        else:
-            self.register_parameter("bias", None)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = torch.matmul(x, self.weight)
-        if self.bias is not None:
-            y = y + self.bias
-        return y
-
-    def extra_repr(self) -> str:
-        return (f"in_features={self.in_features}, "
-                f"out_features={self.out_features}, "
-                f"bias={self.bias is not None}")
+        super().__init__(in_features, out_features,
+                         bias_attr=None if has_bias else False,
+                         device=device, dtype=dtype, generator=generator)
 
 
 class ColumnParallelLinear(_Linear):
@@ -88,12 +64,7 @@ class VocabParallelEmbedding(nn.Module):
         self.weight = nn.Parameter(w)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
-        n = self.num_embeddings
-        idx = ids.long()
-        idx = torch.where(idx < 0, idx + n, idx)
-        valid = (idx >= 0) & (idx < n)
-        rows = self.weight[idx.clamp(0, n - 1)]
-        return rows.masked_fill(~valid[..., None], float("nan"))
+        return embedding(ids, self.weight)
 
     def extra_repr(self) -> str:
         return f"{self.num_embeddings}, {self.embedding_dim}"

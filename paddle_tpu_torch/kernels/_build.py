@@ -75,6 +75,20 @@ _SIGNATURES = {
              _F, _I, _P],                   # scale, causal, stream
             _I),
     },
+    "fused_norm": {
+        "fused_norm_fwd": (
+            [_P, _P, _P, _P, _P, _P,        # x, w, b, y, mean, rstd
+             _I, _I, _I, _I, _I,            # rms, x/w dtype, rows, h
+             _F, _I, _P],                   # eps, vec, stream
+            _I),
+        "fused_norm_bwd": (
+            [_P, _P, _P, _P, _P, _P, _P, _P, _P,   # x, w, mean, rstd, g,
+                                                   # dx, dw, db, part
+             _I, _I, _I, _I, _I, _I,        # rms, x/w dtype, rows, h,
+                                            # rows per block
+             _I, _P],                       # vec, stream
+            _I),
+    },
     "fused_adamw": {
         "fused_adamw_launch": (
             [_P, _P, _P, _P, _P,            # p, g, m, v, low

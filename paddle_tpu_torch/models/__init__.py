@@ -2,8 +2,12 @@ from .convert import state_dict_from_jax
 from .generation import generate
 from .gpt import (GPTBlock, GPTConfig, GPTForCausalLM, GPTModel, gpt3_6_7b,
                   gpt_small, gpt_tiny)
+from .llama import (LlamaConfig, LlamaDecoderLayer, LlamaForCausalLM,
+                    LlamaModel, llama_7b, llama_tiny)
 from .trainer import GPTHybridTrainer
 
 __all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM",
-           "GPTHybridTrainer", "gpt_tiny", "gpt_small", "gpt3_6_7b",
-           "generate", "state_dict_from_jax"]
+           "GPTHybridTrainer", "LlamaConfig", "LlamaDecoderLayer",
+           "LlamaModel", "LlamaForCausalLM", "gpt_tiny", "gpt_small",
+           "gpt3_6_7b", "llama_tiny", "llama_7b", "generate",
+           "state_dict_from_jax"]

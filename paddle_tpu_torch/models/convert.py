@@ -1,20 +1,23 @@
-"""Carry GPT weights from the JAX package into the port.
+"""Carry GPT and Llama weights from the JAX package into the port.
 
 The port keeps the reference's parameter names and layouts (``[in, out]``
 Linear weights, ``[vocab, h]`` embeddings), so conversion is a key-for-key
-copy, checked against the parameter table of the GPT config.
+copy, checked against the parameter table of the model's config.  The
+family is read from the key prefix: ``gpt.`` or ``llama.``.
 """
 
 from __future__ import annotations
 
+import math
 import re
-from typing import Dict, Mapping, Optional, Tuple, Union
+from typing import Dict, Mapping, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..device import resolve_device, resolve_dtype
 from .gpt import GPTConfig
+from .llama import LlamaConfig
 
 __all__ = ["state_dict_from_jax"]
 
@@ -43,13 +46,56 @@ def _gpt_shapes(cfg: GPTConfig) -> Dict[str, Tuple[int, ...]]:
     return out
 
 
+def _llama_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every parameter name of ``LlamaForCausalLM(cfg)`` with its shape."""
+    h, f = cfg.hidden_size, cfg.intermediate_size
+    q, kv = cfg.num_heads * cfg.head_dim, cfg.kv_heads * cfg.head_dim
+    out = {"llama.embed_tokens.weight": (cfg.vocab_size, h)}
+    for i in range(cfg.num_layers):
+        p = f"llama.layers.{i}."
+        out[p + "input_layernorm.weight"] = (h,)
+        for name, shape in (("q_proj", (h, q)), ("k_proj", (h, kv)),
+                            ("v_proj", (h, kv)), ("o_proj", (q, h))):
+            out[p + "self_attn." + name + ".weight"] = shape
+        out[p + "post_attention_layernorm.weight"] = (h,)
+        for name, shape in (("gate_proj", (h, f)), ("up_proj", (h, f)),
+                            ("down_proj", (f, h))):
+            out[p + "mlp." + name + ".weight"] = shape
+    out["llama.norm.weight"] = (h,)
+    out["lm_head.weight"] = (h, cfg.vocab_size)
+    return out
+
+
+def _layers(arrays: Mapping[str, np.ndarray], pattern: str) -> int:
+    return 1 + max(int(m.group(1)) for k in arrays
+                   if (m := re.match(pattern, k)))
+
+
+def _infer_llama(arrays: Mapping[str, np.ndarray]) -> LlamaConfig:
+    for key in ("llama.embed_tokens.weight",
+                "llama.layers.0.self_attn.k_proj.weight",
+                "llama.layers.0.mlp.up_proj.weight"):
+        if key not in arrays:
+            raise KeyError(f"missing key in the JAX arrays: {key!r}")
+    vocab, h = np.shape(arrays["llama.embed_tokens.weight"])
+    kv = np.shape(arrays["llama.layers.0.self_attn.k_proj.weight"])[1]
+    # the head count is not in the arrays, and the parameter table depends
+    # only on the widths: any split of h and kv into heads gives the same
+    d = math.gcd(h, kv)
+    return LlamaConfig(
+        vocab_size=vocab, hidden_size=h,
+        intermediate_size=np.shape(
+            arrays["llama.layers.0.mlp.up_proj.weight"])[1],
+        num_layers=_layers(arrays, r"llama\.layers\.(\d+)\."),
+        num_heads=h // d, num_kv_heads=kv // d)
+
+
 def _infer_config(arrays: Mapping[str, np.ndarray]) -> GPTConfig:
     for key in ("gpt.wte.weight", "gpt.wpe.weight", "gpt.h.0.fc_in.weight"):
         if key not in arrays:
             raise KeyError(f"missing key in the JAX arrays: {key!r}")
     vocab, h = np.shape(arrays["gpt.wte.weight"])
-    layers = 1 + max(int(m.group(1)) for k in arrays
-                     if (m := re.match(r"gpt\.h\.(\d+)\.", k)))
+    layers = _layers(arrays, r"gpt\.h\.(\d+)\.")
     return GPTConfig(
         vocab_size=vocab, hidden_size=h, num_layers=layers,
         max_seq_len=np.shape(arrays["gpt.wpe.weight"])[0],
@@ -61,18 +107,26 @@ def _infer_config(arrays: Mapping[str, np.ndarray]) -> GPTConfig:
 def state_dict_from_jax(arrays: Mapping[str, np.ndarray],
                         device: Union[None, str, torch.device],
                         dtype: Union[None, str, torch.dtype],
-                        cfg: Optional[GPTConfig] = None
+                        cfg: Union[None, GPTConfig, LlamaConfig] = None
                         ) -> Dict[str, torch.Tensor]:
-    """Tensors on ``device`` in ``dtype`` for the JAX GPT parameters
-    ``arrays`` (``{k: np.asarray(v) for k, v in
+    """Tensors on ``device`` in ``dtype`` for the JAX GPT or Llama
+    parameters ``arrays`` (``{k: np.asarray(v) for k, v in
     jax_model.state_dict().items()}``), ready for
     ``model.load_state_dict``.
 
-    The keys and shapes are checked against ``cfg``'s parameter table
-    (inferred from the arrays when ``cfg`` is None): a missing or
-    unexpected key raises ``KeyError`` and a shape mismatch
-    ``ValueError``, each naming the key."""
-    want = _gpt_shapes(cfg if cfg is not None else _infer_config(arrays))
+    The family is the one ``cfg`` names or, when ``cfg`` is None, the one
+    the keys name (any key under ``llama.``: Llama, else GPT).  The keys
+    and shapes are checked against the config's parameter table
+    (inferred from the arrays when ``cfg`` is None): a missing or unexpected
+    key raises ``KeyError`` and a shape mismatch ``ValueError``, each
+    naming the key."""
+    llama = isinstance(cfg, LlamaConfig) if cfg is not None else \
+        any(k.startswith("llama.") for k in arrays)
+    if llama:
+        want = _llama_shapes(cfg if cfg is not None
+                             else _infer_llama(arrays))
+    else:
+        want = _gpt_shapes(cfg if cfg is not None else _infer_config(arrays))
     for k in want:
         if k not in arrays:
             raise KeyError(f"missing key in the JAX arrays: {k!r}")

@@ -1,0 +1,379 @@
+"""Llama family (counterpart of paddle_tpu/models/llama.py).
+
+PaddleNLP's ``LlamaForCausalLM`` surface: RMSNorm, rotary position
+embeddings (the neox pairing of halves), grouped-query attention, a
+SwiGLU MLP, no biases, an untied ``lm_head``.  Parameter names and
+layouts are the reference's (``llama.layers.0.self_attn.q_proj.weight``,
+``[in, out]`` Linear weights), so a JAX ``state_dict`` loads key for key
+(``models/convert.py``).
+
+Every RMSNorm goes through the fused-norm kernels
+(``nn.functional.rms_norm``).  The uncached (training) forward's
+attention is ``nn.functional.scaled_dot_product_attention`` (the flash
+kernels' ``autograd.Function``); the cached decode/prefill path's is
+``kernels.decode_attention_auto``; ``fused_decode_step`` runs each layer
+through the decode-block kernel pair.  All three read kv head
+``h // (H // KVH)`` themselves, so the KV tensors are passed with their
+own heads: the reference's ``jnp.repeat`` of the cache (a broadcast under
+XLA) would be a copy of ``[B, S_max, H, D]`` per layer per step here.
+
+Not ported yet (ROADMAP): ``llama_shard_fn`` and the tensor-parallel
+methods (``tp_decode_supported``, ``tp_decode_weights``), ``remat``,
+``chunked_loss``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Tuple, Union
+
+import torch
+from torch import nn
+
+from ..device import resolve_device, resolve_dtype
+from ..kernels.decode_attention import decode_attention_auto
+from ..kernels.decode_block import decode_block_layer, fusion_legal
+from ..nn.functional import scaled_dot_product_attention, silu
+from ..nn.layers import Dropout, Embedding, LayerList, Linear, RMSNorm
+from .kv_cache import append_kv, cache_lens
+
+__all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
+           "LlamaModel", "LlamaForCausalLM", "apply_rotary_pos_emb",
+           "llama_tiny", "llama_7b"]
+
+Cache = Tuple[torch.Tensor, torch.Tensor, Union[int, torch.Tensor]]
+Pos = Union[int, torch.Tensor]
+
+
+@dataclasses.dataclass
+class LlamaConfig:
+    vocab_size: int = 32000
+    hidden_size: int = 4096
+    intermediate_size: int = 11008
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: Optional[int] = None      # None -> MHA; < num_heads -> GQA
+    max_seq_len: int = 4096
+    rms_norm_eps: float = 1e-5
+    rope_theta: float = 10000.0
+    dropout: float = 0.0
+    dtype: str = "float32"
+
+    @property
+    def kv_heads(self) -> int:
+        return self.num_kv_heads or self.num_heads
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    def num_params(self) -> int:
+        h, l, v = self.hidden_size, self.num_layers, self.vocab_size
+        kvh = self.kv_heads * self.head_dim
+        attn = h * h + 2 * h * kvh + h * h          # q, k, v, o
+        mlp = 3 * h * self.intermediate_size        # gate, up, down
+        norms = 2 * h
+        return 2 * v * h + l * (attn + mlp + norms) + h
+
+
+def _rope_tables(positions: torch.Tensor, head_dim: int, theta: float,
+                 dtype: torch.dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+    """cos/sin tables ``[*, head_dim/2]`` for ``positions``, computed in
+    f32 and cast to ``dtype`` (llama.py:72-78)."""
+    inv = 1.0 / (theta ** (torch.arange(0, head_dim, 2, dtype=torch.float32,
+                                        device=positions.device)
+                           / head_dim))
+    ang = positions.float()[..., None] * inv
+    return torch.cos(ang).to(dtype), torch.sin(ang).to(dtype)
+
+
+def fused_rope_tables(pos: torch.Tensor, cfg: "LlamaConfig"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The fused decode path's rotary tables: f32 ``[B, head_dim]`` at
+    each row's position ``pos [B]``, the halves duplicated
+    (llama.py:297-303)."""
+    cos, sin = _rope_tables(pos, cfg.head_dim, cfg.rope_theta, torch.float32)
+    return torch.cat([cos, cos], dim=-1), torch.cat([sin, sin], dim=-1)
+
+
+def _positions(offset: Pos, s: int, device: torch.device) -> torch.Tensor:
+    """``offset + arange(s)``: ``[s]`` for an int offset, ``[b, s]`` for a
+    ``[b]`` tensor of per-row offsets (ragged continuous batching)."""
+    ar = torch.arange(s, device=device)
+    if isinstance(offset, torch.Tensor) and offset.dim() >= 1:
+        return offset.to(device).long()[:, None] + ar
+    return ar + int(offset)
+
+
+def apply_rotary_pos_emb(x: torch.Tensor, cos: torch.Tensor,
+                         sin: torch.Tensor) -> torch.Tensor:
+    """x ``[b, s, heads, d]``; cos/sin ``[s, d/2]`` (shared positions) or
+    ``[b, s, d/2]`` (per-row positions).  Llama pairing: ``(x1, x2)`` are
+    the halves of the head (llama.py:81-92)."""
+    d2 = x.shape[-1] // 2
+    x1, x2 = x[..., :d2], x[..., d2:]
+    if cos.dim() == 2:
+        cos, sin = cos[None], sin[None]
+    c = cos[:, :, None, :]
+    s = sin[:, :, None, :]
+    return torch.cat([x1 * c - x2 * s, x2 * c + x1 * s], dim=-1)
+
+
+class LlamaAttention(nn.Module):
+    def __init__(self, cfg: LlamaConfig, *, device: torch.device,
+                 dtype: torch.dtype, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        h, d = cfg.hidden_size, cfg.head_dim
+        kw = dict(bias_attr=False, device=device, dtype=dtype,
+                  generator=generator)
+        self.q_proj = Linear(h, cfg.num_heads * d, **kw)
+        self.k_proj = Linear(h, cfg.kv_heads * d, **kw)
+        self.v_proj = Linear(h, cfg.kv_heads * d, **kw)
+        self.o_proj = Linear(cfg.num_heads * d, h, **kw)
+
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                cache: Optional[Cache] = None):
+        cfg = self.cfg
+        b, s, _ = x.shape
+        q = self.q_proj(x).view(b, s, cfg.num_heads, cfg.head_dim)
+        k = self.k_proj(x).view(b, s, cfg.kv_heads, cfg.head_dim)
+        v = self.v_proj(x).view(b, s, cfg.kv_heads, cfg.head_dim)
+        q = apply_rotary_pos_emb(q, cos, sin)
+        k = apply_rotary_pos_emb(k, cos, sin)
+        if cache is None:
+            out = scaled_dot_product_attention(q, k, v, is_causal=True)
+            new_cache = None
+        else:
+            pk, pv, pos = cache
+            # pos: int (dense batch) or [b] per-row offsets; seq_lens =
+            # pos + s with the causal tail is the chunked-prefill mask
+            k, v = append_kv(pk, pv, k, v, pos)
+            out = decode_attention_auto(
+                q, k, v, cache_lens(pos, s, b, device=x.device))
+            new_cache = (k, v, pos + s)
+        out = out.reshape(b, s, cfg.num_heads * cfg.head_dim)
+        return self.o_proj(out), new_cache
+
+
+class LlamaMLP(nn.Module):
+    """SwiGLU: ``down(silu(gate(x)) * up(x))``."""
+
+    def __init__(self, cfg: LlamaConfig, *, device: torch.device,
+                 dtype: torch.dtype, generator: torch.Generator):
+        super().__init__()
+        h, m = cfg.hidden_size, cfg.intermediate_size
+        kw = dict(bias_attr=False, device=device, dtype=dtype,
+                  generator=generator)
+        self.gate_proj = Linear(h, m, **kw)
+        self.up_proj = Linear(h, m, **kw)
+        self.down_proj = Linear(m, h, **kw)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.down_proj(silu(self.gate_proj(x)) * self.up_proj(x))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, cfg: LlamaConfig, *, device: torch.device,
+                 dtype: torch.dtype, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.input_layernorm = RMSNorm(cfg.hidden_size,
+                                       epsilon=cfg.rms_norm_eps, **kw)
+        self.self_attn = LlamaAttention(cfg, generator=generator, **kw)
+        self.post_attention_layernorm = RMSNorm(cfg.hidden_size,
+                                                epsilon=cfg.rms_norm_eps,
+                                                **kw)
+        self.mlp = LlamaMLP(cfg, generator=generator, **kw)
+        self.drop = Dropout(cfg.dropout, generator=generator)
+
+    def forward(self, x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor,
+                cache: Optional[Cache] = None):
+        a, new_cache = self.self_attn(self.input_layernorm(x), cos, sin,
+                                      cache)
+        x = x + self.drop(a)
+        x = x + self.drop(self.mlp(self.post_attention_layernorm(x)))
+        if cache is not None:
+            return x, new_cache
+        return x
+
+    def decode_block_weights(self) -> dict:
+        """This layer as ``decode_block_layer``'s keywords (without the
+        rotary tables): RMSNorm, no biases, GQA, SwiGLU."""
+        cfg = self.cfg
+        at, mlp = self.self_attn, self.mlp
+        return dict(
+            kv_heads=cfg.kv_heads, head_dim=cfg.head_dim,
+            norm="rms", eps1=cfg.rms_norm_eps, eps2=cfg.rms_norm_eps,
+            norm1_w=self.input_layernorm.weight, norm1_b=None,
+            wq=at.q_proj.weight, wk=at.k_proj.weight, wv=at.v_proj.weight,
+            bq=None, bkv=None, bv=None, wo=at.o_proj.weight, bo=None,
+            norm2_w=self.post_attention_layernorm.weight, norm2_b=None,
+            w1=mlp.up_proj.weight, b1=None, w2=mlp.down_proj.weight, b2=None,
+            w_gate=mlp.gate_proj.weight)
+
+    def fused_decode_step(self, x: torch.Tensor, cos_full: torch.Tensor,
+                          sin_full: torch.Tensor, cache: Cache):
+        """One decode token through the decode-block kernel pair
+        (kernels/decode_block.py): RMSNorm -> QKV (+rotary) -> KV append
+        -> GQA streaming attention -> o_proj -> SwiGLU MLP.
+        ``cos_full``/``sin_full`` are f32 ``[B, head_dim]`` rotary tables
+        (halves duplicated) at each row's position; the slabs in
+        ``cache`` are updated in place."""
+        pk, pv, pos = cache
+        y, k2, v2 = decode_block_layer(
+            x, pk, pv, pos, **self.decode_block_weights(),
+            rope_cos=cos_full, rope_sin=sin_full)
+        return y, (k2, v2, pos + 1)
+
+
+class LlamaModel(nn.Module):
+    def __init__(self, cfg: LlamaConfig, *, device: torch.device,
+                 dtype: torch.dtype, generator: torch.Generator):
+        super().__init__()
+        self.cfg = cfg
+        kw = dict(device=device, dtype=dtype)
+        self.embed_tokens = Embedding(cfg.vocab_size, cfg.hidden_size,
+                                      generator=generator, **kw)
+        self.layers = LayerList([LlamaDecoderLayer(cfg, generator=generator,
+                                                   **kw)
+                                 for _ in range(cfg.num_layers)])
+        self.norm = RMSNorm(cfg.hidden_size, epsilon=cfg.rms_norm_eps, **kw)
+
+    def forward(self, input_ids: torch.Tensor,
+                caches: Optional[List[Cache]] = None,
+                position_offset: Pos = 0):
+        cfg = self.cfg
+        x = self.embed_tokens(input_ids)
+        pos = _positions(position_offset, input_ids.shape[1], x.device)
+        cos, sin = _rope_tables(pos, cfg.head_dim, cfg.rope_theta, x.dtype)
+        new_caches = []
+        for i, layer in enumerate(self.layers):
+            if caches is None:
+                x = layer(x, cos, sin)
+            else:
+                x, c = layer(x, cos, sin, caches[i])
+                new_caches.append(c)
+        x = self.norm(x)
+        return x if caches is None else (x, new_caches)
+
+
+class LlamaForCausalLM(nn.Module):
+    """Llama with an untied ``lm_head``.
+
+    Built on ``device`` (default: the current CUDA device; with no CUDA
+    device it raises and asks for ``device="cpu"``), in ``dtype``
+    (default: ``cfg.dtype``), with weights drawn from ``generator``
+    (default: a generator on ``device`` seeded with 0).  Parameters are
+    created on ``device`` directly."""
+
+    def __init__(self, cfg: LlamaConfig,
+                 device: Union[None, str, torch.device] = None,
+                 dtype: Union[None, str, torch.dtype] = None,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__()
+        device = resolve_device(device)
+        dtype = resolve_dtype(dtype, cfg.dtype)
+        if generator is None:
+            generator = torch.Generator(device=device)
+            generator.manual_seed(0)
+        self.cfg = cfg
+        self.llama = LlamaModel(cfg, device=device, dtype=dtype,
+                                generator=generator)
+        self.lm_head = Linear(cfg.hidden_size, cfg.vocab_size,
+                              bias_attr=False, device=device, dtype=dtype,
+                              generator=generator)
+
+    @property
+    def device(self) -> torch.device:
+        return self.lm_head.weight.device
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.lm_head.weight.dtype
+
+    def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        return self.lm_head(self.llama(input_ids))
+
+    def loss(self, input_ids: torch.Tensor,
+             labels: torch.Tensor) -> torch.Tensor:
+        """Causal LM loss: the mean over tokens of the f32 log-softmax's
+        negative label entry (llama.py:236-240)."""
+        logp = torch.log_softmax(self(input_ids).float(), dim=-1)
+        return -torch.gather(logp, -1, labels.long()[..., None]).mean()
+
+    # ---- incremental decode -------------------------------------------
+    def init_cache(self, batch: int, max_len: int,
+                   dtype: Union[None, str, torch.dtype] = None
+                   ) -> List[Cache]:
+        cfg = self.cfg
+        dt = resolve_dtype(dtype) if dtype is not None else self.dtype
+        shape = (batch, max_len, cfg.kv_heads, cfg.head_dim)
+        return [(torch.zeros(shape, dtype=dt, device=self.device),
+                 torch.zeros(shape, dtype=dt, device=self.device), 0)
+                for _ in range(cfg.num_layers)]
+
+    @torch.no_grad()
+    def decode_step(self, input_ids: torch.Tensor, caches: List[Cache],
+                    position: Pos):
+        """One incremental chunk at ``position`` (an int or a ``[b]``
+        tensor): appends its K/V into ``caches`` in place and returns
+        ``(logits [b, s, vocab], new_caches)``."""
+        hidden, new_caches = self.llama(input_ids, caches,
+                                        position_offset=position)
+        return self.lm_head(hidden), new_caches
+
+    def fused_decode_supported(self, batch: int = 1,
+                               kv_len: Optional[int] = None, tp: int = 1):
+        """Static legality of the fused decode-block path (GQA aware).
+        Returns ``(ok, reason)``."""
+        cfg = self.cfg
+        if cfg.dropout and self.training:
+            return False, "dropout active (training mode)"
+        return fusion_legal(
+            max_seq=kv_len or cfg.max_seq_len, hidden=cfg.hidden_size,
+            heads=cfg.num_heads, kv_heads=cfg.kv_heads,
+            head_dim=cfg.head_dim, ffn=cfg.intermediate_size, batch=batch,
+            dtype=self.dtype, gated=True, tp=tp)
+
+    @torch.no_grad()
+    def fused_decode_step(self, input_ids: torch.Tensor, caches: List[Cache],
+                          position: Pos):
+        """``decode_step`` for one token per row through the decode-block
+        kernels: the embedding, final norm and head are shared with
+        ``decode_step``; the rotary tables are f32 at each row's position,
+        full width with the halves duplicated (llama.py:285-310)."""
+        cfg = self.cfg
+        x = self.llama.embed_tokens(input_ids)
+        b = x.shape[0]
+        if isinstance(position, torch.Tensor) and position.dim() >= 1:
+            pos = position.to(x.device)
+        else:
+            pos = torch.full((b,), int(position), dtype=torch.int32,
+                             device=x.device)
+        cos_full, sin_full = fused_rope_tables(pos, cfg)
+        new_caches = []
+        for layer, cache in zip(self.llama.layers, caches):
+            x, c = layer.fused_decode_step(x, cos_full, sin_full, cache)
+            new_caches.append(c)
+        x = self.llama.norm(x)
+        return self.lm_head(x), new_caches
+
+    def generate(self, input_ids, max_new_tokens: int, **kw):
+        """Autoregressive decoding (models/generation.py)."""
+        from .generation import generate
+        return generate(self, input_ids, max_new_tokens, **kw)
+
+
+def llama_tiny(**kw) -> LlamaConfig:
+    return LlamaConfig(vocab_size=256, hidden_size=64, intermediate_size=176,
+                       num_layers=2, num_heads=4, num_kv_heads=2,
+                       max_seq_len=128, **kw)
+
+
+def llama_7b(**kw) -> LlamaConfig:
+    # Llama-2-7B: 32 layers, 4096 hidden, 11008 ffn, 32 heads, MHA
+    return LlamaConfig(vocab_size=32000, hidden_size=4096,
+                       intermediate_size=11008, num_layers=32, num_heads=32,
+                       max_seq_len=4096, dtype="bfloat16", **kw)

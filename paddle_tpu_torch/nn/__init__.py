@@ -1,4 +1,5 @@
 from . import functional
-from .layers import Dropout, LayerList, LayerNorm
+from .layers import Dropout, Embedding, LayerList, LayerNorm, Linear, RMSNorm
 
-__all__ = ["functional", "Dropout", "LayerList", "LayerNorm"]
+__all__ = ["functional", "Dropout", "Embedding", "LayerList", "LayerNorm",
+           "Linear", "RMSNorm"]

@@ -1,6 +1,7 @@
-from .activation import gelu
+from .activation import gelu, silu
 from .attention import scaled_dot_product_attention, sdpa_reference
-from .norm import layer_norm
+from .input import embedding
+from .norm import layer_norm, rms_norm
 
-__all__ = ["gelu", "layer_norm", "scaled_dot_product_attention",
-           "sdpa_reference"]
+__all__ = ["embedding", "gelu", "layer_norm", "rms_norm",
+           "scaled_dot_product_attention", "sdpa_reference", "silu"]

@@ -1,12 +1,12 @@
 """Activation functionals (counterpart of paddle_tpu/nn/functional/
-activation.py, the subset the GPT path uses)."""
+activation.py, the subset the GPT and Llama paths use)."""
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
 
-__all__ = ["gelu"]
+__all__ = ["gelu", "silu"]
 
 
 def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
@@ -14,3 +14,8 @@ def gelu(x: torch.Tensor, approximate: bool = False) -> torch.Tensor:
     ``0.5 x (1 + tanh(sqrt(2/pi) (x + 0.044715 x^3)))`` the GPT blocks
     use, as ``jax.nn.gelu(approximate=True)``."""
     return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """SiLU ``x · sigmoid(x)``, as ``jax.nn.silu``."""
+    return F.silu(x)

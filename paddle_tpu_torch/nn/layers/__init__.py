@@ -1,5 +1,6 @@
-from .common import Dropout
+from .common import Dropout, Embedding, Linear
 from .container import LayerList
-from .norm import LayerNorm
+from .norm import LayerNorm, RMSNorm
 
-__all__ = ["Dropout", "LayerList", "LayerNorm"]
+__all__ = ["Dropout", "Embedding", "LayerList", "LayerNorm", "Linear",
+           "RMSNorm"]

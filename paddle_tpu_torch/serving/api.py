@@ -57,9 +57,10 @@ class RequestOutput:
 
 
 class ServingEngine:
-    """Continuous-batching serving over a causal LM exposing
-    ``init_cache``/``decode_step`` (``GPTForCausalLM``), on the model's
-    device.
+    """Continuous-batching serving over a causal LM exposing ``cfg``,
+    ``device``, ``dtype``, ``init_cache`` and ``decode_step`` (and
+    ``fused_decode_step`` for ``fused_decode``): ``GPTForCausalLM`` or
+    ``LlamaForCausalLM``, on the model's device.
 
     ``num_slots`` fixes the decode batch; ``max_seq`` the per-slot KV
     budget (default: the model's max_seq_len).  Prefix reuse

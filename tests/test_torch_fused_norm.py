@@ -1,0 +1,222 @@
+"""The fused-norm kernels of the PyTorch port (paddle_tpu_torch/kernels/
+fused_norm.py) against the JAX package's Pallas kernels on the CPU.
+
+The JAX side is ``fused_rms_norm_pallas`` / ``fused_layer_norm_pallas``
+in interpret mode (forward kernels 7 and 9) and their ``jax.grad``
+(backward kernels 8 and 10, whose dw / db accumulate across the grid),
+with ``block_rows`` forcing a multi-block grid, and a 1-row input.  The
+port side is ``RMSNormFunction`` / ``LayerNormFunction`` on CPU tensors,
+i.e. the kernels' plain versions through the same forward/backward
+decomposition the card runs.
+
+Tolerances, relative to ``scale = max(1, max |want|)``: f32 outputs and
+gradients at 1e-5 (the two frameworks sum rows in different orders);
+bfloat16 outputs within one bf16 ulp of the JAX value beyond that same
+f32 error (both round the same f32 arithmetic once, so a value near a
+rounding boundary may land one ulp apart); dw / db at 1e-4.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from paddle_tpu.incubate.nn import functional as jax_incubate
+from paddle_tpu.kernels.fused_norm import (fused_layer_norm_pallas,
+                                           fused_rms_norm_pallas)
+from paddle_tpu.nn import functional as jax_F
+from paddle_tpu_torch.incubate.nn import functional as incubate
+from paddle_tpu_torch.kernels import fused_norm as fn
+from paddle_tpu_torch.nn import functional as F
+
+EPS = 1e-5
+_JDT = {torch.float32: jnp.float32, torch.bfloat16: jnp.bfloat16,
+        torch.float16: jnp.float16}
+_MANTISSA = {torch.bfloat16: 7, torch.float16: 10}
+
+
+def _ok(got, want, rel, dtype):
+    """``|got - want| <= rel * scale`` (+ one output ulp in a 16-bit
+    ``dtype``)."""
+    got = np.asarray(got, np.float32)
+    want = np.asarray(want, np.float32)
+    scale = max(1.0, float(np.abs(want).max()))
+    tol = rel * scale
+    if dtype in _MANTISSA:
+        tol = tol + np.exp2(np.floor(np.log2(np.maximum(np.abs(want),
+                                                        1e-30)))
+                            - _MANTISSA[dtype])
+    err = np.abs(got - want) - tol
+    assert (err <= 0).all(), f"max excess {err.max()} (scale {scale})"
+
+
+def _inputs(rows, h, dtype, seed):
+    rs = np.random.RandomState(seed)
+    x = rs.randn(rows, h).astype(np.float32) * 2 + 0.5
+    w = rs.randn(h).astype(np.float32) * 0.5 + 1
+    b = rs.randn(h).astype(np.float32) * 0.3
+    g = rs.randn(rows, h).astype(np.float32)
+    # round through the dtype once so both frameworks see the same values
+    cast = [torch.as_tensor(a).to(dtype) for a in (x, w, b, g)]
+    return cast, [jnp.asarray(t.float().numpy()).astype(_JDT[dtype])
+                  for t in cast]
+
+
+def _torch_run(fn_, args, g):
+    leaves = [a.clone().requires_grad_() for a in args]
+    y = fn_(*leaves)
+    y.backward(g)
+    return y.detach(), [a.grad for a in leaves]
+
+
+# (rows, h, JAX block_rows): a multi-block JAX grid, one row, a wide row
+CASES = [(32, 256, 8), (1, 128, None), (16, 1024, 16)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,h,block", CASES)
+def test_rms_norm_matches_pallas(rows, h, block, dtype):
+    (x, w, _, g), (jx, jw, _, jg) = _inputs(rows, h, dtype, seed=rows + h)
+
+    def jfn(x_, w_):
+        return fused_rms_norm_pallas(x_, w_, EPS, interpret=True,
+                                     block_rows=block)
+    want = jfn(jx, jw)
+    jdx, jdw = jax.grad(lambda a, c: jnp.sum(
+        jfn(a, c).astype(jnp.float32) * jg.astype(jnp.float32)),
+        argnums=(0, 1))(jx, jw)
+    y, (dx, dw) = _torch_run(
+        lambda a, c: fn.RMSNormFunction.apply(a, c, EPS), (x, w), g)
+    assert y.dtype == dtype and dx.dtype == dtype and dw.dtype == dtype
+    _ok(y.float(), want.astype(jnp.float32), 1e-5, dtype)
+    _ok(dx.float(), jdx.astype(jnp.float32), 1e-5, dtype)
+    _ok(dw.float(), jdw.astype(jnp.float32), 1e-4, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("rows,h,block", CASES)
+def test_layer_norm_matches_pallas(rows, h, block, dtype):
+    (x, w, b, g), (jx, jw, jb, jg) = _inputs(rows, h, dtype, seed=rows * h)
+
+    def jfn(x_, w_, b_):
+        return fused_layer_norm_pallas(x_, w_, b_, EPS, interpret=True,
+                                       block_rows=block)
+    want = jfn(jx, jw, jb)
+    jdx, jdw, jdb = jax.grad(lambda a, c, d: jnp.sum(
+        jfn(a, c, d).astype(jnp.float32) * jg.astype(jnp.float32)),
+        argnums=(0, 1, 2))(jx, jw, jb)
+    y, (dx, dw, db) = _torch_run(
+        lambda a, c, d: fn.LayerNormFunction.apply(a, c, d, EPS),
+        (x, w, b), g)
+    assert y.dtype == dtype and dw.dtype == dtype and db.dtype == dtype
+    _ok(y.float(), want.astype(jnp.float32), 1e-5, dtype)
+    _ok(dx.float(), jdx.astype(jnp.float32), 1e-5, dtype)
+    _ok(dw.float(), jdw.astype(jnp.float32), 1e-4, dtype)
+    _ok(db.float(), jdb.astype(jnp.float32), 1e-4, dtype)
+
+
+def test_saved_statistics_and_f32_weight_on_half_input():
+    """The forward wrappers' statistics are f32 [rows, 1]; a float32
+    weight on a bfloat16 input keeps y in bf16 and dw in f32."""
+    (x, _, _, g), _ = _inputs(5, 64, torch.bfloat16, seed=3)
+    w = torch.linspace(0.5, 1.5, 64)
+    y, rstd = fn.rms_norm_fwd(x, w, EPS)
+    assert y.dtype == torch.bfloat16 and rstd.shape == (5, 1)
+    want = torch.rsqrt(x.float().square().mean(-1, keepdim=True) + EPS)
+    torch.testing.assert_close(rstd, want, rtol=1e-6, atol=0)
+    dx, dw = fn.rms_norm_bwd(x, w, rstd, g)
+    assert dx.dtype == torch.bfloat16 and dw.dtype == torch.float32
+    _, mean, rstd = fn.layer_norm_fwd(x, w, torch.zeros(64), EPS)
+    torch.testing.assert_close(mean, x.float().mean(-1, keepdim=True))
+    assert rstd.dtype == torch.float32 and rstd.shape == (5, 1)
+
+
+def test_wrappers_refuse_what_the_kernels_do_not_take():
+    x = torch.randn(4, 32)
+    with pytest.raises(ValueError, match=r"x \[rows, h\]"):
+        fn.rms_norm_fwd(x[None], torch.ones(32), EPS)
+    with pytest.raises(ValueError, match=r"w must be \[32\]"):
+        fn.rms_norm_fwd(x, torch.ones(31), EPS)
+    with pytest.raises(ValueError, match="x's dtype"):
+        fn.layer_norm_fwd(x, torch.ones(32, dtype=torch.bfloat16),
+                          torch.zeros(32, dtype=torch.bfloat16), EPS)
+    with pytest.raises(ValueError, match="b is"):
+        fn.layer_norm_fwd(x.bfloat16(), torch.ones(32, dtype=torch.bfloat16),
+                          torch.zeros(32), EPS)
+    with pytest.raises(ValueError, match=r"rstd must be float32 \[4, 1\]"):
+        fn.rms_norm_bwd(x, torch.ones(32), torch.ones(4), x)
+    with pytest.raises(ValueError, match="unsupported x dtype"):
+        fn.rms_norm_fwd(x.double(), torch.ones(32).double(), EPS)
+
+
+def test_functionals_route_the_affine_form_and_keep_the_rest():
+    """``layer_norm`` / ``rms_norm`` on the kernels' form go through the
+    autograd Functions (no new launches on the CPU); ``layer_norm``'s
+    other forms take the reference's XLA form on the CPU and match it;
+    ``rms_norm`` has no other form and refuses one."""
+    rs = np.random.RandomState(5)
+    x = rs.randn(2, 3, 48).astype(np.float32)
+    w = rs.randn(48).astype(np.float32)
+    b = rs.randn(48).astype(np.float32)
+    tx, tw, tb = (torch.as_tensor(a) for a in (x, w, b))
+    for got, want in (
+            (F.layer_norm(tx, 48, tw, tb),
+             jax_F.layer_norm(jnp.asarray(x), 48, jnp.asarray(w),
+                              jnp.asarray(b))),
+            (F.layer_norm(tx, (3, 48)),
+             jax_F.layer_norm(jnp.asarray(x), (3, 48))),
+            (F.rms_norm(tx, tw, epsilon=EPS),
+             jax_F.rms_norm(jnp.asarray(x), jnp.asarray(w), epsilon=EPS)),
+            (incubate.fused_rms_norm(tx, tw, epsilon=EPS),
+             jax_incubate.fused_rms_norm(jnp.asarray(x), jnp.asarray(w),
+                                         epsilon=EPS)),
+            (incubate.fused_layer_norm(tx, tw, tb, residual=tx),
+             jax_incubate.fused_layer_norm(jnp.asarray(x), jnp.asarray(w),
+                                           jnp.asarray(b),
+                                           residual=jnp.asarray(x))),
+            (incubate.swiglu(tx), jax_incubate.swiglu(jnp.asarray(x)))):
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
+                                   rtol=1e-5)
+    assert fn.rms_norm_fwd.launches == 0 and fn.layer_norm_fwd.launches == 0
+    # rms_norm has the kernel's form only
+    with pytest.raises(ValueError, match="weight"):
+        F.rms_norm(tx, None)
+    with pytest.raises(NotImplementedError, match="norm_bias"):
+        incubate.fused_rms_norm(tx, tw, tb)
+    with pytest.raises(NotImplementedError, match="begin_norm_axis"):
+        incubate.fused_rms_norm(tx, tw, begin_norm_axis=1)
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_on_the_card():
+    """Each of the four kernels against its plain version on the card:
+    vector and scalar paths, every dtype pair, one row to many."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernels have no CPU mode)")
+    dev = torch.device("cuda")
+    for dtype, wdt in ((torch.float32, torch.float32),
+                       (torch.bfloat16, torch.bfloat16),
+                       (torch.bfloat16, torch.float32),
+                       (torch.float16, torch.float16)):
+        for rows, h in ((1, 64), (3, 777), (300, 1000), (64, 4096)):
+            (x, w, b, g), _ = _inputs(rows, h, dtype, seed=h)
+            x, g = x.to(dev), g.to(dev)
+            w, b = w.to(dev, wdt), b.to(dev, wdt)
+            y, rstd = fn.rms_norm_fwd(x, w, EPS)
+            ry, rrstd = fn.rms_norm_fwd_reference(x, w, EPS)
+            dx, dw = fn.rms_norm_bwd(x, w, rrstd, g)
+            rdx, rdw = fn.rms_norm_bwd_reference(x, w, rrstd, g)
+            ly, mean, lrstd = fn.layer_norm_fwd(x, w, b, EPS)
+            rly, rmean, rlrstd = fn.layer_norm_fwd_reference(x, w, b, EPS)
+            ldx, ldw, ldb = fn.layer_norm_bwd(x, w, rmean, rlrstd, g)
+            rldx, rldw, rldb = fn.layer_norm_bwd_reference(x, w, rmean,
+                                                           rlrstd, g)
+            torch.cuda.synchronize()
+            for got, want, rel in ((y, ry, 1e-5), (dx, rdx, 1e-5),
+                                   (ly, rly, 1e-5), (ldx, rldx, 1e-5),
+                                   (rstd, rrstd, 1e-5), (mean, rmean, 1e-5),
+                                   (lrstd, rlrstd, 1e-5), (dw, rdw, 1e-4),
+                                   (ldw, rldw, 1e-4), (ldb, rldb, 1e-4)):
+                _ok(got.float().cpu(), want.float().cpu(), rel, got.dtype)

@@ -41,6 +41,9 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
                 "paddle_tpu_torch.kernels.decode_block",
                 "paddle_tpu_torch.kernels.flash_attention",
                 "paddle_tpu_torch.kernels.fused_adamw",
+                "paddle_tpu_torch.kernels.fused_norm",
+                "paddle_tpu_torch.models.llama",
+                "paddle_tpu_torch.incubate.nn.functional",
                 "paddle_tpu_torch.nn.functional.attention",
                 "paddle_tpu_torch.optimizer.optimizer",
                 "paddle_tpu_torch.optimizer.adam",
