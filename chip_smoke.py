@@ -33,7 +33,22 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      to 3072 prompt tokens, unfused then ``fused_decode=True``;
   6. Llama parity — an f32 GQA Llama (hidden 768, 12 heads over 4 kv
      heads, 2 layers): engines == ``generate``, and two ``FusedAdamW``
-     train steps on the card and on the CPU agree;
+     train steps on the card and on the CPU agree; both parity phases
+     also serve tp=2 engines (both shards on the card) on the three
+     rungs ``tp_fused_block``, ``tp_fused`` and ``unfused``, whose greedy
+     tokens must equal ``generate``'s;
+  6b. tp kernels — the sharded decode block's three kernels
+     (``ring_entry_hop``, ``ring_exit_hop``, ``decode_block_attn_tp``)
+     against their plain versions at every ring seam and the per-shard
+     attention shapes of gpt3_6_7b and llama_7b at tp=2, then timed
+     beside the plain version, the bound and (for the hops) one library
+     product;
+  6c. tp serving — ``ServingEngine(tensor_parallel=2,
+     devices=["cuda:0", "cuda:0"])``: the full-depth gpt3_6_7b on
+     ``tp_fused_block`` then ``tp_fused``, then llama_7b on
+     ``tp_fused_block``, the same requests as the tp=1 phases, with the
+     launch counts held to their equations (the two shards share the
+     card: the ring hops are copies on it, no interconnect is measured);
   7. train kernels — on an emptied card, the three flash-attention
      kernels (forward, dq, dk/dv) and fused AdamW against their plain
      versions over a sweep, then timed at the train path's shapes
@@ -359,17 +374,17 @@ def block_bounds(x, kw, seq_pos, s_max):
     return out
 
 
-def _ulp_ok(got, want, dtype) -> bool:
+def _ulp_ok(got, want, dtype, atol: float = 0.0) -> bool:
     """Slabs agree: f32 within atol 1e-4; bf16 within one bf16 ulp of the
     plain version's value (f32 projections summed in another order may
-    round the stored row differently)."""
+    round the stored row differently), plus ``atol`` for values near 0."""
     import torch
     got, want = got.float(), want.float()
     if dtype == torch.float32:
         return bool(torch.allclose(got, want, atol=1e-4, rtol=0.0))
     ulp = torch.exp2(torch.floor(torch.log2(want.abs().clamp_min(1e-30)))
                      - 7)
-    return bool(((got - want).abs() <= ulp).all())
+    return bool(((got - want).abs() <= ulp + atol).all())
 
 
 def phase_block_kernels(card: str):
@@ -594,6 +609,343 @@ def phase_block_kernels(card: str):
                      "sweep_max_abs_err": {
                          k_: e for k_, e in worst.items()
                          if k_.startswith(f"decode_block_{half} ")}}
+    return rec
+
+
+# ------------------------------------------------- sharded decode block
+# tensor-parallel serving on one card: both shards of the tp=2 mesh on the
+# same device (the ring hops are copies on that card; no interconnect is
+# measured)
+TP = 2
+TP_DEVICES = ["cuda:0"] * TP
+TP_NOTE = ("; two shards on one card: the hops are same-device copies, no "
+           "NVLink measured")
+# the ring seams of one layer at tp=2 (hop rows B/tp = 4 at num_slots 8):
+# (model, seam, kind, K, N, exit activation)
+TP_SEAMS = (("gpt3_6_7b", "qkv", "entry", 4096, 6144, None),
+            ("gpt3_6_7b", "mlp_up", "entry", 4096, 8192, None),
+            ("gpt3_6_7b", "out_proj", "exit", 2048, 4096, "none"),
+            ("gpt3_6_7b", "mlp_down", "exit", 8192, 4096, "gelu_tanh"),
+            ("llama_7b", "qkv", "entry", 4096, 6144, None),
+            ("llama_7b", "mlp_up", "entry", 4096, 11008, None),
+            ("llama_7b", "out_proj", "exit", 2048, 4096, "none"),
+            ("llama_7b", "mlp_down", "exit", 5504, 4096, "swiglu"))
+
+
+def _bound(nbytes: int, ops: int, dtype) -> tuple:
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / PEAK_FLOPS[str(dtype).replace("torch.", "")] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def hop_bound(rows: int, k: int, n: int, es: int, bias: bool, gated: bool,
+              dtype):
+    """Least time (ms) of one ring hop and what bounds it.  Bytes: the
+    weight block, the input rows (both halves for SwiGLU), the bias and
+    the output once; operations: the hop's multiply-adds over the dtype's
+    peak rate."""
+    nbytes = es * (k * n + rows * k * (2 if gated else 1) + rows * n
+                   + (n if bias else 0))
+    return _bound(nbytes, 2 * rows * k * n, dtype) + (nbytes,)
+
+
+def attn_tp_bound(b: int, heads: int, kv_heads: int, dh: int, posw, es: int,
+                  dtype):
+    """Least time (ms) of one shard's attention block: the live K/V rows
+    ``kpos < min(pos, S-1)`` of its kv heads read once, q/k/v read and
+    the output and fresh K/V rows written once; operations: QK and PV
+    multiply-adds over each query head's live rows and the fresh one."""
+    live = sum(posw)
+    nbytes = es * (2 * live * kv_heads * dh + b * (heads + 2 * kv_heads) * dh
+                   + b * heads * dh + 2 * b * kv_heads * dh)
+    return _bound(nbytes, 4 * heads * dh * (live + b), dtype) + (nbytes,)
+
+
+def device_ms(fn, iters: int = 40) -> float:
+    """The card's own time for one call of ``fn`` in ms: every kernel and
+    copy it launched, summed over ``iters`` calls under torch.profiler.
+    Unlike ``time_ms`` it leaves out the gaps while the host enqueues the
+    next call, which a small kernel behind a Python wrapper cannot hide."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(kernel_ms(prof).values()) / iters
+
+
+def _cycled(make, n: int = 4):
+    """``n`` inputs from ``make`` and a function returning them in turn:
+    a timed loop over them streams from device memory, not from the 50 MB
+    L2 cache, as a serving step finds each layer's weights."""
+    items = [make() for _ in range(n)]
+    state = {"i": 0}
+
+    def nxt():
+        state["i"] = (state["i"] + 1) % n
+        return items[state["i"]]
+    return items, nxt
+
+
+def phase_tp_kernels(card: str):
+    """Hold the sharded decode block's three kernels (``ring_entry_hop``,
+    ``ring_exit_hop``, ``decode_block_attn_tp``) against their plain
+    versions on the card at every ring seam and the per-shard attention
+    shapes of gpt3_6_7b and llama_7b at tp=2, f32 and bf16, and both ring
+    drivers on the one-card mesh; then time each at the gpt3_6_7b shape
+    (and the llama_7b ones) beside its plain version, its bound and, for
+    the hops, one library call computing the same product.  Returns the
+    three kernels' records (without launches)."""
+    import torch
+    from paddle_tpu_torch.distributed import Mesh
+    from paddle_tpu_torch.kernels.decode_block_tp import (
+        decode_block_attn_tp, decode_block_attn_tp_reference,
+        ring_entry_hop, ring_entry_hop_reference, ring_entry_matmul,
+        ring_entry_matmul_reference, ring_exit_hop, ring_exit_hop_reference,
+        ring_exit_matmul, ring_exit_matmul_reference)
+    from paddle_tpu_torch.models import llama_7b
+    from paddle_tpu_torch.models.llama import fused_rope_tables
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(6)
+    tol = {torch.float32: dict(atol=1e-4, rtol=0.0),
+           torch.bfloat16: dict(atol=2e-2, rtol=2e-2)}
+    # a single kernel and its plain version sum the same f32 terms in
+    # another order and cast once: in bf16 they agree to one output ulp
+    # (plus 1e-4 for values near 0).  Only the exit ring driver, whose
+    # bf16 accumulator adds partials that may cancel, keeps atol/rtol 2e-2
+    ulp_atol = 1e-4
+    rows = ENGINE_KW["num_slots"] // TP
+
+    def r(shape, dtype, scale=0.05):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(dtype)
+
+    def check(name, got, want, dtype, what, worst, ulp=True):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        key = f"{name} {str(dtype).replace('torch.', '')}"
+        worst[key] = max(worst.get(key, 0.0), err)
+        ok = _ulp_ok(got, want, dtype, ulp_atol) if ulp else \
+            torch.allclose(got.float(), want.float(), **tol[dtype])
+        if not ok:
+            raise AssertionError(f"{name} disagrees with its plain version: "
+                                 f"{what} max_abs_err={err}")
+
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for model, seam, kind, k, n, act in TP_SEAMS:
+            what = (f"{model} {seam} hop x[{rows},{k}] w[{k},{n}] act={act} "
+                    f"{dtype}")
+            w = r((k, n), dtype)
+            if kind == "entry":
+                x, b = r((rows, k), dtype, 1.0), r((n,), dtype)
+                check("ring_entry_hop", ring_entry_hop(x, w, b),
+                      ring_entry_hop_reference(x, w, b), dtype, what, worst)
+            else:
+                y = r((rows, k * (2 if act == "swiglu" else 1)), dtype, 1.0)
+                check("ring_exit_hop", ring_exit_hop(y, w, act),
+                      ring_exit_hop_reference(y, w, act), dtype, what, worst)
+        # the ring drivers on the one-card mesh: hops + ppermute copies
+        mesh = Mesh(TP_DEVICES)
+        hs = [r((rows, 4096), dtype, 1.0) for _ in range(TP)]
+        ws = [r((4096, 6144), dtype) for _ in range(TP)]
+        bs = [r((6144,), dtype) for _ in range(TP)]
+        for got, want in zip(ring_entry_matmul(hs, ws, bs, mesh),
+                             ring_entry_matmul_reference(hs, ws, bs, mesh)):
+            check("ring_entry_hop", got, want, dtype,
+                  f"ring_entry_matmul over {TP_DEVICES}", worst)
+        ys = [r((TP * rows, 2048), dtype, 1.0) for _ in range(TP)]
+        wo = [r((2048, 4096), dtype) for _ in range(TP)]
+        for got, want in zip(ring_exit_matmul(ys, wo, mesh),
+                             ring_exit_matmul_reference(ys, wo, mesh)):
+            check("ring_exit_hop", got, want, dtype,
+                  f"ring_exit_matmul over {TP_DEVICES}", worst, ulp=False)
+        del hs, ws, bs, ys, wo
+    # per-shard attention: gpt3_6_7b / llama_7b at tp=2 (16 of 32 kv heads
+    # per shard, head_dim 128) and the GQA parity Llama's shard (2 kv heads
+    # x rep 3, head_dim 64); ragged positions with 0 and S; q/k/v as
+    # column views of one fused row, as the entry ring delivers them
+    att = (("gpt3_6_7b", 16, 1, 128, 2048, False),
+           ("llama_7b", 16, 1, 128, 4096, True),
+           ("llama_parity", 2, 3, 64, 1024, True))
+    n_att = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for model, kvh, rep, dh, s_max, rope in att:
+            b = ENGINE_KW["num_slots"]
+            pos = torch.tensor([0, 1, 63, 64, s_max // 2, s_max - 2,
+                                s_max - 1, s_max], dtype=torch.int32,
+                               device=dev)
+            nq = kvh * rep * dh
+            qkv = r((b, nq + 2 * kvh * dh), dtype, 1.0)
+            q, k, v = (qkv[:, :nq], qkv[:, nq:nq + kvh * dh],
+                       qkv[:, nq + kvh * dh:])
+            ks, vs = r((b, s_max, kvh, dh), dtype, 1.0), \
+                r((b, s_max, kvh, dh), dtype, 1.0)
+            cos = sin = None
+            if rope:
+                ang = torch.rand((b, dh // 2), generator=g, device=dev) * 3.0
+                cos = torch.cat([ang.cos()] * 2, -1)
+                sin = torch.cat([ang.sin()] * 2, -1)
+            k1, v1, k2, v2 = ks.clone(), vs.clone(), ks.clone(), vs.clone()
+            kw = dict(kv_heads=kvh, head_dim=dh, rope_cos=cos, rope_sin=sin)
+            a1, _, _ = decode_block_attn_tp(q, k, v, k1, v1, pos, **kw)
+            a2, _, _ = decode_block_attn_tp_reference(q, k, v, k2, v2, pos,
+                                                      **kw)
+            what = (f"{model} shard: q[{b},{nq}] kv[{b},{s_max},{kvh},{dh}] "
+                    f"pos {pos.tolist()} {dtype}")
+            check("decode_block_attn_tp", a1, a2, dtype, what, worst)
+            posw = pos.long().clamp(0, s_max - 1)
+            for name, got, want, before in (("k", k1, k2, ks),
+                                            ("v", v1, v2, vs)):
+                if not _ulp_ok(got, want, dtype):
+                    err = (got.float() - want.float()).abs().max().item()
+                    raise AssertionError(f"decode_block_attn_tp's {name} "
+                                         f"slab disagrees with the plain "
+                                         f"version's: {what} max_abs_err "
+                                         f"{err}")
+                changed = (got != before).flatten(2).any(-1)
+                changed[torch.arange(b, device=dev), posw] = False
+                if bool(changed.any()):
+                    raise AssertionError(f"decode_block_attn_tp changed a "
+                                         f"{name} slab row other than "
+                                         f"min(pos, S-1): {what}")
+            n_att += 1
+            del qkv, ks, vs, k1, v1, k2, v2
+    log(f"[kernels] decode_block_tp sweep: {2 * len(TP_SEAMS)} hops, 4 ring "
+        f"drivers on {TP_DEVICES}, {n_att} attention cases within tolerance "
+        f"(f32 atol 1e-4; bf16 one output ulp + {ulp_atol}, the exit ring "
+        f"driver atol/rtol 2e-2; slabs one bf16 ulp, only row "
+        f"min(pos, S-1) changed); max abs err {json.dumps(worst)}")
+
+    # timings, bf16: the gpt3_6_7b QKV entry hop and out-proj exit hop, the
+    # per-shard attention at 8 slots filled to 1024; the llama_7b gated
+    # up / SwiGLU down hops and its attention near position 3000
+    bf = torch.bfloat16
+    rec = {}
+
+    def hop_record(name, model, k, n, act):
+        gated = act == "swiglu"
+        if name == "ring_entry_hop":
+            items, nxt = _cycled(lambda: (r((rows, k), bf, 1.0),
+                                          r((k, n), bf), r((n,), bf)))
+
+            def kern():
+                return ring_entry_hop(*nxt())
+
+            def plain():
+                return ring_entry_hop_reference(*nxt())
+
+            def lib():
+                x, w, b = nxt()
+                return torch.addmm(b, x, w)
+        else:
+            items, nxt = _cycled(lambda: (
+                r((rows, k * (2 if gated else 1)), bf, 1.0), r((k, n), bf)))
+
+            def kern():
+                return ring_exit_hop(*nxt(), act)
+
+            def plain():
+                return ring_exit_hop_reference(*nxt(), act)
+
+            def lib():
+                return torch.matmul(*nxt())
+            # the library yardstick is one product without an activation
+            lib = lib if act == "none" else None
+        extra = () if name == "ring_entry_hop" else (act,)
+        kernel_fn = ring_entry_hop if name == "ring_entry_hop" \
+            else ring_exit_hop
+        plain_fn = ring_entry_hop_reference if name == "ring_entry_hop" \
+            else ring_exit_hop_reference
+        err = (kernel_fn(*items[0], *extra).float()
+               - plain_fn(*items[0], *extra).float()).abs().max().item()
+        bound, bound_by, nbytes = hop_bound(
+            rows, k, n, 2, name == "ring_entry_hop", gated, bf)
+        out = {"ms": time_ms(kern), "plain_ms": time_ms(plain),
+               "library_ms": time_ms(lib) if lib is not None else None,
+               "device_ms": device_ms(kern),
+               "library_device_ms": device_ms(lib) if lib is not None
+               else None,
+               "bound_ms": bound, "bound_by": bound_by, "bound_bytes": nbytes,
+               "max_abs_err": err,
+               "shape": f"{model} tp={TP}: x[{rows},{k * (2 if gated else 1)}]"
+                        f" w[{k},{n}] act={act} bf16 (4 weight copies in "
+                        f"turn)"}
+        lib_ms, lib_dev = out["library_ms"], out["library_device_ms"]
+        log(f"[kernels] {name} {out['shape']}: kernel {out['ms']:.4f} ms "
+            f"(device {out['device_ms']:.4f}), plain {out['plain_ms']:.4f} "
+            f"ms, library "
+            f"{'none' if lib_ms is None else '%.4f ms' % lib_ms}"
+            f"{'' if lib_dev is None else ' (device %.4f)' % lib_dev}"
+            f", bound {bound:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB); "
+            f"max abs err {err:.3g} (card: {card})")
+        del items
+        return out
+
+    rec["ring_entry_hop"] = hop_record("ring_entry_hop", "gpt3_6_7b", 4096,
+                                       6144, None)
+    rec["ring_entry_hop"]["gpt3_6_7b_mlp_up"] = hop_record(
+        "ring_entry_hop", "gpt3_6_7b", 4096, 8192, None)
+    rec["ring_entry_hop"]["llama_7b"] = hop_record(
+        "ring_entry_hop", "llama_7b", 4096, 11008, None)
+    rec["ring_exit_hop"] = hop_record("ring_exit_hop", "gpt3_6_7b", 2048,
+                                      4096, "none")
+    rec["ring_exit_hop"]["gpt3_6_7b_mlp_down"] = hop_record(
+        "ring_exit_hop", "gpt3_6_7b", 8192, 4096, "gelu_tanh")
+    rec["ring_exit_hop"]["llama_7b"] = hop_record(
+        "ring_exit_hop", "llama_7b", 5504, 4096, "swiglu")
+
+    def attn_record(model, s_max, pos, rope):
+        b, kvh, dh = len(pos), 16, 128
+        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+        qkv = r((b, 3 * kvh * dh), bf, 1.0)
+        q, k, v = (qkv[:, :kvh * dh], qkv[:, kvh * dh:2 * kvh * dh],
+                   qkv[:, 2 * kvh * dh:])
+        ks, vs = r((b, s_max, kvh, dh), bf, 1.0), r((b, s_max, kvh, dh), bf,
+                                                     1.0)
+        cos = sin = None
+        if rope:
+            cos, sin = fused_rope_tables(pos, llama_7b())
+        kw = dict(kv_heads=kvh, head_dim=dh, rope_cos=cos, rope_sin=sin)
+        a1, _, _ = decode_block_attn_tp(q, k, v, ks.clone(), vs.clone(), pos,
+                                        **kw)
+        a2, _, _ = decode_block_attn_tp_reference(q, k, v, ks.clone(),
+                                                  vs.clone(), pos, **kw)
+        err = (a1.float() - a2.float()).abs().max().item()
+        posw = [min(max(int(p), 0), s_max - 1) for p in pos.tolist()]
+        bound, bound_by, nbytes = attn_tp_bound(b, kvh, kvh, dh, posw, 2, bf)
+        def kern():
+            return decode_block_attn_tp(q, k, v, ks, vs, pos, **kw)
+        out = {"ms": time_ms(kern), "device_ms": device_ms(kern),
+               "plain_ms": time_ms(lambda: decode_block_attn_tp_reference(
+                   q, k, v, ks, vs, pos, **kw)),
+               "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
+               "bound_bytes": nbytes, "max_abs_err": err,
+               "shape": f"{model} tp={TP} shard: q[{b},{kvh * dh}] "
+                        f"kv[{b},{s_max},{kvh},{dh}] pos {pos.tolist()} bf16"}
+        log(f"[kernels] decode_block_attn_tp {out['shape']}: kernel "
+            f"{out['ms']:.4f} ms (device {out['device_ms']:.4f}), plain "
+            f"{out['plain_ms']:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB); no single "
+            f"library call appends and rotates; max abs err {err:.3g} (card: "
+            f"{card})")
+        return out
+
+    rec["decode_block_attn_tp"] = attn_record("gpt3_6_7b", 2048, [1024] * 8,
+                                              False)
+    rec["decode_block_attn_tp"]["llama_7b"] = attn_record(
+        "llama_7b", 4096, [2976, 2990, 2999, 3000, 3013, 3047, 3080, 3103],
+        True)
+    for name in rec:
+        rec[name]["sweep_max_abs_err"] = {
+            k_: e for k_, e in worst.items() if k_.startswith(name + " ")}
+    torch.cuda.empty_cache()
     return rec
 
 
@@ -867,25 +1219,91 @@ def phase_serving(card: str, family: str):
     return runs
 
 
-def serve_run(model, card: str, fused: bool, waves):
+def phase_serving_tp(card: str, tp1: dict):
+    """Tensor-parallel serving at tp=2 with both shards on the card
+    (``devices=TP_DEVICES``): the full-depth gpt3_6_7b served through
+    ``ServingEngine(tensor_parallel=2)`` on the sharded decode-block
+    kernels (``fused_decode=True`` -> ``tp_fused_block``) and then the
+    composed ring (``tp_fused``), on one model; then llama_7b on
+    ``tp_fused_block``.  The same requests as the tp=1 phases, whose
+    results ``tp1`` (per family) are printed beside these."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         gpt3_6_7b, llama_7b)
+    from paddle_tpu_torch.serving import ServingEngine
+
+    out = {}
+    for family, paths in (("gpt", (True, False)), ("llama", (True,))):
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(1234)
+        if family == "gpt":
+            cfg = gpt3_6_7b()
+            model = GPTForCausalLM(cfg, device=DEVICE, generator=gen).eval()
+        else:
+            cfg = llama_7b()
+            model = LlamaForCausalLM(cfg, device=DEVICE,
+                                     generator=gen).eval()
+        # a short round through each path first (first-call costs)
+        rs = np.random.RandomState(3)
+        warm = [rs.randint(0, cfg.vocab_size, (n,))
+                for n in (600, 64, 300, 130, 700, 64, 1000, 200)]
+        for fused in paths:
+            eng = ServingEngine(model, fused_decode=fused, tensor_parallel=TP,
+                                devices=TP_DEVICES, **ENGINE_KW)
+            eng.serve_batch(warm, max_new_tokens=4)
+            eng.close()
+        runs = {}
+        for fused in paths:
+            launches, res = serve_run(model, card, fused,
+                                      SERVE_WAVES[family], tp=TP)
+            runs[res["decode_path"]] = (launches, res)
+        for path, (_, res) in runs.items():
+            base = tp1[family]["fused" if path == "tp_fused_block"
+                               else "unfused"][1]
+            log(f"[serving:{family}:{path}] tp={TP} vs tp=1 "
+                f"{base['decode_path']} on the same requests: "
+                f"{res['tokens_per_s']:.1f} vs {base['tokens_per_s']:.1f} "
+                f"tokens/s, TTFT p50 {res['ttft_p50_ms']} vs "
+                f"{base['ttft_p50_ms']} ms, decode step p50 "
+                f"{res['decode_step_ms_p50']} vs {base['decode_step_ms_p50']}"
+                f" ms, busy share {res['decode_profile'].get('busy_share')} "
+                f"vs {base['decode_profile'].get('busy_share')}, peak "
+                f"{res['peak_mem_gb']:.1f} vs {base['peak_mem_gb']:.1f} GB "
+                f"(card: {card}{TP_NOTE})")
+        out[family] = runs
+        del model
+        free_card()
+    return out
+
+
+def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
     """Serve the 8 requests of ``waves`` on ``model`` through the port's
     ServingEngine, with the fused decode-block path or the unfused decode
-    step; returns the kernel launch counts of the run and the metrics.
-    Every launch count is set to 0 just before the run and read just
-    after it."""
+    step (at ``tp`` 2: the sharded decode-block kernels or the composed
+    ring, both shards on the card); returns the kernel launch counts of
+    the run and the metrics.  Every launch count is set to 0 just before
+    the run and read just after it."""
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels import fused_norm as fn
     from paddle_tpu_torch.kernels.decode_attention import decode_attention
     from paddle_tpu_torch.kernels.decode_block import (decode_block_attn,
                                                        decode_block_mlp)
+    from paddle_tpu_torch.kernels.decode_block_tp import (
+        decode_block_attn_tp, ring_entry_hop, ring_exit_hop)
     from paddle_tpu_torch.serving import SamplingParams, ServingEngine
 
     cfg = model.cfg
     llama = hasattr(model, "llama")
-    path = "fused" if fused else "unfused"
+    if tp == 1:
+        path = "fused" if fused else "unfused"
+        tp_kw = {}
+    else:
+        path = "tp_fused_block" if fused else "tp_fused"
+        tp_kw = dict(tensor_parallel=tp, devices=TP_DEVICES[:tp])
     tag = f"[serving:{'llama' if llama else 'gpt'}:{path}]"
-    eng = ServingEngine(model, fused_decode=fused, **ENGINE_KW)
+    eng = ServingEngine(model, fused_decode=fused, **tp_kw, **ENGINE_KW)
     if (eng.decode_path, eng.decode_fallback_reason) != (path, None):
         raise AssertionError(f"engine resolved decode_path "
                              f"{eng.decode_path!r} (reason "
@@ -921,7 +1339,8 @@ def serve_run(model, card: str, fused: bool, waves):
         return left
 
     kernels = (decode_attention, decode_block_attn, decode_block_mlp,
-               *(getattr(fn, k) for k in NORM_KERNELS))
+               *(getattr(fn, k) for k in NORM_KERNELS), ring_entry_hop,
+               ring_exit_hop, decode_block_attn_tp)
     torch.cuda.synchronize()
     for k in kernels:
         k.launches = 0
@@ -950,17 +1369,30 @@ def serve_run(model, card: str, fused: bool, waves):
     # fused one (the pair applies the layers' norms itself)
     unfused_passes = chunks + (0 if fused else decode_steps)
     norm = "rms_norm_fwd" if llama else "layer_norm_fwd"
-    want = {"decode_attention": layers * unfused_passes,
-            "decode_block_attn": layers * decode_steps if fused else 0,
-            "decode_block_mlp": layers * decode_steps if fused else 0,
-            **{k: 0 for k in NORM_KERNELS}}
-    want[norm] = (2 * layers + 1) * unfused_passes + \
-        (decode_steps if fused else 0)
+    want = {k.__name__: 0 for k in kernels}
+    if tp == 1:
+        want["decode_attention"] = layers * unfused_passes
+        want["decode_block_attn"] = want["decode_block_mlp"] = \
+            layers * decode_steps if fused else 0
+        want[norm] = (2 * layers + 1) * unfused_passes + \
+            (decode_steps if fused else 0)
+    else:
+        # every shard runs each layer: prefill chunks through the
+        # Megatron body, decode steps through the sharded kernels (per
+        # layer 2 entry and 2 exit seams of tp hops each) or the composed
+        # ring with decode_attention; each shard's norms are the norm
+        # kernel's, 2 per layer and the final one, every chunk and step
+        want["decode_attention"] = layers * tp * unfused_passes
+        if fused:
+            want["ring_entry_hop"] = want["ring_exit_hop"] = \
+                layers * 2 * tp * tp * decode_steps
+            want["decode_block_attn_tp"] = layers * tp * decode_steps
+        want[norm] = (2 * layers + 1) * tp * (chunks + decode_steps)
     log(f"{tag} {len(ids)} requests, {chunks} prefill chunks, "
         f"{decode_steps} decode steps, {m['steps']} engine steps in "
         f"{run_s:.2f} s; launches {json.dumps(launches)} (want "
-        f"{layers} layers x chunks/steps, {2 * layers + 1} norms per "
-        f"unfused pass = {json.dumps(want)})")
+        f"{layers} layers x chunks/steps{f' x {tp} shards' if tp > 1 else ''}"
+        f", {2 * layers + 1} norms per unfused pass = {json.dumps(want)})")
     if launches != want:
         raise AssertionError(f"{tag} kernel launches {launches} != {want}: "
                              f"the main path bypassed a kernel")
@@ -981,7 +1413,7 @@ def serve_run(model, card: str, fused: bool, waves):
     if m["prefix_hit_tokens"] <= 0:
         raise AssertionError(f"{tag} no prefix-cache hit in the serving run")
     decode_ms = float(np.median(step_ms)) if step_ms else None
-    res = {"decode_path": eng.decode_path,
+    res = {"decode_path": eng.decode_path, "tp": tp,
            "requests": len(ids), "prefill_chunks": chunks,
            "decode_steps": decode_steps, "steps": m["steps"],
            "run_s": run_s, "tokens_generated": m["tokens_generated"],
@@ -1002,7 +1434,7 @@ def serve_run(model, card: str, fused: bool, waves):
         f"{decode_ms if decode_ms is None else round(decode_ms, 3)} ms "
         f"({len(step_ms)} decode-only steps), prefix hit tokens "
         f"{m['prefix_hit_tokens']}, peak memory {res['peak_mem_gb']:.1f} GB "
-        f"(card: {card})")
+        f"(card: {card}{TP_NOTE if tp > 1 else ''})")
     res["decode_profile"] = profile_decode(eng, cfg.vocab_size, card,
                                            tag[len("[serving:"):-1])
     eng.close()
@@ -1101,7 +1533,10 @@ def parity_model(family: str, device):
 def phase_parity(family: str) -> None:
     """On the f32 parity model of ``family`` (TF32 off): the fused-path
     engine's greedy tokens == the unfused engine's == the port's
-    ``generate`` tokens."""
+    ``generate`` tokens; and so are those of tp=2 engines (both shards on
+    the card) on all three rungs, ``tp_fused_block``, ``tp_fused`` and
+    ``unfused``, each on its own copy of the model (a tensor-parallel
+    engine re-lays its model's weights)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.serving import ServingEngine
@@ -1124,6 +1559,21 @@ def phase_parity(family: str) -> None:
         tokens[want_path] = [o.tokens for o in
                              eng.serve_batch(prompts, max_new_tokens=16)]
         eng.close()
+    for kw, want_path in ((dict(fused_decode=True), "tp_fused_block"),
+                          ({}, "tp_fused"),
+                          (dict(collective_fusion=False), "unfused")):
+        eng = ServingEngine(parity_model(family, DEVICE).eval(), num_slots=4,
+                            min_bucket=16, block_len=16, prefill_chunk=64,
+                            tensor_parallel=TP, devices=TP_DEVICES, **kw)
+        if eng.decode_path != want_path:
+            raise AssertionError(f"tp={TP} parity engine resolved "
+                                 f"{eng.decode_path!r} "
+                                 f"({eng.decode_fallback_reason}, "
+                                 f"{eng.core.tp_fusion_reason}), want "
+                                 f"{want_path!r}")
+        tokens[f"tp{TP}_{want_path}"] = [
+            o.tokens for o in eng.serve_batch(prompts, max_new_tokens=16)]
+        eng.close()
     for i, p in enumerate(prompts):
         want = model.generate(p[None], max_new_tokens=16)[0, len(p):]
         want = want.cpu().tolist()
@@ -1135,7 +1585,8 @@ def phase_parity(family: str) -> None:
     what = ("gpt_small width, 2 layers" if family == "gpt" else
             f"Llama {json.dumps(LLAMA_PARITY)}")
     log(f"[parity:{family}] {what}, f32: fused-engine greedy tokens == "
-        f"unfused-engine tokens == generate tokens for {len(prompts)} "
+        f"unfused-engine tokens == tp={TP} tp_fused_block / tp_fused / "
+        f"unfused engine tokens == generate tokens for {len(prompts)} "
         f"requests (prompt lengths {[len(p) for p in prompts]}, 16 new "
         f"tokens each)")
 
@@ -1812,6 +2263,11 @@ def main() -> int:
     run_phase("parity:llama", phase_parity, "llama")
     llama_parity = run_phase("train-parity:llama", phase_train_parity,
                              "llama")
+    # tensor parallelism at tp=2, both shards on the card
+    free_card()
+    tp_recs = run_phase("tp kernels", phase_tp_kernels, card)
+    tp_runs = run_phase("serving:tp", phase_serving_tp, card,
+                        {"gpt": runs, "llama": llama_runs})
     # the train phases start from an empty card
     free_card()
     train_recs = run_phase("train kernels", phase_train_kernels, card)
@@ -1902,9 +2358,30 @@ def main() -> int:
             "launches": next(iter(paths.values())),
             "launches_by_path": paths,
             **norm_recs[name]})
+    # the sharded decode block's kernels: launched on the tp_fused_block
+    # rung only (the tp_fused rung runs decode_attention)
+    tp_launches = {"tp_fused_block": tp_runs["gpt"]["tp_fused_block"][0],
+                   "tp_fused": tp_runs["gpt"]["tp_fused"][0],
+                   "llama_tp_fused_block":
+                       tp_runs["llama"]["tp_fused_block"][0]}
+    for name, line in (("ring_entry_hop", 194), ("ring_exit_hop", 263),
+                       ("decode_block_attn_tp", 368)):
+        paths = {path: counts[name] for path, counts in tp_launches.items()}
+        kernels.append({
+            "name": name,
+            "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/decode_block_tp.cu",
+            "replaces": f"paddle_tpu/kernels/decode_block_tp.py:{line}",
+            "launches": paths["tp_fused_block"],
+            "launches_by_path": paths,
+            **tp_recs[name]})
     serving = {"unfused": serving_u, "fused": serving_f,
                "llama_unfused": llama_serving_u,
                "llama_fused": llama_serving_f}
+    for family, tp_family in tp_runs.items():
+        for path, (_, res) in tp_family.items():
+            serving[f"{'' if family == 'gpt' else 'llama_'}tp{TP}_{path}"] = \
+                res
     log(f"[done] {time.perf_counter() - t_start:.1f} s; serving "
         f"{json.dumps(serving)}; train {json.dumps(train)}; llama train "
         f"{json.dumps(llama_train)}")

@@ -3,9 +3,10 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface, at first use, into
 ``kernels/_build/`` (ignored by git).  The library name carries a hash of
-the source and the flags, so an edited source rebuilds and a stale build
-is never loaded.  Libraries are loaded with ``ctypes``; every exported
-function declares its ``argtypes`` and ``restype`` here.
+the source, the shared headers (``csrc/*.cuh``) and the flags, so an
+edited source or header rebuilds and a stale build is never loaded.
+Libraries are loaded with ``ctypes``; every exported function declares
+its ``argtypes`` and ``restype`` here.
 
 Nothing is compiled or loaded when this module is imported.
 """
@@ -53,6 +54,12 @@ _SIGNATURES = {
         # a pointer to GemvArgs / AttnArgs (decode_block.py mirrors them)
         "decode_block_gemv": ([_P, _P], _I),
         "decode_block_attention": ([_P, _P], _I),
+    },
+    "decode_block_tp": {
+        # a pointer to GemvArgs (decode_block.py mirrors it) / TpAttnArgs
+        # (decode_block_tp.py mirrors it)
+        "decode_block_tp_hop": ([_P, _P], _I),
+        "decode_block_tp_attention": ([_P, _P], _I),
     },
     "flash_attention": {
         "flash_attention_fwd": (
@@ -114,6 +121,9 @@ def _nvcc() -> str:
 
 def _library_path(name: str) -> Path:
     src = (_CSRC / f"{name}.cu").read_bytes()
+    # the shared headers too: an edited header rebuilds every source
+    for header in sorted(_CSRC.glob("*.cuh")):
+        src += header.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
     return _BUILD / f"lib{name}-{key[:16]}.so"
 

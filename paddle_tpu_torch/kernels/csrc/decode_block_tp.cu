@@ -1,0 +1,294 @@
+// Sharded decode block for Hopper (sm_90a): the per-shard work of one
+// transformer layer's decode step under tensor parallelism, between the
+// ring hops (copies between shards) that the Python ring drivers issue.
+//
+// Replaces the three Pallas TPU kernels of
+// paddle_tpu/kernels/decode_block_tp.py:
+//  * _entry_kernel (one hop of ring_entry_matmul): out = x[B/tp, K] @
+//    w_l[K, N_l] + b_l, f32 contraction, output cast once to x's dtype;
+//  * _exit_kernel (one hop of ring_exit_matmul): part = act(y)[B/tp, K_l] @
+//    w_l[K_l, N], act in {none, gelu_tanh, gelu, swiglu} applied as the
+//    chunk is read (swiglu: silu(gate) * up with the gate in the chunk's
+//    FIRST half), f32 accumulation, the partial cast once to y's dtype;
+//    the arriving accumulator is added by the caller, in y's dtype;
+//  * _attn_tp_kernel (decode_block_attn_tp): one shard's attention over
+//    its kv-head group: rotary in f32 from full-width cos/sin tables, the
+//    scale, the fresh K/V row stored in the slab dtype at
+//    posw = min(pos, S - 1), online softmax over the live rows kpos < posw,
+//    then the fresh row folded in last as stored.
+//
+// What bounds them on an H100.  A hop is a product of B/tp <= 8 rows (4
+// at num_slots 8, tp 2) against a weight block streamed once: ~2 flops per
+// weight byte against the ~295 the card needs to be compute-bound, so a
+// hop is bound by its weight bytes at 3.35 TB/s (gpt3_6_7b at tp 2: the
+// QKV hop streams 4096 x 6144 bf16 = 50.3 MB, 0.0150 ms; the down hop
+// 8192 x 4096, 0.0200 ms).  The attention block is bound by the live K/V
+// bytes of the shard's heads.
+//
+// What the design does about that.
+//  * decode_block_tp_hop: both hops are one launch of the split-K
+//    gemv_kernel of gemv.cuh, the kernel of the unsharded block's
+//    projections.  The N_l / 256 (bf16) column tiles of a hop give fewer
+//    blocks than the card's 132 SMs, so K is split into slices sized to
+//    fill one wave; the exit activation is the kernel's input transform
+//    (in_mode 3 gate-first SwiGLU, 4 / 5 GeLU), applied as the chunk is
+//    staged, so act(y) never lands in device memory; the last block of
+//    each column tile adds the K slices in slice order, then the bias
+//    (entry), and casts once.
+//  * attn_tp_kernel: one block per (slot, local kv head) with its rep
+//    query heads (GQA reads kv head h / rep; nothing is repeated).  The
+//    live rows stream in tiles of block_k rows through two shared-memory
+//    stages filled by cp.async, the next tile in flight while the current
+//    one is scored.  Each block reads only rows below posw and writes only
+//    row posw of its own (slot, kv head), so blocks never race on a slab.
+// Later work: TMA tile loads, one persistent launch per ring hop, and the
+// hops' copies overlapped with the next hop's product on a second stream.
+
+#include "gemv.cuh"
+
+// Argument block of the attention entry point below, mirrored field for
+// field by a ctypes structure in paddle_tpu_torch/kernels/decode_block_tp.py
+// (the hops take gemv.cuh's GemvArgs).
+
+struct TpAttnArgs {
+  const void* q;        // [B, ld_q] T: the shard's H = KH * rep query heads
+  const void* k;        // [B, ld_k] T: the shard's KH fresh k heads
+  const void* v;        // [B, ld_v] T
+  const float* cos;     // [B, Dh] f32, or null (no rotary)
+  const float* sin;
+  void* k_slab;         // [B, S, KH, Dh] T, element strides below
+  void* v_slab;
+  const int* pos;       // pos[b * pos_stride]: cache length before the step
+  void* out;            // [B, H Dh] T, contiguous
+  long long ld_q, ld_k, ld_v;
+  long long k_sb, k_ss, k_sh;
+  long long v_sb, v_ss, v_sh;
+  int B, H, KH, Dh, S, block_k, pos_stride, dtype;
+  float scale;
+};
+
+namespace {
+
+// ------------------------------------------------------------ attention
+__device__ __forceinline__ void cp_async16(void* smem_ptr, const void* gmem) {
+  const unsigned s =
+      static_cast<unsigned>(__cvta_generic_to_shared(smem_ptr));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(gmem)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One online-softmax step of the block's rep query heads over nr keys at
+// kp and values at vp (rows of Dh elements of type KT).
+template <typename KT>
+__device__ void attn_step(int rep, int Dh, int BK, const float* q_s,
+                          const KT* kp, const KT* vp, int nr, float* p_s,
+                          float* acc_s, float* m_s, float* l_s,
+                          float* al_s) {
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  // scores: a warp per key, its lanes splitting the dot over d
+  for (int j = warp; j < nr; j += kWarps) {
+    const KT* kj = kp + (long long)j * Dh;
+    for (int h = 0; h < rep; ++h) {
+      const float* qh = q_s + h * Dh;
+      float s = 0.f;
+      for (int d = lane; d < Dh; d += 32) s = fmaf(qh[d], to_float(kj[d]), s);
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        s += __shfl_xor_sync(kFull, s, off);
+      if (lane == 0) p_s[h * BK + j] = s;
+    }
+  }
+  __syncthreads();
+  for (int h = warp; h < rep; h += kWarps) {
+    float* ph = p_s + h * BK;
+    float mx = -INFINITY;
+    for (int j = lane; j < nr; j += 32) mx = fmaxf(mx, ph[j]);
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      mx = fmaxf(mx, __shfl_xor_sync(kFull, mx, off));
+    const float m_prev = m_s[h];
+    const float m_next = fmaxf(m_prev, mx);
+    const float m_safe = m_next == -INFINITY ? 0.f : m_next;
+    float sum = 0.f;
+    for (int j = lane; j < nr; j += 32) {
+      const float p = expf(ph[j] - m_safe);
+      ph[j] = p;
+      sum += p;
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      sum += __shfl_xor_sync(kFull, sum, off);
+    __syncwarp();
+    if (lane == 0) {
+      const float alpha = expf(m_prev - m_safe);
+      l_s[h] = alpha * l_s[h] + sum;
+      m_s[h] = m_next;
+      al_s[h] = alpha;
+    }
+  }
+  __syncthreads();
+  // acc = acc * alpha + P V: a thread per output element
+  for (int i = tid; i < rep * Dh; i += kThreads) {
+    const int h = i / Dh, d = i % Dh;
+    const float* ph = p_s + h * BK;
+    float o = 0.f;
+    for (int j = 0; j < nr; ++j) o = fmaf(ph[j], to_float(vp[(long long)j * Dh + d]), o);
+    acc_s[i] = acc_s[i] * al_s[h] + o;
+  }
+  __syncthreads();
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads) attn_tp_kernel(const TpAttnArgs a) {
+  constexpr int VE = Vec<T>::N;           // elements per 16-byte copy
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int Dh = a.Dh, BK = a.block_k, rep = a.H / a.KH, half = a.Dh / 2;
+  T* kbuf = reinterpret_cast<T*>(smem_raw);            // [2][BK][Dh]
+  T* vbuf = kbuf + 2 * BK * Dh;                        // [2][BK][Dh]
+  float* q_s = reinterpret_cast<float*>(vbuf + 2 * BK * Dh);  // [rep][Dh]
+  float* acc_s = q_s + rep * Dh;          // [rep][Dh]
+  float* p_s = acc_s + rep * Dh;          // [rep][BK]
+  float* kn_s = p_s + rep * BK;           // [Dh]
+  float* vn_s = kn_s + Dh;                // [Dh]
+  float* m_s = vn_s + Dh;                 // [rep]
+  float* l_s = m_s + rep;                 // [rep]
+  float* al_s = l_s + rep;                // [rep]
+
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x / a.KH, kvh = blockIdx.x % a.KH;
+  const int pos = a.pos[(long long)b * a.pos_stride];
+  const int posw = max(0, min(pos, a.S - 1));
+  const float* cs = a.cos ? a.cos + (long long)b * Dh : nullptr;
+  const float* sn = a.sin ? a.sin + (long long)b * Dh : nullptr;
+
+  // the group's query heads: rotary, then the scale
+  const T* qg = static_cast<const T*>(a.q) + b * a.ld_q +
+                (long long)kvh * rep * Dh;
+  for (int i = tid; i < rep * Dh; i += kThreads) {
+    const int h = i / Dh, d = i % Dh;
+    const T* qh = qg + h * Dh;
+    float v = to_float(qh[d]);
+    if (cs) {
+      const float r = d < half ? -to_float(qh[d + half])
+                               : to_float(qh[d - half]);
+      v = v * cs[d] + r * sn[d];
+    }
+    q_s[i] = v * a.scale;
+    acc_s[i] = 0.f;
+  }
+  for (int h = tid; h < rep; h += kThreads) {
+    m_s[h] = -INFINITY;
+    l_s[h] = 0.f;
+  }
+  // the fresh k (rotary) and v, stored at posw in the slab dtype and kept
+  // as stored for the fold
+  const T* kf = static_cast<const T*>(a.k) + b * a.ld_k + (long long)kvh * Dh;
+  const T* vf = static_cast<const T*>(a.v) + b * a.ld_v + (long long)kvh * Dh;
+  T* kdst = static_cast<T*>(a.k_slab) + b * a.k_sb + posw * a.k_ss +
+            kvh * a.k_sh;
+  T* vdst = static_cast<T*>(a.v_slab) + b * a.v_sb + posw * a.v_ss +
+            kvh * a.v_sh;
+  for (int d = tid; d < Dh; d += kThreads) {
+    float kv = to_float(kf[d]);
+    if (cs) {
+      const float r = d < half ? -to_float(kf[d + half])
+                               : to_float(kf[d - half]);
+      kv = kv * cs[d] + r * sn[d];
+    }
+    const T kt = from_float<T>(kv), vt = vf[d];
+    kdst[d] = kt;
+    vdst[d] = vt;
+    kn_s[d] = to_float(kt);
+    vn_s[d] = to_float(vt);
+  }
+
+  // stream the live rows kpos < posw in tiles of BK, double-buffered
+  const T* kb = static_cast<const T*>(a.k_slab) + b * a.k_sb + kvh * a.k_sh;
+  const T* vb = static_cast<const T*>(a.v_slab) + b * a.v_sb + kvh * a.v_sh;
+  const int vpr = Dh / VE;                // 16-byte copies per row
+  const int ntiles = (posw + BK - 1) / BK;
+  auto load_tile = [&](int t) {
+    const int r0 = t * BK, nr = min(BK, posw - r0), st = t & 1;
+    for (int i = tid; i < nr * vpr; i += kThreads) {
+      const int r = i / vpr, c = (i % vpr) * VE;
+      cp_async16(kbuf + ((long long)st * BK + r) * Dh + c,
+                 kb + (long long)(r0 + r) * a.k_ss + c);
+      cp_async16(vbuf + ((long long)st * BK + r) * Dh + c,
+                 vb + (long long)(r0 + r) * a.v_ss + c);
+    }
+    cp_async_commit();
+  };
+  if (ntiles > 0) load_tile(0);
+  __syncthreads();
+  for (int t = 0; t < ntiles; ++t) {
+    if (t + 1 < ntiles) {
+      load_tile(t + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const long long st = t & 1;
+    attn_step<T>(rep, Dh, BK, q_s, kbuf + st * BK * Dh, vbuf + st * BK * Dh,
+                 min(BK, posw - t * BK), p_s, acc_s, m_s, l_s, al_s);
+  }
+  // the fresh token folds in last, always valid, from its stored row
+  attn_step<float>(rep, Dh, BK, q_s, kn_s, vn_s, 1, p_s, acc_s, m_s, l_s,
+                   al_s);
+
+  T* op = static_cast<T*>(a.out) + (long long)b * a.H * Dh +
+          (long long)kvh * rep * Dh;
+  for (int i = tid; i < rep * Dh; i += kThreads) {
+    const float l = l_s[i / Dh];
+    op[i] = from_float<T>(acc_s[i] / (l == 0.f ? 1.f : l));
+  }
+}
+
+template <typename T>
+cudaError_t launch_attn_tp(const TpAttnArgs& a, cudaStream_t stream) {
+  const int rep = a.H / a.KH;
+  const size_t smem =
+      2 * 2 * (size_t)a.block_k * a.Dh * sizeof(T) +
+      sizeof(float) * (2 * (size_t)rep * a.Dh + (size_t)rep * a.block_k +
+                       2 * (size_t)a.Dh + 3 * (size_t)rep);
+  cudaError_t err = allow_smem(attn_tp_kernel<T>, smem);
+  if (err != cudaSuccess) return err;
+  attn_tp_kernel<T><<<dim3(a.B * a.KH), dim3(kThreads), smem, stream>>>(a);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Each entry point launches one kernel on `stream` and returns the
+// cudaError_t of the launch (0 on success); the Python wrapper raises on
+// anything else.
+// dtype: 0 float32, 2 bfloat16.
+
+extern "C" int decode_block_tp_hop(const GemvArgs* args, void* stream) {
+  return gemv_entry(*args, stream);
+}
+
+extern "C" int decode_block_tp_attention(const TpAttnArgs* args,
+                                         void* stream) {
+  const TpAttnArgs& a = *args;
+  if (a.B <= 0) return cudaSuccess;
+  if (a.KH <= 0 || a.H % a.KH || a.Dh <= 0 || a.Dh % 8 || a.Dh > 256 ||
+      a.S <= 0 || a.block_k <= 0)
+    return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (a.dtype) {
+    case 0: return launch_attn_tp<float>(a, s);
+    case 2: return launch_attn_tp<__nv_bfloat16>(a, s);
+    default: return cudaErrorInvalidValue;
+  }
+}

@@ -79,7 +79,7 @@ _I = ctypes.c_int
 
 
 class _GemvArgs(ctypes.Structure):
-    """Mirror of ``GemvArgs`` in csrc/decode_block.cu."""
+    """Mirror of ``GemvArgs`` in csrc/gemv.cuh."""
     _fields_ = [("inp", _P), ("stats", _P), ("nw", _P), ("nb", _P),
                 ("w", _P * 3), ("bias", _P * 3), ("res", _P), ("out", _P),
                 ("part", _P), ("counters", _P), ("ld_in", _LL),
@@ -189,7 +189,7 @@ def _pick_block_f(itemsize: int, smem_budget: int) -> int:
 
 def plan_decode_block(*, max_seq: int, hidden: int, heads: int,
                       kv_heads: int, head_dim: int, ffn: int, batch: int,
-                      itemsize: int, gated: bool = False,
+                      itemsize: int, gated: bool = False, tp: int = 1,
                       smem_budget: int = SMEM_BUDGET):
     """Pick ``(block_k, block_f)`` under the per-block shared-memory
     budget, or explain why no tiling fits.  Returns ``(plan, None)`` or
@@ -203,7 +203,17 @@ def plan_decode_block(*, max_seq: int, hidden: int, heads: int,
     starts at 2048 and halves to 64.  When even the smallest tiles and the
     projection's reduction buffer do not fit, the reason starts with
     ``"smem:"``.  Weights stream, so their sizes never refuse.  ``gated``
-    adds the SwiGLU gate's columns to the up-projection."""
+    adds the SwiGLU gate's columns to the up-projection.
+
+    ``tp > 1`` plans the sharded variant instead
+    (``decode_block_tp.plan_decode_block_tp``): the per-shard attention
+    tile and the K slice of each ring seam's hop kernel."""
+    if tp > 1:
+        from .decode_block_tp import plan_decode_block_tp
+        return plan_decode_block_tp(
+            max_seq=max_seq, hidden=hidden, heads=heads, kv_heads=kv_heads,
+            head_dim=head_dim, ffn=ffn, batch=batch, itemsize=itemsize,
+            tp=tp, gated=gated, smem_budget=smem_budget)
     rep = heads // kv_heads
     bk = _pick_block_k(max_seq, rep, head_dim, smem_budget)
     bf = _pick_block_f(itemsize, smem_budget)
@@ -241,7 +251,13 @@ def fusion_legal(*, max_seq: int, hidden: int, heads: int, kv_heads: int,
                  smem_budget: int = SMEM_BUDGET):
     """Static legality of the fused decode block for this shape/dtype.
     Returns ``(ok, reason)``; ``reason`` names the first failing check, in
-    the reference's words where the reference has the check."""
+    the reference's words where the reference has the check.
+
+    ``tp > 1`` checks the sharded variant (``decode_block_tp``): the
+    kv-head axis must tile the mesh (the slabs shard on it), the batch
+    must slot-shard (the residual stream rides ``[B/tp, D]`` between the
+    ring collectives), the ffn must column-shard, and the per-shard plan
+    must fit."""
     dt = _dtype_of(dtype)
     if dt not in (torch.float32, torch.bfloat16):
         name = str(dtype).replace("torch.", "") if dt is None \
@@ -261,12 +277,21 @@ def fusion_legal(*, max_seq: int, hidden: int, heads: int, kv_heads: int,
         return False, (f"ffn {ffn} must be a multiple of 8 (16-byte weight "
                        f"row loads)")
     if tp > 1:
-        return False, (f"tensor_parallel {tp}: the sharded decode block "
-                       f"(decode_block_tp.py) is not ported")
+        if kv_heads % tp:
+            return False, (f"kv_heads {kv_heads} not divisible by "
+                           f"tensor_parallel {tp} (the slab shards on "
+                           f"the kv-head axis)")
+        if batch % tp:
+            return False, (f"batch {batch} not divisible by "
+                           f"tensor_parallel {tp} (the residual stream "
+                           f"slot-shards between the ring collectives)")
+        if ffn % tp:
+            return False, (f"ffn {ffn} not divisible by "
+                           f"tensor_parallel {tp} (MLP column shards)")
     plan, why = plan_decode_block(
         max_seq=max_seq, hidden=hidden, heads=heads, kv_heads=kv_heads,
         head_dim=head_dim, ffn=ffn, batch=batch, itemsize=dt.itemsize,
-        gated=gated, smem_budget=smem_budget)
+        gated=gated, tp=tp, smem_budget=smem_budget)
     if plan is None:
         return False, why
     return True, None
@@ -274,12 +299,23 @@ def fusion_legal(*, max_seq: int, hidden: int, heads: int, kv_heads: int,
 
 def resolve_fused_decode(model, *, batch: int, kv_len: int, tp: int = 1):
     """The fused-vs-unfused chain for a model at ``(batch, kv_len)``: model
-    support (``fused_decode_step`` + ``fused_decode_supported``), then the
-    model's own legality (dropout, :func:`fusion_legal`).  Returns
-    ``(ok, reason)``; ``reason`` is None when the fused path may engage."""
+    support (``fused_decode_step`` + ``fused_decode_supported``), then at
+    ``tp > 1`` the model's tensor-parallel bundle (``tp_decode_weights``,
+    the layout the sharded block consumes) and its
+    ``tp_decode_supported`` divisibility, then the model's own legality
+    (dropout, :func:`fusion_legal` at ``tp``).  Returns ``(ok, reason)``;
+    ``reason`` is None when the fused path may engage."""
     supported = getattr(model, "fused_decode_supported", None)
     if supported is None or not hasattr(model, "fused_decode_step"):
         return False, "model has no fused_decode_step"
+    if tp > 1:
+        if not hasattr(model, "tp_decode_weights") \
+                or not hasattr(model, "tp_decode_supported"):
+            return False, ("model has no tp_decode_weights (the sharded "
+                           "decode block consumes the TP bundle layout)")
+        ok, reason = model.tp_decode_supported(tp)
+        if not ok:
+            return False, reason
     return supported(batch=batch, kv_len=kv_len, tp=tp)
 
 
@@ -432,14 +468,17 @@ def _counters(dev: torch.device, stream: int) -> torch.Tensor:
     return buf
 
 
-def _gemv(lib, stream, *, dtype, inp, ld_in, K, rows, weights, biases,
+def _gemv(entry, stream, *, dtype, inp, ld_in, K, rows, weights, biases,
           out, ld_out, out_f32, cap, itemsize, device, in_mode=0, in_f32=0,
           stats=None, nw=None, nb=None, res=None, ld_res=0, res_f32=0,
-          act=0) -> None:
-    """One launch of the projection kernel.  ``weights`` is a list of
-    ``(tensor, row_stride)`` segments whose columns concatenate to the
-    output columns, ``biases`` their optional bias pointers; K is split
-    into slices of at most ``cap`` rows."""
+          act=0, what="decode_block projection") -> None:
+    """One launch of the split-K projection kernel (csrc/gemv.cuh) through
+    ``entry``, a library's C entry point taking a ``GemvArgs`` pointer.
+    ``weights`` is a list of ``(tensor, row_stride)`` segments whose
+    columns concatenate to the output columns, ``biases`` their optional
+    bias pointers; K is split into slices of at most ``cap`` rows.
+    ``in_mode`` is the input transform (``GemvArgs.in_mode``), ``act``
+    the epilogue's activation."""
     n = sum(w.shape[1] for w, _ in weights)
     kc, ksplit = _k_slice(K, n, rows, itemsize, cap)
     tiles = -(-n // _gemv_cols(itemsize)) * -(-rows // _ROWS)
@@ -465,8 +504,7 @@ def _gemv(lib, stream, *, dtype, inp, ld_in, K, rows, weights, biases,
     a.counters = _counters(device, stream).data_ptr()
     a.in_mode, a.in_f32, a.act = in_mode, in_f32, act
     a.kc, a.ksplit, a.dtype = kc, ksplit, dtype
-    _check_rc(lib.decode_block_gemv(ctypes.addressof(a), stream),
-              "decode_block projection")
+    _check_rc(entry(ctypes.addressof(a), stream), what)
 
 
 def _row_stats(lib, stream, inp, ld, rows, K, dtype, norm, eps, stats):
@@ -596,6 +634,7 @@ def decode_block_attn(x, k_slab, v_slab, seq_pos, norm_w, norm_b,
 
     from ._build import load
     lib = load("decode_block")
+    gemv = lib.decode_block_gemv
     n_qkv = (heads + 2 * kv_heads) * head_dim
     stats = torch.empty((b, 2), dtype=torch.float32, device=x.device)
     qkv = torch.empty((b, n_qkv), dtype=torch.float32, device=x.device)
@@ -605,7 +644,7 @@ def decode_block_attn(x, k_slab, v_slab, seq_pos, norm_w, norm_b,
         stream = _stream(x.device)
         _row_stats(lib, stream, x.data_ptr(), ld_x, b, d, code, norm, eps,
                    stats)
-        _gemv(lib, stream, dtype=code, inp=x.data_ptr(), ld_in=ld_x, K=d,
+        _gemv(gemv, stream, dtype=code, inp=x.data_ptr(), ld_in=ld_x, K=d,
               rows=b, weights=weights, biases=biases, out=qkv.data_ptr(),
               ld_out=n_qkv, out_f32=1, cap=cap, itemsize=x.element_size(),
               device=x.device, in_mode=1,
@@ -705,6 +744,7 @@ def decode_block_mlp(x, attn, wo, bo, norm_w, norm_b, w1, b1, w2, b2,
 
     from ._build import load
     lib = load("decode_block")
+    gemv = lib.decode_block_gemv
     dev = x.device
     n_up = ffn * len(up)
     xm = torch.empty((b, d), dtype=torch.float32, device=dev)
@@ -715,19 +755,19 @@ def decode_block_mlp(x, attn, wo, bo, norm_w, norm_b, w1, b1, w2, b2,
     with torch.cuda.device(dev):
         stream = _stream(dev)
         # xm = x + attn wo + bo (f32)
-        _gemv(lib, stream, dtype=code, inp=attn.data_ptr(), ld_in=ld_a,
+        _gemv(gemv, stream, dtype=code, inp=attn.data_ptr(), ld_in=ld_a,
               K=hd, rows=b, weights=wo_seg, biases=[bo_p],
               out=xm.data_ptr(), ld_out=d, out_f32=1, **tiles,
               res=x.data_ptr(), ld_res=ld_x)
         _row_stats(lib, stream, xm.data_ptr(), d, b, d, 0, norm, eps, stats)
         # u = act(norm2(xm) w1 + b1), or [t | g] for SwiGLU (f32)
-        _gemv(lib, stream, dtype=code, inp=xm.data_ptr(), ld_in=d, K=d,
+        _gemv(gemv, stream, dtype=code, inp=xm.data_ptr(), ld_in=d, K=d,
               rows=b, weights=up, biases=[b1_p, None], out=u.data_ptr(),
               ld_out=n_up, out_f32=1, **tiles, in_mode=1, in_f32=1,
               stats=stats.data_ptr(), nw=nw, nb=nb,
               act=0 if w_gate is not None else _ACTS[act])
         # y = xm + act w2 + b2, cast once
-        _gemv(lib, stream, dtype=code, inp=u.data_ptr(), ld_in=n_up, K=ffn,
+        _gemv(gemv, stream, dtype=code, inp=u.data_ptr(), ld_in=n_up, K=ffn,
               rows=b, weights=down, biases=[b2_p], out=y.data_ptr(),
               ld_out=d, out_f32=0, **tiles,
               in_mode=2 if w_gate is not None else 0, in_f32=1,

@@ -33,7 +33,7 @@ from ..nn.layers import Dropout, LayerList, LayerNorm
 from .kv_cache import append_kv, cache_lens
 
 __all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM",
-           "gpt_tiny", "gpt_small", "gpt3_6_7b"]
+           "check_weights_held", "gpt_tiny", "gpt_small", "gpt3_6_7b"]
 
 Cache = Tuple[torch.Tensor, torch.Tensor, Union[int, torch.Tensor]]
 
@@ -202,6 +202,23 @@ class GPTModel(nn.Module):
         return x if caches is None else (x, new_caches)
 
 
+def check_weights_held(model, what: str) -> None:
+    """Raise, naming the cause, when ``serving.tp.shard_model_params`` has
+    taken ``model``'s weights: they live in ``model.tp_weights`` over its
+    mesh then, the model's own parameters are empty, and the model serves
+    only through a tensor-parallel engine on that mesh."""
+    held = getattr(model, "tp_weights", None)
+    if held is not None:
+        mesh = held["mesh"]
+        raise RuntimeError(
+            f"{what}: this model's weights were handed to a tensor-parallel "
+            f"engine (shard_model_params moved them into model.tp_weights "
+            f"over {mesh} and released the model's own parameters); it "
+            f"serves only through ServingEngine(tensor_parallel="
+            f"{mesh.size}) on that mesh now — build a fresh model for "
+            f"anything else")
+
+
 class GPTForCausalLM(nn.Module):
     """GPT with a tied (or separate) LM head.
 
@@ -243,6 +260,7 @@ class GPTForCausalLM(nn.Module):
         return self.lm_head(hidden)
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        check_weights_held(self, "GPTForCausalLM.forward")
         return self.logits(self.gpt(input_ids))
 
     def loss(self, input_ids: torch.Tensor,
@@ -267,6 +285,7 @@ class GPTForCausalLM(nn.Module):
                     position: Union[int, torch.Tensor]):
         """One incremental chunk: appends its K/V into ``caches`` in place
         and returns ``(logits [b, s, vocab], new_caches)``."""
+        check_weights_held(self, "GPTForCausalLM.decode_step")
         x = self.gpt.embed(input_ids, position)
         new_caches = []
         for block, cache in zip(self.gpt.h, caches):
@@ -297,6 +316,7 @@ class GPTForCausalLM(nn.Module):
         shared with ``decode_step``; each layer body is the kernel pair
         with the KV slabs updated in place.  ``position`` is an int or a
         per-row ``[b]`` tensor."""
+        check_weights_held(self, "GPTForCausalLM.fused_decode_step")
         x = self.gpt.embed(input_ids, position)
         new_caches = []
         for block, cache in zip(self.gpt.h, caches):
@@ -309,6 +329,64 @@ class GPTForCausalLM(nn.Module):
         """Autoregressive decoding (models/generation.py)."""
         from .generation import generate
         return generate(self, input_ids, max_new_tokens, **kw)
+
+    # ---- tensor-parallel serving (serving/tp.py) ----------------------
+    def tp_decode_supported(self, tp: int):
+        """Static legality of the tensor-parallel decode program at degree
+        ``tp``: every partitioned dimension must tile the mesh evenly.
+        Returns ``(ok, reason)``."""
+        cfg = self.cfg
+        for what, n in (("num_heads", cfg.num_heads),
+                        ("ffn_size", cfg.ffn_size),
+                        ("vocab_size", cfg.vocab_size)):
+            if n % tp:
+                return False, (f"{what} {n} not divisible by "
+                               f"tensor_parallel {tp}")
+        return True, None
+
+    @torch.no_grad()
+    def tp_decode_weights(self, tp: int):
+        """``(arch, weights)`` for the tensor-parallel decode program
+        (serving/tp.py), in the reference's global layout.  The fused QKV
+        weight is re-arranged so that shard ``d``'s contiguous column
+        block is ``[q_d | k_d | v_d]`` for its own head group (a new
+        tensor); every other leaf is the model's own parameter."""
+        check_weights_held(self, "GPTForCausalLM.tp_decode_weights")
+        cfg = self.cfg
+        h, dh = cfg.hidden_size, cfg.head_dim
+        arch = {"norm": "layer", "eps": cfg.layer_norm_eps,
+                "act": "gelu_tanh", "rope": False, "rope_theta": None,
+                "heads": cfg.num_heads, "kv_heads": cfg.num_heads,
+                "head_dim": dh, "hidden": h, "vocab": cfg.vocab_size}
+        step = (cfg.num_heads // tp) * dh
+
+        def own(p):
+            return None if p is None else p.detach()
+        blocks = []
+        for blk in self.gpt.h:
+            w, bias = blk.qkv.weight.detach(), own(blk.qkv.bias)
+            parts, bparts = [], []
+            for d in range(tp):
+                sl = slice(d * step, (d + 1) * step)
+                parts += [w[:, :h][:, sl], w[:, h:2 * h][:, sl],
+                          w[:, 2 * h:][:, sl]]
+                if bias is not None:
+                    bparts += [bias[:h][sl], bias[h:2 * h][sl],
+                               bias[2 * h:][sl]]
+            blocks.append({
+                "n1w": own(blk.ln_1.weight), "n1b": own(blk.ln_1.bias),
+                "wqkv": torch.cat(parts, dim=1),
+                "bqkv": torch.cat(bparts) if bias is not None else None,
+                "wo": own(blk.out_proj.weight), "bo": own(blk.out_proj.bias),
+                "n2w": own(blk.ln_2.weight), "n2b": own(blk.ln_2.bias),
+                "wup": own(blk.fc_in.weight), "bup": own(blk.fc_in.bias),
+                "wdown": own(blk.fc_out.weight),
+                "bdown": own(blk.fc_out.bias)})
+        return arch, {
+            "wte": own(self.gpt.wte.weight), "wpe": own(self.gpt.wpe.weight),
+            "head": None if cfg.tie_embeddings else own(self.lm_head.weight),
+            "nfw": own(self.gpt.ln_f.weight), "nfb": own(self.gpt.ln_f.bias),
+            "blocks": blocks}
 
 
 def gpt_tiny(**kw) -> GPTConfig:

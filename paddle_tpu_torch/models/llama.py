@@ -17,9 +17,8 @@ through the decode-block kernel pair.  All three read kv head
 own heads: the reference's ``jnp.repeat`` of the cache (a broadcast under
 XLA) would be a copy of ``[B, S_max, H, D]`` per layer per step here.
 
-Not ported yet (ROADMAP): ``llama_shard_fn`` and the tensor-parallel
-methods (``tp_decode_supported``, ``tp_decode_weights``), ``remat``,
-``chunked_loss``.
+Not ported yet (ROADMAP): ``llama_shard_fn`` (tensor-parallel
+training), ``remat``, ``chunked_loss``.
 """
 
 from __future__ import annotations
@@ -35,6 +34,7 @@ from ..kernels.decode_attention import decode_attention_auto
 from ..kernels.decode_block import decode_block_layer, fusion_legal
 from ..nn.functional import scaled_dot_product_attention, silu
 from ..nn.layers import Dropout, Embedding, LayerList, Linear, RMSNorm
+from .gpt import check_weights_held
 from .kv_cache import append_kv, cache_lens
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
@@ -294,6 +294,7 @@ class LlamaForCausalLM(nn.Module):
         return self.lm_head.weight.dtype
 
     def forward(self, input_ids: torch.Tensor) -> torch.Tensor:
+        check_weights_held(self, "LlamaForCausalLM.forward")
         return self.lm_head(self.llama(input_ids))
 
     def loss(self, input_ids: torch.Tensor,
@@ -320,6 +321,7 @@ class LlamaForCausalLM(nn.Module):
         """One incremental chunk at ``position`` (an int or a ``[b]``
         tensor): appends its K/V into ``caches`` in place and returns
         ``(logits [b, s, vocab], new_caches)``."""
+        check_weights_held(self, "LlamaForCausalLM.decode_step")
         hidden, new_caches = self.llama(input_ids, caches,
                                         position_offset=position)
         return self.lm_head(hidden), new_caches
@@ -344,6 +346,7 @@ class LlamaForCausalLM(nn.Module):
         kernels: the embedding, final norm and head are shared with
         ``decode_step``; the rotary tables are f32 at each row's position,
         full width with the halves duplicated (llama.py:285-310)."""
+        check_weights_held(self, "LlamaForCausalLM.fused_decode_step")
         cfg = self.cfg
         x = self.llama.embed_tokens(input_ids)
         b = x.shape[0]
@@ -364,6 +367,68 @@ class LlamaForCausalLM(nn.Module):
         """Autoregressive decoding (models/generation.py)."""
         from .generation import generate
         return generate(self, input_ids, max_new_tokens, **kw)
+
+    # ---- tensor-parallel serving (serving/tp.py) ----------------------
+    def tp_decode_supported(self, tp: int):
+        """Static legality of the tensor-parallel decode program at degree
+        ``tp`` (GQA aware: the kv-head axis must tile the mesh too, since
+        the KV slabs shard on it).  Returns ``(ok, reason)``."""
+        cfg = self.cfg
+        for what, n in (("num_heads", cfg.num_heads),
+                        ("kv_heads", cfg.kv_heads),
+                        ("intermediate_size", cfg.intermediate_size),
+                        ("vocab_size", cfg.vocab_size)):
+            if n % tp:
+                return False, (f"{what} {n} not divisible by "
+                               f"tensor_parallel {tp}")
+        return True, None
+
+    @torch.no_grad()
+    def tp_decode_weights(self, tp: int):
+        """``(arch, weights)`` for the tensor-parallel decode program
+        (serving/tp.py), in the reference's global layout: q/k/v column
+        blocks re-arranged per shard as ``[q_d | k_d | v_d]`` head groups
+        (one fused entry product), gate/up as ``[gate_d | up_d]`` (one
+        fused MLP-up product), both new tensors; o/down stay row-parallel,
+        embedding and lm_head vocab-parallel, as the model's own
+        parameters."""
+        check_weights_held(self, "LlamaForCausalLM.tp_decode_weights")
+        cfg = self.cfg
+        dh = cfg.head_dim
+        arch = {"norm": "rms", "eps": cfg.rms_norm_eps, "act": "swiglu",
+                "rope": True, "rope_theta": cfg.rope_theta,
+                "heads": cfg.num_heads, "kv_heads": cfg.kv_heads,
+                "head_dim": dh, "hidden": cfg.hidden_size,
+                "vocab": cfg.vocab_size}
+        qs, kvs, fs = ((cfg.num_heads // tp) * dh,
+                       (cfg.kv_heads // tp) * dh,
+                       cfg.intermediate_size // tp)
+        blocks = []
+        for layer in self.llama.layers:
+            at, mlp = layer.self_attn, layer.mlp
+            wq, wk, wv = (at.q_proj.weight.detach(), at.k_proj.weight.detach(),
+                          at.v_proj.weight.detach())
+            wg, wu = mlp.gate_proj.weight.detach(), mlp.up_proj.weight.detach()
+            parts, mparts = [], []
+            for d in range(tp):
+                parts += [wq[:, d * qs:(d + 1) * qs],
+                          wk[:, d * kvs:(d + 1) * kvs],
+                          wv[:, d * kvs:(d + 1) * kvs]]
+                mparts += [wg[:, d * fs:(d + 1) * fs],
+                           wu[:, d * fs:(d + 1) * fs]]
+            blocks.append({
+                "n1w": layer.input_layernorm.weight.detach(), "n1b": None,
+                "wqkv": torch.cat(parts, dim=1), "bqkv": None,
+                "wo": at.o_proj.weight.detach(), "bo": None,
+                "n2w": layer.post_attention_layernorm.weight.detach(),
+                "n2b": None,
+                "wup": torch.cat(mparts, dim=1), "bup": None,
+                "wdown": mlp.down_proj.weight.detach(), "bdown": None})
+        return arch, {
+            "wte": self.llama.embed_tokens.weight.detach(), "wpe": None,
+            "head": self.lm_head.weight.detach(),
+            "nfw": self.llama.norm.weight.detach(), "nfb": None,
+            "blocks": blocks}
 
 
 def llama_tiny(**kw) -> LlamaConfig:

@@ -73,6 +73,17 @@ class ServingEngine:
     kernels (kernels/decode_block.py) where the model supports them and
     they are legal at this engine's shape; ``decode_path`` /
     ``decode_fallback_reason`` say what was resolved.
+
+    ``tensor_parallel > 1`` shards the engine over a 1-D mesh of
+    ``devices`` (default: the first ``tensor_parallel`` CUDA devices; it
+    raises when fewer are visible).  Shards may share a card
+    (``devices=["cuda:0"] * 2``) or run on the CPU (``["cpu"] * 2``).  The
+    model's weights are re-laid over the mesh in place (it then serves
+    only through tensor-parallel engines on that mesh).
+    ``collective_fusion`` (default on) lets the decode step take the ring
+    programs: ``tp_fused_block`` (the sharded decode-block kernels, with
+    ``fused_decode``) or ``tp_fused`` (the composed ring); otherwise, or
+    when they are not legal, it runs ``unfused``.
     """
 
     def __init__(self, model, num_slots: int = 8,
@@ -85,7 +96,10 @@ class ServingEngine:
                  prefix_blocks: Optional[int] = None,
                  registry=None, tracer=None,
                  max_queue: Optional[int] = None,
-                 fused_decode: bool = False):
+                 fused_decode: bool = False,
+                 tensor_parallel: int = 1,
+                 collective_fusion: bool = True,
+                 devices=None):
         self.core = EngineCore(
             model, num_slots=num_slots, max_seq=max_seq,
             min_bucket=min_bucket,
@@ -95,7 +109,9 @@ class ServingEngine:
             enable_prefix_cache=enable_prefix_cache,
             block_len=block_len, prefix_blocks=prefix_blocks,
             metrics=ServingMetrics(registry=registry, tracer=tracer),
-            max_queue=max_queue, fused_decode=fused_decode)
+            max_queue=max_queue, fused_decode=fused_decode,
+            tensor_parallel=tensor_parallel,
+            collective_fusion=collective_fusion, devices=devices)
         self._requests = {}
 
     # -------------------------------------------------------- submission
@@ -279,14 +295,16 @@ class ServingEngine:
     @property
     def decode_path(self) -> str:
         """``"fused"`` (the decode-block kernel pair) or ``"unfused"``
-        (``model.decode_step``): which decode step this engine runs,
-        resolved once at construction."""
+        (``model.decode_step``) at tp 1; ``"tp_fused_block"`` (the sharded
+        decode-block kernels), ``"tp_fused"`` (the composed ring) or
+        ``"unfused"`` (the Megatron body) at tp > 1: which decode step
+        this engine runs, resolved once at construction."""
         return self.core.decode_path
 
     @property
     def decode_fallback_reason(self) -> Optional[str]:
-        """Why ``fused_decode=True`` fell back to ``"unfused"`` (None when
-        the fused path is active or the flag is off)."""
+        """Why ``fused_decode=True`` fell back from the fused decode-block
+        path (None when it is active or the flag is off)."""
         return self.core.decode_fallback_reason
 
     def metrics_dict(self) -> dict:

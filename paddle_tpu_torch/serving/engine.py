@@ -1,6 +1,12 @@
 """Continuous-batching engine core: the fixed-shape step loop
-(counterpart of paddle_tpu/serving/engine.py, at tensor-parallel degree 1
-on one card).
+(counterpart of paddle_tpu/serving/engine.py).
+
+``tensor_parallel > 1`` shards the whole device plane over a 1-D mesh
+(serving/tp.py): the model's weights Megatron-style, the KV slot and
+block slabs and every staging row on the kv-head axis.  Prefill chunks
+run the per-shard Megatron body; the decode step takes the sharded
+decode-block kernels (``tp_fused_block``), the composed ring
+(``tp_fused``) or the Megatron body (``unfused``).
 
 Device work per step:
 
@@ -50,11 +56,15 @@ import torch
 
 from ..kernels.decode_block import resolve_fused_decode
 from ..models.generation import _categorical, _filter_top_p
+from ..models.gpt import check_weights_held
 from .errors import EngineStalledError, RequestRejected
 from .kv_pool import BlockPool, KVPool
 from .metrics import ServingMetrics
 from .prefix_cache import MatchResult, PrefixCache
 from .scheduler import Request, Scheduler
+from .tp import (build_serving_mesh, build_tp_decode_program,
+                 build_tp_forward, init_staging, shard_model_params,
+                 tp_decode_supported)
 
 __all__ = ["EngineCore", "sample_rows", "finite_or_sentinel",
            "NONFINITE_SENTINEL"]
@@ -171,7 +181,10 @@ class EngineCore:
                  prefix_blocks: Optional[int] = None,
                  metrics: Optional[ServingMetrics] = None,
                  max_queue: Optional[int] = None,
-                 fused_decode: bool = False):
+                 fused_decode: bool = False,
+                 tensor_parallel: int = 1,
+                 collective_fusion: bool = True,
+                 devices=None):
         if prefill_chunk is not None and prefill_chunk < min_bucket:
             raise ValueError(
                 f"prefill_chunk {prefill_chunk} must be >= min_bucket "
@@ -198,28 +211,73 @@ class EngineCore:
         self._step_index = 0
         self._step_in_flight = 0
         self.closed = False
+        # ---- tensor-parallel serving (serving/tp.py): tp > 1 shards the
+        # whole device plane over a 1-D mesh of `devices` (the first tp
+        # CUDA devices by default).  Every construction check runs BEFORE
+        # shard_model_params re-lays the caller's model in place
+        if tensor_parallel < 1:
+            raise ValueError(
+                f"tensor_parallel must be >= 1, got {tensor_parallel}")
+        self.tensor_parallel = tensor_parallel
+        self.collective_fusion = collective_fusion
+        self.mesh = None
+        self.tp_weights = None
+        self.tp_fusion_reason: Optional[str] = None
+        self._forward = model.decode_step
+        if tensor_parallel == 1:
+            check_weights_held(model, "ServingEngine(tensor_parallel=1)")
+        else:
+            cfg = model.cfg
+            kv_heads = getattr(cfg, "kv_heads", None) or cfg.num_heads
+            if kv_heads % tensor_parallel:
+                raise ValueError(
+                    f"kv_heads {kv_heads} must divide evenly over "
+                    f"tensor_parallel {tensor_parallel} (the KV slot "
+                    f"slabs partition on the kv-head axis)")
+            if not hasattr(model, "tp_decode_weights"):
+                raise ValueError(
+                    f"tensor_parallel={tensor_parallel}: the model has no "
+                    f"tp_decode_weights (every tensor-parallel program "
+                    f"runs on its sharded bundle)")
+            ok, why = model.tp_decode_supported(tensor_parallel)
+            if not ok:
+                raise ValueError(
+                    f"tensor_parallel={tensor_parallel}: {why} (every "
+                    f"tensor-parallel program runs on the sharded bundle)")
+            self.mesh = build_serving_mesh(tensor_parallel, devices)
+            self.tp_weights = shard_model_params(model, self.mesh)
+            self.device = self.mesh.devices[0]
+            self._forward = build_tp_forward(self.tp_weights)
+        self.metrics.set_tp_degree(tensor_parallel)
         self._build_device_plane(max_seq, enable_prefix_cache, block_len,
                                  prefix_blocks)
         self.scheduler = Scheduler(num_slots, self.pool.max_seq,
                                    min_bucket=min_bucket,
                                    max_prefills_per_step=max_prefills_per_step)
-        # fused decode-block path (kernels/decode_block.py): opt-in,
-        # resolved once here from static legality (shapes, dtype, shared
-        # memory plan) and reported once as the decode_block event
+        # fused decode-block path (kernels/decode_block.py,
+        # kernels/decode_block_tp.py): opt-in, resolved once here from
+        # static legality (shapes, dtype, shared memory plan) and reported
+        # once as the decode_block event
         self.fused_decode = fused_decode
         self.decode_path, self.decode_fallback_reason = \
             self._resolve_decode_path()
+        self._tp_program = None
+        if self.decode_path in ("tp_fused", "tp_fused_block"):
+            self._tp_program = build_tp_decode_program(
+                self.tp_weights,
+                pallas_block=self.decode_path == "tp_fused_block",
+                batch=self.num_slots, max_seq=self.pool.max_seq)
         self.metrics.on_decode_block(
-            active=self.decode_path == "fused",
+            active=self.decode_path in ("fused", "tp_fused_block"),
             reason=self.decode_fallback_reason, step=self._step_index,
-            tp=1)
+            tp=tensor_parallel)
 
     def _build_device_plane(self, max_seq, enable_prefix_cache: bool,
                             block_len: int, prefix_blocks) -> None:
         """Allocate everything that lives on the device or mirrors it: the
         KV pools, the prefix cache and the per-slot row state."""
         model, num_slots = self.model, self.num_slots
-        self.pool = KVPool.create(model, num_slots, max_seq)
+        self.pool = KVPool.create(model, num_slots, max_seq, mesh=self.mesh)
         self.prefix_cache: Optional[PrefixCache] = None
         self.block_pool: Optional[BlockPool] = None
         if enable_prefix_cache:
@@ -233,7 +291,8 @@ class EngineCore:
             nb = prefix_blocks if prefix_blocks is not None else \
                 num_slots * (self.pool.max_seq // block_len)
             self.block_pool = BlockPool.create(model, nb, block_len,
-                                               self.pool.max_seq)
+                                               self.pool.max_seq,
+                                               mesh=self.mesh)
             self.prefix_cache = PrefixCache(self.block_pool)
             self.prefix_cache.on_event = functools.partial(
                 self.metrics.tracer.event, lane=self.metrics.engine_lane)
@@ -312,6 +371,8 @@ class EngineCore:
             t_gather0 = time.perf_counter()
             if matched:
                 ks, vs = self.prefix_cache.load_staging(match)
+            elif self.mesh is not None:
+                ks, vs = init_staging(self.tp_weights, self.pool.max_seq)
             else:
                 caches = self.model.init_cache(1, self.pool.max_seq)
                 ks = [c[0] for c in caches]
@@ -356,8 +417,8 @@ class EngineCore:
         ids[0, :valid] = np.asarray(st.req.prompt[off:off + valid],
                                     np.int64)
         caches = [(k, v, off) for k, v in zip(st.ks, st.vs)]
-        logits, _ = self.model.decode_step(
-            torch.as_tensor(ids).to(self.device), caches, off)
+        logits, _ = self._forward(torch.as_tensor(ids).to(self.device),
+                                  caches, off)
         t1 = time.perf_counter()
         st.next_chunk += 1
         st.req.prefill_chunks += 1
@@ -478,8 +539,35 @@ class EngineCore:
         ``fused_decode`` the fused decode-block kernels when the model
         supports them and ``resolve_fused_decode`` finds them legal at
         (num_slots, max_seq), else the unfused ``decode_step`` with the
-        refusal's reason.  Returns ``(path, fallback_reason)``; the reason
-        is None when fused engages or the flag is off."""
+        refusal's reason.  Under tensor parallelism the chain is
+        ``tp_fused_block`` (the sharded kernels: the flag opts in,
+        ``collective_fusion`` is on — its rings are the fused collectives —
+        and ``resolve_fused_decode(tp=...)`` passes), else ``tp_fused``
+        (the composed ring, when ``collective_fusion`` is on and
+        ``tp_decode_supported`` holds; its refusal lands in
+        ``tp_fusion_reason``), else ``unfused`` (the Megatron body); every
+        rung keeps serving.  Returns ``(path, fallback_reason)``; the
+        reason is None when a fused-block path engages or the flag is
+        off."""
+        if self.tensor_parallel > 1:
+            reason = None
+            if self.fused_decode:
+                ok, reason = resolve_fused_decode(
+                    self.model, batch=self.num_slots,
+                    kv_len=self.pool.max_seq, tp=self.tensor_parallel)
+                if ok and not self.collective_fusion:
+                    ok, reason = False, ("collective_fusion disabled "
+                                         "(the sharded block's "
+                                         "entry/exit rings are fused "
+                                         "collectives)")
+                if ok:
+                    return "tp_fused_block", None
+            ok, tp_reason = tp_decode_supported(
+                self.model, self.tensor_parallel, self.num_slots) \
+                if self.collective_fusion \
+                else (False, "collective_fusion disabled")
+            self.tp_fusion_reason = None if ok else tp_reason
+            return ("tp_fused" if ok else "unfused"), reason
         if not self.fused_decode:
             return "unfused", None
         ok, reason = resolve_fused_decode(self.model, batch=self.num_slots,
@@ -495,12 +583,16 @@ class EngineCore:
                 torch.as_tensor(self._mask_host).to(self.device)
             self._mask_dirty = False
         pool = self.pool
-        caches = [(k, v, pool.seq_pos) for k, v in zip(pool.ks, pool.vs)]
-        step_fn = self.model.fused_decode_step \
-            if self.decode_path == "fused" else self.model.decode_step
-        logits, caches = step_fn(self._last_tok[:, None], caches,
-                                 pool.seq_pos)
-        pool.seq_pos = caches[0][2]
+        if self._tp_program is not None:
+            logits, _, _, pool.seq_pos = self._tp_program(
+                pool.ks, pool.vs, pool.seq_pos, self._last_tok)
+        else:
+            caches = [(k, v, pool.seq_pos) for k, v in zip(pool.ks, pool.vs)]
+            step_fn = self.model.fused_decode_step \
+                if self.decode_path == "fused" else self._forward
+            logits, caches = step_fn(self._last_tok[:, None], caches,
+                                     pool.seq_pos)
+            pool.seq_pos = caches[0][2]
         lg = logits[:, 0]
         nxt = sample_rows(self._gens, lg, self._do_sample,
                           self._temperature, self._top_k, self._top_p,
@@ -577,8 +669,10 @@ class EngineCore:
                             harvest_exc = e
                 phases += [("decode_dispatch", t_prefill, t_decode),
                            ("readback", t_decode, t_readback)]
-                if self.decode_path == "fused":
+                if self.decode_path in ("fused", "tp_fused_block"):
                     self.metrics.on_decode_block_step(t_decode - t_prefill)
+                if self.tensor_parallel > 1:
+                    self.metrics.on_collective(t_readback - t_prefill)
                 if harvest_exc is not None:
                     raise harvest_exc
             self._evict_finished()

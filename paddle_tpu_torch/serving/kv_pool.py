@@ -13,6 +13,13 @@ The reference donates its buffers to each compiled step so XLA updates
 them in place; the port updates the same tensors in place directly
 (``append_kv``, ``copy_``, ``index_copy_``), so pool memory stays one
 allocation for the engine's lifetime.
+
+With a tensor-parallel ``mesh`` (serving/tp.py) every slot slab, block
+slab and staging row is a per-shard list instead of one tensor: member
+``d`` is a contiguous ``[rows, len, kv_heads/tp, head_dim]`` holding
+shard ``d``'s kv-head group on its device (the reference's
+``KV_SLAB_SPEC``, the slabs split on the kv-head axis).  Copies between
+the pools run shard by shard, never across shards.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ import numpy as np
 import torch
 
 from ..models.kv_cache import gather_block_rows, scatter_block_rows
+from .tp import sharded_zeros
 
 __all__ = ["KVPool", "BlockPool"]
 
@@ -31,11 +39,27 @@ def _kv_heads(cfg) -> int:
     return getattr(cfg, "kv_heads", None) or cfg.num_heads
 
 
+def _shards(x) -> list:
+    """A slab's per-shard members: the list itself under a mesh, else the
+    one tensor."""
+    return x if isinstance(x, list) else [x]
+
+
+def _slabs(shape, dtype, device, mesh, n: int) -> list:
+    """``n`` zero slabs of ``shape``: tensors on ``device``, or per-shard
+    lists split on the kv-head axis over ``mesh``."""
+    if mesh is None:
+        return [torch.zeros(shape, dtype=dtype, device=device)
+                for _ in range(n)]
+    return [sharded_zeros(mesh, shape, dtype) for _ in range(n)]
+
+
 class KVPool:
     """Fixed-shape KV slab + free-list slot accounting.
 
     Device state:
-      * ``ks/vs``   — per-layer [num_slots, max_seq, kv_heads, head_dim];
+      * ``ks/vs``   — per-layer [num_slots, max_seq, kv_heads, head_dim]
+        (per-shard lists under a mesh);
       * ``seq_pos`` — [num_slots] int32, each slot's current cache length
         (the per-row ``pos`` the models append at AND, after the in-step
         +1, the ``seq_lens`` decode attention masks by).
@@ -46,35 +70,36 @@ class KVPool:
 
     def __init__(self, num_slots: int, max_seq: int, num_layers: int,
                  kv_heads: int, head_dim: int, *, device: torch.device,
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, mesh=None):
         if num_slots < 1:
             raise ValueError("num_slots must be >= 1")
         self.num_slots = num_slots
         self.max_seq = max_seq
         self.num_layers = num_layers
-        self.device = device
+        self.mesh = mesh
+        # the position vector lives on the controller: the mesh's first
+        # device
+        self.device = device if mesh is None else mesh.devices[0]
         shape = (num_slots, max_seq, kv_heads, head_dim)
-        self.ks: List[torch.Tensor] = [
-            torch.zeros(shape, dtype=dtype, device=device)
-            for _ in range(num_layers)]
-        self.vs: List[torch.Tensor] = [
-            torch.zeros(shape, dtype=dtype, device=device)
-            for _ in range(num_layers)]
+        self.ks: List = _slabs(shape, dtype, device, mesh, num_layers)
+        self.vs: List = _slabs(shape, dtype, device, mesh, num_layers)
         self.seq_pos = torch.zeros((num_slots,), dtype=torch.int32,
-                                   device=device)
+                                   device=self.device)
         self._free: List[int] = list(range(num_slots - 1, -1, -1))
         # lifetime slot-churn counters (reported by metrics_dict)
         self.alloc_count = 0
         self.free_count = 0
 
     @classmethod
-    def create(cls, model, num_slots: int, max_seq=None) -> "KVPool":
+    def create(cls, model, num_slots: int, max_seq=None,
+               mesh=None) -> "KVPool":
         """Size the pool from a causal LM's config, on the model's device
-        and in its dtype."""
+        and in its dtype; with ``mesh`` the slabs split on the kv-head axis
+        over the tensor-parallel mesh."""
         cfg = model.cfg
         return cls(num_slots, max_seq or cfg.max_seq_len, cfg.num_layers,
                    _kv_heads(cfg), cfg.head_dim, device=model.device,
-                   dtype=model.dtype)
+                   dtype=model.dtype, mesh=mesh)
 
     # ------------------------------------------------------------ slots
     @property
@@ -106,8 +131,10 @@ class KVPool:
         ``(k [1, max_seq, h, d], v, ...)`` tuples) into ``slot`` and
         record its ``length`` valid positions."""
         for i, layer in enumerate(layer_caches):
-            self.ks[i][slot].copy_(layer[0][0])
-            self.vs[i][slot].copy_(layer[1][0])
+            for dst, src in zip(_shards(self.ks[i]), _shards(layer[0])):
+                dst[slot].copy_(src[0])
+            for dst, src in zip(_shards(self.vs[i]), _shards(layer[1])):
+                dst[slot].copy_(src[0])
         self.seq_pos[slot] = length
 
 
@@ -132,7 +159,8 @@ class BlockPool:
 
     def __init__(self, num_blocks: int, block_len: int, max_seq: int,
                  num_layers: int, kv_heads: int, head_dim: int, *,
-                 device: torch.device, dtype: torch.dtype = torch.float32):
+                 device: torch.device, dtype: torch.dtype = torch.float32,
+                 mesh=None):
         if num_blocks < 1:
             raise ValueError("num_blocks must be >= 1")
         if block_len < 1:
@@ -145,23 +173,22 @@ class BlockPool:
         self.block_len = block_len
         self.max_seq = max_seq
         self.num_layers = num_layers
+        self.mesh = mesh
         self.blocks_per_row = max_seq // block_len
         shape = (num_blocks, block_len, kv_heads, head_dim)
-        self.bks: List[torch.Tensor] = [
-            torch.zeros(shape, dtype=dtype, device=device)
-            for _ in range(num_layers)]
-        self.bvs: List[torch.Tensor] = [
-            torch.zeros(shape, dtype=dtype, device=device)
-            for _ in range(num_layers)]
+        # the block slabs split on the same kv-head axis as the slot
+        # slabs, so the copies between them never cross shards
+        self.bks: List = _slabs(shape, dtype, device, mesh, num_layers)
+        self.bvs: List = _slabs(shape, dtype, device, mesh, num_layers)
         self._free: List[int] = list(range(num_blocks - 1, -1, -1))
 
     @classmethod
     def create(cls, model, num_blocks: int, block_len: int,
-               max_seq: int) -> "BlockPool":
+               max_seq: int, mesh=None) -> "BlockPool":
         cfg = model.cfg
         return cls(num_blocks, block_len, max_seq, cfg.num_layers,
                    _kv_heads(cfg), cfg.head_dim, device=model.device,
-                   dtype=model.dtype)
+                   dtype=model.dtype, mesh=mesh)
 
     # ------------------------------------------------------------ blocks
     @property
@@ -188,19 +215,21 @@ class BlockPool:
     def load_row(self, idx) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
         """Gather blocks ``idx`` ([blocks_per_row] ids, padded past the
         match with any value) into per-layer ``[1, max_seq, h, d]``
-        staging rows."""
-        idx = torch.as_tensor(np.asarray(idx, np.int64)).to(
-            self.bks[0].device)
-        ks = [gather_block_rows(b, idx)[None] for b in self.bks]
-        vs = [gather_block_rows(b, idx)[None] for b in self.bvs]
-        return ks, vs
+        staging rows (per-shard lists under a mesh)."""
+        idx = torch.as_tensor(np.asarray(idx, np.int64))
+
+        def gather(b):
+            rows = [gather_block_rows(s, idx.to(s.device))[None]
+                    for s in _shards(b)]
+            return rows if isinstance(b, list) else rows[0]
+        return [gather(b) for b in self.bks], [gather(b) for b in self.bvs]
 
     def store_row(self, pool: KVPool, slot: int, dest) -> None:
         """Write pool slot ``slot``'s row into block rows ``dest``
         ([blocks_per_row] host ints; entries == num_blocks are dropped),
         in place."""
         dest = np.asarray(dest, np.int64)
-        for b, k in zip(self.bks, pool.ks):
-            scatter_block_rows(b, k[slot], dest)
-        for b, v in zip(self.bvs, pool.vs):
-            scatter_block_rows(b, v[slot], dest)
+        for blocks, slabs in ((self.bks, pool.ks), (self.bvs, pool.vs)):
+            for b, k in zip(blocks, slabs):
+                for bs, ks in zip(_shards(b), _shards(k)):
+                    scatter_block_rows(bs, ks[slot], dest)

@@ -93,6 +93,15 @@ class ServingMetrics:
                                  "fused decode-block step dispatch wall "
                                  "time (engine fused_decode path)",
                                  unit="s")
+        # tensor-parallel serving: the mesh degree, and the wall time of
+        # the collective-bearing decode dispatch + readback of tp > 1
+        # engines
+        self._g_tp = g("serving.tp_degree",
+                       "tensor-parallel mesh degree (1 = one shard)")
+        self._h_collective = h("serving.collective_s",
+                               "collective-bearing decode dispatch + "
+                               "readback wall time (recorded only on tp > 1 "
+                               "engines)", unit="s")
         self._g_queue_depth = g("serving.queue_depth",
                                 "waiting requests at the last step")
         self._g_occupancy = g("serving.slot_occupancy",
@@ -167,6 +176,14 @@ class ServingMetrics:
         ``kernel.decode_block_s`` histogram is separable from
         ``serving.phase.decode_dispatch_s`` in one registry)."""
         self._h_decode_block.observe(seconds)
+
+    def set_tp_degree(self, tp: int) -> None:
+        self._g_tp.set(tp)
+
+    def on_collective(self, seconds: float) -> None:
+        """One tensor-parallel decode step's dispatch + readback time (the
+        engine calls this only when ``tp > 1``)."""
+        self._h_collective.observe(seconds)
 
     def on_first_token(self, arrival_t: float,
                        now: Optional[float] = None) -> None:

@@ -242,9 +242,16 @@ def test_fusion_legal_named_refusals():
     for kw, word in cases:
         ok, reason = fusion_legal(dtype="float32", **kw)
         assert not ok and word in reason, (kw, reason)
-    ok, reason = fusion_legal(dtype="float32", tp=2, **base)
-    assert not ok and "tensor_parallel 2" in reason
-    assert "decode_block_tp" in reason
+    # tp > 1: the sharded block's real checks (the reference's words)
+    assert fusion_legal(dtype="float32", tp=2, **base) == (True, None)
+    wide = dict(max_seq=64, hidden=128, heads=16, kv_heads=16, head_dim=8,
+                ffn=184, batch=16)
+    for kw, tp, word in ((dict(base, batch=3), 2, "batch 3 not divisible"),
+                         (dict(base, kv_heads=1), 2, "kv_heads 1 not"),
+                         (wide, 16, "ffn 184 not divisible")):
+        ok, reason = fusion_legal(dtype="float32", tp=tp, **kw)
+        assert not ok and word in reason \
+            and f"tensor_parallel {tp}" in reason, (kw, reason)
 
 
 def test_plan_shrinks_then_refuses_under_the_budget():

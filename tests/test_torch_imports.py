@@ -48,5 +48,9 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
                 "paddle_tpu_torch.optimizer.optimizer",
                 "paddle_tpu_torch.optimizer.adam",
                 "paddle_tpu_torch.models.trainer",
-                "paddle_tpu_torch.obs.tracing"):
+                "paddle_tpu_torch.obs.tracing",
+                "paddle_tpu_torch.distributed.mesh",
+                "paddle_tpu_torch.serving.tp",
+                "paddle_tpu_torch.kernels.collective_matmul",
+                "paddle_tpu_torch.kernels.decode_block_tp"):
         assert mod in res["imported"]
