@@ -55,6 +55,16 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      (q/k/v [2, 2048, 32, 128] bf16 causal; AdamW on one [4096, 16384]
      weight) beside the plain version, the bound and a library yardstick
      (SDPA forward / backward, ``torch.optim.AdamW(fused=True)``);
+  7b. varlen — the segment-id variant of the three flash kernels against
+     their plain versions over a sweep (f32 / bf16 / f16, head_dim 64 /
+     128, causal and not, GQA, padding ids, a segment with no keys, ids in
+     no order), then ``flash_attn_unpadded`` forward and backward through
+     autograd at 32 heads x 128 (gpt3_6_7b / llama_7b) over 8 packed
+     documents in 8192 tokens, bf16, causal: one launch of each kernel and
+     no dense call, the result against the plain version over head groups,
+     each kernel timed beside its plain version, its bound (visible pairs)
+     and SDPA with the block-diagonal causal mask; then a causal call with
+     packs that differ takes the dense form;
   8. train — ``GPTHybridTrainer`` at every width of gpt3_6_7b with 12 of
      its 32 layers, batch 2 x 2048, ``FusedAdamW(multi_precision=True)``,
      one repeated batch: 2 warm-up steps, then 6 steps with the counts
@@ -1633,17 +1643,21 @@ def _err(got, want):
     return (got.float()[finite] - want.float()[finite]).abs().max().item()
 
 
-def flash_bounds(b, sq, sk, h, kvh, d, causal, es):
+def flash_bounds(b, sq, sk, h, kvh, d, causal, es, pairs=None,
+                 ids_bytes=0):
     """Least time (ms) of each flash kernel at these shapes, and what
     bounds it.  Operations: 2·d multiply-adds per visible (query, key)
     pair for each product — forward 2 (QK^T, PV), dq 3 (QK^T, dO V^T,
     dS K), dkv 4 (QK^T, dO V^T, P^T dO, dS^T Q) — over the bf16 tensor
-    rate.  Bytes: each input read once, each output written once."""
+    rate; ``pairs`` (per batch row and head) where segment ids decide
+    them.  Bytes: each input (``ids_bytes`` of segment ids too) read once,
+    each output written once."""
     off = sk - sq
-    pairs = sum(max(0, min(sk, t + off + 1)) for t in range(sq)) \
-        if causal else sq * sk
-    q_b, kv_b, stat_b = b * sq * h * d * es, 2 * b * sk * kvh * d * es, \
-        b * h * sq * 4
+    if pairs is None:
+        pairs = sum(max(0, min(sk, t + off + 1)) for t in range(sq)) \
+            if causal else sq * sk
+    q_b, kv_b, stat_b = b * sq * h * d * es, \
+        2 * b * sk * kvh * d * es + ids_bytes, b * h * sq * 4
     work = {"flash_attention_fwd": (2, q_b + kv_b + q_b + stat_b),
             "flash_attention_bwd_dq": (3, 2 * q_b + kv_b + 2 * stat_b + q_b),
             "flash_attention_bwd_dkv": (4, 2 * q_b + kv_b + 2 * stat_b
@@ -1921,6 +1935,487 @@ def phase_train_kernels(card: str):
     del master, grad, m, v, low
     torch.cuda.empty_cache()
     return recs
+
+
+# ---------------------------------------------------- varlen attention
+# the full-width packed call: 8 documents in T = 8192 tokens (4 rows of
+# gpt3_6_7b's max_seq 2048) at the attention width of gpt3_6_7b and
+# llama_7b (32 heads x 128), bf16, causal
+VARLEN_DOCS = (3072, 2048, 1024, 1000, 600, 300, 100, 48)
+# query heads per pass of the plain version at that width (8 heads of
+# f32 scores take 2.1 GB; the pass holds a few such tensors)
+VARLEN_HEAD_GROUP = 8
+
+
+def _cu(lengths, dev):
+    import numpy as np
+    import torch
+    return torch.tensor([0, *np.cumsum(lengths)], dtype=torch.int64,
+                        device=dev)
+
+
+def _varlen_ids(pattern, b, sq, sk, seed):
+    """q / k segment ids (int32 [b, sq] / [b, sk] on the card):
+    ``packed`` cuts each row into 3 documents at random points (the q and
+    k packs cut at the same fractions); ``padding`` packs 80% of the row,
+    the rest query id -1 / key id -2 (matching nothing: rows that see no
+    key); ``no_keys`` gives queries segments 0 1 2 and keys 0 2 3 (the
+    rows of 1 see nothing, the keys of 3 are seen by none); ``scrambled``
+    draws each id from {0, 1, 2} (ids in no order)."""
+    import numpy as np
+    import torch
+    rs = np.random.RandomState(seed)
+
+    def docs(n, fracs, names=(0, 1, 2)):
+        cuts = (np.asarray(fracs) * n).astype(int)
+        return np.asarray(names)[np.searchsorted(cuts, np.arange(n),
+                                                 side="right")]
+    rows_q, rows_k = [], []
+    for _ in range(b):
+        fracs = np.sort(rs.uniform(0.1, 0.9, 2))
+        if pattern == "packed":
+            q, k = docs(sq, fracs), docs(sk, fracs)
+        elif pattern == "padding":
+            q, k = docs(sq, fracs * 0.8), docs(sk, fracs * 0.8)
+            q[int(0.8 * sq):], k[int(0.8 * sk):] = -1, -2
+        elif pattern == "no_keys":
+            q, k = docs(sq, fracs), docs(sk, fracs, (0, 2, 3))
+        else:
+            q, k = rs.randint(0, 3, sq), rs.randint(0, 3, sk)
+        rows_q.append(q)
+        rows_k.append(k)
+    return tuple(torch.as_tensor(np.stack(r).astype(np.int32)).to(DEVICE)
+                 for r in (rows_q, rows_k))
+
+
+def tile_pairs(ids, q_tile: int, k_tile: int, by_keys: bool) -> int:
+    """(query, key) pairs a segment kernel computes for one head over the
+    causal self-attention of one row with segment ``ids`` (numpy [T]):
+    the walk of ``csrc/flash_attention.cu``, a block of ``q_tile`` queries
+    over ``k_tile``-key tiles up to its causal limit (``by_keys``: a block
+    of ``k_tile`` keys over ``q_tile``-query tiles from the first that
+    sees them), each tile skipped when its id range and the block's do
+    not overlap."""
+    import numpy as np
+    t = len(ids)
+
+    def ranges(step):
+        starts = np.arange(0, t, step)
+        return (starts, np.minimum.reduceat(ids, starts),
+                np.maximum.reduceat(ids, starts))
+    qs, qlo, qhi = ranges(q_tile)
+    ks, klo, khi = ranges(k_tile)
+    overlap = ~((qhi[:, None] < klo[None, :]) | (khi[None, :] < qlo[:, None]))
+    if by_keys:     # query tiles from the one holding the block's first key
+        walked = qs[:, None] + q_tile > ks[None, :] - (ks[None, :] % q_tile)
+    else:           # key tiles below the block's last query
+        walked = ks[None, :] < np.minimum(qs + q_tile, t)[:, None]
+    return int((overlap & walked).sum()) * q_tile * k_tile
+
+
+def _seen(qs, ks, causal):
+    """[B, Sq, Sk]: query t sees key j (same segment, under the causal
+    limit)."""
+    import torch
+    sq, sk = qs.shape[1], ks.shape[1]
+    seen = qs[:, :, None] == ks[:, None, :]
+    if causal:
+        t = torch.arange(sq, device=qs.device)[:, None]
+        j = torch.arange(sk, device=qs.device)[None, :]
+        seen &= (j <= t + (sk - sq))[None]
+    return seen
+
+
+def _ulps(x, bits: int):
+    """One ulp of each value of ``x`` in a type with ``bits`` mantissa
+    bits (0 where ``x`` is 0)."""
+    import torch
+    return torch.exp2(torch.floor(torch.log2(x.abs().clamp_min(1e-30)))
+                      - bits)
+
+
+def row_reading(got, want) -> float:
+    """Largest ratio of an element's error to its own limit (<= 1
+    passes): 2 ulps of the plain value plus 2 ulps of the largest |plain|
+    in its row (the last dim: one token of one head; the 16-bit P and dS
+    of the second products err relative to the terms of a sum, which
+    may cancel below any one of them) plus 1e-4 (the f32 order of
+    ``dO·V - delta`` where a row's only key makes it 0).  ``got`` a
+    16-bit type."""
+    bits = _MANTISSA[str(got.dtype).replace("torch.", "")]
+    g32, w32 = got.float(), want.float()
+    limit = 2 * _ulps(w32, bits) + 2 * _ulps(
+        w32.abs().amax(-1, keepdim=True), bits) + 1e-4
+    return ((g32 - w32).abs() / limit).max().item()
+
+
+def lse_reading(got, want) -> float:
+    """Largest ratio of an lse error to 1e-4 · (1 + |plain|) (<= 1
+    passes); entries that are -inf in ``want`` are skipped (``_err``
+    holds them equal)."""
+    import torch
+    finite = torch.isfinite(want)
+    if not bool(finite.any()):
+        return 0.0
+    g32, w32 = got.float()[finite], want.float()[finite]
+    return ((g32 - w32).abs() / (1e-4 * (1 + w32.abs()))).max().item()
+
+
+def phase_varlen(card: str):
+    """Phase 7b: the segment-id variant of the three flash kernels.  (a)
+    Each against its plain version over a sweep (f32 / bf16 / f16, head_dim
+    64 / 128, causal and not, MHA and GQA 32 over 8, ragged totals, Sq <
+    Sk and Sq > Sk, padding ids, a segment with no keys, ids in no order),
+    with rows that see no key exactly 0; and ``flash_attn_unpadded``'s
+    kernel route against the reference's dense form.  (b) The main path:
+    ``flash_attn_unpadded`` forward and backward through autograd at full
+    width, 8 documents in T = 8192 tokens, with every count set to 0 just
+    before and read just after (one launch of each kernel, no dense call);
+    the result against the plain version over head groups; each kernel
+    timed beside its plain version, its bound (visible pairs only) and
+    SDPA with the block-diagonal causal mask.  (c) A causal call with
+    packs that differ takes the dense form.  Returns the main path's
+    launches and each kernel's record."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import gpt3_6_7b, llama_7b
+    from paddle_tpu_torch.nn.functional import flash_attn_unpadded
+    from paddle_tpu_torch.nn.functional.attention import (_segment_ids,
+                                                          _varlen_dense)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(7)
+    names = ("flash_attention_fwd", "flash_attention_bwd_dq",
+             "flash_attention_bwd_dkv")
+    # phase 7's tolerances: f32 the summation order; 16-bit types the
+    # output cast and the 16-bit P / dS of the second products, relative
+    # to the largest value of the result
+    rel = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+
+    def check(what, dtype, pairs, lses=(), rows=True):
+        """Raise unless each (kernel, plain) pair agrees: phase 7's
+        tolerance, then (16-bit ``pairs`` with ``rows``) every element
+        within its own limit (``row_reading``) and every lse within 1e-4
+        relative (``lse_reading``).  The largest absolute error, relative
+        error and reading."""
+        errs, rels, reads = [], [], [0.0]
+        for got, want in (*pairs, *lses):
+            err = _err(got, want)
+            finite = want[torch.isfinite(want)]
+            scale = max(1.0, finite.abs().max().item() if finite.numel()
+                        else 0.0)
+            if err > rel[dtype] * scale:
+                raise AssertionError(f"{what}: max_abs_err {err} (scale "
+                                     f"{scale})")
+            errs.append(err)
+            rels.append(err / scale)
+        if rows and dtype != torch.float32:
+            reads += [row_reading(got, want) for got, want in pairs]
+        reads += [lse_reading(got, want) for got, want in lses]
+        if max(reads) > 1.0:
+            raise AssertionError(f"{what}: an element outside its own limit "
+                                 f"(reading {max(reads)})")
+        return max(errs), max(rels), max(reads)
+
+    # (a) the sweep: (B, Sq, Sk, H, KVH)
+    shapes = [(1, 200, 200, 4, 4), (2, 264, 264, 32, 8),
+              (2, 130, 330, 2, 1), (1, 300, 100, 2, 2)]
+    worst, reading = {}, {}
+    n = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        dname = str(dtype).replace("torch.", "")
+        for d in (64, 128):
+            for b, sq, sk, h, kvh in shapes:
+                for pattern in ("packed", "padding", "no_keys", "scrambled"):
+                    qs, ks = _varlen_ids(pattern, b, sq, sk, n)
+                    for causal in (True, False):
+                        q, k, v, do = _flash_case(g, dtype, b, sq, sk, h, kvh,
+                                                  d)
+                        kw = dict(causal=causal, q_segments=qs,
+                                  k_segments=ks)
+                        out, lse = fa.flash_attention_fwd(q, k, v, **kw)
+                        delta = (do.float() * out.float()).sum(-1) \
+                            .transpose(1, 2).contiguous()
+                        dq = fa.flash_attention_bwd_dq(q, k, v, do, lse,
+                                                       delta, **kw)
+                        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse,
+                                                            delta, **kw)
+                        ro, rl = fa.flash_attention_fwd_reference(q, k, v,
+                                                                  **kw)
+                        rdq = fa.flash_attention_bwd_dq_reference(
+                            q, k, v, do, lse, delta, **kw)
+                        rdk, rdv = fa.flash_attention_bwd_dkv_reference(
+                            q, k, v, do, lse, delta, **kw)
+                        torch.cuda.synchronize()
+                        what = (f"dtype={dname} D={d} B={b} Sq={sq} Sk={sk} "
+                                f"H={h} KVH={kvh} causal={causal} "
+                                f"ids={pattern}")
+                        for name, pairs, lses in (
+                                (names[0], ((out, ro),), ((lse, rl),)),
+                                (names[1], ((dq, rdq),), ()),
+                                (names[2], ((dk, rdk), (dv, rdv)), ())):
+                            key = f"{name} {dname}"
+                            _, rel_, read = check(
+                                f"{name} (segments) disagrees with its "
+                                f"plain version at {what}", dtype, pairs,
+                                lses)
+                            worst[key] = max(worst.get(key, 0.0), rel_)
+                            reading[key] = max(reading.get(key, 0.0), read)
+                        seen = _seen(qs, ks, causal)
+                        blind_q, blind_k = ~seen.any(2), ~seen.any(1)
+                        if (bool(out[blind_q].any()) or bool(dq[blind_q].any())
+                                or not bool(torch.isneginf(
+                                    lse.transpose(1, 2)[blind_q]).all())
+                                or bool(dk[blind_k].any())
+                                or bool(dv[blind_k].any())):
+                            raise AssertionError(
+                                f"rows that see no key must give out 0, lse "
+                                f"-inf, dq 0, and keys no query sees dk = dv "
+                                f"= 0: {what}")
+                        n += 1
+    log(f"[varlen] segment sweep: {n} cases (f32/bf16/f16 x head_dim 64/128 "
+        f"x causal/full x ids packed, padding -1/-2, a segment with no keys, "
+        f"in no order x Sq=Sk ragged, GQA 32/8, Sq<Sk, Sq>Sk) within "
+        f"tolerance (max abs err over max(1, max |plain|): f32 1e-5, 16-bit "
+        f"2e-2; 16-bit elements each within 2 ulps of itself + 2 ulps of "
+        f"its row's largest + 1e-4; lse within 1e-4 relative), rows that "
+        f"see no key exactly 0; worst relative errors {json.dumps(worst)}; "
+        f"worst readings (error over limit) {json.dumps(reading)}")
+
+    # flash_attn_unpadded's kernel route computes the reference's dense
+    # form (aligned causal packs: every row sees at least itself)
+    cu = _cu((37, 150, 64, 49), dev)
+    t = int(cu[-1])
+    q, k, v, _ = (x[0] for x in _flash_case(g, torch.float32, 1, t, t, 4, 4,
+                                             64))
+    flash_attn_unpadded.dense_calls = 0
+    got, _ = flash_attn_unpadded(q, k, v, cu, cu, 150, 150, 0.125,
+                                 causal=True)
+    seg = _segment_ids(cu, t)
+    want = _varlen_dense(q, k, v, seg, seg, cu, cu, 0.125, True)
+    torch.cuda.synchronize()
+    if flash_attn_unpadded.dense_calls != 0:
+        raise AssertionError("an aligned causal flash_attn_unpadded call on "
+                             "the card took the dense form")
+    route_err = check("flash_attn_unpadded's kernel route disagrees with the "
+                      "dense form", torch.float32, ((got, want),))[1]
+    log(f"[varlen] flash_attn_unpadded kernel route == dense form (T={t}, "
+        f"4 packed sequences, f32, causal): max relative err {route_err:.3g}")
+
+    # (b) the main path at full width
+    cfg, lcfg = gpt3_6_7b(), llama_7b()
+    h, d = cfg.num_heads, cfg.head_dim
+    if (lcfg.num_heads, lcfg.head_dim) != (h, d):
+        raise AssertionError("gpt3_6_7b and llama_7b attention widths differ")
+    t = sum(VARLEN_DOCS)
+    cu = _cu(VARLEN_DOCS, dev)
+    scale = 1.0 / d ** 0.5
+    q, k, v, do = (x[0] for x in _flash_case(g, torch.bfloat16, 1, t, t, h,
+                                             h, d))
+    q, k, v = (x.requires_grad_() for x in (q, k, v))
+    for name in names:
+        getattr(fa, name).launches = 0
+    flash_attn_unpadded.dense_calls = 0
+    out, _ = flash_attn_unpadded(q, k, v, cu, cu, max(VARLEN_DOCS),
+                                 max(VARLEN_DOCS), scale, causal=True)
+    out.backward(do)
+    torch.cuda.synchronize()
+    launches = {name: getattr(fa, name).launches for name in names}
+    dense = flash_attn_unpadded.dense_calls
+    if dense != 0 or any(n_ != 1 for n_ in launches.values()):
+        raise AssertionError(f"one full-width flash_attn_unpadded call must "
+                             f"launch each segment kernel once and take no "
+                             f"dense form: launches {launches}, dense {dense}")
+    shape = (f"flash_attn_unpadded q/k/v [{t},{h},{d}] bf16 causal, "
+             f"{len(VARLEN_DOCS)} packed documents {list(VARLEN_DOCS)} "
+             f"(gpt3_6_7b / llama_7b attention width)")
+    log(f"[varlen] main path: {shape}: launches {json.dumps(launches)}, "
+        f"dense calls {dense}")
+
+    # the same call's pieces, uncounted, against the plain version over
+    # head groups
+    seg = _segment_ids(cu, t)[None]
+    q4, k4, v4, do4 = (x.detach()[None] for x in (q, k, v, do))
+    kw = dict(causal=True, q_segments=seg, k_segments=seg)
+    o2, lse = fa.flash_attention_fwd(q4, k4, v4, scale, **kw)
+    if not torch.equal(o2[0], out.detach()):
+        raise AssertionError("the forward kernel is not deterministic")
+    delta = (do4.float() * o2.float()).sum(-1).transpose(1, 2).contiguous()
+    grads = {"q": q.grad[None], "k": k.grad[None], "v": v.grad[None]}
+
+    group = VARLEN_HEAD_GROUP
+
+    def plain(which, h0=0, k_ids=seg):
+        """The plain version of one kernel over heads h0 .. h0 + group,
+        with key ids ``k_ids``, as (tensors, lse's)."""
+        sl = slice(h0, h0 + group)
+        args = (q4[:, :, sl], k4[:, :, sl], v4[:, :, sl])
+        kw_ = dict(kw, k_segments=k_ids)
+        if which == "fwd":
+            o_, l_ = fa.flash_attention_fwd_reference(*args, scale, **kw_)
+            return (o_,), (l_,)
+        bw = (*args, do4[:, :, sl], lse[:, sl], delta[:, sl], scale)
+        if which == "dq":
+            return (fa.flash_attention_bwd_dq_reference(*bw, **kw_),), ()
+        return fa.flash_attention_bwd_dkv_reference(*bw, **kw_), ()
+
+    results = {"fwd": ((out.detach()[None],), (lse,)),
+               "dq": ((grads["q"],), ()),
+               "dkv": ((grads["k"], grads["v"]), ())}
+
+    def pairs(got, want, h0=None):
+        """(kernel, plain) pairs of tensors and of lse's; ``h0`` takes
+        heads h0 .. h0 + group of ``got``."""
+        (got_t, got_l), (want_t, want_l) = got, want
+        if h0 is not None:
+            sl = slice(h0, h0 + group)
+            got_t = tuple(x[:, :, sl] for x in got_t)
+            got_l = tuple(x[:, sl] for x in got_l)
+        return tuple(zip(got_t, want_t)), tuple(zip(got_l, want_l))
+
+    # each element held to its own limit (``row_reading``, lse 1e-4
+    # relative), head group by head group
+    errs = {}
+    for name, which in zip(names, ("fwd", "dq", "dkv")):
+        per_group = [check(f"{name} (segments) at {shape}, heads "
+                           f"{h0}-{h0 + group - 1}", torch.bfloat16,
+                           *pairs(results[which], plain(which, h0), h0))
+                     for h0 in range(0, h, group)]
+        errs[name] = tuple(max(e[i] for e in per_group) for i in range(3))
+    # planted faults, on the first head group: the plain version with the
+    # key ids changed stands for a kernel that (drop) skips the boundary
+    # tile of the first document that ends inside a 64-key tile, so that
+    # document's keys in it are seen by no query, or (leak) shows that
+    # document's last 8 keys to the next document's queries.  Each must
+    # read far above the limit, the sound run below it.
+    ends = np.cumsum(VARLEN_DOCS)
+    doc = int(np.argmax(ends % 64 != 0))
+    end = int(ends[doc])
+    drop, leak = seg.clone(), seg.clone()
+    drop[0, end // 64 * 64:end] = -2
+    leak[0, end - 8:end] = doc + 1
+    faults = {}
+    for fault, k_ids in (("drop", drop), ("leak", leak)):
+        for name, which in zip(names, ("fwd", "dq", "dkv")):
+            ts, ls = pairs(plain(which, k_ids=k_ids), plain(which))
+            faults[f"{name} {fault}"] = max(
+                [row_reading(g_, w_) for g_, w_ in ts]
+                + [lse_reading(g_, w_) for g_, w_ in ls])
+    missed = {k_: r for k_, r in faults.items() if r <= 1.0}
+    if missed:
+        raise AssertionError(f"the varlen check does not reject a planted "
+                             f"fault: readings {missed}")
+    log(f"[varlen] main-path check, each element within 2 ulps of itself + "
+        f"2 ulps of its row's largest + 1e-4, lse within 1e-4 relative: "
+        f"sound readings (error over limit) "
+        f"{json.dumps({n_: errs[n_][2] for n_ in names})}; planted faults "
+        f"on heads 0-{group - 1} (drop: document {doc}'s keys "
+        f"{end // 64 * 64}-{end - 1} seen by no query; leak: its keys "
+        f"{end - 8}-{end - 1} seen by document {doc + 1}) read "
+        f"{json.dumps(faults)}")
+    torch.cuda.empty_cache()
+
+    times = {
+        names[0]: time_ms(lambda: fa.flash_attention_fwd(q4, k4, v4, scale,
+                                                         **kw)),
+        names[1]: time_ms(lambda: fa.flash_attention_bwd_dq(
+            q4, k4, v4, do4, lse, delta, scale, **kw)),
+        names[2]: time_ms(lambda: fa.flash_attention_bwd_dkv(
+            q4, k4, v4, do4, lse, delta, scale, **kw)),
+    }
+    plain_ms = {name: time_ms(lambda: [plain(which, h0)
+                                       for h0 in range(0, h, group)],
+                              iters=2, warmup=1, windows=3)
+                for name, which in zip(names, ("fwd", "dq", "dkv"))}
+    # the yardstick: SDPA with the boolean block-diagonal causal mask, on
+    # the same tensors transposed; its output checked against the kernel's
+    mask = _seen(seg, seg, True)[0]
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q4, k4, v4))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+    check(f"SDPA with the block-diagonal causal mask at {shape}",
+          torch.bfloat16, ((out.detach()[None].transpose(1, 2), o_lib),),
+          rows=False)
+    do_t = do4.transpose(1, 2)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do_t, retain_graph=True))
+    del o_lib, qt, kt, vt, mask
+    visible = sum(n_ * (n_ + 1) // 2 for n_ in VARLEN_DOCS)
+    walk = t * (t + 1) // 2
+    ids = seg[0].cpu().numpy()
+    # a model of each kernel's walk, not counted on the card: the tiles
+    # it visits (one segment: the causal walk) and computes (the rest it
+    # skips) with the tile sizes of csrc/flash_attention.cu: fwd 64 x 64
+    # and dq 64 x 32 tiles by query blocks, dkv 32-query tiles by 64-key
+    # blocks
+    tiles = ((64, 64, False), (64, 32, False), (32, 64, True))
+    work = {name: tile_pairs(ids, *tile) for name, tile in zip(names, tiles)}
+    visits = {name: tile_pairs(np.zeros_like(ids), *tile) // (tile[0] *
+                                                              tile[1])
+              for name, tile in zip(names, tiles)}
+    bounds = flash_bounds(1, t, t, h, h, d, True, 2, pairs=visible,
+                          ids_bytes=2 * t * 4)
+    recs = {}
+    for name in names:
+        bound, bound_by = bounds[name]
+        recs[name] = {
+            "ms": times[name], "plain_ms": plain_ms[name],
+            "bound_ms": bound, "bound_by": bound_by,
+            "library_ms": lib_fwd if name == names[0] else None,
+            "max_abs_err": errs[name][0], "max_rel_err": errs[name][1],
+            "max_reading": errs[name][2],
+            "planted_fault_readings": {k_.split()[-1]: r for k_, r in
+                                       faults.items() if k_.startswith(name)},
+            "shape": shape,
+            "sweep_max_rel_err": {k_: e for k_, e in worst.items()
+                                  if k_.startswith(name)},
+            "sweep_max_reading": {k_: e for k_, e in reading.items()
+                                  if k_.startswith(name)}}
+        if name != names[0]:
+            recs[name]["library_ms_dq_dkv_together"] = lib_bwd
+        log(f"[varlen] {name} (segments) at {shape}: kernel "
+            f"{times[name]:.4f} ms, plain {plain_ms[name]:.4f} ms, bound "
+            f"{bound:.4f} ms ({bound_by}, {visible} visible pairs per head "
+            f"of {walk} in the global causal walk; by the model of its walk "
+            f"(tile_pairs, not counted on the card) its tiles cover "
+            f"{work[name]} pairs and it visits {visits[name]} tiles per "
+            f"head); max abs err {errs[name][0]:.3g}, relative "
+            f"{errs[name][1]:.3g}, reading {errs[name][2]:.3g} (card: "
+            f"{card})")
+    log(f"[varlen] library yardsticks at {shape}: SDPA with the [{t},{t}] "
+        f"block-diagonal causal mask forward {lib_fwd:.4f} ms, backward (dq, "
+        f"dk, dv together) {lib_bwd:.4f} ms vs the port's dq + dkv "
+        f"{times[names[1]] + times[names[2]]:.4f} ms (card: {card})")
+    del q, k, v, do, out, q4, k4, v4, do4, o2, lse, delta, grads
+    torch.cuda.empty_cache()
+
+    # (c) causal packs that differ: per-sequence causal, the dense form
+    cu_q, cu_k = _cu((700, 800, 548), dev), _cu((1000, 1048), dev)
+    t = int(cu_q[-1])
+    q, k, v, _ = (x[0] for x in _flash_case(g, torch.bfloat16, 1, t, t, h,
+                                             h, d))
+    for name in names:
+        getattr(fa, name).launches = 0
+    flash_attn_unpadded.dense_calls = 0
+    out, _ = flash_attn_unpadded(q, k, v, cu_q, cu_k, 1000, 1048, scale,
+                                 causal=True)
+    torch.cuda.synchronize()
+    counts = {name: getattr(fa, name).launches for name in names}
+    if (flash_attn_unpadded.dense_calls != 1 or any(counts.values())
+            or out.shape != q.shape or not bool(torch.isfinite(out).all())):
+        raise AssertionError(f"a causal call with packs that differ must take "
+                             f"the dense form once and give finite values: "
+                             f"dense {flash_attn_unpadded.dense_calls}, "
+                             f"launches {counts}")
+    log(f"[varlen] causal, q packs {cu_q.tolist()} vs k packs "
+        f"{cu_k.tolist()}: dense form (1 call, no kernel launch), finite "
+        f"[{t},{h},{d}]")
+    return launches, recs
 
 
 def phase_train(card: str, family: str):
@@ -2271,6 +2766,7 @@ def main() -> int:
     # the train phases start from an empty card
     free_card()
     train_recs = run_phase("train kernels", phase_train_kernels, card)
+    varlen_launches, varlen_recs = run_phase("varlen", phase_varlen, card)
     train_launches, train = run_phase("train:gpt", phase_train, card, "gpt")
     train["parity"] = run_phase("train-parity:gpt", phase_train_parity,
                                 "gpt")
@@ -2338,6 +2834,18 @@ def main() -> int:
             "launches_by_path": {"train": train_launches[name],
                                  "llama_train": llama_launches[name]},
             **train_recs[name]})
+    # the segment-id variant: the packed flash_attn_unpadded call
+    for name, line in (("flash_attention_fwd", 77),
+                       ("flash_attention_bwd_dq", 199),
+                       ("flash_attention_bwd_dkv", 248)):
+        kernels.append({
+            "name": f"{name} (segments)",
+            "route": "cuda",
+            "source": "paddle_tpu_torch/kernels/csrc/flash_attention.cu",
+            "replaces": f"paddle_tpu/kernels/flash_attention.py:{line} (seg)",
+            "launches": varlen_launches[name],
+            "launches_by_path": {"varlen": varlen_launches[name]},
+            **varlen_recs[name]})
     # the norm kernels' main paths: Llama serving (unfused) and training
     # for RMSNorm, GPT serving (unfused) and training for LayerNorm
     by_path = {

@@ -64,12 +64,14 @@ _SIGNATURES = {
     "flash_attention": {
         "flash_attention_fwd": (
             [_P, _P, _P, _P, _P,            # q, k, v, out, lse
+             _P, _P,                        # q / k segment ids or null
              _I, _I, _I, _I, _I, _I, _I,    # dtype, B, Sq, Sk, H, KVH, D
              _L, _L, _L, _L, _L, _L, _L, _L, _L,   # q/k/v strides b, s, h
              _F, _I, _P],                   # scale, causal, stream
             _I),
         "flash_attention_bwd_dq": (
             [_P, _P, _P, _P, _P, _P, _P,    # q, k, v, dout, lse, delta, dq
+             _P, _P,                        # q / k segment ids or null
              _I, _I, _I, _I, _I, _I, _I,    # dtype, B, Sq, Sk, H, KVH, D
              *[_L] * 12,                    # q/k/v/dout strides b, s, h
              _F, _I, _P],                   # scale, causal, stream
@@ -77,6 +79,7 @@ _SIGNATURES = {
         "flash_attention_bwd_dkv": (
             [_P, _P, _P, _P, _P, _P, _P, _P,   # q, k, v, dout, lse, delta,
                                                # dk, dv
+             _P, _P,                        # q / k segment ids or null
              _I, _I, _I, _I, _I, _I, _I,    # dtype, B, Sq, Sk, H, KVH, D
              *[_L] * 12,                    # q/k/v/dout strides b, s, h
              _F, _I, _P],                   # scale, causal, stream

@@ -1,29 +1,42 @@
 // Flash attention forward and backward for Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernels of paddle_tpu/kernels/flash_attention.py
-// (the variant without segment ids):
+// Replaces the Pallas TPU kernels of paddle_tpu/kernels/flash_attention.py,
+// with and without segment ids (seg=True, reached through _flash_core_seg):
 //   * _fwd_kernel (:77, launched at :170)     -> flash_attention_fwd
 //   * _bwd_dq_kernel (:199, launched at :345) -> flash_attention_bwd_dq
 //   * _bwd_dkv_kernel (:248, launched at :373) -> flash_attention_bwd_dkv
 // Same functions: f32 scores, softmax and accumulation, one final cast;
-// the bottom-right causal mask kpos <= qpos + (Sk - Sq); a query row that
-// sees no key gives out = 0 and lse = -inf, and the backward takes
-// lse_safe = 0 for it.  delta = rowsum(dO * out) comes from the caller, as
-// in the reference (:311).
+// the bottom-right causal mask kpos <= qpos + (Sk - Sq); with segment ids a
+// query sees only keys of its own segment (:108-110, :231, :281), on top of
+// the causal mask; a query row that sees no key gives out = 0 and
+// lse = -inf, and the backward takes lse_safe = 0 for it, so its dq and the
+// dk / dv of a key no query sees come out exactly 0.  delta = rowsum(dO *
+// out) comes from the caller, as in the reference (:311).
 //
 // Layouts: q/k/v/dO are read in place through their (batch, seq, head)
 // element strides, so views of a fused [b, s, 3, H, D] QKV projection need
 // no copy; the D stride is 1.  out/dq are contiguous [B, Sq, H, D], dk/dv
-// contiguous [B, Sk, KVH, D], lse/delta [B, H, Sq] f32.  Grouped-query heads
-// read kv head h / (H / KVH); the dk/dv block of a kv head sums over the
-// query heads of its group in a loop, so no atomics are needed and every
-// result is deterministic.
+// contiguous [B, Sk, KVH, D], lse/delta [B, H, Sq] f32, segment ids
+// contiguous [B, Sq] / [B, Sk] int32 (the reference repeats them over the
+// heads; every head reads the same row here).  Grouped-query heads read kv
+// head h / (H / KVH); the dk/dv block of a kv head sums over the query heads
+// of its group in a loop, so no atomics are needed and every result is
+// deterministic.
 //
 // What bounds it on an H100: at the train shape ([2, 2048, 32, 128] bf16,
 // causal) each kernel does ~70-140 GFLOP of matrix products over ~50 MB of
 // operands, far above the ~295 flop/byte the card needs to be
 // compute-bound: operations bound it (989 TFLOP/s bf16 on the tensor
-// cores).
+// cores).  With segment ids the work is the visible pairs only, so the
+// kernels skip every tile whose q-id range [min, max] and k-id range do not
+// overlap (disjoint ranges hold no equal pair, for any ids, monotone or
+// not; a skipped tile would have added p = 0 with alpha = 1, so the result
+// is bit-identical).  The ranges come from the ids the block stages, one
+// warp reducing them, before the tile's K/V (or Q/dO) rows are loaded;
+// that warp reads the next tile's ids while this tile is computed, so
+// their memory latency is not paid once more per tile.  The segment
+// variant is a template flag, and its fields sit at the end of the kernel
+// parameters: the code without it is the same.
 //
 // What the design does about that: the products run on the tensor cores
 // (mma.sync m16n8k16, f32 accumulation, the FlashAttention-2 register
@@ -50,6 +63,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <climits>
 #include <cstdint>
 
 namespace {
@@ -169,6 +183,8 @@ struct Params {
   long long do_sb, do_ss, do_sh;
   float scale;
   int causal;
+  const int* q_seg;  // [B, SQ] int32, or null: no segment ids
+  const int* k_seg;  // [B, SK] int32
 };
 
 // one past the last key any query in [0, t_last] sees
@@ -183,9 +199,72 @@ __device__ __forceinline__ int query_begin(const Params& p, int key) {
   return max(0, key - (p.SK - p.SQ));
 }
 
-__device__ __forceinline__ bool visible(const Params& p, int t, int key) {
+// query t sees key `key`; with segment ids qs and ks are their ids
+template <bool Seg>
+__device__ __forceinline__ bool visible(const Params& p, int t, int key,
+                                        int qs, int ks) {
   return t < p.SQ && key < p.SK &&
-         (!p.causal || key <= t + (p.SK - p.SQ));
+         (!p.causal || key <= t + (p.SK - p.SQ)) && (!Seg || qs == ks);
+}
+
+// The segment ids of one tile of N rows, held by warp 0 (N / 32 a lane):
+// load() issues the reads of rows [r0, r0 + N) below `limit`, put()
+// writes them to shared memory (0 past the limit: those rows are never
+// visible) with their [min, max].  A walk loads the next tile's ids right
+// after putting this one's, so their latency hides behind this tile's
+// work.  The caller synchronises before reading what put() wrote.
+template <int N>
+struct IdTile {
+  static constexpr int kPer = (N + 31) / 32;
+  int x[kPer];
+  int rows;  // rows below the limit
+
+  __device__ __forceinline__ void load(const int* ids, int r0, int limit) {
+    rows = max(0, min(N, limit - r0));
+    if (threadIdx.x >= 32) return;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int i = threadIdx.x + 32 * e;
+      x[e] = i < rows ? ids[r0 + i] : 0;
+    }
+  }
+
+  __device__ __forceinline__ void put(int* dst, int* rng) const {
+    if (threadIdx.x >= 32) return;
+    int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const int i = threadIdx.x + 32 * e;
+      if (i < N) dst[i] = x[e];
+      if (i < rows) {
+        lo = min(lo, x[e]);
+        hi = max(hi, x[e]);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      lo = min(lo, __shfl_xor_sync(kFull, lo, off));
+      hi = max(hi, __shfl_xor_sync(kFull, hi, off));
+    }
+    if (threadIdx.x == 0) {
+      rng[0] = lo;
+      rng[1] = hi;
+    }
+  }
+};
+
+// warp 0 stages the ids of a block's own rows [r0, r0 + N) at once
+template <int N>
+__device__ __forceinline__ void stage_ids(int* dst, int* rng, const int* ids,
+                                          int r0, int limit) {
+  IdTile<N> t;
+  t.load(ids, r0, limit);
+  t.put(dst, rng);
+}
+
+// two id ranges [a0, a1], [b0, b1] hold no equal pair
+__device__ __forceinline__ bool disjoint(const int* a, const int* b) {
+  return a[1] < b[0] || b[1] < a[0];
 }
 
 __device__ __forceinline__ long long row_stat(const Params& p, int b, int h,
@@ -210,12 +289,14 @@ __device__ __forceinline__ void stage_rows(T (*dst)[LD], const T* base,
 }
 
 // ------------------------------------------------- forward, tensor cores
-template <typename T, int D>
+template <typename T, int D, bool Seg>
 __global__ void __launch_bounds__(kThreads) fwd_mma_kernel(const Params p) {
   constexpr int BQ = 16 * kWarps, BK = 64;
   constexpr int KS = D / 16, NS = BK / 8, NO = D / 8, LD = D + kPad;
   __shared__ __align__(16) T k_s[BK][LD];
   __shared__ __align__(16) T v_s[BK][LD];
+  // segment ids of the block's queries and the tile's keys; q, k ranges
+  __shared__ int qid_s[Seg ? BQ : 1], kid_s[Seg ? BK : 1], rng_s[4];
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tq = lane & 3;
@@ -242,9 +323,26 @@ __global__ void __launch_bounds__(kThreads) fwd_mma_kernel(const Params p) {
 #pragma unroll
   for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+  int qs0 = 0, qs1 = 0;
+  if constexpr (Seg) {
+    stage_ids<BQ>(qid_s, rng_s, p.q_seg + (long long)b * p.SQ, q0, p.SQ);
+    __syncthreads();
+    qs0 = qid_s[warp * 16 + g];
+    qs1 = qid_s[warp * 16 + g + 8];
+  }
+
+  const int* kseg = Seg ? p.k_seg + (long long)b * p.SK : nullptr;
+  IdTile<Seg ? BK : 1> kids;
+  if constexpr (Seg) kids.load(kseg, 0, kend);
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();  // the previous tile is consumed
+    if constexpr (Seg) {
+      kids.put(kid_s, rng_s + 2);
+      kids.load(kseg, k0 + BK, kend);  // the next tile's
+      __syncthreads();
+      if (disjoint(rng_s, rng_s + 2)) continue;  // no pair is visible
+    }
     stage_rows<T, D, LD>(k_s, kp, p.k_ss, k0, BK, kend);
     stage_rows<T, D, LD>(v_s, vp, p.v_ss, k0, BK, kend);
     __syncthreads();
@@ -265,8 +363,10 @@ __global__ void __launch_bounds__(kThreads) fwd_mma_kernel(const Params p) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = k0 + n * 8 + 2 * tq + (c & 1);
-        s[n][c] = visible(p, c < 2 ? t0 : t1, key) ? s[n][c] * p.scale
-                                                    : -INFINITY;
+        const int ks = Seg ? kid_s[key - k0] : 0;
+        s[n][c] = visible<Seg>(p, c < 2 ? t0 : t1, key, c < 2 ? qs0 : qs1, ks)
+                      ? s[n][c] * p.scale
+                      : -INFINITY;
         mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
       }
     float m_safe[2], alpha[2];
@@ -334,12 +434,13 @@ __global__ void __launch_bounds__(kThreads) fwd_mma_kernel(const Params p) {
 }
 
 // ------------------------------------------------------ dq, tensor cores
-template <typename T, int D>
+template <typename T, int D, bool Seg>
 __global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Params p) {
   constexpr int BQ = 16 * kWarps, BK = 32;
   constexpr int KS = D / 16, NS = BK / 8, NO = D / 8, LD = D + kPad;
   __shared__ __align__(16) T k_s[BK][LD];
   __shared__ __align__(16) T v_s[BK][LD];
+  __shared__ int qid_s[Seg ? BQ : 1], kid_s[Seg ? BK : 1], rng_s[4];
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tq = lane & 3;
@@ -381,9 +482,26 @@ __global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Params p) {
 #pragma unroll
   for (int n = 0; n < NO; ++n)
     acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  int qs0 = 0, qs1 = 0;
+  if constexpr (Seg) {
+    stage_ids<BQ>(qid_s, rng_s, p.q_seg + (long long)b * p.SQ, q0, p.SQ);
+    __syncthreads();
+    qs0 = qid_s[warp * 16 + g];
+    qs1 = qid_s[warp * 16 + g + 8];
+  }
+
+  const int* kseg = Seg ? p.k_seg + (long long)b * p.SK : nullptr;
+  IdTile<Seg ? BK : 1> kids;
+  if constexpr (Seg) kids.load(kseg, 0, kend);
 
   for (int k0 = 0; k0 < kend; k0 += BK) {
     __syncthreads();
+    if constexpr (Seg) {
+      kids.put(kid_s, rng_s + 2);
+      kids.load(kseg, k0 + BK, kend);
+      __syncthreads();
+      if (disjoint(rng_s, rng_s + 2)) continue;
+    }
     stage_rows<T, D, LD>(k_s, kp, p.k_ss, k0, BK, kend);
     stage_rows<T, D, LD>(v_s, vp, p.v_ss, k0, BK, kend);
     __syncthreads();
@@ -408,9 +526,11 @@ __global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Params p) {
 #pragma unroll
       for (int c = 0; c < 4; ++c) {
         const int key = k0 + n * 8 + 2 * tq + (c & 1), r = c >> 1;
-        const float pr = visible(p, r == 0 ? t0 : t1, key)
-                             ? expf(s[n][c] * p.scale - lse_r[r])
-                             : 0.f;
+        const int ks = Seg ? kid_s[key - k0] : 0;
+        const float pr =
+            visible<Seg>(p, r == 0 ? t0 : t1, key, r == 0 ? qs0 : qs1, ks)
+                ? expf(s[n][c] * p.scale - lse_r[r])
+                : 0.f;
         s[n][c] = pr * (dp[n][c] - dl_r[r]);
       }
     // dQ += dS K
@@ -455,7 +575,7 @@ constexpr size_t dkv_mma_smem() {
          2 * kDkvQ * sizeof(float);
 }
 
-template <typename T, int D>
+template <typename T, int D, bool Seg>
 __global__ void __launch_bounds__(kThreads) dkv_mma_kernel(const Params p) {
   constexpr int BKEY = kDkvKeys, BQ = kDkvQ;
   constexpr int KS = D / 16, NQ = BQ / 8, NO = D / 8, LD = D + kPad;
@@ -466,6 +586,8 @@ __global__ void __launch_bounds__(kThreads) dkv_mma_kernel(const Params p) {
   T(*do_s)[LD] = q_s + BQ;
   float* lse_s = reinterpret_cast<float*>(do_s + BQ);
   float* dl_s = lse_s + BQ;
+  // segment ids of the block's keys and the tile's queries; k, q ranges
+  __shared__ int kid_s[Seg ? BKEY : 1], qid_s[Seg ? BQ : 1], rng_s[4];
 
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane >> 2, tq = lane & 3;
@@ -486,6 +608,17 @@ __global__ void __launch_bounds__(kThreads) dkv_mma_kernel(const Params p) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
   const int qb = query_begin(p, k0) / BQ * BQ;
+  int ks0 = 0, ks1 = 0;
+  if constexpr (Seg) {
+    stage_ids<BKEY>(kid_s, rng_s, p.k_seg + (long long)b * p.SK, k0, p.SK);
+    __syncthreads();
+    ks0 = kid_s[w];
+    ks1 = kid_s[w + 8];
+  }
+
+  const int* qseg = Seg ? p.q_seg + (long long)b * p.SQ : nullptr;
+  IdTile<Seg ? BQ : 1> qids;
+  if constexpr (Seg) qids.load(qseg, qb, p.SQ);
 
   for (int hh = 0; hh < rep; ++hh) {
     const int h = kvh * rep + hh;
@@ -493,6 +626,13 @@ __global__ void __launch_bounds__(kThreads) dkv_mma_kernel(const Params p) {
     const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
     for (int q0 = qb; q0 < p.SQ; q0 += BQ) {
       __syncthreads();  // the previous tile is consumed (K/V are staged)
+      if constexpr (Seg) {
+        // the next tile: the following one, or the first of the next head
+        qids.put(qid_s, rng_s + 2);
+        qids.load(qseg, q0 + BQ < p.SQ ? q0 + BQ : qb, p.SQ);
+        __syncthreads();
+        if (disjoint(rng_s, rng_s + 2)) continue;
+      }
       stage_rows<T, D, LD>(q_s, qp, p.q_ss, q0, BQ, p.SQ);
       stage_rows<T, D, LD>(do_s, dop, p.do_ss, q0, BQ, p.SQ);
       for (int i = threadIdx.x; i < BQ; i += kThreads) {
@@ -535,7 +675,9 @@ __global__ void __launch_bounds__(kThreads) dkv_mma_kernel(const Params p) {
 #pragma unroll
         for (int c = 0; c < 4; ++c) {
           const int qi = n * 8 + 2 * tq + (c & 1);
-          const float pt = visible(p, q0 + qi, c < 2 ? key0 : key1)
+          const int qs = Seg ? qid_s[qi] : 0;
+          const float pt = visible<Seg>(p, q0 + qi, c < 2 ? key0 : key1, qs,
+                                        c < 2 ? ks0 : ks1)
                                ? expf(st[n][c] * p.scale - lse_s[qi])
                                : 0.f;
           dpt[n][c] = pt * (dpt[n][c] - dl_s[qi]);
@@ -612,10 +754,11 @@ constexpr size_t fwd_f32_smem() {
                           3 * kFQ);
 }
 
-template <int D>
+template <int D, bool Seg>
 __global__ void __launch_bounds__(kThreads) fwd_f32_kernel(const Params p) {
   constexpr int QPW = kFQ / kWarps, DPL = D / 32;
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int qid_s[Seg ? kFQ : 1], kid_s[Seg ? kFK : 1], rng_s[4];
   float* q_s = reinterpret_cast<float*>(smem);  // [kFQ][D], scaled
   float* k_s = q_s + kFQ * D;                   // [kFK][D + 1]
   float* v_s = k_s + kFK * (D + 1);             // [kFK][D]
@@ -640,6 +783,8 @@ __global__ void __launch_bounds__(kThreads) fwd_f32_kernel(const Params p) {
     m_s[i] = -INFINITY;
     l_s[i] = 0.f;
   }
+  if constexpr (Seg)
+    stage_ids<kFQ>(qid_s, rng_s, p.q_seg + (long long)b * p.SQ, q0, p.SQ);
   __syncthreads();
   // the reference scales q before the product (flash_attention.py:97)
   for (int i = tid; i < kFQ * D; i += kThreads) q_s[i] *= p.scale;
@@ -649,8 +794,18 @@ __global__ void __launch_bounds__(kThreads) fwd_f32_kernel(const Params p) {
 #pragma unroll
     for (int e = 0; e < DPL; ++e) acc[i][e] = 0.f;
 
+  const int* kseg = Seg ? p.k_seg + (long long)b * p.SK : nullptr;
+  IdTile<Seg ? kFK : 1> kids;
+  if constexpr (Seg) kids.load(kseg, 0, kend);
+
   for (int k0 = 0; k0 < kend; k0 += kFK) {
     __syncthreads();
+    if constexpr (Seg) {
+      kids.put(kid_s, rng_s + 2);
+      kids.load(kseg, k0 + kFK, kend);
+      __syncthreads();
+      if (disjoint(rng_s, rng_s + 2)) continue;
+    }
     stage_f32<D>(k_s, D + 1, kp, p.k_ss, k0, kFK, kend);
     stage_f32<D>(v_s, D, vp, p.v_ss, k0, kFK, kend);
     __syncthreads();
@@ -669,7 +824,10 @@ __global__ void __launch_bounds__(kThreads) fwd_f32_kernel(const Params p) {
       for (int i = 0; i < QPW; ++i) {
         const int qi = warp + kWarps * i;
         p_s[qi * kFK + lane] =
-            visible(p, q0 + qi, k0 + lane) ? dot[i] : -INFINITY;
+            visible<Seg>(p, q0 + qi, k0 + lane, Seg ? qid_s[qi] : 0,
+                         Seg ? kid_s[lane] : 0)
+                ? dot[i]
+                : -INFINITY;
       }
     }
     __syncthreads();
@@ -742,10 +900,11 @@ constexpr size_t dq_f32_smem() {
          (2 * kFQ * D + 2 * kFK * (D + 1) + kFQ * kFK + 2 * kFQ);
 }
 
-template <int D>
+template <int D, bool Seg>
 __global__ void __launch_bounds__(kThreads) dq_f32_kernel(const Params p) {
   constexpr int QPW = kFQ / kWarps, DPL = D / 32;
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int qid_s[Seg ? kFQ : 1], kid_s[Seg ? kFK : 1], rng_s[4];
   float* q_s = reinterpret_cast<float*>(smem);  // [kFQ][D]
   float* do_s = q_s + kFQ * D;                  // [kFQ][D]
   float* k_s = do_s + kFQ * D;                  // [kFK][D + 1]
@@ -780,14 +939,26 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(const Params p) {
     lse_s[i] = x;
     dl_s[i] = dl;
   }
+  if constexpr (Seg)
+    stage_ids<kFQ>(qid_s, rng_s, p.q_seg + (long long)b * p.SQ, q0, p.SQ);
   float acc[QPW][DPL];
 #pragma unroll
   for (int i = 0; i < QPW; ++i)
 #pragma unroll
     for (int e = 0; e < DPL; ++e) acc[i][e] = 0.f;
 
+  const int* kseg = Seg ? p.k_seg + (long long)b * p.SK : nullptr;
+  IdTile<Seg ? kFK : 1> kids;
+  if constexpr (Seg) kids.load(kseg, 0, kend);
+
   for (int k0 = 0; k0 < kend; k0 += kFK) {
     __syncthreads();
+    if constexpr (Seg) {
+      kids.put(kid_s, rng_s + 2);
+      kids.load(kseg, k0 + kFK, kend);
+      __syncthreads();
+      if (disjoint(rng_s, rng_s + 2)) continue;
+    }
     stage_f32<D>(k_s, D + 1, kp, p.k_ss, k0, kFK, kend);
     stage_f32<D>(v_s, D + 1, vp, p.v_ss, k0, kFK, kend);
     __syncthreads();
@@ -809,7 +980,9 @@ __global__ void __launch_bounds__(kThreads) dq_f32_kernel(const Params p) {
 #pragma unroll
       for (int i = 0; i < QPW; ++i) {
         const int qi = warp + kWarps * i;
-        const float pr = visible(p, q0 + qi, k0 + lane)
+        const float pr = visible<Seg>(p, q0 + qi, k0 + lane,
+                                      Seg ? qid_s[qi] : 0,
+                                      Seg ? kid_s[lane] : 0)
                              ? expf(ds[i] * p.scale - lse_s[qi])
                              : 0.f;
         ds_s[qi * kFK + lane] = pr * (dp[i] - dl_s[qi]);
@@ -849,10 +1022,11 @@ constexpr size_t dkv_f32_smem() {
          (2 * kFK * (D + 1) + 2 * kFQ * D + 2 * kFQ * kFK + 2 * kFQ);
 }
 
-template <int D>
+template <int D, bool Seg>
 __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(const Params p) {
   constexpr int QPW = kFQ / kWarps, KPW = kFK / kWarps, DPL = D / 32;
   extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int kid_s[Seg ? kFK : 1], qid_s[Seg ? kFQ : 1], rng_s[4];
   float* k_s = reinterpret_cast<float*>(smem);  // [kFK][D + 1]
   float* v_s = k_s + kFK * (D + 1);             // [kFK][D + 1]
   float* q_s = v_s + kFK * (D + 1);             // [kFQ][D]
@@ -880,6 +1054,12 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(const Params p) {
 #pragma unroll
     for (int e = 0; e < DPL; ++e) dk[i][e] = dv[i][e] = 0.f;
   const int qb = query_begin(p, k0) / kFQ * kFQ;
+  if constexpr (Seg)
+    stage_ids<kFK>(kid_s, rng_s, p.k_seg + (long long)b * p.SK, k0, p.SK);
+
+  const int* qseg = Seg ? p.q_seg + (long long)b * p.SQ : nullptr;
+  IdTile<Seg ? kFQ : 1> qids;
+  if constexpr (Seg) qids.load(qseg, qb, p.SQ);
 
   for (int hh = 0; hh < rep; ++hh) {
     const int h = kvh * rep + hh;
@@ -889,6 +1069,12 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(const Params p) {
         static_cast<const float*>(p.dout) + b * p.do_sb + h * p.do_sh;
     for (int q0 = qb; q0 < p.SQ; q0 += kFQ) {
       __syncthreads();
+      if constexpr (Seg) {
+        qids.put(qid_s, rng_s + 2);
+        qids.load(qseg, q0 + kFQ < p.SQ ? q0 + kFQ : qb, p.SQ);
+        __syncthreads();
+        if (disjoint(rng_s, rng_s + 2)) continue;
+      }
       stage_f32<D>(q_s, D, qp, p.q_ss, q0, kFQ, p.SQ);
       stage_f32<D>(do_s, D, dop, p.do_ss, q0, kFQ, p.SQ);
       for (int i = tid; i < kFQ; i += kThreads) {
@@ -921,7 +1107,9 @@ __global__ void __launch_bounds__(kThreads) dkv_f32_kernel(const Params p) {
 #pragma unroll
         for (int i = 0; i < QPW; ++i) {
           const int qi = warp + kWarps * i;
-          const float pt = visible(p, q0 + qi, k0 + lane)
+          const float pt = visible<Seg>(p, q0 + qi, k0 + lane,
+                                        Seg ? qid_s[qi] : 0,
+                                        Seg ? kid_s[lane] : 0)
                                ? expf(s[i] * p.scale - lse_s[qi])
                                : 0.f;
           p_s[qi * kFK + lane] = pt;
@@ -981,27 +1169,28 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s,
 
 enum Which { kFwd, kDq, kDkv };
 
-template <typename T, int D>
+template <typename T, int D, bool Seg>
 cudaError_t launch_d(Which which, const Params& p, cudaStream_t s) {
   const dim3 by_q(p.B * p.H, (p.SQ + 16 * kWarps - 1) / (16 * kWarps));
   if constexpr (sizeof(T) == 2) {
     switch (which) {
-      case kFwd: return launch(fwd_mma_kernel<T, D>, by_q, 0, s, p);
-      case kDq: return launch(dq_mma_kernel<T, D>, by_q, 0, s, p);
+      case kFwd: return launch(fwd_mma_kernel<T, D, Seg>, by_q, 0, s, p);
+      case kDq: return launch(dq_mma_kernel<T, D, Seg>, by_q, 0, s, p);
       case kDkv:
-        return launch(dkv_mma_kernel<T, D>,
+        return launch(dkv_mma_kernel<T, D, Seg>,
                       dim3(p.B * p.KVH, (p.SK + kDkvKeys - 1) / kDkvKeys),
                       dkv_mma_smem<T, D>(), s, p);
     }
   } else {
     const dim3 by_fq(p.B * p.H, (p.SQ + kFQ - 1) / kFQ);
     switch (which) {
-      case kFwd: return launch(fwd_f32_kernel<D>, by_fq, fwd_f32_smem<D>(),
-                               s, p);
-      case kDq: return launch(dq_f32_kernel<D>, by_fq, dq_f32_smem<D>(),
-                              s, p);
+      case kFwd:
+        return launch(fwd_f32_kernel<D, Seg>, by_fq, fwd_f32_smem<D>(), s,
+                      p);
+      case kDq:
+        return launch(dq_f32_kernel<D, Seg>, by_fq, dq_f32_smem<D>(), s, p);
       case kDkv:
-        return launch(dkv_f32_kernel<D>,
+        return launch(dkv_f32_kernel<D, Seg>,
                       dim3(p.B * p.KVH, (p.SK + kFK - 1) / kFK),
                       dkv_f32_smem<D>(), s, p);
     }
@@ -1009,12 +1198,23 @@ cudaError_t launch_d(Which which, const Params& p, cudaStream_t s) {
   return cudaErrorInvalidValue;
 }
 
-template <typename T>
+template <typename T, bool Seg>
 cudaError_t launch_t(Which which, const Params& p, int head_dim,
                      cudaStream_t s) {
   switch (head_dim) {
-    case 64: return launch_d<T, 64>(which, p, s);
-    case 128: return launch_d<T, 128>(which, p, s);
+    case 64: return launch_d<T, 64, Seg>(which, p, s);
+    case 128: return launch_d<T, 128, Seg>(which, p, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+template <bool Seg>
+cudaError_t launch_seg(Which which, const Params& p, int dtype, int head_dim,
+                       cudaStream_t s) {
+  switch (dtype) {
+    case 0: return launch_t<float, Seg>(which, p, head_dim, s);
+    case 1: return launch_t<__half, Seg>(which, p, head_dim, s);
+    case 2: return launch_t<__nv_bfloat16, Seg>(which, p, head_dim, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1022,25 +1222,26 @@ cudaError_t launch_t(Which which, const Params& p, int head_dim,
 int run(Which which, Params& p, int dtype, int head_dim, void* stream) {
   if (p.B <= 0 || p.H <= 0) return cudaSuccess;
   if (p.KVH <= 0 || p.H % p.KVH != 0) return cudaErrorInvalidValue;
+  if ((p.q_seg == nullptr) != (p.k_seg == nullptr))
+    return cudaErrorInvalidValue;
   if (which == kDkv ? p.SK <= 0 : p.SQ <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (dtype) {
-    case 0: return launch_t<float>(which, p, head_dim, s);
-    case 1: return launch_t<__half>(which, p, head_dim, s);
-    case 2: return launch_t<__nv_bfloat16>(which, p, head_dim, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return p.q_seg ? launch_seg<true>(which, p, dtype, head_dim, s)
+                 : launch_seg<false>(which, p, dtype, head_dim, s);
 }
 
-Params make_params(const void* q, const void* k, const void* v, int B,
-                   int SQ, int SK, int H, int KVH, long long q_sb,
-                   long long q_ss, long long q_sh, long long k_sb,
-                   long long k_ss, long long k_sh, long long v_sb,
-                   long long v_ss, long long v_sh, float scale, int causal) {
+Params make_params(const void* q, const void* k, const void* v,
+                   const int* q_seg, const int* k_seg, int B, int SQ, int SK,
+                   int H, int KVH, long long q_sb, long long q_ss,
+                   long long q_sh, long long k_sb, long long k_ss,
+                   long long k_sh, long long v_sb, long long v_ss,
+                   long long v_sh, float scale, int causal) {
   Params p = {};
   p.q = q;
   p.k = k;
   p.v = v;
+  p.q_seg = q_seg;
+  p.k_seg = k_seg;
   p.B = B;
   p.H = H;
   p.KVH = KVH;
@@ -1062,18 +1263,20 @@ Params make_params(const void* q, const void* k, const void* v, int B,
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16.  Each entry returns the
-// cudaError_t of its launch (0 on success); the Python wrapper raises on
-// anything else.
+// dtype: 0 float32, 1 float16, 2 bfloat16.  q_seg / k_seg: contiguous
+// [B, Sq] / [B, Sk] int32 segment ids, or both null (no segments).  Each
+// entry returns the cudaError_t of its launch (0 on success); the Python
+// wrapper raises on anything else.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
-    int dtype, int batch, int sq, int sk, int heads, int kv_heads,
-    int head_dim, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, float scale, int causal, void* stream) {
-  Params p = make_params(q, k, v, batch, sq, sk, heads, kv_heads, q_sb, q_ss,
-                         q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                         causal);
+    const int* q_seg, const int* k_seg, int dtype, int batch, int sq, int sk,
+    int heads, int kv_heads, int head_dim, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, float scale, int causal,
+    void* stream) {
+  Params p = make_params(q, k, v, q_seg, k_seg, batch, sq, sk, heads,
+                         kv_heads, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                         v_ss, v_sh, scale, causal);
   p.out = out;
   p.lse_out = lse;
   return run(kFwd, p, dtype, head_dim, stream);
@@ -1081,15 +1284,15 @@ extern "C" int flash_attention_fwd(
 
 extern "C" int flash_attention_bwd_dq(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dq, int dtype, int batch,
-    int sq, int sk, int heads, int kv_heads, int head_dim, long long q_sb,
-    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-    long long do_sb, long long do_ss, long long do_sh, float scale,
-    int causal, void* stream) {
-  Params p = make_params(q, k, v, batch, sq, sk, heads, kv_heads, q_sb, q_ss,
-                         q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                         causal);
+    const float* lse, const float* delta, void* dq, const int* q_seg,
+    const int* k_seg, int dtype, int batch, int sq, int sk, int heads,
+    int kv_heads, int head_dim, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long do_sb,
+    long long do_ss, long long do_sh, float scale, int causal, void* stream) {
+  Params p = make_params(q, k, v, q_seg, k_seg, batch, sq, sk, heads,
+                         kv_heads, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                         v_ss, v_sh, scale, causal);
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;
@@ -1102,15 +1305,15 @@ extern "C" int flash_attention_bwd_dq(
 
 extern "C" int flash_attention_bwd_dkv(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dk, void* dv, int dtype,
-    int batch, int sq, int sk, int heads, int kv_heads, int head_dim,
-    long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-    long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-    long long v_sh, long long do_sb, long long do_ss, long long do_sh,
-    float scale, int causal, void* stream) {
-  Params p = make_params(q, k, v, batch, sq, sk, heads, kv_heads, q_sb, q_ss,
-                         q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale,
-                         causal);
+    const float* lse, const float* delta, void* dk, void* dv,
+    const int* q_seg, const int* k_seg, int dtype, int batch, int sq, int sk,
+    int heads, int kv_heads, int head_dim, long long q_sb, long long q_ss,
+    long long q_sh, long long k_sb, long long k_ss, long long k_sh,
+    long long v_sb, long long v_ss, long long v_sh, long long do_sb,
+    long long do_ss, long long do_sh, float scale, int causal, void* stream) {
+  Params p = make_params(q, k, v, q_seg, k_seg, batch, sq, sk, heads,
+                         kv_heads, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
+                         v_ss, v_sh, scale, causal);
   p.dout = dout;
   p.lse = lse;
   p.delta = delta;

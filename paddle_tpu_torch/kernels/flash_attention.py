@@ -1,5 +1,5 @@
 """Flash attention, forward and backward (counterpart of paddle_tpu/
-kernels/flash_attention.py, without the segment-id variant).
+kernels/flash_attention.py, with and without segment ids).
 
 Three hand-written CUDA kernels (``csrc/flash_attention.cu``, built for
 ``sm_90a`` at first use), each beside its plain PyTorch version with the
@@ -15,12 +15,20 @@ for CPU tensors; there is no routing table and no fallback.
 ``torch.autograd.Function`` that saves ``(q, k, v, out, lse)`` and runs dq
 then dkv in backward, through the same wrappers (so the CPU tests run the
 same fwd / dq / dkv decomposition as the card).
+:func:`flash_attention_varlen` is the same with segment ids (packed
+sequences: a query sees only keys of its own segment, the reference's
+``_flash_core_seg``); :func:`flash_attention_with_lse` is the forward
+with its ``lse``.
 
 Semantics (flash_attention.py:77-299): f32 scores, softmax and
 accumulation, one final cast; the bottom-right causal mask
-``kpos <= qpos + (Sk - Sq)``; a query row that sees no key gives
-``out = 0`` and ``lse = -inf``, and its backward takes ``lse_safe = 0``.
-``delta = rowsum(dO * out)`` is computed outside the kernels (:311).
+``kpos <= qpos + (Sk - Sq)``, and with segment ids ``q_segments [B, Sq]``
+/ ``k_segments [B, Sk]`` (int32) only same-segment pairs on top of it; a
+query row that sees no key gives ``out = 0`` and ``lse = -inf``, and its
+backward takes ``lse_safe = 0`` (its dq, and the dk / dv of a key no query
+sees, are 0).  ``delta = rowsum(dO * out)`` is computed outside the
+kernels (:311).  The reference's TPU tiling arguments (``block_q``,
+``block_k``, ``interpret``) have no counterpart.
 
 Layouts are the reference's ``[B, S, H, D]``; k/v may have fewer heads
 (``H % KVH == 0``), read by kv-head index ``h // (H // KVH)``; dk/dv come
@@ -36,7 +44,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["flash_attention", "flash_attention_fwd",
+__all__ = ["flash_attention", "flash_attention_varlen",
+           "flash_attention_with_lse", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
            "flash_attention_fwd_reference", "flash_attention_bwd_dq_reference",
            "flash_attention_bwd_dkv_reference"]
@@ -61,6 +70,28 @@ def _check(q, k, v):
         raise ValueError(f"heads {h} is not a multiple of kv_heads {kh}")
 
 
+def _segments(q, k, q_segments, k_segments):
+    """Raise unless the segment ids are both None or contiguous int32
+    ``[B, Sq]`` / ``[B, Sk]`` tensors on q's device."""
+    if (q_segments is None) != (k_segments is None):
+        raise ValueError("pass both q_segments and k_segments, or neither")
+    if q_segments is None:
+        return
+    for name, ids, x in (("q_segments", q_segments, q),
+                         ("k_segments", k_segments, k)):
+        want = [x.shape[0], x.shape[1]]
+        if (ids.dtype != torch.int32 or list(ids.shape) != want
+                or not ids.is_contiguous() or ids.device != q.device):
+            raise ValueError(
+                f"{name} must be a contiguous int32 {want} tensor on "
+                f"{q.device}, got {ids.dtype} {list(ids.shape)} on "
+                f"{ids.device}{'' if ids.is_contiguous() else ' (strided)'}")
+
+
+def _ptr(ids):
+    return None if ids is None else ids.data_ptr()
+
+
 def _scale(scale, d):
     return 1.0 / math.sqrt(d) if scale is None else float(scale)
 
@@ -73,7 +104,8 @@ def _heads(x: torch.Tensor, h: int) -> torch.Tensor:
     return x if kh == h else x.repeat_interleave(h // kh, dim=1)
 
 
-def _scores(q, k, scale, causal, scale_first):
+def _scores(q, k, scale, causal, scale_first, q_segments=None,
+            k_segments=None):
     """f32 ``[B, H, Sq, Sk]`` scores, masked keys at -inf.  The reference
     scales q before the product in the forward (:97) and the product
     after it in the backward (:223)."""
@@ -88,6 +120,9 @@ def _scores(q, k, scale, causal, scale_first):
         qpos = torch.arange(sq, device=q.device)[:, None]
         kpos = torch.arange(sk, device=q.device)[None, :]
         s = s.masked_fill(kpos > qpos + (sk - sq), float("-inf"))
+    if q_segments is not None:
+        other = q_segments[:, None, :, None] != k_segments[:, None, None, :]
+        s = s.masked_fill(other, float("-inf"))
     return s
 
 
@@ -96,11 +131,13 @@ def _lse_safe(lse):
 
 
 def flash_attention_fwd_reference(q, k, v, scale: Optional[float] = None,
-                                  causal: bool = False):
+                                  causal: bool = False, q_segments=None,
+                                  k_segments=None):
     """Plain version of the forward kernel: ``(out [B, Sq, H, D] in q's
     dtype, lse [B, H, Sq] f32)``."""
     _check(q, k, v)
-    s = _scores(q, k, _scale(scale, q.shape[-1]), causal, scale_first=True)
+    s = _scores(q, k, _scale(scale, q.shape[-1]), causal, True, q_segments,
+                k_segments)
     m = s.amax(dim=-1, keepdim=True)
     m_safe = torch.where(m == float("-inf"), 0.0, m)
     p = torch.exp(s - m_safe)
@@ -111,19 +148,20 @@ def flash_attention_fwd_reference(q, k, v, scale: Optional[float] = None,
     return out.transpose(1, 2).to(q.dtype), lse[..., 0]
 
 
-def _probs(q, k, lse, scale, causal):
-    return torch.exp(_scores(q, k, scale, causal, scale_first=False)
-                     - _lse_safe(lse))
+def _probs(q, k, lse, scale, causal, q_segments, k_segments):
+    return torch.exp(_scores(q, k, scale, causal, False, q_segments,
+                             k_segments) - _lse_safe(lse))
 
 
 def flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta,
                                      scale: Optional[float] = None,
-                                     causal: bool = False) -> torch.Tensor:
+                                     causal: bool = False, q_segments=None,
+                                     k_segments=None) -> torch.Tensor:
     """Plain version of the dq kernel: ``dq [B, Sq, H, D]`` in q's dtype."""
     _check(q, k, v)
     scale = _scale(scale, q.shape[-1])
     h = q.shape[2]
-    p = _probs(q, k, lse, scale, causal)
+    p = _probs(q, k, lse, scale, causal, q_segments, k_segments)
     dp = torch.matmul(dout.float().transpose(1, 2),
                       _heads(v, h).transpose(-1, -2))
     ds = p * (dp - delta[..., None])
@@ -133,7 +171,8 @@ def flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta,
 
 def flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
                                       scale: Optional[float] = None,
-                                      causal: bool = False
+                                      causal: bool = False, q_segments=None,
+                                      k_segments=None
                                       ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain version of the dkv kernel: ``(dk, dv)`` with k/v's shape and
     dtypes; a kv head sums its query heads in f32."""
@@ -141,7 +180,7 @@ def flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
     scale = _scale(scale, q.shape[-1])
     b, _, h, d = q.shape
     sk, kh = k.shape[1], k.shape[2]
-    p = _probs(q, k, lse, scale, causal)
+    p = _probs(q, k, lse, scale, causal, q_segments, k_segments)
     dof = dout.float().transpose(1, 2)
     dp = torch.matmul(dof, _heads(v, h).transpose(-1, -2))
     ds = p * (dp - delta[..., None])
@@ -206,22 +245,28 @@ def _run(fn_name, dev, args):
 
 
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                        scale: Optional[float] = None, causal: bool = False
+                        scale: Optional[float] = None, causal: bool = False,
+                        q_segments: Optional[torch.Tensor] = None,
+                        k_segments: Optional[torch.Tensor] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [B, Sq, H, D], lse [B, H, Sq] f32)``: the CUDA kernel for
     CUDA tensors (raises on what it does not take: mixed devices or
     dtypes, a head_dim other than 64/128, rows not on 16-byte
-    boundaries), the plain version for CPU tensors."""
+    boundaries, segment ids that are not contiguous int32 ``[B, Sq]`` /
+    ``[B, Sk]`` on q's device), the plain version for CPU tensors."""
     _check(q, k, v)
+    _segments(q, k, q_segments, k_segments)
     if q.device.type != "cuda":
-        return flash_attention_fwd_reference(q, k, v, scale, causal)
+        return flash_attention_fwd_reference(q, k, v, scale, causal,
+                                             q_segments, k_segments)
     _check_cuda("flash_attention_fwd", [("q", q), ("k", k), ("v", v)])
     b, sq, sk, h, kh, d = _dims(q, k)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _run("flash_attention_fwd", q.device, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), _DTYPE_CODES[q.dtype], b, sq, sk, h, kh, d,
+        lse.data_ptr(), _ptr(q_segments), _ptr(k_segments),
+        _DTYPE_CODES[q.dtype], b, sq, sk, h, kh, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         _scale(scale, d), int(bool(causal))))
     flash_attention_fwd.launches += 1
@@ -230,13 +275,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta,
                            scale: Optional[float] = None,
-                           causal: bool = False) -> torch.Tensor:
+                           causal: bool = False, q_segments=None,
+                           k_segments=None) -> torch.Tensor:
     """``dq [B, Sq, H, D]``: the CUDA kernel for CUDA tensors, the plain
     version for CPU tensors."""
     _check(q, k, v)
+    _segments(q, k, q_segments, k_segments)
     if q.device.type != "cuda":
         return flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta,
-                                                scale, causal)
+                                                scale, causal, q_segments,
+                                                k_segments)
     _check_cuda("flash_attention_bwd_dq",
                 [("q", q), ("k", k), ("v", v), ("dout", dout)])
     b, sq, sk, h, kh, d = _dims(q, k)
@@ -248,8 +296,8 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta,
     dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     _run("flash_attention_bwd_dq", q.device, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, sq, sk, h, kh, d,
+        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(q_segments),
+        _ptr(k_segments), _DTYPE_CODES[q.dtype], b, sq, sk, h, kh, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *dout.stride()[:3], _scale(scale, d), int(bool(causal))))
     flash_attention_bwd_dq.launches += 1
@@ -258,14 +306,17 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta,
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
                             scale: Optional[float] = None,
-                            causal: bool = False
+                            causal: bool = False, q_segments=None,
+                            k_segments=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(dk, dv)`` with k/v's shape: the CUDA kernel for CUDA tensors,
     the plain version for CPU tensors."""
     _check(q, k, v)
+    _segments(q, k, q_segments, k_segments)
     if q.device.type != "cuda":
         return flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
-                                                 scale, causal)
+                                                 scale, causal, q_segments,
+                                                 k_segments)
     _check_cuda("flash_attention_bwd_dkv",
                 [("q", q), ("k", k), ("v", v), ("dout", dout)])
     b, sq, sk, h, kh, d = _dims(q, k)
@@ -279,7 +330,8 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
     _run("flash_attention_bwd_dkv", q.device, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        _DTYPE_CODES[q.dtype], b, sq, sk, h, kh, d,
+        _ptr(q_segments), _ptr(k_segments), _DTYPE_CODES[q.dtype], b, sq, sk,
+        h, kh, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         *dout.stride()[:3], _scale(scale, d), int(bool(causal))))
     flash_attention_bwd_dkv.launches += 1
@@ -294,26 +346,29 @@ flash_attention_bwd_dkv.launches = 0
 
 # ------------------------------------------------------------- autograd
 class _FlashAttention(torch.autograd.Function):
-    """The reference's custom_vjp pair (:415-432): forward saves
-    ``(q, k, v, out, lse)``; backward computes delta, then dq, then dk/dv."""
+    """The reference's custom_vjp pairs (:415-432, and :436-461 with
+    segment ids): forward saves ``(q, k, v, out, lse, q_segments,
+    k_segments)``; backward computes delta, then dq, then dk/dv, and gives
+    the ids no gradient (the reference's float0 cotangents)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, scale, causal):
-        out, lse = flash_attention_fwd(q, k, v, scale, causal)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, q_segments, k_segments, scale, causal):
+        out, lse = flash_attention_fwd(q, k, v, scale, causal, q_segments,
+                                       k_segments)
+        ctx.save_for_backward(q, k, v, out, lse, q_segments, k_segments)
         ctx.scale, ctx.causal = scale, causal
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
+        q, k, v, out, lse, qs, ks = ctx.saved_tensors
         dout = dout.contiguous()
         delta = (dout.float() * out.float()).sum(-1).transpose(1, 2)
         dq = flash_attention_bwd_dq(q, k, v, dout, lse, delta, ctx.scale,
-                                    ctx.causal)
+                                    ctx.causal, qs, ks)
         dk, dv = flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
-                                         ctx.scale, ctx.causal)
-        return dq, dk, dv, None, None
+                                         ctx.scale, ctx.causal, qs, ks)
+        return dq, dk, dv, None, None, None, None
 
 
 def flash_attention(query: torch.Tensor, key: torch.Tensor,
@@ -322,6 +377,36 @@ def flash_attention(query: torch.Tensor, key: torch.Tensor,
     """Differentiable flash attention on ``[B, S, H, D]`` (k/v may carry
     fewer heads); ``scale`` defaults to ``1 / sqrt(D)``."""
     _check(query, key, value)
-    return _FlashAttention.apply(query, key, value,
+    return _FlashAttention.apply(query, key, value, None, None,
                                  _scale(scale, query.shape[-1]),
                                  bool(causal))
+
+
+def flash_attention_varlen(query: torch.Tensor, key: torch.Tensor,
+                           value: torch.Tensor, q_segments, k_segments,
+                           causal: bool = False,
+                           scale: Optional[float] = None) -> torch.Tensor:
+    """Segment-masked (varlen / packed) flash attention; differentiable.
+
+    query ``[B, Sq, H, D]``, key/value ``[B, Sk, KVH, D]``; ``q_segments``
+    ``[B, Sq]`` / ``k_segments`` ``[B, Sk]`` integer ids (taken as int32
+    on query's device): only same-segment (query, key) pairs attend, so a
+    pack of documents attends within each one.  Use ids that match
+    nothing (e.g. -1 for queries, -2 for keys) for padding; its rows give
+    0.  With ``causal`` the bottom-right causal mask applies on top."""
+    _check(query, key, value)
+    qs, ks = (torch.as_tensor(ids, dtype=torch.int32,
+                              device=query.device).contiguous()
+              for ids in (q_segments, k_segments))
+    return _FlashAttention.apply(query, key, value, qs, ks,
+                                 _scale(scale, query.shape[-1]),
+                                 bool(causal))
+
+
+def flash_attention_with_lse(query: torch.Tensor, key: torch.Tensor,
+                             value: torch.Tensor, causal: bool = False,
+                             scale: Optional[float] = None
+                             ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Forward only: ``(out [B, Sq, H, D], lse [B, H, Sq] f32)``, the
+    log-sum-exp that combines partial attentions (ring attention)."""
+    return flash_attention_fwd(query, key, value, scale, causal)

@@ -58,7 +58,7 @@ def generate(model, input_ids, max_new_tokens: int, do_sample: bool = False,
              temperature: float = 1.0, top_k: int = 0, top_p: float = 1.0,
              eos_token_id: Optional[int] = None,
              pad_token_id: Optional[int] = None, seed: int = 0,
-             prompt_lens=None):
+             output_scores: bool = False, prompt_lens=None):
     """Generate ``max_new_tokens`` continuations of ``input_ids``
     ([batch, prompt_len]) and return the full sequences
     ``[batch, prompt_len + max_new_tokens]`` on the model's device.
@@ -66,7 +66,10 @@ def generate(model, input_ids, max_new_tokens: int, do_sample: bool = False,
     ``do_sample=False`` is greedy; sampling applies ``temperature`` then
     ``top_k`` (0 = off) then ``top_p`` (1.0 = off).  With
     ``eos_token_id`` set, rows that emitted it keep emitting
-    ``pad_token_id`` (default: the eos id).  ``prompt_lens`` ([batch])
+    ``pad_token_id`` (default: the eos id).  ``output_scores=True``
+    returns ``(seq, scores)``, with ``scores`` the pre-sampling float32
+    logits of every generated position ``[batch, max_new_tokens,
+    vocab]``.  ``prompt_lens`` ([batch])
     admits ragged right-padded prompts, as in the reference: row r's
     prompt is ``input_ids[r, :prompt_lens[r]]`` and its new tokens land in
     the trailing ``max_new_tokens`` columns."""
@@ -115,6 +118,7 @@ def generate(model, input_ids, max_new_tokens: int, do_sample: bool = False,
         # each row's last VALID prompt position carries its next-token
         # distribution; pad-tail logits are skipped
         last = logits[torch.arange(b, device=device), lens.long() - 1]
+    scores = [last.float()] if output_scores else None
     tok = pick(last)
     tokens = [tok]
     finished = tok == eos_token_id if eos_token_id is not None \
@@ -126,6 +130,8 @@ def generate(model, input_ids, max_new_tokens: int, do_sample: bool = False,
     pos = s0 if lens is None else lens
     for _ in range(max_new_tokens - 1):
         logits, caches = model.decode_step(tok[:, None], caches, pos)
+        if output_scores:
+            scores.append(logits[:, 0].float())
         nxt = pick(logits[:, 0])
         if eos_token_id is not None:
             nxt = torch.where(finished, torch.as_tensor(pad, device=device),
@@ -135,4 +141,4 @@ def generate(model, input_ids, max_new_tokens: int, do_sample: bool = False,
         tok, pos = nxt, pos + 1
     seq = torch.cat([input_ids, torch.stack(tokens, 1).to(input_ids.dtype)],
                     dim=1)
-    return seq
+    return (seq, torch.stack(scores, 1)) if output_scores else seq

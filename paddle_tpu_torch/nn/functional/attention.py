@@ -6,18 +6,38 @@ attention.py).  Layout is the reference's ``[batch, seq, heads, head_dim]``.
 plain versions for CPU tensors.  The reference routes to its Pallas kernel
 only at seq >= 2048 (a TPU measurement) and falls back to XLA on error;
 the port has no threshold and no fallback.  ``sdpa_reference`` is the
-dense form, kept for the tests.
+dense form, kept for the tests.  ``flash_attention`` is Paddle's
+``(out, softmax)`` form of it.
+
+``flash_attn_unpadded`` is Paddle's varlen API (total-token packed
+``[T, H, D]`` with ``cu_seqlens``): on CUDA it takes the segment-id flash
+kernels (``flash_attention_varlen``) wherever the reference's kernel route
+computes the right function, and the reference's dense segment-masked
+form otherwise (causal with q / k packs that differ) and on the CPU, as
+the reference does.  The route is decided by value; a kernel failure
+raises (the reference's warn-and-fall-back is not ported).
 """
 
 from __future__ import annotations
 
+import logging
 from typing import Optional
 
 import torch
 
-from ...kernels.flash_attention import flash_attention
+from ...kernels.flash_attention import (flash_attention as _flash,
+                                        flash_attention_varlen)
 
-__all__ = ["scaled_dot_product_attention", "sdpa_reference"]
+__all__ = ["flash_attention", "flash_attn_unpadded",
+           "scaled_dot_product_attention", "sdpa_reference"]
+
+_WARNED = set()
+
+
+def _warn_once(key: str, msg: str) -> None:
+    if key not in _WARNED:
+        _WARNED.add(key)
+        logging.getLogger("paddle_tpu_torch").warning(msg)
 
 
 def sdpa_reference(query, key, value, is_causal: bool = False,
@@ -61,4 +81,95 @@ def scaled_dot_product_attention(query, key, value, attn_mask=None,
             "scaled_dot_product_attention: attention dropout is not "
             "supported by the port's flash path; pass dropout_p=0 or "
             "training=False")
-    return flash_attention(query, key, value, causal=is_causal)
+    return _flash(query, key, value, causal=is_causal)
+
+
+def flash_attention(query, key, value, dropout: float = 0.0,
+                    causal: bool = False, return_softmax: bool = False,
+                    fixed_seed_offset=None, rng_name: str = "",
+                    training: bool = True, name=None):
+    """Parity: paddle ``F.flash_attention.flash_attention`` ->
+    ``(out, None)``, through :func:`scaled_dot_product_attention` (no
+    softmax is returned, as in the reference)."""
+    out = scaled_dot_product_attention(query, key, value, None, dropout,
+                                       causal, training=training)
+    return out, None
+
+
+def _segment_ids(cu_seqlens: torch.Tensor, total: int) -> torch.Tensor:
+    """int32 ``[total]`` segment ids of a pack from its cumulative lengths
+    (reference :141-142): token i counts the interior boundaries at or
+    before it; a boundary at ``total`` or past it is dropped."""
+    starts = cu_seqlens[1:-1]
+    starts = starts[starts < total]
+    return torch.bincount(starts, minlength=total).cumsum(0).to(torch.int32)
+
+
+def _varlen_dense(query, key, value, seg_q, seg_k, cu_q, cu_k, scale,
+                  causal):
+    """The reference's dense route (:192-204): f32 logits, the
+    same-segment mask (per-segment causal with ``causal``) at the f32
+    minimum, probabilities cast to v's dtype before the second product.
+    k/v may carry fewer heads (repeated here)."""
+    t, h = query.shape[:2]
+    tk, kh = key.shape[:2]
+    if kh != h:
+        key = key.repeat_interleave(h // kh, dim=1)
+        value = value.repeat_interleave(h // kh, dim=1)
+    logits = torch.einsum("qhd,khd->hqk", query.float(), key.float()) * scale
+    mask = seg_q[:, None] == seg_k[None, :]
+    if causal:
+        pos_q = torch.arange(t, device=query.device) - cu_q[seg_q.long()]
+        pos_k = torch.arange(tk, device=query.device) - cu_k[seg_k.long()]
+        mask = mask & (pos_k[None, :] <= pos_q[:, None])
+    logits = logits.masked_fill(~mask[None], torch.finfo(torch.float32).min)
+    probs = torch.softmax(logits, dim=-1).to(value.dtype)
+    return torch.einsum("hqk,khd->qhd", probs, value)
+
+
+def flash_attn_unpadded(query, key, value, cu_seqlens_q, cu_seqlens_k,
+                        max_seqlen_q, max_seqlen_k, scale: float,
+                        dropout: float = 0.0, causal: bool = False,
+                        return_softmax: bool = False, name=None,
+                        assume_aligned: Optional[bool] = None):
+    """Varlen API parity: query ``[T, H, D]``, key/value ``[Tk, KVH, D]``
+    packed end to end, ``cu_seqlens_*`` the cumulative sequence lengths
+    (``[0, n0, n0 + n1, ...]``); a query attends only to keys of its own
+    sequence.  Returns ``(out [T, H, D], None)``.
+
+    On CUDA the segment-id flash kernels run whenever they compute the
+    reference's function: non-causal, or causal with the q and k packs
+    equal.  The cumulative lengths are always concrete here, so their
+    values decide; ``assume_aligned`` (the reference's promise for traced
+    lengths) is accepted for signature parity and ignored.
+    Causal with packs that differ is per-sequence causal, which the
+    kernels' global causal mask does not compute: that call, and every
+    call on the CPU, takes the dense form (counted in
+    ``flash_attn_unpadded.dense_calls``).  ``dropout > 0`` raises, and so
+    does, on CUDA, a head_dim the kernels do not take."""
+    if dropout > 0.0:
+        raise NotImplementedError(
+            "flash_attn_unpadded: dropout > 0 is not supported by the "
+            "port's varlen path; pass dropout=0.0")
+    t, tk = query.shape[0], key.shape[0]
+    cu_q = torch.as_tensor(cu_seqlens_q, device=query.device).long()
+    cu_k = torch.as_tensor(cu_seqlens_k, device=query.device).long()
+    seg_q, seg_k = _segment_ids(cu_q, t), _segment_ids(cu_k, tk)
+    aligned = not causal or (t == tk and torch.equal(cu_q, cu_k))
+    if query.device.type == "cuda" and aligned:
+        out = flash_attention_varlen(query[None], key[None], value[None],
+                                     seg_q[None], seg_k[None], causal=causal,
+                                     scale=scale)
+        return out[0], None
+    if not aligned:
+        _warn_once("varlen_unaligned",
+                   "flash_attn_unpadded: causal with q / k packs that "
+                   "differ is per-sequence causal, which the segment "
+                   "kernels do not compute; using the dense path")
+    flash_attn_unpadded.dense_calls += 1
+    return _varlen_dense(query, key, value, seg_q, seg_k, cu_q, cu_k, scale,
+                         causal), None
+
+
+# calls that took the dense form since the count was last set to 0
+flash_attn_unpadded.dense_calls = 0

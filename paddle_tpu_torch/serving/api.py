@@ -72,7 +72,11 @@ class ServingEngine:
     ``fused_decode`` opts the decode step into the fused decode-block
     kernels (kernels/decode_block.py) where the model supports them and
     they are legal at this engine's shape; ``decode_path`` /
-    ``decode_fallback_reason`` say what was resolved.
+    ``decode_fallback_reason`` say what was resolved.  The parameters
+    after ``prefix_blocks`` are keyword-only: the reference has
+    ``record_events``, ``fault_tolerance`` and ``faults`` among them,
+    which the port does not have yet, so a positional call there would
+    bind to other parameters.
 
     ``tensor_parallel > 1`` shards the engine over a 1-D mesh of
     ``devices`` (default: the first ``tensor_parallel`` CUDA devices; it
@@ -93,10 +97,10 @@ class ServingEngine:
                  max_prefill_tokens_per_step: Optional[int] = None,
                  enable_prefix_cache: bool = True,
                  block_len: int = 16,
-                 prefix_blocks: Optional[int] = None,
+                 prefix_blocks: Optional[int] = None, *,
                  registry=None, tracer=None,
-                 max_queue: Optional[int] = None,
                  fused_decode: bool = False,
+                 max_queue: Optional[int] = None,
                  tensor_parallel: int = 1,
                  collective_fusion: bool = True,
                  devices=None):
@@ -306,6 +310,19 @@ class ServingEngine:
         """Why ``fused_decode=True`` fell back from the fused decode-block
         path (None when it is active or the flag is off)."""
         return self.core.decode_fallback_reason
+
+    @property
+    def tensor_parallel(self) -> int:
+        """The engine's tensor-parallel mesh degree (1 = one device)."""
+        return self.core.tensor_parallel
+
+    @property
+    def tp_fusion_reason(self) -> Optional[str]:
+        """Why a tp > 1 engine fell back from the ring decode programs
+        (``tp_fused_block`` / ``tp_fused``) to the composed ``unfused``
+        path (None when a ring program is active or the engine has one
+        shard)."""
+        return self.core.tp_fusion_reason
 
     def metrics_dict(self) -> dict:
         out = self.core.metrics.snapshot()

@@ -205,3 +205,54 @@ def test_filter_masks_match_jax():
         np.testing.assert_array_equal(
             np.isinf(_filter_top_k(tl, k).numpy()),
             np.isinf(np.asarray(jax_top_k(jnp.asarray(logits), k))))
+
+
+def test_tensor_parallel_properties_match_jax(models):
+    """``ServingEngine.tensor_parallel`` / ``tp_fusion_reason`` equal the
+    reference's: tp=1, and tp=2 with the ring programs turned off (the
+    port's shards on two CPU devices; each tp engine re-lays its own
+    model)."""
+    for kw in (dict(), dict(tensor_parallel=2, collective_fusion=False)):
+        jm, tm = _carry(jax_gpt_tiny(), gpt_tiny())
+        jeng = JaxEngine(jm, num_slots=4, **kw)
+        teng = ServingEngine(tm, num_slots=4, devices=["cpu"] * 2, **kw) \
+            if kw else ServingEngine(tm, num_slots=4)
+        assert (teng.tensor_parallel, teng.tp_fusion_reason) == (
+            jeng.tensor_parallel, jeng.tp_fusion_reason), kw
+        assert teng.tensor_parallel == kw.get("tensor_parallel", 1)
+
+
+def test_generate_output_scores_match_jax(models):
+    """Greedy ``generate(..., output_scores=True)`` returns ``(seq,
+    scores)``: the tokens equal the reference's, the pre-sampling f32
+    logits [batch, new, vocab] agree at atol 1e-4 (summation order)."""
+    jm, tm = models
+    ids = np.random.RandomState(8).randint(0, 256, (2, 6))
+    want_seq, want_scores = jm.generate(jnp.asarray(ids), max_new_tokens=5,
+                                        output_scores=True)
+    seq, scores = tm.generate(ids, max_new_tokens=5, output_scores=True)
+    np.testing.assert_array_equal(seq.numpy(), np.asarray(want_seq))
+    assert scores.dtype == torch.float32
+    assert scores.shape == (2, 5, gpt_tiny().vocab_size)
+    np.testing.assert_allclose(scores.numpy(), np.asarray(want_scores),
+                               atol=1e-4)
+    assert torch.equal(tm.generate(ids, max_new_tokens=5), seq)
+
+
+def test_serving_engine_parameter_order_follows_jax(models):
+    """The names both ``ServingEngine``s take keep the reference's
+    relative order, and a positional call past ``prefix_blocks`` (where
+    the reference's ``record_events`` comes next) raises instead of
+    binding to another parameter."""
+    import inspect
+    ref = list(inspect.signature(JaxEngine.__init__).parameters)
+    port = list(inspect.signature(ServingEngine.__init__).parameters)
+    shared = [n for n in port if n in ref]
+    assert shared == [n for n in ref if n in port]
+    assert set(port) - set(ref) == {"devices"}
+    positional = port[:port.index("prefix_blocks") + 1]
+    assert positional == ref[:len(positional)]
+    _, tm = models
+    args = (8, None, 16, None, None, None, True, 16, None)
+    with pytest.raises(TypeError):
+        ServingEngine(tm, *args, False)
