@@ -51,7 +51,12 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      card: the ring hops are copies on it, no interconnect is measured);
   7. train kernels — on an emptied card, the three flash-attention
      kernels (forward, dq, dk/dv) and fused AdamW against their plain
-     versions over a sweep, then timed at the train path's shapes
+     versions over a sweep (flash: f32 / bf16 / f16, head_dim 64 / 128,
+     at and around the forward's 128-row tiles, Sq < Sk, Sq > Sk, GQA,
+     views of a fused QKV; 16-bit elements each within their own limit),
+     the forward's 16-bit instantiations held to wgmma and TMA in the
+     built library's SASS (HGMMA and UTMALDG, no HMMA), then timed at the
+     train path's shapes
      (q/k/v [2, 2048, 32, 128] bf16 causal; AdamW on one [4096, 16384]
      weight) beside the plain version, the bound and a library yardstick
      (SDPA forward / backward, ``torch.optim.AdamW(fused=True)``);
@@ -1687,22 +1692,30 @@ def phase_train_kernels(card: str):
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev)
     g.manual_seed(2)
-    # f32: only the summation order differs; bf16: the output cast and the
-    # 16-bit P / dS of the second products (FlashAttention-2's rounding),
-    # relative to the largest value of the result
-    rel = {torch.float32: 1e-5, torch.bfloat16: 2e-2}
-    worst = {}
+    # f32: only the summation order differs; 16-bit: the output cast and
+    # the 16-bit P / dS of the second products (FlashAttention-2's
+    # rounding), relative to the largest value of the result (FLASH_REL);
+    # 16-bit elements each within their own limit too (row_reading, lse
+    # within 1e-4 relative: check_pairs)
+    worst, reading = {}, {}
     n = 0
-    # (B, Sq, Sk, H, KVH): Sq = Sk, Sq < Sk, Sq > Sk (rows that see no key
-    # when causal), ragged tails, GQA, B*H from 1 to 64
-    shapes = [(1, 128, 128, 1, 1), (2, 200, 200, 4, 2), (1, 64, 320, 2, 2),
-              (2, 256, 96, 2, 1), (2, 512, 512, 32, 32)]
-    for dtype in (torch.float32, torch.bfloat16):
+    # (B, Sq, Sk, H, KVH, packed): Sq = Sk at and around the forward's
+    # 128-row tiles (127, 128, 129, 257), Sq < Sk and Sq > Sk (rows that
+    # see no key when causal), GQA 2 and 4 query heads a kv head, B*H from
+    # 1 to 64, and q/k/v as strided views of one fused QKV tensor
+    shapes = [(1, 128, 128, 1, 1, False), (1, 127, 127, 2, 1, False),
+              (2, 129, 129, 4, 1, False), (2, 257, 257, 8, 2, False),
+              (2, 200, 200, 4, 2, False), (1, 64, 320, 2, 2, False),
+              (1, 129, 257, 4, 1, False), (2, 256, 96, 2, 1, False),
+              (1, 257, 127, 4, 1, False), (2, 512, 512, 32, 32, False),
+              (2, 257, 257, 4, 4, True)]
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
         dname = str(dtype).replace("torch.", "")
         for d in (64, 128):
-            for b, sq, sk, h, kvh in shapes:
+            for b, sq, sk, h, kvh, packed in shapes:
                 for causal in (True, False):
-                    q, k, v, do = _flash_case(g, dtype, b, sq, sk, h, kvh, d)
+                    q, k, v, do = _flash_case(g, dtype, b, sq, sk, h, kvh, d,
+                                              packed=packed)
                     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
                     ro, rl = fa.flash_attention_fwd_reference(q, k, v,
                                                               causal=causal)
@@ -1718,22 +1731,20 @@ def phase_train_kernels(card: str):
                         q, k, v, do, lse, delta, causal=causal)
                     torch.cuda.synchronize()
                     what = (f"dtype={dname} D={d} B={b} Sq={sq} Sk={sk} "
-                            f"H={h} KVH={kvh} causal={causal}")
-                    for name, got, want in (
-                            ("flash_attention_fwd", out, ro),
-                            ("flash_attention_fwd lse", lse, rl),
-                            ("flash_attention_bwd_dq", dq, rdq),
-                            ("flash_attention_bwd_dkv dk", dk, rdk),
-                            ("flash_attention_bwd_dkv dv", dv, rdv)):
-                        err = _err(got, want)
-                        scale = max(1.0, want[torch.isfinite(want)].abs()
-                                    .max().item() if want.numel() else 0.0)
+                            f"H={h} KVH={kvh} causal={causal}"
+                            f"{' (views of a fused QKV)' if packed else ''}")
+                    for name, pairs, lses in (
+                            ("flash_attention_fwd", ((out, ro),),
+                             ((lse, rl),)),
+                            ("flash_attention_bwd_dq", ((dq, rdq),), ()),
+                            ("flash_attention_bwd_dkv", ((dk, rdk), (dv, rdv)),
+                             ())):
+                        _, rel_, read = check_pairs(
+                            f"{name} disagrees with its plain version: "
+                            f"{what}", dtype, pairs, lses)
                         key = f"{name} {dname}"
-                        worst[key] = max(worst.get(key, 0.0), err / scale)
-                        if err > rel[dtype] * scale:
-                            raise AssertionError(
-                                f"{name} disagrees with its plain version: "
-                                f"{what} max_abs_err={err} (scale {scale})")
+                        worst[key] = max(worst.get(key, 0.0), rel_)
+                        reading[key] = max(reading.get(key, 0.0), read)
                     if causal and sq > sk:
                         blind = sq - sk
                         if bool(out[:, :blind].any()) or not bool(
@@ -1742,10 +1753,32 @@ def phase_train_kernels(card: str):
                                                  f"give out 0, lse -inf: "
                                                  f"{what}")
                     n += 1
-    log(f"[train-kernels] flash sweep: {n} cases (f32/bf16 x head_dim "
-        f"64/128 x causal/full x Sq=Sk, Sq<Sk, Sq>Sk, ragged, GQA, B*H 1-64) "
-        f"within tolerance (max abs err over max(1, max |plain|): f32 1e-5, "
-        f"bf16 2e-2); worst relative errors {json.dumps(worst)}")
+    log(f"[train-kernels] flash sweep: {n} cases (f32/bf16/f16 x head_dim "
+        f"64/128 x causal/full x Sq=Sk 127-512, Sq<Sk, Sq>Sk, GQA 2 and 4, "
+        f"B*H 1-64, views of a fused QKV) within tolerance (max abs err over "
+        f"max(1, max |plain|): f32 1e-5, 16-bit 2e-2; 16-bit elements each "
+        f"within 2 ulps of itself + 2 ulps of its row's largest + 1e-4, lse "
+        f"within 1e-4 relative), rows that see no key out 0 and lse -inf; "
+        f"worst relative errors {json.dumps(worst)}; worst readings (error "
+        f"over limit) {json.dumps(reading)}")
+
+    # the forward's 16-bit instantiations run on wgmma and TMA: the
+    # built library's SASS holds HGMMA and UTMALDG in each and no HMMA
+    # (the mma.sync of the earlier kernel)
+    from paddle_tpu_torch.kernels import _build, sass
+    fwd_sass = sass.instruction_counts(
+        str(_build._library_path("flash_attention")), "fwd_wgmma_kernel",
+        ("HGMMA", "UTMALDG", "HMMA"))
+    if len(fwd_sass) != 8 or any(
+            c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] != 0
+            for c in fwd_sass.values()):
+        raise AssertionError(f"the forward's 16-bit instantiations (bf16/f16 "
+                             f"x head_dim 64/128 x segments or not) must each "
+                             f"hold HGMMA and UTMALDG and no HMMA: "
+                             f"{json.dumps(fwd_sass)}")
+    log(f"[train-kernels] SASS of the forward's 16-bit instantiations "
+        f"(cuobjdump -sass; HGMMA wgmma, UTMALDG TMA loads, HMMA mma.sync): "
+        f"{json.dumps(fwd_sass)}")
 
     # AdamW: f32 and bf16 p, with and without decay, a length that is not
     # a multiple of the vector width, a misaligned view (scalar path), the
@@ -1823,19 +1856,14 @@ def phase_train_kernels(card: str):
         shape = (f"q/k/v [{b},{s},{h},{d}] bf16 "
                  f"({'views of a fused QKV' if packed else 'separate'}), "
                  f"causal ({model})")
-        errs = {}
-        for name, pairs in {
-                "flash_attention_fwd": ((out, ro), (lse, rl)),
-                "flash_attention_bwd_dq": ((dq, rdq),),
-                "flash_attention_bwd_dkv": ((dk, rdk), (dv, rdv))}.items():
-            errs[name] = max(_err(got, want) for got, want in pairs)
-            for got, want in pairs:
-                scale = max(1.0, want[torch.isfinite(want)].abs().max()
-                            .item())
-                if _err(got, want) > rel[torch.bfloat16] * scale:
-                    raise AssertionError(f"{name} disagrees at {shape}: "
-                                         f"max_abs_err {_err(got, want)} "
-                                         f"(scale {scale})")
+        # each element within its own limit too (check_pairs)
+        errs, reads = {}, {}
+        for name, pairs, lses in (
+                ("flash_attention_fwd", ((out, ro),), ((lse, rl),)),
+                ("flash_attention_bwd_dq", ((dq, rdq),), ()),
+                ("flash_attention_bwd_dkv", ((dk, rdk), (dv, rdv)), ())):
+            errs[name], _, reads[name] = check_pairs(
+                f"{name} disagrees at {shape}", torch.bfloat16, pairs, lses)
         del ro, rl, rdq, rdk, rdv
         times = {
             "flash_attention_fwd": time_ms(
@@ -1877,13 +1905,14 @@ def phase_train_kernels(card: str):
             r = {"ms": times[name], "plain_ms": plain[name],
                  "bound_ms": bound, "bound_by": bound_by,
                  "library_ms": lib, "max_abs_err": errs[name],
-                 "shape": shape}
+                 "max_reading": reads[name], "shape": shape}
             if name != "flash_attention_fwd":
                 r["library_ms_dq_dkv_together"] = lib_bwd
             recs.setdefault(name, {})[model] = r
             log(f"[train-kernels] {name} {shape}: kernel {times[name]:.4f} "
                 f"ms, plain {plain[name]:.4f} ms, bound {bound:.4f} ms "
-                f"({bound_by}); max abs err {errs[name]:.3g} (card: {card})")
+                f"({bound_by}); max abs err {errs[name]:.3g}, reading "
+                f"{reads[name]:.3g} (card: {card})")
         log(f"[train-kernels] library yardsticks at {shape}: SDPA forward "
             f"{lib_fwd:.4f} ms; SDPA backward (dq, dk, dv together) "
             f"{lib_bwd:.4f} ms vs the port's dq + dkv "
@@ -1896,7 +1925,11 @@ def phase_train_kernels(card: str):
         recs[name] = {**recs[name]["gpt3_6_7b"],
                       "llama_7b": recs[name]["llama_7b"],
                       "sweep_max_rel_err": {k_: e for k_, e in worst.items()
+                                            if k_.startswith(name)},
+                      "sweep_max_reading": {k_: e for k_, e in
+                                            reading.items()
                                             if k_.startswith(name)}}
+    recs["flash_attention_fwd"]["sass_16bit"] = fwd_sass
 
     # AdamW on one fc_in weight [4096, 16384]: f32 master, bf16 gradient,
     # f32 moments, the bf16 parameter written in the same pass
@@ -1988,29 +2021,49 @@ def _varlen_ids(pattern, b, sq, sk, seed):
                  for r in (rows_q, rows_k))
 
 
-def tile_pairs(ids, q_tile: int, k_tile: int, by_keys: bool) -> int:
+def tile_pairs(ids, q_tile: int, k_tile: int, by_keys: bool,
+               groups: int = 1) -> int:
     """(query, key) pairs a segment kernel computes for one head over the
-    causal self-attention of one row with segment ``ids`` (numpy [T]):
-    the walk of ``csrc/flash_attention.cu``, a block of ``q_tile`` queries
-    over ``k_tile``-key tiles up to its causal limit (``by_keys``: a block
-    of ``k_tile`` keys over ``q_tile``-query tiles from the first that
-    sees them), each tile skipped when its id range and the block's do
-    not overlap."""
+    causal self-attention of one row with segment ``ids`` (numpy [T]): a
+    model of the walks of ``csrc/flash_attention.cu``, not a count on the
+    card.  Each computed tile counts its full size.
+
+    ``by_keys`` False (fwd, dq): a block of ``q_tile`` queries walks the
+    ``k_tile``-key tiles below its causal limit (one past its last
+    query); a tile's id range is taken over its keys below that limit.
+    The block's queries form ``groups`` groups of ``q_tile // groups``
+    rows (the forward's two consumer warpgroups; dq: one), and a group
+    computes a tile when the tile starts at or below the group's last
+    query and the two id ranges overlap.  ``by_keys`` True (dkv): a block
+    of ``k_tile`` keys walks the ``q_tile``-query tiles from the one
+    holding its first key, computing those whose id range overlaps its
+    own."""
     import numpy as np
     t = len(ids)
-
-    def ranges(step):
-        starts = np.arange(0, t, step)
-        return (starts, np.minimum.reduceat(ids, starts),
-                np.maximum.reduceat(ids, starts))
-    qs, qlo, qhi = ranges(q_tile)
-    ks, klo, khi = ranges(k_tile)
-    overlap = ~((qhi[:, None] < klo[None, :]) | (khi[None, :] < qlo[:, None]))
-    if by_keys:     # query tiles from the one holding the block's first key
+    if by_keys:
+        def ranges(step):
+            starts = np.arange(0, t, step)
+            return (starts, np.minimum.reduceat(ids, starts),
+                    np.maximum.reduceat(ids, starts))
+        qs, qlo, qhi = ranges(q_tile)
+        ks, klo, khi = ranges(k_tile)
+        overlap = ~((qhi[:, None] < klo[None, :])
+                    | (khi[None, :] < qlo[:, None]))
         walked = qs[:, None] + q_tile > ks[None, :] - (ks[None, :] % q_tile)
-    else:           # key tiles below the block's last query
-        walked = ks[None, :] < np.minimum(qs + q_tile, t)[:, None]
-    return int((overlap & walked).sum()) * q_tile * k_tile
+        return int((overlap & walked).sum()) * q_tile * k_tile
+    rows = q_tile // groups
+    tiles = 0
+    for q0 in range(0, t, q_tile):
+        kend = min(q0 + q_tile, t)
+        starts = np.arange(0, kend, k_tile)
+        klo = np.minimum.reduceat(ids[:kend], starts)
+        khi = np.maximum.reduceat(ids[:kend], starts)
+        for g0 in range(q0, kend, rows):
+            mine = ids[g0:min(g0 + rows, t)]
+            hit = ((starts < g0 + len(mine))
+                   & ~((khi < mine.min()) | (mine.max() < klo)))
+            tiles += int(hit.sum())
+    return tiles * rows * k_tile
 
 
 def _seen(qs, ks, causal):
@@ -2061,6 +2114,40 @@ def lse_reading(got, want) -> float:
     return ((g32 - w32).abs() / (1e-4 * (1 + w32.abs()))).max().item()
 
 
+# the flash kernels' first tolerance, relative to max(1, max |plain|): f32
+# the summation order; 16-bit types the output cast and the 16-bit P / dS
+# of the second products
+FLASH_REL = {"float32": 1e-5, "bfloat16": 2e-2, "float16": 2e-2}
+
+
+def check_pairs(what, dtype, pairs, lses=(), rows=True):
+    """Raise unless each (kernel, plain) pair agrees: ``FLASH_REL``, then
+    (16-bit ``pairs`` with ``rows``) every element within its own limit
+    (``row_reading``) and every lse within 1e-4 relative
+    (``lse_reading``).  The largest absolute error, relative error and
+    reading."""
+    import torch
+    dname = str(dtype).replace("torch.", "")
+    errs, rels, reads = [], [], [0.0]
+    for got, want in (*pairs, *lses):
+        err = _err(got, want)
+        finite = want[torch.isfinite(want)]
+        scale = max(1.0, finite.abs().max().item() if finite.numel()
+                    else 0.0)
+        if err > FLASH_REL[dname] * scale:
+            raise AssertionError(f"{what}: max_abs_err {err} (scale "
+                                 f"{scale})")
+        errs.append(err)
+        rels.append(err / scale)
+    if rows and dtype != torch.float32:
+        reads += [row_reading(got, want) for got, want in pairs]
+    reads += [lse_reading(got, want) for got, want in lses]
+    if max(reads) > 1.0:
+        raise AssertionError(f"{what}: an element outside its own limit "
+                             f"(reading {max(reads)})")
+    return max(errs), max(rels), max(reads)
+
+
 def phase_varlen(card: str):
     """Phase 7b: the segment-id variant of the three flash kernels.  (a)
     Each against its plain version over a sweep (f32 / bf16 / f16, head_dim
@@ -2090,36 +2177,6 @@ def phase_varlen(card: str):
     g.manual_seed(7)
     names = ("flash_attention_fwd", "flash_attention_bwd_dq",
              "flash_attention_bwd_dkv")
-    # phase 7's tolerances: f32 the summation order; 16-bit types the
-    # output cast and the 16-bit P / dS of the second products, relative
-    # to the largest value of the result
-    rel = {torch.float32: 1e-5, torch.bfloat16: 2e-2, torch.float16: 2e-2}
-
-    def check(what, dtype, pairs, lses=(), rows=True):
-        """Raise unless each (kernel, plain) pair agrees: phase 7's
-        tolerance, then (16-bit ``pairs`` with ``rows``) every element
-        within its own limit (``row_reading``) and every lse within 1e-4
-        relative (``lse_reading``).  The largest absolute error, relative
-        error and reading."""
-        errs, rels, reads = [], [], [0.0]
-        for got, want in (*pairs, *lses):
-            err = _err(got, want)
-            finite = want[torch.isfinite(want)]
-            scale = max(1.0, finite.abs().max().item() if finite.numel()
-                        else 0.0)
-            if err > rel[dtype] * scale:
-                raise AssertionError(f"{what}: max_abs_err {err} (scale "
-                                     f"{scale})")
-            errs.append(err)
-            rels.append(err / scale)
-        if rows and dtype != torch.float32:
-            reads += [row_reading(got, want) for got, want in pairs]
-        reads += [lse_reading(got, want) for got, want in lses]
-        if max(reads) > 1.0:
-            raise AssertionError(f"{what}: an element outside its own limit "
-                                 f"(reading {max(reads)})")
-        return max(errs), max(rels), max(reads)
-
     # (a) the sweep: (B, Sq, Sk, H, KVH)
     shapes = [(1, 200, 200, 4, 4), (2, 264, 264, 32, 8),
               (2, 130, 330, 2, 1), (1, 300, 100, 2, 2)]
@@ -2158,7 +2215,7 @@ def phase_varlen(card: str):
                                 (names[1], ((dq, rdq),), ()),
                                 (names[2], ((dk, rdk), (dv, rdv)), ())):
                             key = f"{name} {dname}"
-                            _, rel_, read = check(
+                            _, rel_, read = check_pairs(
                                 f"{name} (segments) disagrees with its "
                                 f"plain version at {what}", dtype, pairs,
                                 lses)
@@ -2200,8 +2257,9 @@ def phase_varlen(card: str):
     if flash_attn_unpadded.dense_calls != 0:
         raise AssertionError("an aligned causal flash_attn_unpadded call on "
                              "the card took the dense form")
-    route_err = check("flash_attn_unpadded's kernel route disagrees with the "
-                      "dense form", torch.float32, ((got, want),))[1]
+    route_err = check_pairs("flash_attn_unpadded's kernel route disagrees "
+                            "with the dense form", torch.float32,
+                            ((got, want),))[1]
     log(f"[varlen] flash_attn_unpadded kernel route == dense form (T={t}, "
         f"4 packed sequences, f32, causal): max relative err {route_err:.3g}")
 
@@ -2280,9 +2338,10 @@ def phase_varlen(card: str):
     # relative), head group by head group
     errs = {}
     for name, which in zip(names, ("fwd", "dq", "dkv")):
-        per_group = [check(f"{name} (segments) at {shape}, heads "
-                           f"{h0}-{h0 + group - 1}", torch.bfloat16,
-                           *pairs(results[which], plain(which, h0), h0))
+        per_group = [check_pairs(f"{name} (segments) at {shape}, heads "
+                                 f"{h0}-{h0 + group - 1}", torch.bfloat16,
+                                 *pairs(results[which], plain(which, h0),
+                                        h0))
                      for h0 in range(0, h, group)]
         errs[name] = tuple(max(e[i] for e in per_group) for i in range(3))
     # planted faults, on the first head group: the plain version with the
@@ -2338,9 +2397,9 @@ def phase_varlen(card: str):
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask))
     o_lib = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
-    check(f"SDPA with the block-diagonal causal mask at {shape}",
-          torch.bfloat16, ((out.detach()[None].transpose(1, 2), o_lib),),
-          rows=False)
+    check_pairs(f"SDPA with the block-diagonal causal mask at {shape}",
+                torch.bfloat16, ((out.detach()[None].transpose(1, 2), o_lib),),
+                rows=False)
     do_t = do4.transpose(1, 2)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), do_t, retain_graph=True))
@@ -2350,13 +2409,15 @@ def phase_varlen(card: str):
     ids = seg[0].cpu().numpy()
     # a model of each kernel's walk, not counted on the card: the tiles
     # it visits (one segment: the causal walk) and computes (the rest it
-    # skips) with the tile sizes of csrc/flash_attention.cu: fwd 64 x 64
-    # and dq 64 x 32 tiles by query blocks, dkv 32-query tiles by 64-key
-    # blocks
-    tiles = ((64, 64, False), (64, 32, False), (32, 64, True))
+    # skips) with the tile sizes of csrc/flash_attention.cu: fwd 128-key
+    # tiles by 128-query blocks, each of its two consumer groups of 64
+    # rows computing only the tiles its ids overlap (the producer reads
+    # every tile's ids, with no barrier, and loads only those); dq 64 x 32
+    # tiles by query blocks; dkv 32-query tiles by 64-key blocks
+    tiles = ((128, 128, False, 2), (64, 32, False, 1), (32, 64, True, 1))
     work = {name: tile_pairs(ids, *tile) for name, tile in zip(names, tiles)}
-    visits = {name: tile_pairs(np.zeros_like(ids), *tile) // (tile[0] *
-                                                              tile[1])
+    visits = {name: tile_pairs(np.zeros_like(ids), *tile[:3]) // (tile[0] *
+                                                                  tile[1])
               for name, tile in zip(names, tiles)}
     bounds = flash_bounds(1, t, t, h, h, d, True, 2, pairs=visible,
                           ids_bytes=2 * t * 4)
@@ -2587,7 +2648,8 @@ def profile_train(step, ids, labels, card: str, family: str) -> dict:
     # kernel time by kind: cuBLAS GEMMs, the port's flash and AdamW
     # kernels, and everything else (eager elementwise, reductions, copies)
     kinds = {"gemm": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
-             "flash": ("fwd_mma_kernel", "dq_mma_kernel", "dkv_mma_kernel"),
+             "flash": ("fwd_wgmma_kernel", "dq_mma_kernel",
+                       "dkv_mma_kernel"),
              "adamw": ("adamw_kernel",),
              "norm": ("rms_fwd_kernel", "ln_fwd_kernel", "norm_bwd_kernel",
                       "column_sum_kernel")}

@@ -26,37 +26,48 @@
 // What bounds it on an H100: at the train shape ([2, 2048, 32, 128] bf16,
 // causal) each kernel does ~70-140 GFLOP of matrix products over ~50 MB of
 // operands, far above the ~295 flop/byte the card needs to be
-// compute-bound: operations bound it (989 TFLOP/s bf16 on the tensor
-// cores).  With segment ids the work is the visible pairs only, so the
-// kernels skip every tile whose q-id range [min, max] and k-id range do not
-// overlap (disjoint ranges hold no equal pair, for any ids, monotone or
-// not; a skipped tile would have added p = 0 with alpha = 1, so the result
-// is bit-identical).  The ranges come from the ids the block stages, one
-// warp reducing them, before the tile's K/V (or Q/dO) rows are loaded;
-// that warp reads the next tile's ids while this tile is computed, so
-// their memory latency is not paid once more per tile.  The segment
-// variant is a template flag, and its fields sit at the end of the kernel
-// parameters: the code without it is the same.
+// compute-bound: operations bound them (989 TFLOP/s bf16 on the tensor
+// cores, reached only through wgmma).  With segment ids the work is the
+// visible pairs only, so the kernels skip every tile whose q-id range
+// [min, max] and k-id range do not overlap (disjoint ranges hold no equal
+// pair, for any ids, monotone or not; a skipped tile would have added p = 0
+// with alpha = 1, so the result is bit-identical).  The segment variant is
+// a template flag, and its fields sit at the end of the kernel parameters:
+// the code without it is the same.  The sequential grid axis of the TPU
+// kernels (the carried m/l/acc scratch) becomes a loop inside one block;
+// blocks share nothing.  Causal query tiles are issued longest first.
 //
-// What the design does about that: the products run on the tensor cores
-// (mma.sync m16n8k16, f32 accumulation, the FlashAttention-2 register
-// layout: a warp owns 16 rows, its score tile lives in registers and is
-// re-packed in place as the A operand of the next product).  The sequential
-// grid axis of the TPU kernels (the carried m/l/acc scratch) becomes a loop
-// inside one block; blocks share nothing:
-//   * fwd: a block owns 64 queries of one (batch, head) and walks 64-key
-//     tiles up to the causal limit, staging each K/V tile once in shared
-//     memory for its 4 warps; online softmax in f32.
-//   * dq: the same walk with 32-key tiles; p = exp(s - lse) is recomputed,
-//     ds = p (dO V^T - delta), dq += ds K.
+// The 16-bit forward (fwd_wgmma_kernel) is built for Hopper (hopper.cuh):
+// a block of 384 threads owns 128 queries; a producer warp issues TMA
+// copies of Q once and of each 128-key K/V tile into a 2-stage ring of
+// 128-byte-swizzled shared memory, tracked by mbarriers, while two
+// consumer warpgroups (64 rows each, registers moved to them with
+// setmaxnreg) compute S = Q K^T and O += P V with wgmma (P from
+// registers), the online softmax in f32 registers with exp2 and log2(e)
+// folded into the scale, and a per-element mask only on tiles that cross
+// the causal diagonal, the Sk edge or a segment boundary.  With segment
+// ids the producer reads each tile's ids, with no block barrier, and
+// loads only the tiles whose range meets a consumer group's, handing the
+// ids over in the stage; a group computes only the tiles its own rows can
+// see.  One block an SM (160 KB of shared memory at D = 128).
+//
+// The backward and the float32 kernels use the earlier design: the
+// products on the tensor cores through mma.sync m16n8k16 (f32
+// accumulation, the FlashAttention-2 register layout: a warp owns 16 rows,
+// its score tile lives in registers and is re-packed in place as the A
+// operand of the next product), K/V (or Q/dO) tiles staged through
+// registers into padded shared memory, 4 warps a block:
+//   * dq: a block owns 64 queries and walks 32-key tiles; p = exp(s - lse)
+//     is recomputed, ds = p (dO V^T - delta), dq += ds K.
 //   * dkv: a block owns 64 keys of one (batch, kv head) and walks 32-query
 //     tiles from the first query that sees them, over every query head of
 //     its group: dv += p^T dO, dk += ds^T Q, with s^T = K Q^T computed
 //     transposed so both sums accumulate in registers.
-// P and dS are rounded to the input type for their second product, as
-// FlashAttention-2 does.  float32 inputs take plain FMA tiles (16 queries
-// or 32 keys per block).  Causal query tiles are issued longest first.
-// Later work: wgmma and TMA loads, ldmatrix fragments, larger tiles.
+// With segment ids one warp stages each tile's ids a tile ahead and the
+// block reads their ranges after a barrier.  P and dS are rounded to the
+// input type for their second product, as FlashAttention-2 does.  float32
+// inputs take plain FMA tiles (16 queries or 32 keys per block).
+// Later work: the backward on wgmma and TMA (hopper.cuh's building blocks).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -66,18 +77,14 @@
 #include <climits>
 #include <cstdint>
 
+#include "hopper.cuh"
+
 namespace {
 
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
 constexpr int kPad = 8;  // 16-bit row pad: conflict-free fragment reads
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__half x) { return __half2float(x); }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
@@ -162,6 +169,13 @@ __device__ __forceinline__ void mma16816<__half>(
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 2^x on the special-function unit (2 ulp; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 struct Params {
@@ -262,9 +276,12 @@ __device__ __forceinline__ void stage_ids(int* dst, int* rng, const int* ids,
   t.put(dst, rng);
 }
 
-// two id ranges [a0, a1], [b0, b1] hold no equal pair
+// two id ranges [alo, ahi], [blo, bhi] hold no equal pair
+__device__ __forceinline__ bool apart(int alo, int ahi, int blo, int bhi) {
+  return ahi < blo || bhi < alo;
+}
 __device__ __forceinline__ bool disjoint(const int* a, const int* b) {
-  return a[1] < b[0] || b[1] < a[0];
+  return apart(a[0], a[1], b[0], b[1]);
 }
 
 __device__ __forceinline__ long long row_stat(const Params& p, int b, int h,
@@ -288,130 +305,377 @@ __device__ __forceinline__ void stage_rows(T (*dst)[LD], const T* base,
   }
 }
 
-// ------------------------------------------------- forward, tensor cores
-template <typename T, int D, bool Seg>
-__global__ void __launch_bounds__(kThreads) fwd_mma_kernel(const Params p) {
-  constexpr int BQ = 16 * kWarps, BK = 64;
-  constexpr int KS = D / 16, NS = BK / 8, NO = D / 8, LD = D + kPad;
-  __shared__ __align__(16) T k_s[BK][LD];
-  __shared__ __align__(16) T v_s[BK][LD];
-  // segment ids of the block's queries and the tile's keys; q, k ranges
-  __shared__ int qid_s[Seg ? BQ : 1], kid_s[Seg ? BK : 1], rng_s[4];
+// ------------------------------------------------- forward, Hopper wgmma
+// One block owns 128 queries of one (batch, head): 384 threads, three
+// warpgroups.  Warpgroup 0 is the producer: its first warp loads Q once
+// and walks the key tiles, one elected lane issuing the TMA copies of each
+// [128, D] K and V tile into a ring of kFwdStages stages; the group gives
+// up registers.  Warpgroups 1 and 2 are the consumers, 64 query rows each:
+// S = Q K^T on wgmma from shared memory, the online softmax in registers,
+// O += P V on wgmma with P from registers.  Each stage has a "full"
+// barrier for K and one for V (the copies complete them) and an "empty"
+// barrier (each consumer warp arrives once it is done with the stage).
+constexpr int kFwdBQ = 128;      // queries per block
+constexpr int kFwdBK = 128;      // keys per tile
+constexpr int kFwdStages = 2;    // K/V ring
+constexpr int kFwdThreads = 384;
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+constexpr int kConsumerWarps = 8;
+constexpr uint32_t kBox = 128 * 128;  // one box: 128 rows x 128 bytes
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
+// The forward's kernel parameters (the backward's Params are unchanged).
+struct FwdParams {
+  CUtensorMap q_map, k_map, v_map;  // (D, heads, S, B), boxes 64 x 1 x 128 x 1
+  void* out;                        // [B, SQ, H, D]
+  float* lse;                       // [B, H, SQ]
+  const int* q_seg;                 // [B, SQ] int32 (Seg only)
+  const int* k_seg;                 // [B, SK] int32
+  int B, H, KVH, SQ, SK;
+  float scale_log2;                 // scale * log2(e)
+  int causal;
+};
+
+// the block's barriers and, with segment ids, what the producer hands the
+// consumers: each stage's key tile (-1: the walk ended), its id range and,
+// where the tile is not one segment with the block's queries, its ids
+template <int S>
+struct FwdShared {
+  uint64_t q_full, k_full[S], v_full[S], empty[S];
+  int tile[S], klo[S], khi[S];
+  int qlo[2], qhi[2];  // each consumer warpgroup's query-id range
+  int qid[kFwdBQ];
+  int kid[S][kFwdBK];
+};
+
+// Q and the K/V ring, 1024-byte aligned, then the barriers.  One block
+// an SM: ptxas gives the 384 threads 168 registers each at launch.
+template <int D>
+constexpr size_t fwd_smem() {
+  return 1024 + (1 + 2 * kFwdStages) * (D / 64) * kBox +
+         sizeof(FwdShared<kFwdStages>);
+}
+
+template <typename T, int D, bool Seg>
+__global__ void __launch_bounds__(kFwdThreads, 1)
+    fwd_wgmma_kernel(const __grid_constant__ FwdParams p) {
+  constexpr int BQ = kFwdBQ, BK = kFwdBK, S = kFwdStages;
+  constexpr uint32_t kTile = (D / 64) * kBox;  // one [128, D] tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = smem;
+  unsigned char* k_s = q_s + kTile;  // stage st at + st * kTile
+  unsigned char* v_s = k_s + S * kTile;
+  FwdShared<S>& sh = *reinterpret_cast<FwdShared<S>*>(v_s + S * kTile);
+
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int kvh = h / (p.H / p.KVH);
   const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
-  const int kend = key_end(p, min(q0 + BQ, p.SQ) - 1);
-  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const int off = p.SK - p.SQ;
+  const int q_last = min(q0 + BQ, p.SQ) - 1;
+  const int kend = p.causal ? max(0, min(p.SK, q_last + off + 1)) : p.SK;
+  const int n_tiles = (kend + BK - 1) / BK;
 
-  // this lane's query rows: t0 = g and t1 = g + 8 of the warp's 16
-  const int t0 = q0 + warp * 16 + g, t1 = t0 + 8;
-  uint32_t qa[KS][4];
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sh.q_full, 1);
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int c = kk * 16 + 2 * tq;
-    qa[kk][0] = t0 < p.SQ ? u32(qp + t0 * p.q_ss + c) : 0u;
-    qa[kk][1] = t1 < p.SQ ? u32(qp + t1 * p.q_ss + c) : 0u;
-    qa[kk][2] = t0 < p.SQ ? u32(qp + t0 * p.q_ss + c + 8) : 0u;
-    qa[kk][3] = t1 < p.SQ ? u32(qp + t1 * p.q_ss + c + 8) : 0u;
+    for (int st = 0; st < S; ++st) {
+      hopper::mbar_init(&sh.k_full[st], 1);
+      hopper::mbar_init(&sh.v_full[st], 1);
+      hopper::mbar_init(&sh.empty[st], kConsumerWarps);
+    }
+    hopper::fence_barrier_init();
   }
-  float o[NO][4];
-#pragma unroll
-  for (int n = 0; n < NO; ++n) o[n][0] = o[n][1] = o[n][2] = o[n][3] = 0.f;
-  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
-  int qs0 = 0, qs1 = 0;
-  if constexpr (Seg) {
-    stage_ids<BQ>(qid_s, rng_s, p.q_seg + (long long)b * p.SQ, q0, p.SQ);
-    __syncthreads();
-    qs0 = qid_s[warp * 16 + g];
-    qs1 = qid_s[warp * 16 + g + 8];
-  }
+  __syncthreads();
 
-  const int* kseg = Seg ? p.k_seg + (long long)b * p.SK : nullptr;
-  IdTile<Seg ? BK : 1> kids;
-  if constexpr (Seg) kids.load(kseg, 0, kend);
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed
+  if (threadIdx.x < 128) {
+    // ---------------------------------------------------------- producer
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x >= 32) return;
+    const int lane = threadIdx.x;
+    int qlo = 0, qhi = 0;  // the block's query-id range
+    int wlo[2] = {0, 0}, whi[2] = {0, 0};
     if constexpr (Seg) {
-      kids.put(kid_s, rng_s + 2);
-      kids.load(kseg, k0 + BK, kend);  // the next tile's
-      __syncthreads();
-      if (disjoint(rng_s, rng_s + 2)) continue;  // no pair is visible
+      // lane l holds rows l + 32 e: e 0-1 are warpgroup 1's, 2-3 group 2's
+      const int* qseg = p.q_seg + (long long)b * p.SQ;
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+        for (int e = 2 * w; e < 2 * w + 2; ++e) {
+          const int t = q0 + lane + 32 * e;
+          const int id = t < p.SQ ? qseg[t] : INT_MIN;
+          sh.qid[lane + 32 * e] = id;
+          if (t < p.SQ) {
+            lo = min(lo, id);
+            hi = max(hi, id);
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          lo = min(lo, __shfl_xor_sync(kFull, lo, o));
+          hi = max(hi, __shfl_xor_sync(kFull, hi, o));
+        }
+        wlo[w] = lo;
+        whi[w] = hi;
+      }
+      qlo = min(wlo[0], wlo[1]);
+      qhi = max(whi[0], whi[1]);
+      if (lane == 0) {
+        sh.qlo[0] = wlo[0];
+        sh.qhi[0] = whi[0];
+        sh.qlo[1] = wlo[1];
+        sh.qhi[1] = whi[1];
+      }
+      __syncwarp();
     }
-    stage_rows<T, D, LD>(k_s, kp, p.k_ss, k0, BK, kend);
-    stage_rows<T, D, LD>(v_s, vp, p.v_ss, k0, BK, kend);
-    __syncthreads();
-
-    float s[NS][4];
+    if (lane == 0) {
+      hopper::prefetch_tensor_map(&p.k_map);
+      hopper::prefetch_tensor_map(&p.v_map);
+      hopper::mbar_arrive_expect_tx(&sh.q_full, kTile);
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      for (int c = 0; c < D / 64; ++c)
+        hopper::tma_load_4d(q_s + c * kBox, &p.q_map, &sh.q_full, c * 64, h,
+                            q0, b);
+    }
+    // the copies of key tile j into stage `issued % S`
+    int issued = 0;
+    auto load_kv = [&](int j) {
+      const int st = issued % S;
+      if (lane == 0) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const T* kr = &k_s[n * 8 + g][kk * 16 + 2 * tq];
-        mma16816<T>(s[n], qa[kk], u32(kr), u32(kr + 8));
+        for (int c = 0; c < D / 64; ++c) {
+          if (c == 0) hopper::mbar_arrive_expect_tx(&sh.k_full[st], kTile);
+          hopper::tma_load_4d(k_s + st * kTile + c * kBox, &p.k_map,
+                              &sh.k_full[st], c * 64, kvh, j * BK, b);
+        }
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          if (c == 0) hopper::mbar_arrive_expect_tx(&sh.v_full[st], kTile);
+          hopper::tma_load_4d(v_s + st * kTile + c * kBox, &p.v_map,
+                              &sh.v_full[st], c * 64, kvh, j * BK, b);
+        }
+      }
+      ++issued;
+    };
+    if constexpr (!Seg) {
+      for (int j = 0; j < n_tiles; ++j) {
+        if (lane == 0)
+          hopper::mbar_wait(&sh.empty[issued % S], ((issued / S) & 1) ^ 1);
+        load_kv(j);
+      }
+    } else {
+      // Each tile's key ids [min, max] over the keys below kend, 8 tiles
+      // a pass (their 32 loads in flight together); a tile is loaded only
+      // where its range meets a consumer group's query range.
+      const int* kseg = p.k_seg + (long long)b * p.SK;
+      for (int j0 = 0; j0 < n_tiles; j0 += 8) {
+        int lo[8], hi[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          lo[u] = INT_MAX;
+          hi[u] = INT_MIN;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = (j0 + u) * BK + lane + 32 * e;
+            if (key < kend) {
+              const int id = kseg[key];
+              lo[u] = min(lo[u], id);
+              hi[u] = max(hi[u], id);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            lo[u] = min(lo[u], __shfl_xor_sync(kFull, lo[u], o));
+            hi[u] = max(hi[u], __shfl_xor_sync(kFull, hi[u], o));
+          }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = j0 + u;
+          if (j >= n_tiles || (apart(lo[u], hi[u], wlo[0], whi[0]) &&
+                               apart(lo[u], hi[u], wlo[1], whi[1])))
+            continue;
+          const int st = issued % S;
+          hopper::mbar_wait(&sh.empty[st], ((issued / S) & 1) ^ 1);
+          if (!(lo[u] == hi[u] && qlo == qhi && lo[u] == qlo)) {
+            // not one segment with the block's queries: hand over the ids
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int key = j * BK + lane + 32 * e;
+              sh.kid[st][lane + 32 * e] = key < kend ? kseg[key] : INT_MIN;
+            }
+          }
+          if (lane == 0) {
+            sh.tile[st] = j;
+            sh.klo[st] = lo[u];
+            sh.khi[st] = hi[u];
+          }
+          __syncwarp();
+          load_kv(j);
+        }
+      }
+      // the end of the walk: a stage with no copy and tile -1
+      const int st = issued % S;
+      hopper::mbar_wait(&sh.empty[st], ((issued / S) & 1) ^ 1);
+      if (lane == 0) {
+        sh.tile[st] = -1;
+        hopper::mbar_arrive(&sh.k_full[st]);
       }
     }
-    float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = k0 + n * 8 + 2 * tq + (c & 1);
-        const int ks = Seg ? kid_s[key - k0] : 0;
-        s[n][c] = visible<Seg>(p, c < 2 ? t0 : t1, key, c < 2 ? qs0 : qs1, ks)
-                      ? s[n][c] * p.scale
-                      : -INFINITY;
-        mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
-      }
-    float m_safe[2], alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-      const float m_next = fmaxf(m[r], mx[r]);
-      // a row that has seen no key keeps m = -inf: subtract 0 instead
-      m_safe[r] = m_next == -INFINITY ? 0.f : m_next;
-      alpha[r] = expf(m[r] - m_safe[r]);
-      l[r] *= alpha[r];
-      m[r] = m_next;
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[n][c] = expf(s[n][c] - m_safe[c >> 1]);
-        l[c >> 1] += s[n][c];
-      }
-    // O += P V; P's A fragments are S n-tiles 2j and 2j + 1
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t pa[4] = {
-          pack_floats<T>(s[2 * j][0], s[2 * j][1]),
-          pack_floats<T>(s[2 * j][2], s[2 * j][3]),
-          pack_floats<T>(s[2 * j + 1][0], s[2 * j + 1][1]),
-          pack_floats<T>(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const int kr = j * 16 + 2 * tq;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const int d = n * 8 + g;
-        mma16816<T>(o[n], pa, pack_elems<T>(v_s[kr][d], v_s[kr + 1][d]),
-                    pack_elems<T>(v_s[kr + 8][d], v_s[kr + 9][d]));
-      }
-    }
+    return;
   }
+
+  // ------------------------------------------------------------ consumers
+  hopper::regs_inc<kConsumerRegs>();
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup, 0 or 1
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int w0 = q0 + cw * 64;  // the group's first query row
+  const int t0 = w0 + warp * 16 + g, t1 = t0 + 8;
+  const float c = p.scale_log2;
+
+  const uint32_t q_addr = hopper::smem_u32(q_s) + cw * 64 * 128;
+  const uint32_t k_addr = hopper::smem_u32(k_s);
+  const uint32_t v_addr = hopper::smem_u32(v_s);
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
+
+  // The groups take turns at issuing S = Q K^T (FlashAttention-3's
+  // ping-pong): group cw waits at barrier 1 + cw for the other to have
+  // issued its own, so one group's softmax runs beside the other's
+  // products.  Both groups take a turn at every tile they visit, computed
+  // or not; group 0 goes first.
+  constexpr int kTurn = 1, kPair = 256;
+  if (cw == 1) hopper::named_arrive(kTurn, kPair);
+  hopper::mbar_wait(&sh.q_full, 0);
+  int qs0 = 0, qs1 = 0, wqlo = 0, wqhi = 0;
+  if constexpr (Seg) {
+    qs0 = sh.qid[t0 - q0];
+    qs1 = sh.qid[t1 - q0];
+    wqlo = sh.qlo[cw];
+    wqhi = sh.qhi[cw];
+  }
+
+  for (int i = 0;; ++i) {
+    const int st = i % S;
+    const uint32_t ph = (i / S) & 1;
+    int j = i, klo = 0, khi = 0;
+    if constexpr (Seg) {
+      hopper::mbar_wait(&sh.k_full[st], ph);
+      j = sh.tile[st];
+      if (j < 0) break;
+      klo = sh.klo[st];
+      khi = sh.khi[st];
+    } else {
+      if (i >= n_tiles) break;
+      hopper::mbar_wait(&sh.k_full[st], ph);
+    }
+    const int k0 = j * BK;
+    // nothing of this tile is visible to the group's rows
+    const bool skip = w0 >= p.SQ || (p.causal && k0 > w0 + 63 + off) ||
+                      (Seg && apart(klo, khi, wqlo, wqhi));
+    hopper::named_sync(kTurn + cw, kPair);
+    if (skip) hopper::named_arrive(kTurn + 1 - cw, kPair);
+    if (!skip) {
+      float s[BK / 2];
+      const uint32_t kt = k_addr + st * kTile;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<T, BK>(
+            s, hopper::desc_k(q_addr + (kk / 4) * kBox + (kk % 4) * 32),
+            hopper::desc_k(kt + (kk / 4) * kBox + (kk % 4) * 32), kk > 0);
+      hopper::wgmma_commit();
+      hopper::named_arrive(kTurn + 1 - cw, kPair);
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(s);
+
+      // a per-element test only where the tile crosses the causal
+      // diagonal of the group's rows, the Sk edge or a segment boundary
+      const bool uniform = !Seg || (klo == khi && wqlo == wqhi && klo == wqlo);
+      if (k0 + BK > p.SK || (p.causal && k0 + BK - 1 > w0 + off) ||
+          !uniform) {
+#pragma unroll
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kc = n * 8 + 2 * tq + (e & 1), key = k0 + kc;
+            const int t = e < 2 ? t0 : t1;
+            bool vis = key < p.SK && (!p.causal || key <= t + off);
+            if constexpr (Seg)
+              vis = vis && (uniform || sh.kid[st][kc] == (e < 2 ? qs0 : qs1));
+            if (!vis) s[4 * n + e] = -INFINITY;
+          }
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * n], s[4 * n + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * n + 2], s[4 * n + 3]));
+      }
+      float m_safe[2], alpha[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        // m and the exponents in log2 units: s * scale * log2(e)
+        const float m_next = fmaxf(m[r], mx[r] * c);
+        // a row that has seen no key keeps m = -inf: subtract 0 instead
+        m_safe[r] = m_next == -INFINITY ? 0.f : m_next;
+        alpha[r] = fast_exp2(m[r] - m_safe[r]);
+        l[r] *= alpha[r];
+        m[r] = m_next;
+      }
+#pragma unroll
+      for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = fast_exp2(fmaf(s[4 * n + e], c, -m_safe[e >> 1]));
+          s[4 * n + e] = x;
+          l[e >> 1] += x;
+        }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[4 * n] *= alpha[0];
+        o[4 * n + 1] *= alpha[0];
+        o[4 * n + 2] *= alpha[1];
+        o[4 * n + 3] *= alpha[1];
+      }
+      // P's A fragment for keys 16 kk .. 16 kk + 15: S column groups 2 kk
+      // and 2 kk + 1
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_floats<T>(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_floats<T>(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_floats<T>(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_floats<T>(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+      hopper::mbar_wait(&sh.v_full[st], ph);
+      const uint32_t vt = v_addr + st * kTile;
+      hopper::fence_operand(o);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hopper::wgmma_rs<T, D>(o, pa[kk],
+                               hopper::desc_mn(vt + kk * 16 * 128, kBox), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(o);
+    } else {
+      // the stage is released only once its copies have landed
+      hopper::mbar_wait(&sh.v_full[st], ph);
+    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sh.empty[st]);
+  }
+  if (cw == 0) hopper::named_sync(kTurn, kPair);  // group 1's last turn
 
   T* op = static_cast<T*>(p.out);
 #pragma unroll
@@ -423,12 +687,13 @@ __global__ void __launch_bounds__(kThreads) fwd_mma_kernel(const Params p) {
       const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
       T* row = op + (((long long)b * p.SQ + t) * p.H + h) * D;
 #pragma unroll
-      for (int n = 0; n < NO; ++n)
+      for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * tq) =
-            pack_floats<T>(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+            pack_floats<T>(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
       if (tq == 0)
-        p.lse_out[row_stat(p, b, h, t)] =
-            l[r] == 0.f ? -INFINITY : m[r] + logf(l[r]);
+        p.lse[((long long)b * p.H + h) * p.SQ + t] =
+            l[r] == 0.f ? -INFINITY
+                        : m[r] * 0.69314718055994531f + logf(l[r]);
     }
   }
 }
@@ -1174,7 +1439,7 @@ cudaError_t launch_d(Which which, const Params& p, cudaStream_t s) {
   const dim3 by_q(p.B * p.H, (p.SQ + 16 * kWarps - 1) / (16 * kWarps));
   if constexpr (sizeof(T) == 2) {
     switch (which) {
-      case kFwd: return launch(fwd_mma_kernel<T, D, Seg>, by_q, 0, s, p);
+      case kFwd: break;  // fwd_wgmma_kernel: run_fwd16
       case kDq: return launch(dq_mma_kernel<T, D, Seg>, by_q, 0, s, p);
       case kDkv:
         return launch(dkv_mma_kernel<T, D, Seg>,
@@ -1261,12 +1526,108 @@ Params make_params(const void* q, const void* k, const void* v,
   return p;
 }
 
+// ------------------------------------------------- forward launches (16-bit)
+// 2000 + the CUresult of a tensor map the driver refuses (the wrapper names
+// TMA in its error)
+constexpr int kTmaRefused = 2000;
+
+template <typename T, int D, bool Seg>
+cudaError_t launch_fwd(const FwdParams& fp, cudaStream_t s) {
+  auto kernel = fwd_wgmma_kernel<T, D, Seg>;
+  constexpr size_t smem = fwd_smem<D>();
+  static const cudaError_t attr = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(fp.B * fp.H, (fp.SQ + kFwdBQ - 1) / kFwdBQ);
+  kernel<<<grid, dim3(kFwdThreads), smem, s>>>(fp);
+  return cudaGetLastError();
+}
+
+template <typename T, bool Seg>
+cudaError_t launch_fwd_t(const FwdParams& fp, int head_dim, cudaStream_t s) {
+  switch (head_dim) {
+    case 64: return launch_fwd<T, 64, Seg>(fp, s);
+    case 128: return launch_fwd<T, 128, Seg>(fp, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// The map of one [B, S, heads, D] operand as (D, heads, S, B), element
+// strides (sh, ss, sb); boxes of 64 columns x 1 head x 128 rows x 1 batch.
+// A dim of size one is never stepped over: it gets the packed stride.
+CUresult operand_map(CUtensorMap* map, CUtensorMapDataType type,
+                     const void* base, int d, int heads, int seq, int batch,
+                     long long sh, long long ss, long long sb) {
+  const long long es = 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  cuuint64_t strides[3] = {(cuuint64_t)(sh * es), (cuuint64_t)(ss * es),
+                           (cuuint64_t)(sb * es)};
+  if (heads == 1) strides[0] = d * es;
+  if (seq == 1) strides[1] = strides[0] * heads;
+  if (batch == 1) strides[2] = strides[1] * seq;
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kFwdBQ, 1};
+  return hopper::encode_tensor_map(map, type, 4, base, dims, strides, box);
+}
+
+int run_fwd16(const void* q, const void* k, const void* v, void* out,
+              float* lse, const int* q_seg, const int* k_seg, int dtype,
+              int B, int SQ, int SK, int H, int KVH, int D, long long q_sb,
+              long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+              long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+              float scale, int causal, cudaStream_t s) {
+  if (B <= 0 || H <= 0 || SQ <= 0) return cudaSuccess;
+  if (KVH <= 0 || H % KVH != 0 || (q_seg == nullptr) != (k_seg == nullptr))
+    return cudaErrorInvalidValue;
+  if (D != 64 && D != 128) return cudaErrorInvalidValue;
+  static_assert(kFwdBK == kFwdBQ, "one box shape serves q, k and v");
+  FwdParams fp = {};
+  const CUtensorMapDataType type = dtype == 2
+                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  CUresult r = operand_map(&fp.q_map, type, q, D, H, SQ, B, q_sh, q_ss, q_sb);
+  // with no keys nothing is loaded: q's map stands in for k's and v's
+  if (r == CUDA_SUCCESS)
+    r = SK > 0 ? operand_map(&fp.k_map, type, k, D, KVH, SK, B, k_sh, k_ss,
+                             k_sb)
+               : operand_map(&fp.k_map, type, q, D, H, SQ, B, q_sh, q_ss,
+                             q_sb);
+  if (r == CUDA_SUCCESS)
+    r = SK > 0 ? operand_map(&fp.v_map, type, v, D, KVH, SK, B, v_sh, v_ss,
+                             v_sb)
+               : operand_map(&fp.v_map, type, q, D, H, SQ, B, q_sh, q_ss,
+                             q_sb);
+  if (r != CUDA_SUCCESS) return kTmaRefused + (int)r;
+  fp.out = out;
+  fp.lse = lse;
+  fp.q_seg = q_seg;
+  fp.k_seg = k_seg;
+  fp.B = B;
+  fp.H = H;
+  fp.KVH = KVH;
+  fp.SQ = SQ;
+  fp.SK = SK;
+  fp.scale_log2 = scale * 1.4426950408889634f;
+  fp.causal = causal;
+  const bool seg = q_seg != nullptr;
+  switch (dtype) {
+    case 1:
+      return seg ? launch_fwd_t<__half, true>(fp, D, s)
+                 : launch_fwd_t<__half, false>(fp, D, s);
+    case 2:
+      return seg ? launch_fwd_t<__nv_bfloat16, true>(fp, D, s)
+                 : launch_fwd_t<__nv_bfloat16, false>(fp, D, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 float16, 2 bfloat16.  q_seg / k_seg: contiguous
 // [B, Sq] / [B, Sk] int32 segment ids, or both null (no segments).  Each
-// entry returns the cudaError_t of its launch (0 on success); the Python
-// wrapper raises on anything else.
+// entry returns the cudaError_t of its launch (0 on success), or for the
+// 16-bit forward 2000 + the CUresult of a tensor map the driver refuses;
+// the Python wrapper raises on anything else.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
     const int* q_seg, const int* k_seg, int dtype, int batch, int sq, int sk,
@@ -1274,6 +1635,11 @@ extern "C" int flash_attention_fwd(
     long long q_sh, long long k_sb, long long k_ss, long long k_sh,
     long long v_sb, long long v_ss, long long v_sh, float scale, int causal,
     void* stream) {
+  if (dtype == 1 || dtype == 2)
+    return run_fwd16(q, k, v, out, lse, q_seg, k_seg, dtype, batch, sq, sk,
+                     heads, kv_heads, head_dim, q_sb, q_ss, q_sh, k_sb, k_ss,
+                     k_sh, v_sb, v_ss, v_sh, scale, causal,
+                     static_cast<cudaStream_t>(stream));
   Params p = make_params(q, k, v, q_seg, k_seg, batch, sq, sk, heads,
                          kv_heads, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb,
                          v_ss, v_sh, scale, causal);

@@ -52,6 +52,8 @@ __all__ = ["flash_attention", "flash_attention_varlen",
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (64, 128)
+# the 16-bit forward returns this + a CUresult when a tensor map is refused
+_TMA_REFUSED = 2000
 
 
 def _check(q, k, v):
@@ -220,6 +222,21 @@ def _check_cuda(name, tensors):
                              f"boundaries (data pointer and strides)")
 
 
+def _check_tma(name, tensors):
+    """Raise on a layout the 16-bit forward's TMA copies cannot address:
+    every dim of more than one row needs a positive byte stride below
+    2**40 (the 16-byte alignment is ``_check_cuda``'s)."""
+    for tname, t in tensors:
+        es = t.element_size()
+        for dim in range(3):
+            st = t.stride(dim)
+            if t.shape[dim] > 1 and not 0 < st * es < 2 ** 40:
+                raise ValueError(
+                    f"{name}: {tname}'s stride {st} in dim {dim} cannot be "
+                    f"read by TMA (it needs a positive byte stride below "
+                    f"2**40 for every dim of more than one row)")
+
+
 def _stats(name, t, shape, dev):
     if t.dtype != torch.float32 or tuple(t.shape) != shape:
         raise ValueError(f"{name} must be float32 {list(shape)}, got "
@@ -239,6 +256,10 @@ def _run(fn_name, dev, args):
     fn = getattr(load("flash_attention"), fn_name)
     with torch.cuda.device(dev):
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    if rc >= _TMA_REFUSED:
+        raise ValueError(f"{fn_name}: the driver refuses a TMA tensor map "
+                         f"of q/k/v (cuTensorMapEncodeTiled returned "
+                         f"CUresult {rc - _TMA_REFUSED})")
     if rc != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed with CUDA "
                            f"error {rc}")
@@ -252,14 +273,17 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """``(out [B, Sq, H, D], lse [B, H, Sq] f32)``: the CUDA kernel for
     CUDA tensors (raises on what it does not take: mixed devices or
     dtypes, a head_dim other than 64/128, rows not on 16-byte
-    boundaries, segment ids that are not contiguous int32 ``[B, Sq]`` /
-    ``[B, Sk]`` on q's device), the plain version for CPU tensors."""
+    boundaries, a 16-bit layout TMA cannot address, segment ids that are
+    not contiguous int32 ``[B, Sq]`` / ``[B, Sk]`` on q's device), the
+    plain version for CPU tensors."""
     _check(q, k, v)
     _segments(q, k, q_segments, k_segments)
     if q.device.type != "cuda":
         return flash_attention_fwd_reference(q, k, v, scale, causal,
                                              q_segments, k_segments)
     _check_cuda("flash_attention_fwd", [("q", q), ("k", k), ("v", v)])
+    if q.dtype != torch.float32:
+        _check_tma("flash_attention_fwd", [("q", q), ("k", k), ("v", v)])
     b, sq, sk, h, kh, d = _dims(q, k)
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)

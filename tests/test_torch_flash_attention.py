@@ -168,36 +168,62 @@ def test_sdpa_refuses_mask_and_training_dropout():
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
     """On a card: each of the three kernels against its plain version,
-    causal, Sq = Sk and Sq > Sk, GQA.  Max abs error over max(1, max
-    |plain|): f32 1e-5 (summation order), bf16 2e-2 (the output cast and
-    the 16-bit P and dS of the second products)."""
+    causal and not, f32 / bf16 / f16, head_dim 64 and 128, at the
+    forward's 128-row tile edges (Sq = Sk of 127, 128, 129 and 257), Sq <
+    Sk and Sq > Sk (rows that see no key when causal: out 0, lse -inf),
+    GQA with 2 and 4 query heads a kv head, and q/k/v as strided views of
+    one fused QKV tensor.  Max abs error over max(1, max |plain|): f32
+    1e-5 (summation order), 16-bit 2e-2 (the output cast and the 16-bit P
+    and dS of the second products); 16-bit elements each within 2 ulps of
+    itself + 2 ulps of its row's largest + 1e-4, lse within 1e-4 relative
+    (``chip_smoke.check_pairs``)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
+    import chip_smoke
     from paddle_tpu_torch.kernels.flash_attention import (
         flash_attention_bwd_dkv_reference, flash_attention_bwd_dq_reference,
         flash_attention_fwd_reference)
     rs = np.random.RandomState(0)
-    for dtype, rel in ((torch.float32, 1e-5), (torch.bfloat16, 2e-2)):
-        for sq, sk in ((128, 128), (192, 64)):
-            q, g = (torch.as_tensor(rs.randn(2, sq, 4, 128)).to("cuda", dtype)
-                    for _ in range(2))
-            k, v = (torch.as_tensor(rs.randn(2, sk, 2, 128)).to("cuda", dtype)
-                    for _ in range(2))
-            out, lse = flash_attention_fwd(q, k, v, causal=True)
-            ro, rl = flash_attention_fwd_reference(q, k, v, causal=True)
-            delta = (g.float() * out.float()).sum(-1).transpose(1, 2)
-            dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, causal=True)
-            rdq = flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
-                                                   causal=True)
-            dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta,
-                                             causal=True)
-            rdk, rdv = flash_attention_bwd_dkv_reference(
-                q, k, v, g, lse, delta, causal=True)
-            torch.cuda.synchronize()
-            for got, want in ((out, ro), (lse, rl), (dq, rdq), (dk, rdk),
-                              (dv, rdv)):
-                finite = torch.isfinite(want)
-                assert torch.equal(torch.isfinite(got), finite)
-                got, want = got.float()[finite], want.float()[finite]
-                scale = max(1.0, want.abs().max().item())
-                assert (got - want).abs().max().item() <= rel * scale
+
+    def r(*shape, dtype):
+        return torch.as_tensor(rs.randn(*shape)).to("cuda", dtype)
+    # (Sq, Sk, H, KVH, fused QKV views)
+    shapes = ((127, 127, 4, 1, False), (128, 128, 4, 2, False),
+              (129, 129, 4, 1, False), (257, 257, 4, 2, False),
+              (129, 257, 4, 1, False), (257, 127, 4, 2, False),
+              (192, 64, 4, 2, False), (257, 257, 4, 4, True))
+    for dtype in (torch.float32, torch.bfloat16, torch.float16):
+        for d in (64, 128):
+            for sq, sk, h, kvh, fused in shapes:
+                if fused:
+                    qkv = r(2, sq, 3, h, d, dtype=dtype)
+                    q, k, v = qkv[:, :, 0], qkv[:, :, 1], qkv[:, :, 2]
+                else:
+                    q = r(2, sq, h, d, dtype=dtype)
+                    k, v = (r(2, sk, kvh, d, dtype=dtype) for _ in range(2))
+                g = r(2, sq, h, d, dtype=dtype)
+                for causal in (True, False):
+                    out, lse = flash_attention_fwd(q, k, v, causal=causal)
+                    ro, rl = flash_attention_fwd_reference(q, k, v,
+                                                           causal=causal)
+                    delta = (g.float() * out.float()).sum(-1).transpose(1, 2)
+                    dq = flash_attention_bwd_dq(q, k, v, g, lse, delta,
+                                                causal=causal)
+                    rdq = flash_attention_bwd_dq_reference(
+                        q, k, v, g, lse, delta, causal=causal)
+                    dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta,
+                                                     causal=causal)
+                    rdk, rdv = flash_attention_bwd_dkv_reference(
+                        q, k, v, g, lse, delta, causal=causal)
+                    torch.cuda.synchronize()
+                    what = (f"{dtype} D={d} Sq={sq} Sk={sk} H={h} KVH={kvh} "
+                            f"fused={fused} causal={causal}")
+                    chip_smoke.check_pairs(what, dtype, ((out, ro),),
+                                           ((lse, rl),))
+                    chip_smoke.check_pairs(what, dtype, ((dq, rdq),
+                                                         (dk, rdk),
+                                                         (dv, rdv)))
+                    if causal and sq > sk:
+                        assert not bool(out[:, :sq - sk].any()), what
+                        assert bool(torch.isneginf(
+                            lse[:, :, :sq - sk]).all()), what
