@@ -54,9 +54,10 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      versions over a sweep (flash: f32 / bf16 / f16, head_dim 64 / 128,
      at and around the forward's 128-row tiles, Sq < Sk, Sq > Sk, GQA,
      views of a fused QKV; 16-bit elements each within their own limit),
-     the forward's 16-bit instantiations held to wgmma and TMA in the
-     built library's SASS (HGMMA and UTMALDG, no HMMA), then timed at the
-     train path's shapes
+     the 16-bit instantiations of the forward, dq and dkv held to wgmma
+     and TMA in the built library's SASS (HGMMA and UTMALDG, no HMMA; the
+     backward's with no STL / LDL spills), two backward calls at each
+     train shape bit-identical, then timed at the train path's shapes
      (q/k/v [2, 2048, 32, 128] bf16 causal; AdamW on one [4096, 16384]
      weight) beside the plain version, the bound and a library yardstick
      (SDPA forward / backward, ``torch.optim.AdamW(fused=True)``);
@@ -1779,6 +1780,25 @@ def phase_train_kernels(card: str):
     log(f"[train-kernels] SASS of the forward's 16-bit instantiations "
         f"(cuobjdump -sass; HGMMA wgmma, UTMALDG TMA loads, HMMA mma.sync): "
         f"{json.dumps(fwd_sass)}")
+    # so do the backward's, dq and dkv, with no local-memory spills (STL /
+    # LDL: a store to or a load from local memory)
+    bwd_sass = {}
+    for kernel in ("dq_wgmma_kernel", "dkv_wgmma_kernel"):
+        counts = sass.instruction_counts(
+            str(_build._library_path("flash_attention")), kernel,
+            ("HGMMA", "UTMALDG", "HMMA", "STL", "LDL"))
+        if len(counts) != 8 or any(
+                c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] != 0
+                or c["STL"] != 0 or c["LDL"] != 0 for c in counts.values()):
+            raise AssertionError(f"the backward's 16-bit {kernel} "
+                                 f"instantiations (bf16/f16 x head_dim 64/128 "
+                                 f"x segments or not) must each hold HGMMA and "
+                                 f"UTMALDG and no HMMA, STL or LDL: "
+                                 f"{json.dumps(counts)}")
+        bwd_sass[kernel] = counts
+    log(f"[train-kernels] SASS of the backward's 16-bit instantiations "
+        f"(HGMMA wgmma, UTMALDG TMA loads, HMMA mma.sync, STL / LDL "
+        f"local-memory spills): {json.dumps(bwd_sass)}")
 
     # AdamW: f32 and bf16 p, with and without decay, a length that is not
     # a multiple of the vector width, a misaligned view (scalar path), the
@@ -1865,6 +1885,19 @@ def phase_train_kernels(card: str):
             errs[name], _, reads[name] = check_pairs(
                 f"{name} disagrees at {shape}", torch.bfloat16, pairs, lses)
         del ro, rl, rdq, rdk, rdv
+        # one writer per result, no atomics: a second backward gives the
+        # same bits
+        dq2 = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+        dk2, dv2 = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                              causal=True)
+        torch.cuda.synchronize()
+        if not (torch.equal(dq, dq2) and torch.equal(dk, dk2)
+                and torch.equal(dv, dv2)):
+            raise AssertionError(f"two backward calls at {shape} differ: the "
+                                 f"dq / dkv kernels must be deterministic")
+        log(f"[train-kernels] {shape}: two backward calls give bit-identical "
+            f"dq, dk and dv")
+        del dq2, dk2, dv2
         times = {
             "flash_attention_fwd": time_ms(
                 lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
@@ -1930,6 +1963,9 @@ def phase_train_kernels(card: str):
                                             reading.items()
                                             if k_.startswith(name)}}
     recs["flash_attention_fwd"]["sass_16bit"] = fwd_sass
+    recs["flash_attention_bwd_dq"]["sass_16bit"] = bwd_sass["dq_wgmma_kernel"]
+    recs["flash_attention_bwd_dkv"]["sass_16bit"] = \
+        bwd_sass["dkv_wgmma_kernel"]
 
     # AdamW on one fc_in weight [4096, 16384]: f32 master, bf16 gradient,
     # f32 moments, the bf16 parameter written in the same pass
@@ -2032,27 +2068,30 @@ def tile_pairs(ids, q_tile: int, k_tile: int, by_keys: bool,
     ``k_tile``-key tiles below its causal limit (one past its last
     query); a tile's id range is taken over its keys below that limit.
     The block's queries form ``groups`` groups of ``q_tile // groups``
-    rows (the forward's two consumer warpgroups; dq: one), and a group
-    computes a tile when the tile starts at or below the group's last
-    query and the two id ranges overlap.  ``by_keys`` True (dkv): a block
-    of ``k_tile`` keys walks the ``q_tile``-query tiles from the one
-    holding its first key, computing those whose id range overlaps its
-    own."""
+    rows (the consumer warpgroups), and a group computes a tile when the
+    tile starts at or below the group's last query and the two id ranges
+    overlap.  ``by_keys`` True (dkv): a block of ``k_tile`` keys, in
+    ``groups`` groups of ``k_tile // groups`` keys, walks the
+    ``q_tile``-query tiles from the one holding its first key; a group
+    computes a tile when the tile's last query is at or after the group's
+    first key and the tile's id range overlaps the group's."""
     import numpy as np
     t = len(ids)
-    if by_keys:
-        def ranges(step):
-            starts = np.arange(0, t, step)
-            return (starts, np.minimum.reduceat(ids, starts),
-                    np.maximum.reduceat(ids, starts))
-        qs, qlo, qhi = ranges(q_tile)
-        ks, klo, khi = ranges(k_tile)
-        overlap = ~((qhi[:, None] < klo[None, :])
-                    | (khi[None, :] < qlo[:, None]))
-        walked = qs[:, None] + q_tile > ks[None, :] - (ks[None, :] % q_tile)
-        return int((overlap & walked).sum()) * q_tile * k_tile
-    rows = q_tile // groups
     tiles = 0
+    if by_keys:
+        rows = k_tile // groups
+        starts = np.arange(0, t, q_tile)
+        qlo = np.minimum.reduceat(ids, starts)
+        qhi = np.maximum.reduceat(ids, starts)
+        for k0 in range(0, t, k_tile):
+            walked = starts >= k0 // q_tile * q_tile
+            for g0 in range(k0, min(k0 + k_tile, t), rows):
+                mine = ids[g0:min(g0 + rows, t)]
+                hit = (walked & (starts + q_tile - 1 >= g0)
+                       & ~((qhi < mine.min()) | (mine.max() < qlo)))
+                tiles += int(hit.sum())
+        return tiles * q_tile * rows
+    rows = q_tile // groups
     for q0 in range(0, t, q_tile):
         kend = min(q0 + q_tile, t)
         starts = np.arange(0, kend, k_tile)
@@ -2409,12 +2448,13 @@ def phase_varlen(card: str):
     ids = seg[0].cpu().numpy()
     # a model of each kernel's walk, not counted on the card: the tiles
     # it visits (one segment: the causal walk) and computes (the rest it
-    # skips) with the tile sizes of csrc/flash_attention.cu: fwd 128-key
-    # tiles by 128-query blocks, each of its two consumer groups of 64
-    # rows computing only the tiles its ids overlap (the producer reads
-    # every tile's ids, with no barrier, and loads only those); dq 64 x 32
-    # tiles by query blocks; dkv 32-query tiles by 64-key blocks
-    tiles = ((128, 128, False, 2), (64, 32, False, 1), (32, 64, True, 1))
+    # skips) with the tile sizes of csrc/flash_attention.cu, each block's
+    # two consumer groups computing only the tiles their ids overlap (the
+    # walk, with no block barrier per tile, loads only those): fwd
+    # 128-key tiles by 128-query blocks (groups of 64 rows);
+    # dq 64-key tiles by 128-query blocks (groups of 64 rows); dkv
+    # 64-query tiles by 128-key blocks (groups of 64 keys)
+    tiles = ((128, 128, False, 2), (128, 64, False, 2), (64, 128, True, 2))
     work = {name: tile_pairs(ids, *tile) for name, tile in zip(names, tiles)}
     visits = {name: tile_pairs(np.zeros_like(ids), *tile[:3]) // (tile[0] *
                                                                   tile[1])
@@ -2648,8 +2688,8 @@ def profile_train(step, ids, labels, card: str, family: str) -> dict:
     # kernel time by kind: cuBLAS GEMMs, the port's flash and AdamW
     # kernels, and everything else (eager elementwise, reductions, copies)
     kinds = {"gemm": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
-             "flash": ("fwd_wgmma_kernel", "dq_mma_kernel",
-                       "dkv_mma_kernel"),
+             "flash": ("fwd_wgmma_kernel", "dq_wgmma_kernel",
+                       "dkv_wgmma_kernel"),
              "adamw": ("adamw_kernel",),
              "norm": ("rms_fwd_kernel", "ln_fwd_kernel", "norm_bwd_kernel",
                       "column_sum_kernel")}

@@ -37,37 +37,51 @@
 // kernels (the carried m/l/acc scratch) becomes a loop inside one block;
 // blocks share nothing.  Causal query tiles are issued longest first.
 //
-// The 16-bit forward (fwd_wgmma_kernel) is built for Hopper (hopper.cuh):
-// a block of 384 threads owns 128 queries; a producer warp issues TMA
-// copies of Q once and of each 128-key K/V tile into a 2-stage ring of
-// 128-byte-swizzled shared memory, tracked by mbarriers, while two
-// consumer warpgroups (64 rows each, registers moved to them with
-// setmaxnreg) compute S = Q K^T and O += P V with wgmma (P from
-// registers), the online softmax in f32 registers with exp2 and log2(e)
-// folded into the scale, and a per-element mask only on tiles that cross
-// the causal diagonal, the Sk edge or a segment boundary.  With segment
-// ids the producer reads each tile's ids, with no block barrier, and
-// loads only the tiles whose range meets a consumer group's, handing the
-// ids over in the stage; a group computes only the tiles its own rows can
-// see.  One block an SM (160 KB of shared memory at D = 128).
+// The 16-bit kernels are built for Hopper (hopper.cuh): TMA copies into
+// 128-byte-swizzled shared memory tracked by mbarriers, products on wgmma
+// with f32 accumulators in registers, exp2 with log2(e) folded into the
+// scale (and into lse in the backward), and a per-element mask only on
+// tiles that cross the causal diagonal, the Sq / Sk edge or a segment
+// boundary.  With segment ids the walk loads only the tiles whose id
+// range meets a consumer group's, with no block barrier per tile, and
+// hands each stage its tile (-1 ends the walk) and, where the tile is not
+// one segment with the group's rows, its ids.
+//   * forward (fwd_wgmma_kernel): 384 threads own 128 queries; a producer
+//     warp copies Q once and each 128-key K/V tile into a 2-stage ring;
+//     two consumer warpgroups (64 rows each, registers moved to them with
+//     setmaxnreg) compute S = Q K^T and O += P V (P from registers) and
+//     take turns at issuing S (named barriers).  160 KB of shared memory
+//     at D = 128.
+//   * dq (dq_wgmma_kernel): 288 threads own 128 queries: warps 0-7 are two
+//     consumer warpgroups of 64 rows, warp 8 the producer, which copies Q
+//     and dO once and each 64-key K/V tile into a 2-stage ring (and with
+//     segment ids reads each tile's ids, as the forward's does).  S = Q K^T
+//     and dP = dO V^T from shared memory, dS = P (dP - delta) in
+//     registers, dQ += dS K with dS re-packed in place as the A operand and
+//     K read MN-major (as V is in the forward's P V).
+//   * dkv (dkv_wgmma_kernel): 256 threads own 128 keys of one (batch, kv
+//     head), K and V resident; each of two consumer warpgroups owns 64
+//     keys and computes the products transposed, keys as wgmma's rows:
+//     S^T = K Q^T and dP^T = V dO^T from shared memory, then dV += P^T dO
+//     and dK += dS^T Q with P^T / dS^T from registers and the Q / dO tile
+//     read MN-major (the same swizzled bytes serve both descriptors).  The
+//     block walks the 64-query tiles from the first that sees its keys,
+//     over every query head of the group, in a 2-stage ring.  It has no
+//     producer warp: a 288- or 384-thread block leaves ptxas 168 registers
+//     a thread, too few for dK and dV beside S^T and dP^T, and 256 threads
+//     leave 255.  The last warp to be done with a stage refills it (TMA
+//     copies of Q and dO, cp.async copies of the tile's lse and delta rows
+//     and, with segment ids, its query ids), so no warp waits for another;
+//     with segment ids the block first marks, in bitmasks, the query tiles
+//     whose id range meets each group's keys, and the walk visits only
+//     those.
+// One writer per result and no atomics: dq and dk / dv stay two kernels,
+// deterministic.  P and dS are rounded to the input type for their second
+// product, as FlashAttention-2 does.
 //
-// The backward and the float32 kernels use the earlier design: the
-// products on the tensor cores through mma.sync m16n8k16 (f32
-// accumulation, the FlashAttention-2 register layout: a warp owns 16 rows,
-// its score tile lives in registers and is re-packed in place as the A
-// operand of the next product), K/V (or Q/dO) tiles staged through
-// registers into padded shared memory, 4 warps a block:
-//   * dq: a block owns 64 queries and walks 32-key tiles; p = exp(s - lse)
-//     is recomputed, ds = p (dO V^T - delta), dq += ds K.
-//   * dkv: a block owns 64 keys of one (batch, kv head) and walks 32-query
-//     tiles from the first query that sees them, over every query head of
-//     its group: dv += p^T dO, dk += ds^T Q, with s^T = K Q^T computed
-//     transposed so both sums accumulate in registers.
-// With segment ids one warp stages each tile's ids a tile ahead and the
-// block reads their ranges after a barrier.  P and dS are rounded to the
-// input type for their second product, as FlashAttention-2 does.  float32
-// inputs take plain FMA tiles (16 queries or 32 keys per block).
-// Later work: the backward on wgmma and TMA (hopper.cuh's building blocks).
+// float32 inputs take plain FMA tiles (16 queries or 32 keys per block, 4
+// warps), with segment ids staged by one warp a tile ahead and read after
+// a block barrier.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -84,7 +98,6 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kWarps = 4;
 constexpr int kThreads = kWarps * 32;
-constexpr int kPad = 8;  // 16-bit row pad: conflict-free fragment reads
 
 template <typename T> __device__ __forceinline__ T from_float(float x);
 template <> __device__ __forceinline__ float from_float<float>(float x) {
@@ -134,41 +147,6 @@ template <typename T>
 __device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
   typename Pair<T>::type v = Pair<T>::make(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t pack_elems(T lo, T hi) {
-  typename Pair<T>::type v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <typename T>
-__device__ __forceinline__ uint32_t u32(const T* ptr) {
-  return *reinterpret_cast<const uint32_t*>(ptr);
-}
-
-template <typename T>
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1);
-template <>
-__device__ __forceinline__ void mma16816<__nv_bfloat16>(
-    float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma16816<__half>(
-    float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 // 2^x on the special-function unit (2 ulp; 2^-inf = 0)
@@ -287,22 +265,6 @@ __device__ __forceinline__ bool disjoint(const int* a, const int* b) {
 __device__ __forceinline__ long long row_stat(const Params& p, int b, int h,
                                               int t) {
   return ((long long)b * p.H + h) * p.SQ + t;
-}
-
-// stage `rows` rows of a [.., D] operand starting at row r0 into shared
-// memory rows of length LD (16-byte loads; rows >= limit are zero)
-template <typename T, int D, int LD>
-__device__ __forceinline__ void stage_rows(T (*dst)[LD], const T* base,
-                                           long long row_stride, int r0,
-                                           int rows, int limit) {
-  constexpr int VE = 16 / sizeof(T);
-  for (int i = threadIdx.x; i < rows * (D / VE); i += kThreads) {
-    const int r = i / (D / VE), c = (i % (D / VE)) * VE;
-    const int row = r0 + r;
-    Vec<T, VE> x = zero_vec<T, VE>();
-    if (row < limit) x = load_vec<T, VE>(base + row * row_stride + c);
-    *reinterpret_cast<Vec<T, VE>*>(&dst[r][c]) = x;
-  }
 }
 
 // ------------------------------------------------- forward, Hopper wgmma
@@ -698,122 +660,342 @@ __global__ void __launch_bounds__(kFwdThreads, 1)
   }
 }
 
-// ------------------------------------------------------ dq, tensor cores
-template <typename T, int D, bool Seg>
-__global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Params p) {
-  constexpr int BQ = 16 * kWarps, BK = 32;
-  constexpr int KS = D / 16, NS = BK / 8, NO = D / 8, LD = D + kPad;
-  __shared__ __align__(16) T k_s[BK][LD];
-  __shared__ __align__(16) T v_s[BK][LD];
-  __shared__ int qid_s[Seg ? BQ : 1], kid_s[Seg ? BK : 1], rng_s[4];
+// ------------------------------------------------ backward, Hopper wgmma
+// Each stage of a ring has a "full" barrier, which its copies complete.
+// dq: 288 threads, warps 0-7 two consumer warpgroups and warp 8 the
+// producer (its lane 0 issues the TMA copies); each stage also has an
+// "empty" barrier, at which each consumer warp arrives once it is done
+// with the stage, computed or skipped.
+constexpr int kDqThreads = 288;
+constexpr int kBwdStages = 2;
+constexpr int kDqBQ = 128, kDqBK = 64;    // dq: queries a block, keys a tile
+constexpr int kDkvBK = 128, kDkvBQ = 64;  // dkv: keys a block, queries a tile
+constexpr uint32_t kBox64 = 64 * 128;     // one box: 64 rows x 128 bytes
+constexpr float kLog2e = 1.4426950408889634f;
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
+struct BwdParams {
+  CUtensorMap q_map, k_map, v_map, do_map;  // (D, heads, S, B)
+  const float* lse;                         // [B, H, SQ]
+  const float* delta;                       // [B, H, SQ]
+  void* dq;                                 // [B, SQ, H, D]
+  void* dk;                                 // [B, SK, KVH, D]
+  void* dv;
+  const int* q_seg;                         // [B, SQ] int32 (Seg only)
+  const int* k_seg;                         // [B, SK] int32
+  int B, H, KVH, SQ, SK;
+  float scale;                              // dq and dk are scaled by it
+  float scale_log2;                         // scale * log2(e)
+  int causal;
+};
+
+// dq's barriers and what the producer hands the consumers (as the
+// forward's FwdShared, over 64-key tiles)
+template <int S>
+struct DqShared {
+  uint64_t qd_full, full[S], empty[S];
+  int tile[S], klo[S], khi[S];
+  int qlo[2], qhi[2];  // each consumer warpgroup's query-id range
+  int qid[kDqBQ];
+  int kid[S][kDqBK];
+};
+
+// Q and dO ([128, D] each), the K/V ring ([64, D] tiles), the barriers
+template <int D>
+constexpr size_t dq_smem() {
+  return 1024 + 2 * (D / 64) * kBox + 2 * kBwdStages * (D / 64) * kBox64 +
+         sizeof(DqShared<kBwdStages>);
+}
+
+template <typename T, int D, bool Seg>
+__global__ void __launch_bounds__(kDqThreads, 1)
+    dq_wgmma_kernel(const __grid_constant__ BwdParams p) {
+  constexpr int BQ = kDqBQ, BK = kDqBK, S = kBwdStages;
+  constexpr uint32_t kQTile = (D / 64) * kBox;    // one [128, D] tile
+  constexpr uint32_t kKTile = (D / 64) * kBox64;  // one [64, D] tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = smem;
+  unsigned char* do_s = q_s + kQTile;
+  unsigned char* k_s = do_s + kQTile;  // stage st at + st * kKTile
+  unsigned char* v_s = k_s + S * kKTile;
+  DqShared<S>& sh = *reinterpret_cast<DqShared<S>*>(v_s + S * kKTile);
+
   const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int kvh = h / (p.H / p.KVH);
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;
-  const int kend = key_end(p, min(q0 + BQ, p.SQ) - 1);
-  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // longest rows first
+  const int off = p.SK - p.SQ;
+  const int q_last = min(q0 + BQ, p.SQ) - 1;
+  const int kend = p.causal ? max(0, min(p.SK, q_last + off + 1)) : p.SK;
+  const int n_tiles = (kend + BK - 1) / BK;
 
-  const int t0 = q0 + warp * 16 + g, t1 = t0 + 8;
-  uint32_t qa[KS][4], da[KS][4];
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sh.qd_full, 1);
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int c = kk * 16 + 2 * tq;
-    qa[kk][0] = t0 < p.SQ ? u32(qp + t0 * p.q_ss + c) : 0u;
-    qa[kk][1] = t1 < p.SQ ? u32(qp + t1 * p.q_ss + c) : 0u;
-    qa[kk][2] = t0 < p.SQ ? u32(qp + t0 * p.q_ss + c + 8) : 0u;
-    qa[kk][3] = t1 < p.SQ ? u32(qp + t1 * p.q_ss + c + 8) : 0u;
-    da[kk][0] = t0 < p.SQ ? u32(dop + t0 * p.do_ss + c) : 0u;
-    da[kk][1] = t1 < p.SQ ? u32(dop + t1 * p.do_ss + c) : 0u;
-    da[kk][2] = t0 < p.SQ ? u32(dop + t0 * p.do_ss + c + 8) : 0u;
-    da[kk][3] = t1 < p.SQ ? u32(dop + t1 * p.do_ss + c + 8) : 0u;
+    for (int st = 0; st < S; ++st) {
+      hopper::mbar_init(&sh.full[st], 1);
+      hopper::mbar_init(&sh.empty[st], kConsumerWarps);
+    }
+    hopper::fence_barrier_init();
   }
-  float lse_r[2], dl_r[2];
+  __syncthreads();
+
+  if (threadIdx.x >= 256) {
+    // ------------------------------------------------- producer (warp 8)
+    const int lane = threadIdx.x % 32;
+    int qlo = 0, qhi = 0;  // the block's query-id range
+    int wlo[2] = {0, 0}, whi[2] = {0, 0};
+    if constexpr (Seg) {
+      // lane l holds rows l + 32 e: e 0-1 are warpgroup 0's, 2-3 group 1's
+      const int* qseg = p.q_seg + (long long)b * p.SQ;
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+        for (int e = 2 * w; e < 2 * w + 2; ++e) {
+          const int t = q0 + lane + 32 * e;
+          const int id = t < p.SQ ? qseg[t] : INT_MIN;
+          sh.qid[lane + 32 * e] = id;
+          if (t < p.SQ) {
+            lo = min(lo, id);
+            hi = max(hi, id);
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          lo = min(lo, __shfl_xor_sync(kFull, lo, o));
+          hi = max(hi, __shfl_xor_sync(kFull, hi, o));
+        }
+        wlo[w] = lo;
+        whi[w] = hi;
+      }
+      qlo = min(wlo[0], wlo[1]);
+      qhi = max(whi[0], whi[1]);
+      if (lane == 0) {
+        sh.qlo[0] = wlo[0];
+        sh.qhi[0] = whi[0];
+        sh.qlo[1] = wlo[1];
+        sh.qhi[1] = whi[1];
+      }
+      __syncwarp();
+    }
+    if (lane == 0) {
+      hopper::prefetch_tensor_map(&p.k_map);
+      hopper::prefetch_tensor_map(&p.v_map);
+      hopper::mbar_arrive_expect_tx(&sh.qd_full, 2 * kQTile);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        hopper::tma_load_4d(q_s + c * kBox, &p.q_map, &sh.qd_full, c * 64, h,
+                            q0, b);
+        hopper::tma_load_4d(do_s + c * kBox, &p.do_map, &sh.qd_full, c * 64,
+                            h, q0, b);
+      }
+    }
+    // the copies of key tile j into stage `issued % S`
+    int issued = 0;
+    auto load_kv = [&](int j) {
+      const int st = issued % S;
+      if (lane == 0) {
+        hopper::mbar_arrive_expect_tx(&sh.full[st], 2 * kKTile);
+#pragma unroll
+        for (int c = 0; c < D / 64; ++c) {
+          hopper::tma_load_4d(k_s + st * kKTile + c * kBox64, &p.k_map,
+                              &sh.full[st], c * 64, kvh, j * BK, b);
+          hopper::tma_load_4d(v_s + st * kKTile + c * kBox64, &p.v_map,
+                              &sh.full[st], c * 64, kvh, j * BK, b);
+        }
+      }
+      ++issued;
+    };
+    if constexpr (!Seg) {
+      for (int j = 0; j < n_tiles; ++j) {
+        if (lane == 0)
+          hopper::mbar_wait(&sh.empty[issued % S], ((issued / S) & 1) ^ 1);
+        load_kv(j);
+      }
+    } else {
+      // Each tile's key ids [min, max] over the keys below kend, 8 tiles
+      // a pass (their 16 loads in flight together); a tile is loaded only
+      // where its range meets a consumer group's query range.
+      const int* kseg = p.k_seg + (long long)b * p.SK;
+      for (int j0 = 0; j0 < n_tiles; j0 += 8) {
+        int lo[8], hi[8];
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          lo[u] = INT_MAX;
+          hi[u] = INT_MIN;
+#pragma unroll
+          for (int e = 0; e < BK / 32; ++e) {
+            const int key = (j0 + u) * BK + lane + 32 * e;
+            if (key < kend) {
+              const int id = kseg[key];
+              lo[u] = min(lo[u], id);
+              hi[u] = max(hi[u], id);
+            }
+          }
+        }
+#pragma unroll
+        for (int u = 0; u < 8; ++u)
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1) {
+            lo[u] = min(lo[u], __shfl_xor_sync(kFull, lo[u], o));
+            hi[u] = max(hi[u], __shfl_xor_sync(kFull, hi[u], o));
+          }
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int j = j0 + u;
+          if (j >= n_tiles || (apart(lo[u], hi[u], wlo[0], whi[0]) &&
+                               apart(lo[u], hi[u], wlo[1], whi[1])))
+            continue;
+          const int st = issued % S;
+          hopper::mbar_wait(&sh.empty[st], ((issued / S) & 1) ^ 1);
+          if (!(lo[u] == hi[u] && qlo == qhi && lo[u] == qlo)) {
+            // not one segment with the block's queries: hand over the ids
+#pragma unroll
+            for (int e = 0; e < BK / 32; ++e) {
+              const int key = j * BK + lane + 32 * e;
+              sh.kid[st][lane + 32 * e] = key < kend ? kseg[key] : INT_MIN;
+            }
+          }
+          if (lane == 0) {
+            sh.tile[st] = j;
+            sh.klo[st] = lo[u];
+            sh.khi[st] = hi[u];
+          }
+          __syncwarp();
+          load_kv(j);
+        }
+      }
+      // the end of the walk: a stage with no copy and tile -1
+      const int st = issued % S;
+      hopper::mbar_wait(&sh.empty[st], ((issued / S) & 1) ^ 1);
+      if (lane == 0) {
+        sh.tile[st] = -1;
+        hopper::mbar_arrive(&sh.full[st]);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int cw = threadIdx.x / 128;  // consumer warpgroup, 0 or 1
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int w0 = q0 + cw * 64;  // the group's first query row
+  const int t0 = w0 + warp * 16 + g, t1 = t0 + 8;
+  const float c = p.scale_log2;
+  // each row's lse_safe * log2(e) and delta
+  float lse2[2], dl[2];
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int t = r == 0 ? t0 : t1;
-    lse_r[r] = dl_r[r] = 0.f;
+    lse2[r] = dl[r] = 0.f;
     if (t < p.SQ) {
-      const float x = p.lse[row_stat(p, b, h, t)];
-      lse_r[r] = x == -INFINITY ? 0.f : x;  // lse_safe
-      dl_r[r] = p.delta[row_stat(p, b, h, t)];
+      const long long row = ((long long)b * p.H + h) * p.SQ + t;
+      const float x = p.lse[row];
+      lse2[r] = x == -INFINITY ? 0.f : x * kLog2e;
+      dl[r] = p.delta[row];
     }
   }
-  float acc[NO][4];
+
+  const uint32_t q_addr = hopper::smem_u32(q_s) + cw * 64 * 128;
+  const uint32_t do_addr = hopper::smem_u32(do_s) + cw * 64 * 128;
+  const uint32_t k_addr = hopper::smem_u32(k_s);
+  const uint32_t v_addr = hopper::smem_u32(v_s);
+
+  float acc[D / 2];
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
-    acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
-  int qs0 = 0, qs1 = 0;
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  hopper::mbar_wait(&sh.qd_full, 0);
+  int qs0 = 0, qs1 = 0, wqlo = 0, wqhi = 0;
   if constexpr (Seg) {
-    stage_ids<BQ>(qid_s, rng_s, p.q_seg + (long long)b * p.SQ, q0, p.SQ);
-    __syncthreads();
-    qs0 = qid_s[warp * 16 + g];
-    qs1 = qid_s[warp * 16 + g + 8];
+    qs0 = sh.qid[t0 - q0];
+    qs1 = sh.qid[t1 - q0];
+    wqlo = sh.qlo[cw];
+    wqhi = sh.qhi[cw];
   }
 
-  const int* kseg = Seg ? p.k_seg + (long long)b * p.SK : nullptr;
-  IdTile<Seg ? BK : 1> kids;
-  if constexpr (Seg) kids.load(kseg, 0, kend);
-
-  for (int k0 = 0; k0 < kend; k0 += BK) {
-    __syncthreads();
+  for (int i = 0;; ++i) {
+    const int st = i % S;
+    const uint32_t ph = (i / S) & 1;
+    int j = i, klo = 0, khi = 0;
     if constexpr (Seg) {
-      kids.put(kid_s, rng_s + 2);
-      kids.load(kseg, k0 + BK, kend);
-      __syncthreads();
-      if (disjoint(rng_s, rng_s + 2)) continue;
+      hopper::mbar_wait(&sh.full[st], ph);
+      j = sh.tile[st];
+      if (j < 0) break;
+      klo = sh.klo[st];
+      khi = sh.khi[st];
+    } else {
+      if (i >= n_tiles) break;
+      hopper::mbar_wait(&sh.full[st], ph);
     }
-    stage_rows<T, D, LD>(k_s, kp, p.k_ss, k0, BK, kend);
-    stage_rows<T, D, LD>(v_s, vp, p.v_ss, k0, BK, kend);
-    __syncthreads();
+    const int k0 = j * BK;
+    // nothing of this tile is visible to the group's rows
+    const bool skip = w0 >= p.SQ || (p.causal && k0 > w0 + 63 + off) ||
+                      (Seg && apart(klo, khi, wqlo, wqhi));
+    if (!skip) {
+      float s[BK / 2], dp[BK / 2];
+      const uint32_t kt = k_addr + st * kKTile, vt = v_addr + st * kKTile;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<T, BK>(
+            s, hopper::desc_k(q_addr + (kk / 4) * kBox + (kk % 4) * 32),
+            hopper::desc_k(kt + (kk / 4) * kBox64 + (kk % 4) * 32), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<T, BK>(
+            dp, hopper::desc_k(do_addr + (kk / 4) * kBox + (kk % 4) * 32),
+            hopper::desc_k(vt + (kk / 4) * kBox64 + (kk % 4) * 32), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(s);
+      hopper::fence_operand(dp);
 
-    // S = Q K^T and dP = dO V^T for 16 queries x 32 keys
-    float s[NS][4], dp[NS][4];
+      // dS = P (dP - delta), P = 2^(s scale log2(e) - lse log2(e)); a
+      // per-element test only where the tile crosses the causal diagonal
+      // of the group's rows, the Sk edge or a segment boundary
+      const bool uniform = !Seg || (klo == khi && wqlo == wqhi && klo == wqlo);
+      const bool edge = k0 + BK > p.SK ||
+                        (p.causal && k0 + BK - 1 > w0 + off) || !uniform;
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      dp[n][0] = dp[n][1] = dp[n][2] = dp[n][3] = 0.f;
+      for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const T* kr = &k_s[n * 8 + g][kk * 16 + 2 * tq];
-        const T* vr = &v_s[n * 8 + g][kk * 16 + 2 * tq];
-        mma16816<T>(s[n], qa[kk], u32(kr), u32(kr + 8));
-        mma16816<T>(dp[n], da[kk], u32(vr), u32(vr + 8));
+        for (int e = 0; e < 4; ++e) {
+          const int r = e >> 1;
+          float x = fast_exp2(fmaf(s[4 * n + e], c, -lse2[r]));
+          if (edge) {
+            const int kc = n * 8 + 2 * tq + (e & 1), key = k0 + kc;
+            bool vis = key < p.SK && (!p.causal || key <= (r ? t1 : t0) + off);
+            if constexpr (Seg)
+              vis = vis && (uniform || sh.kid[st][kc] == (r ? qs1 : qs0));
+            if (!vis) x = 0.f;
+          }
+          s[4 * n + e] = x * (dp[4 * n + e] - dl[r]);
+        }
+      // dS's A fragment for keys 16 kk .. 16 kk + 15
+      uint32_t da[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        da[kk][0] = pack_floats<T>(s[8 * kk], s[8 * kk + 1]);
+        da[kk][1] = pack_floats<T>(s[8 * kk + 2], s[8 * kk + 3]);
+        da[kk][2] = pack_floats<T>(s[8 * kk + 4], s[8 * kk + 5]);
+        da[kk][3] = pack_floats<T>(s[8 * kk + 6], s[8 * kk + 7]);
       }
+      // dQ += dS K, K read MN-major: keys are the reduction
+      hopper::fence_operand(acc);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hopper::wgmma_rs<T, D>(acc, da[kk],
+                               hopper::desc_mn(kt + kk * 16 * 128, kBox64), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(acc);
     }
-    // dS = P (dP - delta), P = exp(s * scale - lse)
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const int key = k0 + n * 8 + 2 * tq + (c & 1), r = c >> 1;
-        const int ks = Seg ? kid_s[key - k0] : 0;
-        const float pr =
-            visible<Seg>(p, r == 0 ? t0 : t1, key, r == 0 ? qs0 : qs1, ks)
-                ? expf(s[n][c] * p.scale - lse_r[r])
-                : 0.f;
-        s[n][c] = pr * (dp[n][c] - dl_r[r]);
-      }
-    // dQ += dS K
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint32_t pa[4] = {
-          pack_floats<T>(s[2 * j][0], s[2 * j][1]),
-          pack_floats<T>(s[2 * j][2], s[2 * j][3]),
-          pack_floats<T>(s[2 * j + 1][0], s[2 * j + 1][1]),
-          pack_floats<T>(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const int kr = j * 16 + 2 * tq;
-#pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const int d = n * 8 + g;
-        mma16816<T>(acc[n], pa, pack_elems<T>(k_s[kr][d], k_s[kr + 1][d]),
-                    pack_elems<T>(k_s[kr + 8][d], k_s[kr + 9][d]));
-      }
-    }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sh.empty[st]);
   }
 
   T* dqp = static_cast<T*>(p.dq);
@@ -823,156 +1005,404 @@ __global__ void __launch_bounds__(kThreads) dq_mma_kernel(const Params p) {
     if (t < p.SQ) {
       T* row = dqp + (((long long)b * p.SQ + t) * p.H + h) * D;
 #pragma unroll
-      for (int n = 0; n < NO; ++n)
+      for (int n = 0; n < D / 8; ++n)
         *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * tq) = pack_floats<T>(
-            acc[n][2 * r] * p.scale, acc[n][2 * r + 1] * p.scale);
+            acc[4 * n + 2 * r] * p.scale, acc[4 * n + 2 * r + 1] * p.scale);
     }
   }
 }
 
-// ----------------------------------------------------- dkv, tensor cores
-constexpr int kDkvKeys = 16 * kWarps;  // keys per block
-constexpr int kDkvQ = 32;              // queries per tile
+// dkv: 256 threads, the two consumer warpgroups and no producer warp (a
+// 288-thread block would leave ptxas 168 registers a thread, too few for
+// dK and dV beside S^T and dP^T; 256 threads leave 255).  The producer's
+// work goes to the consumer warps without blocking any: thread 0 copies K
+// and V once, warp 0 fills the first stages, and the last warp to be done
+// with a stage (a shared-memory count) refills it with the walk's next
+// tile: the TMA copies of Q and dO, and cp.async copies of the tile's lse
+// and delta rows (and, with segment ids, its query ids), all completing on
+// the stage's "full" barrier.
+constexpr int kDkvThreads = 256;
+constexpr int kDkvWarps = kDkvThreads / 32;
 
-template <typename T, int D>
-constexpr size_t dkv_mma_smem() {
-  return (size_t)(2 * kDkvKeys + 2 * kDkvQ) * (D + kPad) * sizeof(T) +
-         2 * kDkvQ * sizeof(float);
+// dkv's barriers and what a refill hands the consumers: each stage's walk
+// element (hh * n_qt + query tile, -1: the walk ended), with segment ids
+// its flags (bit g: the tile's id range meets consumer group g's; bit 2 +
+// g: the tile and group g are one segment) and its query ids; each
+// query's lse (as given) and delta.  With segment ids four bitmasks of
+// the query tiles follow (dynamic): meets group 0, meets group 1, one
+// segment with group 0, with group 1.
+template <int S>
+struct DkvShared {
+  uint64_t kv_full, full[S];
+  int released[S];  // consumer warps done with the stage
+  int tile[S], flags[S];
+  int n_hit;        // query tiles a head that meet a group's key range
+  int klo[2], khi[2];  // each consumer warpgroup's key-id range
+  int kid[kDkvBK];
+  int qid[S][kDkvBQ];
+  alignas(16) float lse[S][kDkvBQ];
+  alignas(16) float dl[S][kDkvBQ];
+};
+
+// K and V ([128, D] each), the Q/dO ring ([64, D] tiles), the barriers
+template <int D>
+constexpr size_t dkv_smem() {
+  return 1024 + 2 * (D / 64) * kBox + 2 * kBwdStages * (D / 64) * kBox64 +
+         sizeof(DkvShared<kBwdStages>);
+}
+
+// the words of one bitmask of a key block's query tiles
+__host__ __device__ __forceinline__ int dkv_mask_words(int n_qt) {
+  return (n_qt + 31) / 32;
+}
+
+// the tile of the k-th set bit of `mask0 | mask1` (n words), or -1; a
+// warp-collective select: each lane counts one word of a 32-word chunk
+__device__ __forceinline__ int nth_tile(const uint32_t* mask0,
+                                        const uint32_t* mask1, int n, int k) {
+  const int lane = threadIdx.x % 32;
+  for (int w0 = 0; w0 < n; w0 += 32) {
+    const uint32_t word =
+        w0 + lane < n ? mask0[w0 + lane] | mask1[w0 + lane] : 0u;
+    const int c = __popc(word);
+    int inc = c;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int x = __shfl_up_sync(kFull, inc, o);
+      if (lane >= o) inc += x;
+    }
+    const int total = __shfl_sync(kFull, inc, 31);
+    if (k < total) {
+      const int src = __ffs(__ballot_sync(kFull, inc > k)) - 1;
+      uint32_t bits = __shfl_sync(kFull, word, src);
+      for (int r = k - __shfl_sync(kFull, inc - c, src); r > 0; --r)
+        bits &= bits - 1;
+      return (w0 + src) * 32 + __ffs(bits) - 1;
+    }
+    k -= total;
+  }
+  return -1;
 }
 
 template <typename T, int D, bool Seg>
-__global__ void __launch_bounds__(kThreads) dkv_mma_kernel(const Params p) {
-  constexpr int BKEY = kDkvKeys, BQ = kDkvQ;
-  constexpr int KS = D / 16, NQ = BQ / 8, NO = D / 8, LD = D + kPad;
-  extern __shared__ __align__(16) unsigned char smem[];
-  T(*k_s)[LD] = reinterpret_cast<T(*)[LD]>(smem);
-  T(*v_s)[LD] = k_s + BKEY;
-  T(*q_s)[LD] = v_s + BKEY;
-  T(*do_s)[LD] = q_s + BQ;
-  float* lse_s = reinterpret_cast<float*>(do_s + BQ);
-  float* dl_s = lse_s + BQ;
-  // segment ids of the block's keys and the tile's queries; k, q ranges
-  __shared__ int kid_s[Seg ? BKEY : 1], qid_s[Seg ? BQ : 1], rng_s[4];
+__global__ void __launch_bounds__(kDkvThreads, 1)
+    dkv_wgmma_kernel(const __grid_constant__ BwdParams p) {
+  constexpr int BKEY = kDkvBK, BQ = kDkvBQ, S = kBwdStages;
+  constexpr uint32_t kKTile = (D / 64) * kBox;    // one [128, D] tile
+  constexpr uint32_t kQTile = (D / 64) * kBox64;  // one [64, D] tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* k_s = smem;
+  unsigned char* v_s = k_s + kKTile;
+  unsigned char* q_s = v_s + kKTile;  // stage st at + st * kQTile
+  unsigned char* do_s = q_s + S * kQTile;
+  DkvShared<S>& sh = *reinterpret_cast<DkvShared<S>*>(do_s + S * kQTile);
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane >> 2, tq = lane & 3;
   const int b = blockIdx.x / p.KVH, kvh = blockIdx.x % p.KVH;
   const int rep = p.H / p.KVH;
   const int k0 = blockIdx.y * BKEY;  // early keys (most queries) first
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-  stage_rows<T, D, LD>(k_s, kp, p.k_ss, k0, BKEY, p.SK);
-  stage_rows<T, D, LD>(v_s, vp, p.v_ss, k0, BKEY, p.SK);
+  const int off = p.SK - p.SQ;
+  // each head's query tiles: from the one holding the first query that
+  // sees key k0
+  const int qb = (p.causal ? max(0, k0 - off) : 0) / BQ * BQ;
+  const int n_qt = qb < p.SQ ? (p.SQ - qb + BQ - 1) / BQ : 0;
+  const int n_tiles = rep * n_qt;
+  const int n_words = dkv_mask_words(n_qt);
+  uint32_t* masks = reinterpret_cast<uint32_t*>(&sh + 1);  // Seg only
+  const int* qseg = Seg ? p.q_seg + (long long)b * p.SQ : nullptr;
 
-  // this lane's key rows: w = warp * 16 + g and w + 8
-  const int w = warp * 16 + g;
-  const int key0 = k0 + w, key1 = key0 + 8;
-  float dk[NO][4], dv[NO][4];
+  const int warp_id = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sh.kv_full, 1);
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
+    for (int st = 0; st < S; ++st) {
+      // the TMA copies (one arrival) and each lane's cp.async copies
+      hopper::mbar_init(&sh.full[st], 33);
+      sh.released[st] = 0;
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    hopper::prefetch_tensor_map(&p.q_map);
+    hopper::prefetch_tensor_map(&p.do_map);
+    hopper::mbar_arrive_expect_tx(&sh.kv_full, 2 * kKTile);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) dk[n][c] = dv[n][c] = 0.f;
-  const int qb = query_begin(p, k0) / BQ * BQ;
-  int ks0 = 0, ks1 = 0;
-  if constexpr (Seg) {
-    stage_ids<BKEY>(kid_s, rng_s, p.k_seg + (long long)b * p.SK, k0, p.SK);
-    __syncthreads();
-    ks0 = kid_s[w];
-    ks1 = kid_s[w + 8];
+    for (int c = 0; c < D / 64; ++c) {
+      hopper::tma_load_4d(k_s + c * kBox, &p.k_map, &sh.kv_full, c * 64, kvh,
+                          k0, b);
+      hopper::tma_load_4d(v_s + c * kBox, &p.v_map, &sh.kv_full, c * 64, kvh,
+                          k0, b);
+    }
   }
 
-  const int* qseg = Seg ? p.q_seg + (long long)b * p.SQ : nullptr;
-  IdTile<Seg ? BQ : 1> qids;
-  if constexpr (Seg) qids.load(qseg, qb, p.SQ);
-
-  for (int hh = 0; hh < rep; ++hh) {
-    const int h = kvh * rep + hh;
-    const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-    const T* dop = static_cast<const T*>(p.dout) + b * p.do_sb + h * p.do_sh;
-    for (int q0 = qb; q0 < p.SQ; q0 += BQ) {
-      __syncthreads();  // the previous tile is consumed (K/V are staged)
-      if constexpr (Seg) {
-        // the next tile: the following one, or the first of the next head
-        qids.put(qid_s, rng_s + 2);
-        qids.load(qseg, q0 + BQ < p.SQ ? q0 + BQ : qb, p.SQ);
-        __syncthreads();
-        if (disjoint(rng_s, rng_s + 2)) continue;
-      }
-      stage_rows<T, D, LD>(q_s, qp, p.q_ss, q0, BQ, p.SQ);
-      stage_rows<T, D, LD>(do_s, dop, p.do_ss, q0, BQ, p.SQ);
-      for (int i = threadIdx.x; i < BQ; i += kThreads) {
-        const int t = q0 + i;
-        float x = 0.f, dl = 0.f;
-        if (t < p.SQ) {
-          x = p.lse[row_stat(p, b, h, t)];
-          x = x == -INFINITY ? 0.f : x;
-          dl = p.delta[row_stat(p, b, h, t)];
+  if constexpr (Seg) {
+    // the block's key ids and each group's range (warp 0: lane l holds
+    // keys l + 32 e, e 0-1 group 0's, 2-3 group 1's), then the four
+    // bitmasks of the query tiles, each warp taking 4 tiles a pass
+    if (warp_id == 0) {
+      const int* kseg = p.k_seg + (long long)b * p.SK;
+#pragma unroll
+      for (int w = 0; w < 2; ++w) {
+        int lo = INT_MAX, hi = INT_MIN;
+#pragma unroll
+        for (int e = 2 * w; e < 2 * w + 2; ++e) {
+          const int key = k0 + lane + 32 * e;
+          const int id = key < p.SK ? kseg[key] : INT_MIN;
+          sh.kid[lane + 32 * e] = id;
+          if (key < p.SK) {
+            lo = min(lo, id);
+            hi = max(hi, id);
+          }
         }
-        lse_s[i] = x;
-        dl_s[i] = dl;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T and dP^T = V dO^T for 16 keys x 32 queries
-      float st[NQ][4], dpt[NQ][4];
 #pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) st[n][c] = dpt[n][c] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const T* kr = &k_s[w][kk * 16 + 2 * tq];
-        const T* vr = &v_s[w][kk * 16 + 2 * tq];
-        const uint32_t ka[4] = {u32(kr), u32(kr + 8 * LD), u32(kr + 8),
-                                u32(kr + 8 * LD + 8)};
-        const uint32_t va[4] = {u32(vr), u32(vr + 8 * LD), u32(vr + 8),
-                                u32(vr + 8 * LD + 8)};
-#pragma unroll
-        for (int n = 0; n < NQ; ++n) {
-          const T* qr = &q_s[n * 8 + g][kk * 16 + 2 * tq];
-          const T* dr = &do_s[n * 8 + g][kk * 16 + 2 * tq];
-          mma16816<T>(st[n], ka, u32(qr), u32(qr + 8));
-          mma16816<T>(dpt[n], va, u32(dr), u32(dr + 8));
+        for (int o = 16; o > 0; o >>= 1) {
+          lo = min(lo, __shfl_xor_sync(kFull, lo, o));
+          hi = max(hi, __shfl_xor_sync(kFull, hi, o));
         }
-      }
-#pragma unroll
-      for (int n = 0; n < NQ; ++n)
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int qi = n * 8 + 2 * tq + (c & 1);
-          const int qs = Seg ? qid_s[qi] : 0;
-          const float pt = visible<Seg>(p, q0 + qi, c < 2 ? key0 : key1, qs,
-                                        c < 2 ? ks0 : ks1)
-                               ? expf(st[n][c] * p.scale - lse_s[qi])
-                               : 0.f;
-          dpt[n][c] = pt * (dpt[n][c] - dl_s[qi]);
-          st[n][c] = pt;
-        }
-      // dV += P^T dO and dK += dS^T Q (k = the tile's queries)
-#pragma unroll
-      for (int j = 0; j < BQ / 16; ++j) {
-        const uint32_t pa[4] = {
-            pack_floats<T>(st[2 * j][0], st[2 * j][1]),
-            pack_floats<T>(st[2 * j][2], st[2 * j][3]),
-            pack_floats<T>(st[2 * j + 1][0], st[2 * j + 1][1]),
-            pack_floats<T>(st[2 * j + 1][2], st[2 * j + 1][3])};
-        const uint32_t sa[4] = {
-            pack_floats<T>(dpt[2 * j][0], dpt[2 * j][1]),
-            pack_floats<T>(dpt[2 * j][2], dpt[2 * j][3]),
-            pack_floats<T>(dpt[2 * j + 1][0], dpt[2 * j + 1][1]),
-            pack_floats<T>(dpt[2 * j + 1][2], dpt[2 * j + 1][3])};
-        const int qr = j * 16 + 2 * tq;
-#pragma unroll
-        for (int n = 0; n < NO; ++n) {
-          const int d = n * 8 + g;
-          mma16816<T>(dv[n], pa,
-                      pack_elems<T>(do_s[qr][d], do_s[qr + 1][d]),
-                      pack_elems<T>(do_s[qr + 8][d], do_s[qr + 9][d]));
-          mma16816<T>(dk[n], sa, pack_elems<T>(q_s[qr][d], q_s[qr + 1][d]),
-                      pack_elems<T>(q_s[qr + 8][d], q_s[qr + 9][d]));
+        if (lane == 0) {
+          sh.klo[w] = lo;
+          sh.khi[w] = hi;
         }
       }
     }
+    for (int i = threadIdx.x; i < 4 * n_words; i += kDkvThreads) masks[i] = 0;
+    __syncthreads();
+    const int wlo0 = sh.klo[0], whi0 = sh.khi[0];
+    const int wlo1 = sh.klo[1], whi1 = sh.khi[1];
+    for (int j0 = 4 * warp_id; j0 < n_qt; j0 += 4 * kDkvWarps) {
+      int lo[4], hi[4];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        lo[u] = INT_MAX;
+        hi[u] = INT_MIN;
+#pragma unroll
+        for (int e = 0; e < BQ / 32; ++e) {
+          const int t = qb + (j0 + u) * BQ + lane + 32 * e;
+          if (t < p.SQ) {
+            const int id = qseg[t];
+            lo[u] = min(lo[u], id);
+            hi[u] = max(hi[u], id);
+          }
+        }
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) {
+          lo[u] = min(lo[u], __shfl_xor_sync(kFull, lo[u], o));
+          hi[u] = max(hi[u], __shfl_xor_sync(kFull, hi[u], o));
+        }
+      }
+      if (lane == 0) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          const int jt = j0 + u;
+          if (jt >= n_qt) break;
+          const uint32_t bit = 1u << (jt % 32);
+          uint32_t* word = masks + jt / 32;
+          if (!apart(lo[u], hi[u], wlo0, whi0)) atomicOr(word, bit);
+          if (!apart(lo[u], hi[u], wlo1, whi1)) atomicOr(word + n_words, bit);
+          if (lo[u] == hi[u] && wlo0 == whi0 && lo[u] == wlo0)
+            atomicOr(word + 2 * n_words, bit);
+          if (lo[u] == hi[u] && wlo1 == whi1 && lo[u] == wlo1)
+            atomicOr(word + 3 * n_words, bit);
+        }
+      }
+    }
+    __syncthreads();
+    if (warp_id == 0) {
+      int hits = 0;
+      for (int w = lane; w < n_words; w += 32)
+        hits += __popc(masks[w] | masks[n_words + w]);
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1)
+        hits += __shfl_xor_sync(kFull, hits, o);
+      if (lane == 0) sh.n_hit = hits;
+      __syncwarp();
+    }
+  }
+
+  // Fill stage st with the walk's element w (warp-collective): head w /
+  // n_qt's query tile w % n_qt, or with segment ids head w / n_hit's
+  // (w % n_hit)-th tile that meets a group's keys, and one past the last
+  // element a stage with no copy and tile -1.
+  auto refill = [&](int st, int w) {
+    int hh, jt, flags = 0;
+    if constexpr (Seg) {
+      const int n_hit = sh.n_hit;
+      if (w >= rep * n_hit) {
+        if (w == rep * n_hit) {
+          if (lane == 0) {
+            sh.tile[st] = -1;
+            hopper::mbar_arrive(&sh.full[st]);
+          }
+          hopper::cp_async_arrive(&sh.full[st]);
+        }
+        return;
+      }
+      hh = w / n_hit;
+      jt = nth_tile(masks, masks + n_words, n_words, w % n_hit);
+#pragma unroll
+      for (int m = 0; m < 4; ++m)
+        flags |= (int)((masks[m * n_words + jt / 32] >> (jt % 32)) & 1u) << m;
+    } else {
+      if (w >= n_tiles) return;
+      hh = w / n_qt;
+      jt = w % n_qt;
+    }
+    const int h = kvh * rep + hh, q0 = qb + jt * BQ;
+    if (lane == 0) {
+      sh.tile[st] = hh * n_qt + jt;
+      sh.flags[st] = flags;
+      hopper::mbar_arrive_expect_tx(&sh.full[st], 2 * kQTile);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        hopper::tma_load_4d(q_s + st * kQTile + c * kBox64, &p.q_map,
+                            &sh.full[st], c * 64, h, q0, b);
+        hopper::tma_load_4d(do_s + st * kQTile + c * kBox64, &p.do_map,
+                            &sh.full[st], c * 64, h, q0, b);
+      }
+    }
+    const long long rows = ((long long)b * p.H + h) * p.SQ;
+#pragma unroll
+    for (int e = 0; e < BQ / 32; ++e) {
+      const int i = lane + 32 * e, t = q0 + i;
+      const bool in = t < p.SQ;
+      const long long row = rows + (in ? t : 0);
+      hopper::cp_async_4(&sh.lse[st][i], p.lse + row, in);
+      hopper::cp_async_4(&sh.dl[st][i], p.delta + row, in);
+      if constexpr (Seg)
+        if ((flags & 12) != 12)  // the ids of a tile not one segment
+          hopper::cp_async_4(&sh.qid[st][i], qseg + (in ? t : 0), in);
+    }
+    hopper::cp_async_arrive(&sh.full[st]);
+  };
+  if (warp_id == 0)
+    for (int w = 0; w < S; ++w) refill(w, w);
+
+  // ------------------------------------------------------------ consumers
+  const int cw = threadIdx.x / 128;  // consumer warpgroup, 0 or 1
+  const int warp = warp_id % 4;
+  const int g = lane >> 2, tq = lane & 3;
+  const int wk0 = k0 + cw * 64;  // the group's first key
+  const int key0 = wk0 + warp * 16 + g, key1 = key0 + 8;
+  const float c = p.scale_log2;
+
+  const uint32_t k_addr = hopper::smem_u32(k_s) + cw * 64 * 128;
+  const uint32_t v_addr = hopper::smem_u32(v_s) + cw * 64 * 128;
+  const uint32_t q_addr = hopper::smem_u32(q_s);
+  const uint32_t do_addr = hopper::smem_u32(do_s);
+
+  float dk[D / 2], dv[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) dk[i] = dv[i] = 0.f;
+
+  hopper::mbar_wait(&sh.kv_full, 0);
+  int ks0 = 0, ks1 = 0;
+  if constexpr (Seg) {
+    ks0 = sh.kid[key0 - k0];
+    ks1 = sh.kid[key1 - k0];
+  }
+
+  for (int i = 0;; ++i) {
+    const int st = i % S;
+    if (!Seg && i >= n_tiles) break;
+    hopper::mbar_wait(&sh.full[st], (i / S) & 1);
+    const int j = sh.tile[st];
+    if (Seg && j < 0) break;
+    const int flags = sh.flags[st];
+    const int q0 = qb + (j % n_qt) * BQ;
+    // nothing of this tile is visible to the group's keys
+    const bool skip = wk0 >= p.SK || (p.causal && q0 + BQ - 1 + off < wk0) ||
+                      (Seg && !((flags >> cw) & 1));
+    if (!skip) {
+      float s[BQ / 2], dp[BQ / 2];
+      const uint32_t qt = q_addr + st * kQTile, dt = do_addr + st * kQTile;
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<T, BQ>(
+            s, hopper::desc_k(k_addr + (kk / 4) * kBox + (kk % 4) * 32),
+            hopper::desc_k(qt + (kk / 4) * kBox64 + (kk % 4) * 32), kk > 0);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<T, BQ>(
+            dp, hopper::desc_k(v_addr + (kk / 4) * kBox + (kk % 4) * 32),
+            hopper::desc_k(dt + (kk / 4) * kBox64 + (kk % 4) * 32), kk > 0);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(s);
+      hopper::fence_operand(dp);
+
+      // P^T and dS^T = P^T (dP^T - delta); a per-element test only where
+      // the tile crosses the causal diagonal of the group's keys, the Sq
+      // edge or a segment boundary
+      const bool uniform = !Seg || ((flags >> (2 + cw)) & 1);
+      const bool edge = q0 + BQ > p.SQ ||
+                        (p.causal && wk0 + 63 > q0 + off) || !uniform;
+#pragma unroll
+      for (int n = 0; n < BQ / 8; ++n) {
+        const int qc = n * 8 + 2 * tq;  // this lane's two query columns
+        const float2 l2 = *reinterpret_cast<const float2*>(&sh.lse[st][qc]);
+        const float2 d2 = *reinterpret_cast<const float2*>(&sh.dl[st][qc]);
+        // lse_safe * log2(e): a row that sees nothing has lse -inf
+        const float m0 = l2.x == -INFINITY ? 0.f : l2.x * kLog2e;
+        const float m1 = l2.y == -INFINITY ? 0.f : l2.y * kLog2e;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int col = e & 1;
+          float x = fast_exp2(fmaf(s[4 * n + e], c, col ? -m1 : -m0));
+          if (edge) {
+            const int t = q0 + qc + col, key = e < 2 ? key0 : key1;
+            bool vis = t < p.SQ && (!p.causal || key <= t + off);
+            if constexpr (Seg)
+              vis = vis &&
+                    (uniform || sh.qid[st][qc + col] == (e < 2 ? ks0 : ks1));
+            if (!vis) x = 0.f;
+          }
+          s[4 * n + e] = x;
+          dp[4 * n + e] = x * (dp[4 * n + e] - (col ? d2.y : d2.x));
+        }
+      }
+      // P^T's and dS^T's A fragments for queries 16 kk .. 16 kk + 15
+      uint32_t pa[BQ / 16][4], da[BQ / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          pa[kk][x] = pack_floats<T>(s[8 * kk + 2 * x], s[8 * kk + 2 * x + 1]);
+          da[kk][x] =
+              pack_floats<T>(dp[8 * kk + 2 * x], dp[8 * kk + 2 * x + 1]);
+        }
+      // dV += P^T dO and dK += dS^T Q, dO and Q read MN-major: the
+      // queries are the reduction
+      hopper::fence_operand(dv);
+      hopper::fence_operand(dk);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        hopper::wgmma_rs<T, D>(dv, pa[kk],
+                               hopper::desc_mn(dt + kk * 16 * 128, kBox64), 1);
+#pragma unroll
+      for (int kk = 0; kk < BQ / 16; ++kk)
+        hopper::wgmma_rs<T, D>(dk, da[kk],
+                               hopper::desc_mn(qt + kk * 16 * 128, kBox64), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(dv);
+      hopper::fence_operand(dk);
+    }
+    // the last of the 8 warps to be done with the stage refills it
+    __syncwarp();
+    int last = 0;
+    if (lane == 0) {
+      __threadfence_block();
+      last = atomicAdd(&sh.released[st], 1) == kDkvWarps - 1;
+      if (last) {
+        sh.released[st] = 0;
+        __threadfence_block();
+      }
+    }
+    if (__shfl_sync(kFull, last, 0)) refill(st, i + S);
   }
 
   T* dkp = static_cast<T*>(p.dk);
@@ -981,14 +1411,14 @@ __global__ void __launch_bounds__(kThreads) dkv_mma_kernel(const Params p) {
   for (int r = 0; r < 2; ++r) {
     const int key = r == 0 ? key0 : key1;
     if (key < p.SK) {
-      const long long off = (((long long)b * p.SK + key) * p.KVH + kvh) * D;
+      const long long o = (((long long)b * p.SK + key) * p.KVH + kvh) * D;
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const int c = n * 8 + 2 * tq;
-        *reinterpret_cast<uint32_t*>(dkp + off + c) = pack_floats<T>(
-            dk[n][2 * r] * p.scale, dk[n][2 * r + 1] * p.scale);
-        *reinterpret_cast<uint32_t*>(dvp + off + c) =
-            pack_floats<T>(dv[n][2 * r], dv[n][2 * r + 1]);
+      for (int n = 0; n < D / 8; ++n) {
+        const int col = n * 8 + 2 * tq;
+        *reinterpret_cast<uint32_t*>(dkp + o + col) = pack_floats<T>(
+            dk[4 * n + 2 * r] * p.scale, dk[4 * n + 2 * r + 1] * p.scale);
+        *reinterpret_cast<uint32_t*>(dvp + o + col) =
+            pack_floats<T>(dv[4 * n + 2 * r], dv[4 * n + 2 * r + 1]);
       }
     }
   }
@@ -1434,52 +1864,29 @@ cudaError_t launch(Kernel kernel, dim3 grid, size_t smem, cudaStream_t s,
 
 enum Which { kFwd, kDq, kDkv };
 
-template <typename T, int D, bool Seg>
-cudaError_t launch_d(Which which, const Params& p, cudaStream_t s) {
-  const dim3 by_q(p.B * p.H, (p.SQ + 16 * kWarps - 1) / (16 * kWarps));
-  if constexpr (sizeof(T) == 2) {
-    switch (which) {
-      case kFwd: break;  // fwd_wgmma_kernel: run_fwd16
-      case kDq: return launch(dq_mma_kernel<T, D, Seg>, by_q, 0, s, p);
-      case kDkv:
-        return launch(dkv_mma_kernel<T, D, Seg>,
-                      dim3(p.B * p.KVH, (p.SK + kDkvKeys - 1) / kDkvKeys),
-                      dkv_mma_smem<T, D>(), s, p);
-    }
-  } else {
-    const dim3 by_fq(p.B * p.H, (p.SQ + kFQ - 1) / kFQ);
-    switch (which) {
-      case kFwd:
-        return launch(fwd_f32_kernel<D, Seg>, by_fq, fwd_f32_smem<D>(), s,
-                      p);
-      case kDq:
-        return launch(dq_f32_kernel<D, Seg>, by_fq, dq_f32_smem<D>(), s, p);
-      case kDkv:
-        return launch(dkv_f32_kernel<D, Seg>,
-                      dim3(p.B * p.KVH, (p.SK + kFK - 1) / kFK),
-                      dkv_f32_smem<D>(), s, p);
-    }
+// the float32 kernels (16-bit inputs take run_fwd16 / run_bwd16)
+template <int D, bool Seg>
+cudaError_t launch_f32(Which which, const Params& p, cudaStream_t s) {
+  const dim3 by_fq(p.B * p.H, (p.SQ + kFQ - 1) / kFQ);
+  switch (which) {
+    case kFwd:
+      return launch(fwd_f32_kernel<D, Seg>, by_fq, fwd_f32_smem<D>(), s, p);
+    case kDq:
+      return launch(dq_f32_kernel<D, Seg>, by_fq, dq_f32_smem<D>(), s, p);
+    case kDkv:
+      return launch(dkv_f32_kernel<D, Seg>,
+                    dim3(p.B * p.KVH, (p.SK + kFK - 1) / kFK),
+                    dkv_f32_smem<D>(), s, p);
   }
   return cudaErrorInvalidValue;
 }
 
-template <typename T, bool Seg>
-cudaError_t launch_t(Which which, const Params& p, int head_dim,
-                     cudaStream_t s) {
-  switch (head_dim) {
-    case 64: return launch_d<T, 64, Seg>(which, p, s);
-    case 128: return launch_d<T, 128, Seg>(which, p, s);
-    default: return cudaErrorInvalidValue;
-  }
-}
-
 template <bool Seg>
-cudaError_t launch_seg(Which which, const Params& p, int dtype, int head_dim,
+cudaError_t launch_seg(Which which, const Params& p, int head_dim,
                        cudaStream_t s) {
-  switch (dtype) {
-    case 0: return launch_t<float, Seg>(which, p, head_dim, s);
-    case 1: return launch_t<__half, Seg>(which, p, head_dim, s);
-    case 2: return launch_t<__nv_bfloat16, Seg>(which, p, head_dim, s);
+  switch (head_dim) {
+    case 64: return launch_f32<64, Seg>(which, p, s);
+    case 128: return launch_f32<128, Seg>(which, p, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -1489,10 +1896,11 @@ int run(Which which, Params& p, int dtype, int head_dim, void* stream) {
   if (p.KVH <= 0 || p.H % p.KVH != 0) return cudaErrorInvalidValue;
   if ((p.q_seg == nullptr) != (p.k_seg == nullptr))
     return cudaErrorInvalidValue;
+  if (dtype != 0) return cudaErrorInvalidValue;
   if (which == kDkv ? p.SK <= 0 : p.SQ <= 0) return cudaSuccess;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return p.q_seg ? launch_seg<true>(which, p, dtype, head_dim, s)
-                 : launch_seg<false>(which, p, dtype, head_dim, s);
+  return p.q_seg ? launch_seg<true>(which, p, head_dim, s)
+                 : launch_seg<false>(which, p, head_dim, s);
 }
 
 Params make_params(const void* q, const void* k, const void* v,
@@ -1553,11 +1961,12 @@ cudaError_t launch_fwd_t(const FwdParams& fp, int head_dim, cudaStream_t s) {
 }
 
 // The map of one [B, S, heads, D] operand as (D, heads, S, B), element
-// strides (sh, ss, sb); boxes of 64 columns x 1 head x 128 rows x 1 batch.
-// A dim of size one is never stepped over: it gets the packed stride.
+// strides (sh, ss, sb); boxes of 64 columns x 1 head x `rows` rows x 1
+// batch.  A dim of size one is never stepped over: it gets the packed
+// stride.
 CUresult operand_map(CUtensorMap* map, CUtensorMapDataType type,
                      const void* base, int d, int heads, int seq, int batch,
-                     long long sh, long long ss, long long sb) {
+                     long long sh, long long ss, long long sb, int rows) {
   const long long es = 2;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
                               (cuuint64_t)seq, (cuuint64_t)batch};
@@ -1566,7 +1975,7 @@ CUresult operand_map(CUtensorMap* map, CUtensorMapDataType type,
   if (heads == 1) strides[0] = d * es;
   if (seq == 1) strides[1] = strides[0] * heads;
   if (batch == 1) strides[2] = strides[1] * seq;
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kFwdBQ, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   return hopper::encode_tensor_map(map, type, 4, base, dims, strides, box);
 }
 
@@ -1580,23 +1989,23 @@ int run_fwd16(const void* q, const void* k, const void* v, void* out,
   if (KVH <= 0 || H % KVH != 0 || (q_seg == nullptr) != (k_seg == nullptr))
     return cudaErrorInvalidValue;
   if (D != 64 && D != 128) return cudaErrorInvalidValue;
-  static_assert(kFwdBK == kFwdBQ, "one box shape serves q, k and v");
   FwdParams fp = {};
   const CUtensorMapDataType type = dtype == 2
                                        ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
                                        : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
-  CUresult r = operand_map(&fp.q_map, type, q, D, H, SQ, B, q_sh, q_ss, q_sb);
+  CUresult r = operand_map(&fp.q_map, type, q, D, H, SQ, B, q_sh, q_ss, q_sb,
+                           kFwdBQ);
   // with no keys nothing is loaded: q's map stands in for k's and v's
   if (r == CUDA_SUCCESS)
     r = SK > 0 ? operand_map(&fp.k_map, type, k, D, KVH, SK, B, k_sh, k_ss,
-                             k_sb)
+                             k_sb, kFwdBK)
                : operand_map(&fp.k_map, type, q, D, H, SQ, B, q_sh, q_ss,
-                             q_sb);
+                             q_sb, kFwdBK);
   if (r == CUDA_SUCCESS)
     r = SK > 0 ? operand_map(&fp.v_map, type, v, D, KVH, SK, B, v_sh, v_ss,
-                             v_sb)
+                             v_sb, kFwdBK)
                : operand_map(&fp.v_map, type, q, D, H, SQ, B, q_sh, q_ss,
-                             q_sb);
+                             q_sb, kFwdBK);
   if (r != CUDA_SUCCESS) return kTmaRefused + (int)r;
   fp.out = out;
   fp.lse = lse;
@@ -1607,7 +2016,7 @@ int run_fwd16(const void* q, const void* k, const void* v, void* out,
   fp.KVH = KVH;
   fp.SQ = SQ;
   fp.SK = SK;
-  fp.scale_log2 = scale * 1.4426950408889634f;
+  fp.scale_log2 = scale * kLog2e;
   fp.causal = causal;
   const bool seg = q_seg != nullptr;
   switch (dtype) {
@@ -1621,12 +2030,122 @@ int run_fwd16(const void* q, const void* k, const void* v, void* out,
   }
 }
 
+// ------------------------------------------------ backward launches (16-bit)
+constexpr int kMaxSmem = 232448;  // the most shared memory a block may use
+
+template <typename T, int D, bool Seg>
+cudaError_t launch_bwd(Which which, const BwdParams& bp, cudaStream_t s) {
+  if (which == kDq) {
+    auto kernel = dq_wgmma_kernel<T, D, Seg>;
+    constexpr size_t smem = dq_smem<D>();
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (attr != cudaSuccess) return attr;
+    const dim3 grid(bp.B * bp.H, (bp.SQ + kDqBQ - 1) / kDqBQ);
+    kernel<<<grid, dim3(kDqThreads), smem, s>>>(bp);
+  } else {
+    auto kernel = dkv_wgmma_kernel<T, D, Seg>;
+    // with segment ids, the four bitmasks of the longest walk's query tiles
+    const size_t smem =
+        dkv_smem<D>() +
+        (Seg ? 4 * sizeof(uint32_t) *
+                   dkv_mask_words((bp.SQ + kDkvBQ - 1) / kDkvBQ)
+             : 0);
+    static const cudaError_t attr = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    if (attr != cudaSuccess) return attr;
+    const dim3 grid(bp.B * bp.KVH, (bp.SK + kDkvBK - 1) / kDkvBK);
+    kernel<<<grid, dim3(kDkvThreads), smem, s>>>(bp);
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, bool Seg>
+cudaError_t launch_bwd_t(Which which, const BwdParams& bp, int head_dim,
+                         cudaStream_t s) {
+  switch (head_dim) {
+    case 64: return launch_bwd<T, 64, Seg>(which, bp, s);
+    case 128: return launch_bwd<T, 128, Seg>(which, bp, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+int run_bwd16(Which which, const Params& p, int dtype, int D,
+              cudaStream_t s) {
+  if (p.B <= 0 || p.H <= 0 || (which == kDkv ? p.SK <= 0 : p.SQ <= 0))
+    return cudaSuccess;
+  if (p.KVH <= 0 || p.H % p.KVH != 0 ||
+      (p.q_seg == nullptr) != (p.k_seg == nullptr))
+    return cudaErrorInvalidValue;
+  if (D != 64 && D != 128) return cudaErrorInvalidValue;
+  BwdParams bp = {};
+  const CUtensorMapDataType type = dtype == 2
+                                       ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16
+                                       : CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  // dq: boxes of 128 query rows and 64 key rows; dkv the other way round
+  const int qrows = which == kDq ? kDqBQ : kDkvBQ;
+  const int krows = which == kDq ? kDqBK : kDkvBK;
+  CUresult r = CUDA_SUCCESS;
+  if (p.SQ > 0) {
+    r = operand_map(&bp.q_map, type, p.q, D, p.H, p.SQ, p.B, p.q_sh, p.q_ss,
+                    p.q_sb, qrows);
+    if (r == CUDA_SUCCESS)
+      r = operand_map(&bp.do_map, type, p.dout, D, p.H, p.SQ, p.B, p.do_sh,
+                      p.do_ss, p.do_sb, qrows);
+  } else {
+    // dkv with no queries loads nothing: k's map stands in
+    r = operand_map(&bp.q_map, type, p.k, D, p.KVH, p.SK, p.B, p.k_sh,
+                    p.k_ss, p.k_sb, qrows);
+    bp.do_map = bp.q_map;
+  }
+  if (r == CUDA_SUCCESS) {
+    if (p.SK > 0) {
+      r = operand_map(&bp.k_map, type, p.k, D, p.KVH, p.SK, p.B, p.k_sh,
+                      p.k_ss, p.k_sb, krows);
+      if (r == CUDA_SUCCESS)
+        r = operand_map(&bp.v_map, type, p.v, D, p.KVH, p.SK, p.B, p.v_sh,
+                        p.v_ss, p.v_sb, krows);
+    } else {
+      // dq with no keys loads nothing: q's map stands in
+      r = operand_map(&bp.k_map, type, p.q, D, p.H, p.SQ, p.B, p.q_sh,
+                      p.q_ss, p.q_sb, krows);
+      bp.v_map = bp.k_map;
+    }
+  }
+  if (r != CUDA_SUCCESS) return kTmaRefused + (int)r;
+  bp.lse = p.lse;
+  bp.delta = p.delta;
+  bp.dq = p.dq;
+  bp.dk = p.dk;
+  bp.dv = p.dv;
+  bp.q_seg = p.q_seg;
+  bp.k_seg = p.k_seg;
+  bp.B = p.B;
+  bp.H = p.H;
+  bp.KVH = p.KVH;
+  bp.SQ = p.SQ;
+  bp.SK = p.SK;
+  bp.scale = p.scale;
+  bp.scale_log2 = p.scale * kLog2e;
+  bp.causal = p.causal;
+  const bool seg = p.q_seg != nullptr;
+  switch (dtype) {
+    case 1:
+      return seg ? launch_bwd_t<__half, true>(which, bp, D, s)
+                 : launch_bwd_t<__half, false>(which, bp, D, s);
+    case 2:
+      return seg ? launch_bwd_t<__nv_bfloat16, true>(which, bp, D, s)
+                 : launch_bwd_t<__nv_bfloat16, false>(which, bp, D, s);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
 
 // dtype: 0 float32, 1 float16, 2 bfloat16.  q_seg / k_seg: contiguous
 // [B, Sq] / [B, Sk] int32 segment ids, or both null (no segments).  Each
 // entry returns the cudaError_t of its launch (0 on success), or for the
-// 16-bit forward 2000 + the CUresult of a tensor map the driver refuses;
+// 16-bit kernels 2000 + the CUresult of a tensor map the driver refuses;
 // the Python wrapper raises on anything else.
 extern "C" int flash_attention_fwd(
     const void* q, const void* k, const void* v, void* out, float* lse,
@@ -1666,6 +2185,9 @@ extern "C" int flash_attention_bwd_dq(
   p.do_ss = do_ss;
   p.do_sh = do_sh;
   p.dq = dq;
+  if (dtype == 1 || dtype == 2)
+    return run_bwd16(kDq, p, dtype, head_dim,
+                     static_cast<cudaStream_t>(stream));
   return run(kDq, p, dtype, head_dim, stream);
 }
 
@@ -1688,5 +2210,8 @@ extern "C" int flash_attention_bwd_dkv(
   p.do_sh = do_sh;
   p.dk = dk;
   p.dv = dv;
+  if (dtype == 1 || dtype == 2)
+    return run_bwd16(kDkv, p, dtype, head_dim,
+                     static_cast<cudaStream_t>(stream));
   return run(kDkv, p, dtype, head_dim, stream);
 }

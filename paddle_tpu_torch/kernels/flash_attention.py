@@ -223,7 +223,7 @@ def _check_cuda(name, tensors):
 
 
 def _check_tma(name, tensors):
-    """Raise on a layout the 16-bit forward's TMA copies cannot address:
+    """Raise on a layout the 16-bit kernels' TMA copies cannot address:
     every dim of more than one row needs a positive byte stride below
     2**40 (the 16-byte alignment is ``_check_cuda``'s)."""
     for tname, t in tensors:
@@ -258,7 +258,7 @@ def _run(fn_name, dev, args):
         rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
     if rc >= _TMA_REFUSED:
         raise ValueError(f"{fn_name}: the driver refuses a TMA tensor map "
-                         f"of q/k/v (cuTensorMapEncodeTiled returned "
+                         f"of q/k/v/dout (cuTensorMapEncodeTiled returned "
                          f"CUresult {rc - _TMA_REFUSED})")
     if rc != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed with CUDA "
@@ -301,16 +301,19 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta,
                            scale: Optional[float] = None,
                            causal: bool = False, q_segments=None,
                            k_segments=None) -> torch.Tensor:
-    """``dq [B, Sq, H, D]``: the CUDA kernel for CUDA tensors, the plain
-    version for CPU tensors."""
+    """``dq [B, Sq, H, D]``: the CUDA kernel for CUDA tensors (raises on
+    what it does not take, as :func:`flash_attention_fwd` does, dout
+    included), the plain version for CPU tensors."""
     _check(q, k, v)
     _segments(q, k, q_segments, k_segments)
     if q.device.type != "cuda":
         return flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta,
                                                 scale, causal, q_segments,
                                                 k_segments)
-    _check_cuda("flash_attention_bwd_dq",
-                [("q", q), ("k", k), ("v", v), ("dout", dout)])
+    operands = [("q", q), ("k", k), ("v", v), ("dout", dout)]
+    _check_cuda("flash_attention_bwd_dq", operands)
+    if q.dtype != torch.float32:
+        _check_tma("flash_attention_bwd_dq", operands)
     b, sq, sk, h, kh, d = _dims(q, k)
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} must have q's shape "
@@ -333,16 +336,19 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
                             causal: bool = False, q_segments=None,
                             k_segments=None
                             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dk, dv)`` with k/v's shape: the CUDA kernel for CUDA tensors,
-    the plain version for CPU tensors."""
+    """``(dk, dv)`` with k/v's shape: the CUDA kernel for CUDA tensors
+    (raises on what it does not take, as :func:`flash_attention_fwd` does,
+    dout included), the plain version for CPU tensors."""
     _check(q, k, v)
     _segments(q, k, q_segments, k_segments)
     if q.device.type != "cuda":
         return flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
                                                  scale, causal, q_segments,
                                                  k_segments)
-    _check_cuda("flash_attention_bwd_dkv",
-                [("q", q), ("k", k), ("v", v), ("dout", dout)])
+    operands = [("q", q), ("k", k), ("v", v), ("dout", dout)]
+    _check_cuda("flash_attention_bwd_dkv", operands)
+    if q.dtype != torch.float32:
+        _check_tma("flash_attention_bwd_dkv", operands)
     b, sq, sk, h, kh, d = _dims(q, k)
     if dout.shape != q.shape:
         raise ValueError(f"dout {tuple(dout.shape)} must have q's shape "

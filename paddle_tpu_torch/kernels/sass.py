@@ -3,7 +3,7 @@ and instruction-for-instruction comparisons of two builds, read with
 ``cuobjdump -sass`` (needs the CUDA toolkit; nothing runs at import).
 
     python -m paddle_tpu_torch.kernels.sass compare OLD.so NEW.so \
-        dq_mma_kernel dkv_mma_kernel fwd_f32_kernel
+        fwd_wgmma_kernel fwd_f32_kernel dq_f32_kernel dkv_f32_kernel
 
 prints, for every instantiation of the named kernels found in both
 libraries, its instruction count and whether the two builds hold the same
@@ -25,16 +25,21 @@ __all__ = ["functions", "instruction_counts", "compare"]
 
 def _kernel_name(mangled: str) -> str:
     """``<identifier><template args>`` of a mangled kernel name whose
-    identifier ends in ``_kernel`` (found by its length prefix, which
-    may follow other digits: ``..._cu_2c13897916fwd_wgmma_kernelI...``),
-    or the name itself."""
-    for m in re.finditer(r"\d+", mangled):
-        run, end = m.group(), m.end()
-        for n in range(1, min(3, len(run)) + 1):
-            ident = mangled[end:end + int(run[-n:])]
-            if ident.endswith("_kernel") and re.fullmatch(r"[A-Za-z]\w*",
-                                                          ident):
-                return mangled[end:]
+    identifier ends in ``_kernel``: in a nested name (``_ZN`` then
+    length-prefixed parts, the anonymous namespace's first:
+    ``_ZN51_GLOBAL__N__..._cu_2c13897916fwd_wgmma_kernelI...``) the first
+    part that is such an identifier, or the name itself."""
+    if mangled.startswith("_ZN"):
+        pos = 3
+        while True:
+            m = re.match(r"\d+", mangled[pos:])
+            if m is None:
+                break
+            start = pos + m.end()
+            ident = mangled[start:start + int(m.group())]
+            if ident.endswith("_kernel"):
+                return mangled[start:]
+            pos = start + len(ident)
     return mangled
 
 
@@ -45,9 +50,9 @@ def _cuobjdump() -> str:
 
 def functions(lib: str) -> Dict[str, List[str]]:
     """Each kernel of a built library, keyed by its name without the
-    anonymous namespace (``dq_mma_kernel<bf16, 128, false>`` in mangled
-    form, e.g. ``dq_mma_kernelI13__nv_bfloat16Li128ELb0EEEvNS_6ParamsE``),
-    with its SASS instructions (address and encoding stripped)."""
+    anonymous namespace (``dq_wgmma_kernel<bf16, 128, false>`` in mangled
+    form: ``dq_wgmma_kernelI13__nv_bfloat16Li128ELb0EEEvNS_9BwdParams``
+    ``E``), with its SASS instructions (address and encoding stripped)."""
     out = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
                          text=True, check=True).stdout
     funcs: Dict[str, List[str]] = {}

@@ -165,6 +165,24 @@ def test_sdpa_refuses_mask_and_training_dropout():
     assert out.shape == x.shape
 
 
+@pytest.mark.parametrize("name", ("flash_attention_fwd",
+                                  "flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv"))
+def test_tma_layout_check_is_shared_by_the_16_bit_kernels(name):
+    """The 16-bit forward, dq and dkv read q/k/v (and dO) through TMA
+    tensor maps, so each refuses, with one message, a layout TMA cannot
+    address (a dim of more than one row with a zero byte stride), and
+    takes strided views of a fused QKV projection."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    qkv = torch.zeros(2, 8, 3, 2, 64, dtype=torch.bfloat16)
+    fa._check_tma(name, [("q", qkv[:, :, 0]), ("dout", qkv[:, :, 1])])
+    broadcast = torch.zeros(1, 8, 2, 64, dtype=torch.bfloat16).expand(
+        2, 8, 2, 64)
+    with pytest.raises(ValueError, match=f"{name}: dout's stride 0 in dim 0 "
+                                         f"cannot be read by TMA"):
+        fa._check_tma(name, [("q", qkv[:, :, 0]), ("dout", broadcast)])
+
+
 @pytest.mark.cuda
 def test_kernels_match_plain_versions_on_the_card():
     """On a card: each of the three kernels against its plain version,
