@@ -13,7 +13,13 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      over a sweep of shapes and dtypes, then timed at the serving path's
      shapes beside its plain version, its bound and, where one exists, one
      PyTorch library call computing the same function (timed only as a
-     yardstick): ``decode_attention``, then the decode-block pair
+     yardstick): ``decode_attention`` (168 cases: sq 1 to 512, lengths
+     around a split boundary, past S_max and 0; 16-bit elements each
+     within their own limit; at the four serving shapes two calls
+     bit-identical and a planted fault of the split model — a dropped
+     split, a shifted query offset — at 4x that limit or more; its 16-bit
+     kernels' SASS on wgmma / TMA with no spills), then the
+     decode-block pair
      (``decode_block_attn``, ``decode_block_mlp``, and
      ``decode_block_layer``), timed beside the port's unfused layer, then
      the four fused-norm kernels (RMSNorm / LayerNorm forward and
@@ -92,6 +98,14 @@ Each phase prints its peak device memory.  The last lines are a JSON
 object describing every kernel, the card's ``nvidia-smi`` name and power
 limit, and ``{"ok": true, "device": {...}}``.  Needs one CUDA card;
 imports nothing of JAX.
+
+    python3 chip_smoke.py --serve-ab PARENT_CHECKOUT
+
+runs this file's GPT and Llama serving phases (TTFT, decode step, each
+prefill chunk's device time by kind and by kernel) and times
+``decode_attention`` (card and host time a call) on another checkout's
+package and on this one's in turns (parent, this, this, parent), each in
+its own process, to compare two commits on one card.
 """
 
 from __future__ import annotations
@@ -193,11 +207,34 @@ def sdpa_call(q, k_cache, v_cache, seq_lens, causal: bool = True):
                                                   attn_mask=mask)
 
 
+DECODE_OPS = ("HGMMA", "UTMALDG", "HMMA", "STL", "LDL")
+# a planted fault must read at least this many times its elements' own
+# limit (``row_reading``), so that the check is shown to have room to fail
+FAULT_READING = 4.0
+# the serving paths' decode-attention shapes (bf16): at gpt3_6_7b width, a
+# decode step over 8 slots of a 2048-row cache filled to 1024 and a
+# 512-wide prefill chunk whose last query sits at row 1536; at llama_7b
+# width, a decode step over 8 slots of a 4096-row cache at ragged lengths
+# up to 3104 (a 3072-token prompt and 32 new tokens) and the last
+# 512-wide chunk of that prompt
+DECODE_SHAPES = {
+    "decode": ((8, 1, 32, 128), (8, 2048, 32, 128), [1024] * 8),
+    "prefill": ((1, 512, 32, 128), (1, 2048, 32, 128), [1536]),
+    "llama_decode": ((8, 1, 32, 128), (8, 4096, 32, 128),
+                     [160, 672, 1056, 1568, 2080, 2592, 3104, 3104]),
+    "llama_prefill": ((1, 512, 32, 128), (1, 4096, 32, 128), [3072]),
+}
+
+
 def phase_kernels(card: str):
     """Hold the kernel against its plain version over the sweep, then
-    check and time it at the serving paths' shapes.  Returns the kernel's
+    check and time it at the serving paths' shapes: two calls
+    bit-identical, two planted faults read above the limit, the 16-bit
+    kernels' SASS on wgmma / TMA with no spills.  Returns the kernel's
     record (without launches) and the max abs error at those shapes."""
     import torch
+    from paddle_tpu_torch.kernels import _build, sass
+    from paddle_tpu_torch.kernels import decode_attention as da
     from paddle_tpu_torch.kernels.decode_attention import (
         decode_attention, decode_attention_reference)
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -205,29 +242,34 @@ def phase_kernels(card: str):
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev)
     g.manual_seed(0)
+    split = da._SPLIT_ROWS
 
     def rand(shape, dtype):
         return torch.randn(shape, generator=g, device=dev).to(dtype)
 
     # f32: only the summation order differs; 16-bit: the output cast and
-    # (tensor-core path) the 16-bit P of the P V product
+    # (tensor-core path) the 16-bit P of the P V product.  16-bit outputs
+    # are also held element by element to the flash phases' limit
+    # (``row_reading`` <= 1: 2 ulps of the element + 2 ulps of its row's
+    # largest |value| + 1e-4), far below atol 2e-2 at outputs of ~0.03
     tol = {torch.float32: dict(atol=1e-4, rtol=0.0),
            torch.bfloat16: dict(atol=2e-2, rtol=2e-2),
            torch.float16: dict(atol=2e-2, rtol=2e-2)}
-    worst = {}
+    worst, reads = {}, {}
     cases = 0
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         for d in (64, 128):
             for rep in (1, 4):
-                for sq in (1, 7, 48, 512):
-                    b, h, s_max = 4, 8, 1024
+                for sq in (1, 7, 48, 64, 65, 128, 512):
+                    b, h, s_max = 7, 8, 1024
                     q = rand((b, sq, h, d), dtype)
                     k = rand((b, s_max, h // rep, d), dtype)
                     v = rand((b, s_max, h // rep, d), dtype)
-                    # ragged: 1, S_max, past S_max, and shorter than sq
+                    # ragged: 1, S_max, past S_max, shorter than sq, a
+                    # split's last row, the next split's first row, and 0
                     lens = torch.tensor([1, s_max, s_max + 37,
-                                         max(sq - 3, 0)],
-                                        dtype=torch.int32, device=dev)
+                                         max(sq - 3, 0), split, split + 1,
+                                         0], dtype=torch.int32, device=dev)
                     for causal in (True, False):
                         out = decode_attention(q, k, v, lens,
                                                causal_tail=causal)
@@ -237,61 +279,142 @@ def phase_kernels(card: str):
                         err = (out.float() - ref.float()).abs().max().item()
                         key = str(dtype).replace("torch.", "")
                         worst[key] = max(worst.get(key, 0.0), err)
+                        read = (0.0 if dtype == torch.float32
+                                else row_reading(out, ref))
+                        reads[key] = max(reads.get(key, 0.0), read)
                         if not torch.allclose(out.float(), ref.float(),
-                                              **tol[dtype]):
+                                              **tol[dtype]) or read > 1.0:
                             raise AssertionError(
                                 f"decode_attention disagrees with its plain "
                                 f"version: dtype={dtype} D={d} rep={rep} "
-                                f"sq={sq} causal={causal} max_abs_err={err}")
+                                f"sq={sq} causal={causal} max_abs_err={err} "
+                                f"element reading {read}")
+                        if not torch.all(out[6] == 0):
+                            raise AssertionError(
+                                f"decode_attention: a row of length 0 gave "
+                                f"nonzero output: dtype={dtype} D={d} "
+                                f"rep={rep} sq={sq} causal={causal}")
                         cases += 1
     log(f"[kernels] decode_attention sweep: {cases} cases within "
-        f"tolerance (f32 atol 1e-4; bf16/f16 atol/rtol 2e-2); max abs err "
-        f"{json.dumps(worst)}")
+        f"tolerance (f32 atol 1e-4; bf16/f16 atol/rtol 2e-2 and every "
+        f"element within its own limit; sq 1, 7, 48, 64, 65, 128, 512; "
+        f"lengths 1, S_max, past S_max, sq - 3, the {split}-row split's "
+        f"last row, the next split's first, 0 (exactly 0 out)); max abs "
+        f"err {json.dumps(worst)}, largest element reading "
+        f"{json.dumps(reads)}")
 
-    # the serving paths' shapes (bf16): at gpt3_6_7b width, a decode step
-    # over 8 slots of a 2048-row cache filled to 1024 and a 512-wide
-    # prefill chunk whose last query sits at row 1536; at llama_7b width,
-    # a decode step over 8 slots of a 4096-row cache at ragged lengths up
-    # to 3104 (a 3072-token prompt and 32 new tokens) and the last 512-wide
-    # chunk of that prompt
-    shapes = {
-        "decode": ((8, 1, 32, 128), (8, 2048, 32, 128), [1024] * 8),
-        "prefill": ((1, 512, 32, 128), (1, 2048, 32, 128), [1536]),
-        "llama_decode": ((8, 1, 32, 128), (8, 4096, 32, 128),
-                         [160, 672, 1056, 1568, 2080, 2592, 3104, 3104]),
-        "llama_prefill": ((1, 512, 32, 128), (1, 4096, 32, 128), [3072]),
-    }
+    # the 16-bit kernels as built: the chunk kernel on wgmma and TMA (HGMMA,
+    # UTMALDG, no mma.sync HMMA), neither with local-memory spills (STL /
+    # LDL), the split kernel's K / V through TMA
+    lib = str(_build._library_path("decode_attention"))
+    kernel_sass = {k: sass.instruction_counts(lib, k, DECODE_OPS)
+                   for k in ("chunk_wgmma_kernel", "decode_split_kernel")}
+    chunk, dsplit = (kernel_sass["chunk_wgmma_kernel"],
+                     kernel_sass["decode_split_kernel"])
+    if len(chunk) != 4 or any(
+            c["HGMMA"] == 0 or c["UTMALDG"] == 0 or c["HMMA"] != 0
+            or c["STL"] != 0 or c["LDL"] != 0 for c in chunk.values()):
+        raise AssertionError(f"chunk_wgmma_kernel's instantiations (bf16/f16 "
+                             f"x head_dim 64/128) must each hold HGMMA and "
+                             f"UTMALDG and no HMMA, STL or LDL: "
+                             f"{json.dumps(chunk)}")
+    if len(dsplit) != 8 or any(c["UTMALDG"] == 0 or c["STL"] != 0
+                               or c["LDL"] != 0 for c in dsplit.values()):
+        raise AssertionError(f"decode_split_kernel's instantiations (bf16/f16 "
+                             f"x head_dim 64/128 x 1 or 4 heads) must each "
+                             f"hold UTMALDG and no STL or LDL: "
+                             f"{json.dumps(dsplit)}")
+    log(f"[kernels] SASS of the 16-bit decode kernels (cuobjdump -sass; "
+        f"HGMMA wgmma, UTMALDG TMA loads, HMMA mma.sync, STL / LDL spills): "
+        f"{json.dumps(kernel_sass)}")
+
+    # a planted fault at each Llama shape, made by the split model: split
+    # 1's partial dropped (decode) and every query's offset shifted by one
+    # (chunk); each must read at least FAULT_READING times its elements'
+    # own limit
+    faults = {"llama_decode": dict(drop=1), "llama_prefill": dict(shift=1)}
     rec = {}
     err_main = 0.0
-    for name, (qs, ks, lens) in shapes.items():
+    for name, (qs, ks, lens) in DECODE_SHAPES.items():
         q = rand(qs, torch.bfloat16)
         k = rand(ks, torch.bfloat16)
         v = rand(ks, torch.bfloat16)
         seq_lens = torch.tensor(lens, dtype=torch.int32, device=dev)
         out = decode_attention(q, k, v, seq_lens)
+        again = decode_attention(q, k, v, seq_lens)
         ref = decode_attention_reference(q, k, v, seq_lens)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
+        read = row_reading(out, ref)
         if not torch.allclose(out.float(), ref.float(),
-                              **tol[torch.bfloat16]):
+                              **tol[torch.bfloat16]) or read > 1.0:
             raise AssertionError(f"decode_attention disagrees at the {name} "
-                                 f"shape: max_abs_err={err}")
+                                 f"shape: max_abs_err={err}, element "
+                                 f"reading {read}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"decode_attention: two calls at the {name} "
+                                 f"shape differ")
         err_main = max(err_main, err)
+        fault = {}
+        if name in faults:
+            model = decode_split(q, k, v, seq_lens, split)
+            wrong = decode_split(q, k, v, seq_lens, split, **faults[name])
+            model_read = row_reading(out, model)
+            fault_read = row_reading(wrong, ref)
+            if model_read > 1.0:
+                raise AssertionError(f"the split model disagrees with the "
+                                     f"kernel at the {name} shape: element "
+                                     f"reading {model_read}")
+            if fault_read < FAULT_READING:
+                raise AssertionError(f"the planted fault {faults[name]} at "
+                                     f"the {name} shape reads only "
+                                     f"{fault_read} (want >= "
+                                     f"{FAULT_READING})")
+            fault = {"planted_fault": faults[name],
+                     "planted_fault_reading": fault_read,
+                     "planted_fault_max_abs_err":
+                         (wrong.float() - ref.float()).abs().max().item(),
+                     "split_model_reading": model_read}
+            log(f"[kernels] decode_attention {name}: the split model (split "
+                f"{split}) agrees with the kernel (element reading "
+                f"{model_read:.3g}); with the planted fault {faults[name]} "
+                f"it reads {fault_read:.3g} against the plain version "
+                f"(max abs err {fault['planted_fault_max_abs_err']:.3g}), "
+                f"above {FAULT_READING}")
+        if qs[1] > 1:
+            n, sq = lens[0], qs[1]
+            tiles = sum(len(t) for _, comp in
+                        chunk_walk(n, sq, ks[1], True).values()
+                        for t in comp.values())
+            visible = sum(max(0, min(n, n - sq + t + 1)) for t in range(sq))
+            log(f"[kernels] decode_attention {name}: the chunk walk's model "
+                f"computes {tiles} (64-query group, 128-key tile) pairs a "
+                f"head, {tiles * 64 * 128} (query, key) pairs for {visible} "
+                f"visible")
         bound, bound_by = attention_bound(q, k, seq_lens)
         ms = time_ms(lambda: decode_attention(q, k, v, seq_lens))
+        # the card's own time: back to back, a call of ~0.05 ms can wait
+        # on the wrapper's host time (checks, three tensor maps encoded)
+        dev_ms = device_ms(lambda: decode_attention(q, k, v, seq_lens))
         plain_ms = time_ms(lambda: decode_attention_reference(q, k, v,
                                                               seq_lens))
-        lib = sdpa_call(q, k, v, seq_lens)
-        library_ms = time_ms(lib)
-        rec[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+        library_ms = time_ms(sdpa_call(q, k, v, seq_lens))
+        rec[name] = {"ms": ms, "device_ms": dev_ms, "plain_ms": plain_ms,
+                     "bound_ms": bound,
                      "bound_by": bound_by, "library_ms": library_ms,
-                     "max_abs_err": err,
+                     "max_abs_err": err, "element_reading": read,
+                     "bit_identical": True, **fault,
                      "q": list(qs), "kv": list(ks), "seq_lens": lens}
         log(f"[kernels] decode_attention {name} q{list(qs)} kv{list(ks)} "
-            f"seq_lens {lens} bf16: kernel {ms:.4f} ms, plain "
+            f"seq_lens {lens} bf16: kernel {ms:.4f} ms (device "
+            f"{dev_ms:.4f}), plain "
             f"{plain_ms:.4f} ms, sdpa {library_ms:.4f} ms, bound "
-            f"{bound:.4f} ms ({bound_by}); max abs err {err:.3g} "
-            f"(card: {card})")
+            f"{bound:.4f} ms ({bound_by}); max abs err {err:.3g}, element "
+            f"reading {read:.3g}; two calls bit-identical (card: {card})")
+    rec["sass"] = kernel_sass
+    rec["sweep_cases"] = cases
+    rec["sweep_max_abs_err"] = worst
+    rec["sweep_element_reading"] = reads
     return rec, err_main
 
 
@@ -1429,12 +1552,15 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
     if m["prefix_hit_tokens"] <= 0:
         raise AssertionError(f"{tag} no prefix-cache hit in the serving run")
     decode_ms = float(np.median(step_ms)) if step_ms else None
+    # the metrics' TTFT p50 is a quantile of log-spaced histogram buckets;
+    # the exact median of the run's 8 TTFTs beside it
+    ttft_ms = float(np.median([eng.result(rid).ttft_s * 1e3 for rid in ids]))
     res = {"decode_path": eng.decode_path, "tp": tp,
            "requests": len(ids), "prefill_chunks": chunks,
            "decode_steps": decode_steps, "steps": m["steps"],
            "run_s": run_s, "tokens_generated": m["tokens_generated"],
            "tokens_per_s": m["tokens_generated"] / run_s,
-           "ttft_p50_ms": m["ttft_p50_ms"],
+           "ttft_p50_ms": m["ttft_p50_ms"], "ttft_median_ms": ttft_ms,
            "decode_step_ms_p50": decode_ms,
            "decode_only_steps": len(step_ms),
            "prefix_hit_tokens": m["prefix_hit_tokens"],
@@ -1446,13 +1572,19 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
                                  f"{hist.count} samples, want {decode_steps}")
         res["decode_block_dispatch_ms_p50"] = hist.quantile(0.5) * 1e3
     log(f"{tag} {res['tokens_per_s']:.1f} tokens/s over the run, TTFT "
-        f"p50 {m['ttft_p50_ms']} ms, decode step p50 "
+        f"p50 {m['ttft_p50_ms']} ms (median {ttft_ms:.2f}), decode step p50 "
         f"{decode_ms if decode_ms is None else round(decode_ms, 3)} ms "
         f"({len(step_ms)} decode-only steps), prefix hit tokens "
         f"{m['prefix_hit_tokens']}, peak memory {res['peak_mem_gb']:.1f} GB "
         f"(card: {card}{TP_NOTE if tp > 1 else ''})")
     res["decode_profile"] = profile_decode(eng, cfg.vocab_size, card,
                                            tag[len("[serving:"):-1])
+    if tp == 1 and not fused:
+        # one prompt as long as the run's longest: its last chunk is the
+        # kernel phase's prefill shape
+        res["prefill_profile"] = profile_prefill(
+            eng, cfg.vocab_size, card, tag[len("[serving:"):-1],
+            max(n for wave in waves for n, _, _ in wave))
     eng.close()
     return launches, res
 
@@ -1518,6 +1650,68 @@ def profile_decode(eng, vocab: int, card: str, label: str,
         for name, ms in out["top_kernels_ms_per_step"].items():
             log(f"{tag}   {ms:8.4f} ms/step  {name}")
     return out
+
+
+# the profiles' kinds of kernel, by name: the decode-attention kernels of
+# prefill chunks and of decode steps, and cuBLAS GEMMs (each chunk's
+# profile also lists its kernels by name)
+PROFILE_KINDS = {
+    "attention": ("chunk_wgmma_kernel", "decode_tile_kernel"),
+    "decode_attention": ("decode_split_kernel", "decode_sq1_kernel"),
+    "gemm": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
+}
+
+
+def profile_prefill(eng, vocab: int, card: str, label: str,
+                    prompt_len: int) -> dict:
+    """Device time of each 512-token prefill chunk of one fresh prompt of
+    ``prompt_len`` tokens on an idle engine: each engine step (one chunk)
+    under its own torch.profiler window, its kernel time by kind (the
+    chunk's attention, cuBLAS GEMMs, the rest) and its five longest
+    kernels by name.  Reports every chunk; the
+    last one attends over the longest cache, and its step also runs the
+    request's first decode step (its ``decode_attention`` and part of its
+    GEMMs and rest)."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rs = np.random.RandomState(13)
+    rid = eng.submit(rs.randint(0, vocab, (prompt_len,)), max_new_tokens=1)
+    chunks = []
+    while eng.core._prefills or eng.core.scheduler.waiting:
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        by_kind = {kind: 0.0 for kind in (*PROFILE_KINDS, "other")}
+        by_name = kernel_ms(prof)
+        for name, ms in by_name.items():
+            kind = next((k for k, pats in PROFILE_KINDS.items()
+                         if any(x in name for x in pats)), "other")
+            by_kind[kind] += ms
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        chunks.append({"wall_ms": wall_ms,
+                       "device_ms": sum(by_kind.values()),
+                       "device_ms_by_kind": by_kind,
+                       "top_kernels_ms": {k[:90]: v for k, v in top}})
+    eng.run_until_complete()
+    eng.purge(rid)
+    tag = f"[profile:{label}]"
+    if not chunks or chunks[-1]["device_ms"] == 0.0:
+        log(f"{tag} the profiler saw no device time: prefill chunk "
+            f"profile not measured")
+        return {"chunks": chunks}
+    for i, c in enumerate(chunks):
+        log(f"{tag} prefill chunk {i + 1} of {len(chunks)} ({prompt_len}-"
+            f"token prompt) under torch.profiler: {c['wall_ms']:.3f} ms "
+            f"wall, {c['device_ms']:.3f} ms of kernels; by kind "
+            f"{json.dumps({k: round(v, 4) for k, v in c['device_ms_by_kind'].items()})} "
+            f"(card: {card})")
+    return {"prompt_len": prompt_len, "chunks": chunks}
 
 
 # --------------------------------------------------------------- parity
@@ -2103,6 +2297,82 @@ def tile_pairs(ids, q_tile: int, k_tile: int, by_keys: bool,
                    & ~((khi < mine.min()) | (mine.max() < klo)))
             tiles += int(hit.sum())
     return tiles * rows * k_tile
+
+
+def decode_split(q, k_cache, v_cache, seq_lens, split_rows: int,
+                 scale=None, causal: bool = True, drop=None, shift: int = 0):
+    """A model of the 16-bit decode kernel's split walk
+    (``csrc/decode_attention.cu`` ``decode_split_kernel``), for any number
+    of queries, in f32 on the inputs' device: each run of ``split_rows``
+    cache rows gives a partial softmax (m, l, acc) over the rows each query
+    sees (m = -inf and l = 0 where it sees none), and the partials merge in
+    split order.  Returns ``[B, sq, H, D]`` in q's dtype.  Planted faults,
+    which the kernel's check must catch: ``drop`` leaves split ``drop``'s
+    partial out, ``shift`` moves every query's causal offset."""
+    import torch
+    b, sq, h, d = q.shape
+    s_max, kvh = k_cache.shape[1], k_cache.shape[2]
+    scale = 1.0 / d ** 0.5 if scale is None else scale
+    qf = q.float() * scale
+    kf = k_cache.float().repeat_interleave(h // kvh, dim=2)
+    vf = v_cache.float().repeat_interleave(h // kvh, dim=2)
+    lens = seq_lens.to(device=q.device, dtype=torch.long)[:, None, None]
+    kpos = torch.arange(s_max, device=q.device)[None, None, :]
+    seen = kpos < lens                                  # [B, sq, S_max]
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[None, :, None]
+        seen = seen & (kpos <= lens - sq + qpos + shift)
+    parts = []
+    for r0 in range(0, s_max, split_rows):
+        rows = slice(r0, min(r0 + split_rows, s_max))
+        mask = seen[:, None, :, rows]                   # [B, 1, sq, n]
+        s = torch.einsum("bqhd,bkhd->bhqk", qf, kf[:, rows])
+        s = s.masked_fill(~mask, float("-inf"))
+        m = s.amax(dim=-1)
+        p = torch.exp(s - torch.where(m == float("-inf"), 0.0, m)[..., None])
+        p = p.masked_fill(~mask, 0.0)
+        if r0 // split_rows != drop:
+            parts.append((m, p.sum(-1),
+                          torch.einsum("bhqk,bkhd->bhqd", p, vf[:, rows])))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    m_all = torch.where(m_all == float("-inf"), 0.0, m_all)
+    l_all = torch.zeros_like(m_all)
+    acc = torch.zeros((b, h, sq, d), device=q.device)
+    for m, l, a in parts:
+        f = torch.exp(m - m_all)                        # 0 where m = -inf
+        l_all = l_all + l * f
+        acc = acc + a * f[..., None]
+    out = acc / torch.where(l_all == 0.0, 1.0, l_all)[..., None]
+    return out.permute(0, 2, 1, 3).to(q.dtype)
+
+
+def chunk_walk(seq_len: int, sq: int, s_max: int, causal: bool,
+               q_tile: int = 128, k_tile: int = 128, groups: int = 2):
+    """The key tiles the 16-bit chunk kernel (``csrc/decode_attention.cu``
+    ``chunk_wgmma_kernel``) loads and computes for one (batch row, head):
+    a model of its walk, not a count on the card.  Query t sits at cache
+    row seq_len - sq + t.  The block of ``q_tile`` queries from q0 loads
+    the tiles below the last row its queries see, min(S_max, seq_len,
+    seq_len - sq + last + 1) with the causal tail; each of its ``groups``
+    groups of rows computes the loaded tiles that start below its own such
+    end.  Returns ``{q0: (tile starts loaded, {group's first query: tile
+    starts computed})}``."""
+    lim = max(0, min(s_max, seq_len))
+    off = seq_len - sq
+
+    def end(t_last):
+        return max(0, min(lim, off + t_last + 1)) if causal else lim
+
+    rows = q_tile // groups
+    walk = {}
+    for q0 in range(0, sq, q_tile):
+        loaded = list(range(0, end(min(q0 + q_tile, sq) - 1), k_tile))
+        computed = {}
+        for w0 in range(q0, q0 + q_tile, rows):
+            wend = end(min(w0 + rows, sq) - 1) if w0 < sq else 0
+            computed[w0] = [k0 for k0 in loaded if k0 < wend]
+        walk[q0] = (loaded, computed)
+    return walk
 
 
 def _seen(qs, ks, causal):
@@ -2828,6 +3098,153 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
+AB_KEYS = ("ttft_p50_ms", "ttft_median_ms", "decode_step_ms_p50",
+           "tokens_per_s", "prefill_chunks", "decode_steps", "prefill_profile")
+# calls of the wrapper a window of its host-time measure makes
+HOST_CALLS = 100
+
+
+def host_us(calls: dict) -> dict:
+    """Host microseconds per call of each of ``calls`` (name ->
+    function): windows of ``HOST_CALLS`` calls back to back with no sync
+    (the host never waits on the card, whose queue holds them all), the
+    calls' windows in turns, the median of 5 after a warm-up round."""
+    import statistics
+
+    import torch
+    windows = {name: [] for name in calls}
+    for i in range(6):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(HOST_CALLS):
+                fn()
+            if i:
+                windows[name].append((time.perf_counter() - t0)
+                                     / HOST_CALLS * 1e6)
+    torch.cuda.synchronize()
+    return {name: statistics.median(w) for name, w in windows.items()}
+
+
+def wrapper_times() -> dict:
+    """``decode_attention`` at the four serving shapes: the events time,
+    the card's time and the wrapper's host time per call (``host_us``);
+    at the decode shapes also the host time of the same call in f32, in
+    turns with it in one process: the same Python, with neither tensor
+    maps nor a workspace on either tree."""
+    import torch
+    from paddle_tpu_torch.kernels.decode_attention import decode_attention
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(0)
+    times = {}
+    for name, (qs, ks, lens) in DECODE_SHAPES.items():
+        q, k, v = (torch.randn(shape, generator=g, device=DEVICE)
+                   .to(torch.bfloat16) for shape in (qs, ks, ks))
+        seq_lens = torch.tensor(lens, dtype=torch.int32, device=DEVICE)
+
+        def call(q=q, k=k, v=v):
+            return decode_attention(q, k, v, seq_lens)
+        calls = {"host_us": call}
+        if qs[1] == 1:
+            f32 = [x.float() for x in (q, k, v)]
+            calls["host_us_f32"] = lambda: call(*f32)
+        times[name] = {"ms": time_ms(call), "device_ms": device_ms(call),
+                       **host_us(calls)}
+    return times
+
+
+def ab_child(root: str) -> int:
+    """One side of ``--serve-ab``: this file's serving phases (GPT, then
+    Llama) and ``wrapper_times`` on the ``paddle_tpu_torch`` of the
+    checkout at ``root``, built from its own sources; prints their results
+    as the last line."""
+    root = os.path.abspath(root)
+    sys.path.insert(0, root)
+    from paddle_tpu_torch.kernels import _build
+    if not _build.__file__.startswith(root):
+        raise AssertionError(f"imported {_build.__file__}, not {root}")
+    _build.build(sorted(f[:-3] for f in os.listdir(_build._CSRC)
+                        if f.endswith(".cu")))
+    card = card_line()
+    out = {"root": root, "card": card, "decode_attention": wrapper_times()}
+    free_card()
+    for family in ("gpt", "llama"):
+        runs = phase_serving(card, family)
+        out[family] = {path: {k: runs[path][1].get(k) for k in AB_KEYS}
+                       for path in ("unfused", "fused")}
+        del runs
+        free_card()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def serve_ab(parent: str) -> int:
+    """``python3 chip_smoke.py --serve-ab PARENT``: ``ab_child`` on the
+    checkout at PARENT and on this one, in turns (parent, this, this,
+    parent), each in its own process on the one card; logs each side's
+    numbers and the wrapper's host time per decode step (a call per
+    layer) against the parent's."""
+    import statistics
+
+    import torch
+    if not torch.cuda.is_available():
+        print("chip_smoke --serve-ab needs a CUDA card", file=sys.stderr)
+        return 2
+    results = []
+    for root in (parent, HERE, HERE, parent):
+        proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                               "--ab-child", root],
+                              capture_output=True, text=True, timeout=1500)
+        sys.stderr.write(proc.stderr[-3000:])
+        if proc.returncode != 0:
+            print(proc.stdout[-6000:])
+            raise AssertionError(f"the serving run of {root} failed "
+                                 f"(exit {proc.returncode})")
+        res = json.loads(proc.stdout.strip().splitlines()[-1])
+        side = "parent" if res["root"] != HERE else "change"
+        results.append({"side": side, **res})
+        for name, t in res["decode_attention"].items():
+            f32 = (f", f32 {t['host_us_f32']:.2f}" if "host_us_f32" in t
+                   else "")
+            log(f"[serve-ab] {side} decode_attention {name}: {t['ms']:.4f} "
+                f"ms (device {t['device_ms']:.4f}), host "
+                f"{t['host_us']:.2f} us a call{f32} (card: {res['card']})")
+        for family in ("gpt", "llama"):
+            for path in ("unfused", "fused"):
+                r = res[family][path]
+                prof = (r.get("prefill_profile") or {}).get("chunks") or []
+                top = prof[-1]["top_kernels_ms"] if prof else {}
+                log(f"[serve-ab] {side} {family} {path}: TTFT median "
+                    f"{r['ttft_median_ms']:.2f} ms (histogram p50 "
+                    f"{r['ttft_p50_ms']}), decode step p50 "
+                    f"{r['decode_step_ms_p50']} ms, {r['tokens_per_s']} "
+                    f"tokens/s; last prefill chunk's device ms "
+                    f"{[round(c['device_ms'], 4) for c in prof][-1:]}, "
+                    f"longest kernels {json.dumps(top)} "
+                    f"(card: {res['card']})")
+    # the unfused decode step calls the wrapper once a layer (32 layers in
+    # both models)
+    # host time a call: each tree's median over its turns, and its bf16
+    # call against the f32 one of the same process (the 16-bit path's own
+    # host work: on the change the workspace and two tensor maps)
+    for name in ("decode", "llama_decode"):
+        host, own = {}, {}
+        for side in ("parent", "change"):
+            ts = [r["decode_attention"][name] for r in results
+                  if r["side"] == side]
+            host[side] = statistics.median(t["host_us"] for t in ts)
+            own[side] = statistics.median(t["host_us"] - t["host_us_f32"]
+                                          for t in ts)
+        log(f"[serve-ab] decode_attention host time at the {name} shape: "
+            f"parent {host['parent']:.2f} us, change {host['change']:.2f} "
+            f"us a call ({(host['change'] - host['parent']) * 32e-3:+.4f} "
+            f"ms per 32-layer unfused decode step); bf16 - f32 in one "
+            f"process: parent {own['parent']:+.2f} us, change "
+            f"{own['change']:+.2f} us")
+    log(json.dumps({"serve_ab": results}))
+    return 0
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2887,19 +3304,27 @@ def main() -> int:
         "route": "cuda",
         "source": "paddle_tpu_torch/kernels/csrc/decode_attention.cu",
         "replaces": "paddle_tpu/kernels/decode_attention.py:42",
+        # 16-bit: the split walk at sq == 1, wgmma for chunks; f32: FMA
+        "kernels": ["decode_split_kernel", "chunk_wgmma_kernel",
+                    "decode_sq1_kernel (f32)", "decode_tile_kernel (f32)"],
         "launches": launches_u["decode_attention"],
         "launches_by_path": {"unfused": launches_u["decode_attention"],
                              "fused": launches_f["decode_attention"],
                              "llama_unfused": llama_u["decode_attention"],
                              "llama_fused": llama_f["decode_attention"]},
         "max_abs_err": err,
-        "ms": d["ms"], "plain_ms": d["plain_ms"],
+        "ms": d["ms"], "device_ms": d["device_ms"],
+        "plain_ms": d["plain_ms"],
         "bound_ms": d["bound_ms"], "bound_by": d["bound_by"],
         "library_ms": d["library_ms"],
         "shape": "decode q[8,1,32,128] kv[8,2048,32,128] seq_len 1024 bf16",
         "prefill": rec["prefill"],
         "llama_decode": rec["llama_decode"],
         "llama_prefill": rec["llama_prefill"],
+        "bit_identical": d["bit_identical"],
+        "sweep_cases": rec["sweep_cases"],
+        "sweep_max_abs_err": rec["sweep_max_abs_err"],
+        "sass": rec["sass"],
     }]
     for half, line in (("attn", 313), ("mlp", 562)):
         name = f"decode_block_{half}"
@@ -3004,4 +3429,8 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--serve-ab"]:
+        sys.exit(serve_ab(sys.argv[2]))
+    if sys.argv[1:2] == ["--ab-child"]:
+        sys.exit(ab_child(sys.argv[2]))
     sys.exit(main())

@@ -41,9 +41,11 @@ _SIGNATURES = {
     "decode_attention": {
         "decode_attention_launch": (
             [_P, _P, _P, _P, _P,            # q, k, v, seq_lens, out
+             _P, _P,                        # split workspace or null
              _I, _I, _I, _I, _I, _I, _I,    # dtype, B, sq, H, KVH, S, D
              _L, _L, _L, _L, _L, _L, _L, _L, _L,   # q/k/v strides b, s, h
-             _F, _I, _P],                   # scale, causal, stream
+             _F, _I, _I, _P],               # scale, causal, split rows,
+                                            # stream
             _I),
     },
     "decode_block": {

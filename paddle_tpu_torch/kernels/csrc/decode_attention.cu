@@ -2,43 +2,66 @@
 // against a KV cache with per-row valid lengths.
 //
 // Replaces the Pallas TPU kernel paddle_tpu/kernels/decode_attention.py
-// (_kernel, launched by decode_attention through pl.pallas_call).  Same
-// function: masked online-softmax attention of q [B, sq, H, D] over
-// k/v [B, S_max, KVH, D]; key kpos of row b is visible to query t when
+// (_kernel :42, launched by decode_attention through pl.pallas_call at
+// :135).  Same function: masked online-softmax attention of q [B, sq, H, D]
+// over k/v [B, S_max, KVH, D]; key kpos of row b is visible to query t when
 // kpos < seq_lens[b] and, with the causal tail, kpos <= seq_len - sq + t.
 // Softmax statistics and the accumulator stay in f32, the output is cast
-// once, and a query with no visible key yields zeros.
+// once, and a query with no visible key yields zeros.  Grouped-query heads
+// read kv head h / (H / KVH) directly instead of repeating heads.
 //
 // What bounds it on an H100: at decode (sq = 1) every cached K/V byte is
 // read once for two flops per element, far below the ~295 flop/byte the
 // card needs to be compute-bound, so it is bound by the bytes of K and V
-// (3.35 TB/s).  Long prefill chunks (sq in the hundreds) reuse each K/V
-// row across many queries and become bound by operations.
+// (3.35 TB/s).  Prefill chunks (sq in the hundreds) reuse each K/V row
+// across many queries and are bound by operations (989 TFLOP/s bf16 on the
+// tensor cores, reached only through wgmma).
 //
-// What the design does about that — three kernels, each with a grid over
-// (batch * head [, query tile]) and the KV walk as a loop inside the block,
-// so blocks share no state (the TPU grid's sequential scratch carry does
-// not exist here), and each stopping the walk at the last row any of its
-// queries can see, min(S_max, seq_len, seq_len - sq + last + 1):
-//  * sq == 1 (decode_sq1_kernel): bytes.  Eight warps split the block's
-//    KV rows; each lane holds D/32 elements of q and of the accumulator,
-//    reads its slice of 8 K rows and 8 V rows with vector loads before
-//    using any (many bytes in flight per SM, rows read exactly once, no
-//    shared-memory staging), reduces each dot product across the warp
-//    with shuffles and keeps its own online softmax; the eight partial
-//    softmaxes merge once through shared memory at the end.
-//  * sq > 1, bf16/f16 (decode_mma_kernel): operations, on the tensor
-//    cores.  A block owns 64 queries (16 per warp); 64-row K/V tiles are
-//    staged once in shared memory (16-byte loads, padded rows for
-//    conflict-free fragment reads) and reused by all 64 queries; S = Q K^T
-//    and O += P V run as mma.sync m16n8k16 with f32 accumulation, with Q,
-//    S, P and O held in registers (P is rounded to the input type for
-//    the second product, as FlashAttention-2 does).
-//  * sq > 1, f32 (decode_tile_kernel): the same walk on plain FMA loops
-//    over 16-query tiles, each shared-memory read feeding several FMAs.
-//  * GQA reads KV head h / (H / KVH) directly instead of repeating heads.
-// Later work: wgmma and TMA loads (Hopper's asynchronous tensor-core path)
-// and a split of long KV walks across blocks.
+// Four kernels, by regime.  Each stops its walk at the last row any of its
+// queries can see, min(S_max, seq_len, seq_len - sq + last + 1) (the
+// causal tail), reads seq_lens on the device (the host never does, so a
+// call needs no synchronisation and can be captured in a CUDA graph), and
+// shares no state with other blocks except through the split workspace:
+//  * sq == 1, bf16/f16 (decode_split_kernel): bytes.  The grid is (batch x
+//    kv head x head group, split): each block walks one run of split_rows
+//    cache rows (the wrapper's choice, sized from S_max: no host read of
+//    the lengths), and blocks whose run starts past the last visible row
+//    exit at once, so a short slot costs no more than its rows.  One block
+//    serves 4 query heads of a kv head where the group is a multiple of 4
+//    (else one), so each K/V byte is read once per 4 heads.  A producer
+//    warp keeps a 3-stage ring of 32-row K and V tiles in flight through
+//    TMA (128-byte swizzled boxes of the cache's (D, KVH, S_max, B) map,
+//    one mbarrier per stage for the copies and one for the four consumer
+//    warps' release), while each consumer warp reduces 8 rows a tile from
+//    shared memory:
+//    each lane holds D/32 columns of q and of the accumulator, dot products
+//    close with warp shuffles, the online softmax runs in exp2.  The warps'
+//    partials merge in warp order; a block whose split is the only one
+//    writes the output, otherwise it writes (m, l, acc[D]) in f32 to the
+//    workspace and counts itself done on an integer counter; the block
+//    that counts last merges every split's partial in split order (no
+//    float atomics: the result does not depend on which block is last) and
+//    resets the counter to 0 for the next call.  One launch, deterministic.
+//  * sq > 1, bf16/f16 (chunk_wgmma_kernel): operations.  The flash
+//    forward's shape (flash_attention.cu fwd_wgmma_kernel) for a chunk
+//    over a cache: 384 threads own 128 queries of one (batch, head); a
+//    producer warp copies Q once and each 128-key K/V tile into a 2-stage
+//    ring by TMA (q and the cache read in place through their strides);
+//    two consumer warpgroups of 64 rows compute S = Q K^T and O += P V on
+//    wgmma (P from registers, rounded to the input type as FlashAttention-2
+//    does) and take turns at issuing S.  The query offset seq_len - sq and
+//    the walk's end are computed on the device from seq_lens; keys past
+//    seq_len, and past the causal tail inside a tile, are masked in
+//    registers (TMA zero-fills only past S_max).  Like the reference, a
+//    masked key's P of 0 still multiplies its V row, so the cache rows
+//    below S_max must hold finite values (the serving pool is zeroed).
+//  * f32 (decode_sq1_kernel, decode_tile_kernel): the earlier FMA kernels.
+//    sq == 1: eight warps split the block's rows, 8 rows a lane in flight
+//    with vector loads, and merge through shared memory; sq > 1: 16-query
+//    tiles on plain FMA loops over 32-key shared-memory tiles.
+// Still open: the split kernel's dot products close with 5 shuffles a row
+// and head; the chunk kernel keeps the flash forward's 2-stage ring and
+// one block per SM.
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -46,6 +69,8 @@
 #include <math.h>
 
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -368,16 +393,307 @@ decode_tile_kernel(const Params p) {
   }
 }
 
-// ---------------------------------------------- sq > 1, 16-bit, tensor cores
-// mma.sync m16n8k16 with f32 accumulation.  A warp owns 16 queries: its Q
-// fragments stay in registers, S = Q K^T lands in registers, the online
-// softmax runs on those registers (row max/sum across the 4 lanes of a
-// quad), and P (rounded to the input type) feeds the P V product straight
-// from the S accumulators — the FlashAttention-2 register layout.
-constexpr int kMmaWarps = 4;
-constexpr int kMmaQ = 16 * kMmaWarps;  // queries per block
-constexpr int kMmaK = 64;              // keys per shared-memory tile
-constexpr int kMmaPad = 8;             // row pad: conflict-free fragments
+// ------------------------------------------------ sq == 1, 16-bit, split
+// One block walks one run of cache rows for G (1 or 4) query heads of one
+// kv head.  Warps 0-3 consume, warp 4's first lane produces: it
+// issues the TMA copies of each 32-row K and V tile (D / 64 boxes of 32
+// rows x 128 bytes each, 128-byte swizzled: row r's 16-byte chunk c lands
+// at chunk c ^ (r % 8)) into a ring of kSplitStages stages.  Each stage has
+// a "full" barrier (the copies complete it) and an "empty" one (each
+// consumer warp arrives once it has read its rows).
+constexpr int kSplitWarps = 4;                         // consumer warps
+constexpr int kSplitThreads = (kSplitWarps + 1) * 32;  // + the producer
+constexpr int kSplitTile = 32;                         // cache rows a stage
+constexpr int kSplitStages = 3;
+constexpr int kSplitRows = kSplitTile / kSplitWarps;   // a warp's rows a tile
+constexpr uint32_t kSplitBox = kSplitTile * 128;       // 32 rows x 128 bytes
+constexpr int kMergeBar = 1;  // named barrier of the consumer warps
+
+struct SplitParams {
+  CUtensorMap k_map, v_map;  // (D, KVH, S, B), boxes 64 x 1 x 32 x 1
+  const void* q;             // [B, 1, H, D] through its strides
+  const int* seq_lens;
+  void* out;                 // contiguous [B, 1, H, D]
+  float* part;               // [rows, n_splits, G, 2 + D]: m, l, acc
+  int* count;                // [rows]: splits done; 0 between calls
+  long long q_sb, q_sh;
+  int H, KVH, S, split_rows, n_splits;
+  float scale_log2;          // scale * log2(e)
+};
+
+template <int G, int D>
+struct SplitShared {
+  uint64_t full[kSplitStages], empty[kSplitStages];
+  float m[kSplitWarps][G], l[kSplitWarps][G];
+  float acc[kSplitWarps][G][D];
+  int last;
+};
+
+template <int G, int D>
+constexpr size_t split_smem() {
+  return 1024 + 2 * kSplitStages * (D / 64) * kSplitBox +
+         sizeof(SplitShared<G, D>);
+}
+
+template <typename T, int D, int G>
+__global__ void __launch_bounds__(kSplitThreads)
+    decode_split_kernel(const __grid_constant__ SplitParams p) {
+  constexpr int E = D / 32;                         // columns a lane holds
+  constexpr uint32_t kTile = (D / 64) * kSplitBox;  // one K or V tile
+  constexpr int NS = kSplitStages, RW = kSplitRows;
+  constexpr int kConsumers = kSplitWarps * 32;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* k_s = smem;  // stage st at + st * kTile
+  unsigned char* v_s = k_s + NS * kTile;
+  SplitShared<G, D>& sh =
+      *reinterpret_cast<SplitShared<G, D>*>(v_s + NS * kTile);
+
+  const int groups = p.H / p.KVH / G;  // blocks a kv head's heads take
+  const int row = blockIdx.x;          // (batch, kv head, head group)
+  const int b = row / (p.KVH * groups);
+  const int kvh = row / groups % p.KVH;
+  const int h0 = kvh * (p.H / p.KVH) + row % groups * G;
+  const int end = min(p.S, max(p.seq_lens[b], 0));  // rows the query sees
+  const int n_vis = (end + p.split_rows - 1) / p.split_rows;
+  const int r0 = blockIdx.y * p.split_rows;
+  T* op = static_cast<T*>(p.out) + ((long long)b * p.H + h0) * D;
+  if ((int)blockIdx.y >= max(n_vis, 1)) return;  // no visible row here
+  if (n_vis == 0) {  // the query sees no row: zeros
+    for (int i = threadIdx.x; i < G * D; i += kSplitThreads)
+      op[i] = from_float<T>(0.f);
+    return;
+  }
+  const int r1 = min(end, r0 + p.split_rows);
+  const int n_tiles = (r1 - r0 + kSplitTile - 1) / kSplitTile;
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int st = 0; st < NS; ++st) {
+      hopper::mbar_init(&sh.full[st], 1);
+      hopper::mbar_init(&sh.empty[st], kSplitWarps);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kConsumers) {
+    // ---------------------------------------------------------- producer
+    if (threadIdx.x != kConsumers) return;
+    hopper::prefetch_tensor_map(&p.k_map);
+    hopper::prefetch_tensor_map(&p.v_map);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % NS;
+      hopper::mbar_wait(&sh.empty[st], ((t / NS) & 1) ^ 1);
+      hopper::mbar_arrive_expect_tx(&sh.full[st], 2 * kTile);
+      const int y = r0 + t * kSplitTile;
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) {
+        hopper::tma_load_4d(k_s + st * kTile + c * kSplitBox, &p.k_map,
+                            &sh.full[st], c * 64, kvh, y, b);
+        hopper::tma_load_4d(v_s + st * kTile + c * kSplitBox, &p.v_map,
+                            &sh.full[st], c * 64, kvh, y, b);
+      }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int col = lane * E;  // this lane's first column
+  // its bytes in a swizzled row: box, 16-byte chunk, offset in the chunk
+  const int box = col / 64, chunk = col % 64 / 8, within = col % 8 * 2;
+  float q[G][E], acc[G][E], m[G], l[G];
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const Vec<T, E> qv = load_vec<T, E>(static_cast<const T*>(p.q) +
+                                        b * p.q_sb + (h0 + g) * p.q_sh + col);
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      q[g][e] = to_float(qv.v[e]) * p.scale_log2;
+      acc[g][e] = 0.f;
+    }
+    m[g] = -INFINITY;
+    l[g] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % NS;
+    hopper::mbar_wait(&sh.full[st], (t / NS) & 1);
+    const unsigned char* kt = k_s + st * kTile + box * kSplitBox;
+    const unsigned char* vt = v_s + st * kTile + box * kSplitBox;
+    Vec<T, E> kx[RW], vx[RW];
+#pragma unroll
+    for (int j = 0; j < RW; ++j) {
+      const int r = warp * RW + j;
+      const int off = r * 128 + ((chunk ^ (r & 7)) << 4) + within;
+      kx[j] = *reinterpret_cast<const Vec<T, E>*>(kt + off);
+      vx[j] = *reinterpret_cast<const Vec<T, E>*>(vt + off);
+    }
+    // the rows are in registers: the stage may be refilled
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sh.empty[st]);
+
+    const int first = r0 + t * kSplitTile + warp * RW;  // row of j = 0
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      float s[RW];
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < RW; ++j) {
+        float dot = 0.f;
+#pragma unroll
+        for (int e = 0; e < E; ++e)
+          dot = fmaf(q[g][e], to_float(kx[j].v[e]), dot);
+#pragma unroll
+        for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
+        s[j] = first + j < r1 ? dot : -INFINITY;
+        mx = fmaxf(mx, s[j]);
+      }
+      const float m_next = fmaxf(m[g], mx);
+      // a warp that has seen no row keeps m = -inf: subtract 0 instead
+      const float m_safe = m_next == -INFINITY ? 0.f : m_next;
+      const float alpha = exp2f(m[g] - m_safe);
+      l[g] *= alpha;
+#pragma unroll
+      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
+#pragma unroll
+      for (int j = 0; j < RW; ++j) {
+        // a row past the split's end is skipped, not multiplied by 0: it
+        // may hold anything
+        if (first + j < r1) {
+          const float pr = exp2f(s[j] - m_safe);
+          l[g] += pr;
+#pragma unroll
+          for (int e = 0; e < E; ++e)
+            acc[g][e] = fmaf(pr, to_float(vx[j].v[e]), acc[g][e]);
+        }
+      }
+      m[g] = m_next;
+    }
+  }
+
+  // the warps' partials, merged in warp order
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    if (lane == 0) {
+      sh.m[warp][g] = m[g];
+      sh.l[warp][g] = l[g];
+    }
+#pragma unroll
+    for (int e = 0; e < E; ++e) sh.acc[warp][g][col + e] = acc[g][e];
+  }
+  hopper::named_sync(kMergeBar, kConsumers);
+  const bool alone = n_vis == 1;
+  float* part =
+      p.part + ((long long)row * p.n_splits + blockIdx.y) * G * (2 + D);
+  for (int i = threadIdx.x; i < G * D; i += kConsumers) {
+    const int g = i / D, d = i % D;
+    // finite: the split holds a visible row
+    float mx = -INFINITY;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) mx = fmaxf(mx, sh.m[w][g]);
+    float ls = 0.f, as = 0.f;
+#pragma unroll
+    for (int w = 0; w < kSplitWarps; ++w) {
+      const float f = exp2f(sh.m[w][g] - mx);
+      ls = fmaf(sh.l[w][g], f, ls);
+      as = fmaf(sh.acc[w][g][d], f, as);
+    }
+    if (alone) {
+      op[i] = from_float<T>(as / ls);
+    } else {
+      float* pg = part + g * (2 + D);
+      if (d == 0) {
+        pg[0] = mx;
+        pg[1] = ls;
+      }
+      pg[2 + d] = as;
+    }
+  }
+  if (alone) return;
+
+  // count this split done; the last of the row's splits merges them all
+  __threadfence();
+  hopper::named_sync(kMergeBar, kConsumers);
+  if (threadIdx.x == 0)
+    sh.last = atomicAdd(&p.count[row], 1) == n_vis - 1;
+  hopper::named_sync(kMergeBar, kConsumers);
+  if (!sh.last) return;
+  __threadfence();
+  const float* rp = p.part + (long long)row * p.n_splits * G * (2 + D);
+  for (int i = threadIdx.x; i < G * D; i += kConsumers) {
+    const int g = i / D, d = i % D;
+    float mx = -INFINITY;
+    for (int s = 0; s < n_vis; ++s)
+      mx = fmaxf(mx, __ldcg(rp + (s * G + g) * (2 + D)));
+    float ls = 0.f, as = 0.f;
+    for (int s = 0; s < n_vis; ++s) {
+      const float* ps = rp + (s * G + g) * (2 + D);
+      const float f = exp2f(__ldcg(ps) - mx);
+      ls = fmaf(__ldcg(ps + 1), f, ls);
+      as = fmaf(__ldcg(ps + 2 + d), f, as);
+    }
+    op[i] = from_float<T>(as / ls);
+  }
+  if (threadIdx.x == 0) p.count[row] = 0;  // ready for the next call
+}
+
+// ------------------------------------------------- sq > 1, 16-bit, wgmma
+// One block owns 128 queries of one (batch, head): 384 threads, three
+// warpgroups.  Warpgroup 0 is the producer: its first warp loads Q once
+// and walks the key tiles, one lane issuing the TMA copies of each
+// [128, D] K and V tile into a ring of kChunkStages stages; the group gives
+// up registers.  Warpgroups 1 and 2 are the consumers, 64 query rows each:
+// S = Q K^T on wgmma from shared memory, the online softmax in registers,
+// O += P V on wgmma with P from registers.  Each stage has a "full"
+// barrier for K and one for V (the copies complete them) and an "empty"
+// barrier (each consumer warp arrives once it is done with the stage).
+constexpr int kChunkBQ = 128;     // queries per block
+constexpr int kChunkBK = 128;     // keys per tile
+constexpr int kChunkStages = 2;   // K/V ring
+constexpr int kChunkThreads = 384;
+constexpr int kProducerRegs = 56, kConsumerRegs = 224;
+constexpr int kConsumerWarps = 8;
+constexpr uint32_t kBox = 128 * 128;  // one box: 128 rows x 128 bytes
+
+struct ChunkParams {
+  CUtensorMap q_map;         // (D, H, SQ, B), boxes 64 x 1 x 128 x 1
+  CUtensorMap k_map, v_map;  // (D, KVH, S, B), the same boxes
+  const int* seq_lens;
+  void* out;                 // contiguous [B, SQ, H, D]
+  int H, KVH, SQ, S;
+  float scale_log2;          // scale * log2(e)
+  int causal;
+};
+
+struct ChunkShared {
+  uint64_t q_full, k_full[kChunkStages], v_full[kChunkStages],
+      empty[kChunkStages];
+};
+
+// Q and the K/V ring, 1024-byte aligned, then the barriers.  One block an
+// SM: ptxas gives the 384 threads 168 registers each at launch.
+template <int D>
+constexpr size_t chunk_smem() {
+  return 1024 + (1 + 2 * kChunkStages) * (D / 64) * kBox +
+         sizeof(ChunkShared);
+}
+
+// one past the last cache row that the queries up to t_last see: `lim`
+// rows hold keys, query t sits at cache row off + t
+__device__ __forceinline__ int rows_seen(int lim, int off, int t_last,
+                                         int causal) {
+  return causal ? max(0, min(lim, off + t_last + 1)) : lim;
+}
+
+// 2^x on the special-function unit (2 ulp; 2^-inf = 0)
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 template <typename T> struct Pair;
 template <> struct Pair<__nv_bfloat16> {
@@ -399,166 +715,196 @@ __device__ __forceinline__ uint32_t pack_floats(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-template <typename T>
-__device__ __forceinline__ uint32_t pack_elems(T lo, T hi) {
-  typename Pair<T>::type v;
-  v.x = lo;
-  v.y = hi;
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-template <typename T>
-__device__ __forceinline__ void mma16816(float c[4], const uint32_t a[4],
-                                         uint32_t b0, uint32_t b1);
-template <>
-__device__ __forceinline__ void mma16816<__nv_bfloat16>(
-    float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-template <>
-__device__ __forceinline__ void mma16816<__half>(
-    float c[4], const uint32_t a[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.f16.f16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 template <typename T, int D>
-__global__ void __launch_bounds__(kMmaWarps * 32)
-decode_mma_kernel(const Params p) {
-  constexpr int KS = D / 16;       // k-steps of Q K^T
-  constexpr int NS = kMmaK / 8;    // n-tiles of S (8 keys each)
-  constexpr int NO = D / 8;        // n-tiles of O (8 columns each)
-  constexpr int VE = 8;            // 16-bit elements per 16-byte load
-  constexpr int LD = D + kMmaPad;  // shared-memory row length
-  __shared__ __align__(16) T k_s[kMmaK][LD];
-  __shared__ __align__(16) T v_s[kMmaK][LD];
+__global__ void __launch_bounds__(kChunkThreads, 1)
+    chunk_wgmma_kernel(const __grid_constant__ ChunkParams p) {
+  constexpr int BQ = kChunkBQ, BK = kChunkBK, S = kChunkStages;
+  constexpr uint32_t kTile = (D / 64) * kBox;  // one [128, D] tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* q_s = smem;
+  unsigned char* k_s = q_s + kTile;  // stage st at + st * kTile
+  unsigned char* v_s = k_s + S * kTile;
+  ChunkShared& sh = *reinterpret_cast<ChunkShared*>(v_s + S * kTile);
 
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  const int g = lane >> 2, tq = lane & 3;  // mma group / lane in group
-  const int b = blockIdx.x / p.H;
-  const int h = blockIdx.x % p.H;
+  const int b = blockIdx.x / p.H, h = blockIdx.x % p.H;
   const int kvh = h / (p.H / p.KVH);
-  const int q0 = blockIdx.y * kMmaQ;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BQ;  // most keys first
   const int seq_len = p.seq_lens[b];
-  const long long kv_end = visible_end(p, seq_len,
-                                       min(q0 + kMmaQ, p.SQ) - 1);
+  const int lim = max(0, min(p.S, seq_len));  // cache rows holding keys
+  const int off = seq_len - p.SQ;  // query t sits at cache row off + t
+  const int kend = rows_seen(lim, off, min(q0 + BQ, p.SQ) - 1, p.causal);
+  const int n_tiles = (kend + BK - 1) / BK;
 
-  const T* qp = static_cast<const T*>(p.q) + b * p.q_sb + h * p.q_sh;
-  const T* kp = static_cast<const T*>(p.k) + b * p.k_sb + kvh * p.k_sh;
-  const T* vp = static_cast<const T*>(p.v) + b * p.v_sb + kvh * p.v_sh;
-
-  // this lane's query rows: r0 = g and r1 = g + 8 of the warp's 16
-  const int t0 = q0 + warp * 16 + g, t1 = t0 + 8;
-  uint32_t qa[KS][4];
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(&sh.q_full, 1);
 #pragma unroll
-  for (int kk = 0; kk < KS; ++kk) {
-    const int c = kk * 16 + 2 * tq;
-    qa[kk][0] = t0 < p.SQ ? *reinterpret_cast<const uint32_t*>(
-                                qp + t0 * p.q_ss + c) : 0u;
-    qa[kk][1] = t1 < p.SQ ? *reinterpret_cast<const uint32_t*>(
-                                qp + t1 * p.q_ss + c) : 0u;
-    qa[kk][2] = t0 < p.SQ ? *reinterpret_cast<const uint32_t*>(
-                                qp + t0 * p.q_ss + c + 8) : 0u;
-    qa[kk][3] = t1 < p.SQ ? *reinterpret_cast<const uint32_t*>(
-                                qp + t1 * p.q_ss + c + 8) : 0u;
+    for (int st = 0; st < S; ++st) {
+      hopper::mbar_init(&sh.k_full[st], 1);
+      hopper::mbar_init(&sh.v_full[st], 1);
+      hopper::mbar_init(&sh.empty[st], kConsumerWarps);
+    }
+    hopper::fence_barrier_init();
   }
-  float o[NO][4];
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // ---------------------------------------------------------- producer
+    hopper::regs_dec<kProducerRegs>();
+    if (threadIdx.x != 0) return;
+    hopper::prefetch_tensor_map(&p.k_map);
+    hopper::prefetch_tensor_map(&p.v_map);
+    hopper::mbar_arrive_expect_tx(&sh.q_full, kTile);
 #pragma unroll
-  for (int n = 0; n < NO; ++n)
+    for (int c = 0; c < D / 64; ++c)
+      hopper::tma_load_4d(q_s + c * kBox, &p.q_map, &sh.q_full, c * 64, h,
+                          q0, b);
+    for (int j = 0; j < n_tiles; ++j) {
+      const int st = j % S;
+      hopper::mbar_wait(&sh.empty[st], ((j / S) & 1) ^ 1);
+      hopper::mbar_arrive_expect_tx(&sh.k_full[st], kTile);
 #pragma unroll
-    for (int c = 0; c < 4; ++c) o[n][c] = 0.f;
+      for (int c = 0; c < D / 64; ++c)
+        hopper::tma_load_4d(k_s + st * kTile + c * kBox, &p.k_map,
+                            &sh.k_full[st], c * 64, kvh, j * BK, b);
+      hopper::mbar_arrive_expect_tx(&sh.v_full[st], kTile);
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c)
+        hopper::tma_load_4d(v_s + st * kTile + c * kBox, &p.v_map,
+                            &sh.v_full[st], c * 64, kvh, j * BK, b);
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  hopper::regs_inc<kConsumerRegs>();
+  const int cw = threadIdx.x / 128 - 1;  // consumer warpgroup, 0 or 1
+  const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+  const int g = lane >> 2, tq = lane & 3;
+  const int w0 = q0 + cw * 64;  // the group's first query row
+  const int t0 = w0 + warp * 16 + g, t1 = t0 + 8;
+  // one past the last key the group's rows see
+  const int wend =
+      w0 < p.SQ ? rows_seen(lim, off, min(w0 + 63, p.SQ - 1), p.causal) : 0;
+  const float c = p.scale_log2;
+
+  const uint32_t q_addr = hopper::smem_u32(q_s) + cw * 64 * 128;
+  const uint32_t k_addr = hopper::smem_u32(k_s);
+  const uint32_t v_addr = hopper::smem_u32(v_s);
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f};
 
-  for (long long k0 = 0; k0 < kv_end; k0 += kMmaK) {
-    __syncthreads();  // the previous tile is consumed
-    for (int i = tid; i < kMmaK * (D / VE); i += kMmaWarps * 32) {
-      const int r = i / (D / VE), c = (i % (D / VE)) * VE;
-      const long long row = k0 + r;
-      Vec<T, VE> kx = zero_vec<T, VE>(), vx = zero_vec<T, VE>();
-      if (row < kv_end) {
-        kx = load_vec<T, VE>(kp + row * p.k_ss + c);
-        vx = load_vec<T, VE>(vp + row * p.v_ss + c);
-      }
-      *reinterpret_cast<Vec<T, VE>*>(&k_s[r][c]) = kx;
-      *reinterpret_cast<Vec<T, VE>*>(&v_s[r][c]) = vx;
-    }
-    __syncthreads();
+  // The groups take turns at issuing S = Q K^T (FlashAttention-3's
+  // ping-pong): group cw waits at barrier 1 + cw for the other to have
+  // issued its own, so one group's softmax runs beside the other's
+  // products.  Both groups take a turn at every tile, computed or not;
+  // group 0 goes first.
+  constexpr int kTurn = 1, kPair = 256;
+  if (cw == 1) hopper::named_arrive(kTurn, kPair);
+  hopper::mbar_wait(&sh.q_full, 0);
 
-    // S = Q K^T for 16 queries x 64 keys
-    float s[NS][4];
+  for (int i = 0; i < n_tiles; ++i) {
+    const int st = i % S;
+    const uint32_t ph = (i / S) & 1;
+    hopper::mbar_wait(&sh.k_full[st], ph);
+    const int k0 = i * BK;
+    const bool skip = k0 >= wend;  // no key of the tile is seen by the group
+    hopper::named_sync(kTurn + cw, kPair);
+    if (skip) hopper::named_arrive(kTurn + 1 - cw, kPair);
+    if (!skip) {
+      float s[BK / 2];
+      const uint32_t kt = k_addr + st * kTile;
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+      for (int kk = 0; kk < D / 16; ++kk)
+        hopper::wgmma_ss<T, BK>(
+            s, hopper::desc_k(q_addr + (kk / 4) * kBox + (kk % 4) * 32),
+            hopper::desc_k(kt + (kk / 4) * kBox + (kk % 4) * 32), kk > 0);
+      hopper::wgmma_commit();
+      hopper::named_arrive(kTurn + 1 - cw, kPair);
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(s);
+
+      // a per-element test only where the tile crosses seq_len (or S_max)
+      // or the causal diagonal of the group's rows
+      if (k0 + BK > lim || (p.causal && k0 + BK - 1 > w0 + off)) {
 #pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        const T* kr = &k_s[n * 8 + g][kk * 16 + 2 * tq];
-        mma16816<T>(s[n], qa[kk], *reinterpret_cast<const uint32_t*>(kr),
-                    *reinterpret_cast<const uint32_t*>(kr + 8));
+        for (int n = 0; n < BK / 8; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int key = k0 + n * 8 + 2 * tq + (e & 1);
+            const int t = e < 2 ? t0 : t1;
+            if (!(key < lim && (!p.causal || key <= t + off)))
+              s[4 * n + e] = -INFINITY;
+          }
       }
-    }
-    // scale, mask, and the online-softmax update of rows g and g + 8
-    float mx[2] = {-INFINITY, -INFINITY};
+      float mx[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        const long long key = k0 + n * 8 + 2 * tq + (c & 1);
-        const int t = c < 2 ? t0 : t1;
-        const bool valid =
-            t < p.SQ && key < kv_end && key < seq_len &&
-            (!p.causal || key <= (long long)seq_len - p.SQ + t);
-        s[n][c] = valid ? s[n][c] * p.scale : -INFINITY;
-        mx[c >> 1] = fmaxf(mx[c >> 1], s[n][c]);
+      for (int n = 0; n < BK / 8; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * n], s[4 * n + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * n + 2], s[4 * n + 3]));
       }
-    float m_safe[2], alpha[2];
+      float m_safe[2], alpha[2];
 #pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
-      mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
-      const float m_next = fmaxf(m[r], mx[r]);
-      m_safe[r] = m_next == -INFINITY ? 0.f : m_next;
-      alpha[r] = expf(m[r] - m_safe[r]);
-      l[r] *= alpha[r];
-      m[r] = m_next;
-    }
-#pragma unroll
-    for (int n = 0; n < NO; ++n) {
-      o[n][0] *= alpha[0];
-      o[n][1] *= alpha[0];
-      o[n][2] *= alpha[1];
-      o[n][3] *= alpha[1];
-    }
-#pragma unroll
-    for (int n = 0; n < NS; ++n)
-#pragma unroll
-      for (int c = 0; c < 4; ++c) {
-        s[n][c] = expf(s[n][c] - m_safe[c >> 1]);
-        l[c >> 1] += s[n][c];
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(kFull, mx[r], 2));
+        // m and the exponents in log2 units: s * scale * log2(e)
+        const float m_next = fmaxf(m[r], mx[r] * c);
+        // a row that has seen no key keeps m = -inf: subtract 0 instead
+        m_safe[r] = m_next == -INFINITY ? 0.f : m_next;
+        alpha[r] = fast_exp2(m[r] - m_safe[r]);
+        l[r] *= alpha[r];
+        m[r] = m_next;
       }
-    // O += P V; P's A fragments are S n-tiles 2j and 2j + 1
 #pragma unroll
-    for (int j = 0; j < kMmaK / 16; ++j) {
-      const uint32_t pa[4] = {
-          pack_floats<T>(s[2 * j][0], s[2 * j][1]),
-          pack_floats<T>(s[2 * j][2], s[2 * j][3]),
-          pack_floats<T>(s[2 * j + 1][0], s[2 * j + 1][1]),
-          pack_floats<T>(s[2 * j + 1][2], s[2 * j + 1][3])};
-      const int kr = j * 16 + 2 * tq;
+      for (int n = 0; n < BK / 8; ++n)
 #pragma unroll
-      for (int n = 0; n < NO; ++n) {
-        const int d = n * 8 + g;
-        mma16816<T>(o[n], pa, pack_elems<T>(v_s[kr][d], v_s[kr + 1][d]),
-                    pack_elems<T>(v_s[kr + 8][d], v_s[kr + 9][d]));
+        for (int e = 0; e < 4; ++e) {
+          const float x = fast_exp2(fmaf(s[4 * n + e], c, -m_safe[e >> 1]));
+          s[4 * n + e] = x;
+          l[e >> 1] += x;
+        }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        o[4 * n] *= alpha[0];
+        o[4 * n + 1] *= alpha[0];
+        o[4 * n + 2] *= alpha[1];
+        o[4 * n + 3] *= alpha[1];
       }
+      // P's A fragment for keys 16 kk .. 16 kk + 15: S column groups 2 kk
+      // and 2 kk + 1
+      uint32_t pa[BK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        pa[kk][0] = pack_floats<T>(s[8 * kk], s[8 * kk + 1]);
+        pa[kk][1] = pack_floats<T>(s[8 * kk + 2], s[8 * kk + 3]);
+        pa[kk][2] = pack_floats<T>(s[8 * kk + 4], s[8 * kk + 5]);
+        pa[kk][3] = pack_floats<T>(s[8 * kk + 6], s[8 * kk + 7]);
+      }
+      hopper::mbar_wait(&sh.v_full[st], ph);
+      const uint32_t vt = v_addr + st * kTile;
+      hopper::fence_operand(o);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk)
+        hopper::wgmma_rs<T, D>(o, pa[kk],
+                               hopper::desc_mn(vt + kk * 16 * 128, kBox), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<0>();
+      hopper::fence_operand(o);
+    } else {
+      // the stage is released only once its copies have landed
+      hopper::mbar_wait(&sh.v_full[st], ph);
     }
+    __syncwarp();
+    if (lane == 0) hopper::mbar_arrive(&sh.empty[st]);
   }
+  if (cw == 0) hopper::named_sync(kTurn, kPair);  // group 1's last turn
 
   T* op = static_cast<T*>(p.out);
 #pragma unroll
@@ -568,59 +914,166 @@ decode_mma_kernel(const Params p) {
     const int t = r == 0 ? t0 : t1;
     if (t < p.SQ) {
       const float inv = 1.f / (l[r] == 0.f ? 1.f : l[r]);
-      T* row = op + (((long long)b * p.SQ + t) * p.H + h) * D;
+      T* dst = op + (((long long)b * p.SQ + t) * p.H + h) * D;
 #pragma unroll
-      for (int n = 0; n < NO; ++n)
-        *reinterpret_cast<uint32_t*>(row + n * 8 + 2 * tq) =
-            pack_floats<T>(o[n][2 * r] * inv, o[n][2 * r + 1] * inv);
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dst + n * 8 + 2 * tq) =
+            pack_floats<T>(o[4 * n + 2 * r] * inv, o[4 * n + 2 * r + 1] * inv);
     }
   }
 }
 
-template <typename T, int D>
-cudaError_t launch_d(const Params& p, cudaStream_t stream) {
+// ------------------------------------------------------------- launches
+template <int D>
+cudaError_t launch_f32_d(const Params& p, cudaStream_t stream) {
   if (p.SQ == 1) {
-    decode_sq1_kernel<T, D>
+    decode_sq1_kernel<float, D>
         <<<dim3(p.B * p.H), dim3(kDecodeWarps * 32), 0, stream>>>(p);
-  } else if constexpr (sizeof(T) == 2) {
-    const dim3 grid(p.B * p.H, (p.SQ + kMmaQ - 1) / kMmaQ);
-    decode_mma_kernel<T, D><<<grid, dim3(kMmaWarps * 32), 0, stream>>>(p);
   } else {
     const dim3 grid(p.B * p.H, (p.SQ + kTileQ - 1) / kTileQ);
-    decode_tile_kernel<T, D><<<grid, dim3(kThreads), 0, stream>>>(p);
+    decode_tile_kernel<float, D><<<grid, dim3(kThreads), 0, stream>>>(p);
   }
   return cudaGetLastError();
 }
 
+template <typename T, int D, int G>
+cudaError_t launch_split(const SplitParams& sp, int rows, cudaStream_t s) {
+  auto kernel = decode_split_kernel<T, D, G>;
+  constexpr size_t smem = split_smem<G, D>();
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t attr = hopper::allow_smem(kernel, smem, smem_set);
+  if (attr != cudaSuccess) return attr;
+  kernel<<<dim3(rows, sp.n_splits), dim3(kSplitThreads), smem, s>>>(sp);
+  return cudaGetLastError();
+}
+
+template <typename T, int D>
+cudaError_t launch_chunk(const ChunkParams& cp, int B, cudaStream_t s) {
+  auto kernel = chunk_wgmma_kernel<T, D>;
+  constexpr size_t smem = chunk_smem<D>();
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t attr = hopper::allow_smem(kernel, smem, smem_set);
+  if (attr != cudaSuccess) return attr;
+  const dim3 grid(B * cp.H, (cp.SQ + kChunkBQ - 1) / kChunkBQ);
+  kernel<<<grid, dim3(kChunkThreads), smem, s>>>(cp);
+  return cudaGetLastError();
+}
+
+// query heads a split block serves: all 4 of a group of 4 (or 8), else 1
+template <typename T, int D>
+cudaError_t launch_split_g(const SplitParams& sp, int B, cudaStream_t s) {
+  const int rep = sp.H / sp.KVH;
+  return rep % 4 == 0 ? launch_split<T, D, 4>(sp, B * sp.KVH * rep / 4, s)
+                      : launch_split<T, D, 1>(sp, B * sp.KVH * rep, s);
+}
+
+// 2000 + the CUresult of a tensor map cuTensorMapEncodeTiled refuses (the
+// wrapper names TMA in its error)
+constexpr int kTmaRefused = 2000;
+
 template <typename T>
-cudaError_t launch_t(const Params& p, int head_dim, cudaStream_t stream) {
-  switch (head_dim) {
-    case 64: return launch_d<T, 64>(p, stream);
-    case 128: return launch_d<T, 128>(p, stream);
-    default: return cudaErrorInvalidValue;
+int run16(CUtensorMapDataType type, const void* q, const void* k,
+          const void* v, const int* seq_lens, void* out, float* part,
+          int* count, int B, int SQ, int H, int KVH, int S, int D,
+          long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+          long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+          long long v_sh, float scale, int causal, int split_rows,
+          cudaStream_t s) {
+  const int rows = SQ == 1 ? kSplitTile : kChunkBK;
+  CUtensorMap k_map, v_map;
+  // with an empty cache nothing is loaded: q's map stands in for k's and v's
+  CUresult r =
+      S > 0 ? hopper::operand_map(&k_map, type, k, D, KVH, S, B, k_sh, k_ss,
+                                  k_sb, rows)
+            : hopper::operand_map(&k_map, type, q, D, H, SQ, B, q_sh, q_ss,
+                                  q_sb, rows);
+  if (r == CUDA_SUCCESS)
+    r = S > 0 ? hopper::operand_map(&v_map, type, v, D, KVH, S, B, v_sh,
+                                    v_ss, v_sb, rows)
+              : hopper::operand_map(&v_map, type, q, D, H, SQ, B, q_sh, q_ss,
+                                    q_sb, rows);
+  if (SQ == 1) {
+    if (r != CUDA_SUCCESS) return kTmaRefused + (int)r;
+    if (split_rows <= 0 || split_rows % kSplitTile ||
+        part == nullptr || count == nullptr)
+      return cudaErrorInvalidValue;
+    SplitParams sp = {};
+    sp.k_map = k_map;
+    sp.v_map = v_map;
+    sp.q = q;
+    sp.seq_lens = seq_lens;
+    sp.out = out;
+    sp.part = part;
+    sp.count = count;
+    sp.q_sb = q_sb;
+    sp.q_sh = q_sh;
+    sp.H = H;
+    sp.KVH = KVH;
+    sp.S = S;
+    sp.split_rows = split_rows;
+    sp.n_splits = max(1, (S + split_rows - 1) / split_rows);
+    sp.scale_log2 = scale * 1.4426950408889634f;
+    return D == 64 ? launch_split_g<T, 64>(sp, B, s)
+                   : launch_split_g<T, 128>(sp, B, s);
   }
+  ChunkParams cp = {};
+  if (r == CUDA_SUCCESS)
+    r = hopper::operand_map(&cp.q_map, type, q, D, H, SQ, B, q_sh, q_ss, q_sb,
+                            kChunkBQ);
+  if (r != CUDA_SUCCESS) return kTmaRefused + (int)r;
+  cp.k_map = k_map;
+  cp.v_map = v_map;
+  cp.seq_lens = seq_lens;
+  cp.out = out;
+  cp.H = H;
+  cp.KVH = KVH;
+  cp.SQ = SQ;
+  cp.S = S;
+  cp.scale_log2 = scale * 1.4426950408889634f;
+  cp.causal = causal;
+  return D == 64 ? launch_chunk<T, 64>(cp, B, s)
+                 : launch_chunk<T, 128>(cp, B, s);
 }
 
 }  // namespace
 
-// dtype: 0 float32, 1 float16, 2 bfloat16.  Returns the cudaError_t of the
-// launch (0 on success); the Python wrapper raises on anything else.
+// dtype: 0 float32, 1 float16, 2 bfloat16.  part / count: the 16-bit
+// sq == 1 kernel's workspace, f32 [B * H * ceil(S_max / split_rows) *
+// (2 + head_dim)] and int32 [B * H] zeros (the kernel leaves them 0), or
+// null for the other kernels.  Returns the cudaError_t of the launch (0 on
+// success), or 2000 + the CUresult of a tensor map cuTensorMapEncodeTiled
+// refuses; the Python wrapper raises on anything else.
 extern "C" int decode_attention_launch(
     const void* q, const void* k, const void* v, const int* seq_lens,
-    void* out, int dtype, int batch, int sq, int heads, int kv_heads,
-    int s_max, int head_dim, long long q_sb, long long q_ss, long long q_sh,
-    long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-    long long v_ss, long long v_sh, float scale, int causal, void* stream) {
+    void* out, float* part, int* count, int dtype, int batch, int sq,
+    int heads, int kv_heads, int s_max, int head_dim, long long q_sb,
+    long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+    long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+    float scale, int causal, int split_rows, void* stream) {
   if (batch <= 0 || sq <= 0 || heads <= 0) return cudaSuccess;
   if (kv_heads <= 0 || heads % kv_heads != 0) return cudaErrorInvalidValue;
-  Params p{q,    k,    v,    seq_lens, out,  batch, sq,    heads,
-           kv_heads, s_max, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
-           v_sb, v_ss, v_sh, scale, causal};
+  if (head_dim != 64 && head_dim != 128) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (dtype) {
-    case 0: return launch_t<float>(p, head_dim, s);
-    case 1: return launch_t<__half>(p, head_dim, s);
-    case 2: return launch_t<__nv_bfloat16>(p, head_dim, s);
+    case 0: {
+      const Params p{q,    k,    v,    seq_lens, out,  batch, sq,   heads,
+                     kv_heads, s_max, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+                     v_sb, v_ss, v_sh, scale, causal};
+      return head_dim == 64 ? launch_f32_d<64>(p, s)
+                            : launch_f32_d<128>(p, s);
+    }
+    case 1:
+      return run16<__half>(CU_TENSOR_MAP_DATA_TYPE_FLOAT16, q, k, v,
+                           seq_lens, out, part, count, batch, sq, heads,
+                           kv_heads, s_max, head_dim, q_sb, q_ss, q_sh, k_sb,
+                           k_ss, k_sh, v_sb, v_ss, v_sh, scale, causal,
+                           split_rows, s);
+    case 2:
+      return run16<__nv_bfloat16>(CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, q, k, v,
+                                  seq_lens, out, part, count, batch, sq,
+                                  heads, kv_heads, s_max, head_dim, q_sb,
+                                  q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss,
+                                  v_sh, scale, causal, split_rows, s);
     default: return cudaErrorInvalidValue;
   }
 }

@@ -1943,8 +1943,8 @@ template <typename T, int D, bool Seg>
 cudaError_t launch_fwd(const FwdParams& fp, cudaStream_t s) {
   auto kernel = fwd_wgmma_kernel<T, D, Seg>;
   constexpr size_t smem = fwd_smem<D>();
-  static const cudaError_t attr = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  const cudaError_t attr = hopper::allow_smem(kernel, smem, smem_set);
   if (attr != cudaSuccess) return attr;
   const dim3 grid(fp.B * fp.H, (fp.SQ + kFwdBQ - 1) / kFwdBQ);
   kernel<<<grid, dim3(kFwdThreads), smem, s>>>(fp);
@@ -1960,24 +1960,8 @@ cudaError_t launch_fwd_t(const FwdParams& fp, int head_dim, cudaStream_t s) {
   }
 }
 
-// The map of one [B, S, heads, D] operand as (D, heads, S, B), element
-// strides (sh, ss, sb); boxes of 64 columns x 1 head x `rows` rows x 1
-// batch.  A dim of size one is never stepped over: it gets the packed
-// stride.
-CUresult operand_map(CUtensorMap* map, CUtensorMapDataType type,
-                     const void* base, int d, int heads, int seq, int batch,
-                     long long sh, long long ss, long long sb, int rows) {
-  const long long es = 2;
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
-                              (cuuint64_t)seq, (cuuint64_t)batch};
-  cuuint64_t strides[3] = {(cuuint64_t)(sh * es), (cuuint64_t)(ss * es),
-                           (cuuint64_t)(sb * es)};
-  if (heads == 1) strides[0] = d * es;
-  if (seq == 1) strides[1] = strides[0] * heads;
-  if (batch == 1) strides[2] = strides[1] * seq;
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  return hopper::encode_tensor_map(map, type, 4, base, dims, strides, box);
-}
+// the map of one operand (hopper.cuh)
+using hopper::operand_map;
 
 int run_fwd16(const void* q, const void* k, const void* v, void* out,
               float* lse, const int* q_seg, const int* k_seg, int dtype,
@@ -2038,8 +2022,8 @@ cudaError_t launch_bwd(Which which, const BwdParams& bp, cudaStream_t s) {
   if (which == kDq) {
     auto kernel = dq_wgmma_kernel<T, D, Seg>;
     constexpr size_t smem = dq_smem<D>();
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    static std::atomic<unsigned long long> smem_set{0};
+    const cudaError_t attr = hopper::allow_smem(kernel, smem, smem_set);
     if (attr != cudaSuccess) return attr;
     const dim3 grid(bp.B * bp.H, (bp.SQ + kDqBQ - 1) / kDqBQ);
     kernel<<<grid, dim3(kDqThreads), smem, s>>>(bp);
@@ -2051,8 +2035,8 @@ cudaError_t launch_bwd(Which which, const BwdParams& bp, cudaStream_t s) {
         (Seg ? 4 * sizeof(uint32_t) *
                    dkv_mask_words((bp.SQ + kDkvBQ - 1) / kDkvBQ)
              : 0);
-    static const cudaError_t attr = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxSmem);
+    static std::atomic<unsigned long long> smem_set{0};
+    const cudaError_t attr = hopper::allow_smem(kernel, kMaxSmem, smem_set);
     if (attr != cudaSuccess) return attr;
     const dim3 grid(bp.B * bp.KVH, (bp.SK + kDkvBK - 1) / kDkvBK);
     kernel<<<grid, dim3(kDkvThreads), smem, s>>>(bp);

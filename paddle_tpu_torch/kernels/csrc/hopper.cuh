@@ -19,7 +19,9 @@
 //
 // Host side: encode_tensor_map() encodes a map of up to 5 dims through
 // the driver's cuTensorMapEncodeTiled, found at run time with
-// cudaGetDriverEntryPoint, so nothing links libcuda.
+// cudaGetDriverEntryPoint, so nothing links libcuda; allow_smem() lets a
+// kernel take more than 48 KB of dynamic shared memory on each device it
+// launches on.
 
 #pragma once
 
@@ -28,6 +30,7 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include <atomic>
 #include <cstdint>
 
 namespace hopper {
@@ -479,6 +482,43 @@ inline CUresult encode_tensor_map(CUtensorMap* map, CUtensorMapDataType type,
             ones, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// The map of one 16-bit [B, S, heads, D] operand as (D, heads, S, B),
+// element strides (sh, ss, sb); boxes of 64 columns x 1 head x `rows` rows
+// x 1 batch.  A dim of size one is never stepped over: it gets the packed
+// stride.
+inline CUresult operand_map(CUtensorMap* map, CUtensorMapDataType type,
+                            const void* base, int d, int heads, int seq,
+                            int batch, long long sh, long long ss,
+                            long long sb, int rows) {
+  const long long es = 2;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads,
+                              (cuuint64_t)seq, (cuuint64_t)batch};
+  cuuint64_t strides[3] = {(cuuint64_t)(sh * es), (cuuint64_t)(ss * es),
+                           (cuuint64_t)(sb * es)};
+  if (heads == 1) strides[0] = d * es;
+  if (seq == 1) strides[1] = strides[0] * heads;
+  if (batch == 1) strides[2] = strides[1] * seq;
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  return encode_tensor_map(map, type, 4, base, dims, strides, box);
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory on the current device.
+// The attribute is held per device, so it is set at the first launch on
+// each device: bit d of `done` (one static per kernel) marks device d.
+template <typename Kernel>
+inline cudaError_t allow_smem(Kernel kernel, size_t bytes,
+                              std::atomic<unsigned long long>& done) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  const unsigned long long bit = dev < 64 ? 1ull << dev : 0ull;
+  if (bit & done.load(std::memory_order_relaxed)) return cudaSuccess;
+  e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)bytes);
+  if (e == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return e;
 }
 
 }  // namespace hopper

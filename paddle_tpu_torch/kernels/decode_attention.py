@@ -2,8 +2,11 @@
 with per-row valid lengths (counterpart of paddle_tpu/kernels/
 decode_attention.py).
 
-  * :func:`decode_attention` launches the hand-written CUDA kernel
-    (``csrc/decode_attention.cu``, built for ``sm_90a`` at first use);
+  * :func:`decode_attention` launches the hand-written CUDA kernels
+    (``csrc/decode_attention.cu``, built for ``sm_90a`` at first use): in
+    16 bits, a split-KV walk at ``sq == 1`` (the blocks' partial softmaxes
+    go through a workspace kept per device and stream, merged by the last
+    block of each row) and a wgmma kernel for longer chunks;
   * :func:`decode_attention_reference` is the plain PyTorch version with
     exactly the reference's masking and rounding;
   * :func:`decode_attention_auto` dispatches on where the tensors live:
@@ -29,6 +32,28 @@ __all__ = ["decode_attention", "decode_attention_reference",
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
 _HEAD_DIMS = (64, 128)
+# cache rows each block of the 16-bit sq == 1 kernel walks (a multiple of
+# its 32-row tile); the grid is sized from S_max, never from seq_lens
+_SPLIT_ROWS = 256
+# the launch returns 2000 + the CUresult of a refused tensor map
+_TMA_REFUSED = 2000
+# (device index, stream) -> (f32 partials, int32 counters): the sq == 1
+# kernel's workspace.  Its counters are zeros between calls (the kernel
+# resets them), so it is allocated once and only ever grown.
+_workspaces = {}
+
+
+def _workspace(dev, stream, n_part, n_count):
+    key = (dev.index, stream)
+    ws = _workspaces.get(key)
+    if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_count:
+        if ws is not None:
+            n_part = max(n_part, ws[0].numel())
+            n_count = max(n_count, ws[1].numel())
+        ws = _workspaces[key] = (
+            torch.empty(n_part, dtype=torch.float32, device=dev),
+            torch.zeros(n_count, dtype=torch.int32, device=dev))
+    return ws
 
 
 def _check(q, k_cache, v_cache, seq_lens):
@@ -103,14 +128,26 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     lens = seq_lens.to(torch.int32).contiguous()
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
     scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    s_max = k_cache.shape[1]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
+        part = count = None
+        if sq == 1 and q.dtype != torch.float32:
+            splits = max(1, -(-s_max // _SPLIT_ROWS))
+            part, count = _workspace(dev, stream, b * h * splits * (2 + d),
+                                     b * h)
         rc = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
-            lens.data_ptr(), out.data_ptr(), _DTYPE_CODES[q.dtype],
-            b, sq, h, k_cache.shape[2], k_cache.shape[1], d,
+            lens.data_ptr(), out.data_ptr(),
+            None if part is None else part.data_ptr(),
+            None if count is None else count.data_ptr(),
+            _DTYPE_CODES[q.dtype], b, sq, h, k_cache.shape[2], s_max, d,
             *q.stride()[:3], *k_cache.stride()[:3], *v_cache.stride()[:3],
-            scale, int(bool(causal_tail)), stream)
+            scale, int(bool(causal_tail)), _SPLIT_ROWS, stream)
+    if rc >= _TMA_REFUSED:
+        raise ValueError(f"decode_attention: cuTensorMapEncodeTiled refuses "
+                         f"a TMA tensor map of q/k/v (CUresult "
+                         f"{rc - _TMA_REFUSED})")
     if rc != 0:
         raise RuntimeError(f"decode_attention kernel launch failed with "
                            f"CUDA error {rc}")

@@ -83,11 +83,15 @@ def test_auto_dispatch_on_cpu_and_wrapper_contract():
 def test_kernel_matches_plain_version_on_card():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    import chip_smoke
     for dtype, tol in ((torch.float32, dict(atol=1e-4, rtol=0)),
-                       (torch.bfloat16, dict(atol=2e-2, rtol=2e-2))):
+                       (torch.bfloat16, dict(atol=2e-2, rtol=2e-2)),
+                       (torch.float16, dict(atol=2e-2, rtol=2e-2))):
         for d in (64, 128):
-            for sq in (1, 7, 48):
-                q, k, v, lens = _inputs(sq, 2, d=d, s_max=256)
+            for sq in (1, 7, 48, 64, 65):
+                # 600 rows: three 256-row splits of the sq == 1 kernel,
+                # five 128-key tiles of the chunk kernel
+                q, k, v, lens = _inputs(sq, 2, d=d, s_max=600)
                 args = [torch.as_tensor(x).cuda() for x in (q, k, v)]
                 args = [a.to(dtype) for a in args]
                 seq = torch.as_tensor(lens).cuda()
@@ -96,3 +100,50 @@ def test_kernel_matches_plain_version_on_card():
                 assert decode_attention.launches == before + 1
                 ref = decode_attention_reference(*args, seq)
                 torch.testing.assert_close(out.float(), ref.float(), **tol)
+                if dtype != torch.float32:
+                    # each element within its own limit, as chip_smoke
+                    # holds the kernel at the serving shapes
+                    assert chip_smoke.row_reading(out, ref) <= 1.0, (dtype,
+                                                                    d, sq)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_every_device():
+    """Both 16-bit regimes (the split walk at sq == 1, the wgmma chunk
+    kernel; each takes more than 48 KB of dynamic shared memory, an
+    attribute held per device) on every visible card, as the tp=2 engine
+    calls them once per shard device."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    import chip_smoke
+    for i in range(torch.cuda.device_count()):
+        dev = torch.device("cuda", i)
+        for sq in (1, 64):
+            q, k, v, lens = _inputs(sq, 2, d=128, s_max=600)
+            args = [torch.as_tensor(x).to(dev, torch.bfloat16)
+                    for x in (q, k, v)]
+            seq = torch.as_tensor(lens).to(dev)
+            out = decode_attention(*args, seq)
+            ref = decode_attention_reference(*args, seq)
+            assert out.device == dev
+            assert chip_smoke.row_reading(out, ref) <= 1.0, (i, sq)
+
+
+def test_split_workspace_is_reused_and_grown():
+    """The sq == 1 kernel's workspace is kept per (device, stream): a call
+    that fits reuses it (its counters stay as the kernel left them, 0),
+    a larger call grows both buffers with fresh zero counters."""
+    from paddle_tpu_torch.kernels import decode_attention as da
+    dev, stream = torch.device("cpu"), 12345
+    try:
+        part, count = da._workspace(dev, stream, 100, 8)
+        assert part.numel() == 100 and torch.equal(count, torch.zeros(8,
+                                                   dtype=torch.int32))
+        assert da._workspace(dev, stream, 60, 4)[0] is part
+        assert da._workspace(dev, stream + 1, 60, 4)[0] is not part
+        bigger, counts = da._workspace(dev, stream, 50, 16)
+        assert bigger.numel() == 100 and counts.numel() == 16
+        assert not counts.any()
+    finally:
+        da._workspaces.pop((None, stream), None)
+        da._workspaces.pop((None, stream + 1), None)

@@ -245,3 +245,35 @@ def test_kernels_match_plain_versions_on_the_card():
                         assert not bool(out[:, :sq - sk].any()), what
                         assert bool(torch.isneginf(
                             lse[:, :, :sq - sk]).all()), what
+
+
+@pytest.mark.cuda
+def test_kernels_launch_on_every_device():
+    """The 16-bit forward, dq and dk/dv kernels (each takes more than 48 KB
+    of dynamic shared memory, an attribute held per device) on every
+    visible card, each held to its plain version as above."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    import chip_smoke
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_dkv_reference, flash_attention_bwd_dq_reference,
+        flash_attention_fwd_reference)
+    rs = np.random.RandomState(0)
+    for i in range(torch.cuda.device_count()):
+        q, k, v, g = (torch.as_tensor(rs.randn(2, 257, 4, 128)).to(
+            torch.device("cuda", i), torch.bfloat16) for _ in range(4))
+        out, lse = flash_attention_fwd(q, k, v, causal=True)
+        ro, rl = flash_attention_fwd_reference(q, k, v, causal=True)
+        delta = (g.float() * out.float()).sum(-1).transpose(1, 2)
+        dq = flash_attention_bwd_dq(q, k, v, g, lse, delta, causal=True)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, g, lse, delta, causal=True)
+        rdq = flash_attention_bwd_dq_reference(q, k, v, g, lse, delta,
+                                               causal=True)
+        rdk, rdv = flash_attention_bwd_dkv_reference(q, k, v, g, lse, delta,
+                                                     causal=True)
+        what = f"cuda:{i}"
+        assert out.device == q.device, what
+        chip_smoke.check_pairs(what, torch.bfloat16, ((out, ro),),
+                               ((lse, rl),))
+        chip_smoke.check_pairs(what, torch.bfloat16,
+                               ((dq, rdq), (dk, rdk), (dv, rdv)))
