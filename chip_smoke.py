@@ -24,6 +24,18 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      ``decode_block_layer``), timed beside the port's unfused layer, then
      the four fused-norm kernels (RMSNorm / LayerNorm forward and
      backward) at the decode, prefill-chunk and train shapes;
+  2b. gemv — the bf16 GEMV behind every decode-block projection and ring
+     hop (``decode_block.gemv``): a 144-case sweep (rows 1-17, every input
+     transform, activation and dtype mix, 1-3 segments) and the 14
+     serving shapes each within one bf16 ulp of the plain version, two
+     calls bit-identical, the plain model of its summation order inside
+     that limit and two planted faults of it outside, its SASS on TMA and
+     the tensor cores with no spills, a CUDA graph of one fused decode
+     layer replaying to the eager bits; each shape timed beside its plain
+     version, its bound and one library product;
+  2c. tiny — gpt_tiny and llama_tiny (head_dim 16, zero-padded to the
+     kernels' 64) served on the card with the CPU's greedy tokens, and the
+     flash kernels at head_dim 16 and 32 against their plain versions;
   3. serving — ``ServingEngine`` over ``GPTForCausalLM(gpt3_6_7b())`` at
      full width (random bf16 weights drawn on the card from a seeded
      generator): 8 requests, prefix-cache hits, chunked prefill, greedy
@@ -101,11 +113,15 @@ imports nothing of JAX.
 
     python3 chip_smoke.py --serve-ab PARENT_CHECKOUT
 
-runs this file's GPT and Llama serving phases (TTFT, decode step, each
-prefill chunk's device time by kind and by kernel) and times
-``decode_attention`` (card and host time a call) on another checkout's
-package and on this one's in turns (parent, this, this, parent), each in
-its own process, to compare two commits on one card.
+runs this file's GPT and Llama serving phases (TTFT, decode step and its
+profiled kernel time, each prefill chunk's device time by kind and by
+kernel) and gpt3_6_7b at tp=2 on ``tp_fused_block``, and times
+``decode_attention`` (card and host time a call), the 14 GEMV shapes, the
+decode-block halves and the block / hop wrappers' host time, on another
+checkout's package and on this one's in turns (parent, this, this,
+parent), each in its own process, to compare two commits on one card;
+then compares the SASS of the kernels this checkout keeps (the f32 GEMV,
+the attention kernels) with the other's build.
 """
 
 from __future__ import annotations
@@ -749,6 +765,346 @@ def phase_block_kernels(card: str):
                          k_: e for k_, e in worst.items()
                          if k_.startswith(f"decode_block_{half} ")}}
     return rec
+
+
+# ----------------------------------------------------------------- GEMV
+# every serving shape of the GEMV (csrc/gemv.cuh), as the wrappers launch
+# it: (name, K, output columns of each weight segment, rows, input
+# transform, f32 input, f32 output, residual dtype or None, activation,
+# biases).  The tp=1 projections at 8 slots: decode_block_attn's QKV (norm
+# with the row statistics, f32 out), decode_block_mlp's out-projection
+# (+ the bf16 residual x, f32 out), up (norm of the f32 xm, GeLU or the
+# SwiGLU pair) and down (the f32 activation, SwiGLU read as [up | gate],
+# + the f32 residual, bf16 out); the tp=2 ring hops at 4 rows.
+GEMV_SHAPES = (
+    ("gpt_qkv", 4096, (4096, 4096, 4096), 8, 1, False, True, None, 0, True),
+    ("gpt_out", 4096, (4096,), 8, 0, False, True, "bf16", 0, True),
+    ("gpt_up", 4096, (16384,), 8, 1, True, True, None, 1, True),
+    ("gpt_down", 16384, (4096,), 8, 0, True, False, "f32", 0, True),
+    ("llama_qkv", 4096, (4096, 4096, 4096), 8, 1, False, True, None, 0,
+     False),
+    ("llama_out", 4096, (4096,), 8, 0, False, True, "bf16", 0, False),
+    ("llama_up_gate", 4096, (11008, 11008), 8, 1, True, True, None, 0,
+     False),
+    ("llama_down", 11008, (4096,), 8, 2, True, False, "f32", 0, False),
+    ("tp2_qkv_hop", 4096, (6144,), 4, 0, False, False, None, 0, True),
+    ("tp2_mlp_up_hop", 4096, (8192,), 4, 0, False, False, None, 0, True),
+    ("tp2_llama_up_hop", 4096, (11008,), 4, 0, False, False, None, 0,
+     False),
+    ("tp2_out_proj_hop", 2048, (4096,), 4, 0, False, False, None, 0, False),
+    ("tp2_down_hop", 8192, (4096,), 4, 4, False, False, None, 0, False),
+    ("tp2_llama_down_hop", 5504, (4096,), 4, 3, False, False, None, 0,
+     False),
+)
+
+
+# the GEMV shapes behind each kernel of the kernels line
+GEMV_BY_KERNEL = {
+    "decode_block_attn": ("gpt_qkv", "llama_qkv"),
+    "decode_block_mlp": ("gpt_out", "gpt_up", "gpt_down", "llama_out",
+                         "llama_up_gate", "llama_down"),
+    "ring_entry_hop": ("tp2_qkv_hop", "tp2_mlp_up_hop", "tp2_llama_up_hop"),
+    "ring_exit_hop": ("tp2_out_proj_hop", "tp2_down_hop",
+                      "tp2_llama_down_hop"),
+}
+
+
+def gemv_case(g, k, widths, rows, in_mode, x32, res, bias, scale=0.05,
+              dev=None):
+    """Random bf16 inputs of one GEMV on the card: ``(x, weights, biases,
+    kw)`` for ``decode_block.gemv`` / ``gemv_reference``."""
+    import torch
+    dev = dev or torch.device(DEVICE)
+    bf = torch.bfloat16
+
+    def r(*shape, s=scale, dtype=bf):
+        return (torch.randn(shape, generator=g, device=dev) * s).to(dtype)
+    f32 = torch.float32
+    x = r(rows, 2 * k if in_mode in (2, 3) else k, s=1.0,
+          dtype=f32 if x32 else bf)
+    ws = [r(k, w) for w in widths]
+    bs = [r(w) if bias else None for w in widths]
+    n = sum(widths)
+    kw = {}
+    if res is not None:
+        kw["res"] = r(rows, n, s=1.0, dtype=f32 if res == "f32" else bf)
+    if in_mode == 1:
+        kw["stats"] = torch.stack([
+            torch.randn(rows, generator=g, device=dev),
+            torch.rand(rows, generator=g, device=dev) + 0.5], 1).contiguous()
+        kw["norm_w"], kw["norm_b"] = r(k) + 1, r(k)
+    return x, ws, bs, dict(kw, in_mode=in_mode)
+
+
+def gemv_bound(k, widths, rows, in_mode, x32, o32, res, bias):
+    """Least time (ms) of one GEMV and what bounds it: its weights, input
+    rows (both halves for SwiGLU), norm vectors, biases, residual and
+    output read or written once; operations: 2 rows K N."""
+    import torch
+    n = sum(widths)
+    xe, oe = 4 if x32 else 2, 4 if o32 else 2
+    nbytes = (2 * k * n + rows * k * xe * (2 if in_mode in (2, 3) else 1)
+              + (4 * k if in_mode == 1 else 0) + (2 * n if bias else 0)
+              + rows * n * oe + (rows * n * (4 if res == "f32" else 2)
+                                 if res else 0))
+    return _bound(nbytes, 2 * rows * k * n, torch.bfloat16) + (nbytes,)
+
+
+def phase_gemv(card: str):
+    """The bf16 GEMV of csrc/gemv.cuh (``decode_block.gemv``, the kernel
+    behind every projection of ``decode_block_attn`` / ``_mlp`` and every
+    ring hop): a sweep over input transforms, activations, rows (1 to 17),
+    segments and input / residual / output dtypes, then each serving shape
+    (GEMV_SHAPES), each bf16 element within one bf16 ulp of the plain
+    version's value (+1e-4 near 0; ``_ulp_ok``); two calls bit-identical;
+    the plain model of the kernel's summation order within that limit and
+    two planted faults of it (a K tile dropped, a tile read one row late)
+    outside it; the kernel's SASS on TMA with no local-memory spills; a
+    CUDA graph of one fused decode layer replaying to the eager call's
+    bits; each shape timed beside its plain version, its bound and one
+    library product.  Returns the records."""
+    import torch
+    from paddle_tpu_torch.kernels import _build, sass
+    from paddle_tpu_torch.kernels.decode_block import (
+        _stream_plan, _sm_count, decode_block_layer, gemv, gemv_reference)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    bf = torch.bfloat16
+    ulp_atol = 1e-4
+
+    def check(what, got, want):
+        torch.cuda.synchronize()
+        err = (got.float() - want.float()).abs().max().item()
+        if not _ulp_ok(got, want, bf, ulp_atol):
+            raise AssertionError(f"gemv disagrees with its plain version "
+                                 f"beyond one bf16 ulp: {what} max_abs_err="
+                                 f"{err}")
+        return err
+
+    # the sweep: every transform, activation and dtype mix over ragged
+    # shapes (K 232, strips of 200 / 136+64 / 128+8+264 columns)
+    worst, n_sweep = 0.0, 0
+    for rows in (1, 3, 4, 5, 8, 13, 16, 17):
+        for in_mode in range(6):
+            for widths in ((200,), (136, 64), (128, 8, 264)):
+                x32 = in_mode % 2 == 1
+                res = (None, "bf16", "f32")[(rows + in_mode) % 3]
+                act = (rows + len(widths)) % 3
+                o32 = (in_mode + rows) % 2 == 0
+                x, ws, bs, kw = gemv_case(g, 232, widths, rows, in_mode,
+                                          x32, res, True, scale=0.2)
+                bs = [b if i != 1 else None for i, b in enumerate(bs)]
+                got = gemv(x, ws, bs, act=act, out_f32=o32, **kw)
+                want = gemv_reference(x, ws, bs, act=act, out_f32=o32, **kw)
+                worst = max(worst, check(
+                    f"rows {rows} in_mode {in_mode} widths {widths} act "
+                    f"{act} x f32 {x32} res {res} out f32 {o32}", got, want))
+                n_sweep += 1
+    log(f"[gemv] sweep: {n_sweep} cases (rows 1-17, in_mode 0-5, act 0-2, "
+        f"1-3 segments, ragged strips, bf16 / f32 input, residual and "
+        f"output) within one bf16 ulp (+{ulp_atol}); max abs err {worst:.3g}")
+
+    rec = {"sweep_cases": n_sweep, "sweep_max_abs_err": worst, "shapes": {}}
+    for (name, k, widths, rows, in_mode, x32, o32, res, act,
+         bias) in GEMV_SHAPES:
+        x, ws, bs, kw = gemv_case(g, k, widths, rows, in_mode, x32, res, bias)
+        got = gemv(x, ws, bs, act=act, out_f32=o32, **kw)
+        again = gemv(x, ws, bs, act=act, out_f32=o32, **kw)
+        want = gemv_reference(x, ws, bs, act=act, out_f32=o32, **kw)
+        err = check(name, got, want)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"gemv at {name}: two calls differ")
+        plan = _stream_plan(k, tuple(widths), rows, in_mode, x32,
+                            _sm_count(dev))
+        # the plain model of the summation order, and two planted faults
+        model = gemv_reference(x, ws, bs, act=act, out_f32=o32, plan=plan,
+                               **kw)
+        check(f"{name} (plain model of the kernel's order)", got, model)
+        faults = {}
+        for fault in (dict(drop=plan["kT"] // 2),
+                      dict(late=plan["kT"] + 1)):
+            bad = gemv_reference(x, ws, bs, act=act, out_f32=o32, plan=plan,
+                                 **fault, **kw)
+            ok = _ulp_ok(got, bad, bf, ulp_atol)
+            fe = (got.float() - bad.float()).abs().max().item()
+            faults[next(iter(fault))] = fe
+            if ok:
+                raise AssertionError(f"gemv at {name}: the planted fault "
+                                     f"{fault} passes the one-ulp check")
+        # timing: 4 weight copies in turn (beyond the 50 MB L2)
+        cases = [(x, ws, bs, kw)] + [
+            gemv_case(g, k, widths, rows, in_mode, x32, res, bias)
+            for _ in range(3)]
+        cat = [(c[0][:, :k].to(bf).contiguous(), torch.cat(c[1], 1),
+                torch.cat(c[2]) if bias else None) for c in cases]
+        state = {"i": 0}
+
+        def pick():
+            state["i"] = (state["i"] + 1) % 4
+            return state["i"]
+
+        def kern():
+            c = cases[pick()]
+            return gemv(c[0], c[1], c[2], act=act, out_f32=o32, **c[3])
+
+        def plain():
+            c = cases[pick()]
+            return gemv_reference(c[0], c[1], c[2], act=act, out_f32=o32,
+                                  **c[3])
+
+        def lib():
+            xb, w, b = cat[pick()]
+            return torch.addmm(b, xb, w) if b is not None else xb @ w
+        bound, bound_by, nbytes = gemv_bound(k, widths, rows, in_mode, x32,
+                                             o32, res, bias)
+        r = {"ms": time_ms(kern), "device_ms": device_ms(kern),
+             "plain_ms": time_ms(plain), "library_ms": time_ms(lib),
+             "library_device_ms": device_ms(lib), "bound_ms": bound,
+             "bound_by": bound_by, "bound_bytes": nbytes,
+             "max_abs_err": err, "bit_identical": True,
+             "fault_max_abs_err": faults,
+             "plan": {key: plan[key] for key in ("grid", "ksplit", "units",
+                                                 "stages")},
+             "shape": f"x[{rows},{x.shape[1]}] "
+                      f"w[{k},{'+'.join(map(str, widths))}] in_mode "
+                      f"{in_mode} act {act} bf16 (4 weight copies in turn)"}
+        rec["shapes"][name] = r
+        log(f"[gemv] {name} {r['shape']}: kernel device {r['device_ms']:.4f}"
+            f" ms (events {r['ms']:.4f}), library device "
+            f"{r['library_device_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms,"
+            f" bound {bound:.4f} ms ({bound_by}, {nbytes / 1e6:.1f} MB); "
+            f"{r['plan']}; max abs err {err:.3g}, planted faults "
+            f"{json.dumps({f: round(e, 4) for f, e in faults.items()})} "
+            f"(card: {card})")
+        del cases, cat
+
+    counts = sass.instruction_counts(
+        str(_build._library_path("decode_block")), "gemv_stream_kernel",
+        ("UTMALDG", "UBLKCP", "HMMA", "STL", "LDL"))
+    if not counts:
+        raise AssertionError("gemv_stream_kernel not found in the SASS")
+    for fname, c in counts.items():
+        if c["UTMALDG"] + c["UBLKCP"] == 0 or c["HMMA"] == 0 \
+                or c["STL"] or c["LDL"]:
+            raise AssertionError(f"{fname}: SASS {c}: want TMA copies "
+                                 f"(UTMALDG / UBLKCP), HMMA and no "
+                                 f"local-memory spills (STL / LDL)")
+    rec["sass"] = counts
+    log(f"[gemv] SASS {json.dumps(counts)}")
+
+    # a CUDA graph of one fused decode layer (bf16, Llama wiring: the qkv
+    # GEMV with its norm, attention, the MLP's three GEMVs) replays to the
+    # eager call's bits
+    xl, kl, vl, kwl = block_case(g, b=8, s_max=512, heads=16, kv_heads=4,
+                                 dh=128, ffn=5504, dtype=bf, wiring="llama")
+    pos = torch.tensor([0, 7, 100, 200, 300, 400, 510, 511],
+                       dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        ye, ke, ve = decode_block_layer(xl, kl.clone(), vl.clone(), pos, **kwl)
+        kg, vg = kl.clone(), vl.clone()
+        decode_block_layer(xl, kg.clone(), vg.clone(), pos, **kwl)  # warm
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        yg, _, _ = decode_block_layer(xl, kg, vg, pos, **kwl)
+    graph.replay()
+    torch.cuda.synchronize()
+    same = (torch.equal(yg, ye) and torch.equal(kg, ke)
+            and torch.equal(vg, ve))
+    if not same:
+        raise AssertionError("a CUDA graph of decode_block_layer does not "
+                             "replay to the eager call's bits")
+    rec["graph_replay_bit_identical"] = True
+    log("[gemv] CUDA graph of one fused decode layer (llama wiring, 8 slots, "
+        "bf16) replays to the eager call's bits")
+    del graph, xl, kl, vl, kwl
+    torch.cuda.empty_cache()
+    return rec
+
+
+def phase_tiny_serving(card: str):
+    """gpt_tiny and llama_tiny (head_dim 16: the attention kernels take it
+    zero-padded to 64) served through ``ServingEngine`` on the card and on
+    the CPU from the same weights: the greedy tokens agree and the card's
+    run launched the decode-attention kernel; then the flash kernels at
+    head_dim 16 and 32 against their plain versions."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels.decode_attention import decode_attention
+    from paddle_tpu_torch.kernels.flash_attention import (
+        flash_attention_bwd_dkv, flash_attention_bwd_dkv_reference,
+        flash_attention_bwd_dq, flash_attention_bwd_dq_reference,
+        flash_attention_fwd, flash_attention_fwd_reference)
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         gpt_tiny, llama_tiny)
+    from paddle_tpu_torch.serving import ServingEngine
+    out = {}
+    for family, cls, cfg in (("gpt", GPTForCausalLM, gpt_tiny()),
+                             ("llama", LlamaForCausalLM, llama_tiny())):
+        cpu = cls(cfg, device="cpu").eval()
+        card_m = cls(cfg, device=DEVICE).eval()
+        card_m.load_state_dict({k: v.to(DEVICE)
+                                for k, v in cpu.state_dict().items()})
+        rs = np.random.RandomState(5)
+        prompts = [rs.randint(0, cfg.vocab_size, (n,)) for n in (9, 40, 4)]
+        tokens = {}
+        decode_attention.launches = 0
+        for where, model in (("cpu", cpu), ("cuda", card_m)):
+            eng = ServingEngine(model, num_slots=3, min_bucket=8,
+                                block_len=16, prefill_chunk=16)
+            rids = [eng.submit(p, max_new_tokens=8) for p in prompts]
+            eng.run_until_complete(300)
+            tokens[where] = [eng.purge(r).tokens for r in rids]
+            eng.close()
+        if decode_attention.launches == 0:
+            raise AssertionError(f"{family}_tiny on the card never launched "
+                                 f"decode_attention")
+        if tokens["cuda"] != tokens["cpu"]:
+            raise AssertionError(f"{family}_tiny (head_dim {cfg.head_dim}): "
+                                 f"greedy tokens on the card {tokens['cuda']}"
+                                 f" != the CPU's {tokens['cpu']}")
+        out[family] = {"head_dim": cfg.head_dim,
+                       "decode_attention_launches": decode_attention.launches,
+                       "tokens": tokens["cuda"]}
+        log(f"[tiny] {family}_tiny, head_dim {cfg.head_dim}: greedy tokens "
+            f"on the card equal the CPU's for {len(prompts)} requests "
+            f"({decode_attention.launches} decode_attention launches)")
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(3)
+    worst = 0.0
+    for d in (16, 32):
+        q, k, v, do = (torch.randn(shape, generator=g, device=DEVICE)
+                       for shape in ((2, 80, 4, d), (2, 96, 2, d),
+                                     (2, 96, 2, d), (2, 80, 4, d)))
+        o1, l1 = flash_attention_fwd(q, k, v, causal=True)
+        o2, l2 = flash_attention_fwd_reference(q, k, v, causal=True)
+        delta = (do * o2).sum(-1).transpose(1, 2).contiguous()
+        pairs = [(o1, o2), (l1, l2),
+                 (flash_attention_bwd_dq(q, k, v, do, l2, delta, causal=True),
+                  flash_attention_bwd_dq_reference(q, k, v, do, l2, delta,
+                                                   causal=True))]
+        pairs += list(zip(
+            flash_attention_bwd_dkv(q, k, v, do, l2, delta, causal=True),
+            flash_attention_bwd_dkv_reference(q, k, v, do, l2, delta,
+                                              causal=True)))
+        for got, want in pairs:
+            torch.cuda.synchronize()
+            err = (got - want).abs().max().item()
+            worst = max(worst, err)
+            if not torch.allclose(got, want, atol=1e-4, rtol=0):
+                raise AssertionError(f"flash kernels at head_dim {d}: "
+                                     f"max_abs_err {err}")
+    out["flash_max_abs_err"] = worst
+    log(f"[tiny] flash forward / dq / dkv at head_dim 16 and 32 (f32, "
+        f"causal, GQA) within atol 1e-4 of the plain versions: max abs err "
+        f"{worst:.3g} (card: {card})")
+    return out
 
 
 # ------------------------------------------------- sharded decode block
@@ -3099,7 +3455,8 @@ def free_card() -> None:
 
 
 AB_KEYS = ("ttft_p50_ms", "ttft_median_ms", "decode_step_ms_p50",
-           "tokens_per_s", "prefill_chunks", "decode_steps", "prefill_profile")
+           "tokens_per_s", "prefill_chunks", "decode_steps", "prefill_profile",
+           "decode_profile")
 # calls of the wrapper a window of its host-time measure makes
 HOST_CALLS = 100
 
@@ -3153,6 +3510,121 @@ def wrapper_times() -> dict:
     return times
 
 
+def gemv_times() -> dict:
+    """Each GEMV_SHAPES shape through ``decode_block._gemv``, the call both
+    trees make (the parent's split-K kernel or this tree's stream kernel),
+    on 4 weight copies in turn: the card's time a call."""
+    import torch
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.kernels import decode_block as db
+    lib = _build.load("decode_block")
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(21)
+    out = {}
+    for (name, k, widths, rows, in_mode, x32, o32, res, act,
+         bias) in GEMV_SHAPES:
+        cases = [gemv_case(g, k, widths, rows, in_mode, x32, res, bias)
+                 for _ in range(4)]
+        n = sum(widths)
+        y = torch.empty((rows, n), dtype=torch.float32 if o32
+                        else torch.bfloat16, device=dev)
+        state = {"i": 0}
+
+        def call():
+            state["i"] = (state["i"] + 1) % 4
+            x, ws, bs, kw = cases[state["i"]]
+            r = kw.get("res")
+
+            def ptr(t):
+                return None if t is None else t.data_ptr()
+            db._gemv(lib.decode_block_gemv,
+                     torch.cuda.current_stream(dev).cuda_stream, dtype=2,
+                     inp=x.data_ptr(), ld_in=x.stride(0), K=k, rows=rows,
+                     weights=[(w, w.stride(0)) for w in ws],
+                     biases=[ptr(b) for b in bs], out=y.data_ptr(),
+                     ld_out=n, out_f32=int(o32),
+                     cap=db._pick_block_f(2, db.SMEM_BUDGET), itemsize=2,
+                     device=dev, in_mode=in_mode, in_f32=int(x32),
+                     stats=ptr(kw.get("stats")), nw=ptr(kw.get("norm_w")),
+                     nb=ptr(kw.get("norm_b")), res=ptr(r),
+                     ld_res=0 if r is None else r.stride(0),
+                     res_f32=int(res == "f32"), act=act)
+        out[name] = {"device_ms": device_ms(call), "ms": time_ms(call)}
+        del cases, y
+    torch.cuda.empty_cache()
+    return out
+
+
+def block_times() -> dict:
+    """decode_block_attn and decode_block_mlp at one gpt3_6_7b and one
+    llama_7b layer (random bf16 weights, 8 slots): the card's time a call,
+    and the wrappers' and both ring hops' host time a call (``host_us``)."""
+    import torch
+    from paddle_tpu_torch.kernels.decode_block import (decode_block_attn,
+                                                       decode_block_mlp)
+    from paddle_tpu_torch.kernels.decode_block_tp import (ring_entry_hop,
+                                                          ring_exit_hop)
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(22)
+    out = {}
+    for model, s_max, ffn, wiring in (("gpt3_6_7b", 2048, 16384, "gpt"),
+                                      ("llama_7b", 4096, 11008, "llama")):
+        x, k, v, kw = block_case(g, b=8, s_max=s_max, heads=32, kv_heads=32,
+                                 dh=128, ffn=ffn, dtype=torch.bfloat16,
+                                 wiring=wiring)
+        pos = torch.full((8,), s_max // 2, dtype=torch.int32, device=dev)
+        attn, _, _ = attn_call(decode_block_attn, x, k, v, pos, kw)
+
+        def a_call():
+            return attn_call(decode_block_attn, x, k, v, pos, kw)
+
+        def m_call():
+            return mlp_call(decode_block_mlp, x, attn, kw)
+        out[model] = {"attn_device_ms": device_ms(a_call),
+                      "mlp_device_ms": device_ms(m_call)}
+        if model == "gpt3_6_7b":
+            hx = torch.randn((4, 4096), generator=g, device=dev).to(
+                torch.bfloat16)
+            hw = kw["wq"][:, :2048].contiguous()
+            hy = torch.randn((4, 2048), generator=g, device=dev).to(
+                torch.bfloat16)
+            hwo = kw["wo"][:2048].contiguous()
+            out["host_us"] = host_us({
+                "decode_block_attn": a_call, "decode_block_mlp": m_call,
+                "ring_entry_hop": lambda: ring_entry_hop(hx, hw),
+                "ring_exit_hop": lambda: ring_exit_hop(hy, hwo)})
+        del x, k, v, kw, attn
+        torch.cuda.empty_cache()
+    return out
+
+
+def tp2_serving(card: str) -> dict:
+    """The full-depth gpt3_6_7b served at tp=2 on ``tp_fused_block`` (both
+    shards on the card, every decode step through the ring hops): a warm
+    round, then ``serve_run``."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_6_7b
+    from paddle_tpu_torch.serving import ServingEngine
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1234)
+    cfg = gpt3_6_7b()
+    model = GPTForCausalLM(cfg, device=DEVICE, generator=gen).eval()
+    rs = np.random.RandomState(3)
+    eng = ServingEngine(model, fused_decode=True, tensor_parallel=TP,
+                        devices=TP_DEVICES, **ENGINE_KW)
+    eng.serve_batch([rs.randint(0, cfg.vocab_size, (n,))
+                     for n in (600, 64, 300, 130, 700, 64, 1000, 200)],
+                    max_new_tokens=4)
+    eng.close()
+    _, res = serve_run(model, card, True, SERVE_WAVES["gpt"], tp=TP)
+    del model
+    free_card()
+    return {k: res.get(k) for k in AB_KEYS}
+
+
 def ab_child(root: str) -> int:
     """One side of ``--serve-ab``: this file's serving phases (GPT, then
     Llama) and ``wrapper_times`` on the ``paddle_tpu_torch`` of the
@@ -3166,7 +3638,8 @@ def ab_child(root: str) -> int:
     _build.build(sorted(f[:-3] for f in os.listdir(_build._CSRC)
                         if f.endswith(".cu")))
     card = card_line()
-    out = {"root": root, "card": card, "decode_attention": wrapper_times()}
+    out = {"root": root, "card": card, "decode_attention": wrapper_times(),
+           "gemv": gemv_times(), "block": block_times()}
     free_card()
     for family in ("gpt", "llama"):
         runs = phase_serving(card, family)
@@ -3174,6 +3647,7 @@ def ab_child(root: str) -> int:
                        for path in ("unfused", "fused")}
         del runs
         free_card()
+    out["tp2"] = tp2_serving(card)
     print(json.dumps(out), flush=True)
     return 0
 
@@ -3241,8 +3715,91 @@ def serve_ab(parent: str) -> int:
             f"ms per 32-layer unfused decode step); bf16 - f32 in one "
             f"process: parent {own['parent']:+.2f} us, change "
             f"{own['change']:+.2f} us")
-    log(json.dumps({"serve_ab": results}))
+    def med(side, get):
+        vals = [get(r) for r in results if r["side"] == side]
+        vals = [v for v in vals if v is not None]
+        return statistics.median(vals) if vals else None
+
+    slower = []
+    for name in results[0]["gemv"]:
+        p = med("parent", lambda r: r["gemv"][name]["device_ms"])
+        c = med("change", lambda r: r["gemv"][name]["device_ms"])
+        slower += [name] if c > p else []
+        log(f"[serve-ab] gemv {name}: device {p:.4f} -> {c:.4f} ms "
+            f"({c / p:.3f}x; card: {results[0]['card']})")
+    for model in ("gpt3_6_7b", "llama_7b"):
+        for half in ("attn", "mlp"):
+            key = f"{half}_device_ms"
+            p = med("parent", lambda r: r["block"][model][key])
+            c = med("change", lambda r: r["block"][model][key])
+            slower += [f"{model} {half}"] if c > p else []
+            log(f"[serve-ab] decode_block_{half} at {model}: device "
+                f"{p:.4f} -> {c:.4f} ms")
+    for name in results[0]["block"]["host_us"]:
+        p = med("parent", lambda r: r["block"]["host_us"][name])
+        c = med("change", lambda r: r["block"]["host_us"][name])
+        log(f"[serve-ab] {name} host time a call: {p:.2f} -> {c:.2f} us")
+    for family in ("gpt", "llama"):
+        for path in ("unfused", "fused"):
+            for key, get in (
+                    ("decode step p50 ms",
+                     lambda r: r[family][path]["decode_step_ms_p50"]),
+                    ("kernel ms a decode step (profiled)",
+                     lambda r: (r[family][path]["decode_profile"] or {})
+                     .get("device_ms_per_step")),
+                    ("TTFT median ms",
+                     lambda r: r[family][path]["ttft_median_ms"])):
+                log(f"[serve-ab] {family} {path} {key}: parent "
+                    f"{med('parent', get)} -> change {med('change', get)}")
+    for key, get in (("decode step p50 ms",
+                      lambda r: r["tp2"]["decode_step_ms_p50"]),
+                     ("kernel ms a decode step (profiled)",
+                      lambda r: (r["tp2"]["decode_profile"] or {})
+                      .get("device_ms_per_step")),
+                     ("TTFT median ms", lambda r: r["tp2"]["ttft_median_ms"])):
+        log(f"[serve-ab] gpt tp=2 tp_fused_block {key}: parent "
+            f"{med('parent', get)} -> change {med('change', get)}")
+    log(f"[serve-ab] slower than the parent (medians of 2 turns): "
+        f"{slower or 'none'}")
+    sass_rep = sass_ab(parent)
+    # the whole record is too long for the end of a log: it goes to a file
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "serve_ab.json")
+    with open(path, "w") as f:
+        json.dump({"serve_ab": results, "sass": sass_rep,
+                   "slower": slower}, f)
+    log(f"[serve-ab] every turn's numbers: {path}")
     return 0
+
+
+def sass_ab(parent: str) -> dict:
+    """The kernels this change leaves as they were, instruction for
+    instruction against the parent's build (``kernels.sass.compare``):
+    the f32 GEMV and the decode block's other kernels, the sharded
+    block's, and every instantiation of flash_attention.cu and
+    decode_attention.cu."""
+    import glob
+    from paddle_tpu_torch.kernels import _build, sass
+    out = {}
+    for name, kernels in (
+            ("decode_block", ["gemv_kernelIf", "attn_", "row_stats"]),
+            ("decode_block_tp", ["gemv_kernelIf", "attn_tp"]),
+            ("flash_attention", [""]), ("decode_attention", [""])):
+        old = sorted(glob.glob(os.path.join(
+            parent, "paddle_tpu_torch", "kernels", "_build",
+            f"lib{name}-*.so")), key=os.path.getmtime)[-1]
+        rep = sass.compare(old, str(_build._library_path(name)), kernels)
+        same = sum(r["same"] for r in rep.values())
+        out[name] = {"same": same, "of": len(rep),
+                     "different": [k for k, r in rep.items() if not r["same"]]}
+        log(f"[serve-ab] sass compare {name} {kernels}: {same} of "
+            f"{len(rep)} instantiations the same instructions as the "
+            f"parent's")
+        if same != len(rep) or not rep:
+            raise AssertionError(f"{name}: kernels this change keeps differ "
+                                 f"from the parent's: {out[name]}")
+    return out
 
 
 def main() -> int:
@@ -3269,6 +3826,8 @@ def main() -> int:
 
     rec, err = run_phase("kernels", phase_kernels, card)
     block = run_phase("block kernels", phase_block_kernels, card)
+    gemv_rec = run_phase("gemv", phase_gemv, card)
+    tiny = run_phase("tiny serving", phase_tiny_serving, card)
     norm_recs = run_phase("norm kernels", phase_norm_kernels, card)
     runs = run_phase("serving:gpt", phase_serving, card, "gpt")
     run_phase("parity:gpt", phase_parity, "gpt")
@@ -3346,6 +3905,11 @@ def main() -> int:
             "sweep_max_abs_err": r["sweep_max_abs_err"],
             "shape": r["shape"],
             "llama_7b": r["llama_7b"],
+            # the GEMV of its projections, alone at each projection's shape
+            "gemv": {k: gemv_rec["shapes"][k] for k in GEMV_BY_KERNEL[name]},
+            "gemv_checks": {k: gemv_rec[k] for k in (
+                "sweep_cases", "sweep_max_abs_err", "sass",
+                "graph_replay_bit_identical")},
         })
     for name, line, src in (
             ("flash_attention_fwd", 77, "flash_attention"),
@@ -3410,6 +3974,9 @@ def main() -> int:
             "launches": paths["tp_fused_block"],
             "launches_by_path": paths,
             **tp_recs[name]})
+        if name in GEMV_BY_KERNEL:
+            kernels[-1]["gemv"] = {k: gemv_rec["shapes"][k]
+                                   for k in GEMV_BY_KERNEL[name]}
     serving = {"unfused": serving_u, "fused": serving_f,
                "llama_unfused": llama_serving_u,
                "llama_fused": llama_serving_f}
@@ -3419,7 +3986,7 @@ def main() -> int:
                 res
     log(f"[done] {time.perf_counter() - t_start:.1f} s; serving "
         f"{json.dumps(serving)}; train {json.dumps(train)}; llama train "
-        f"{json.dumps(llama_train)}")
+        f"{json.dumps(llama_train)}; tiny serving {json.dumps(tiny)}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -20,14 +20,17 @@
 // What the design does about that.  The TPU grid runs in order on one core
 // and carries the attention group's weights and the MLP accumulator in VMEM
 // from step to step; CUDA blocks run at once and share nothing.  So:
-//  * gemv_kernel (gemv.cuh, shared with the sharded block's ring hops):
-//    every projection is one split-K launch over column tiles of the
-//    output for up to 8 batch rows, each weight byte read once for all
-//    rows, the input transform (norm with the row statistics, or
-//    silu(g) * t) applied as the rows are staged, the K slices summed in
-//    slice order by the last block of each tile (deterministic), and an
+//  * the GEMV of gemv.cuh (shared with the sharded block's ring hops):
+//    every projection is one launch over column strips of the output for
+//    up to 16 batch rows, each weight byte read once for all rows; the
+//    input transform (norm with the row statistics, or silu(g) * t)
+//    applied as the inputs land, sums in f32 with one cast, the merge of
+//    K splits in split order by the last of them (deterministic), and an
 //    epilogue that adds the residual and the bias and applies the
-//    activation.
+//    activation.  bf16 weights stream through a ring of TMA stages into
+//    the tensor cores (gemv_stream_kernel: the bound is the weight bytes,
+//    and the ring keeps them in flight); f32 weights take the split-K
+//    gemv_kernel.
 //  * row_stats_kernel: the two-pass mean / variance (or mean square) of
 //    each row that a norm needs, once per layer input, so that each
 //    projection block does not reread the whole row.
@@ -39,9 +42,9 @@
 //    (slot, kv head), so blocks never race on the slab.
 // decode_block_attn launches stats -> qkv gemv -> attention, and
 // decode_block_mlp launches out-proj gemv -> stats -> up gemv -> down gemv,
-// in stream order.  The MLP's down-projection reduction is a second pass
-// over column tiles of D, not atomics: its sums are deterministic.
-// Later work: a split of long KV walks across blocks, TMA loads, and one
+// in stream order; every sum is deterministic (no atomics on data).
+// Later work: the attention's split of long KV walks across blocks on a
+// TMA ring (as decode_attention.cu's decode_split_kernel), and one
 // persistent launch per half.
 
 #include "gemv.cuh"
@@ -473,7 +476,10 @@ cudaError_t launch_attn_fast(const AttnArgs& a, cudaStream_t stream) {
   const size_t smem = sizeof(float) * ((size_t)REP * D + 2 * D +
                                        (size_t)kWarps * REP * D +
                                        2 * (size_t)kWarps * REP);
-  cudaError_t err = allow_smem(attn_fast_kernel<T, D, REP>, smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  static const size_t cap = dynamic_cap(attn_fast_kernel<T, D, REP>);
+  cudaError_t err =
+      hopper::allow_smem(attn_fast_kernel<T, D, REP>, cap, smem_set);
   if (err != cudaSuccess) return err;
   attn_fast_kernel<T, D, REP>
       <<<dim3(a.B * a.KH), dim3(kThreads), smem, stream>>>(a);
@@ -502,7 +508,9 @@ cudaError_t launch_attn(const AttnArgs& a, cudaStream_t stream) {
       sizeof(float) * ((size_t)2 * rep * a.Dh + (size_t)a.block_k * (a.Dh + 1) +
                        (size_t)a.block_k * a.Dh + (size_t)rep * a.block_k +
                        2 * (size_t)a.Dh + 3 * (size_t)rep);
-  cudaError_t err = allow_smem(attn_kernel<T>, smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  static const size_t cap = dynamic_cap(attn_kernel<T>);
+  cudaError_t err = hopper::allow_smem(attn_kernel<T>, cap, smem_set);
   if (err != cudaSuccess) return err;
   attn_kernel<T><<<dim3(a.B * a.KH), dim3(kThreads), smem, stream>>>(a);
   return cudaGetLastError();
@@ -539,7 +547,6 @@ extern "C" int decode_block_row_stats(const void* in, float* stats,
 extern "C" int decode_block_gemv(const GemvArgs* args, void* stream) {
   return gemv_entry(*args, stream);
 }
-
 extern "C" int decode_block_attention(const AttnArgs* args, void* stream) {
   const AttnArgs& a = *args;
   if (a.B <= 0) return cudaSuccess;

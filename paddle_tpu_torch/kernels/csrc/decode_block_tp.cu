@@ -26,23 +26,21 @@
 // bytes of the shard's heads.
 //
 // What the design does about that.
-//  * decode_block_tp_hop: both hops are one launch of the split-K
-//    gemv_kernel of gemv.cuh, the kernel of the unsharded block's
-//    projections.  The N_l / 256 (bf16) column tiles of a hop give fewer
-//    blocks than the card's 132 SMs, so K is split into slices sized to
-//    fill one wave; the exit activation is the kernel's input transform
-//    (in_mode 3 gate-first SwiGLU, 4 / 5 GeLU), applied as the chunk is
-//    staged, so act(y) never lands in device memory; the last block of
-//    each column tile adds the K slices in slice order, then the bias
-//    (entry), and casts once.
+//  * decode_block_tp_hop: both hops are one launch of the GEMV of
+//    gemv.cuh, the kernel of the unsharded block's projections (bf16: the
+//    TMA weight ring into the tensor cores, its column strips and K splits
+//    planned per hop; f32: the split-K kernel); the exit activation is the
+//    GEMV's input transform (in_mode 3 gate-first SwiGLU, 4 / 5 GeLU),
+//    applied as the chunk lands, so act(y) never lands in device memory;
+//    the bias (entry) and one cast come in its epilogue.
 //  * attn_tp_kernel: one block per (slot, local kv head) with its rep
 //    query heads (GQA reads kv head h / rep; nothing is repeated).  The
 //    live rows stream in tiles of block_k rows through two shared-memory
 //    stages filled by cp.async, the next tile in flight while the current
 //    one is scored.  Each block reads only rows below posw and writes only
 //    row posw of its own (slot, kv head), so blocks never race on a slab.
-// Later work: TMA tile loads, one persistent launch per ring hop, and the
-// hops' copies overlapped with the next hop's product on a second stream.
+// Later work: the attention on a TMA ring, and the hops' copies overlapped
+// with the next hop's product on a second stream.
 
 #include "gemv.cuh"
 
@@ -261,7 +259,9 @@ cudaError_t launch_attn_tp(const TpAttnArgs& a, cudaStream_t stream) {
       2 * 2 * (size_t)a.block_k * a.Dh * sizeof(T) +
       sizeof(float) * (2 * (size_t)rep * a.Dh + (size_t)rep * a.block_k +
                        2 * (size_t)a.Dh + 3 * (size_t)rep);
-  cudaError_t err = allow_smem(attn_tp_kernel<T>, smem);
+  static std::atomic<unsigned long long> smem_set{0};
+  static const size_t cap = dynamic_cap(attn_tp_kernel<T>);
+  cudaError_t err = hopper::allow_smem(attn_tp_kernel<T>, cap, smem_set);
   if (err != cudaSuccess) return err;
   attn_tp_kernel<T><<<dim3(a.B * a.KH), dim3(kThreads), smem, stream>>>(a);
   return cudaGetLastError();

@@ -19,7 +19,8 @@
 //
 // Host side: encode_tensor_map() encodes a map of up to 5 dims through
 // the driver's cuTensorMapEncodeTiled, found at run time with
-// cudaGetDriverEntryPoint, so nothing links libcuda; allow_smem() lets a
+// cudaGetDriverEntryPoint, so nothing links libcuda (encoder() is that
+// entry point, for maps of another layout); allow_smem() lets a
 // kernel take more than 48 KB of dynamic shared memory on each device it
 // launches on.
 
@@ -94,6 +95,29 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 }
 
 // ----------------------------------------------------------------------- TMA
+// `bytes` (a multiple of 16) contiguous bytes from global to shared memory
+// by the bulk-copy engine, both addresses 16-byte aligned, completing on
+// `bar`
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// one box of a 2-D tensor map into shared memory, completing on `bar`
+__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1)
+      : "memory");
+}
+
 // one box of a 4-D tensor map into shared memory, completing on `bar`
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,

@@ -27,11 +27,12 @@ from typing import Optional
 
 import torch
 
+from .head_dim import kernel_head_dim, pad_head_dim
+
 __all__ = ["decode_attention", "decode_attention_reference",
            "decode_attention_auto"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (64, 128)
 # cache rows each block of the 16-bit sq == 1 kernel walks (a multiple of
 # its 32-row tile); the grid is sized from S_max, never from seq_lens
 _SPLIT_ROWS = 256
@@ -83,10 +84,12 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     ``[B, sq, H, D]`` tensor.  Raises on anything the kernel does not
     take: an input that requires grad while grad is enabled (the kernel
     has no backward), tensors off the card, mixed devices or dtypes, a
-    dtype other than float32/float16/bfloat16, a head_dim other than
-    64/128, a last dim that is not contiguous, or rows not on 16-byte
-    boundaries.  q/k/v are read in place through their strides (views
-    from a fused QKV projection are fine)."""
+    dtype other than float32/float16/bfloat16, a head_dim above 128, a
+    last dim that is not contiguous, or rows not on 16-byte boundaries.
+    q/k/v are read in place through their strides (views from a fused
+    QKV projection are fine); a head_dim other than 64 / 128 is
+    zero-padded to the next of them (``head_dim.pad_head_dim``, the
+    scale kept at the true head_dim) and the output sliced back."""
     _check(q, k_cache, v_cache, seq_lens)
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k_cache, v_cache)):
@@ -110,9 +113,10 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise ValueError(f"q/k/v dtypes differ: {q.dtype}, {k_cache.dtype}, "
                          f"{v_cache.dtype}")
     b, sq, h, d = q.shape
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} unsupported; the kernel is built "
-                         f"for {_HEAD_DIMS}")
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    dp = kernel_head_dim(d)
+    q, k_cache, v_cache = (pad_head_dim(t, dp)
+                           for t in (q, k_cache, v_cache))
     for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must be contiguous in its last dim")
@@ -126,22 +130,21 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
     from ._build import load
     lib = load("decode_attention")
     lens = seq_lens.to(torch.int32).contiguous()
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=dev)
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+    out = torch.empty((b, sq, h, dp), dtype=q.dtype, device=dev)
     s_max = k_cache.shape[1]
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         part = count = None
         if sq == 1 and q.dtype != torch.float32:
             splits = max(1, -(-s_max // _SPLIT_ROWS))
-            part, count = _workspace(dev, stream, b * h * splits * (2 + d),
+            part, count = _workspace(dev, stream, b * h * splits * (2 + dp),
                                      b * h)
         rc = lib.decode_attention_launch(
             q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
             lens.data_ptr(), out.data_ptr(),
             None if part is None else part.data_ptr(),
             None if count is None else count.data_ptr(),
-            _DTYPE_CODES[q.dtype], b, sq, h, k_cache.shape[2], s_max, d,
+            _DTYPE_CODES[q.dtype], b, sq, h, k_cache.shape[2], s_max, dp,
             *q.stride()[:3], *k_cache.stride()[:3], *v_cache.stride()[:3],
             scale, int(bool(causal_tail)), _SPLIT_ROWS, stream)
     if rc >= _TMA_REFUSED:
@@ -152,7 +155,7 @@ def decode_attention(q: torch.Tensor, k_cache: torch.Tensor,
         raise RuntimeError(f"decode_attention kernel launch failed with "
                            f"CUDA error {rc}")
     decode_attention.launches += 1
-    return out
+    return out if dp == d else out[..., :d].contiguous()
 
 
 # launches of the CUDA kernel since the count was last set to 0

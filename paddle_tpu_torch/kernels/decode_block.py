@@ -39,6 +39,7 @@ what the kernels allocate at those tiles.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from typing import Optional
 
@@ -50,7 +51,8 @@ from .decode_attention import decode_attention_reference
 __all__ = ["decode_block_attn", "decode_block_mlp", "decode_block_layer",
            "decode_block_attn_reference", "decode_block_mlp_reference",
            "decode_block_reference", "plan_decode_block", "fusion_legal",
-           "resolve_fused_decode", "SMEM_BUDGET"]
+           "resolve_fused_decode", "gemv", "gemv_reference", "plan_gemv",
+           "gemv_blocks", "SMEM_BUDGET"]
 
 # shared memory one block may use on an H100 (227 KB)
 SMEM_BUDGET = 232_448
@@ -67,6 +69,22 @@ _MAX_BLOCK_F = 2048
 _FAST_BLOCK_K = 64
 _FAST_HEAD_DIMS = (64, 128)
 _FAST_REPS = (1, 2, 4, 8)
+
+# the bf16 weights' stream kernel (csrc/gemv.cuh, gemv_stream_kernel):
+# persistent blocks, at most one per SM, each streaming its units of 64
+# weight rows x 128 output columns through a ring of TMA stages into
+# mma.sync for up to 16 batch rows
+_STRIP = 128                    # output columns of a strip
+_TILE = 64                      # weight rows of a unit (one ring stage)
+_STREAM_ROWS = 16               # batch rows of a block (one MMA's M)
+_MAX_STAGES = 12
+_MAX_SPLIT_K = 8                # K splits a merge reads at most
+_STAGE_BYTES = _TILE * _STRIP * 2   # a stage's weight tile [64, 128] bf16
+_PART_SLOT = _STREAM_ROWS * _STRIP   # floats of one workspace slot
+_STREAM_SHARED = 424            # sizeof(StreamShared): barriers, row stats
+_H100_SMS = 132
+# the launch returns 2000 + the CUresult of a refused tensor map
+_TMA_REFUSED = 2000
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 2}
 _ACTS = {"gelu_tanh": 1, "gelu": 2}
@@ -87,7 +105,7 @@ class _GemvArgs(ctypes.Structure):
                 ("rows", _I), ("K", _I), ("N", _I), ("seg_end", _I * 3),
                 ("in_mode", _I), ("in_f32", _I), ("res_f32", _I),
                 ("out_f32", _I), ("act", _I), ("kc", _I), ("ksplit", _I),
-                ("dtype", _I)]
+                ("dtype", _I), ("stages", _I), ("grid", _I)]
 
 
 class _AttnArgs(ctypes.Structure):
@@ -143,6 +161,102 @@ def _gemv_smem(kc: int, itemsize: int) -> int:
         + 4 * (2 * _ROWS + 1)
 
 
+def _stream_stage(rows: int, in_mode: int, in_f32: bool) -> int:
+    """Bytes of one stream-kernel ring stage (``StreamLayout`` in
+    csrc/gemv.cuh): the weight tile; the raw inputs, a box of 8 rows (16
+    above 8 rows) x 64 columns of the input's elements, a second box for
+    the SwiGLU modes, the norm's w and b [2, 64] bf16, rounded up to 128
+    bytes; the inputs split into bf16 terms (three, or one for a bf16
+    input without a transform), [rows, 72] each."""
+    r = _STREAM_ROWS if rows > 8 else 8
+    es = 4 if in_f32 else 2
+    halves = 2 if in_mode in (2, 3) else 1
+    splits = 3 if in_f32 or in_mode else 1
+    raw = -(-(halves * r * _TILE * es + 2 * _TILE * 2) // 128) * 128
+    return _STAGE_BYTES + raw + splits * r * (_TILE + 8) * 2
+
+
+def _stream_smem(stages: int, stage: int) -> int:
+    """Shared memory of one stream-kernel block: 1024 bytes of alignment
+    slack, the ring's stages and the barriers."""
+    return 1024 + stages * stage + _STREAM_SHARED
+
+
+# the stream kernel's costs on an H100 (csrc/gemv.cuh), fitted to its
+# times at the serving shapes under forced plans: the card streams ~2.9
+# TB/s and one block a unit in ~0.8 us; a K split costs ~12 us (the
+# partials' round trips, at the end), each strip after a block's first
+# ~8 us (its flush stalls the block's ring)
+_CARD_BYTES_PER_US = 2.9e6
+_UNIT_US = 0.8
+_SPLIT_US = 12.0
+_STRIP_US = 8.0
+
+
+def plan_gemv(k: int, widths, rows: int, *, in_mode: int = 0,
+              in_f32: bool = False, sms: int = _H100_SMS,
+              smem_budget: int = SMEM_BUDGET):
+    """The bf16 stream kernel's plan for ``[rows, k] x [k, sum(widths)]``
+    (``widths``: the output columns of each weight segment).  Returns
+    ``(plan, None)`` or ``(None, reason)``, the reason starting with
+    ``"smem:"``.
+
+    Each segment is cut into strips of 128 columns (the last one ragged),
+    K into ``kT = ceil(k / 64)`` tiles of 64 rows (a unit: one ring
+    stage).  The blocks form ``grid`` column groups x ``ksplit`` K splits,
+    at most one block per SM for each group ``y`` of 16 batch rows: block
+    ``(c, q)`` takes strips ``c, c + grid, ...``, each over the K tiles
+    ``[q kT / ksplit, (q + 1) kT / ksplit)``, so the blocks of one split
+    read the same weight rows at the same time, side by side.  The two
+    minimise the modelled time: the larger of the weight bytes over the
+    card's rate and the busiest block's units over one block's rate, plus
+    the cost of a K split and of each strip after a block's first (at
+    most 8 splits).  With ``ksplit``
+    1 every strip is finished by one block; otherwise each split writes
+    its partial into workspace slot ``(y ksplit + q) strips + strip``
+    (2048 floats) and the last split of a strip adds them in split
+    order.  The ring takes as many stages as fit (at most 12), each sized
+    to the input (``in_mode``, ``in_f32``: :func:`_stream_stage`)."""
+    widths = tuple(int(w) for w in widths)
+    groups = -(-rows // _STREAM_ROWS)
+    strips = sum(-(-w // _STRIP) for w in widths)
+    kt = -(-k // _TILE)
+    blocks = max(1, sms // groups)
+    best = None
+    for gk in range(1, min(kt, blocks, _MAX_SPLIT_K) + 1):
+        per_s = -(-strips // min(strips, blocks // gk))
+        per_k = -(-kt // gk)
+        gk, gc = -(-kt // per_k), -(-strips // per_s)
+        us = max(strips * kt * _STAGE_BYTES / _CARD_BYTES_PER_US,
+                 per_s * per_k * _UNIT_US)
+        us += (_SPLIT_US if gk > 1 else 0.0) + (per_s - 1) * _STRIP_US
+        if best is None or (us, gk) < best[:2]:
+            best = (us, gk, gc, per_s * per_k)
+    _, ksplit, grid, units = best
+    stage = _stream_stage(rows, in_mode, in_f32)
+    stages = min(_MAX_STAGES, (smem_budget - _stream_smem(0, stage))
+                 // stage)
+    if stages < 2:
+        return None, (f"smem: the GEMV's ring needs "
+                      f"{_stream_smem(2, stage)} bytes of shared memory at "
+                      f"2 stages (budget {smem_budget})")
+    return {"groups": groups, "strips": strips, "kT": kt,
+            "grid": grid, "ksplit": ksplit, "units": units,
+            "stages": stages, "smem": _stream_smem(stages, stage),
+            "widths": widths, "k": k,
+            "workspace": groups * ksplit * strips * _PART_SLOT,
+            "counters": groups * strips}, None
+
+
+def gemv_blocks(plan):
+    """Each block of a row group of ``plan``, in launch order: ``(strips,
+    (t0, t1))``, its strips and the K tiles it takes of each."""
+    gc, gk, kt = plan["grid"], plan["ksplit"], plan["kT"]
+    return [(list(range(b % gc, plan["strips"], gc)),
+             (b // gc * kt // gk, (b // gc + 1) * kt // gk))
+            for b in range(gc * gk)]
+
+
 def _fast_attention(block_k: int, rep: int, head_dim: int) -> bool:
     """Whether the attention launch takes the register-resident path."""
     return (block_k == _FAST_BLOCK_K and head_dim in _FAST_HEAD_DIMS
@@ -164,6 +278,31 @@ def _attn_smem(block_k: int, rep: int, head_dim: int) -> int:
 
 
 _STATS_SMEM = 4 * _WARPS
+
+
+@functools.lru_cache(maxsize=4096)
+def _stream_plan(k: int, widths: tuple, rows: int, in_mode: int,
+                 in_f32: bool, sms: int) -> dict:
+    """:func:`plan_gemv` at the launch's budget (the card's 227 KB), kept
+    per shape: the projections' wrapper asks it on every call."""
+    plan, why = plan_gemv(k, widths, rows, in_mode=in_mode, in_f32=in_f32,
+                          sms=sms)
+    if plan is None:
+        raise ValueError(why)
+    return plan
+
+
+def _proj_smem(k: int, widths, rows: int, itemsize: int, cap: int,
+               in_mode: int = 0, in_f32: bool = False) -> int:
+    """Shared memory one projection launch takes: in bf16 the stream
+    kernel's (its ring fills the card's budget, its stages sized to the
+    input), in f32 the split-K kernel's at its K slice of at most ``cap``
+    rows."""
+    if itemsize == 2:
+        return _stream_plan(k, tuple(widths), rows, in_mode, in_f32,
+                            _H100_SMS)["smem"]
+    return _gemv_smem(_k_slice(k, sum(widths), rows, itemsize, cap)[0],
+                      itemsize)
 
 
 def _pick_block_k(max_seq: int, rep: int, head_dim: int,
@@ -199,9 +338,11 @@ def plan_decode_block(*, max_seq: int, hidden: int, heads: int,
     ``smem_mlp`` the same for ``decode_block_mlp``).
 
     ``block_k`` (K/V rows per attention pass) starts at 64 and halves to
-    8; ``block_f`` (the most weight rows one projection block takes)
-    starts at 2048 and halves to 64.  When even the smallest tiles and the
-    projection's reduction buffer do not fit, the reason starts with
+    8; ``block_f`` (the most weight rows one f32 projection block takes)
+    starts at 2048 and halves to 64.  A bf16 projection is one launch of
+    the stream kernel, whose ring takes the card's whole budget
+    (:func:`plan_gemv`), whatever ``block_f``.  When even the smallest
+    tiles and the projection's buffers do not fit, the reason starts with
     ``"smem:"``.  Weights stream, so their sizes never refuse.  ``gated``
     adds the SwiGLU gate's columns to the up-projection.
 
@@ -217,18 +358,19 @@ def plan_decode_block(*, max_seq: int, hidden: int, heads: int,
     rep = heads // kv_heads
     bk = _pick_block_k(max_seq, rep, head_dim, smem_budget)
     bf = _pick_block_f(itemsize, smem_budget)
-    qkv_kc, _ = _k_slice(hidden, (heads + 2 * kv_heads) * head_dim, batch,
-                         itemsize, bf)
-    smem_attn = max(_gemv_smem(qkv_kc, itemsize),
+    qkv = (heads * head_dim, kv_heads * head_dim, kv_heads * head_dim)
+    smem_attn = max(_proj_smem(hidden, qkv, batch, itemsize, bf, 1),
                     _attn_smem(bk, rep, head_dim), _STATS_SMEM)
     if smem_attn > smem_budget:
         return None, (f"smem: attention block needs {smem_attn} bytes of "
                       f"shared memory even at block_k={bk} (budget "
                       f"{smem_budget})")
-    mlp = [(heads * head_dim, hidden), (hidden, ffn * (2 if gated else 1)),
-           (ffn, hidden)]
-    smem_mlp = max([_gemv_smem(_k_slice(k, n, batch, itemsize, bf)[0],
-                               itemsize) for k, n in mlp] + [_STATS_SMEM])
+    # (K, widths, input transform, f32 input) of the three launches
+    mlp = [(heads * head_dim, (hidden,), 0, False),
+           (hidden, (ffn,) * (2 if gated else 1), 1, True),
+           (ffn, (hidden,), 2 if gated else 0, True)]
+    smem_mlp = max([_proj_smem(k, w, batch, itemsize, bf, m, f)
+                    for k, w, m, f in mlp] + [_STATS_SMEM])
     if smem_mlp > smem_budget:
         return None, (f"smem: proj+MLP block needs {smem_mlp} bytes of "
                       f"shared memory even at block_f={bf} (budget "
@@ -444,6 +586,10 @@ def _rows(name: str, t: torch.Tensor, like: torch.Tensor) -> int:
 
 
 def _check_rc(rc: int, what: str) -> None:
+    if rc >= _TMA_REFUSED:
+        raise ValueError(f"{what}: the driver refuses a TMA tensor map of a "
+                         f"weight (cuTensorMapEncodeTiled returned CUresult "
+                         f"{rc - _TMA_REFUSED})")
     if rc != 0:
         raise RuntimeError(f"{what} kernel launch failed with CUDA error "
                            f"{rc}")
@@ -453,10 +599,16 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-# per (device, stream): the projection kernel's tile counters, zero
-# between launches (each launch's last blocks reset their own)
+# per (device, stream): the projection kernels' tile counters, zero
+# between launches (each launch's last blocks reset their own), and their
+# f32 partials.  Neither is ever freed or replaced while a CUDA graph
+# could still point at it: the partials only grow, and a grown buffer
+# keeps the one it replaces alive (_RETIRED).
 _COUNTERS = {}
 _MAX_TILES = 1 << 16
+_PARTIALS = {}
+_RETIRED = []
+_SM_COUNTS = {}
 
 
 def _counters(dev: torch.device, stream: int) -> torch.Tensor:
@@ -468,25 +620,68 @@ def _counters(dev: torch.device, stream: int) -> torch.Tensor:
     return buf
 
 
+def _sm_count(dev: torch.device) -> int:
+    n = _SM_COUNTS.get(dev.index)
+    if n is None:
+        n = _SM_COUNTS[dev.index] = \
+            torch.cuda.get_device_properties(dev).multi_processor_count
+    return n
+
+
+def _partials(dev: torch.device, stream: int, n: int) -> torch.Tensor:
+    """At least ``n`` f32 partials for ``stream``: allocated once at 8
+    slots of 2048 floats per SM (8.6 MB on an H100; the serving shapes'
+    plans take at most 4.2 MB), grown (never shrunk) for a larger
+    split."""
+    key = (dev.index, stream)
+    buf = _PARTIALS.get(key)
+    if buf is None or buf.numel() < n:
+        size = max(n, _sm_count(dev) * 8 * _PART_SLOT)
+        if buf is not None:
+            _RETIRED.append(buf)
+            size = max(size, 2 * buf.numel())
+        buf = _PARTIALS[key] = torch.empty((size,), dtype=torch.float32,
+                                           device=dev)
+    return buf
+
+
 def _gemv(entry, stream, *, dtype, inp, ld_in, K, rows, weights, biases,
           out, ld_out, out_f32, cap, itemsize, device, in_mode=0, in_f32=0,
           stats=None, nw=None, nb=None, res=None, ld_res=0, res_f32=0,
           act=0, what="decode_block projection") -> None:
-    """One launch of the split-K projection kernel (csrc/gemv.cuh) through
+    """One launch of the projection kernel (csrc/gemv.cuh) through
     ``entry``, a library's C entry point taking a ``GemvArgs`` pointer.
     ``weights`` is a list of ``(tensor, row_stride)`` segments whose
     columns concatenate to the output columns, ``biases`` their optional
-    bias pointers; K is split into slices of at most ``cap`` rows.
-    ``in_mode`` is the input transform (``GemvArgs.in_mode``), ``act``
-    the epilogue's activation."""
-    n = sum(w.shape[1] for w, _ in weights)
-    kc, ksplit = _k_slice(K, n, rows, itemsize, cap)
-    tiles = -(-n // _gemv_cols(itemsize)) * -(-rows // _ROWS)
+    bias pointers.  bf16 weights take the stream kernel at its
+    :func:`plan_gemv`; f32 weights the split-K kernel with K split into
+    slices of at most ``cap`` rows.  ``in_mode`` is the input transform
+    (``GemvArgs.in_mode``), ``act`` the epilogue's activation."""
+    widths = tuple(w.shape[1] for w, _ in weights)
+    n = sum(widths)
+    a = _GemvArgs()
+    if dtype == 2:
+        # the inputs ride the weight ring: TMA boxes of the input, bulk
+        # copies (16-byte units) of the norm's w and b
+        es_in = 4 if in_f32 else 2
+        if inp % 16 or ld_in * es_in % 16 or (in_mode == 1 and K % 8):
+            raise ValueError(f"{what}: the bf16 kernel copies its input by "
+                             f"TMA: the input's data pointer and row stride "
+                             f"must be 16-byte aligned (and K, {K}, a "
+                             f"multiple of 8 under a norm)")
+        plan = _stream_plan(K, widths, rows, in_mode, bool(in_f32),
+                            _sm_count(device))
+        tiles, need = plan["counters"], plan["workspace"]
+        a.kc, a.ksplit = _TILE, plan["ksplit"]
+        a.stages, a.grid = plan["stages"], plan["grid"]
+    else:
+        kc, ksplit = _k_slice(K, n, rows, itemsize, cap)
+        tiles = -(-n // _gemv_cols(itemsize)) * -(-rows // _ROWS)
+        need = ksplit * rows * n
+        a.kc, a.ksplit = kc, ksplit
     if tiles > _MAX_TILES:
         raise ValueError(f"projection of {n} columns x {rows} rows needs "
                          f"{tiles} tile counters (at most {_MAX_TILES})")
-    part = torch.empty((ksplit, rows, n), dtype=torch.float32, device=device)
-    a = _GemvArgs()
     a.inp, a.ld_in, a.K, a.rows, a.N = inp, ld_in, K, rows, n
     a.stats = stats
     a.nw, a.nb = nw, nb
@@ -500,11 +695,156 @@ def _gemv(entry, stream, *, dtype, inp, ld_in, K, rows, weights, biases,
         a.seg_end[i] = end
     a.res, a.ld_res, a.res_f32 = res, ld_res, res_f32
     a.out, a.ld_out, a.out_f32 = out, ld_out, out_f32
-    a.part = part.data_ptr()
+    a.part = _partials(device, stream, need).data_ptr()
     a.counters = _counters(device, stream).data_ptr()
-    a.in_mode, a.in_f32, a.act = in_mode, in_f32, act
-    a.kc, a.ksplit, a.dtype = kc, ksplit, dtype
+    a.in_mode, a.in_f32, a.act, a.dtype = in_mode, in_f32, act, dtype
     _check_rc(entry(ctypes.addressof(a), stream), what)
+
+
+# ================================================================ one GEMV
+def _gemv_input(x, k, in_mode, stats, norm_w, norm_b):
+    """The kernel's input transform, in f32: ``in'`` [rows, k]."""
+    xf = x.float()
+    if in_mode == 1:
+        v = (xf[:, :k] - stats[:, :1]) * stats[:, 1:] * norm_w.float()
+        return v + norm_b.float() if norm_b is not None else v
+    if in_mode == 2:                                   # [up | gate]
+        return F.silu(xf[:, k:2 * k]) * xf[:, :k]
+    if in_mode == 3:                                   # [gate | up]
+        return F.silu(xf[:, :k]) * xf[:, k:2 * k]
+    if in_mode in (4, 5):
+        return F.gelu(xf[:, :k], approximate="tanh" if in_mode == 4
+                      else "none")
+    return xf[:, :k]
+
+
+def _stream_sums(xt, weights, plan, drop=None, late=None):
+    """``xt @ [w_0 | w_1 | ...]`` summed as the stream kernel sums it: per
+    strip, each K split's tiles as one partial, the partials added in
+    split order.  ``drop`` leaves unit ``drop`` (strip ``drop // kT``, K
+    tile ``drop % kT``) out, ``late`` reads unit ``late``'s weight rows
+    one row late: the planted faults that the card's checks must see."""
+    k, kt, gk = plan["k"], plan["kT"], plan["ksplit"]
+    out, strip = [], 0
+    for w in weights:
+        wx = torch.cat([w.float(), w.new_zeros((1, w.shape[1]),
+                                               dtype=torch.float32)])
+        for c0 in range(0, w.shape[1], _STRIP):
+            cols = slice(c0, min(c0 + _STRIP, w.shape[1]))
+            total = None
+            for q in range(gk):
+                t0, t1 = q * kt // gk, (q + 1) * kt // gk
+                idx = torch.arange(t0 * _TILE, min(t1 * _TILE, k),
+                                   device=xt.device)
+                src = idx.clone()
+                for u, shift in ((late, 1), (drop, None)):
+                    if u is None or u // kt != strip \
+                            or not t0 <= u % kt < t1:
+                        continue
+                    hit = idx // _TILE == u % kt
+                    if shift is None:
+                        idx, src = idx[~hit], src[~hit]
+                    else:
+                        src = torch.where(hit, (src + 1).clamp(max=k), src)
+                part = xt[:, idx] @ wx[src][:, cols]
+                total = part if total is None else total + part
+            out.append(total)
+            strip += 1
+    return torch.cat(out, dim=1)
+
+
+def gemv_reference(x, weights, biases=None, *, in_mode: int = 0,
+                   stats=None, norm_w=None, norm_b=None, res=None,
+                   act: int = 0, out_f32: bool = False, plan=None,
+                   drop=None, late=None):
+    """The plain version of :func:`gemv`, on any device: the input
+    transform in f32, f32 sums, then the residual, the biases and the
+    activation, one cast.  With ``plan`` (:func:`plan_gemv`) the sums
+    follow the stream kernel's order (:func:`_stream_sums`, with its
+    ``drop`` / ``late`` faults)."""
+    k = weights[0].shape[0]
+    xt = _gemv_input(x, k, in_mode, stats, norm_w, norm_b)
+    if plan is None:
+        sums = xt @ torch.cat([w.float() for w in weights], dim=1)
+    else:
+        sums = _stream_sums(xt, weights, plan, drop, late)
+    v = sums if res is None else res.float() + sums
+    if biases is not None and any(b is not None for b in biases):
+        v = v + torch.cat([b.float() if b is not None else
+                           torch.zeros(w.shape[1], device=v.device)
+                           for w, b in zip(weights, biases)])
+    if act:
+        v = F.gelu(v, approximate="tanh" if act == 1 else "none")
+    return v if out_f32 else v.to(weights[0].dtype)
+
+
+def gemv(x, weights, biases=None, *, in_mode: int = 0, stats=None,
+         norm_w=None, norm_b=None, res=None, act: int = 0,
+         out_f32: bool = False):
+    """One projection of the decode block as one kernel launch:
+    ``act(res + in'(x) @ [w_0 | w_1 | w_2] + [b_0 | b_1 | b_2])``.
+
+    ``weights``: up to three ``[K, n_s]`` segments (views with a row
+    stride are fine), float32 or bfloat16; ``biases`` their optional
+    ``[n_s]`` vectors.  ``x`` ``[rows, K]`` (``[rows, 2K]`` for the SwiGLU
+    modes) in the weights' dtype or f32; ``in_mode`` the input transform
+    (0 none, 1 ``(x - mean) * rstd * norm_w + norm_b`` with ``stats``
+    ``[rows, 2]`` f32, 2 ``silu(x[:, K:]) * x[:, :K]``, 3 ``silu(x[:, :K])
+    * x[:, K:]``, 4 / 5 GeLU tanh / erf); ``res`` ``[rows, N]`` in the
+    weights' dtype or f32; ``act`` the output activation (0 none, 1 / 2
+    GeLU tanh / erf); the output is f32 with ``out_f32``, else in the
+    weights' dtype.  CUDA tensors launch the kernel, CPU tensors run
+    :func:`gemv_reference`."""
+    biases = list(biases) if biases is not None else [None] * len(weights)
+    if not 1 <= len(weights) <= 3 or len(biases) != len(weights):
+        raise ValueError("gemv takes 1 to 3 weight segments, each with an "
+                         "optional bias")
+    if x.device.type == "cpu":
+        return gemv_reference(x, weights, biases, in_mode=in_mode,
+                              stats=stats, norm_w=norm_w, norm_b=norm_b,
+                              res=res, act=act, out_f32=out_f32)
+    w0 = weights[0]
+    code = _kernel_device(w0, "gemv")
+    k, rows = w0.shape[0], x.shape[0]
+    segs = [(w, _matrix(f"weights[{i}]", w, w0))
+            for i, w in enumerate(weights)]
+    if any(w.shape[0] != k for w in weights):
+        raise ValueError("gemv: the weight segments must share K")
+    n = sum(w.shape[1] for w in weights)
+    for name, t in (("x", x), ("res", res)):
+        if t is not None and (t.device != w0.device or t.dtype not in
+                              (w0.dtype, torch.float32) or t.stride(1) != 1):
+            raise ValueError(f"gemv: {name} must be on {w0.device}, in "
+                             f"{w0.dtype} or float32, contiguous in its "
+                             f"last dim")
+    out = torch.empty((rows, n), dtype=torch.float32 if out_f32
+                      else w0.dtype, device=w0.device)
+    ptrs = [_vector(f"biases[{i}]", b, w.shape[1], w0)
+            for i, (w, b) in enumerate(zip(weights, biases))]
+    from ._build import load
+    lib = load("decode_block")
+    es = w0.element_size()
+    with torch.cuda.device(w0.device):
+        _gemv(lib.decode_block_gemv, _stream(w0.device), dtype=code,
+              inp=x.data_ptr(), ld_in=x.stride(0), K=k, rows=rows,
+              weights=segs, biases=ptrs, out=out.data_ptr(), ld_out=n,
+              out_f32=int(out_f32), cap=_pick_block_f(es, SMEM_BUDGET),
+              itemsize=es, device=w0.device, in_mode=in_mode,
+              in_f32=int(x.dtype == torch.float32),
+              stats=None if stats is None else stats.data_ptr(),
+              nw=_vector("norm_w", norm_w, k, w0),
+              nb=_vector("norm_b", norm_b, k, w0),
+              res=None if res is None else res.data_ptr(),
+              ld_res=0 if res is None else res.stride(0),
+              res_f32=int(res is not None and res.dtype == torch.float32),
+              act=act, what="gemv")
+    gemv.launches += 1
+    return out
+
+
+# launches of the GEMV kernel through gemv() since the count was last set
+# to 0 (the decode-block wrappers launch it directly)
+gemv.launches = 0
 
 
 def _row_stats(lib, stream, inp, ld, rows, K, dtype, norm, eps, stats):

@@ -22,8 +22,8 @@ paddle_tpu/kernels/decode_block_tp.py).
 
 A CUDA tensor always goes to the hand-written kernels
 (``csrc/decode_block_tp.cu``, built for ``sm_90a`` at first use; a hop is
-one launch of the split-K kernel of ``csrc/gemv.cuh`` that the unsharded
-block's projections also use); a CPU tensor always goes to the plain
+one launch of the GEMV of ``csrc/gemv.cuh`` that the unsharded block's
+projections also use); a CPU tensor always goes to the plain
 PyTorch version beside each wrapper (``*_reference``).  There is no
 fallback: a CUDA tensor the kernels do not take raises, and so does a
 failed build or launch.  Each wrapper counts its kernel launches in
@@ -31,7 +31,7 @@ failed build or launch.  Each wrapper counts its kernel launches in
 (``distributed/mesh.py``); the ring hops are ``ppermute`` copies between
 the kernels.
 
-The wrappers pick their own tiles: the hop's K slice as
+The wrappers pick their own tiles: the hop's GEMV plan as
 ``decode_block``'s projections pick theirs, the attention kernel's K/V
 tile by :func:`_pick_block_k_tp`.  :func:`plan_decode_block_tp` asks the
 same two questions at the model's shapes against this card's shared
@@ -52,9 +52,9 @@ from ..distributed.mesh import Mesh
 from ..nn import functional as NF
 from .collective_matmul import entry_ring, exit_ring
 from .decode_attention import decode_attention_reference
-from .decode_block import (SMEM_BUDGET, _check_rc, _gemv, _gemv_smem,
-                           _k_slice, _kernel_device, _matrix, _pick_block_f,
-                           _positions, _same, _stream, _vector)
+from .decode_block import (SMEM_BUDGET, _check_rc, _gemv, _kernel_device,
+                           _matrix, _pick_block_f, _positions, _proj_smem,
+                           _same, _stream, _vector)
 
 __all__ = ["plan_decode_block_tp", "ring_entry_hop",
            "ring_entry_hop_reference", "ring_exit_hop",
@@ -120,11 +120,13 @@ def plan_decode_block_tp(*, max_seq: int, hidden: int, heads: int,
     (:func:`_pick_block_k_tp`) and its bytes ``smem_attn``, and the most
     shared memory any ring hop takes (``smem_hop``) over the four seams
     (QKV and MLP-up entry hops, out-proj and MLP-down exit hops), each
-    hop's K slice picked as the launch picks it.  Divisibility (kv_heads /
-    ffn / batch over tp) is checked by ``decode_block.fusion_legal``
-    before this runs.  Returns ``(plan, None)`` or ``(None, reason)``,
-    the contract of ``decode_block.plan_decode_block``; a reason starts
-    with ``"smem:"``."""
+    hop's launch planned as ``decode_block``'s projections plan theirs
+    (bf16: the stream kernel's ring; f32: the K slice).  Divisibility
+    (kv_heads / ffn / batch over tp) is checked by
+    ``decode_block.fusion_legal`` before this runs.  Returns ``(plan,
+    None)`` or ``(None, reason)``, the contract of
+    ``decode_block.plan_decode_block``; a reason starts with
+    ``"smem:"``."""
     rep = heads // kv_heads
     h_l, kh_l, f_l, b_l = heads // tp, kv_heads // tp, ffn // tp, batch // tp
     bk = _pick_block_k_tp(max_seq, rep, head_dim, itemsize, smem_budget)
@@ -134,11 +136,12 @@ def plan_decode_block_tp(*, max_seq: int, hidden: int, heads: int,
                       f"exceed budget {smem_budget} even at block_k={bk}")
     cap = _pick_block_f(itemsize, smem_budget)
     smem_hop = 0
-    for what, k, n in (("entry", hidden, (h_l + 2 * kh_l) * head_dim),
-                       ("entry", hidden, f_l * (2 if gated else 1)),
-                       ("exit", h_l * head_dim, hidden),
-                       ("exit", f_l, hidden)):
-        need = _gemv_smem(_k_slice(k, n, b_l, itemsize, cap)[0], itemsize)
+    for what, k, n, mode in (
+            ("entry", hidden, (h_l + 2 * kh_l) * head_dim, 0),
+            ("entry", hidden, f_l * (2 if gated else 1), 0),
+            ("exit", h_l * head_dim, hidden, 0),
+            ("exit", f_l, hidden, 3 if gated else 4)):
+        need = _proj_smem(k, (n,), b_l, itemsize, cap, mode)
         if need > smem_budget:
             return None, (f"smem: tp {what} hop needs {need} bytes of "
                           f"shared memory even at block_f={cap} (budget "
@@ -162,10 +165,9 @@ def ring_entry_hop_reference(x: torch.Tensor, w: torch.Tensor,
 def _hop_launch(what: str, x: torch.Tensor, w: torch.Tensor,
                 bias: Optional[torch.Tensor], k: int,
                 in_mode: int) -> torch.Tensor:
-    """One launch of the split-K GEMV kernel: ``out [rows, N] = cast(sum_k
+    """One launch of the GEMV kernel: ``out [rows, N] = cast(sum_k
     in'(r, k) * w[k, n] + bias[n])``, ``in'`` the input transform
-    ``in_mode``; the K slice is picked as ``decode_block``'s projections
-    pick theirs."""
+    ``in_mode``, planned as ``decode_block``'s projections plan theirs."""
     code = _kernel_device(x, what)
     if x.stride(1) != 1:
         raise ValueError(f"{what}: the input must be contiguous in its "
@@ -195,8 +197,9 @@ def ring_entry_hop(x: torch.Tensor, w: torch.Tensor,
     """One hop of the entry ring: ``x [B_l, K] @ w [K, N_l] + bias [N_l]``
     with an f32 contraction, the output cast once to x's dtype.  ``w`` may
     be a view with a row stride.  CUDA tensors launch the hop kernel (one
-    split-K launch whose last blocks sum the slices in order), CPU tensors
-    run the plain version."""
+    launch; shares of the work that cut a column strip are summed in
+    block order by the last of them), CPU tensors run the plain
+    version."""
     if x.dim() != 2 or w.dim() != 2 or w.shape[0] != x.shape[1]:
         raise ValueError(f"ring_entry_hop wants x [B, K] and w [K, N], got "
                          f"{tuple(x.shape)} and {tuple(w.shape)}")

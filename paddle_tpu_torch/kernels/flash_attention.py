@@ -44,6 +44,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from .head_dim import kernel_head_dim, pad_head_dim
+
 __all__ = ["flash_attention", "flash_attention_varlen",
            "flash_attention_with_lse", "flash_attention_fwd",
            "flash_attention_bwd_dq", "flash_attention_bwd_dkv",
@@ -51,7 +53,6 @@ __all__ = ["flash_attention", "flash_attention_varlen",
            "flash_attention_bwd_dkv_reference"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-_HEAD_DIMS = (64, 128)
 # the 16-bit forward returns this + a CUresult when a tensor map is refused
 _TMA_REFUSED = 2000
 
@@ -203,10 +204,6 @@ def _check_cuda(name, tensors):
     if dtype not in _DTYPE_CODES:
         raise ValueError(f"unsupported dtype {dtype}; the kernels take "
                          f"float32, float16 and bfloat16")
-    d = tensors[0][1].shape[-1]
-    if d not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {d} unsupported; the kernels are built "
-                         f"for {_HEAD_DIMS}")
     for tname, t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: {tname} is on {t.device}, q on {dev}")
@@ -246,6 +243,18 @@ def _stats(name, t, shape, dev):
     return t.contiguous()
 
 
+def _padded(*tensors):
+    """The operands zero-padded to the head dim the kernels run at
+    (``head_dim.kernel_head_dim``); raises above 128."""
+    dp = kernel_head_dim(tensors[0].shape[-1])
+    return [pad_head_dim(t, dp) for t in tensors]
+
+
+def _unpad(t, d):
+    """A kernel output at the padded head dim, sliced back to ``d``."""
+    return t if t.shape[-1] == d else t[..., :d].contiguous()
+
+
 def _dims(q, k):
     b, sq, h, d = q.shape
     return b, sq, k.shape[1], h, k.shape[2], d
@@ -272,29 +281,34 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(out [B, Sq, H, D], lse [B, H, Sq] f32)``: the CUDA kernel for
     CUDA tensors (raises on what it does not take: mixed devices or
-    dtypes, a head_dim other than 64/128, rows not on 16-byte
-    boundaries, a 16-bit layout TMA cannot address, segment ids that are
-    not contiguous int32 ``[B, Sq]`` / ``[B, Sk]`` on q's device), the
-    plain version for CPU tensors."""
+    dtypes, a head_dim above 128, rows not on 16-byte boundaries, a
+    16-bit layout TMA cannot address, segment ids that are not
+    contiguous int32 ``[B, Sq]`` / ``[B, Sk]`` on q's device; a head_dim
+    other than 64 / 128 is zero-padded to the next of them, the scale
+    kept at the true head_dim, and the outputs sliced back), the plain
+    version for CPU tensors."""
     _check(q, k, v)
     _segments(q, k, q_segments, k_segments)
     if q.device.type != "cuda":
         return flash_attention_fwd_reference(q, k, v, scale, causal,
                                              q_segments, k_segments)
+    d = q.shape[-1]
+    scale = _scale(scale, d)
+    q, k, v = _padded(q, k, v)
     _check_cuda("flash_attention_fwd", [("q", q), ("k", k), ("v", v)])
     if q.dtype != torch.float32:
         _check_tma("flash_attention_fwd", [("q", q), ("k", k), ("v", v)])
-    b, sq, sk, h, kh, d = _dims(q, k)
-    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    b, sq, sk, h, kh, dp = _dims(q, k)
+    out = torch.empty((b, sq, h, dp), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     _run("flash_attention_fwd", q.device, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         lse.data_ptr(), _ptr(q_segments), _ptr(k_segments),
-        _DTYPE_CODES[q.dtype], b, sq, sk, h, kh, d,
+        _DTYPE_CODES[q.dtype], b, sq, sk, h, kh, dp,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        _scale(scale, d), int(bool(causal))))
+        scale, int(bool(causal))))
     flash_attention_fwd.launches += 1
-    return out, lse
+    return _unpad(out, d), lse
 
 
 def flash_attention_bwd_dq(q, k, v, dout, lse, delta,
@@ -310,25 +324,28 @@ def flash_attention_bwd_dq(q, k, v, dout, lse, delta,
         return flash_attention_bwd_dq_reference(q, k, v, dout, lse, delta,
                                                 scale, causal, q_segments,
                                                 k_segments)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    d = q.shape[-1]
+    scale = _scale(scale, d)
+    q, k, v, dout = _padded(q, k, v, dout)
     operands = [("q", q), ("k", k), ("v", v), ("dout", dout)]
     _check_cuda("flash_attention_bwd_dq", operands)
     if q.dtype != torch.float32:
         _check_tma("flash_attention_bwd_dq", operands)
-    b, sq, sk, h, kh, d = _dims(q, k)
-    if dout.shape != q.shape:
-        raise ValueError(f"dout {tuple(dout.shape)} must have q's shape "
-                         f"{tuple(q.shape)}")
+    b, sq, sk, h, kh, dp = _dims(q, k)
     lse = _stats("lse", lse, (b, h, sq), q.device)
     delta = _stats("delta", delta, (b, h, sq), q.device)
-    dq = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    dq = torch.empty((b, sq, h, dp), dtype=q.dtype, device=q.device)
     _run("flash_attention_bwd_dq", q.device, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), _ptr(q_segments),
-        _ptr(k_segments), _DTYPE_CODES[q.dtype], b, sq, sk, h, kh, d,
+        _ptr(k_segments), _DTYPE_CODES[q.dtype], b, sq, sk, h, kh, dp,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *dout.stride()[:3], _scale(scale, d), int(bool(causal))))
+        *dout.stride()[:3], scale, int(bool(causal))))
     flash_attention_bwd_dq.launches += 1
-    return dq
+    return _unpad(dq, d)
 
 
 def flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
@@ -345,27 +362,30 @@ def flash_attention_bwd_dkv(q, k, v, dout, lse, delta,
         return flash_attention_bwd_dkv_reference(q, k, v, dout, lse, delta,
                                                  scale, causal, q_segments,
                                                  k_segments)
+    if dout.shape != q.shape:
+        raise ValueError(f"dout {tuple(dout.shape)} must have q's shape "
+                         f"{tuple(q.shape)}")
+    d = q.shape[-1]
+    scale = _scale(scale, d)
+    q, k, v, dout = _padded(q, k, v, dout)
     operands = [("q", q), ("k", k), ("v", v), ("dout", dout)]
     _check_cuda("flash_attention_bwd_dkv", operands)
     if q.dtype != torch.float32:
         _check_tma("flash_attention_bwd_dkv", operands)
-    b, sq, sk, h, kh, d = _dims(q, k)
-    if dout.shape != q.shape:
-        raise ValueError(f"dout {tuple(dout.shape)} must have q's shape "
-                         f"{tuple(q.shape)}")
+    b, sq, sk, h, kh, dp = _dims(q, k)
     lse = _stats("lse", lse, (b, h, sq), q.device)
     delta = _stats("delta", delta, (b, h, sq), q.device)
-    dk = torch.empty((b, sk, kh, d), dtype=k.dtype, device=q.device)
-    dv = torch.empty((b, sk, kh, d), dtype=v.dtype, device=q.device)
+    dk = torch.empty((b, sk, kh, dp), dtype=k.dtype, device=q.device)
+    dv = torch.empty((b, sk, kh, dp), dtype=v.dtype, device=q.device)
     _run("flash_attention_bwd_dkv", q.device, (
         q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
         lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         _ptr(q_segments), _ptr(k_segments), _DTYPE_CODES[q.dtype], b, sq, sk,
-        h, kh, d,
+        h, kh, dp,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        *dout.stride()[:3], _scale(scale, d), int(bool(causal))))
+        *dout.stride()[:3], scale, int(bool(causal))))
     flash_attention_bwd_dkv.launches += 1
-    return dk, dv
+    return _unpad(dk, d), _unpad(dv, d)
 
 
 # launches of each CUDA kernel since its count was last set to 0

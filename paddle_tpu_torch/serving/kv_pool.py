@@ -106,6 +106,10 @@ class KVPool:
     def free_slots(self) -> int:
         return len(self._free)
 
+    @property
+    def used_slots(self) -> int:
+        return self.num_slots - len(self._free)
+
     def alloc(self) -> int:
         """Claim a free slot (lowest index first).  Raises if the pool is
         full — the scheduler gates admission on ``free_slots``."""
@@ -125,6 +129,12 @@ class KVPool:
         # park the freed row at position 0 so its ride-along decode writes
         # start at the row head until the next adopt overwrites it
         self.seq_pos[slot] = 0
+
+    def reset(self) -> None:
+        """Return every slot to the free list; the slabs stay allocated
+        (stale rows are masked by ``seq_pos`` 0 until overwritten)."""
+        self._free = list(range(self.num_slots - 1, -1, -1))
+        self.seq_pos.zero_()
 
     def adopt(self, slot: int, layer_caches, length: int) -> None:
         """Copy a freshly prefilled single-request cache (per-layer

@@ -52,9 +52,18 @@ class ServingMetrics:
 
     def _bind(self) -> None:
         """Get-or-create this engine's instruments (binding never zeroes
-        a shared registry's instruments)."""
+        a shared registry's instruments).  Everything bound here except the
+        tp gauge lands in ``self._own``, the list :meth:`reset` zeroes."""
         reg = self.registry
-        c, h, g = reg.counter, reg.histogram, reg.gauge
+        self._own = []
+
+        def own(make):
+            def bind(*a, **kw):
+                inst = make(*a, **kw)
+                self._own.append(inst)
+                return inst
+            return bind
+        c, h, g = own(reg.counter), own(reg.histogram), own(reg.gauge)
 
         self._c_submitted = c("serving.requests_submitted",
                               "requests accepted by submit()")
@@ -96,8 +105,11 @@ class ServingMetrics:
         # tensor-parallel serving: the mesh degree, and the wall time of
         # the collective-bearing decode dispatch + readback of tp > 1
         # engines
-        self._g_tp = g("serving.tp_degree",
-                       "tensor-parallel mesh degree (1 = one shard)")
+        # bound outside self._own: the degree is published once, at
+        # construction, and a reset must not zero it
+        self._g_tp = reg.gauge("serving.tp_degree",
+                               "tensor-parallel mesh degree (1 = one "
+                               "shard)")
         self._h_collective = h("serving.collective_s",
                                "collective-bearing decode dispatch + "
                                "readback wall time (recorded only on tp > 1 "
@@ -121,6 +133,9 @@ class ServingMetrics:
                            "faults observed (non-finite logits, failed "
                            "token emits)")
         self._phase_h: Dict[str, Histogram] = {}
+        self._zero_local()
+
+    def _zero_local(self) -> None:
         # per-ENGINE tallies feeding the derived rates (a shared registry's
         # counters aggregate every engine bound to it)
         self._busy_s = 0.0
@@ -129,6 +144,18 @@ class ServingMetrics:
         self._tokens_local = 0
         self._steps_local = 0
         self._finished_local = 0
+
+    def reset(self) -> None:
+        """Zero THIS engine's instruments and drop the tracer's recorded
+        spans / events: a fresh measurement window (warm-up, then
+        measure).  Only the serving instruments bound here reset; other
+        producers' metrics in a shared registry are untouched.  A shared
+        tracer's buffer is one, so its clear drops every producer's
+        spans."""
+        for inst in (*self._own, *self._phase_h.values()):
+            inst.reset()
+        self.tracer.clear()
+        self._zero_local()
 
     # ------------------------------------------------------------ events
     def on_submit(self, n: int = 1) -> None:

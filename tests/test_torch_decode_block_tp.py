@@ -26,6 +26,7 @@ from paddle_tpu.kernels.decode_block import \
 from paddle_tpu_torch.distributed import Mesh
 from paddle_tpu_torch.kernels.decode_block import (SMEM_BUDGET, _gemv_smem,
                                                    _k_slice, _pick_block_f,
+                                                   plan_gemv,
                                                    decode_block_reference,
                                                    fusion_legal,
                                                    plan_decode_block,
@@ -312,17 +313,20 @@ def test_plan_shrinks_then_refuses():
     assert plan_decode_block(**{k: v for k, v in base.items()}) == \
         (roomy, None)
     # one source per tile: the attention tile is the one the kernel's
-    # wrapper picks, and the hop bytes are those of the K slices the hop
-    # launches pick (decode_block's projection rule) at the four seams:
-    # QKV and MLP-up over hidden, out-proj over the local heads, MLP-down
-    # over the local ffn
+    # wrapper picks, and the hop bytes are those of the launches the hops
+    # plan (decode_block's projection rule: in bf16 the stream kernel's
+    # plan, in f32 the K slice) at the four seams: QKV and MLP-up over
+    # hidden, out-proj over the local heads, MLP-down over the local ffn
     assert roomy["block_k"] == _pick_block_k_tp(2048, 1, 128, 2,
                                                 SMEM_BUDGET)
-    cap = _pick_block_f(2, SMEM_BUDGET)
-    assert roomy["smem_hop"] == max(
-        _gemv_smem(_k_slice(k, n, 4, 2, cap)[0], 2)
-        for k, n in ((4096, 6144), (4096, 8192), (2048, 4096),
-                     (8192, 4096)))
+    seams = ((4096, 6144), (4096, 8192), (2048, 4096), (8192, 4096))
+    assert roomy["smem_hop"] == max(plan_gemv(k, (n,), 4)[0]["smem"]
+                                    for k, n in seams)
+    assert roomy["smem_hop"] <= SMEM_BUDGET
+    cap = _pick_block_f(4, SMEM_BUDGET)
+    f32_plan, _ = plan_decode_block_tp(**dict(base, itemsize=4))
+    assert f32_plan["smem_hop"] == max(
+        _gemv_smem(_k_slice(k, n, 4, 4, cap)[0], 4) for k, n in seams)
     # f32 tiles: the K/V stages shrink under a tighter budget; below the
     # smallest tile the attention block refuses, and below a hop block's
     # reduction buffer the hop does

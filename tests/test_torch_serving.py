@@ -256,3 +256,54 @@ def test_serving_engine_parameter_order_follows_jax(models):
     args = (8, None, 16, None, None, None, True, 16, None)
     with pytest.raises(TypeError):
         ServingEngine(tm, *args, False)
+
+
+def test_metrics_reset_and_pool_slots_match_jax():
+    """ServingMetrics.reset, KVPool.used_slots and KVPool.reset do what the
+    reference's do on the same call sequence: a reset zeroes the engine's
+    counters, histograms and tracer but keeps the tp degree; a pool reset
+    frees every slot (lowest first again) and parks every position at 0."""
+    from paddle_tpu.serving.kv_pool import KVPool as JaxPool
+    from paddle_tpu.serving.metrics import ServingMetrics as JaxMetrics
+    from paddle_tpu_torch.serving.kv_pool import KVPool
+    from paddle_tpu_torch.serving.metrics import ServingMetrics
+    ms = (JaxMetrics(), ServingMetrics())
+    for m in ms:
+        m.set_tp_degree(2)
+        m.on_submit(3)
+        m.on_prefill(12)
+        m.on_prefill_chunk(12, 0.01)
+        m.on_first_token(0.0, now=0.25)
+        m.on_output_token(0.02)
+        m.on_finish()
+        m.record_step(2, 4, 1, 2, 0.03, phases=[("decode", 0.0, 0.01)])
+        m.tracer.event("probe", lane=m.engine_lane)
+    snaps = [m.snapshot() for m in ms]
+    keys = sorted(set(snaps[0]) & set(snaps[1]))
+    assert [snaps[1][k] for k in keys] == [snaps[0][k] for k in keys]
+    assert snaps[1]["requests_submitted"] == 3
+    for m in ms:
+        m.reset()
+    snaps = [m.snapshot() for m in ms]
+    assert [snaps[1][k] for k in keys] == [snaps[0][k] for k in keys]
+    assert snaps[1]["steps"] == 0 and snaps[1]["ttft_p50_ms"] is None
+    for m in ms:
+        assert m.registry.snapshot()["serving.tp_degree"] == 2
+        assert not m.tracer.events("probe")
+        assert m.registry.snapshot()["serving.phase.decode_s"]["count"] == 0
+    pools = (JaxPool(4, 8, 1, 1, 8), KVPool(4, 8, 1, 1, 8, device="cpu"))
+    for p in pools:
+        got = [p.alloc(), p.alloc(), p.alloc()]
+        p.free(got[1])
+        p.adopt(got[0], [(torch.zeros(1, 8, 1, 8),) * 2] if
+                isinstance(p, KVPool) else
+                [(jnp.zeros((1, 8, 1, 8)),) * 2], 5)
+    assert [p.used_slots for p in pools] == [2, 2]
+    assert [p.free_slots for p in pools] == [2, 2]
+    for p in pools:
+        p.reset()
+    assert [p.used_slots for p in pools] == [0, 0]
+    assert [p.free_slots for p in pools] == [4, 4]
+    np.testing.assert_array_equal(pools[1].seq_pos.numpy(),
+                                  np.asarray(pools[0].seq_pos))
+    assert [p.alloc() for p in pools] == [0, 0]
