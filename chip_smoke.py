@@ -1187,6 +1187,209 @@ def _cycled(make, n: int = 4):
     return items, nxt
 
 
+# the per-shard attention's timed shapes at tp=2 (8 slots, 16 of 32 kv
+# heads x 128): S_max, the positions (gpt3_6_7b filled to 1024, llama_7b
+# near 3000) and rotary
+ATTN_TP_SHARDS = {
+    "gpt3_6_7b": (2048, [1024] * 8, False),
+    "llama_7b": (4096, [2976, 2990, 2999, 3000, 3013, 3047, 3080, 3103],
+                 True)}
+
+
+def attn_tp_shard(g, model: str):
+    """One shard's ``decode_block_attn_tp`` inputs at ``ATTN_TP_SHARDS
+    [model]`` (bf16 from ``g``): q, k, v as column views of one fused row,
+    4 slab pairs and a function returning them in turn (``_cycled``), the
+    positions and the keyword arguments."""
+    import torch
+    from paddle_tpu_torch.models import llama_7b
+    from paddle_tpu_torch.models.llama import fused_rope_tables
+    s_max, pos, rope = ATTN_TP_SHARDS[model]
+    b, kvh, dh = len(pos), 16, 128
+    dev = torch.device(DEVICE)
+
+    def r(shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    pos = torch.tensor(pos, dtype=torch.int32, device=dev)
+    qkv = r((b, 3 * kvh * dh))
+    q, k, v = (qkv[:, :kvh * dh], qkv[:, kvh * dh:2 * kvh * dh],
+               qkv[:, 2 * kvh * dh:])
+    slabs, nxt = _cycled(lambda: (r((b, s_max, kvh, dh)),
+                                  r((b, s_max, kvh, dh))))
+    cos, sin = fused_rope_tables(pos, llama_7b()) if rope else (None, None)
+    return q, k, v, slabs, nxt, pos, dict(kv_heads=kvh, head_dim=dh,
+                                          rope_cos=cos, rope_sin=sin)
+
+
+def ulp_reading(got, want, atol: float = 1e-4) -> float:
+    """Largest ratio of a bf16 element's error to ``_ulp_ok``'s limit of
+    it (one bf16 ulp of the plain value + ``atol``; <= 1 passes)."""
+    g32, w32 = got.float(), want.float()
+    return ((g32 - w32).abs() / (_ulps(w32, 7) + atol)).max().item()
+
+
+# (kv heads, rep, head_dim, S_max, rotary) of the split kernel's own
+# checks: the gpt3_6_7b shard (one head a block), a GQA group of 4 and one
+# of 8 (4 heads a block, two blocks a kv head: one writes the fresh row)
+ATTN_TP_SPLIT_CASES = ((16, 1, 128, 2048, False), (2, 4, 64, 1024, True),
+                       (4, 8, 128, 1024, True))
+
+
+def check_attn_tp_split(card: str) -> dict:
+    """The bf16 split kernel of ``decode_block_attn_tp``
+    (``attn_tp_split_kernel``) beyond the sweep: positions on split edges,
+    every slab row from min(pos, S-1) on holding NaN, two calls
+    bit-identical, a CUDA graph replaying to the eager bits with the slab
+    row written, the split model within the kernel's limit and two faults
+    planted in it (a dropped split, the fresh row not folded) at
+    ``FAULT_READING`` times it or more, the shared memory of each launch
+    as the plan approves it, and its SASS (TMA loads, no spills)."""
+    import ctypes
+
+    import torch
+    from paddle_tpu_torch.kernels import _build, sass
+    from paddle_tpu_torch.kernels import decode_block_tp as dbt
+    from paddle_tpu_torch.kernels.decode_block_tp import (
+        decode_block_attn_tp, decode_block_attn_tp_reference)
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(16)
+    bf = torch.bfloat16
+    split = dbt._SPLIT_ROWS
+    b = ENGINE_KW["num_slots"]
+    rec = {"cases": []}
+
+    def r(shape, scale=1.0):
+        return (torch.randn(shape, generator=g, device=dev) * scale).to(bf)
+
+    for kvh, rep, dh, s_max, rope in ATTN_TP_SPLIT_CASES:
+        # live rows end inside split 0, on its last row, on split 1's
+        # first row, on split 1's last and split 2's first; none; S-1; past S
+        pos = torch.tensor([split - 1, split, split + 1, 2 * split,
+                            2 * split + 1, 0, s_max - 1, s_max + 5],
+                           dtype=torch.int32, device=dev)
+        posw = pos.long().clamp(0, s_max - 1)
+        nq = kvh * rep * dh
+        qkv = r((b, nq + 2 * kvh * dh))
+        q, k, v = (qkv[:, :nq], qkv[:, nq:nq + kvh * dh],
+                   qkv[:, nq + kvh * dh:])
+        ks, vs = r((b, s_max, kvh, dh)), r((b, s_max, kvh, dh))
+        cos = sin = None
+        if rope:
+            ang = torch.rand((b, dh // 2), generator=g, device=dev) * 3.0
+            cos, sin = torch.cat([ang.cos()] * 2, -1), \
+                torch.cat([ang.sin()] * 2, -1)
+        kw = dict(kv_heads=kvh, head_dim=dh, rope_cos=cos, rope_sin=sin)
+        what = (f"q[{b},{nq}] kv[{b},{s_max},{kvh},{dh}] rep {rep} rope "
+                f"{rope} pos {pos.tolist()}")
+        k1, v1, k2, v2 = ks.clone(), vs.clone(), ks.clone(), vs.clone()
+        out, _, _ = decode_block_attn_tp(q, k, v, k1, v1, pos, **kw)
+        ref, _, _ = decode_block_attn_tp_reference(q, k, v, k2, v2, pos,
+                                                   **kw)
+        again, _, _ = decode_block_attn_tp(q, k, v, ks.clone(), vs.clone(),
+                                           pos, **kw)
+        model = attn_tp_split(q, k, v, ks, vs, pos, split_rows=split, **kw)
+        torch.cuda.synchronize()
+        read, model_read = ulp_reading(out, ref), ulp_reading(out, model)
+        if read > 1.0 or not (_ulp_ok(k1, k2, bf) and _ulp_ok(v1, v2, bf)):
+            raise AssertionError(f"decode_block_attn_tp's split kernel "
+                                 f"disagrees with its plain version: {what}: "
+                                 f"element reading {read}")
+        if model_read > 1.0:
+            raise AssertionError(f"the split model disagrees with the kernel: "
+                                 f"{what}: element reading {model_read}")
+        if not torch.equal(out, again):
+            raise AssertionError(f"decode_block_attn_tp: two calls differ: "
+                                 f"{what}")
+        # NaN in every slab row from min(pos, S-1) on: those rows are
+        # masked (row posw is this call's write), so the output keeps its
+        # bits
+        kn, vn = ks.clone(), vs.clone()
+        stale = torch.arange(s_max, device=dev)[None, :] >= posw[:, None]
+        kn[stale], vn[stale] = float("nan"), float("nan")
+        nan_out, _, _ = decode_block_attn_tp(q, k, v, kn, vn, pos, **kw)
+        torch.cuda.synchronize()
+        if not (torch.equal(nan_out, out) and bool(nan_out.isfinite().all())):
+            raise AssertionError(f"decode_block_attn_tp: NaN in the slab rows "
+                                 f"past min(pos, S-1) changed the output: "
+                                 f"{what}")
+        case = {"shape": what, "element_reading": read,
+                "split_model_reading": model_read,
+                "max_abs_err": (out.float() - ref.float()).abs().max().item()}
+        if rep == 1:
+            # planted faults of the model, against the plain version
+            for name, fault in (("dropped split", dict(drop=1)),
+                                ("fresh row not folded", dict(fold=False))):
+                wrong = attn_tp_split(q, k, v, ks, vs, pos, split_rows=split,
+                                      **fault, **kw)
+                fr = ulp_reading(wrong, ref)
+                if fr < FAULT_READING:
+                    raise AssertionError(f"the planted fault {name} reads only "
+                                         f"{fr} (want >= {FAULT_READING}): "
+                                         f"{what}")
+                case[f"planted_fault_reading {name}"] = fr
+            # a CUDA graph of one call replays to the eager bits
+            side = torch.cuda.Stream()
+            side.wait_stream(torch.cuda.current_stream())
+            kg, vg = ks.clone(), vs.clone()
+            with torch.cuda.stream(side):
+                decode_block_attn_tp(q, k, v, kg.clone(), vg.clone(), pos,
+                                     **kw)  # warm: the side stream's buffers
+            torch.cuda.current_stream().wait_stream(side)
+            torch.cuda.synchronize()
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side):
+                og, _, _ = decode_block_attn_tp(q, k, v, kg, vg, pos, **kw)
+            graph.replay()
+            torch.cuda.synchronize()
+            if not (torch.equal(og, out) and torch.equal(kg, k1)
+                    and torch.equal(vg, v1)):
+                raise AssertionError(f"a CUDA graph of decode_block_attn_tp "
+                                     f"does not replay to the eager call's "
+                                     f"bits (output and slab row): {what}")
+            case["graph_replay_bit_identical"] = True
+            del graph
+        rec["cases"].append(case)
+        log(f"[kernels] decode_block_attn_tp split kernel {what}: element "
+            f"reading {read:.3g} (<= 1: one bf16 ulp + 1e-4), the split "
+            f"model {model_read:.3g}; two calls bit-identical; NaN in every "
+            f"row past min(pos, S-1) leaves the bits; "
+            f"{json.dumps({k_: v_ for k_, v_ in case.items() if 'fault' in k_ or 'graph' in k_})}")
+        del qkv, ks, vs, k1, v1, k2, v2, kn, vn
+
+    # the launch's shared memory is what the plan approves
+    lib = _build.load("decode_block_tp")
+    smem = {}
+    for dtype, dh, rep in ((2, 128, 1), (2, 64, 1), (2, 128, 4), (2, 64, 8),
+                           (0, 128, 1), (2, 16, 1)):
+        es = 2 if dtype == 2 else 4
+        bk, want = dbt._attn_tp_plan(2048, rep, dh, es, dbt.SMEM_BUDGET)
+        a = dbt._TpAttnArgs()
+        a.B, a.H, a.KH, a.Dh, a.S = 8, 16 * rep, 16, dh, 2048
+        a.block_k, a.dtype = bk, dtype
+        got = lib.decode_block_tp_attention_smem(ctypes.addressof(a))
+        smem[f"dtype {dtype} dh {dh} rep {rep}"] = got
+        if got != want:
+            raise AssertionError(f"decode_block_attn_tp at dtype {dtype} "
+                                 f"head_dim {dh} rep {rep} takes {got} bytes "
+                                 f"of shared memory; the plan approves {want}")
+    rec["smem"] = smem
+    counts = sass.instruction_counts(
+        str(_build._library_path("decode_block_tp")), "attn_tp_split_kernel",
+        DECODE_OPS)
+    if len(counts) != 4 or any(c["UTMALDG"] == 0 or c["STL"] != 0
+                               or c["LDL"] != 0 for c in counts.values()):
+        raise AssertionError(f"attn_tp_split_kernel's instantiations (bf16 x "
+                             f"head_dim 64/128 x 1 or 4 heads) must each hold "
+                             f"UTMALDG and no STL or LDL: {json.dumps(counts)}")
+    rec["sass"] = counts
+    log(f"[kernels] decode_block_attn_tp: shared memory of each launch as the "
+        f"plan approves it {json.dumps(smem)}; SASS of attn_tp_split_kernel "
+        f"{json.dumps(counts)} (card: {card})")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def phase_tp_kernels(card: str):
     """Hold the sharded decode block's three kernels (``ring_entry_hop``,
     ``ring_exit_hop``, ``decode_block_attn_tp``) against their plain
@@ -1203,8 +1406,6 @@ def phase_tp_kernels(card: str):
         ring_entry_hop, ring_entry_hop_reference, ring_entry_matmul,
         ring_entry_matmul_reference, ring_exit_hop, ring_exit_hop_reference,
         ring_exit_matmul, ring_exit_matmul_reference)
-    from paddle_tpu_torch.models import llama_7b
-    from paddle_tpu_torch.models.llama import fused_rope_tables
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev)
@@ -1317,6 +1518,7 @@ def phase_tp_kernels(card: str):
         f"(f32 atol 1e-4; bf16 one output ulp + {ulp_atol}, the exit ring "
         f"driver atol/rtol 2e-2; slabs one bf16 ulp, only row "
         f"min(pos, S-1) changed); max abs err {json.dumps(worst)}")
+    split_checks = check_attn_tp_split(card)
 
     # timings, bf16: the gpt3_6_7b QKV entry hop and out-proj exit hop, the
     # per-shard attention at 8 slots filled to 1024; the llama_7b gated
@@ -1396,18 +1598,11 @@ def phase_tp_kernels(card: str):
     rec["ring_exit_hop"]["llama_7b"] = hop_record(
         "ring_exit_hop", "llama_7b", 5504, 4096, "swiglu")
 
-    def attn_record(model, s_max, pos, rope):
+    def attn_record(model):
+        s_max, pos, _ = ATTN_TP_SHARDS[model]
+        q, k, v, slabs, nxt, pos, kw = attn_tp_shard(g, model)
+        ks, vs = slabs[0]
         b, kvh, dh = len(pos), 16, 128
-        pos = torch.tensor(pos, dtype=torch.int32, device=dev)
-        qkv = r((b, 3 * kvh * dh), bf, 1.0)
-        q, k, v = (qkv[:, :kvh * dh], qkv[:, kvh * dh:2 * kvh * dh],
-                   qkv[:, 2 * kvh * dh:])
-        ks, vs = r((b, s_max, kvh, dh), bf, 1.0), r((b, s_max, kvh, dh), bf,
-                                                     1.0)
-        cos = sin = None
-        if rope:
-            cos, sin = fused_rope_tables(pos, llama_7b())
-        kw = dict(kv_heads=kvh, head_dim=dh, rope_cos=cos, rope_sin=sin)
         a1, _, _ = decode_block_attn_tp(q, k, v, ks.clone(), vs.clone(), pos,
                                         **kw)
         a2, _, _ = decode_block_attn_tp_reference(q, k, v, ks.clone(),
@@ -1415,15 +1610,17 @@ def phase_tp_kernels(card: str):
         err = (a1.float() - a2.float()).abs().max().item()
         posw = [min(max(int(p), 0), s_max - 1) for p in pos.tolist()]
         bound, bound_by, nbytes = attn_tp_bound(b, kvh, kvh, dh, posw, 2, bf)
+
         def kern():
-            return decode_block_attn_tp(q, k, v, ks, vs, pos, **kw)
+            return decode_block_attn_tp(q, k, v, *nxt(), pos, **kw)
         out = {"ms": time_ms(kern), "device_ms": device_ms(kern),
                "plain_ms": time_ms(lambda: decode_block_attn_tp_reference(
                    q, k, v, ks, vs, pos, **kw)),
                "library_ms": None, "bound_ms": bound, "bound_by": bound_by,
                "bound_bytes": nbytes, "max_abs_err": err,
                "shape": f"{model} tp={TP} shard: q[{b},{kvh * dh}] "
-                        f"kv[{b},{s_max},{kvh},{dh}] pos {pos.tolist()} bf16"}
+                        f"kv[{b},{s_max},{kvh},{dh}] pos {pos.tolist()} bf16 "
+                        f"(4 slab copies in turn)"}
         log(f"[kernels] decode_block_attn_tp {out['shape']}: kernel "
             f"{out['ms']:.4f} ms (device {out['device_ms']:.4f}), plain "
             f"{out['plain_ms']:.4f} ms, bound "
@@ -1432,11 +1629,9 @@ def phase_tp_kernels(card: str):
             f"{card})")
         return out
 
-    rec["decode_block_attn_tp"] = attn_record("gpt3_6_7b", 2048, [1024] * 8,
-                                              False)
-    rec["decode_block_attn_tp"]["llama_7b"] = attn_record(
-        "llama_7b", 4096, [2976, 2990, 2999, 3000, 3013, 3047, 3080, 3103],
-        True)
+    rec["decode_block_attn_tp"] = attn_record("gpt3_6_7b")
+    rec["decode_block_attn_tp"]["llama_7b"] = attn_record("llama_7b")
+    rec["decode_block_attn_tp"]["split_checks"] = split_checks
     for name in rec:
         rec[name]["sweep_max_abs_err"] = {
             k_: e for k_, e in worst.items() if k_.startswith(name + " ")}
@@ -1448,6 +1643,8 @@ def phase_tp_kernels(card: str):
 NORM_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "layer_norm_fwd",
                 "layer_norm_bwd")
 NORM_EPS = 1e-5
+# the norm kernels' timed rows of x [rows, 4096] bf16
+NORM_SHAPES = {"decode": 8, "prefill": 512, "train": 4096}
 _MANTISSA = {"bfloat16": 7, "float16": 10}
 
 
@@ -1524,6 +1721,7 @@ def phase_norm_kernels(card: str):
     four kernels' records (without launches)."""
     import torch
     import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import _build, sass
     from paddle_tpu_torch.kernels import fused_norm as fn
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev)
@@ -1579,14 +1777,32 @@ def phase_norm_kernels(card: str):
             raise AssertionError("two runs of a norm backward kernel on the "
                                  "same inputs differ: the sums are not "
                                  "deterministic")
+    for rows in (8, 4096):
+        xs = x[:rows]
+        if not all(torch.equal(p, q) for p, q in zip(
+                fn.layer_norm_fwd(xs, w, b, NORM_EPS),
+                fn.layer_norm_fwd(xs, w, b, NORM_EPS))):
+            raise AssertionError(f"two runs of layer_norm_fwd at [{rows}, "
+                                 f"4096] bf16 differ")
     log("[norm-kernels] two backward runs at [4096, 4096] bf16 agree bit "
-        "for bit (dx, dw, db)")
+        "for bit (dx, dw, db), and two layer_norm_fwd runs at [8, 4096] and "
+        "[4096, 4096] (y, mean, rstd)")
+    # the LayerNorm forward holds its rows in registers: no spills
+    ln_sass = sass.instruction_counts(
+        str(_build._library_path("fused_norm")), "ln_fwd_rows_kernel",
+        ("STL", "LDL"))
+    if len(ln_sass) != 30 or any(c["STL"] or c["LDL"]
+                                 for c in ln_sass.values()):
+        raise AssertionError(f"ln_fwd_rows_kernel's 30 instantiations (5 "
+                             f"dtype pairs x vector or scalar x 4 or 8 "
+                             f"groups a thread in one wave, and the vector "
+                             f"ones' walk) must hold no STL / LDL: "
+                             f"{json.dumps(ln_sass)}")
 
     lib_rms = getattr(F, "rms_norm", None)
-    shapes = {"decode": 8, "prefill": 512, "train": 4096}
     recs = {k: {"shapes": {}} for k in NORM_KERNELS}
     h = 4096
-    for shape, rows in shapes.items():
+    for shape, rows in NORM_SHAPES.items():
         x, w, b, gy = inputs(rows, h, torch.bfloat16, torch.bfloat16)
         errs = {k: max((got.float() - want.float()).abs().max().item()
                        for _, got, want, _ in outs)
@@ -1637,6 +1853,18 @@ def phase_norm_kernels(card: str):
         rec.update(rec["shapes"]["train"])
         rec["sweep_max_abs_err"] = {k: e for k, e in worst.items()
                                     if k.startswith(name + " ")}
+    ln = recs["layer_norm_fwd"]
+    ln["sass_spills"] = {k: c["STL"] + c["LDL"] for k, c in ln_sass.items()}
+    # events, device and host time on 4 copies of x in turn, beside
+    # F.layer_norm's
+    ln["cycled"] = norm_times()
+    for shape, t in ln["cycled"].items():
+        log(f"[norm-kernels] layer_norm_fwd x [{t['rows']},4096] bf16, 4 "
+            f"copies in turn: kernel {t['ms']:.4f} ms (device "
+            f"{t['device_ms']:.4f}, host {t['host_us']:.2f} us a call), "
+            f"F.layer_norm {t['library_ms']:.4f} ms (device "
+            f"{t['library_device_ms']:.4f}, host {t['library_host_us']:.2f} "
+            f"us), bound {t['bound_ms']:.4f} ms (card: {card})")
     torch.cuda.empty_cache()
     return recs
 
@@ -2702,6 +2930,76 @@ def decode_split(q, k_cache, v_cache, seq_lens, split_rows: int,
     return out.permute(0, 2, 1, 3).to(q.dtype)
 
 
+def attn_tp_split(q, k, v, k_slab, v_slab, seq_pos, *, kv_heads: int,
+                  head_dim: int, split_rows: int, scale=None, rope_cos=None,
+                  rope_sin=None, drop=None, fold: bool = True):
+    """A model of the tensor-parallel shard attention's split walk
+    (``csrc/decode_block_tp.cu`` ``attn_tp_split_kernel`` on
+    ``csrc/decode_split.cuh``), in f32 on the inputs' device, leaving the
+    slabs as they are: rotary and the scale on q and the fresh k, the
+    fresh row cast to the slab dtype (as stored); each run of
+    ``split_rows`` slab rows gives a partial softmax (m, l, acc) over its
+    live rows ``kpos < min(pos, S - 1)``, the partials merge in split
+    order, and the fresh row folds in last.  Returns ``[B, H*Dh]`` in q's
+    dtype.  Planted faults, which the kernel's check must catch: ``drop``
+    leaves split ``drop``'s partial out, ``fold=False`` leaves the fresh
+    row out."""
+    import torch
+    b, s_max = k_slab.shape[:2]
+    heads = q.shape[1] // head_dim
+    rep = heads // kv_heads
+    scale = 1.0 / head_dim ** 0.5 if scale is None else float(scale)
+    qf = q.float().reshape(b, heads, head_dim)
+    kf = k.float().reshape(b, kv_heads, head_dim)
+    vf = v.float().reshape(b, kv_heads, head_dim)
+    if rope_cos is not None:
+        c, s = rope_cos.float()[:, None, :], rope_sin.float()[:, None, :]
+        half = head_dim // 2
+
+        def rot(t):
+            return torch.cat([-t[..., half:], t[..., :half]], dim=-1)
+        qf = qf * c + rot(qf) * s
+        kf = kf * c + rot(kf) * s
+    qf = qf * scale
+    k_new = kf.to(k_slab.dtype).float().repeat_interleave(rep, dim=1)
+    v_new = vf.to(v_slab.dtype).float().repeat_interleave(rep, dim=1)
+    pos = torch.as_tensor(seq_pos, device=q.device).long().expand(b)
+    posw = pos.clamp(0, s_max - 1)
+    ks = k_slab.float().repeat_interleave(rep, dim=2)   # [B, S, H, Dh]
+    vs = v_slab.float().repeat_interleave(rep, dim=2)
+    live = torch.arange(s_max, device=q.device)[None, :] < posw[:, None]
+    neg = float("-inf")
+    parts = []
+    for r0 in range(0, s_max, split_rows):
+        rows = slice(r0, min(r0 + split_rows, s_max))
+        mask = live[:, None, rows]                      # [B, 1, n]
+        sc = torch.einsum("bhd,bkhd->bhk", qf, ks[:, rows])
+        sc = sc.masked_fill(~mask, neg)
+        m = sc.amax(dim=-1)
+        p = torch.exp(sc - torch.where(m == neg, 0.0, m)[..., None])
+        # a masked row may hold anything (NaN too): its V is never read
+        p = p.masked_fill(~mask, 0.0)
+        vr = vs[:, rows].masked_fill(~live[:, rows, None, None], 0.0)
+        if r0 // split_rows != drop:
+            parts.append((m, p.sum(-1), torch.einsum("bhk,bkhd->bhd", p, vr)))
+    m_all = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+    m_ref = torch.where(m_all == neg, 0.0, m_all)
+    l_all = torch.zeros_like(m_all)
+    acc = torch.zeros((b, heads, head_dim), device=q.device)
+    for m, l, a in parts:
+        f = torch.exp(m - m_ref)                        # 0 where m = -inf
+        l_all = l_all + l * f
+        acc = acc + a * f[..., None]
+    if fold:
+        s_new = (qf * k_new).sum(-1)
+        m_fold = torch.maximum(m_all, s_new)
+        f, p_new = torch.exp(m_all - m_fold), torch.exp(s_new - m_fold)
+        l_all = l_all * f + p_new
+        acc = acc * f[..., None] + p_new[..., None] * v_new
+    out = acc / torch.where(l_all == 0.0, 1.0, l_all)[..., None]
+    return out.reshape(b, heads * head_dim).to(q.dtype)
+
+
 def chunk_walk(seq_len: int, sq: int, s_max: int, causal: bool,
                q_tile: int = 128, k_tile: int = 128, groups: int = 2):
     """The key tiles the 16-bit chunk kernel (``csrc/decode_attention.cu``
@@ -3558,13 +3856,17 @@ def gemv_times() -> dict:
 
 def block_times() -> dict:
     """decode_block_attn and decode_block_mlp at one gpt3_6_7b and one
-    llama_7b layer (random bf16 weights, 8 slots): the card's time a call,
-    and the wrappers' and both ring hops' host time a call (``host_us``)."""
+    llama_7b layer (random bf16 weights, 8 slots), and the tp=2 shard
+    attention ``decode_block_attn_tp`` at both models' shard shapes
+    (``ATTN_TP_SHARDS``, 4 slab copies in turn): the card's time a call;
+    the wrappers', both ring hops' and ``layer_norm_fwd``'s (x [8, 4096])
+    host time a call (``host_us``)."""
     import torch
+    from paddle_tpu_torch.kernels import fused_norm as fn
     from paddle_tpu_torch.kernels.decode_block import (decode_block_attn,
                                                        decode_block_mlp)
-    from paddle_tpu_torch.kernels.decode_block_tp import (ring_entry_hop,
-                                                          ring_exit_hop)
+    from paddle_tpu_torch.kernels.decode_block_tp import (
+        decode_block_attn_tp, ring_entry_hop, ring_exit_hop)
     dev = torch.device(DEVICE)
     g = torch.Generator(device=dev)
     g.manual_seed(22)
@@ -3597,6 +3899,60 @@ def block_times() -> dict:
                 "ring_exit_hop": lambda: ring_exit_hop(hy, hwo)})
         del x, k, v, kw, attn
         torch.cuda.empty_cache()
+    for model in ATTN_TP_SHARDS:
+        q, k, v, slabs, nxt, pos, akw = attn_tp_shard(g, model)
+
+        def t_call():
+            return decode_block_attn_tp(q, k, v, *nxt(), pos, **akw)
+        out[model]["attn_tp_device_ms"] = device_ms(t_call)
+        out[model]["attn_tp_ms"] = time_ms(t_call)
+        if model == "gpt3_6_7b":
+            xn = torch.randn((8, 4096), generator=g, device=dev).to(
+                torch.bfloat16)
+            wn, bn = xn[0].clone(), xn[1].clone()
+            out["host_us"].update(host_us({
+                "decode_block_attn_tp": t_call,
+                "layer_norm_fwd": lambda: fn.layer_norm_fwd(xn, wn, bn,
+                                                            NORM_EPS)}))
+        del slabs
+        torch.cuda.empty_cache()
+    return out
+
+
+def norm_times() -> dict:
+    """``layer_norm_fwd`` and ``F.layer_norm`` on x [rows, 4096] bf16 at
+    the decode, prefill-chunk and train rows, on 4 copies of x in turn
+    (the train shape's then stream from device memory): each one's events
+    ms, device ms and host µs a call (``host_us``), in one process."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(23)
+    h = 4096
+    out = {}
+    for shape, rows in NORM_SHAPES.items():
+        items, nxt = _cycled(lambda: (
+            torch.randn((rows, h), generator=g, device=dev) * 2 + 0.5
+        ).to(torch.bfloat16))
+        w = (torch.randn(h, generator=g, device=dev) * 0.5 + 1).to(
+            torch.bfloat16)
+        b = (torch.randn(h, generator=g, device=dev) * 0.3).to(torch.bfloat16)
+
+        def kern():
+            return fn.layer_norm_fwd(nxt(), w, b, NORM_EPS)
+
+        def lib():
+            return F.layer_norm(nxt(), (h,), w, b, NORM_EPS)
+        host = host_us({"layer_norm_fwd": kern, "F.layer_norm": lib})
+        out[shape] = {
+            "rows": rows, "ms": time_ms(kern), "device_ms": device_ms(kern),
+            "host_us": host["layer_norm_fwd"],
+            "library_ms": time_ms(lib), "library_device_ms": device_ms(lib),
+            "library_host_us": host["F.layer_norm"],
+            "bound_ms": norm_bound("layer_norm_fwd", rows, h, 2, 2)[0]}
+        del items
     return out
 
 
@@ -3639,7 +3995,8 @@ def ab_child(root: str) -> int:
                         if f.endswith(".cu")))
     card = card_line()
     out = {"root": root, "card": card, "decode_attention": wrapper_times(),
-           "gemv": gemv_times(), "block": block_times()}
+           "gemv": gemv_times(), "block": block_times(),
+           "norm": norm_times()}
     free_card()
     for family in ("gpt", "llama"):
         runs = phase_serving(card, family)
@@ -3735,6 +4092,23 @@ def serve_ab(parent: str) -> int:
             slower += [f"{model} {half}"] if c > p else []
             log(f"[serve-ab] decode_block_{half} at {model}: device "
                 f"{p:.4f} -> {c:.4f} ms")
+    for model in ATTN_TP_SHARDS:
+        for key in ("attn_tp_device_ms", "attn_tp_ms"):
+            p = med("parent", lambda r: r["block"][model][key])
+            c = med("change", lambda r: r["block"][model][key])
+            slower += [f"{model} {key}"] if c > p else []
+            log(f"[serve-ab] decode_block_attn_tp at the {model} tp={TP} "
+                f"shard ({key}): {p:.4f} -> {c:.4f} ms ({c / p:.3f}x)")
+    for shape in NORM_SHAPES:
+        for key in ("device_ms", "ms", "host_us", "library_device_ms",
+                    "library_ms", "library_host_us"):
+            p = med("parent", lambda r: r["norm"][shape][key])
+            c = med("change", lambda r: r["norm"][shape][key])
+            if key in ("device_ms", "ms"):
+                slower += [f"layer_norm_fwd {shape} {key}"] if c > p else []
+            log(f"[serve-ab] layer_norm_fwd {shape} "
+                f"x [{results[0]['norm'][shape]['rows']},4096] {key}: "
+                f"parent {p:.4f} -> change {c:.4f}")
     for name in results[0]["block"]["host_us"]:
         p = med("parent", lambda r: r["block"]["host_us"][name])
         c = med("change", lambda r: r["block"]["host_us"][name])
@@ -3777,14 +4151,18 @@ def sass_ab(parent: str) -> dict:
     """The kernels this change leaves as they were, instruction for
     instruction against the parent's build (``kernels.sass.compare``):
     the f32 GEMV and the decode block's other kernels, the sharded
-    block's, and every instantiation of flash_attention.cu and
-    decode_attention.cu."""
+    block's GEMV (the ring hops) and f32 attention, the norm kernels
+    other than the LayerNorm forward's register kernel, and every
+    instantiation of flash_attention.cu and decode_attention.cu."""
     import glob
     from paddle_tpu_torch.kernels import _build, sass
     out = {}
     for name, kernels in (
             ("decode_block", ["gemv_kernelIf", "attn_", "row_stats"]),
-            ("decode_block_tp", ["gemv_kernelIf", "attn_tp"]),
+            ("decode_block_tp", ["gemv_kernelIf", "gemv_stream_kernel",
+                                 "attn_tp_kernelIf"]),
+            ("fused_norm", ["rms_fwd_kernel", "norm_bwd_kernel",
+                            "column_sum_kernel", "ln_fwd_kernel"]),
             ("flash_attention", [""]), ("decode_attention", [""])):
         old = sorted(glob.glob(os.path.join(
             parent, "paddle_tpu_torch", "kernels", "_build",
@@ -3957,6 +4335,10 @@ def main() -> int:
             "launches": next(iter(paths.values())),
             "launches_by_path": paths,
             **norm_recs[name]})
+        if name == "layer_norm_fwd":
+            # rows in registers; a row over 1024 16-byte groups re-read
+            kernels[-1]["kernels"] = ["ln_fwd_rows_kernel",
+                                      "ln_fwd_kernel (rows over 1024 groups)"]
     # the sharded decode block's kernels: launched on the tp_fused_block
     # rung only (the tp_fused rung runs decode_attention)
     tp_launches = {"tp_fused_block": tp_runs["gpt"]["tp_fused_block"][0],
@@ -3977,6 +4359,11 @@ def main() -> int:
         if name in GEMV_BY_KERNEL:
             kernels[-1]["gemv"] = {k: gemv_rec["shapes"][k]
                                    for k in GEMV_BY_KERNEL[name]}
+        if name == "decode_block_attn_tp":
+            # bf16 at head_dim 64 / 128: split KV on the TMA ring; the rest
+            kernels[-1]["kernels"] = [
+                "attn_tp_split_kernel",
+                "attn_tp_kernel (f32, and bf16 at other head_dims)"]
     serving = {"unfused": serving_u, "fused": serving_f,
                "llama_unfused": llama_serving_u,
                "llama_fused": llama_serving_f}

@@ -62,6 +62,8 @@ _SIGNATURES = {
         # (decode_block_tp.py mirrors it)
         "decode_block_tp_hop": ([_P, _P], _I),
         "decode_block_tp_attention": ([_P, _P], _I),
+        # the dynamic shared memory a TpAttnArgs launch takes
+        "decode_block_tp_attention_smem": ([_P], _L),
     },
     "flash_attention": {
         "flash_attention_fwd": (

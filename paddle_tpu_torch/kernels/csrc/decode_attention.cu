@@ -42,6 +42,8 @@
 //    that counts last merges every split's partial in split order (no
 //    float atomics: the result does not depend on which block is last) and
 //    resets the counter to 0 for the next call.  One launch, deterministic.
+//    The walk lives in decode_split.cuh, which the tensor-parallel shard
+//    attention (decode_block_tp.cu) runs too, with an append policy.
 //  * sq > 1, bf16/f16 (chunk_wgmma_kernel): operations.  The flash
 //    forward's shape (flash_attention.cu fwd_wgmma_kernel) for a chunk
 //    over a cache: 384 threads own 128 queries of one (batch, head); a
@@ -70,6 +72,7 @@
 
 #include <cstdint>
 
+#include "decode_split.cuh"
 #include "hopper.cuh"
 
 namespace {
@@ -394,250 +397,12 @@ decode_tile_kernel(const Params p) {
 }
 
 // ------------------------------------------------ sq == 1, 16-bit, split
-// One block walks one run of cache rows for G (1 or 4) query heads of one
-// kv head.  Warps 0-3 consume, warp 4's first lane produces: it
-// issues the TMA copies of each 32-row K and V tile (D / 64 boxes of 32
-// rows x 128 bytes each, 128-byte swizzled: row r's 16-byte chunk c lands
-// at chunk c ^ (r % 8)) into a ring of kSplitStages stages.  Each stage has
-// a "full" barrier (the copies complete it) and an "empty" one (each
-// consumer warp arrives once it has read its rows).
-constexpr int kSplitWarps = 4;                         // consumer warps
-constexpr int kSplitThreads = (kSplitWarps + 1) * 32;  // + the producer
-constexpr int kSplitTile = 32;                         // cache rows a stage
-constexpr int kSplitStages = 3;
-constexpr int kSplitRows = kSplitTile / kSplitWarps;   // a warp's rows a tile
-constexpr uint32_t kSplitBox = kSplitTile * 128;       // 32 rows x 128 bytes
-constexpr int kMergeBar = 1;  // named barrier of the consumer warps
-
-struct SplitParams {
-  CUtensorMap k_map, v_map;  // (D, KVH, S, B), boxes 64 x 1 x 32 x 1
-  const void* q;             // [B, 1, H, D] through its strides
-  const int* seq_lens;
-  void* out;                 // contiguous [B, 1, H, D]
-  float* part;               // [rows, n_splits, G, 2 + D]: m, l, acc
-  int* count;                // [rows]: splits done; 0 between calls
-  long long q_sb, q_sh;
-  int H, KVH, S, split_rows, n_splits;
-  float scale_log2;          // scale * log2(e)
-};
-
-template <int G, int D>
-struct SplitShared {
-  uint64_t full[kSplitStages], empty[kSplitStages];
-  float m[kSplitWarps][G], l[kSplitWarps][G];
-  float acc[kSplitWarps][G][D];
-  int last;
-};
-
-template <int G, int D>
-constexpr size_t split_smem() {
-  return 1024 + 2 * kSplitStages * (D / 64) * kSplitBox +
-         sizeof(SplitShared<G, D>);
-}
-
+// The walk of decode_split.cuh with no append policy: one block walks one
+// run of cache rows for G (1 or 4) query heads of one kv head.
 template <typename T, int D, int G>
 __global__ void __launch_bounds__(kSplitThreads)
     decode_split_kernel(const __grid_constant__ SplitParams p) {
-  constexpr int E = D / 32;                         // columns a lane holds
-  constexpr uint32_t kTile = (D / 64) * kSplitBox;  // one K or V tile
-  constexpr int NS = kSplitStages, RW = kSplitRows;
-  constexpr int kConsumers = kSplitWarps * 32;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = reinterpret_cast<unsigned char*>(
-      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
-  unsigned char* k_s = smem;  // stage st at + st * kTile
-  unsigned char* v_s = k_s + NS * kTile;
-  SplitShared<G, D>& sh =
-      *reinterpret_cast<SplitShared<G, D>*>(v_s + NS * kTile);
-
-  const int groups = p.H / p.KVH / G;  // blocks a kv head's heads take
-  const int row = blockIdx.x;          // (batch, kv head, head group)
-  const int b = row / (p.KVH * groups);
-  const int kvh = row / groups % p.KVH;
-  const int h0 = kvh * (p.H / p.KVH) + row % groups * G;
-  const int end = min(p.S, max(p.seq_lens[b], 0));  // rows the query sees
-  const int n_vis = (end + p.split_rows - 1) / p.split_rows;
-  const int r0 = blockIdx.y * p.split_rows;
-  T* op = static_cast<T*>(p.out) + ((long long)b * p.H + h0) * D;
-  if ((int)blockIdx.y >= max(n_vis, 1)) return;  // no visible row here
-  if (n_vis == 0) {  // the query sees no row: zeros
-    for (int i = threadIdx.x; i < G * D; i += kSplitThreads)
-      op[i] = from_float<T>(0.f);
-    return;
-  }
-  const int r1 = min(end, r0 + p.split_rows);
-  const int n_tiles = (r1 - r0 + kSplitTile - 1) / kSplitTile;
-
-  if (threadIdx.x == 0) {
-#pragma unroll
-    for (int st = 0; st < NS; ++st) {
-      hopper::mbar_init(&sh.full[st], 1);
-      hopper::mbar_init(&sh.empty[st], kSplitWarps);
-    }
-    hopper::fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= kConsumers) {
-    // ---------------------------------------------------------- producer
-    if (threadIdx.x != kConsumers) return;
-    hopper::prefetch_tensor_map(&p.k_map);
-    hopper::prefetch_tensor_map(&p.v_map);
-    for (int t = 0; t < n_tiles; ++t) {
-      const int st = t % NS;
-      hopper::mbar_wait(&sh.empty[st], ((t / NS) & 1) ^ 1);
-      hopper::mbar_arrive_expect_tx(&sh.full[st], 2 * kTile);
-      const int y = r0 + t * kSplitTile;
-#pragma unroll
-      for (int c = 0; c < D / 64; ++c) {
-        hopper::tma_load_4d(k_s + st * kTile + c * kSplitBox, &p.k_map,
-                            &sh.full[st], c * 64, kvh, y, b);
-        hopper::tma_load_4d(v_s + st * kTile + c * kSplitBox, &p.v_map,
-                            &sh.full[st], c * 64, kvh, y, b);
-      }
-    }
-    return;
-  }
-
-  // ------------------------------------------------------------ consumers
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int col = lane * E;  // this lane's first column
-  // its bytes in a swizzled row: box, 16-byte chunk, offset in the chunk
-  const int box = col / 64, chunk = col % 64 / 8, within = col % 8 * 2;
-  float q[G][E], acc[G][E], m[G], l[G];
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    const Vec<T, E> qv = load_vec<T, E>(static_cast<const T*>(p.q) +
-                                        b * p.q_sb + (h0 + g) * p.q_sh + col);
-#pragma unroll
-    for (int e = 0; e < E; ++e) {
-      q[g][e] = to_float(qv.v[e]) * p.scale_log2;
-      acc[g][e] = 0.f;
-    }
-    m[g] = -INFINITY;
-    l[g] = 0.f;
-  }
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % NS;
-    hopper::mbar_wait(&sh.full[st], (t / NS) & 1);
-    const unsigned char* kt = k_s + st * kTile + box * kSplitBox;
-    const unsigned char* vt = v_s + st * kTile + box * kSplitBox;
-    Vec<T, E> kx[RW], vx[RW];
-#pragma unroll
-    for (int j = 0; j < RW; ++j) {
-      const int r = warp * RW + j;
-      const int off = r * 128 + ((chunk ^ (r & 7)) << 4) + within;
-      kx[j] = *reinterpret_cast<const Vec<T, E>*>(kt + off);
-      vx[j] = *reinterpret_cast<const Vec<T, E>*>(vt + off);
-    }
-    // the rows are in registers: the stage may be refilled
-    __syncwarp();
-    if (lane == 0) hopper::mbar_arrive(&sh.empty[st]);
-
-    const int first = r0 + t * kSplitTile + warp * RW;  // row of j = 0
-#pragma unroll
-    for (int g = 0; g < G; ++g) {
-      float s[RW];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < RW; ++j) {
-        float dot = 0.f;
-#pragma unroll
-        for (int e = 0; e < E; ++e)
-          dot = fmaf(q[g][e], to_float(kx[j].v[e]), dot);
-#pragma unroll
-        for (int o = 16; o > 0; o >>= 1) dot += __shfl_xor_sync(kFull, dot, o);
-        s[j] = first + j < r1 ? dot : -INFINITY;
-        mx = fmaxf(mx, s[j]);
-      }
-      const float m_next = fmaxf(m[g], mx);
-      // a warp that has seen no row keeps m = -inf: subtract 0 instead
-      const float m_safe = m_next == -INFINITY ? 0.f : m_next;
-      const float alpha = exp2f(m[g] - m_safe);
-      l[g] *= alpha;
-#pragma unroll
-      for (int e = 0; e < E; ++e) acc[g][e] *= alpha;
-#pragma unroll
-      for (int j = 0; j < RW; ++j) {
-        // a row past the split's end is skipped, not multiplied by 0: it
-        // may hold anything
-        if (first + j < r1) {
-          const float pr = exp2f(s[j] - m_safe);
-          l[g] += pr;
-#pragma unroll
-          for (int e = 0; e < E; ++e)
-            acc[g][e] = fmaf(pr, to_float(vx[j].v[e]), acc[g][e]);
-        }
-      }
-      m[g] = m_next;
-    }
-  }
-
-  // the warps' partials, merged in warp order
-#pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sh.m[warp][g] = m[g];
-      sh.l[warp][g] = l[g];
-    }
-#pragma unroll
-    for (int e = 0; e < E; ++e) sh.acc[warp][g][col + e] = acc[g][e];
-  }
-  hopper::named_sync(kMergeBar, kConsumers);
-  const bool alone = n_vis == 1;
-  float* part =
-      p.part + ((long long)row * p.n_splits + blockIdx.y) * G * (2 + D);
-  for (int i = threadIdx.x; i < G * D; i += kConsumers) {
-    const int g = i / D, d = i % D;
-    // finite: the split holds a visible row
-    float mx = -INFINITY;
-#pragma unroll
-    for (int w = 0; w < kSplitWarps; ++w) mx = fmaxf(mx, sh.m[w][g]);
-    float ls = 0.f, as = 0.f;
-#pragma unroll
-    for (int w = 0; w < kSplitWarps; ++w) {
-      const float f = exp2f(sh.m[w][g] - mx);
-      ls = fmaf(sh.l[w][g], f, ls);
-      as = fmaf(sh.acc[w][g][d], f, as);
-    }
-    if (alone) {
-      op[i] = from_float<T>(as / ls);
-    } else {
-      float* pg = part + g * (2 + D);
-      if (d == 0) {
-        pg[0] = mx;
-        pg[1] = ls;
-      }
-      pg[2 + d] = as;
-    }
-  }
-  if (alone) return;
-
-  // count this split done; the last of the row's splits merges them all
-  __threadfence();
-  hopper::named_sync(kMergeBar, kConsumers);
-  if (threadIdx.x == 0)
-    sh.last = atomicAdd(&p.count[row], 1) == n_vis - 1;
-  hopper::named_sync(kMergeBar, kConsumers);
-  if (!sh.last) return;
-  __threadfence();
-  const float* rp = p.part + (long long)row * p.n_splits * G * (2 + D);
-  for (int i = threadIdx.x; i < G * D; i += kConsumers) {
-    const int g = i / D, d = i % D;
-    float mx = -INFINITY;
-    for (int s = 0; s < n_vis; ++s)
-      mx = fmaxf(mx, __ldcg(rp + (s * G + g) * (2 + D)));
-    float ls = 0.f, as = 0.f;
-    for (int s = 0; s < n_vis; ++s) {
-      const float* ps = rp + (s * G + g) * (2 + D);
-      const float f = exp2f(__ldcg(ps) - mx);
-      ls = fmaf(__ldcg(ps + 1), f, ls);
-      as = fmaf(__ldcg(ps + 2 + d), f, as);
-    }
-    op[i] = from_float<T>(as / ls);
-  }
-  if (threadIdx.x == 0) p.count[row] = 0;  // ready for the next call
+  split_walk<T, D, G>(p, NoAppend());
 }
 
 // ------------------------------------------------- sq > 1, 16-bit, wgmma

@@ -15,15 +15,22 @@
 // What bounds them on an H100: a few flops per element against the bytes
 // of x, g, y, dx (2 bytes each in bf16): bytes, at 3.35 TB/s.  What the
 // design does about that:
-//   * one block of up to 256 threads per row (forward) or per run of rows
-//     (backward); each thread takes 16-byte groups of the row (8 bf16 / 4
-//     f32), so a warp reads 512 contiguous bytes per access.  A row whose
-//     length or pointers do not allow 16-byte groups takes the scalar
-//     instantiation (N = 1) of the same code;
-//   * device memory is read once: the passes over a row after the first
-//     re-read it from L1/L2, where the first pass left it;
+//   * each thread takes 16-byte groups of the row (8 bf16 / 4 f32), so a
+//     warp reads 512 contiguous bytes per access.  A row whose length or
+//     pointers do not allow 16-byte groups takes the scalar instantiation
+//     (N = 1) of the same code;
+//   * LayerNorm forward (ln_fwd_rows_kernel): each row is read from device
+//     memory once, into registers, by a segment of 1-128 threads sized
+//     from h; a block of 128 threads holds w and b in registers and walks
+//     many rows, the next row's loads in flight while the current one is
+//     reduced; a row too long for registers (more than 1024 groups) takes
+//     ln_fwd_kernel, which re-reads it;
+//   * RMSNorm forward and both backwards: one block of up to 256 threads
+//     per row (forward) or per run of rows (backward); device memory is
+//     read once: the passes over a row after the first re-read it from
+//     L1/L2, where the first pass left it;
 //   * row sums are warp shuffles, then one shared-memory step across the
-//     block's warps, summed by every thread in the same order.
+//     row's warps, summed by every thread in the same order.
 // The TPU kernels carry dw / db in one output block across their
 // sequential grid.  CUDA blocks run in parallel, so the backward is two
 // passes with no atomics (the sums are deterministic): pass 1 writes each
@@ -39,6 +46,9 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
+#include <type_traits>
 
 namespace {
 
@@ -146,8 +156,210 @@ rms_fwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
   if (threadIdx.x == 0) rstd_out[row] = rstd;
 }
 
-// one block per row; two-pass statistics (mean, then the variance about
-// it), as the reference computes them
+// LayerNorm forward with each row read once, into registers.  A block of
+// kLnThreads threads takes rows in segments of tpr = 1 << tpr_log2
+// threads a row (R = kLnThreads / tpr rows at a time, several where h is
+// small); thread t of a segment holds the row's 16-byte groups t, t + tpr,
+// ... (VPT of them, those below h / N).  Two regimes, by what bounds the
+// call:
+//  * one wave (kWalk false: every row's block fits on the card at once,
+//    the decode and prefill-chunk rows): latency.  A segment loads its
+//    row, takes the statistics, then loads w and b (so that x's loads go
+//    out alone) and stores y.  x converts to f32 as loaded;
+//  * a walk (kWalk true: more rows than fit at once, the train rows):
+//    bytes in flight.  As many blocks as fit walk the rows, each holding
+//    w and b in registers for all of its rows and loading its next row
+//    while the current one is reduced and stored.  16-bit rows stay packed
+//    as 32-bit words and each of their three uses (sum, variance, affine)
+//    converts them again (group_float), so a thread holds 16 registers of
+//    x, not 32 floats, and 8 blocks fit on an SM.
+// 16-bit w and b stay packed in both regimes (converted at the affine).
+// Row sums: each thread adds its groups in order, then an xor shuffle
+// tree over the segment's lanes, then (tpr > 32) the row's warps in order
+// through shared memory: the same order in both regimes and on every run.
+constexpr int kLnThreads = 128;
+constexpr int kLnWarps = kLnThreads / 32;
+
+// how the walk keeps a group: 8 16-bit values as four 32-bit words; other
+// groups as their elements
+template <typename T, int N> struct Packed { using type = Vec<T, N>; };
+template <> struct Packed<__nv_bfloat16, 8> { using type = uint4; };
+template <> struct Packed<__half, 8> { using type = uint4; };
+
+// element e of a group as f32
+template <typename T, int N>
+__device__ __forceinline__ float group_float(const Vec<T, N>& g, int e) {
+  return to_float(g.v[e]);
+}
+
+// element e of 8 16-bit values kept as words: the inline asm is volatile,
+// so the compiler neither merges two conversions of one element nor keeps
+// the converted row alive across the row's three passes
+template <typename T>
+__device__ __forceinline__ float group_float(const uint4& g, int e) {
+  const uint32_t word = e < 2 ? g.x : e < 4 ? g.y : e < 6 ? g.z : g.w;
+  if constexpr (std::is_same<T, __half>::value) {
+    float f;
+    if (e & 1)
+      asm volatile("{\n.reg .b16 lo, hi;\nmov.b32 {lo, hi}, %1;\n"
+                   "cvt.f32.f16 %0, hi;\n}" : "=f"(f) : "r"(word));
+    else
+      asm volatile("{\n.reg .b16 lo, hi;\nmov.b32 {lo, hi}, %1;\n"
+                   "cvt.f32.f16 %0, lo;\n}" : "=f"(f) : "r"(word));
+    return f;
+  } else {
+    uint32_t o;
+    if (e & 1)
+      asm volatile("and.b32 %0, %1, 0xffff0000;" : "=r"(o) : "r"(word));
+    else
+      asm volatile("shl.b32 %0, %1, 16;" : "=r"(o) : "r"(word));
+    return __uint_as_float(o);
+  }
+}
+
+// the row sum of each segment's v, in every thread of the segment; red
+// holds kLnWarps floats (the mean and the variance use their own, so one
+// block barrier each keeps a row's readers ahead of the next writer)
+__device__ __forceinline__ float ln_row_sum(float v, int tpr, float* red) {
+  for (int off = (tpr < 32 ? tpr : 32) >> 1; off > 0; off >>= 1)
+    v += __shfl_xor_sync(0xffffffffu, v, off);
+  if (tpr > 32) {
+    const int warp = threadIdx.x >> 5, per_row = tpr >> 5;
+    if ((threadIdx.x & 31) == 0) red[warp] = v;
+    __syncthreads();
+    const int w0 = warp / per_row * per_row;
+    v = 0.f;
+    for (int w = 0; w < per_row; ++w) v += red[w0 + w];
+  }
+  return v;
+}
+
+// Mean and rstd of the row that segment thread t holds, in every thread
+// of the segment (two-pass: the variance about the mean)
+template <typename T, int VPT, int N, typename G>
+__device__ __forceinline__ void ln_stats(const G (&xa)[VPT], int t, int tpr,
+                                         int groups, int h, float eps,
+                                         float (&red)[2][kLnWarps],
+                                         float& mu, float& rstd) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    if (t + j * tpr < groups) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) s += group_float<T>(xa[j], e);
+    }
+  }
+  mu = ln_row_sum(s, tpr, red[0]) / (float)h;
+  float vs = 0.f;
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    if (t + j * tpr < groups) {
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const float d = group_float<T>(xa[j], e) - mu;
+        vs += d * d;
+      }
+    }
+  }
+  rstd = rsqrtf(ln_row_sum(vs, tpr, red[1]) / (float)h + eps);
+}
+
+// y = (x - mu) rstd w + b of that row, one cast, and its statistics
+template <typename T, typename W, int VPT, int N, typename G, typename WG>
+__device__ __forceinline__ void ln_store(const G (&xa)[VPT],
+                                         const WG (&wr)[VPT],
+                                         const WG (&br)[VPT], int t, int tpr,
+                                         int groups, float mu, float rstd,
+                                         T* __restrict__ yr, float* mean_row,
+                                         float* rstd_row) {
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const int gi = t + j * tpr;
+    if (gi < groups) {
+      Vec<T, N> o;
+#pragma unroll
+      for (int e = 0; e < N; ++e)
+        o.v[e] = from_float<T>(__fadd_rn(
+            __fmul_rn(__fmul_rn(__fsub_rn(group_float<T>(xa[j], e), mu),
+                                rstd),
+                      group_float<W>(wr[j], e)),
+            group_float<W>(br[j], e)));
+      reinterpret_cast<Vec<T, N>*>(yr)[gi] = o;
+    }
+  }
+  if (t == 0) {
+    *mean_row = mu;
+    *rstd_row = rstd;
+  }
+}
+
+template <typename T, typename W, int N, int VPT, bool kWalk>
+__global__ void __launch_bounds__(kLnThreads)
+ln_fwd_rows_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                   const W* __restrict__ b, T* __restrict__ y,
+                   float* __restrict__ mean_out, float* __restrict__ rstd_out,
+                   int rows, int h, int tpr_log2, float eps) {
+  using XG = typename std::conditional<kWalk, typename Packed<T, N>::type,
+                                       Vec<T, N>>::type;
+  using WG = typename Packed<W, N>::type;
+  __shared__ float red[2][kLnWarps];
+  const int tpr = 1 << tpr_log2, per_block = kLnThreads >> tpr_log2;
+  const int t = threadIdx.x & (tpr - 1), seg = threadIdx.x >> tpr_log2;
+  const int groups = h / N;
+  auto load_row = [&](int row, XG (&dst)[VPT]) {
+    const XG* xr = reinterpret_cast<const XG*>(x + (long long)row * h);
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int gi = t + j * tpr;
+      if (row < rows && gi < groups) dst[j] = xr[gi];
+    }
+  };
+  WG wr[VPT], br[VPT];
+  auto load_wb = [&] {
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int gi = t + j * tpr;
+      if (gi < groups) {
+        wr[j] = reinterpret_cast<const WG*>(w)[gi];
+        br[j] = reinterpret_cast<const WG*>(b)[gi];
+      }
+    }
+  };
+  int row = blockIdx.x * per_block + seg;
+  XG xa[VPT];
+  float mu, rstd;
+  load_row(row, xa);
+  if constexpr (!kWalk) {
+    ln_stats<T, VPT, N>(xa, t, tpr, groups, h, eps, red, mu, rstd);
+    load_wb();
+    if (row < rows)
+      ln_store<T, W, VPT, N>(xa, wr, br, t, tpr, groups, mu, rstd,
+                             y + (long long)row * h, mean_out + row,
+                             rstd_out + row);
+  } else {
+    load_wb();
+    // uniform over the block (shuffles and barriers inside); the grid
+    // never exceeds the rows
+    const int stride = gridDim.x * per_block;
+    for (int base = blockIdx.x * per_block; base < rows;
+         base += stride, row += stride) {
+      XG xn[VPT];
+      load_row(row + stride, xn);
+      ln_stats<T, VPT, N>(xa, t, tpr, groups, h, eps, red, mu, rstd);
+      if (row < rows)
+        ln_store<T, W, VPT, N>(xa, wr, br, t, tpr, groups, mu, rstd,
+                               y + (long long)row * h, mean_out + row,
+                               rstd_out + row);
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) xa[j] = xn[j];
+    }
+  }
+}
+
+// A row of more than kLnThreads * 8 groups: one block per row, three
+// passes over it (the second and third re-read it from L1/L2); two-pass
+// statistics (mean, then the variance about it), as the reference
+// computes them
 template <typename T, typename W, int N>
 __global__ void __launch_bounds__(kMaxThreads)
 ln_fwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
@@ -305,11 +517,62 @@ int threads_for(int groups) {
   return t < 32 ? 32 : (t > kMaxThreads ? kMaxThreads : t);
 }
 
+// blocks of `kernel` one SM holds at once (at least 1)
+template <typename Kernel>
+int blocks_per_sm(Kernel kernel) {
+  int n = 0;
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+             &n, kernel, kLnThreads, 0) == cudaSuccess && n > 0 ? n : 1;
+}
+
+// ln_fwd_rows_kernel over every row: tpr threads a row, the fewest (a
+// power of two) whose VPT groups each cover it.  One block per R rows when
+// they all fit on the card at once; else (16-byte groups) the walk, with
+// as many blocks as fit.
+template <typename T, typename W, int N, int VPT>
+cudaError_t ln_rows(const void* x, const void* w, const void* b, void* y,
+                    void* mean, void* rstd, int rows, int h, float eps,
+                    cudaStream_t stream) {
+  int tpr_log2 = 0;
+  while ((VPT << tpr_log2) < h / N) ++tpr_log2;
+  const long long per_block = kLnThreads >> tpr_log2;
+  const long long need = (rows + per_block - 1) / per_block;
+  auto one = ln_fwd_rows_kernel<T, W, N, VPT, false>;
+  auto launch = [&](auto kernel, long long grid) {
+    kernel<<<(int)grid, kLnThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const W*>(w),
+        static_cast<const W*>(b), static_cast<T*>(y),
+        static_cast<float*>(mean), static_cast<float*>(rstd), rows, h,
+        tpr_log2, eps);
+    return cudaGetLastError();
+  };
+  if constexpr (N > 1) {
+    static const int one_per_sm = blocks_per_sm(one);
+    int dev = 0, sms = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (need > (long long)sms * one_per_sm) {
+      auto walk = ln_fwd_rows_kernel<T, W, N, VPT, true>;
+      static const int walk_per_sm = blocks_per_sm(walk);
+      const long long fit = (long long)sms * walk_per_sm;
+      return launch(walk, need < fit ? need : fit);
+    }
+  }
+  return launch(one, need);
+}
+
 template <typename T, typename W, int N>
 cudaError_t fwd(const void* x, const void* w, const void* b, void* y,
                 void* mean, void* rstd, int rms, int rows, int h, float eps,
                 cudaStream_t stream) {
-  const int threads = threads_for(h / N);
+  const int groups = h / N;
+  if (!rms && groups <= kLnThreads * 4)
+    return ln_rows<T, W, N, 4>(x, w, b, y, mean, rstd, rows, h, eps, stream);
+  if (!rms && groups <= kLnThreads * 8)
+    return ln_rows<T, W, N, 8>(x, w, b, y, mean, rstd, rows, h, eps, stream);
+  const int threads = threads_for(groups);
   if (rms)
     rms_fwd_kernel<T, W, N><<<rows, threads, 0, stream>>>(
         static_cast<const T*>(x), static_cast<const W*>(w),

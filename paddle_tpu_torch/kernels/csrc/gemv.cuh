@@ -64,8 +64,7 @@
 
 #include <atomic>
 #include <cstring>
-#include <mutex>
-#include <unordered_map>
+#include <functional>
 
 #include "hopper.cuh"
 
@@ -871,34 +870,24 @@ struct MapKeyHash {
 inline CUresult cached_map(CUtensorMap* map, const void* ptr, bool f32,
                            long long cols, long long rows, long long ld,
                            int box_cols, int box_rows, bool swizzle) {
-  static std::mutex mu;
-  static std::unordered_map<MapKey, CUtensorMap, MapKeyHash> cache;
   const MapKey key{ptr, cols, rows, ld, (f32 ? 1 : 0) + (swizzle ? 2 : 0),
                    box_cols, box_rows};
-  std::lock_guard<std::mutex> lock(mu);
-  const auto it = cache.find(key);
-  if (it != cache.end()) {
-    *map = it->second;
-    return CUDA_SUCCESS;
-  }
-  const hopper::EncodeTiled fn = hopper::encoder();
-  if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
-  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
-  const cuuint64_t strides[1] = {(cuuint64_t)ld * (f32 ? 4 : 2)};
-  const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
-  const cuuint32_t ones[2] = {1, 1};
-  const CUresult r = fn(map, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
-                                 : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
-                        2, const_cast<void*>(ptr), dims, strides, box, ones,
-                        CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        swizzle ? CU_TENSOR_MAP_SWIZZLE_128B
-                                : CU_TENSOR_MAP_SWIZZLE_NONE,
-                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (r != CUDA_SUCCESS) return r;
-  if (cache.size() >= 4096) cache.clear();  // bounded by tensors in use
-  cache.emplace(key, *map);
-  return CUDA_SUCCESS;
+  return hopper::cached_map<MapKey, MapKeyHash>(
+      map, key, [&](CUtensorMap* m) -> CUresult {
+    const hopper::EncodeTiled fn = hopper::encoder();
+    if (fn == nullptr) return CUDA_ERROR_NOT_FOUND;
+    const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+    const cuuint64_t strides[1] = {(cuuint64_t)ld * (f32 ? 4 : 2)};
+    const cuuint32_t box[2] = {(cuuint32_t)box_cols, (cuuint32_t)box_rows};
+    const cuuint32_t ones[2] = {1, 1};
+    return fn(m, f32 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                     : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+              2, const_cast<void*>(ptr), dims, strides, box, ones,
+              CU_TENSOR_MAP_INTERLEAVE_NONE,
+              swizzle ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_NONE,
+              CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  });
 }
 
 inline int launch_stream(const GemvArgs& a, cudaStream_t stream) {

@@ -20,7 +20,8 @@
 // Host side: encode_tensor_map() encodes a map of up to 5 dims through
 // the driver's cuTensorMapEncodeTiled, found at run time with
 // cudaGetDriverEntryPoint, so nothing links libcuda (encoder() is that
-// entry point, for maps of another layout); allow_smem() lets a
+// entry point, for maps of another layout); cached_map() keeps the maps
+// a call site encodes; allow_smem() lets a
 // kernel take more than 48 KB of dynamic shared memory on each device it
 // launches on.
 
@@ -33,6 +34,8 @@
 
 #include <atomic>
 #include <cstdint>
+#include <mutex>
+#include <unordered_map>
 
 namespace hopper {
 
@@ -526,6 +529,28 @@ inline CUresult operand_map(CUtensorMap* map, CUtensorMapDataType type,
   if (batch == 1) strides[2] = strides[1] * seq;
   const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
   return encode_tensor_map(map, type, 4, base, dims, strides, box);
+}
+
+// A tensor map encoded once by `encode(map)` and kept, keyed by what it
+// encodes (`key`, with == and `Hash`): a weight does not move, and an
+// activation or a cache slab comes back at the same address call after
+// call.  Each call site (each `encode` lambda) keeps its own cache,
+// cleared when it reaches 4096 maps (bounded by the tensors in use).
+template <typename Key, typename Hash, typename Encode>
+inline CUresult cached_map(CUtensorMap* map, const Key& key, Encode encode) {
+  static std::mutex mu;
+  static std::unordered_map<Key, CUtensorMap, Hash> cache;
+  std::lock_guard<std::mutex> lock(mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    *map = it->second;
+    return CUDA_SUCCESS;
+  }
+  const CUresult r = encode(map);
+  if (r != CUDA_SUCCESS) return r;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, *map);
+  return CUDA_SUCCESS;
 }
 
 // Let `kernel` take `bytes` of dynamic shared memory on the current device.

@@ -52,9 +52,10 @@ from ..distributed.mesh import Mesh
 from ..nn import functional as NF
 from .collective_matmul import entry_ring, exit_ring
 from .decode_attention import decode_attention_reference
-from .decode_block import (SMEM_BUDGET, _check_rc, _gemv, _kernel_device,
-                           _matrix, _pick_block_f, _positions, _proj_smem,
-                           _same, _stream, _vector)
+from .decode_block import (_MAX_TILES, SMEM_BUDGET, _check_rc, _counters,
+                           _gemv, _kernel_device, _matrix, _partials,
+                           _pick_block_f, _positions, _proj_smem, _same,
+                           _stream, _vector)
 
 __all__ = ["plan_decode_block_tp", "ring_entry_hop",
            "ring_entry_hop_reference", "ring_exit_hop",
@@ -64,8 +65,15 @@ __all__ = ["plan_decode_block_tp", "ring_entry_hop",
            "decode_block_attn_tp_reference", "tp_fused_block_layer",
            "arch_norm"]
 
-# the attention kernel's largest K/V tile (rows per stage)
+# attn_tp_kernel's largest K/V tile (rows per stage)
 _MAX_BLOCK_K = 64
+# attn_tp_split_kernel (csrc/decode_split.cuh): cache rows a block walks
+# (the grid is sized from S_max, never from the positions), rows a TMA
+# tile, ring stages, consumer warps
+_SPLIT_ROWS = 256
+_SPLIT_TILE = 32
+_SPLIT_STAGES = 3
+_SPLIT_WARPS = 4
 # exit-hop activations: the GEMV kernel's input transforms
 # (GemvArgs.in_mode in csrc/gemv.cuh)
 _EXIT_IN_MODES = {"none": 0, "swiglu": 3, "gelu_tanh": 4, "gelu": 5}
@@ -84,19 +92,54 @@ class _TpAttnArgs(ctypes.Structure):
                 ("v_sb", _LL), ("v_ss", _LL), ("v_sh", _LL),
                 ("B", _I), ("H", _I), ("KH", _I), ("Dh", _I), ("S", _I),
                 ("block_k", _I), ("pos_stride", _I), ("dtype", _I),
-                ("scale", ctypes.c_float)]
+                ("scale", ctypes.c_float), ("part", _P), ("count", _P),
+                ("split_rows", _I)]
 
 
 # ======================================================== planning / legality
 def _attn_tp_smem(block_k: int, rep: int, head_dim: int,
                   itemsize: int) -> int:
-    """Shared memory of one attention block: q and acc ``[rep, Dh]``, the
-    scores ``[rep, block_k]``, the fresh K/V row and the softmax state in
-    f32, plus two stages of the K and V tiles ``[block_k, Dh]`` in the
-    slab dtype."""
+    """Shared memory of one ``attn_tp_kernel`` block (f32, and bf16 at a
+    head_dim other than 64 / 128): q and acc ``[rep, Dh]``, the scores
+    ``[rep, block_k]``, the fresh K/V row and the softmax state in f32,
+    plus two stages of the K and V tiles ``[block_k, Dh]`` in the slab
+    dtype."""
     return (4 * (2 * rep * head_dim + rep * block_k + 2 * head_dim
                  + 3 * rep)
             + 2 * 2 * block_k * head_dim * itemsize)
+
+
+def _split_launch(itemsize: int, head_dim: int) -> bool:
+    """bf16 rows of head_dim 64 or 128 take the split-KV kernel
+    (``attn_tp_split_kernel``); the rest ``attn_tp_kernel``."""
+    return itemsize == 2 and head_dim in (64, 128)
+
+
+def _split_smem(rep: int, head_dim: int) -> int:
+    """Shared memory of one ``attn_tp_split_kernel`` block, byte for byte
+    as ``tp_split_smem<G, D>`` in csrc/decode_block_tp.cu lays it out: 1024
+    bytes of alignment slack, the ring of ``_SPLIT_STAGES`` K and V tiles
+    (``head_dim / 64`` boxes of 32 rows x 128 bytes each), ``SplitShared``
+    (the ring's barriers, the consumer warps' m / l / acc partials and the
+    last-block flag, 8-byte aligned) and ``TpShared`` (the fresh K/V row
+    and its score per head, f32)."""
+    g = 4 if rep % 4 == 0 else 1
+    split_shared = 8 * 2 * _SPLIT_STAGES + 4 * (2 * _SPLIT_WARPS * g
+                                                + _SPLIT_WARPS * g * head_dim
+                                                + 1)
+    return (1024 + 2 * _SPLIT_STAGES * (head_dim // 64) * _SPLIT_TILE * 128
+            + -(-split_shared // 8) * 8 + 4 * (2 * head_dim + g))
+
+
+def _attn_tp_plan(max_seq: int, rep: int, head_dim: int, itemsize: int,
+                  smem_budget: int):
+    """``(block_k, smem)`` of the attention launch at these shapes: the
+    split kernel's 32-row TMA tile and its fixed shared memory, or
+    ``attn_tp_kernel``'s tile (:func:`_pick_block_k_tp`) and bytes."""
+    if _split_launch(itemsize, head_dim):
+        return _SPLIT_TILE, _split_smem(rep, head_dim)
+    bk = _pick_block_k_tp(max_seq, rep, head_dim, itemsize, smem_budget)
+    return bk, _attn_tp_smem(bk, rep, head_dim, itemsize)
 
 
 def _pick_block_k_tp(max_seq: int, rep: int, head_dim: int, itemsize: int,
@@ -116,8 +159,8 @@ def plan_decode_block_tp(*, max_seq: int, hidden: int, heads: int,
                          itemsize: int, tp: int, gated: bool = False,
                          smem_budget: int = SMEM_BUDGET):
     """Per-shard shared-memory plan of the sharded decode block at degree
-    ``tp``: the attention kernel's K/V tile ``block_k``
-    (:func:`_pick_block_k_tp`) and its bytes ``smem_attn``, and the most
+    ``tp``: the attention launch's K/V tile ``block_k`` and its bytes
+    ``smem_attn`` (:func:`_attn_tp_plan`), and the most
     shared memory any ring hop takes (``smem_hop``) over the four seams
     (QKV and MLP-up entry hops, out-proj and MLP-down exit hops), each
     hop's launch planned as ``decode_block``'s projections plan theirs
@@ -129,8 +172,8 @@ def plan_decode_block_tp(*, max_seq: int, hidden: int, heads: int,
     ``"smem:"``."""
     rep = heads // kv_heads
     h_l, kh_l, f_l, b_l = heads // tp, kv_heads // tp, ffn // tp, batch // tp
-    bk = _pick_block_k_tp(max_seq, rep, head_dim, itemsize, smem_budget)
-    smem_attn = _attn_tp_smem(bk, rep, head_dim, itemsize)
+    bk, smem_attn = _attn_tp_plan(max_seq, rep, head_dim, itemsize,
+                                  smem_budget)
     if smem_attn > smem_budget:
         return None, (f"smem: tp attention residents {smem_attn} bytes "
                       f"exceed budget {smem_budget} even at block_k={bk}")
@@ -387,8 +430,7 @@ def decode_block_attn_tp(q, k, v, k_slab, v_slab, seq_pos, *,
                          f"multiples of 8 up to 256")
     rep = heads // kv_heads
     es = q.element_size()
-    block_k = _pick_block_k_tp(s_max, rep, head_dim, es, SMEM_BUDGET)
-    need = _attn_tp_smem(block_k, rep, head_dim, es)
+    block_k, need = _attn_tp_plan(s_max, rep, head_dim, es, SMEM_BUDGET)
     if need > SMEM_BUDGET:
         raise ValueError(f"block_k={block_k} needs {need} bytes of shared "
                          f"memory (budget {SMEM_BUDGET})")
@@ -429,8 +471,19 @@ def decode_block_attn_tp(q, k, v, k_slab, v_slab, seq_pos, *,
     a.B, a.H, a.KH, a.Dh, a.S = b, heads, kv_heads, head_dim, s_max
     a.block_k, a.dtype, a.scale = block_k, code, scale
     with torch.cuda.device(q.device):
-        _check_rc(lib.decode_block_tp_attention(ctypes.addressof(a),
-                                                _stream(q.device)),
+        stream = _stream(q.device)
+        if _split_launch(es, head_dim):
+            # the stream's partials and counters from decode_block (never
+            # freed; the counters are 0 between launches)
+            rows, _, n_part = _split_grid(b, kv_heads, rep, head_dim, s_max)
+            if rows > _MAX_TILES:
+                raise ValueError(f"decode_block_attn_tp: {rows} (slot, kv "
+                                 f"head, head group) rows exceed the "
+                                 f"{_MAX_TILES} split counters")
+            a.part = _partials(q.device, stream, n_part).data_ptr()
+            a.count = _counters(q.device, stream).data_ptr()
+            a.split_rows = _SPLIT_ROWS
+        _check_rc(lib.decode_block_tp_attention(ctypes.addressof(a), stream),
                   "decode_block_attn_tp")
     decode_block_attn_tp.launches += 1
     return out, k_slab, v_slab
@@ -439,6 +492,19 @@ def decode_block_attn_tp(q, k, v, k_slab, v_slab, seq_pos, *,
 # launches of the per-shard attention kernel since the count was last set
 # to 0
 decode_block_attn_tp.launches = 0
+
+
+def _split_grid(b: int, kv_heads: int, rep: int, head_dim: int,
+                s_max: int):
+    """``(rows, splits, part)`` of a split launch, from the shapes and
+    S_max alone (never the positions, so a CUDA graph can capture it): a
+    block row (and a counter) per (slot, kv head, group of 4 query heads,
+    or each head where the group is not a multiple of 4), a split per
+    ``_SPLIT_ROWS`` slab rows, and ``part`` f32 partials ``(m, l,
+    acc[head_dim])`` per query head and split."""
+    rows = b * kv_heads * (rep // 4 if rep % 4 == 0 else rep)
+    splits = -(-s_max // _SPLIT_ROWS)
+    return rows, splits, b * kv_heads * rep * splits * (2 + head_dim)
 
 
 # ============================================================== layer wrapper

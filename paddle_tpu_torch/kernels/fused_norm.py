@@ -34,7 +34,7 @@ from typing import Tuple
 
 import torch
 
-from .decode_block import SMEM_BUDGET
+from .decode_block import SMEM_BUDGET, _sm_count
 
 __all__ = ["rms_norm_fwd", "rms_norm_bwd", "layer_norm_fwd",
            "layer_norm_bwd", "rms_norm_fwd_reference",
@@ -58,27 +58,28 @@ def _check(name: str, x, w, b=None, stats=(), g=None) -> None:
     if x.dim() != 2:
         raise ValueError(f"{name} wants x [rows, h], got {list(x.shape)}")
     rows, h = x.shape
-    if x.dtype not in _DTYPE_CODES:
-        raise ValueError(f"{name}: unsupported x dtype {x.dtype}; the "
+    dtype = x.dtype
+    if dtype not in _DTYPE_CODES:
+        raise ValueError(f"{name}: unsupported x dtype {dtype}; the "
                          f"kernels take float32, float16 and bfloat16")
     for vname, v in (("w", w), ("b", b)):
         if v is None:
             continue
-        if tuple(v.shape) != (h,):
+        if v.shape != (h,):
             raise ValueError(f"{name}: {vname} must be [{h}], got "
                              f"{list(v.shape)}")
-        if v.dtype not in (x.dtype, torch.float32):
-            raise ValueError(f"{name}: {vname} must be x's dtype {x.dtype} "
+        if v.dtype is not dtype and v.dtype is not torch.float32:
+            raise ValueError(f"{name}: {vname} must be x's dtype {dtype} "
                              f"or float32, got {v.dtype}")
-    if b is not None and b.dtype != w.dtype:
+    if b is not None and b.dtype is not w.dtype:
         raise ValueError(f"{name}: b is {b.dtype}, w is {w.dtype}; they "
                          f"must match")
     for sname, s in stats:
-        if s.dtype != torch.float32 or tuple(s.shape) != (rows, 1):
+        if s.dtype is not torch.float32 or s.shape != (rows, 1):
             raise ValueError(f"{name}: {sname} must be float32 [{rows}, 1], "
                              f"got {s.dtype} {list(s.shape)}")
-    if g is not None and (g.shape != x.shape or g.dtype != x.dtype):
-        raise ValueError(f"{name}: g must match x {x.dtype} "
+    if g is not None and (g.shape != x.shape or g.dtype is not dtype):
+        raise ValueError(f"{name}: g must match x {dtype} "
                          f"{list(x.shape)}, got {g.dtype} {list(g.shape)}")
 
 
@@ -90,20 +91,35 @@ def _check_cuda(name: str, tensors) -> int:
     kernels' vector path."""
     dev = tensors[0][1].device
     h = tensors[0][1].shape[-1]
+    vec = 1
     for tname, t in tensors:
         if t.device != dev:
             raise ValueError(f"{name}: {tname} is on {t.device}, x on {dev}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: {tname} must be contiguous")
-    return int(all(t.data_ptr() % 16 == 0 and h * t.element_size() % 16 == 0
-                   for tname, t in tensors if tname not in ("mean", "rstd")))
+        if vec and tname != "mean" and tname != "rstd" and (
+                t.data_ptr() % 16 or h * t.element_size() % 16):
+            vec = 0
+    return vec
+
+
+# the library's entry points, resolved at their first launch
+_ENTRY = {}
 
 
 def _launch(fn_name: str, dev: torch.device, args) -> None:
-    from ._build import load
-    fn = getattr(load("fused_norm"), fn_name)
-    with torch.cuda.device(dev):
-        rc = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
+    fn = _ENTRY.get(fn_name)
+    if fn is None:
+        from ._build import load
+        fn = _ENTRY[fn_name] = getattr(load("fused_norm"), fn_name)
+    # the raw handle of the device's current stream (torch.cuda.
+    # current_stream builds a Stream object for it on every call)
+    stream = torch._C._cuda_getCurrentRawStream(dev.index)
+    if dev.index == torch._C._cuda_getDevice():
+        rc = fn(*args, stream)
+    else:
+        with torch.cuda.device(dev):
+            rc = fn(*args, stream)
     if rc != 0:
         raise RuntimeError(f"{fn_name} kernel launch failed with CUDA "
                            f"error {rc}")
@@ -111,8 +127,7 @@ def _launch(fn_name: str, dev: torch.device, args) -> None:
 
 def _rows_per_block(rows: int, dev: torch.device) -> int:
     """Rows one backward block walks: about two blocks per SM."""
-    blocks = 2 * torch.cuda.get_device_properties(dev).multi_processor_count
-    return max(1, -(-rows // blocks))
+    return max(1, -(-rows // (2 * _sm_count(dev))))
 
 
 # ---------------------------------------------------------------- plain
@@ -174,7 +189,7 @@ def rms_norm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float
     vec = _check_cuda("rms_norm_fwd", [("x", x), ("w", w)])
     rows, h = x.shape
     y = torch.empty_like(x)
-    rstd = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    rstd = torch.empty(rows, 1, dtype=torch.float32, device=x.device)
     if rows:
         _launch("fused_norm_fwd", x.device, (
             x.data_ptr(), w.data_ptr(), None, y.data_ptr(), None,
@@ -205,8 +220,9 @@ def layer_norm_fwd(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
     vec = _check_cuda("layer_norm_fwd", [("x", x), ("w", w), ("b", b)])
     rows, h = x.shape
     y = torch.empty_like(x)
-    mean = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
-    rstd = torch.empty((rows, 1), dtype=torch.float32, device=x.device)
+    # sizes as arguments: a tuple costs more host time to parse
+    mean = torch.empty(rows, 1, dtype=torch.float32, device=x.device)
+    rstd = torch.empty(rows, 1, dtype=torch.float32, device=x.device)
     if rows:
         _launch("fused_norm_fwd", x.device, (
             x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
@@ -247,7 +263,7 @@ def _bwd(name: str, x, w, mean, rstd, g):
         return (dx, dw) if rms else (dx, dw, db.zero_())
     per = _rows_per_block(rows, x.device)
     n_blocks = -(-rows // per)
-    part = torch.empty(((1 if rms else 2) * n_blocks, h), dtype=torch.float32,
+    part = torch.empty((1 if rms else 2) * n_blocks, h, dtype=torch.float32,
                        device=x.device)
     _launch("fused_norm_bwd", x.device, (
         x.data_ptr(), w.data_ptr(), None if rms else mean.data_ptr(),

@@ -32,7 +32,8 @@ from paddle_tpu_torch.kernels.decode_block import (SMEM_BUDGET, _gemv_smem,
                                                    plan_decode_block,
                                                    resolve_fused_decode)
 from paddle_tpu_torch.kernels.decode_block_tp import (
-    _pick_block_k_tp, decode_block_attn_tp, decode_block_attn_tp_reference,
+    _attn_tp_plan, _pick_block_k_tp, _split_smem, decode_block_attn_tp,
+    decode_block_attn_tp_reference,
     plan_decode_block_tp, ring_entry_hop, ring_entry_hop_reference,
     ring_entry_matmul, ring_exit_hop, ring_exit_hop_reference,
     ring_exit_matmul, tp_fused_block_layer)
@@ -308,23 +309,29 @@ def test_plan_shrinks_then_refuses():
     base = dict(max_seq=2048, hidden=4096, heads=32, kv_heads=32,
                 head_dim=128, ffn=16384, batch=8, itemsize=2, tp=2)
     roomy, why = plan_decode_block_tp(**base)
-    assert why is None and roomy["block_k"] == 64
+    assert why is None and roomy["block_k"] == 32
     assert sorted(roomy) == ["block_k", "smem_attn", "smem_hop"]
     assert plan_decode_block(**{k: v for k, v in base.items()}) == \
         (roomy, None)
-    # one source per tile: the attention tile is the one the kernel's
-    # wrapper picks, and the hop bytes are those of the launches the hops
-    # plan (decode_block's projection rule: in bf16 the stream kernel's
-    # plan, in f32 the K slice) at the four seams: QKV and MLP-up over
-    # hidden, out-proj over the local heads, MLP-down over the local ffn
-    assert roomy["block_k"] == _pick_block_k_tp(2048, 1, 128, 2,
-                                                SMEM_BUDGET)
+    # one source per tile: the attention tile and bytes are those of the
+    # launch the kernel's wrapper makes (bf16 at head_dim 128: the split
+    # kernel's 32-row TMA tile and its fixed shared memory; f32: the tile
+    # _pick_block_k_tp picks), and the hop bytes are those of the launches
+    # the hops plan (decode_block's projection rule: in bf16 the stream
+    # kernel's plan, in f32 the K slice) at the four seams: QKV and MLP-up
+    # over hidden, out-proj over the local heads, MLP-down over the local
+    # ffn
+    assert (roomy["block_k"], roomy["smem_attn"]) == \
+        _attn_tp_plan(2048, 1, 128, 2, SMEM_BUDGET) == \
+        (32, _split_smem(1, 128))
     seams = ((4096, 6144), (4096, 8192), (2048, 4096), (8192, 4096))
     assert roomy["smem_hop"] == max(plan_gemv(k, (n,), 4)[0]["smem"]
                                     for k, n in seams)
     assert roomy["smem_hop"] <= SMEM_BUDGET
     cap = _pick_block_f(4, SMEM_BUDGET)
     f32_plan, _ = plan_decode_block_tp(**dict(base, itemsize=4))
+    assert f32_plan["block_k"] == _pick_block_k_tp(2048, 1, 128, 4,
+                                                   SMEM_BUDGET)
     assert f32_plan["smem_hop"] == max(
         _gemv_smem(_k_slice(k, n, 4, 4, cap)[0], 4) for k, n in seams)
     # f32 tiles: the K/V stages shrink under a tighter budget; below the
@@ -338,7 +345,11 @@ def test_plan_shrinks_then_refuses():
     assert none is None and why.startswith("smem: tp attention residents")
     none, why = plan_decode_block_tp(smem_budget=20_000, **f32)
     assert none is None and why.startswith("smem: tp entry hop needs")
+    # a cache shorter than a tile: the split kernel's TMA boxes read past
+    # S as zeros and mask them; the f32 kernel's tile shrinks to the cache
     short, _ = plan_decode_block_tp(**dict(base, max_seq=16))
+    assert short["block_k"] == 32
+    short, _ = plan_decode_block_tp(**dict(f32, max_seq=16))
     assert short["block_k"] == 16
 
 

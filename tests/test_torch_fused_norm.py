@@ -117,6 +117,78 @@ def test_layer_norm_matches_pallas(rows, h, block, dtype):
     _ok(db.float(), jdb.astype(jnp.float32), 1e-4, dtype)
 
 
+def _ln_rows_model(x, w, b, n):
+    """y, mean, rstd of ``ln_fwd_rows_kernel`` (csrc/fused_norm.cu) in
+    its summation order, f32 numpy: a row of h = groups x n elements is
+    split over tpr threads (the least power of two with tpr x vpt >=
+    groups; vpt 4 groups a thread up to 512 groups, else 8), thread t
+    holding groups t, t + tpr, ...; each thread adds its groups' elements
+    in order, then an xor shuffle tree over min(tpr, 32) lanes, then the
+    row's warps in order.  The variance adds ``fma(d, d, acc)``, as the
+    compiler contracts ``acc += d * d``."""
+    rows, h = x.shape
+    groups = h // n
+    vpt = 4 if groups <= 512 else 8
+    tpr = 1
+    while tpr * vpt < groups:
+        tpr *= 2
+    held = np.arange(vpt * tpr)[None, :, None] < groups   # [1, slot, 1]
+
+    def layout(t):                                        # [rows, j, t, n]
+        pad = np.zeros((rows, vpt * tpr * n), np.float32)
+        pad[:, :h] = t
+        return pad.reshape(rows, vpt, tpr, n), held.reshape(1, vpt, tpr, 1)
+
+    def tree(s):                                          # [rows, tpr]
+        lanes = min(tpr, 32)
+        off = lanes // 2
+        while off:
+            s = (s + s[:, np.arange(tpr) ^ off]).astype(np.float32)
+            off //= 2
+        total = np.zeros(rows, np.float32)
+        for warp in range(max(1, tpr // 32)):
+            total = (total + s[:, warp * 32]).astype(np.float32)
+        return total
+
+    xs, mask = layout(x)
+    s = np.zeros((rows, tpr), np.float32)
+    for j in range(vpt):
+        for e in range(n):
+            s = (s + xs[:, j, :, e]).astype(np.float32)
+    mu = (tree(s) / np.float32(h)).astype(np.float32)
+    d = np.where(mask, xs - mu[:, None, None, None], 0).astype(np.float32)
+    s = np.zeros((rows, tpr), np.float32)
+    for j in range(vpt):
+        for e in range(n):
+            dd = d[:, j, :, e].astype(np.float64)
+            s = (dd * dd + s.astype(np.float64)).astype(np.float32)
+    var = (tree(s) / np.float32(h)).astype(np.float32)
+    rstd = (1 / np.sqrt(var.astype(np.float64) + EPS)).astype(np.float32)
+    y = ((x - mu[:, None]) * rstd[:, None] * w + b).astype(np.float32)
+    return y, mu, rstd
+
+
+# (h, elements a 16-byte group): 512 bf16 groups (128 threads a row, 4
+# groups each), 96 (32 x 3 of 4), 8 (2 x 4), the scalar instantiation at
+# 1000 and 777 (128 x 8, 7), f32 at 4096 (1024 groups, 128 x 8)
+@pytest.mark.parametrize("h,n,dtype", [
+    (4096, 8, torch.bfloat16), (768, 8, torch.bfloat16),
+    (64, 8, torch.bfloat16), (1000, 1, torch.bfloat16),
+    (777, 1, torch.bfloat16), (4096, 4, torch.float32)])
+def test_ln_fwd_row_order_model_within_the_limit(h, n, dtype):
+    """The LayerNorm forward kernel sums each row in another order than
+    the plain version: in that order y stays within the card's limit of
+    it (``chip_smoke.norm_excess``: 1e-5 x max(1, max |plain|), plus one
+    output ulp in bf16), and so do mean and rstd."""
+    (x, w, b, _), _ = _inputs(5, h, dtype, seed=h)
+    y32, mu, rstd = _ln_rows_model(x.float().numpy(), w.float().numpy(),
+                                   b.float().numpy(), n)
+    want, wmu, wrstd = fn.layer_norm_fwd_reference(x, w, b, EPS)
+    _ok(torch.as_tensor(y32).to(dtype).float(), want.float(), 1e-5, dtype)
+    _ok(mu, wmu[:, 0], 1e-5, torch.float32)
+    _ok(rstd, wrstd[:, 0], 1e-5, torch.float32)
+
+
 def test_saved_statistics_and_f32_weight_on_half_input():
     """The forward wrappers' statistics are f32 [rows, 1]; a float32
     weight on a bfloat16 input keeps y in bf16 and dw in f32."""
