@@ -1161,6 +1161,11 @@ def device_ms(fn, iters: int = 40) -> float:
     copy it launched, summed over ``iters`` calls under torch.profiler.
     Unlike ``time_ms`` it leaves out the gaps while the host enqueues the
     next call, which a small kernel behind a Python wrapper cannot hide."""
+    return sum(device_ms_by_kernel(fn, iters).values())
+
+
+def device_ms_by_kernel(fn, iters: int = 40) -> dict:
+    """``device_ms`` of ``fn`` split by kernel name (ms a call)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -1171,7 +1176,7 @@ def device_ms(fn, iters: int = 40) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return sum(kernel_ms(prof).values()) / iters
+    return {k: ms / iters for k, ms in kernel_ms(prof).items()}
 
 
 def _cycled(make, n: int = 4):
@@ -1645,6 +1650,10 @@ NORM_KERNELS = ("rms_norm_fwd", "rms_norm_bwd", "layer_norm_fwd",
 NORM_EPS = 1e-5
 # the norm kernels' timed rows of x [rows, 4096] bf16
 NORM_SHAPES = {"decode": 8, "prefill": 512, "train": 4096}
+# norm_times' rows and dtypes: the three bf16 shapes, and the train rows
+# in f32
+NORM_TIMED = {**{k: (rows, "bfloat16") for k, rows in NORM_SHAPES.items()},
+              "train_f32": (4096, "float32")}
 _MANTISSA = {"bfloat16": 7, "float16": 10}
 
 
@@ -1710,15 +1719,28 @@ def norm_calls(x, w, b, gy):
                                ("db", ldb, rldb, 1e-4)]}
 
 
+# the sweep's rows too long for a backward row held in registers (and
+# the lengths on either side of that limit): h 4097 (scalar), 4100 (f32),
+# 8192 / 8200 (16-bit), and LayerNorm's 32768 and RMSNorm's 65536, which
+# the backward refused before it summed dw / db outside shared memory
+NORM_LONG_H = (4097, 4100, 8192, 8200, 32768, 65536)
+# the new backward kernels' instantiations: the row kernel and the long-
+# row kernel (5 dtype pairs x vector or scalar x RMS or LN each) and the
+# column sum (3 weight dtypes)
+NORM_BWD_KERNELS = 43
+
+
 def phase_norm_kernels(card: str):
     """Hold the four fused-norm kernels against their plain versions over
-    the sweep (rows 1, 3, 8, 512, 4096 x h 64, 768, 4096, 1000 and 777 x
-    f32 / bf16 / f16, bf16 also with f32 weights), check that two
-    backward runs agree bit for bit (no atomics), then time each kernel
-    at the decode [8, 4096], prefill-chunk [512, 4096] and train
-    [4096, 4096] bf16 shapes beside its plain version, its bound and
-    PyTorch's own norm (forward, and its autograd backward).  Returns the
-    four kernels' records (without launches)."""
+    the sweep (rows 1, 3, 8, 512, 4096 x h 64, 768, 4096, 1000 and 777,
+    and rows 1, 7, 300 x the ``NORM_LONG_H`` lengths, x f32 / bf16 / f16,
+    bf16 also with f32 weights), check that two backward runs and a CUDA
+    graph's replay agree bit for bit (no atomics), that no instantiation
+    of the LayerNorm forward's or the backward's register kernels spills,
+    then time each kernel at the decode [8, 4096], prefill-chunk
+    [512, 4096] and train [4096, 4096] bf16 shapes beside its plain
+    version, its bound and PyTorch's own norm (forward, and its autograd
+    backward).  Returns the four kernels' records (without launches)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import _build, sass
@@ -1735,34 +1757,37 @@ def phase_norm_kernels(card: str):
 
     worst = {}
     n = 0
+    cases = [(rows, h) for rows in (1, 3, 8, 512, 4096)
+             for h in (64, 768, 4096, 1000, 777)]
+    cases += [(rows, h) for rows in (1, 7, 300) for h in NORM_LONG_H]
     for dtype in (torch.float32, torch.bfloat16, torch.float16):
         wdtypes = (dtype, torch.float32) if dtype == torch.bfloat16 \
             else (dtype,)
         for wdtype in wdtypes:
-            for rows in (1, 3, 8, 512, 4096):
-                for h in (64, 768, 4096, 1000, 777):
-                    calls = norm_calls(*inputs(rows, h, dtype, wdtype))
-                    what = f"x {dtype} w {wdtype} rows={rows} h={h}"
-                    for kernel, outs in calls.items():
-                        for out, got, want, rel in outs:
-                            excess = norm_excess(got, want, rel)
-                            if excess > 0:
-                                err = (got.float() - want.float()).abs() \
-                                    .max().item()
-                                raise AssertionError(
-                                    f"{kernel} {out} disagrees with its "
-                                    f"plain version: {what} max_abs_err "
-                                    f"{err} (beyond tolerance by {excess})")
-                            key = (f"{kernel} {out} "
-                                   f"{str(dtype).replace('torch.', '')}")
-                            err = (got.float() - want.float()).abs().max() \
-                                .item()
-                            worst[key] = max(worst.get(key, 0.0), err)
-                    n += 1
+            for rows, h in cases:
+                calls = norm_calls(*inputs(rows, h, dtype, wdtype))
+                what = f"x {dtype} w {wdtype} rows={rows} h={h}"
+                for kernel, outs in calls.items():
+                    for out, got, want, rel in outs:
+                        excess = norm_excess(got, want, rel)
+                        if excess > 0:
+                            err = (got.float() - want.float()).abs() \
+                                .max().item()
+                            raise AssertionError(
+                                f"{kernel} {out} disagrees with its "
+                                f"plain version: {what} max_abs_err "
+                                f"{err} (beyond tolerance by {excess})")
+                        key = (f"{kernel} {out} "
+                               f"{str(dtype).replace('torch.', '')}")
+                        err = (got.float() - want.float()).abs().max() \
+                            .item()
+                        worst[key] = max(worst.get(key, 0.0), err)
+                n += 1
     log(f"[norm-kernels] sweep: {n} cases (rows 1/3/8/512/4096 x h "
-        f"64/768/4096/1000/777 x f32, bf16, bf16 with f32 weights, f16) "
-        f"within tolerance (over max(1, max |plain|): f32 1e-5, 16-bit "
-        f"1e-5 plus one output ulp, dw/db 1e-4); max abs err "
+        f"64/768/4096/1000/777 and rows 1/7/300 x h {NORM_LONG_H}, x f32, "
+        f"bf16, bf16 with f32 weights, f16) within tolerance (over "
+        f"max(1, max |plain|): f32 1e-5, 16-bit 1e-5 plus one output ulp, "
+        f"dw/db 1e-4); max abs err "
         f"{json.dumps(worst)}")
 
     x, w, b, gy = inputs(4096, 4096, torch.bfloat16, torch.bfloat16)
@@ -1784,13 +1809,33 @@ def phase_norm_kernels(card: str):
                 fn.layer_norm_fwd(xs, w, b, NORM_EPS))):
             raise AssertionError(f"two runs of layer_norm_fwd at [{rows}, "
                                  f"4096] bf16 differ")
-    log("[norm-kernels] two backward runs at [4096, 4096] bf16 agree bit "
-        "for bit (dx, dw, db), and two layer_norm_fwd runs at [8, 4096] and "
-        "[4096, 4096] (y, mean, rstd)")
-    # the LayerNorm forward holds its rows in registers: no spills
-    ln_sass = sass.instruction_counts(
-        str(_build._library_path("fused_norm")), "ln_fwd_rows_kernel",
-        ("STL", "LDL"))
+    # a CUDA graph of both backwards replays to the eager calls' bits
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn.rms_norm_bwd(x, w, rstd, gy)  # warm
+        fn.layer_norm_bwd(x, w, mean, lrstd, gy)
+    torch.cuda.current_stream().wait_stream(side)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=side):
+        captured = (fn.rms_norm_bwd(x, w, rstd, gy),
+                    fn.layer_norm_bwd(x, w, mean, lrstd, gy))
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, c in zip(first, captured):
+        if not all(torch.equal(p, q) for p, q in zip(a, c)):
+            raise AssertionError("a CUDA graph of the norm backwards does "
+                                 "not replay to the eager calls' bits")
+    del graph, captured
+    log("[norm-kernels] two backward runs at [4096, 4096] bf16 and a CUDA "
+        "graph's replay of both agree bit for bit (dx, dw, db), and two "
+        "layer_norm_fwd runs at [8, 4096] and [4096, 4096] (y, mean, rstd)")
+    # the LayerNorm forward and the backward hold their rows in registers:
+    # no spills
+    lib = str(_build._library_path("fused_norm"))
+    ln_sass = sass.instruction_counts(lib, "ln_fwd_rows_kernel",
+                                      ("STL", "LDL"))
     if len(ln_sass) != 30 or any(c["STL"] or c["LDL"]
                                  for c in ln_sass.values()):
         raise AssertionError(f"ln_fwd_rows_kernel's 30 instantiations (5 "
@@ -1798,6 +1843,16 @@ def phase_norm_kernels(card: str):
                              f"groups a thread in one wave, and the vector "
                              f"ones' walk) must hold no STL / LDL: "
                              f"{json.dumps(ln_sass)}")
+    bwd_sass = sass.instruction_counts(lib, "norm_bwd_", ("STL", "LDL"))
+    if len(bwd_sass) != NORM_BWD_KERNELS or any(
+            c["STL"] or c["LDL"] for c in bwd_sass.values()):
+        raise AssertionError(f"the backward's {NORM_BWD_KERNELS} "
+                             f"instantiations (norm_bwd_rows_kernel, "
+                             f"norm_bwd_long_kernel, norm_bwd_sum_kernel) "
+                             f"must hold no STL / LDL: "
+                             f"{json.dumps(bwd_sass)}")
+    log(f"[norm-kernels] no STL / LDL in the {len(ln_sass)} "
+        f"ln_fwd_rows_kernel and {len(bwd_sass)} backward instantiations")
 
     lib_rms = getattr(F, "rms_norm", None)
     recs = {k: {"shapes": {}} for k in NORM_KERNELS}
@@ -1853,18 +1908,24 @@ def phase_norm_kernels(card: str):
         rec.update(rec["shapes"]["train"])
         rec["sweep_max_abs_err"] = {k: e for k, e in worst.items()
                                     if k.startswith(name + " ")}
-    ln = recs["layer_norm_fwd"]
-    ln["sass_spills"] = {k: c["STL"] + c["LDL"] for k, c in ln_sass.items()}
-    # events, device and host time on 4 copies of x in turn, beside
-    # F.layer_norm's
-    ln["cycled"] = norm_times()
-    for shape, t in ln["cycled"].items():
-        log(f"[norm-kernels] layer_norm_fwd x [{t['rows']},4096] bf16, 4 "
-            f"copies in turn: kernel {t['ms']:.4f} ms (device "
-            f"{t['device_ms']:.4f}, host {t['host_us']:.2f} us a call), "
-            f"F.layer_norm {t['library_ms']:.4f} ms (device "
-            f"{t['library_device_ms']:.4f}, host {t['library_host_us']:.2f} "
-            f"us), bound {t['bound_ms']:.4f} ms (card: {card})")
+    recs["layer_norm_fwd"]["sass_spills"] = {
+        k: c["STL"] + c["LDL"] for k, c in ln_sass.items()}
+    for name in ("rms_norm_bwd", "layer_norm_bwd"):
+        recs[name]["sass_spills"] = {k: c["STL"] + c["LDL"]
+                                     for k, c in bwd_sass.items()}
+    # events, device and host time on 4 copies of x (and g) in turn,
+    # beside the library's
+    for name, times in norm_times().items():
+        recs[name]["cycled"] = times
+        for shape, t in times.items():
+            lib = {k: t[f"library_{k}"] for k in ("ms", "device_ms",
+                                                  "host_us")}
+            log(f"[norm-kernels] {name} x [{t['rows']},4096] {t['dtype']}, "
+                f"4 copies in turn: kernel {t['ms']:.4f} ms (device "
+                f"{t['device_ms']:.4f}, host {t['host_us']:.2f} us a call), "
+                f"library {json.dumps(lib)}, bound {t['bound_ms']:.4f} ms; "
+                f"device ms by kernel {json.dumps(t['device_by_kernel'])} "
+                f"(card: {card})")
     torch.cuda.empty_cache()
     return recs
 
@@ -3615,8 +3676,7 @@ def profile_train(step, ids, labels, card: str, family: str) -> dict:
              "flash": ("fwd_wgmma_kernel", "dq_wgmma_kernel",
                        "dkv_wgmma_kernel"),
              "adamw": ("adamw_kernel",),
-             "norm": ("rms_fwd_kernel", "ln_fwd_kernel", "norm_bwd_kernel",
-                      "column_sum_kernel")}
+             "norm": ("rms_fwd_kernel", "ln_fwd_", "norm_bwd_")}
     by_kind = {kind: 0.0 for kind in (*kinds, "other")}
     for name, ms in kernels.items():
         kind = next((k for k, pats in kinds.items()
@@ -3920,10 +3980,14 @@ def block_times() -> dict:
 
 
 def norm_times() -> dict:
-    """``layer_norm_fwd`` and ``F.layer_norm`` on x [rows, 4096] bf16 at
-    the decode, prefill-chunk and train rows, on 4 copies of x in turn
-    (the train shape's then stream from device memory): each one's events
-    ms, device ms and host µs a call (``host_us``), in one process."""
+    """``layer_norm_fwd`` beside ``F.layer_norm``, and ``rms_norm_bwd`` /
+    ``layer_norm_bwd`` beside the autograd backward of ``F.rms_norm`` /
+    ``F.layer_norm``, on x (and g) [rows, 4096] at ``NORM_TIMED``'s rows
+    and dtypes (bf16 at the decode, prefill-chunk and train rows, f32 at
+    the train rows), on 4 copies in turn (the train shape's then stream
+    from device memory): each one's events ms, device ms (and its split
+    by kernel) and host µs a call (``host_us``), and the bound, in one
+    process, as ``{kernel: {shape: record}}``."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import fused_norm as fn
@@ -3931,28 +3995,74 @@ def norm_times() -> dict:
     g = torch.Generator(device=dev)
     g.manual_seed(23)
     h = 4096
-    out = {}
-    for shape, rows in NORM_SHAPES.items():
-        items, nxt = _cycled(lambda: (
-            torch.randn((rows, h), generator=g, device=dev) * 2 + 0.5
-        ).to(torch.bfloat16))
-        w = (torch.randn(h, generator=g, device=dev) * 0.5 + 1).to(
-            torch.bfloat16)
-        b = (torch.randn(h, generator=g, device=dev) * 0.3).to(torch.bfloat16)
+    lib_rms = getattr(F, "rms_norm", None)
+    out = {"layer_norm_fwd": {}, "rms_norm_bwd": {}, "layer_norm_bwd": {}}
+    for shape, (rows, dname) in NORM_TIMED.items():
+        dtype = getattr(torch, dname)
+        w = (torch.randn(h, generator=g, device=dev) * 0.5 + 1).to(dtype)
+        b = (torch.randn(h, generator=g, device=dev) * 0.3).to(dtype)
 
-        def kern():
-            return fn.layer_norm_fwd(nxt(), w, b, NORM_EPS)
+        def make():
+            x = (torch.randn((rows, h), generator=g, device=dev) * 2
+                 + 0.5).to(dtype)
+            gy = torch.randn((rows, h), generator=g, device=dev).to(dtype)
+            _, rstd = fn.rms_norm_fwd_reference(x, w, NORM_EPS)
+            _, mean, lrstd = fn.layer_norm_fwd_reference(x, w, b, NORM_EPS)
+            xr, wr, br = (t.detach().requires_grad_() for t in (x, w, b))
+            return {"x": x, "g": gy, "rstd": rstd, "mean": mean,
+                    "lrstd": lrstd, "leaves": (xr, wr, br),
+                    "ln_y": F.layer_norm(xr, (h,), wr, br, NORM_EPS),
+                    "rms_y": None if lib_rms is None else
+                    lib_rms(xr, (h,), wr, NORM_EPS)}
+        items, nxt = _cycled(make)
 
-        def lib():
-            return F.layer_norm(nxt(), (h,), w, b, NORM_EPS)
-        host = host_us({"layer_norm_fwd": kern, "F.layer_norm": lib})
-        out[shape] = {
-            "rows": rows, "ms": time_ms(kern), "device_ms": device_ms(kern),
-            "host_us": host["layer_norm_fwd"],
-            "library_ms": time_ms(lib), "library_device_ms": device_ms(lib),
-            "library_host_us": host["F.layer_norm"],
-            "bound_ms": norm_bound("layer_norm_fwd", rows, h, 2, 2)[0]}
+        def ln_fwd():
+            return fn.layer_norm_fwd(nxt()["x"], w, b, NORM_EPS)
+
+        def ln_fwd_lib():
+            return F.layer_norm(nxt()["x"], (h,), w, b, NORM_EPS)
+
+        def rms_bwd():
+            c = nxt()
+            return fn.rms_norm_bwd(c["x"], w, c["rstd"], c["g"])
+
+        def rms_bwd_lib():
+            c = nxt()
+            return torch.autograd.grad(c["rms_y"], c["leaves"][:2], c["g"],
+                                       retain_graph=True)
+
+        def ln_bwd():
+            c = nxt()
+            return fn.layer_norm_bwd(c["x"], w, c["mean"], c["lrstd"],
+                                     c["g"])
+
+        def ln_bwd_lib():
+            c = nxt()
+            return torch.autograd.grad(c["ln_y"], c["leaves"], c["g"],
+                                       retain_graph=True)
+        for name, kern, lib in (
+                ("layer_norm_fwd", ln_fwd, ln_fwd_lib),
+                ("rms_norm_bwd", rms_bwd,
+                 None if lib_rms is None else rms_bwd_lib),
+                ("layer_norm_bwd", ln_bwd, ln_bwd_lib)):
+            calls = {"kernel": kern} if lib is None else {"kernel": kern,
+                                                          "library": lib}
+            host = host_us(calls)
+            by_kernel = device_ms_by_kernel(kern)
+            es = dtype.itemsize
+            rec = {"rows": rows, "dtype": dname, "ms": time_ms(kern),
+                   "device_ms": sum(by_kernel.values()),
+                   "device_by_kernel": {k[:80]: v
+                                        for k, v in by_kernel.items()},
+                   "host_us": host["kernel"],
+                   "bound_ms": norm_bound(name, rows, h, es, es)[0]}
+            rec.update({"library_ms": None, "library_device_ms": None,
+                        "library_host_us": None} if lib is None else {
+                "library_ms": time_ms(lib), "library_device_ms":
+                device_ms(lib), "library_host_us": host["library"]})
+            out[name][shape] = rec
         del items
+    torch.cuda.empty_cache()
     return out
 
 
@@ -4099,16 +4209,20 @@ def serve_ab(parent: str) -> int:
             slower += [f"{model} {key}"] if c > p else []
             log(f"[serve-ab] decode_block_attn_tp at the {model} tp={TP} "
                 f"shard ({key}): {p:.4f} -> {c:.4f} ms ({c / p:.3f}x)")
-    for shape in NORM_SHAPES:
-        for key in ("device_ms", "ms", "host_us", "library_device_ms",
-                    "library_ms", "library_host_us"):
-            p = med("parent", lambda r: r["norm"][shape][key])
-            c = med("change", lambda r: r["norm"][shape][key])
-            if key in ("device_ms", "ms"):
-                slower += [f"layer_norm_fwd {shape} {key}"] if c > p else []
-            log(f"[serve-ab] layer_norm_fwd {shape} "
-                f"x [{results[0]['norm'][shape]['rows']},4096] {key}: "
-                f"parent {p:.4f} -> change {c:.4f}")
+    for name, times in results[0]["norm"].items():
+        for shape, t0 in times.items():
+            for key in ("device_ms", "ms", "host_us", "library_device_ms",
+                        "library_ms", "library_host_us"):
+                p = med("parent", lambda r: r["norm"][name][shape][key])
+                c = med("change", lambda r: r["norm"][name][shape][key])
+                if key in ("device_ms", "ms") and c > p:
+                    slower.append(f"{name} {shape} {key}")
+                log(f"[serve-ab] {name} {shape} x [{t0['rows']},4096] "
+                    f"{t0['dtype']} {key}: parent {p} -> change {c}")
+            for r in results:
+                split = r["norm"][name][shape]["device_by_kernel"]
+                log(f"[serve-ab] {r['side']} {name} {shape} device ms by "
+                    f"kernel: {json.dumps(split)}")
     for name in results[0]["block"]["host_us"]:
         p = med("parent", lambda r: r["block"]["host_us"][name])
         c = med("change", lambda r: r["block"]["host_us"][name])
@@ -4151,9 +4265,9 @@ def sass_ab(parent: str) -> dict:
     """The kernels this change leaves as they were, instruction for
     instruction against the parent's build (``kernels.sass.compare``):
     the f32 GEMV and the decode block's other kernels, the sharded
-    block's GEMV (the ring hops) and f32 attention, the norm kernels
-    other than the LayerNorm forward's register kernel, and every
-    instantiation of flash_attention.cu and decode_attention.cu."""
+    block's GEMV (the ring hops) and f32 attention, the norm forward
+    kernels, and every instantiation of flash_attention.cu and
+    decode_attention.cu."""
     import glob
     from paddle_tpu_torch.kernels import _build, sass
     out = {}
@@ -4161,8 +4275,8 @@ def sass_ab(parent: str) -> dict:
             ("decode_block", ["gemv_kernelIf", "attn_", "row_stats"]),
             ("decode_block_tp", ["gemv_kernelIf", "gemv_stream_kernel",
                                  "attn_tp_kernelIf"]),
-            ("fused_norm", ["rms_fwd_kernel", "norm_bwd_kernel",
-                            "column_sum_kernel", "ln_fwd_kernel"]),
+            ("fused_norm", ["rms_fwd_kernel", "ln_fwd_rows_kernel",
+                            "ln_fwd_kernel"]),
             ("flash_attention", [""]), ("decode_attention", [""])):
         old = sorted(glob.glob(os.path.join(
             parent, "paddle_tpu_torch", "kernels", "_build",
@@ -4339,6 +4453,12 @@ def main() -> int:
             # rows in registers; a row over 1024 16-byte groups re-read
             kernels[-1]["kernels"] = ["ln_fwd_rows_kernel",
                                       "ln_fwd_kernel (rows over 1024 groups)"]
+        if name.endswith("bwd"):
+            # rows in registers (a row over 512 x 2 16-byte groups or 512 x
+            # 8 scalars re-read), then the column sum of the partial rows
+            kernels[-1]["kernels"] = [
+                "norm_bwd_rows_kernel", "norm_bwd_long_kernel (longer rows)",
+                "norm_bwd_sum_kernel"]
     # the sharded decode block's kernels: launched on the tp_fused_block
     # rung only (the tp_fused rung runs decode_attention)
     tp_launches = {"tp_fused_block": tp_runs["gpt"]["tp_fused_block"][0],

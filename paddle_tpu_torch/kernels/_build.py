@@ -98,9 +98,12 @@ _SIGNATURES = {
         "fused_norm_bwd": (
             [_P, _P, _P, _P, _P, _P, _P, _P, _P,   # x, w, mean, rstd, g,
                                                    # dx, dw, db, part
-             _I, _I, _I, _I, _I, _I,        # rms, x/w dtype, rows, h,
-                                            # rows per block
+             _I, _I, _I, _I, _I,            # rms, x/w dtype, rows, h
+             _I, _I,                        # log2 threads a row, blocks
              _I, _P],                       # vec, stream
+            _I),
+        "fused_norm_bwd_blocks": (
+            [_I, _I, _I, _I, _I],           # rms, x/w dtype, vec, long rows
             _I),
     },
     "fused_adamw": {

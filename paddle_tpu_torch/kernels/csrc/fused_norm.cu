@@ -25,23 +25,27 @@
 //     many rows, the next row's loads in flight while the current one is
 //     reduced; a row too long for registers (more than 1024 groups) takes
 //     ln_fwd_kernel, which re-reads it;
-//   * RMSNorm forward and both backwards: one block of up to 256 threads
-//     per row (forward) or per run of rows (backward); device memory is
-//     read once: the passes over a row after the first re-read it from
-//     L1/L2, where the first pass left it;
+//   * RMSNorm forward: one block of up to 256 threads per row; device
+//     memory is read once: the second pass re-reads the row from L1/L2;
+//   * both backwards (norm_bwd_rows_kernel): as the LayerNorm forward's
+//     walk, x and g read once into packed registers by segments of up to
+//     512 threads, w held, the next row in flight; dw / db summed in f32
+//     registers, the same columns on every row of the walk; a row too
+//     long for registers takes norm_bwd_long_kernel;
 //   * row sums are warp shuffles, then one shared-memory step across the
 //     row's warps, summed by every thread in the same order.
 // The TPU kernels carry dw / db in one output block across their
 // sequential grid.  CUDA blocks run in parallel, so the backward is two
-// passes with no atomics (the sums are deterministic): pass 1 writes each
-// block's f32 column partials [n_blocks, h] (each thread accumulates its
-// own columns in shared memory across the block's rows); pass 2 sums them
-// per column in block order and casts to w's dtype.
-//
+// launches with no atomics (the sums are deterministic): the row kernel
+// writes one f32 partial row of dw (and db) a block, [blocks, h], and
+// norm_bwd_sum_kernel sums them per column in a fixed order and casts to
+// w's dtype.
+
 // The affine and dx expressions use explicitly rounded f32 operations
 // (__fmul_rn, __fadd_rn, __fsub_rn) in the reference's order, so the
 // compiler does not contract them into FMAs: the kernels then differ from
-// the plain PyTorch versions only in the order of the row and column sums.
+// the plain PyTorch versions only in the order of the row and column sums
+// (the backward's sums of g w xhat and g xhat are explicit __fmaf_rn).
 
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
@@ -409,107 +413,313 @@ ln_fwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
   }
 }
 
-// ------------------------------------------------------ backward pass 1
-// rows [blockIdx.x * rows_per_block, +rows_per_block) of one block: dx for
-// each row, and the block's dw (and db) column partials, accumulated by
-// each thread for its own columns in shared memory laid out [N][groups]
-// (column i*N + j at j*groups + i: neighbouring threads, neighbouring
-// banks), then written to part[blockIdx.x, :] (and part[n_blocks + .., :]).
-template <typename T, typename W, int N, bool RMS>
-__global__ void __launch_bounds__(kMaxThreads)
-norm_bwd_kernel(const T* __restrict__ x, const W* __restrict__ w,
-                const float* __restrict__ mean, const float* __restrict__ rstd,
-                const T* __restrict__ g, T* __restrict__ dx,
-                float* __restrict__ part, int rows, int h,
-                int rows_per_block) {
-  __shared__ float red[kMaxWarps * 2];
-  extern __shared__ float acc[];  // h floats (dw), then h more (db, LN)
-  float* acc_w = acc;
-  float* acc_b = acc + h;
+// ------------------------------------------------------------ backward
+// Each row read from device memory once, into registers; dw / db summed in
+// registers; then one column sum over the blocks' partial rows.
+//
+// norm_bwd_rows_kernel: a block of kBwdThreads threads walks rows in
+// segments of tpr = 1 << tpr_log2 threads (R = kBwdThreads / tpr rows at
+// a time); thread t of a segment holds the row's 16-byte groups t, t +
+// tpr, ... (VPT of them, those below h / N) of x and g, packed as loaded
+// (group_float converts at each use, so the compiler keeps no converted
+// row alive), and of w for the whole walk.  Blocks number what fits on
+// the card at once (the wrapper's plan), each walking rows blockIdx.x * R
+// + segment, + gridDim.x * R, ...; the next row's x, g and statistics are
+// loaded while the current row is reduced and its dx stored.  A thread
+// adds g xhat (and g) of its own columns, the same on every row, into f32
+// registers; at the end the block's segments add theirs in segment order
+// through shared memory and the block writes one partial row of dw (and
+// one of db).
+// norm_bwd_long_kernel: a row of more than kBwdThreads * VPT groups, one
+// row a block at a time, re-read from L1/L2 for dx; each thread adds its
+// own columns straight into its block's partial row in device memory.
+// norm_bwd_sum_kernel: dw (and db, the same launch) = the partial rows
+// summed per column: 32 columns a block, warp k adding rows k, k + 16,
+// ... in order (their loads issued together), then the 16 warps in order.
+// No atomics: two runs, and a CUDA graph's replay, give the same bits.
+// Sums in both row kernels: each thread adds its groups' elements in
+// order (fmaf for g w xhat), an xor shuffle tree over the segment's
+// lanes, then (tpr > 32) the segment's warps in order.
+// The row kernels declare a minimum of one block an SM: left free, ptxas
+// held the scalar instantiations to 64 registers (two blocks an SM) and
+// spilled a few bytes.
+constexpr int kBwdThreads = 512;
+constexpr int kBwdWarps = kBwdThreads / 32;
+constexpr int kBwdCols = 16;  // most columns a thread holds (VPT x N)
+constexpr int kSumWarps = 16;
+
+// groups a thread holds: 2 of 16 bytes, or 8 scalars
+template <int N> constexpr int kBwdVpt = N > 1 ? 2 : 8;
+
+// v[0..K) summed over each segment's tpr threads, in every thread of the
+// segment; red holds K x kBwdWarps floats.  Callers alternate two red
+// buffers, so one barrier a call keeps a row's readers ahead of the next
+// row's writers.  Every thread of the block calls it.
+template <int K>
+__device__ __forceinline__ void seg_sum(float (&v)[K], int tpr, float* red) {
+  for (int off = (tpr < 32 ? tpr : 32) >> 1; off > 0; off >>= 1) {
+#pragma unroll
+    for (int k = 0; k < K; ++k)
+      v[k] += __shfl_xor_sync(0xffffffffu, v[k], off);
+  }
+  if (tpr > 32) {
+    const int warp = threadIdx.x >> 5, per_row = tpr >> 5;
+    if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+      for (int k = 0; k < K; ++k) red[k * kBwdWarps + warp] = v[k];
+    }
+    __syncthreads();
+    const int w0 = warp / per_row * per_row;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      float s = 0.f;
+      for (int w = 0; w < per_row; ++w) s += red[k * kBwdWarps + w0 + w];
+      v[k] = s;
+    }
+  }
+}
+
+template <bool RMS>
+__device__ __forceinline__ float bwd_xhat(float x, float mu, float rs) {
+  return RMS ? __fmul_rn(x, rs) : __fmul_rn(__fsub_rn(x, mu), rs);
+}
+
+// dx of one element: rstd (g w - xhat mean(g w xhat)) for RMSNorm,
+// rstd (g w - mean(g w) - xhat mean(g w xhat)) for LayerNorm
+template <bool RMS>
+__device__ __forceinline__ float bwd_dx(float gw, float xhat, float rs,
+                                        float mean_gx, float mean_gw) {
+  const float inner =
+      RMS ? __fsub_rn(gw, __fmul_rn(xhat, mean_gx))
+          : __fsub_rn(__fsub_rn(gw, mean_gw), __fmul_rn(xhat, mean_gx));
+  return __fmul_rn(rs, inner);
+}
+
+template <typename T, typename W, int N, int VPT, bool RMS>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+norm_bwd_rows_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                     const float* __restrict__ mean,
+                     const float* __restrict__ rstd, const T* __restrict__ g,
+                     T* __restrict__ dx, float* __restrict__ part, int rows,
+                     int h, int tpr_log2) {
+  using XG = typename Packed<T, N>::type;
+  using WG = typename Packed<W, N>::type;
+  constexpr int K = RMS ? 1 : 2;
+  __shared__ float red[2][K * kBwdWarps];
+  __shared__ float cols[kBwdThreads * kBwdCols];
+  const int tpr = 1 << tpr_log2, per_block = kBwdThreads >> tpr_log2;
+  const int t = threadIdx.x & (tpr - 1), seg = threadIdx.x >> tpr_log2;
   const int groups = h / N;
-  for (int c = threadIdx.x; c < (RMS ? h : 2 * h); c += blockDim.x)
-    acc[c] = 0.f;
-  __syncthreads();  // from here each thread touches only its own columns
-  const int r0 = blockIdx.x * rows_per_block;
-  const int r1 = min(rows, r0 + rows_per_block);
-  for (int r = r0; r < r1; ++r) {
-    const long long off = (long long)r * h;
+  auto load_row = [&](int row, XG (&xd)[VPT], XG (&gd)[VPT], float& mu,
+                      float& rs) {
+    if (row < rows) {
+      const long long off = (long long)row * h;
+      const XG* xr = reinterpret_cast<const XG*>(x + off);
+      const XG* gr = reinterpret_cast<const XG*>(g + off);
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        const int gi = t + j * tpr;
+        if (gi < groups) {
+          xd[j] = xr[gi];
+          gd[j] = gr[gi];
+        }
+      }
+      rs = rstd[row];
+      if (!RMS) mu = mean[row];
+    }
+  };
+  WG wr[VPT];
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+    const int gi = t + j * tpr;
+    if (gi < groups) wr[j] = reinterpret_cast<const WG*>(w)[gi];
+  }
+  float aw[VPT][N], ab[VPT][N];
+#pragma unroll
+  for (int j = 0; j < VPT; ++j) {
+#pragma unroll
+    for (int e = 0; e < N; ++e) aw[j][e] = ab[j][e] = 0.f;
+  }
+  int row = blockIdx.x * per_block + seg;
+  XG xa[VPT], ga[VPT];
+  float mu = 0.f, rs = 0.f;
+  load_row(row, xa, ga, mu, rs);
+  // uniform over the block (shuffles and barriers inside)
+  const int stride = gridDim.x * per_block;
+  int parity = 0;
+  for (int base = blockIdx.x * per_block; base < rows;
+       base += stride, row += stride, parity ^= 1) {
+    XG xn[VPT], gn[VPT];
+    float mun = 0.f, rsn = 0.f;
+    load_row(row + stride, xn, gn, mun, rsn);
+    const bool live = row < rows;
+    float s[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) s[k] = 0.f;
+    if (live) {
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        if (t + j * tpr < groups) {
+#pragma unroll
+          for (int e = 0; e < N; ++e) {
+            const float xhat = bwd_xhat<RMS>(group_float<T>(xa[j], e), mu, rs);
+            const float gw =
+                __fmul_rn(group_float<T>(ga[j], e), group_float<W>(wr[j], e));
+            s[0] = __fmaf_rn(gw, xhat, s[0]);
+            if (!RMS) s[K - 1] = __fadd_rn(s[K - 1], gw);
+          }
+        }
+      }
+    }
+    seg_sum<K>(s, tpr, red[parity]);
+    const float mean_gx = s[0] / (float)h;
+    const float mean_gw = RMS ? 0.f : s[K - 1] / (float)h;
+    if (live) {
+      T* dxr = dx + (long long)row * h;
+#pragma unroll
+      for (int j = 0; j < VPT; ++j) {
+        const int gi = t + j * tpr;
+        if (gi < groups) {
+          Vec<T, N> o;
+#pragma unroll
+          for (int e = 0; e < N; ++e) {
+            const float gv = group_float<T>(ga[j], e);
+            const float xhat = bwd_xhat<RMS>(group_float<T>(xa[j], e), mu, rs);
+            const float gw = __fmul_rn(gv, group_float<W>(wr[j], e));
+            o.v[e] = from_float<T>(bwd_dx<RMS>(gw, xhat, rs, mean_gx, mean_gw));
+            aw[j][e] = __fmaf_rn(gv, xhat, aw[j][e]);
+            if (!RMS) ab[j][e] = __fadd_rn(ab[j][e], gv);
+          }
+          reinterpret_cast<Vec<T, N>*>(dxr)[gi] = o;
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      xa[j] = xn[j];
+      ga[j] = gn[j];
+    }
+    mu = mun;
+    rs = rsn;
+  }
+  // the block's partial rows: column c of segment s at cols[s * h + c]
+  // (per_block x h <= kBwdThreads x VPT x N floats), then each column
+  // summed in segment order
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    if (k) __syncthreads();  // the dw readers are done with cols
+#pragma unroll
+    for (int j = 0; j < VPT; ++j) {
+      const int gi = t + j * tpr;
+      if (gi < groups) {
+#pragma unroll
+        for (int e = 0; e < N; ++e)
+          cols[seg * h + gi * N + e] = k ? ab[j][e] : aw[j][e];
+      }
+    }
+    __syncthreads();
+    float* out = part + ((long long)k * gridDim.x + blockIdx.x) * h;
+    for (int c = threadIdx.x; c < h; c += kBwdThreads) {
+      float v = cols[c];
+      for (int s2 = 1; s2 < per_block; ++s2) v += cols[s2 * h + c];
+      out[c] = v;
+    }
+  }
+}
+
+template <typename T, typename W, int N, bool RMS>
+__global__ void __launch_bounds__(kBwdThreads, 1)
+norm_bwd_long_kernel(const T* __restrict__ x, const W* __restrict__ w,
+                     const float* __restrict__ mean,
+                     const float* __restrict__ rstd, const T* __restrict__ g,
+                     T* __restrict__ dx, float* __restrict__ part, int rows,
+                     int h) {
+  constexpr int K = RMS ? 1 : 2;
+  __shared__ float red[2][K * kBwdWarps];
+  const int groups = h / N;
+  float* pw = part + (long long)blockIdx.x * h;
+  float* pb = part + ((long long)gridDim.x + blockIdx.x) * h;
+  bool first = true;
+  int parity = 0;
+  for (int row = blockIdx.x; row < rows; row += gridDim.x, parity ^= 1) {
+    const long long off = (long long)row * h;
     const T* xr = x + off;
     const T* gr = g + off;
-    T* dxr = dx + off;
-    const float rs = rstd[r];
-    const float mu = RMS ? 0.f : mean[r];
-    // pass over the row: sum(g w xhat) (and sum(g w))
-    float s[2] = {0.f, 0.f};
-    for (int i = threadIdx.x; i < groups; i += blockDim.x) {
+    const float rs = rstd[row];
+    const float mu = RMS ? 0.f : mean[row];
+    float s[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) s[k] = 0.f;
+    for (int i = threadIdx.x; i < groups; i += kBwdThreads) {
       float a[N], gv[N], wv[N];
       load<T, N>(xr, i, a);
       load<T, N>(gr, i, gv);
       load<W, N>(w, i, wv);
 #pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float xhat = RMS ? __fmul_rn(a[j], rs)
-                               : __fmul_rn(__fsub_rn(a[j], mu), rs);
-        const float gw = __fmul_rn(gv[j], wv[j]);
-        s[0] += gw * xhat;
-        s[1] += gw;
+      for (int e = 0; e < N; ++e) {
+        const float gw = __fmul_rn(gv[e], wv[e]);
+        s[0] = __fmaf_rn(gw, bwd_xhat<RMS>(a[e], mu, rs), s[0]);
+        if (!RMS) s[K - 1] = __fadd_rn(s[K - 1], gw);
       }
     }
-    if (RMS) {
-      float s1[1] = {s[0]};
-      block_sum<1>(s1, red);
-      s[0] = s1[0];
-    } else {
-      block_sum<2>(s, red);
-    }
+    seg_sum<K>(s, kBwdThreads, red[parity]);
     const float mean_gx = s[0] / (float)h;
-    const float mean_gw = s[1] / (float)h;
-    // second pass (the row is in L1/L2): dx and the column partials
-    for (int i = threadIdx.x; i < groups; i += blockDim.x) {
-      float a[N], gv[N], wv[N], o[N];
+    const float mean_gw = RMS ? 0.f : s[K - 1] / (float)h;
+    // the second pass re-reads the row from L1/L2
+    for (int i = threadIdx.x; i < groups; i += kBwdThreads) {
+      float a[N], gv[N], wv[N], o[N], sw[N], sb[N];
       load<T, N>(xr, i, a);
       load<T, N>(gr, i, gv);
       load<W, N>(w, i, wv);
-#pragma unroll
-      for (int j = 0; j < N; ++j) {
-        const float xhat = RMS ? __fmul_rn(a[j], rs)
-                               : __fmul_rn(__fsub_rn(a[j], mu), rs);
-        const float gw = __fmul_rn(gv[j], wv[j]);
-        const float inner =
-            RMS ? __fsub_rn(gw, __fmul_rn(xhat, mean_gx))
-                : __fsub_rn(__fsub_rn(gw, mean_gw), __fmul_rn(xhat, mean_gx));
-        o[j] = __fmul_rn(rs, inner);
-        acc_w[j * groups + i] += gv[j] * xhat;
-        if (!RMS) acc_b[j * groups + i] += gv[j];
+      if (!first) {
+        load<float, N>(pw, i, sw);
+        if (!RMS) load<float, N>(pb, i, sb);
       }
-      store<T, N>(dxr, i, o);
+#pragma unroll
+      for (int e = 0; e < N; ++e) {
+        const float xhat = bwd_xhat<RMS>(a[e], mu, rs);
+        o[e] = bwd_dx<RMS>(__fmul_rn(gv[e], wv[e]), xhat, rs, mean_gx,
+                           mean_gw);
+        sw[e] = __fmaf_rn(gv[e], xhat, first ? 0.f : sw[e]);
+        if (!RMS) sb[e] = __fadd_rn(first ? 0.f : sb[e], gv[e]);
+      }
+      store<T, N>(dx + off, i, o);
+      store<float, N>(pw, i, sw);
+      if (!RMS) store<float, N>(pb, i, sb);
     }
+    first = false;
   }
-  // each thread reads back only the entries it accumulated
-  float* pw = part + (long long)blockIdx.x * h;
-  for (int i = threadIdx.x; i < groups; i += blockDim.x) {
-#pragma unroll
-    for (int j = 0; j < N; ++j) pw[i * N + j] = acc_w[j * groups + i];
-  }
-  if (!RMS) {
-    float* pb = part + ((long long)gridDim.x + blockIdx.x) * h;
-    for (int i = threadIdx.x; i < groups; i += blockDim.x) {
-#pragma unroll
-      for (int j = 0; j < N; ++j) pb[i * N + j] = acc_b[j * groups + i];
+  if (first) {  // a block with no row (the plan gives every block one)
+    for (int c = threadIdx.x; c < h; c += kBwdThreads) {
+      pw[c] = 0.f;
+      if (!RMS) pb[c] = 0.f;
     }
   }
 }
 
-// ------------------------------------------------------ backward pass 2
-// out[c] = sum over b of part[b, c], in block order, cast to W
+// dw (blockIdx.y 0) or db (1): part[blockIdx.y] [n_part, h] summed per
+// column in a fixed order, cast to W
 template <typename W>
-__global__ void column_sum_kernel(const float* __restrict__ part,
-                                  int n_blocks, int h, W* __restrict__ out) {
-  const int c = blockIdx.x * blockDim.x + threadIdx.x;
-  if (c >= h) return;
+__global__ void __launch_bounds__(kSumWarps * 32)
+norm_bwd_sum_kernel(const float* __restrict__ part, int n_part, int h,
+                    W* __restrict__ dw, W* __restrict__ db) {
+  __shared__ float red[kSumWarps][32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int c = blockIdx.x * 32 + lane;
+  const float* p = part + (long long)blockIdx.y * n_part * h + c;
   float s = 0.f;
-  for (int b = 0; b < n_blocks; ++b) s += part[(long long)b * h + c];
-  out[c] = from_float<W>(s);
+  if (c < h) {
+#pragma unroll 8
+    for (int r = warp; r < n_part; r += kSumWarps) s += p[(long long)r * h];
+  }
+  red[warp][lane] = s;
+  __syncthreads();
+  if (warp == 0 && c < h) {
+    float v = red[0][lane];
+#pragma unroll
+    for (int k = 1; k < kSumWarps; ++k) v += red[k][lane];
+    (blockIdx.y ? db : dw)[c] = from_float<W>(v);
+  }
 }
 
 int threads_for(int groups) {
@@ -519,10 +729,10 @@ int threads_for(int groups) {
 
 // blocks of `kernel` one SM holds at once (at least 1)
 template <typename Kernel>
-int blocks_per_sm(Kernel kernel) {
+int blocks_per_sm(Kernel kernel, int threads = kLnThreads) {
   int n = 0;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &n, kernel, kLnThreads, 0) == cudaSuccess && n > 0 ? n : 1;
+             &n, kernel, threads, 0) == cudaSuccess && n > 0 ? n : 1;
 }
 
 // ln_fwd_rows_kernel over every row: tpr threads a row, the fewest (a
@@ -585,48 +795,72 @@ cudaError_t fwd(const void* x, const void* w, const void* b, void* y,
   return cudaGetLastError();
 }
 
+// blocks of the backward's row kernel (long: the long-row one) that fit
+// on the current device at once
+template <typename T, typename W, int N>
+int bwd_blocks(int rms, int long_rows) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return 0;
+  constexpr int VPT = kBwdVpt<N>;
+  const int per_sm =
+      long_rows ? (rms ? blocks_per_sm(norm_bwd_long_kernel<T, W, N, true>,
+                                       kBwdThreads)
+                       : blocks_per_sm(norm_bwd_long_kernel<T, W, N, false>,
+                                       kBwdThreads))
+                : (rms ? blocks_per_sm(
+                             norm_bwd_rows_kernel<T, W, N, VPT, true>,
+                             kBwdThreads)
+                       : blocks_per_sm(
+                             norm_bwd_rows_kernel<T, W, N, VPT, false>,
+                             kBwdThreads));
+  return sms * per_sm;
+}
+
+// the row kernel over `blocks` blocks (tpr_log2 < 0: the long-row one),
+// then the column sum of its partial rows
 template <typename T, typename W, int N, bool RMS>
-cudaError_t bwd_rows(const void* x, const void* w, const void* mean,
-                     const void* rstd, const void* g, void* dx, float* part,
-                     int rows, int h, int rows_per_block, int n_blocks,
-                     cudaStream_t stream) {
-  const int threads = threads_for(h / N);
-  const size_t smem = sizeof(float) * (RMS ? 1 : 2) * (size_t)h;
-  auto kernel = norm_bwd_kernel<T, W, N, RMS>;
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
+cudaError_t bwd_launch(const void* x, const void* w, const void* mean,
+                       const void* rstd, const void* g, void* dx, void* dw,
+                       void* db, float* part, int rows, int h,
+                       int tpr_log2, int blocks, cudaStream_t stream) {
+  constexpr int VPT = kBwdVpt<N>;
+  const T* xt = static_cast<const T*>(x);
+  const W* wt = static_cast<const W*>(w);
+  const float* mt = static_cast<const float*>(mean);
+  const float* rt = static_cast<const float*>(rstd);
+  const T* gt = static_cast<const T*>(g);
+  T* dxt = static_cast<T*>(dx);
+  if (tpr_log2 < 0) {
+    norm_bwd_long_kernel<T, W, N, RMS><<<blocks, kBwdThreads, 0, stream>>>(
+        xt, wt, mt, rt, gt, dxt, part, rows, h);
+  } else {
+    if ((kBwdThreads >> tpr_log2) < 1 || ((long long)VPT * N << tpr_log2) < h)
+      return cudaErrorInvalidValue;
+    norm_bwd_rows_kernel<T, W, N, VPT, RMS>
+        <<<blocks, kBwdThreads, 0, stream>>>(xt, wt, mt, rt, gt, dxt, part,
+                                             rows, h, tpr_log2);
   }
-  kernel<<<n_blocks, threads, smem, stream>>>(
-      static_cast<const T*>(x), static_cast<const W*>(w),
-      static_cast<const float*>(mean), static_cast<const float*>(rstd),
-      static_cast<const T*>(g), static_cast<T*>(dx), part, rows, h,
-      rows_per_block);
+  const cudaError_t e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  norm_bwd_sum_kernel<W><<<dim3((h + 31) / 32, RMS ? 1 : 2), kSumWarps * 32,
+                           0, stream>>>(part, blocks, h, static_cast<W*>(dw),
+                                        static_cast<W*>(db));
   return cudaGetLastError();
 }
 
 template <typename T, typename W, int N>
 cudaError_t bwd(const void* x, const void* w, const void* mean,
                 const void* rstd, const void* g, void* dx, void* dw, void* db,
-                void* part, int rms, int rows, int h, int rows_per_block,
+                void* part, int rms, int rows, int h, int tpr_log2, int blocks,
                 cudaStream_t stream) {
-  const int n_blocks = (rows + rows_per_block - 1) / rows_per_block;
   float* p = static_cast<float*>(part);
-  cudaError_t e =
-      rms ? bwd_rows<T, W, N, true>(x, w, mean, rstd, g, dx, p, rows, h,
-                                    rows_per_block, n_blocks, stream)
-          : bwd_rows<T, W, N, false>(x, w, mean, rstd, g, dx, p, rows, h,
-                                     rows_per_block, n_blocks, stream);
-  if (e != cudaSuccess) return e;
-  const int cols = (h + kMaxThreads - 1) / kMaxThreads;
-  column_sum_kernel<W><<<cols, kMaxThreads, 0, stream>>>(p, n_blocks, h,
-                                                         static_cast<W*>(dw));
-  e = cudaGetLastError();
-  if (e != cudaSuccess || rms) return e;
-  column_sum_kernel<W><<<cols, kMaxThreads, 0, stream>>>(
-      p + (long long)n_blocks * h, n_blocks, h, static_cast<W*>(db));
-  return cudaGetLastError();
+  return rms ? bwd_launch<T, W, N, true>(x, w, mean, rstd, g, dx, dw, db, p,
+                                         rows, h, tpr_log2, blocks, stream)
+             : bwd_launch<T, W, N, false>(x, w, mean, rstd, g, dx, dw, db, p,
+                                          rows, h, tpr_log2, blocks, stream);
 }
 
 // dtype codes: 0 float32, 1 float16, 2 bfloat16; w (and b) is x's dtype
@@ -666,16 +900,28 @@ extern "C" int fused_norm_fwd(const void* x, const void* w, const void* b,
 }
 
 // dx (x's dtype), dw (and db) in w's dtype, through part: f32 scratch of
-// [n_blocks, h] (RMSNorm) or [2, n_blocks, h] (LayerNorm), n_blocks =
-// ceil(rows / rows_per_block).  Returns the first CUDA error of the
-// launches.
+// [blocks, h] (RMSNorm) or [2, blocks, h] (LayerNorm).  The launch plan
+// (kernels/fused_norm.py, bwd_plan): tpr_log2 the log2 of the threads a
+// row of norm_bwd_rows_kernel, or -1 for norm_bwd_long_kernel; blocks at
+// most what fits on the card at once (fused_norm_bwd_blocks).  Returns the
+// first CUDA error of the launches.
 extern "C" int fused_norm_bwd(const void* x, const void* w, const void* mean,
                               const void* rstd, const void* g, void* dx,
                               void* dw, void* db, void* part, int rms,
                               int x_dtype, int w_dtype, int rows, int h,
-                              int rows_per_block, int vec, void* stream) {
-  if (rows < 1 || h < 1 || rows_per_block < 1) return cudaErrorInvalidValue;
+                              int tpr_log2, int blocks, int vec,
+                              void* stream) {
+  if (rows < 1 || h < 1 || blocks < 1) return cudaErrorInvalidValue;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   NORM_DISPATCH(bwd, x, w, mean, rstd, g, dx, dw, db, part, rms, rows, h,
-                rows_per_block, s);
+                tpr_log2, blocks, s);
+}
+
+// blocks of the backward's row kernel for these dtypes (long_rows: the
+// long-row kernel's) that fit on the current device at once; 0 on error
+extern "C" int fused_norm_bwd_blocks(int rms, int x_dtype, int w_dtype,
+                                     int vec, int long_rows) {
+  if (x_dtype < 0 || x_dtype > 2 || (w_dtype != 0 && w_dtype != x_dtype))
+    return 0;
+  NORM_DISPATCH(bwd_blocks, rms, long_rows);
 }

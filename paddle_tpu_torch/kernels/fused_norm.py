@@ -23,9 +23,12 @@ gradients in f32; y and dx cast once to x's dtype; the statistics are
 f32 ``[rows, 1]``; dw (and db) are summed over every row in f32 and cast
 to w's dtype.  Unlike the TPU kernel there is no row blocking: any row
 count and any ``h`` are taken (rows of whole 16-byte groups are read 16
-bytes at a time, others element by element), except that the backward
-keeps one f32 accumulator per column (two for LayerNorm) in a block's
-shared memory, so it refuses ``h`` beyond :data:`MAX_BWD_H`.
+bytes at a time, others element by element).
+
+The backward is two launches (:func:`bwd_plan` sizes the first): a row
+kernel whose blocks each walk many rows and write one f32 partial row of
+dw (and db), then a column sum of those rows in a fixed order, so two
+calls give the same bits.
 """
 
 from __future__ import annotations
@@ -34,20 +37,15 @@ from typing import Tuple
 
 import torch
 
-from .decode_block import SMEM_BUDGET, _sm_count
-
 __all__ = ["rms_norm_fwd", "rms_norm_bwd", "layer_norm_fwd",
            "layer_norm_bwd", "rms_norm_fwd_reference",
            "rms_norm_bwd_reference", "layer_norm_fwd_reference",
            "layer_norm_bwd_reference", "RMSNormFunction",
-           "LayerNormFunction", "MAX_BWD_H"]
+           "LayerNormFunction", "bwd_plan"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.float16: 1, torch.bfloat16: 2}
-# a block's shared memory, less the backward's 64 bytes of static
-# reduction space, over 4 bytes per f32 accumulator (two per column for
-# LayerNorm)
-MAX_BWD_H = {"rms": (SMEM_BUDGET - 64) // 4,
-             "layer": (SMEM_BUDGET - 64) // 8}
+# threads of a backward row block (kBwdThreads in csrc/fused_norm.cu)
+BWD_THREADS = 512
 
 
 # --------------------------------------------------------------- checks
@@ -125,9 +123,46 @@ def _launch(fn_name: str, dev: torch.device, args) -> None:
                            f"error {rc}")
 
 
-def _rows_per_block(rows: int, dev: torch.device) -> int:
-    """Rows one backward block walks: about two blocks per SM."""
-    return max(1, -(-rows // (2 * _sm_count(dev))))
+def _tpr_log2(h: int, n: int) -> int:
+    """log2 of the threads of a backward row segment for rows of ``h``
+    taken ``n`` elements a group: the fewest (a power of two) whose groups
+    cover the row, a thread holding 2 groups of 16 bytes or 8 scalars
+    (kBwdVpt); -1 past ``BWD_THREADS`` of them (the long-row kernel)."""
+    vpt = 2 if n > 1 else 8
+    tpr_log2 = (-(-(h // n) // vpt) - 1).bit_length()
+    return -1 if (1 << tpr_log2) > BWD_THREADS else tpr_log2
+
+
+def bwd_plan(rows: int, h: int, n: int, per_card: int) -> Tuple[int, int]:
+    """The backward row kernel's launch for x ``[rows, h]`` taken ``n``
+    elements a group (16-byte groups, or 1): ``(tpr_log2, blocks)``.  A
+    row is a segment of ``1 << tpr_log2`` threads (:func:`_tpr_log2`) and
+    ``BWD_THREADS >> tpr_log2`` rows share a block; ``tpr_log2`` -1 takes
+    the long-row kernel, a block a row at a time.  ``blocks`` (the
+    partial rows of dw / db): the fewest that walk the rows in as many
+    turns as ``per_card`` blocks (what fits on the card at once) would,
+    so that every block takes as many turns, or one fewer."""
+    tpr_log2 = _tpr_log2(h, n)
+    units = rows if tpr_log2 < 0 else -(-rows // (BWD_THREADS >> tpr_log2))
+    turns = -(-units // per_card)
+    return tpr_log2, -(-units // turns)
+
+
+# backward blocks that fit on a device at once, by (device index, rms, x
+# and w dtype codes, vec, long rows)
+_PER_CARD = {}
+
+
+def _per_card(dev: torch.device, key) -> int:
+    n = _PER_CARD.get((dev.index, *key))
+    if n is None:
+        from ._build import load
+        with torch.cuda.device(dev):
+            n = load("fused_norm").fused_norm_bwd_blocks(*key)
+        if n < 1:
+            raise RuntimeError(f"fused_norm_bwd_blocks failed for {key}")
+        _PER_CARD[(dev.index, *key)] = n
+    return n
 
 
 # ---------------------------------------------------------------- plain
@@ -201,8 +236,9 @@ def rms_norm_fwd(x: torch.Tensor, w: torch.Tensor, eps: float
 
 def rms_norm_bwd(x: torch.Tensor, w: torch.Tensor, rstd: torch.Tensor,
                  g: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-    """``(dx, dw)``: the CUDA kernel pair (rows, then the column sum of
-    the partials) for CUDA tensors, the plain version for CPU tensors."""
+    """``(dx, dw)``: the CUDA kernel pair (the row walk, then the column
+    sum of its partial rows) for CUDA tensors, the plain version for CPU
+    tensors."""
     _check("rms_norm_bwd", x, w, stats=(("rstd", rstd),), g=g)
     if x.device.type != "cuda":
         return rms_norm_bwd_reference(x, w, rstd, g)
@@ -247,11 +283,6 @@ def layer_norm_bwd(x: torch.Tensor, w: torch.Tensor, mean: torch.Tensor,
 def _bwd(name: str, x, w, mean, rstd, g):
     rms = mean is None
     rows, h = x.shape
-    limit = MAX_BWD_H["rms" if rms else "layer"]
-    if h > limit:
-        raise ValueError(f"{name}: h {h} exceeds {limit}, the most columns "
-                         f"whose f32 accumulators fit in one block's shared "
-                         f"memory")
     named = [("x", x), ("w", w), ("rstd", rstd), ("g", g)] + \
         ([] if rms else [("mean", mean)])
     vec = _check_cuda(name, named)
@@ -261,15 +292,17 @@ def _bwd(name: str, x, w, mean, rstd, g):
     if not rows:
         dw.zero_()
         return (dx, dw) if rms else (dx, dw, db.zero_())
-    per = _rows_per_block(rows, x.device)
-    n_blocks = -(-rows // per)
-    part = torch.empty((1 if rms else 2) * n_blocks, h, dtype=torch.float32,
+    xc, wc = _DTYPE_CODES[x.dtype], _DTYPE_CODES[w.dtype]
+    n = 16 // x.element_size() if vec else 1
+    tpr_log2, blocks = bwd_plan(rows, h, n, _per_card(
+        x.device, (int(rms), xc, wc, vec, int(_tpr_log2(h, n) < 0))))
+    part = torch.empty((1 if rms else 2) * blocks, h, dtype=torch.float32,
                        device=x.device)
     _launch("fused_norm_bwd", x.device, (
         x.data_ptr(), w.data_ptr(), None if rms else mean.data_ptr(),
         rstd.data_ptr(), g.data_ptr(), dx.data_ptr(), dw.data_ptr(),
-        None if rms else db.data_ptr(), part.data_ptr(), int(rms),
-        _DTYPE_CODES[x.dtype], _DTYPE_CODES[w.dtype], rows, h, per, vec))
+        None if rms else db.data_ptr(), part.data_ptr(), int(rms), xc, wc,
+        rows, h, tpr_log2, blocks, vec))
     if rms:
         rms_norm_bwd.launches += 1
         return dx, dw

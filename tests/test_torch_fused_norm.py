@@ -9,6 +9,11 @@ port side is ``RMSNormFunction`` / ``LayerNormFunction`` on CPU tensors,
 i.e. the kernels' plain versions through the same forward/backward
 decomposition the card runs.
 
+Two tests model a CUDA kernel's summation order in numpy (the LayerNorm
+forward's rows; the backward's rows, dw / db column partials and column
+sum on its launch plan) and hold it within the card's limit of the plain
+version.
+
 Tolerances, relative to ``scale = max(1, max |want|)``: f32 outputs and
 gradients at 1e-5 (the two frameworks sum rows in different orders);
 bfloat16 outputs within one bf16 ulp of the JAX value beyond that same
@@ -187,6 +192,124 @@ def test_ln_fwd_row_order_model_within_the_limit(h, n, dtype):
     _ok(torch.as_tensor(y32).to(dtype).float(), want.float(), 1e-5, dtype)
     _ok(mu, wmu[:, 0], 1e-5, torch.float32)
     _ok(rstd, wrstd[:, 0], 1e-5, torch.float32)
+
+
+def _bwd_model(x, w, mean, rstd, g, n, per_card, rms):
+    """dx, dw (and db) of the backward kernels (csrc/fused_norm.cu) in
+    their summation order, f32 numpy, on the launch ``fn.bwd_plan``
+    gives: a row split over tpr threads (the long-row kernel: 512 threads,
+    a row a block at a time), thread t holding groups t, t + tpr, ...;
+    each thread adds fma(g·w, x̂, s) (and g·w) over its groups' elements
+    in order, then an xor shuffle tree over min(tpr, 32) lanes, then the
+    row's warps in order.  Segment s of block b walks rows b·R + s + k·
+    stride (R = 512 / tpr, stride = blocks·R), adding fma(g, x̂, acc) (and
+    g) per column; the block adds its segments in order; the column sum's
+    16 warps add blocks k, k + 16, ... in order, then the warps in order.
+    The fma is computed in f64 and rounded once to f32."""
+    f32, f64 = np.float32, np.float64
+    rows, h = x.shape
+    groups = h // n
+    tpr_log2, blocks = fn.bwd_plan(rows, h, n, per_card)
+    if tpr_log2 < 0:
+        tpr, vpt, per_block = 512, -(-groups // 512), 1
+    else:
+        tpr, vpt, per_block = 1 << tpr_log2, 2 if n > 1 else 8, \
+            512 >> tpr_log2
+    xhat = ((x - mean) * rstd).astype(f32)
+    gw = (g * w).astype(f32)
+
+    def fma(a, b, c):
+        return (a.astype(f64) * b + c.astype(f64)).astype(f32)
+
+    def layout(t):                                        # [rows, j, t, n]
+        pad = np.zeros((rows, vpt * tpr * n), f32)
+        pad[:, :h] = t
+        return pad.reshape(rows, vpt, tpr, n)
+
+    def tree(s):                                          # [rows, tpr]
+        off = min(tpr, 32) // 2
+        while off:
+            s = (s + s[:, np.arange(tpr) ^ off]).astype(f32)
+            off //= 2
+        total = s[:, 0]
+        if tpr > 32:
+            total = np.zeros(rows, f32)
+            for warp in range(tpr // 32):
+                total = (total + s[:, warp * 32]).astype(f32)
+        return total
+
+    xs, gws = layout(xhat), layout(gw)
+    s0 = np.zeros((rows, tpr), f32)
+    s1 = np.zeros((rows, tpr), f32)
+    for j in range(vpt):
+        for e in range(n):
+            s0 = fma(gws[:, j, :, e], xs[:, j, :, e], s0)
+            s1 = (s1 + gws[:, j, :, e]).astype(f32)
+    mean_gx = (tree(s0) / f32(h)).astype(f32)[:, None]
+    inner = (gw - (xhat * mean_gx).astype(f32)).astype(f32) if rms else (
+        ((gw - (tree(s1) / f32(h)).astype(f32)[:, None]).astype(f32)
+         - (xhat * mean_gx).astype(f32)).astype(f32))
+    dx = (rstd * inner).astype(f32)
+
+    stride = blocks * per_block
+    turns = -(-rows // stride)
+
+    def column_sums(v):
+        acc = np.zeros((stride, h), f32)                  # [segment slot, h]
+        for k in range(turns):
+            r = np.arange(k * stride, min(rows, (k + 1) * stride))
+            acc[r - k * stride] = v(r, acc[r - k * stride])
+        part = acc[0::per_block].copy()                   # [blocks, h]
+        for seg in range(1, per_block):
+            part = (part + acc[seg::per_block]).astype(f32)
+        out = None
+        for warp in range(16):
+            red = np.zeros(h, f32)
+            for blk in range(warp, blocks, 16):
+                red = (red + part[blk]).astype(f32)
+            out = red if out is None else (out + red).astype(f32)
+        return out
+
+    dw = column_sums(lambda r, acc: fma(g[r], xhat[r], acc))
+    if rms:
+        return dx, dw
+    return dx, dw, column_sums(lambda r, acc: (acc + g[r]).astype(f32))
+
+
+# (rows, h, elements a group, blocks that fit, the plan): 32 threads a
+# row and 16 rows a block over 2 turns; 512 threads a row (f32 at 4096);
+# the scalar instantiation (128 threads a row, 8 scalars each); the
+# long-row kernel (4100 f32, 1025 groups); 2 threads a row, 256 rows a
+# block in one
+@pytest.mark.parametrize("rows,h,n,per_card,plan", [
+    (37, 256, 4, 2, (5, 2)), (45, 4096, 4, 5, (9, 5)),
+    (30, 1000, 1, 4, (7, 4)), (9, 4100, 4, 4, (-1, 3)),
+    (70, 12, 4, 3, (1, 1))])
+def test_norm_bwd_order_model_within_the_limit(rows, h, n, per_card, plan):
+    """The backward kernels sum each row and each column of dw / db in
+    another order than the plain versions: in that order (f32 inputs) dx,
+    dw and db stay within the card's limit of them (``chip_smoke.
+    norm_excess``: 1e-5 x max(1, max |plain|) for dx, 1e-4 for dw / db).
+    The launch plan is pinned here, and at the train shape x [4096, 4096]
+    bf16 (256 threads a row, 2 rows a block, 128 of 132 SMs' blocks over
+    16 turns) and its scalar form."""
+    assert fn.bwd_plan(4096, 4096, 8, 132) == (8, 128)
+    assert fn.bwd_plan(4096, 4096, 1, 132) == (9, 128)
+    assert fn.bwd_plan(rows, h, n, per_card) == plan
+    (x, w, b, g), _ = _inputs(rows, h, torch.float32, seed=h + rows)
+    _, rstd = fn.rms_norm_fwd_reference(x, w, EPS)
+    _, mean, lrstd = fn.layer_norm_fwd_reference(x, w, b, EPS)
+    xn, wn, gn = x.numpy(), w.numpy(), g.numpy()
+    for got, want in (
+            (_bwd_model(xn, wn, np.float32(0), rstd.numpy(), gn, n,
+                        per_card, True), fn.rms_norm_bwd_reference(
+                            x, w, rstd, g)),
+            (_bwd_model(xn, wn, mean.numpy(), lrstd.numpy(), gn, n,
+                        per_card, False), fn.layer_norm_bwd_reference(
+                            x, w, mean, lrstd, g))):
+        assert len(got) == len(want)
+        for i, (a, c) in enumerate(zip(got, want)):
+            _ok(a, c, 1e-5 if i == 0 else 1e-4, torch.float32)
 
 
 def test_saved_statistics_and_f32_weight_on_half_input():
