@@ -40,9 +40,15 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      full width (random bf16 weights drawn on the card from a seeded
      generator): 8 requests, prefix-cache hits, chunked prefill, greedy
      and seeded sampling, served twice on the same model: the unfused
-     decode step, then ``fused_decode=True``.  Kernel launch counts are
-     zeroed just before each run and read just after, and must cover
-     every layer (and every norm) of every prefill chunk and decode step;
+     decode step, then ``fused_decode=True``.  Each engine captures its
+     decode step as one CUDA graph at its first decode step and replays
+     it at every later one (``capture_counts["decode"] == 1``,
+     ``serving.compiles`` 1, one ``compile`` event).  Kernel launch counts
+     are zeroed just before each run and read just after, and must cover
+     every layer (and every norm) of every prefill chunk and of the eager
+     decode step and the capture; a replay's logits equal the eager
+     body's from the same state, with the same kernels under
+     torch.profiler;
   4. parity — an f32 model of gpt_small width at 2 layers: the fused
      and unfused engines' greedy tokens equal ``generate``'s for 3
      requests;
@@ -114,8 +120,8 @@ imports nothing of JAX.
     python3 chip_smoke.py --serve-ab PARENT_CHECKOUT
 
 runs this file's GPT and Llama serving phases (TTFT, decode step and its
-profiled kernel time, each prefill chunk's device time by kind and by
-kernel) and gpt3_6_7b at tp=2 on ``tp_fused_block``, and times
+profiled kernel time, wall time and busy share, each prefill chunk's
+device time by kind and by kernel) and gpt3_6_7b at tp=2 on ``tp_fused_block``, and times
 ``decode_attention`` (card and host time a call), the 14 GEMV shapes, the
 decode-block halves and the block / hop wrappers' host time, on another
 checkout's package and on this one's in turns (parent, this, this,
@@ -2067,7 +2073,10 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
     step (at ``tp`` 2: the sharded decode-block kernels or the composed
     ring, both shards on the card); returns the kernel launch counts of
     the run and the metrics.  Every launch count is set to 0 just before
-    the run and read just after it."""
+    the run and read just after it.  The engine captures its decode step
+    as one CUDA graph at the first decode step and replays it after: the
+    wrappers count the first step's eager launches and the capture's,
+    none of a replay's."""
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels import fused_norm as fn
@@ -2147,36 +2156,55 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
     decode_steps = reg.get("serving.phase.decode_dispatch_s").count
     chunks = m["prefill_chunks"]
     layers = cfg.num_layers
+    # the decode step is ONE CUDA graph, captured at the first decode step
+    # (after that step's body ran eagerly) and replayed at every later one
+    core = eng.core
+    if hasattr(core, "capture_counts"):
+        graph = check_graphed(eng, tag)
+        capture_s = core.capture_seconds["decode"]
+        eager, captures = core.eager_decode_steps, \
+            core.capture_counts["decode"]
+    else:
+        # a checkout from before the graph plane (``--serve-ab`` runs its
+        # package): every decode step launches its kernels eagerly
+        graph, eager, captures, capture_s = None, decode_steps, 0, None
+    # the wrappers count launches on the host: a decode step's kernels
+    # launch in the eager step and once into the graph at its capture,
+    # never in a replay
+    decode_passes = eager + captures
     # prefill chunks always run decode_attention and the model's norm
-    # twice per layer plus the final one; decode steps run the same on the
-    # unfused path, and the decode-block pair plus the final norm on the
-    # fused one (the pair applies the layers' norms itself)
-    unfused_passes = chunks + (0 if fused else decode_steps)
+    # twice per layer plus the final one; decode passes run the same on
+    # the unfused path, and the decode-block pair plus the final norm on
+    # the fused one (the pair applies the layers' norms itself)
+    unfused_passes = chunks + (0 if fused else decode_passes)
     norm = "rms_norm_fwd" if llama else "layer_norm_fwd"
     want = {k.__name__: 0 for k in kernels}
     if tp == 1:
         want["decode_attention"] = layers * unfused_passes
         want["decode_block_attn"] = want["decode_block_mlp"] = \
-            layers * decode_steps if fused else 0
+            layers * decode_passes if fused else 0
         want[norm] = (2 * layers + 1) * unfused_passes + \
-            (decode_steps if fused else 0)
+            (decode_passes if fused else 0)
     else:
         # every shard runs each layer: prefill chunks through the
-        # Megatron body, decode steps through the sharded kernels (per
+        # Megatron body, decode passes through the sharded kernels (per
         # layer 2 entry and 2 exit seams of tp hops each) or the composed
         # ring with decode_attention; each shard's norms are the norm
-        # kernel's, 2 per layer and the final one, every chunk and step
+        # kernel's, 2 per layer and the final one, every chunk and pass
         want["decode_attention"] = layers * tp * unfused_passes
         if fused:
             want["ring_entry_hop"] = want["ring_exit_hop"] = \
-                layers * 2 * tp * tp * decode_steps
-            want["decode_block_attn_tp"] = layers * tp * decode_steps
-        want[norm] = (2 * layers + 1) * tp * (chunks + decode_steps)
+                layers * 2 * tp * tp * decode_passes
+            want["decode_block_attn_tp"] = layers * tp * decode_passes
+        want[norm] = (2 * layers + 1) * tp * (chunks + decode_passes)
     log(f"{tag} {len(ids)} requests, {chunks} prefill chunks, "
-        f"{decode_steps} decode steps, {m['steps']} engine steps in "
-        f"{run_s:.2f} s; launches {json.dumps(launches)} (want "
-        f"{layers} layers x chunks/steps{f' x {tp} shards' if tp > 1 else ''}"
-        f", {2 * layers + 1} norms per unfused pass = {json.dumps(want)})")
+        f"{decode_steps} decode steps ({eager} eager, {captures} capture "
+        f"of {capture_s if capture_s is None else round(capture_s * 1e3, 1)}"
+        f" ms on the host, {decode_steps - eager} replays of the graph), "
+        f"{m['steps']} engine steps in {run_s:.2f} s; launches "
+        f"{json.dumps(launches)} (want {layers} layers x chunks/decode "
+        f"passes{f' x {tp} shards' if tp > 1 else ''}, {2 * layers + 1} "
+        f"norms per unfused pass = {json.dumps(want)})")
     if launches != want:
         raise AssertionError(f"{tag} kernel launches {launches} != {want}: "
                              f"the main path bypassed a kernel")
@@ -2209,6 +2237,8 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
            "decode_step_ms_p50": decode_ms,
            "decode_only_steps": len(step_ms),
            "prefix_hit_tokens": m["prefix_hit_tokens"],
+           "decode_graph": graph, "capture_ms":
+               None if capture_s is None else capture_s * 1e3,
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     if fused:
         hist = reg.get("kernel.decode_block_s")
@@ -2234,6 +2264,129 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
     return launches, res
 
 
+def kernel_counts(prof) -> dict:
+    """Calls by device-activity name (kernels, copies, fills) from a
+    finished torch.profiler run."""
+    import torch
+    counts = {}
+    for e in prof.key_averages():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            counts[e.key] = counts.get(e.key, 0) + e.count
+    return counts
+
+
+def replay_checks(eng, card: str, label: str) -> dict:
+    """On an engine whose slots all decode: its decode graph's replay
+    against the same decode body run eagerly (on the capture stream, as
+    the capture's warm-up ran it) from the same state.  A decode step
+    reads the slabs' rows below each slot's position and overwrites the
+    row at it, so restoring ``seq_pos`` and the last-token vector restores
+    everything the step reads.  Checks: the logits bit-identical (or
+    within ``row_reading``'s per-element limit, reported), ``seq_pos``
+    advanced by one by both, the same kernels by name and count under
+    torch.profiler; and times both with CUDA events (each call restores
+    the state first).  The state is restored at the end."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from paddle_tpu_torch.serving.engine import _capture_stream
+    core = eng.core
+    pool = core.pool
+    pos0, tok0 = pool.seq_pos.clone(), core._last_tok.clone()
+
+    def restore():
+        pool.seq_pos.copy_(pos0)
+        core._last_tok.copy_(tok0)
+
+    def eager():
+        stream = _capture_stream(core.device)
+        current = torch.cuda.current_stream()
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            core._decode_body()
+        current.wait_stream(stream)
+
+    def counted(fn):
+        """Kernels by name and count of one call of ``fn`` under
+        torch.profiler; the window opens with a small kernel and a sync,
+        so that the call's first kernels are not lost to the tracer's
+        start."""
+        restore()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            torch.ones(1, device=pool.seq_pos.device).add_(1)
+            torch.cuda.synchronize()
+            fn()
+            torch.cuda.synchronize()
+        return {k: n for k, n in kernel_counts(prof).items()
+                if not k.startswith(("Memcpy", "Memset"))}
+
+    tag = f"[graph:{label}]"
+    runs = {}
+    for name, fn in (("replay", core._decode_graph_step), ("eager", eager)):
+        restore()
+        fn()
+        torch.cuda.synchronize()
+        runs[name] = {"logits": core._logits.clone(),
+                      "seq_pos": pool.seq_pos.clone(),
+                      "counts": counted(fn)}
+
+        def timed(fn=fn):
+            restore()
+            fn()
+        runs[name]["ms"] = time_ms(timed, iters=5, warmup=2, windows=3)
+    restore()
+    torch.cuda.synchronize()
+    lr, le = runs["replay"]["logits"], runs["eager"]["logits"]
+    exact = torch.equal(lr, le)
+    reading = row_reading(lr.to(core.model.dtype), le)
+    for name, r in runs.items():
+        if not torch.equal(r["seq_pos"], pos0 + 1):
+            raise AssertionError(f"{tag} the {name} step did not advance "
+                                 f"seq_pos by one")
+    if not exact and reading > 1.0:
+        raise AssertionError(f"{tag} a replayed decode step's logits differ "
+                             f"from the eager body's beyond the per-element "
+                             f"limit: row_reading {reading}")
+    kernels = {name: r["counts"] for name, r in runs.items()}
+
+    def differ():
+        return {k[:90]: (kernels["replay"].get(k), kernels["eager"].get(k))
+                for k in set(kernels["replay"]) | set(kernels["eager"])
+                if kernels["replay"].get(k) != kernels["eager"].get(k)}
+    seen = bool(kernels["replay"])
+    lost = None
+    if seen and differ():
+        # the tracer can drop a window's records: one more window of each
+        # before the counts count as different
+        lost = differ()
+        kernels = {"replay": counted(core._decode_graph_step),
+                   "eager": counted(eager)}
+        restore()
+        log(f"{tag} a first profiled window of each differed (name: "
+            f"(replay, eager)) {json.dumps(lost)}; profiled again")
+    if seen and differ():
+        raise AssertionError(f"{tag} the replayed step's kernels differ from "
+                             f"one eager step of the same body (name: "
+                             f"(replay, eager)): {differ()}")
+    out = {"bit_identical": exact, "row_reading": reading,
+           "kernels_seen_in_replay": seen,
+           "kernel_launches": sum(kernels["eager"].values()),
+           "kernel_names": len(kernels["eager"]),
+           "first_window_differed": lost,
+           "replay_ms": runs["replay"]["ms"], "eager_ms": runs["eager"]["ms"]}
+    log(f"{tag} replayed decode step vs the eager body from the same state: "
+        f"logits {'bit-identical' if exact else 'not bit-identical'} "
+        f"(row_reading {reading:.4g}), "
+        + (f"the same {out['kernel_launches']} kernel launches of "
+           f"{out['kernel_names']} names under torch.profiler"
+           if seen else "torch.profiler saw no kernel inside the graph "
+           "(the replay is timed with CUDA events only)")
+        + f"; CUDA events {out['replay_ms']:.3f} ms a replay vs "
+        f"{out['eager_ms']:.3f} ms an eager body (card: {card})")
+    return out
+
+
 def kernel_ms(prof) -> dict:
     """Device milliseconds by kernel name from a finished torch.profiler
     run."""
@@ -2251,8 +2404,10 @@ def kernel_ms(prof) -> dict:
 def profile_decode(eng, vocab: int, card: str, label: str,
                    steps: int = 5) -> dict:
     """Where a full-batch decode step's time goes, after the main run:
-    fill all 8 slots with short greedy requests, then trace ``steps``
-    decode-only steps with torch.profiler.  Reports the wall time per
+    fill all 8 slots with short greedy requests, hold the decode graph's
+    replay to the eager body (``replay_checks``), then trace ``steps``
+    decode-only steps (each a replay of the graph and eager sampling)
+    with torch.profiler.  Reports the wall time per
     step, the device busy share (summed kernel time over wall time; one
     stream, so kernels do not overlap) and the kernels that take the
     most device time."""
@@ -2261,11 +2416,30 @@ def profile_decode(eng, vocab: int, card: str, label: str,
     from torch.profiler import ProfilerActivity, profile
 
     rs = np.random.RandomState(11)
-    rids = [eng.submit(rs.randint(0, vocab, (64,)), max_new_tokens=steps + 4)
+    rids = [eng.submit(rs.randint(0, vocab, (64,)),
+                       max_new_tokens=2 * steps + 4)
             for _ in range(eng.core.num_slots)]
     while eng.core._prefills or eng.core.scheduler.waiting:
         eng.step()
     torch.cuda.synchronize()
+    graph = replay_checks(eng, card, label) \
+        if getattr(eng.core, "_decode_graph", None) is not None else None
+    # the step's host clock by phase, without the profiler: the engine's
+    # own phase histograms over ``steps`` steps (decode_dispatch: the graph
+    # replay's enqueue and sampling; readback: the wait for the device and
+    # the copy; rest: harvest, eviction, metrics)
+    hists = {name: eng.registry.get(f"serving.phase.{name}_s")
+             for name in ("admission", "prefill", "decode_dispatch",
+                          "readback")}
+    before = {name: h.sum for name, h in hists.items()}
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        eng.step()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t0) * 1e3 / steps
+    phases_ms = {name: (h.sum - before[name]) * 1e3 / steps
+                 for name, h in hists.items()}
+    phases_ms["rest"] = step_ms - sum(phases_ms.values())
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -2282,7 +2456,9 @@ def profile_decode(eng, vocab: int, card: str, label: str,
     out = {"steps": steps, "wall_ms_per_step": wall_ms / steps,
            "device_ms_per_step": busy_ms / steps,
            "busy_share": busy_ms / wall_ms if wall_ms else None,
-           "top_kernels_ms_per_step": {k[:90]: v / steps for k, v in top}}
+           "top_kernels_ms_per_step": {k[:90]: v / steps for k, v in top},
+           "graph": graph, "step_ms_unprofiled": step_ms,
+           "host_phases_ms": phases_ms}
     tag = f"[profile:{label}]"
     if busy_ms == 0.0:
         log(f"{tag} the profiler saw no device time: device busy share "
@@ -2294,6 +2470,9 @@ def profile_decode(eng, vocab: int, card: str, label: str,
             f"share {out['busy_share']:.3f} (card: {card})")
         for name, ms in out["top_kernels_ms_per_step"].items():
             log(f"{tag}   {ms:8.4f} ms/step  {name}")
+    log(f"{tag} the same step without the profiler: {step_ms:.3f} ms, by "
+        f"phase on the host clock (ms) "
+        f"{json.dumps({k: round(v, 3) for k, v in phases_ms.items()})}")
     return out
 
 
@@ -2385,13 +2564,34 @@ def parity_model(family: str, device):
                             dtype="float32", generator=gen)
 
 
+def check_graphed(eng, what: str) -> dict:
+    """Raise unless ``eng`` served its decode steps through one captured
+    CUDA graph: one capture, counted once in ``serving.compiles`` and in
+    one ``compile`` event, after one eager decode step.  Returns what it
+    read."""
+    core = eng.core
+    got = {"decode_graph_reason": eng.decode_graph_reason,
+           "capture_counts": dict(core.capture_counts),
+           "serving.compiles": eng.registry.get("serving.compiles").value,
+           "compile_events": len(eng.tracer.events("compile")),
+           "eager_decode_steps": core.eager_decode_steps}
+    if got != {"decode_graph_reason": None,
+               "capture_counts": {"prefill": 0, "decode": 1, "verify": 0},
+               "serving.compiles": 1, "compile_events": 1,
+               "eager_decode_steps": 1}:
+        raise AssertionError(f"{what}: the decode step was not served by "
+                             f"one captured CUDA graph: {got}")
+    return got
+
+
 def phase_parity(family: str) -> None:
     """On the f32 parity model of ``family`` (TF32 off): the fused-path
     engine's greedy tokens == the unfused engine's == the port's
     ``generate`` tokens; and so are those of tp=2 engines (both shards on
     the card) on all three rungs, ``tp_fused_block``, ``tp_fused`` and
     ``unfused``, each on its own copy of the model (a tensor-parallel
-    engine re-lays its model's weights)."""
+    engine re-lays its model's weights).  Every engine's decode steps go
+    through its one captured CUDA graph (``check_graphed``)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.serving import ServingEngine
@@ -2413,6 +2613,7 @@ def phase_parity(family: str) -> None:
                                  f"{want_path!r}")
         tokens[want_path] = [o.tokens for o in
                              eng.serve_batch(prompts, max_new_tokens=16)]
+        check_graphed(eng, f"[parity:{family}] {want_path} engine")
         eng.close()
     for kw, want_path in ((dict(fused_decode=True), "tp_fused_block"),
                           ({}, "tp_fused"),
@@ -2428,6 +2629,7 @@ def phase_parity(family: str) -> None:
                                  f"{want_path!r}")
         tokens[f"tp{TP}_{want_path}"] = [
             o.tokens for o in eng.serve_batch(prompts, max_new_tokens=16)]
+        check_graphed(eng, f"[parity:{family}] tp={TP} {want_path} engine")
         eng.close()
     for i, p in enumerate(prompts):
         want = model.generate(p[None], max_new_tokens=16)[0, len(p):]
@@ -2443,7 +2645,8 @@ def phase_parity(family: str) -> None:
         f"unfused-engine tokens == tp={TP} tp_fused_block / tp_fused / "
         f"unfused engine tokens == generate tokens for {len(prompts)} "
         f"requests (prompt lengths {[len(p) for p in prompts]}, 16 new "
-        f"tokens each)")
+        f"tokens each); every engine's decode steps replayed its one "
+        f"captured CUDA graph")
 
 
 # ------------------------------------------------------------ training
@@ -3813,8 +4016,8 @@ def free_card() -> None:
 
 
 AB_KEYS = ("ttft_p50_ms", "ttft_median_ms", "decode_step_ms_p50",
-           "tokens_per_s", "prefill_chunks", "decode_steps", "prefill_profile",
-           "decode_profile")
+           "capture_ms", "tokens_per_s", "prefill_chunks", "decode_steps",
+           "prefill_profile", "decode_profile")
 # calls of the wrapper a window of its host-time measure makes
 HOST_CALLS = 100
 
@@ -4235,6 +4438,15 @@ def serve_ab(parent: str) -> int:
                     ("kernel ms a decode step (profiled)",
                      lambda r: (r[family][path]["decode_profile"] or {})
                      .get("device_ms_per_step")),
+                    ("wall ms a decode step (profiled)",
+                     lambda r: (r[family][path]["decode_profile"] or {})
+                     .get("wall_ms_per_step")),
+                    ("busy share (profiled)",
+                     lambda r: (r[family][path]["decode_profile"] or {})
+                     .get("busy_share")),
+                    ("profile's step without the profiler ms",
+                     lambda r: (r[family][path]["decode_profile"] or {})
+                     .get("step_ms_unprofiled")),
                     ("TTFT median ms",
                      lambda r: r[family][path]["ttft_median_ms"])):
                 log(f"[serve-ab] {family} {path} {key}: parent "
@@ -4244,6 +4456,15 @@ def serve_ab(parent: str) -> int:
                      ("kernel ms a decode step (profiled)",
                       lambda r: (r["tp2"]["decode_profile"] or {})
                       .get("device_ms_per_step")),
+                     ("wall ms a decode step (profiled)",
+                      lambda r: (r["tp2"]["decode_profile"] or {})
+                      .get("wall_ms_per_step")),
+                     ("busy share (profiled)",
+                      lambda r: (r["tp2"]["decode_profile"] or {})
+                      .get("busy_share")),
+                     ("profile's step without the profiler ms",
+                      lambda r: (r["tp2"]["decode_profile"] or {})
+                      .get("step_ms_unprofiled")),
                      ("TTFT median ms", lambda r: r["tp2"]["ttft_median_ms"])):
         log(f"[serve-ab] gpt tp=2 tp_fused_block {key}: parent "
             f"{med('parent', get)} -> change {med('change', get)}")

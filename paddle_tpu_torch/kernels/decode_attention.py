@@ -40,8 +40,11 @@ _SPLIT_ROWS = 256
 _TMA_REFUSED = 2000
 # (device index, stream) -> (f32 partials, int32 counters): the sq == 1
 # kernel's workspace.  Its counters are zeros between calls (the kernel
-# resets them), so it is allocated once and only ever grown.
+# resets them), so it is allocated once and only ever grown.  A CUDA graph
+# may hold the pointers of a workspace a larger call replaced, so a
+# replaced pair is kept alive in _RETIRED, never freed.
 _workspaces = {}
+_RETIRED = []
 
 
 def _workspace(dev, stream, n_part, n_count):
@@ -49,6 +52,7 @@ def _workspace(dev, stream, n_part, n_count):
     ws = _workspaces.get(key)
     if ws is None or ws[0].numel() < n_part or ws[1].numel() < n_count:
         if ws is not None:
+            _RETIRED.append(ws)
             n_part = max(n_part, ws[0].numel())
             n_count = max(n_count, ws[1].numel())
         ws = _workspaces[key] = (

@@ -312,6 +312,14 @@ class ServingEngine:
         return self.core.decode_fallback_reason
 
     @property
+    def decode_graph_reason(self) -> Optional[str]:
+        """Why this engine's decode step is not captured as one CUDA graph
+        (None when it is: every decode step after the first replays it):
+        ``"cpu"`` for a CPU engine, or the reason a mesh cannot be captured
+        (its shards span several CUDA devices)."""
+        return self.core.decode_graph_reason
+
+    @property
     def tensor_parallel(self) -> int:
         """The engine's tensor-parallel mesh degree (1 = one device)."""
         return self.core.tensor_parallel

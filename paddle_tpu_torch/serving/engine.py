@@ -30,6 +30,19 @@ Device work per step:
     its row end (models/kv_cache.py) until the next adopt overwrites the
     row wholesale.
 
+The decode step is the port's counterpart of the reference's ONE compiled
+decode program: on a single CUDA device the engine captures it as one
+CUDA graph at its first decode step and replays that graph every step
+after.  The captured body reads and writes only buffers whose addresses
+never change (the KV slabs, ``pool.seq_pos`` advanced in place, the
+last-token vector, a ``[num_slots, vocab]`` f32 logits buffer); sampling
+stays eager after it, so each request keeps its own ``torch.Generator``.
+``capture_counts`` (the reference's ``trace_counts``, same keys) counts
+captures, each reported as a ``compile`` event and in
+``serving.compiles``.  CPU engines and meshes over several CUDA devices
+run the same body eagerly every step; ``decode_graph_reason`` says why.
+The prefill chunks run eagerly.
+
 Host plane: ONE device->host readback per step phase — the decode
 harvest reads the sampled token vector once, and a step that completes
 prefills reads their batched first tokens once.  Admission, radix
@@ -68,6 +81,22 @@ from .tp import (build_serving_mesh, build_tp_decode_program,
 
 __all__ = ["EngineCore", "sample_rows", "finite_or_sentinel",
            "NONFINITE_SENTINEL"]
+
+# one side stream per CUDA device captures and replays every engine's
+# decode graph.  The kernels keep their workspaces per (device, stream), so
+# the engines of one device share one set, and the graphs, each joined to
+# the current stream on both sides, never run beside other work
+_CAPTURE_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _capture_stream(device: torch.device) -> "torch.cuda.Stream":
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    stream = _CAPTURE_STREAMS.get(index)
+    if stream is None:
+        stream = _CAPTURE_STREAMS[index] = torch.cuda.Stream(device=index)
+    return stream
+
 
 # token-readback encoding of the per-row logits health check: a row whose
 # logits hold a non-finite value reads back as this instead of a token id
@@ -211,6 +240,16 @@ class EngineCore:
         self._step_index = 0
         self._step_in_flight = 0
         self.closed = False
+        # the compiled-program plane: captures per step program (the
+        # reference's trace_counts) and the host seconds they took, the
+        # baseline _record_events diffs against, and the decode steps whose
+        # body ran eagerly (every step where decode_graph_reason is set,
+        # else the capture's warm-up)
+        self.capture_counts = {"prefill": 0, "decode": 0, "verify": 0}
+        self.capture_seconds = dict.fromkeys(self.capture_counts, 0.0)
+        self._compile_seen = dict(self.capture_counts)
+        self.eager_decode_steps = 0
+        self._decode_graph = None
         # ---- tensor-parallel serving (serving/tp.py): tp > 1 shards the
         # whole device plane over a 1-D mesh of `devices` (the first tp
         # CUDA devices by default).  Every construction check runs BEFORE
@@ -271,6 +310,7 @@ class EngineCore:
             active=self.decode_path in ("fused", "tp_fused_block"),
             reason=self.decode_fallback_reason, step=self._step_index,
             tp=tensor_parallel)
+        self.decode_graph_reason = self._resolve_decode_graph()
 
     def _build_device_plane(self, max_seq, enable_prefix_cache: bool,
                             block_len: int, prefix_blocks) -> None:
@@ -301,6 +341,10 @@ class EngineCore:
         # per-slot device row state (fixed [num_slots] shapes)
         self._last_tok = torch.zeros((num_slots,), dtype=torch.int32,
                                      device=self.device)
+        # the decode step's logits, written in place every step (the
+        # captured graph's output)
+        self._logits = torch.zeros((num_slots, int(model.cfg.vocab_size)),
+                                   dtype=torch.float32, device=self.device)
         self._gens: List[Optional[torch.Generator]] = [None] * num_slots
         # per-slot sampling params: host mirrors (sample_rows reads them
         # on the host; only sampling rows touch the device)
@@ -318,8 +362,9 @@ class EngineCore:
 
     def close(self) -> None:
         """Drop the engine's device buffers (KV slabs, staging rows, row
-        state) so their memory can be reused; the engine serves nothing
-        afterwards."""
+        state) and its decode graph so their memory can be reused; the
+        engine serves nothing afterwards."""
+        self._decode_graph = None
         for st in self._prefills:
             st.ks = st.vs = None
         self._prefills = []
@@ -574,32 +619,102 @@ class EngineCore:
                                           kv_len=self.pool.max_seq)
         return ("fused", None) if ok else ("unfused", reason)
 
-    def _decode_dispatch(self) -> torch.Tensor:
-        """ONE fixed-shape decode step over every slot; returns the
-        sampled token vector STILL ON THE DEVICE — the caller performs the
-        step's single readback."""
-        if self._mask_dirty:
-            self._mask_dev = None if self._mask_host.all() else \
-                torch.as_tensor(self._mask_host).to(self.device)
-            self._mask_dirty = False
+    def _resolve_decode_graph(self) -> Optional[str]:
+        """Why the decode step is NOT captured as a CUDA graph (None when
+        it is): ``"cpu"`` off the card, or a mesh whose shards span
+        several CUDA devices (one graph captures one device's streams)."""
+        devices = self.mesh.devices if self.mesh is not None \
+            else [torch.device(self.device)]
+        off_card = [d.type for d in devices if d.type != "cuda"]
+        if off_card:
+            return off_card[0]
+        cards = sorted({str(d) for d in devices})
+        if len(cards) > 1:
+            return (f"the tensor-parallel mesh spans {len(cards)} CUDA "
+                    f"devices {cards} (one CUDA graph captures one "
+                    f"device's streams)")
+        return None
+
+    def _decode_body(self) -> None:
+        """ONE fixed-shape decode step over every slot, reading and
+        writing only buffers whose addresses never change: the slabs
+        (appended in place), ``pool.seq_pos`` (advanced by one in place),
+        ``_last_tok`` and the logits buffer.  This is what the decode graph
+        captures."""
         pool = self.pool
         if self._tp_program is not None:
-            logits, _, _, pool.seq_pos = self._tp_program(
-                pool.ks, pool.vs, pool.seq_pos, self._last_tok)
+            logits = self._tp_program(pool.ks, pool.vs, pool.seq_pos,
+                                      self._last_tok)[0]
         else:
             caches = [(k, v, pool.seq_pos) for k, v in zip(pool.ks, pool.vs)]
             step_fn = self.model.fused_decode_step \
                 if self.decode_path == "fused" else self._forward
-            logits, caches = step_fn(self._last_tok[:, None], caches,
-                                     pool.seq_pos)
-            pool.seq_pos = caches[0][2]
-        lg = logits[:, 0]
+            logits, _ = step_fn(self._last_tok[:, None], caches,
+                                pool.seq_pos)
+            pool.seq_pos.add_(1)
+        self._logits.copy_(logits[:, 0])
+
+    def _decode_graph_step(self) -> None:
+        """The decode body through this engine's CUDA graph on the
+        device's capture stream, joined to the current stream on both
+        sides (prefill chunks and ``pool.adopt`` write the slabs there).
+        The first call runs the body eagerly — that IS this step — and
+        then captures it; every later call replays the graph.  A failure
+        raises, naming the step: nothing serves eagerly instead."""
+        stream = _capture_stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        what = "replay" if self._decode_graph is not None else "capture"
+        try:
+            if self._decode_graph is not None:
+                with torch.cuda.stream(stream):
+                    self._decode_graph.replay()
+                return
+            with torch.cuda.stream(stream):
+                self._decode_body()
+                self.eager_decode_steps += 1
+                # capture_begin / capture_end rather than torch.cuda.graph,
+                # whose device sync, gc.collect and empty_cache would land
+                # on the requests still prefilling
+                t0 = time.perf_counter()
+                graph = torch.cuda.CUDAGraph()
+                graph.capture_begin()
+                try:
+                    self._decode_body()
+                finally:
+                    graph.capture_end()
+            self._decode_graph = graph
+            self.capture_counts["decode"] += 1
+            self.capture_seconds["decode"] += time.perf_counter() - t0
+        except Exception as e:
+            raise RuntimeError(
+                f"engine step {self._step_in_flight}: CUDA graph {what} of "
+                f"the {self.decode_path!r} decode step on {self.device} "
+                f"failed: {e}") from e
+        finally:
+            current.wait_stream(stream)
+
+    def _decode_dispatch(self) -> torch.Tensor:
+        """ONE fixed-shape decode step over every slot — the body (its
+        graph on a card), then eager sampling; returns the sampled token
+        vector STILL ON THE DEVICE — the caller performs the step's single
+        readback."""
+        if self._mask_dirty:
+            self._mask_dev = None if self._mask_host.all() else \
+                torch.as_tensor(self._mask_host).to(self.device)
+            self._mask_dirty = False
+        if self.decode_graph_reason is None:
+            self._decode_graph_step()
+        else:
+            self._decode_body()
+            self.eager_decode_steps += 1
+        lg = self._logits
         nxt = sample_rows(self._gens, lg, self._do_sample,
                           self._temperature, self._top_k, self._top_p,
                           mask=self._mask_dev)
         # a poisoned row reads back as the sentinel through the step's
         # existing single readback
-        self._last_tok = finite_or_sentinel(lg, nxt).to(torch.int32)
+        self._last_tok.copy_(finite_or_sentinel(lg, nxt))
         return self._last_tok
 
     # -------------------------------------------------------- step loop
@@ -678,10 +793,7 @@ class EngineCore:
             self._evict_finished()
         finally:
             tracer.end_span(sp)
-        skips = self.scheduler.total_head_skips
-        if skips > skips_before:
-            tracer.event("head_of_line_skip", lane=self.metrics.engine_lane,
-                         count=skips - skips_before, step=step_i)
+        self._record_events(step_i, skips_before)
         self.metrics.record_step(
             active_slots=len(self._slots), num_slots=self.num_slots,
             queue_depth=self.scheduler.queue_depth,
@@ -689,6 +801,25 @@ class EngineCore:
             step_seconds=time.perf_counter() - t0,
             step_index=step_i, phases=phases)
         return self.scheduler.active + self.scheduler.queue_depth
+
+    def _record_events(self, step_i: int, skips_before: int) -> None:
+        """This step's discrete happenings as event-log entries:
+        capture-counter deltas = program compiles (``serving.compiles``
+        and a ``compile`` event), the scheduler's skip-counter delta =
+        head-of-line jumps."""
+        tracer = self.metrics.tracer
+        for prog, n in self.capture_counts.items():
+            seen = self._compile_seen.get(prog, 0)
+            if n > seen:
+                self.metrics.on_compile(prog, n - seen)
+                tracer.event("compile", lane=self.metrics.engine_lane,
+                             program=prog, count=n - seen, step=step_i,
+                             seconds=self.capture_seconds[prog])
+        self._compile_seen = dict(self.capture_counts)
+        skips = self.scheduler.total_head_skips
+        if skips > skips_before:
+            tracer.event("head_of_line_skip", lane=self.metrics.engine_lane,
+                         count=skips - skips_before, step=step_i)
 
     def _emit(self, slot: int, tok: int, first_token: bool = False) -> None:
         st = self._slots[slot]

@@ -85,6 +85,9 @@ class ServingMetrics:
         self._c_prefix_hit_tokens = c("serving.prefix_hit_tokens",
                                       "prompt tokens served from cache")
         self._c_steps = c("serving.steps", "engine step() iterations")
+        self._c_compiles = c("serving.compiles",
+                             "step programs captured as CUDA graphs (the "
+                             "engine's capture_counts)")
         self._h_ttft = h("serving.ttft_s",
                          "submit -> first generated token", unit="s")
         self._h_tpot = h("serving.tpot_s",
@@ -211,6 +214,11 @@ class ServingMetrics:
         """One tensor-parallel decode step's dispatch + readback time (the
         engine calls this only when ``tp > 1``)."""
         self._h_collective.observe(seconds)
+
+    def on_compile(self, program: str, n: int = 1) -> None:
+        """``n`` captures of the engine's ``program`` (``"decode"``: its
+        decode step as one CUDA graph)."""
+        self._c_compiles.inc(n)
 
     def on_first_token(self, arrival_t: float,
                        now: Optional[float] = None) -> None:

@@ -354,8 +354,10 @@ def build_tp_decode_program(bundle, *, pallas_block: bool = False,
                             max_seq: Optional[int] = None):
     """The engine's ring decode program over a :func:`shard_model_params`
     bundle: ``program(ks, vs, seq_pos, last_tok) -> (logits [B, 1, V],
-    ks, vs, seq_pos + 1)`` with ``ks[layer]`` the layer's per-shard slabs
-    (updated in place).  Embedding (masked vocab-shard lookup + psum),
+    ks, vs, seq_pos)`` with ``ks[layer]`` the layer's per-shard slabs
+    (updated in place) and ``seq_pos`` the tensor it was given, advanced
+    by one in place (the engine's CUDA graph replays it on fixed
+    buffers).  Embedding (masked vocab-shard lookup + psum),
     the residual slot-sharded ``[B/tp, D]`` through the layers, the final
     norm, logits against each shard's vocab columns gathered onto the
     controller.
@@ -418,7 +420,8 @@ def build_tp_decode_program(bundle, *, pallas_block: bool = False,
         xf = [arch_norm(x, sh["nfw"], sh["nfb"], arch)
               for x, sh in zip(xs, shards)]
         logits = allgather_matmul(xf, [_head(sh) for sh in shards], mesh)
-        return _gather_logits(logits, mesh)[:, None, :], ks, vs, seq_pos + 1
+        seq_pos.add_(1)
+        return _gather_logits(logits, mesh)[:, None, :], ks, vs, seq_pos
 
     return program
 
