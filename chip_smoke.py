@@ -39,16 +39,21 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
   3. serving — ``ServingEngine`` over ``GPTForCausalLM(gpt3_6_7b())`` at
      full width (random bf16 weights drawn on the card from a seeded
      generator): 8 requests, prefix-cache hits, chunked prefill, greedy
-     and seeded sampling, served twice on the same model: the unfused
-     decode step, then ``fused_decode=True``.  Each engine captures its
-     decode step as one CUDA graph at its first decode step and replays
-     it at every later one (``capture_counts["decode"] == 1``,
-     ``serving.compiles`` 1, one ``compile`` event).  Kernel launch counts
-     are zeroed just before each run and read just after, and must cover
-     every layer (and every norm) of every prefill chunk and of the eager
-     decode step and the capture; a replay's logits equal the eager
-     body's from the same state, with the same kernels under
-     torch.profiler;
+     and seeded sampling, in two passes (cold, then warm: fresh prompts
+     of the same lengths and sharing) on one engine, once on the unfused
+     decode step, then on ``fused_decode=True``.  Each engine captures
+     its decode step as one CUDA graph at its first decode step and its
+     prefill chunk as one graph per chunk width at the first chunk of
+     that width, and replays them after (``capture_counts`` 1 decode and
+     one a width its plans ran, ``serving.compiles`` and the ``compile``
+     events their sum).  Kernel launch counts are zeroed just before each
+     run and read just after, and must cover every layer (and every
+     norm) of the eager call before each capture and of each capture; a
+     decode replay's logits equal the eager body's from the same state,
+     a replayed prefill chunk's last logits and K/V rows the eager
+     body's bit for bit, with the same kernels under torch.profiler;
+     TTFT cold and warm, capture ms per width, each prefill chunk's wall
+     time and busy share;
   4. parity — an f32 model of gpt_small width at 2 layers: the fused
      and unfused engines' greedy tokens equal ``generate``'s for 3
      requests;
@@ -2067,16 +2072,43 @@ def phase_serving_tp(card: str, tp1: dict):
     return out
 
 
+def plan_widths(eng, served) -> set:
+    """The distinct prefill chunk widths that requests ``served``
+    (``(prompt length, prefix hit tokens)`` pairs) ran on ``eng``: their
+    chunk plans, from the scheduler the engine used."""
+    core = eng.core
+    return {w for n, hit in served for _, w, _ in
+            core.scheduler.chunk_plan(hit, n, core.prefill_chunk)}
+
+
+def pool_gb(pool):
+    """Device memory of the CUDA graph memory pool ``pool``, from the
+    allocator's segments (None where the allocator does not name them)."""
+    import torch
+    segs = torch.cuda.memory_snapshot() if pool is not None else []
+    if not segs or "segment_pool_id" not in segs[0]:
+        return None
+    return sum(seg["total_size"] for seg in segs
+               if tuple(seg["segment_pool_id"]) == tuple(pool)) / 1e9
+
+
 def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
-    """Serve the 8 requests of ``waves`` on ``model`` through the port's
-    ServingEngine, with the fused decode-block path or the unfused decode
-    step (at ``tp`` 2: the sharded decode-block kernels or the composed
-    ring, both shards on the card); returns the kernel launch counts of
-    the run and the metrics.  Every launch count is set to 0 just before
-    the run and read just after it.  The engine captures its decode step
-    as one CUDA graph at the first decode step and replays it after: the
-    wrappers count the first step's eager launches and the capture's,
-    none of a replay's."""
+    """Serve the 8 requests of ``waves`` twice on ``model`` through the
+    port's ServingEngine, with the fused decode-block path or the unfused
+    decode step (at ``tp`` 2: the sharded decode-block kernels or the
+    composed ring, both shards on the card); returns the kernel launch
+    counts of the run and the metrics.  The first pass is cold (the
+    engine captures its graphs), the second warm: fresh prompts and a
+    fresh shared prefix, each pass's seeded by the pass, of the same
+    lengths and sharing, so its chunk plans take the first pass's widths.
+    Every launch count is set to 0 just before the run and read just
+    after it.  The engine captures its decode step as one CUDA graph at
+    the first decode step and its prefill chunk as one graph per chunk
+    width at the first chunk of that width, and replays them after: the
+    wrappers count the eager launches before each capture and the
+    capture's, none of a replay's."""
+    import gc
+
     import numpy as np
     import torch
     from paddle_tpu_torch.kernels import fused_norm as fn
@@ -2102,25 +2134,19 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
                              f"{eng.decode_path!r} (reason "
                              f"{eng.decode_fallback_reason!r}), want {path!r}")
 
-    rs = np.random.RandomState(7)
-    prefix = rs.randint(0, cfg.vocab_size, (512,))
-
-    def prompt(n, shared):
-        own = rs.randint(0, cfg.vocab_size, (n - 512 if shared else n,))
-        return np.concatenate([prefix, own]) if shared else own
-
     wave1, wave2 = waves
     ids = {}
     step_ms = []
 
-    def submit(wave):
+    def submit(wave, rs, prefix, pass_i):
         for n, shared, seed in wave:
             sp = SamplingParams() if seed is None else SamplingParams(
                 do_sample=True, temperature=0.8, top_k=50, top_p=0.95,
                 seed=seed)
-            rid = eng.submit(prompt(n, shared), max_new_tokens=32,
-                             sampling=sp)
-            ids[rid] = (n, shared, seed)
+            own = rs.randint(0, cfg.vocab_size, (n - 512 if shared else n,))
+            rid = eng.submit(np.concatenate([prefix, own]) if shared
+                             else own, max_new_tokens=32, sampling=sp)
+            ids[rid] = (n, shared, seed, pass_i)
 
     def step():
         core = eng.core
@@ -2134,20 +2160,49 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
     kernels = (decode_attention, decode_block_attn, decode_block_mlp,
                *(getattr(fn, k) for k in NORM_KERNELS), ring_entry_hop,
                ring_exit_hop, decode_block_attn_tp)
+    # where a slow capture's host time goes: each graph instantiation
+    # (``capture_end``) and each garbage collection of the run, timed
+    stalls = {"capture_end_ms": [], "gc_ms": []}
+    capture_end = torch.cuda.CUDAGraph.capture_end
+
+    def timed_capture_end(graph):
+        t = time.perf_counter()
+        capture_end(graph)
+        stalls["capture_end_ms"].append((time.perf_counter() - t) * 1e3)
+
+    def on_gc(phase, info, t0=[0.0]):
+        if phase == "start":
+            t0[0] = time.perf_counter()
+        else:
+            stalls["gc_ms"].append((time.perf_counter() - t0[0]) * 1e3)
+
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     for k in kernels:
         k.launches = 0
+    torch.cuda.CUDAGraph.capture_end = timed_capture_end
+    gc.callbacks.append(on_gc)
     t_run = time.perf_counter()
-    submit(wave1)
-    # the second wave arrives once the first prefix holder has its first
-    # token, so its prefix blocks are in the radix cache
-    holder = next(iter(ids))
-    while not eng.result(holder).tokens:
-        step()
-    submit(wave2)
-    while step():
-        pass
-    torch.cuda.synchronize()
+    try:
+        for pass_i in range(2):
+            # pass 0 draws the prompts every earlier run drew
+            # (RandomState(7))
+            rs = np.random.RandomState(7 + 100 * pass_i)
+            prefix = rs.randint(0, cfg.vocab_size, (512,))
+            first = len(ids)
+            submit(wave1, rs, prefix, pass_i)
+            # the second wave arrives once the first prefix holder has its
+            # first token, so its prefix blocks are in the radix cache
+            holder = list(ids)[first]
+            while not eng.result(holder).tokens:
+                step()
+            submit(wave2, rs, prefix, pass_i)
+            while step():
+                pass
+        torch.cuda.synchronize()
+    finally:
+        torch.cuda.CUDAGraph.capture_end = capture_end
+        gc.callbacks.remove(on_gc)
     run_s = time.perf_counter() - t_run
     launches = {k.__name__: k.launches for k in kernels}
 
@@ -2156,11 +2211,15 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
     decode_steps = reg.get("serving.phase.decode_dispatch_s").count
     chunks = m["prefill_chunks"]
     layers = cfg.num_layers
+    served = [(n, eng.result(rid).prefix_hit_tokens)
+              for rid, (n, *_) in ids.items()]
+    widths = plan_widths(eng, served)
     # the decode step is ONE CUDA graph, captured at the first decode step
-    # (after that step's body ran eagerly) and replayed at every later one
+    # (after that step's body ran eagerly) and replayed at every later
+    # one; each prefill width likewise at its first chunk
     core = eng.core
     if hasattr(core, "capture_counts"):
-        graph = check_graphed(eng, tag)
+        graph = check_graphed(eng, tag, widths)
         capture_s = core.capture_seconds["decode"]
         eager, captures = core.eager_decode_steps, \
             core.capture_counts["decode"]
@@ -2168,15 +2227,23 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
         # a checkout from before the graph plane (``--serve-ab`` runs its
         # package): every decode step launches its kernels eagerly
         graph, eager, captures, capture_s = None, decode_steps, 0, None
-    # the wrappers count launches on the host: a decode step's kernels
-    # launch in the eager step and once into the graph at its capture,
-    # never in a replay
+    if hasattr(core, "eager_prefill_chunks"):
+        prefill_passes = core.eager_prefill_chunks + \
+            core.capture_counts["prefill"]
+        prefill_capture_ms = {w: t * 1e3 for w, t in
+                              sorted(core.prefill_capture_seconds.items())}
+    else:
+        # a checkout whose prefill chunks run eagerly
+        prefill_passes, prefill_capture_ms = chunks, None
+    # the wrappers count launches on the host: a graph's kernels launch in
+    # the eager call before its capture and once into the graph at the
+    # capture, never in a replay
     decode_passes = eager + captures
     # prefill chunks always run decode_attention and the model's norm
     # twice per layer plus the final one; decode passes run the same on
     # the unfused path, and the decode-block pair plus the final norm on
     # the fused one (the pair applies the layers' norms itself)
-    unfused_passes = chunks + (0 if fused else decode_passes)
+    unfused_passes = prefill_passes + (0 if fused else decode_passes)
     norm = "rms_norm_fwd" if llama else "layer_norm_fwd"
     want = {k.__name__: 0 for k in kernels}
     if tp == 1:
@@ -2196,19 +2263,23 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
             want["ring_entry_hop"] = want["ring_exit_hop"] = \
                 layers * 2 * tp * tp * decode_passes
             want["decode_block_attn_tp"] = layers * tp * decode_passes
-        want[norm] = (2 * layers + 1) * tp * (chunks + decode_passes)
-    log(f"{tag} {len(ids)} requests, {chunks} prefill chunks, "
+        want[norm] = (2 * layers + 1) * tp * (prefill_passes + decode_passes)
+    per_width = {w: round(t, 1) for w, t in (prefill_capture_ms or {}).items()}
+    log(f"{tag} {len(ids)} requests in 2 passes, {chunks} prefill chunks "
+        f"of widths {sorted(widths)} ({prefill_passes} prefill passes: "
+        f"eager before a capture, and the captures; capture ms per width "
+        f"{json.dumps(per_width)}), "
         f"{decode_steps} decode steps ({eager} eager, {captures} capture "
         f"of {capture_s if capture_s is None else round(capture_s * 1e3, 1)}"
         f" ms on the host, {decode_steps - eager} replays of the graph), "
         f"{m['steps']} engine steps in {run_s:.2f} s; launches "
-        f"{json.dumps(launches)} (want {layers} layers x chunks/decode "
+        f"{json.dumps(launches)} (want {layers} layers x prefill/decode "
         f"passes{f' x {tp} shards' if tp > 1 else ''}, {2 * layers + 1} "
         f"norms per unfused pass = {json.dumps(want)})")
     if launches != want:
         raise AssertionError(f"{tag} kernel launches {launches} != {want}: "
                              f"the main path bypassed a kernel")
-    for rid, (n, shared, seed) in ids.items():
+    for rid, (n, shared, seed, pass_i) in ids.items():
         out = eng.result(rid)
         if not (out.finished and out.status == "finished"
                 and len(out.tokens) == 32):
@@ -2217,7 +2288,7 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
         if not all(0 <= t < cfg.vocab_size for t in out.tokens):
             raise AssertionError(f"{tag} request {rid} emitted an "
                                  f"out-of-vocab token: {out.tokens}")
-        log(f"{tag} request {rid}: prompt {n}"
+        log(f"{tag} pass {pass_i} request {rid}: prompt {n}"
             f"{' (shared prefix)' if shared else ''}, "
             f"{'seed ' + str(seed) if seed is not None else 'greedy'}, "
             f"prefix hit {out.prefix_hit_tokens}, ttft "
@@ -2226,19 +2297,31 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
         raise AssertionError(f"{tag} no prefix-cache hit in the serving run")
     decode_ms = float(np.median(step_ms)) if step_ms else None
     # the metrics' TTFT p50 is a quantile of log-spaced histogram buckets;
-    # the exact median of the run's 8 TTFTs beside it
-    ttft_ms = float(np.median([eng.result(rid).ttft_s * 1e3 for rid in ids]))
+    # the exact medians of the run's 16 TTFTs, of the cold pass's 8 and of
+    # the warm pass's 8 beside it
+    ttft = {p: [eng.result(rid).ttft_s * 1e3 for rid, r in ids.items()
+                if p is None or r[3] == p] for p in (None, 0, 1)}
+    ttft_ms, cold_ms, warm_ms = (float(np.median(ttft[p]))
+                                 for p in (None, 0, 1))
     res = {"decode_path": eng.decode_path, "tp": tp,
            "requests": len(ids), "prefill_chunks": chunks,
+           "prefill_widths": sorted(widths),
+           "prefill_passes": prefill_passes,
            "decode_steps": decode_steps, "steps": m["steps"],
            "run_s": run_s, "tokens_generated": m["tokens_generated"],
            "tokens_per_s": m["tokens_generated"] / run_s,
            "ttft_p50_ms": m["ttft_p50_ms"], "ttft_median_ms": ttft_ms,
+           "ttft_cold_median_ms": cold_ms, "ttft_warm_median_ms": warm_ms,
            "decode_step_ms_p50": decode_ms,
            "decode_only_steps": len(step_ms),
            "prefix_hit_tokens": m["prefix_hit_tokens"],
            "decode_graph": graph, "capture_ms":
                None if capture_s is None else capture_s * 1e3,
+           "prefill_capture_ms": prefill_capture_ms,
+           "graph_pool_gb": pool_gb(getattr(core, "_graph_pool", None)),
+           "capture_end_ms": stalls["capture_end_ms"],
+           "gc_collections": len(stalls["gc_ms"]),
+           "gc_max_ms": max(stalls["gc_ms"], default=0.0),
            "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9}
     if fused:
         hist = reg.get("kernel.decode_block_s")
@@ -2247,10 +2330,16 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
                                  f"{hist.count} samples, want {decode_steps}")
         res["decode_block_dispatch_ms_p50"] = hist.quantile(0.5) * 1e3
     log(f"{tag} {res['tokens_per_s']:.1f} tokens/s over the run, TTFT "
-        f"p50 {m['ttft_p50_ms']} ms (median {ttft_ms:.2f}), decode step p50 "
+        f"p50 {m['ttft_p50_ms']} ms (median {ttft_ms:.2f}; cold pass "
+        f"{cold_ms:.2f}, warm pass {warm_ms:.2f}), decode step p50 "
         f"{decode_ms if decode_ms is None else round(decode_ms, 3)} ms "
         f"({len(step_ms)} decode-only steps), prefix hit tokens "
-        f"{m['prefix_hit_tokens']}, peak memory {res['peak_mem_gb']:.1f} GB "
+        f"{m['prefix_hit_tokens']}, peak memory {res['peak_mem_gb']:.2f} GB "
+        f"over the run, graph pool {res['graph_pool_gb']} GB; graph "
+        f"instantiations (capture_end) "
+        f"{[round(t, 1) for t in stalls['capture_end_ms']]} ms, "
+        f"{res['gc_collections']} garbage collections (longest "
+        f"{res['gc_max_ms']:.1f} ms) "
         f"(card: {card}{TP_NOTE if tp > 1 else ''})")
     res["decode_profile"] = profile_decode(eng, cfg.vocab_size, card,
                                            tag[len("[serving:"):-1])
@@ -2374,7 +2463,9 @@ def replay_checks(eng, card: str, label: str) -> dict:
            "kernel_launches": sum(kernels["eager"].values()),
            "kernel_names": len(kernels["eager"]),
            "first_window_differed": lost,
-           "replay_ms": runs["replay"]["ms"], "eager_ms": runs["eager"]["ms"]}
+           "replay_ms": runs["replay"]["ms"], "eager_ms": runs["eager"]["ms"],
+           "prefill": (prefill_replay_check(eng, card, label, counted)
+                       if getattr(core, "_prefill_graphs", None) else None)}
     log(f"{tag} replayed decode step vs the eager body from the same state: "
         f"logits {'bit-identical' if exact else 'not bit-identical'} "
         f"(row_reading {reading:.4g}), "
@@ -2384,6 +2475,94 @@ def replay_checks(eng, card: str, label: str) -> dict:
            "(the replay is timed with CUDA events only)")
         + f"; CUDA events {out['replay_ms']:.3f} ms a replay vs "
         f"{out['eager_ms']:.3f} ms an eager body (card: {card})")
+    return out
+
+
+def prefill_replay_check(eng, card: str, label: str, counted) -> dict:
+    """The widest prefill graph of an engine with no prefill in flight,
+    replayed against its body run eagerly (on the capture stream, as the
+    capture's warm-up ran it) from the same lane and inputs: a chunk of
+    random ids at offset 512 with its last row padding (valid = width -
+    1), so the chunk attends the lane's earlier rows and the logits come
+    from a row before the last.  Checks the f32 last logits and every
+    K/V row the chunk wrote bit-identical, and the same kernels by name
+    and count under torch.profiler (``counted``); times both with CUDA
+    events.  A chunk's body rewrites the same rows from the same inputs,
+    so repeated calls need no restore; the lane's rows are restored at
+    the end."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving.engine import _capture_stream
+    core = eng.core
+    width, off = max(core._prefill_graphs), 512
+    lane = [t for row in (*core._lane_ks, *core._lane_vs)
+            for t in (row if isinstance(row, list) else [row])]
+    saved = [t[:, off:off + width].clone() for t in lane]
+    host = np.zeros(2 + width, np.int64)
+    host[0], host[1] = off, width - 1
+    host[2:] = np.random.RandomState(17).randint(
+        0, core.model.cfg.vocab_size, (width,))
+    core._prefill_io[:2 + width].copy_(torch.from_numpy(host))
+
+    def replay():
+        core._prefill_graph_chunk(width)
+
+    def eager():
+        stream = _capture_stream(core.device)
+        current = torch.cuda.current_stream()
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            core._prefill_body(width)
+        current.wait_stream(stream)
+
+    tag = f"[graph:{label}]"
+    runs = {}
+    for name, fn in (("replay", replay), ("eager", eager)):
+        for t, s in zip(lane, saved):
+            t[:, off:off + width].copy_(s)
+        fn()
+        torch.cuda.synchronize()
+        runs[name] = {"logits": core._prefill_logits.clone(),
+                      "rows": [t[:, off:off + width].clone() for t in lane],
+                      "counts": counted(fn),
+                      "ms": time_ms(fn, iters=5, warmup=2, windows=3)}
+    for t, s in zip(lane, saved):
+        t[:, off:off + width].copy_(s)
+    torch.cuda.synchronize()
+    r, e = runs["replay"], runs["eager"]
+    logits_exact = torch.equal(r["logits"], e["logits"])
+    rows_exact = all(torch.equal(a, b) for a, b in zip(r["rows"], e["rows"]))
+    if not (logits_exact and rows_exact):
+        raise AssertionError(
+            f"{tag} a replayed width-{width} prefill chunk differs from its "
+            f"eager body: last logits {'equal' if logits_exact else 'differ'}"
+            f", K/V rows {'equal' if rows_exact else 'differ'} (max abs "
+            f"{(r['logits'] - e['logits']).abs().max().item()})")
+    seen = bool(r["counts"])
+    if seen and r["counts"] != e["counts"]:
+        diff = {k[:90]: (r["counts"].get(k), e["counts"].get(k))
+                for k in set(r["counts"]) | set(e["counts"])
+                if r["counts"].get(k) != e["counts"].get(k)}
+        # the tracer can drop a window's records: one more window of each
+        r["counts"], e["counts"] = counted(replay), counted(eager)
+        log(f"{tag} a first profiled window of each prefill chunk differed "
+            f"(name: (replay, eager)) {json.dumps(diff)}; profiled again")
+        if r["counts"] != e["counts"]:
+            raise AssertionError(f"{tag} the replayed chunk's kernels differ "
+                                 f"from its eager body's: {r['counts']} vs "
+                                 f"{e['counts']}")
+    out = {"width": width, "offset": off, "bit_identical": True,
+           "kernels_seen_in_replay": seen,
+           "kernel_launches": sum(e["counts"].values()),
+           "replay_ms": r["ms"], "eager_ms": e["ms"]}
+    log(f"{tag} replayed width-{width} prefill chunk (offset {off}, "
+        f"valid {width - 1}) vs its eager body: last logits and the "
+        f"{len(lane)} lane K/V row blocks it wrote bit-identical, "
+        + (f"the same {out['kernel_launches']} kernel launches under "
+           f"torch.profiler" if seen else "torch.profiler saw no kernel "
+           "inside the graph")
+        + f"; CUDA events {r['ms']:.3f} ms a replay vs {e['ms']:.3f} ms "
+        f"an eager body (card: {card})")
     return out
 
 
@@ -2489,13 +2668,15 @@ PROFILE_KINDS = {
 def profile_prefill(eng, vocab: int, card: str, label: str,
                     prompt_len: int) -> dict:
     """Device time of each 512-token prefill chunk of one fresh prompt of
-    ``prompt_len`` tokens on an idle engine: each engine step (one chunk)
-    under its own torch.profiler window, its kernel time by kind (the
-    chunk's attention, cuBLAS GEMMs, the rest) and its five longest
-    kernels by name.  Reports every chunk; the
-    last one attends over the longest cache, and its step also runs the
-    request's first decode step (its ``decode_attention`` and part of its
-    GEMMs and rest)."""
+    ``prompt_len`` tokens on an idle engine: each engine step (one chunk,
+    a replay of its width's graph where the engine captures them) under
+    its own torch.profiler window, its wall time, its kernel time by kind
+    (the chunk's attention, cuBLAS GEMMs, the rest), its busy share
+    (kernel time over wall time; one stream, so kernels do not overlap)
+    and its five longest kernels by name.  Reports every chunk and the
+    median busy share; the last one attends over the longest cache, and
+    its step also runs the request's first decode step (its
+    ``decode_attention`` and part of its GEMMs and rest)."""
     import numpy as np
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -2518,12 +2699,29 @@ def profile_prefill(eng, vocab: int, card: str, label: str,
                          if any(x in name for x in pats)), "other")
             by_kind[kind] += ms
         top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
-        chunks.append({"wall_ms": wall_ms,
-                       "device_ms": sum(by_kind.values()),
+        device = sum(by_kind.values())
+        chunks.append({"wall_ms": wall_ms, "device_ms": device,
+                       "busy_share": device / wall_ms,
                        "device_ms_by_kind": by_kind,
                        "top_kernels_ms": {k[:90]: v for k, v in top}})
     eng.run_until_complete()
     eng.purge(rid)
+    # the same steps without the profiler (its host cost a traced kernel
+    # is not the engine's): a fresh prompt of the same length, each step
+    # timed on the host clock to its synchronize
+    rid = eng.submit(rs.randint(0, vocab, (prompt_len,)), max_new_tokens=1)
+    unprofiled = []
+    while eng.core._prefills or eng.core.scheduler.waiting:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        unprofiled.append((time.perf_counter() - t0) * 1e3)
+    eng.run_until_complete()
+    eng.purge(rid)
+    for c, wall in zip(chunks, unprofiled):
+        c["wall_ms_unprofiled"] = wall
+        c["busy_share_unprofiled"] = c["device_ms"] / wall
     tag = f"[profile:{label}]"
     if not chunks or chunks[-1]["device_ms"] == 0.0:
         log(f"{tag} the profiler saw no device time: prefill chunk "
@@ -2532,10 +2730,24 @@ def profile_prefill(eng, vocab: int, card: str, label: str,
     for i, c in enumerate(chunks):
         log(f"{tag} prefill chunk {i + 1} of {len(chunks)} ({prompt_len}-"
             f"token prompt) under torch.profiler: {c['wall_ms']:.3f} ms "
-            f"wall, {c['device_ms']:.3f} ms of kernels; by kind "
+            f"wall, {c['device_ms']:.3f} ms of kernels, busy share "
+            f"{c['busy_share']:.3f} (without the profiler "
+            f"{c.get('wall_ms_unprofiled', float('nan')):.3f} ms wall, "
+            f"{c.get('busy_share_unprofiled', float('nan')):.3f}); by kind "
             f"{json.dumps({k: round(v, 4) for k, v in c['device_ms_by_kind'].items()})} "
             f"(card: {card})")
-    return {"prompt_len": prompt_len, "chunks": chunks}
+    med = {key: float(np.median([c[key] for c in chunks if key in c]))
+           for key in ("wall_ms", "busy_share", "wall_ms_unprofiled",
+                       "busy_share_unprofiled")}
+    log(f"{tag} prefill chunks, medians: under torch.profiler wall "
+        f"{med['wall_ms']:.3f} ms, busy share {med['busy_share']:.3f}; "
+        f"without it wall {med['wall_ms_unprofiled']:.3f} ms, kernels "
+        f"over that wall {med['busy_share_unprofiled']:.3f} (card: {card})")
+    return {"prompt_len": prompt_len, "chunks": chunks,
+            "wall_ms_median": med["wall_ms"],
+            "busy_share_median": med["busy_share"],
+            "wall_ms_unprofiled_median": med["wall_ms_unprofiled"],
+            "busy_share_unprofiled_median": med["busy_share_unprofiled"]}
 
 
 # --------------------------------------------------------------- parity
@@ -2564,23 +2776,40 @@ def parity_model(family: str, device):
                             dtype="float32", generator=gen)
 
 
-def check_graphed(eng, what: str) -> dict:
+def check_graphed(eng, what: str, widths) -> dict:
     """Raise unless ``eng`` served its decode steps through one captured
-    CUDA graph: one capture, counted once in ``serving.compiles`` and in
-    one ``compile`` event, after one eager decode step.  Returns what it
-    read."""
+    CUDA graph, after one eager decode step, and its prefill chunks
+    through one captured graph per width of ``widths`` (the distinct
+    widths its requests' chunk plans ran), each after one eager chunk:
+    every capture counted once in ``serving.compiles`` and in the
+    ``compile`` events.  A checkout whose prefill runs eagerly
+    (``--serve-ab``'s parent) is held to its decode graph alone.  Returns
+    what it read."""
     core = eng.core
+    graphed_prefill = hasattr(core, "eager_prefill_chunks")
+    prefill = len(widths) if graphed_prefill else 0
     got = {"decode_graph_reason": eng.decode_graph_reason,
            "capture_counts": dict(core.capture_counts),
            "serving.compiles": eng.registry.get("serving.compiles").value,
-           "compile_events": len(eng.tracer.events("compile")),
+           "compiled": sum(attrs["count"] for *_, attrs in
+                           eng.tracer.events("compile")),
            "eager_decode_steps": core.eager_decode_steps}
-    if got != {"decode_graph_reason": None,
-               "capture_counts": {"prefill": 0, "decode": 1, "verify": 0},
-               "serving.compiles": 1, "compile_events": 1,
-               "eager_decode_steps": 1}:
-        raise AssertionError(f"{what}: the decode step was not served by "
-                             f"one captured CUDA graph: {got}")
+    want = {"decode_graph_reason": None,
+            "capture_counts": {"prefill": prefill, "decode": 1,
+                               "verify": 0},
+            "serving.compiles": prefill + 1, "compiled": prefill + 1,
+            "eager_decode_steps": 1}
+    if graphed_prefill:
+        got.update(prefill_graph_reason=eng.prefill_graph_reason,
+                   prefill_graphs=sorted(core._prefill_graphs),
+                   eager_prefill_chunks=core.eager_prefill_chunks)
+        want.update(prefill_graph_reason=None,
+                    prefill_graphs=sorted(widths),
+                    eager_prefill_chunks=prefill)
+    if got != want:
+        raise AssertionError(f"{what}: the decode step and the prefill "
+                             f"chunks were not served by one captured CUDA "
+                             f"graph each (a width): {got} != {want}")
     return got
 
 
@@ -2591,7 +2820,8 @@ def phase_parity(family: str) -> None:
     the card) on all three rungs, ``tp_fused_block``, ``tp_fused`` and
     ``unfused``, each on its own copy of the model (a tensor-parallel
     engine re-lays its model's weights).  Every engine's decode steps go
-    through its one captured CUDA graph (``check_graphed``)."""
+    through its one captured CUDA graph, its prefill chunks through one
+    graph a width (``check_graphed``)."""
     import numpy as np
     import torch
     from paddle_tpu_torch.serving import ServingEngine
@@ -2611,9 +2841,11 @@ def phase_parity(family: str) -> None:
                                  f"{eng.decode_path!r} "
                                  f"({eng.decode_fallback_reason}), want "
                                  f"{want_path!r}")
-        tokens[want_path] = [o.tokens for o in
-                             eng.serve_batch(prompts, max_new_tokens=16)]
-        check_graphed(eng, f"[parity:{family}] {want_path} engine")
+        outs = eng.serve_batch(prompts, max_new_tokens=16)
+        tokens[want_path] = [o.tokens for o in outs]
+        check_graphed(eng, f"[parity:{family}] {want_path} engine",
+                      plan_widths(eng, [(len(p), o.prefix_hit_tokens)
+                                        for p, o in zip(prompts, outs)]))
         eng.close()
     for kw, want_path in ((dict(fused_decode=True), "tp_fused_block"),
                           ({}, "tp_fused"),
@@ -2627,9 +2859,11 @@ def phase_parity(family: str) -> None:
                                  f"({eng.decode_fallback_reason}, "
                                  f"{eng.core.tp_fusion_reason}), want "
                                  f"{want_path!r}")
-        tokens[f"tp{TP}_{want_path}"] = [
-            o.tokens for o in eng.serve_batch(prompts, max_new_tokens=16)]
-        check_graphed(eng, f"[parity:{family}] tp={TP} {want_path} engine")
+        outs = eng.serve_batch(prompts, max_new_tokens=16)
+        tokens[f"tp{TP}_{want_path}"] = [o.tokens for o in outs]
+        check_graphed(eng, f"[parity:{family}] tp={TP} {want_path} engine",
+                      plan_widths(eng, [(len(p), o.prefix_hit_tokens)
+                                        for p, o in zip(prompts, outs)]))
         eng.close()
     for i, p in enumerate(prompts):
         want = model.generate(p[None], max_new_tokens=16)[0, len(p):]
@@ -2646,7 +2880,7 @@ def phase_parity(family: str) -> None:
         f"unfused engine tokens == generate tokens for {len(prompts)} "
         f"requests (prompt lengths {[len(p) for p in prompts]}, 16 new "
         f"tokens each); every engine's decode steps replayed its one "
-        f"captured CUDA graph")
+        f"captured CUDA graph, its prefill chunks one graph a width")
 
 
 # ------------------------------------------------------------ training
@@ -4015,9 +4249,12 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-AB_KEYS = ("ttft_p50_ms", "ttft_median_ms", "decode_step_ms_p50",
-           "capture_ms", "tokens_per_s", "prefill_chunks", "decode_steps",
-           "prefill_profile", "decode_profile")
+AB_KEYS = ("ttft_p50_ms", "ttft_median_ms", "ttft_cold_median_ms",
+           "ttft_warm_median_ms", "decode_step_ms_p50", "capture_ms",
+           "prefill_capture_ms", "prefill_widths", "graph_pool_gb",
+           "peak_mem_gb", "capture_end_ms", "gc_max_ms", "tokens_per_s",
+           "prefill_chunks", "decode_steps", "prefill_profile",
+           "decode_profile")
 # calls of the wrapper a window of its host-time measure makes
 HOST_CALLS = 100
 
@@ -4448,9 +4685,34 @@ def serve_ab(parent: str) -> int:
                      lambda r: (r[family][path]["decode_profile"] or {})
                      .get("step_ms_unprofiled")),
                     ("TTFT median ms",
-                     lambda r: r[family][path]["ttft_median_ms"])):
+                     lambda r: r[family][path]["ttft_median_ms"]),
+                    ("TTFT median ms, cold pass",
+                     lambda r: r[family][path]["ttft_cold_median_ms"]),
+                    ("TTFT median ms, warm pass",
+                     lambda r: r[family][path]["ttft_warm_median_ms"]),
+                    ("peak memory GB over the run",
+                     lambda r: r[family][path]["peak_mem_gb"]),
+                    ("prefill chunk wall ms (profiled, median)",
+                     lambda r: (r[family][path]["prefill_profile"] or {})
+                     .get("wall_ms_median")),
+                    ("prefill chunk busy share (profiled, median)",
+                     lambda r: (r[family][path]["prefill_profile"] or {})
+                     .get("busy_share_median")),
+                    ("prefill chunk wall ms (unprofiled, median)",
+                     lambda r: (r[family][path]["prefill_profile"] or {})
+                     .get("wall_ms_unprofiled_median")),
+                    ("prefill chunk kernels over unprofiled wall (median)",
+                     lambda r: (r[family][path]["prefill_profile"] or {})
+                     .get("busy_share_unprofiled_median"))):
                 log(f"[serve-ab] {family} {path} {key}: parent "
                     f"{med('parent', get)} -> change {med('change', get)}")
+            for r in results:
+                p = r[family][path]
+                log(f"[serve-ab] {r['side']} {family} {path}: prefill "
+                    f"widths {p['prefill_widths']}, capture ms per width "
+                    f"{json.dumps(p['prefill_capture_ms'])}, decode capture "
+                    f"{p['capture_ms']} ms, graph pool {p['graph_pool_gb']} "
+                    f"GB")
     for key, get in (("decode step p50 ms",
                       lambda r: r["tp2"]["decode_step_ms_p50"]),
                      ("kernel ms a decode step (profiled)",
@@ -4465,7 +4727,13 @@ def serve_ab(parent: str) -> int:
                      ("profile's step without the profiler ms",
                       lambda r: (r["tp2"]["decode_profile"] or {})
                       .get("step_ms_unprofiled")),
-                     ("TTFT median ms", lambda r: r["tp2"]["ttft_median_ms"])):
+                     ("TTFT median ms", lambda r: r["tp2"]["ttft_median_ms"]),
+                     ("TTFT median ms, cold pass",
+                      lambda r: r["tp2"]["ttft_cold_median_ms"]),
+                     ("TTFT median ms, warm pass",
+                      lambda r: r["tp2"]["ttft_warm_median_ms"]),
+                     ("peak memory GB over the run",
+                      lambda r: r["tp2"]["peak_mem_gb"])):
         log(f"[serve-ab] gpt tp=2 tp_fused_block {key}: parent "
             f"{med('parent', get)} -> change {med('change', get)}")
     log(f"[serve-ab] slower than the parent (medians of 2 turns): "

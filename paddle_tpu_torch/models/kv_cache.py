@@ -4,7 +4,10 @@ paddle_tpu/models/kv_cache.py).
 A layer's cache is the tuple ``(k_buf, v_buf, pos)`` with
 ``k_buf/v_buf [batch, max_len, heads, dim]``.  ``pos`` is a Python int
 (every row at the same offset) or an int tensor ``[batch]`` of per-row
-offsets (continuous batching).
+offsets (continuous batching).  The serving engine passes even a
+prefill chunk's one offset as a ``[1]`` tensor: the tensor branches
+never read a value on the host, so a CUDA graph of the chunk replays at
+whatever offset the tensor holds.
 
 Where JAX returns new buffers, these functions update the given buffers
 IN PLACE and return them; the reference donates the same buffers, so the
@@ -36,6 +39,17 @@ def _is_per_row(pos: Pos) -> bool:
     return isinstance(pos, torch.Tensor) and pos.dim() >= 1
 
 
+def _words(t: torch.Tensor) -> Optional[torch.Tensor]:
+    """``t [b, n, h, d]`` viewed as 8-byte words ``[b, n, h * d *
+    itemsize / 8]`` (the same memory), or None where its layout allows no
+    such view.  An index copy's cost goes by element: in words it moves
+    the same bytes in a quarter of the 16-bit elements."""
+    try:
+        return t.view(*t.shape[:-2], -1).view(torch.int64)
+    except RuntimeError:
+        return None
+
+
 def append_kv(pk: torch.Tensor, pv: torch.Tensor, k: torch.Tensor,
               v: torch.Tensor, pos: Pos):
     """Write the fresh chunk ``k/v [b, s, h, d]`` into ``pk/pv
@@ -48,8 +62,11 @@ def append_kv(pk: torch.Tensor, pv: torch.Tensor, k: torch.Tensor,
             0, max_len - s)
         cols = start[:, None] + torch.arange(s, device=pk.device)
         rows = torch.arange(b, device=pk.device)[:, None]
-        pk[rows, cols] = k
-        pv[rows, cols] = v
+        for dst, src in ((pk, k), (pv, v)):
+            wd, ws = _words(dst), _words(src)
+            if wd is None or ws is None:
+                wd, ws = dst, src
+            wd[rows, cols] = ws
     else:
         start = min(max(int(pos), 0), max_len - s)
         pk[:, start:start + s] = k
@@ -57,16 +74,20 @@ def append_kv(pk: torch.Tensor, pv: torch.Tensor, k: torch.Tensor,
     return pk, pv
 
 
-def gather_block_rows(block_buf: torch.Tensor, idx) -> torch.Tensor:
+def gather_block_rows(block_buf: torch.Tensor, idx,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Gather block rows ``idx`` (ids clipped into range) out of
     ``block_buf [num_blocks, block_len, h, d]`` and flatten them into one
-    ``[n * block_len, h, d]`` cache row."""
-    nb = block_buf.shape[0]
+    ``[n * block_len, h, d]`` cache row: a new tensor, or written in
+    place into ``out`` (a contiguous ``[n * block_len, h, d]`` row) and
+    returned."""
+    nb, bl, h, d = block_buf.shape
     idx = torch.as_tensor(idx, device=block_buf.device).long().clamp(0,
                                                                      nb - 1)
-    rows = block_buf.index_select(0, idx)
-    n, bl, h, d = rows.shape
-    return rows.reshape(n * bl, h, d)
+    if out is not None:
+        torch.index_select(block_buf, 0, idx, out=out.view(-1, bl, h, d))
+        return out
+    return block_buf.index_select(0, idx).reshape(-1, h, d)
 
 
 def scatter_block_rows(block_buf: torch.Tensor, row: torch.Tensor,

@@ -320,6 +320,14 @@ class ServingEngine:
         return self.core.decode_graph_reason
 
     @property
+    def prefill_graph_reason(self) -> Optional[str]:
+        """Why this engine's prefill chunks are not captured as CUDA graphs,
+        one per chunk width (None when they are: every later chunk of a
+        width replays its graph); the same rule as
+        ``decode_graph_reason``."""
+        return self.core.prefill_graph_reason
+
+    @property
     def tensor_parallel(self) -> int:
         """The engine's tensor-parallel mesh degree (1 = one device)."""
         return self.core.tensor_parallel
@@ -342,6 +350,7 @@ class ServingEngine:
         return out
 
     def close(self) -> None:
-        """Release the engine's device memory (KV slabs, staging rows);
-        results already produced stay readable, new work is refused."""
+        """Release the engine's device memory (KV slabs, staging lane,
+        graphs); results already produced stay readable, new work is
+        refused."""
         self.core.close()

@@ -3,7 +3,7 @@
 
 ``tensor_parallel > 1`` shards the whole device plane over a 1-D mesh
 (serving/tp.py): the model's weights Megatron-style, the KV slot and
-block slabs and every staging row on the kv-head axis.  Prefill chunks
+block slabs and the staging lane on the kv-head axis.  Prefill chunks
 run the per-shard Megatron body; the decode step takes the sharded
 decode-block kernels (``tp_fused_block``), the composed ring
 (``tp_fused``) or the Megatron body (``unfused``).
@@ -11,18 +11,22 @@ decode-block kernels (``tp_fused_block``), the composed ring
 Device work per step:
 
   * ``prefill`` — one ``model.decode_step`` per CHUNK: ``[1, width]``
-    tokens appended into a per-request ``[1, max_seq]`` staging cache at
-    the chunk's offset; the last VALID token's logits seed sampling.
+    tokens appended into the engine's ONE ``[1, max_seq]`` staging lane
+    at the chunk's offset; the last VALID token's logits seed sampling.
+    Only the head of the prefill queue runs chunks, and it runs to
+    completion before the next request starts, so one lane serves every
+    request (the reference allocates and donates rows per request).
     Width comes from the scheduler's chunk plan: without
     ``prefill_chunk``, one pow2-bucketed chunk covers the whole uncached
     suffix; with it, long suffixes run as fixed-width pieces, one chunk
     per step, interleaved with decode.  Padding rows of a chunk write
-    their K/V past ``valid`` in the staging row and their queries mask
+    their K/V past ``valid`` in the staging lane and their queries mask
     by the padded width — exactly as in the reference;
   * ``block copy`` — the radix prefix cache's gather (matched prefix
-    blocks into the staging row at admission) and scatter (freshly
-    computed blocks out of the slot after prefill).  A cache-hit request
-    prefills ONLY its suffix;
+    blocks, pinned at admission, into the lane when the request heads
+    the prefill queue; a request with no hit starts from a zeroed lane)
+    and scatter (freshly computed blocks out of the slot after prefill).
+    A cache-hit request prefills ONLY its suffix;
   * ``decode`` — ONE ``[num_slots, 1]`` step over the whole pool with
     per-slot positions.  Free and mid-prefill slots ride along as
     no-ops: their rows decode garbage nothing reads, every row's
@@ -30,18 +34,25 @@ Device work per step:
     its row end (models/kv_cache.py) until the next adopt overwrites the
     row wholesale.
 
-The decode step is the port's counterpart of the reference's ONE compiled
-decode program: on a single CUDA device the engine captures it as one
-CUDA graph at its first decode step and replays that graph every step
-after.  The captured body reads and writes only buffers whose addresses
-never change (the KV slabs, ``pool.seq_pos`` advanced in place, the
-last-token vector, a ``[num_slots, vocab]`` f32 logits buffer); sampling
-stays eager after it, so each request keeps its own ``torch.Generator``.
-``capture_counts`` (the reference's ``trace_counts``, same keys) counts
-captures, each reported as a ``compile`` event and in
-``serving.compiles``.  CPU engines and meshes over several CUDA devices
-run the same body eagerly every step; ``decode_graph_reason`` says why.
-The prefill chunks run eagerly.
+The compiled-program plane: the reference compiles ONE decode program
+and one prefill program per chunk width (``warm_buckets``).  On a single
+CUDA device the engine captures its decode step as one CUDA graph at its
+first decode step, and its prefill chunk as one CUDA graph per width at
+the first chunk of that width, and replays them after.  Each captured
+body reads and writes only buffers whose addresses never change: decode
+the KV slabs, ``pool.seq_pos`` advanced in place, the last-token vector
+and a ``[num_slots, vocab]`` f32 logits buffer; prefill the staging
+lane, a ``[1, max_width]`` ids buffer, ``[1]`` offset and valid-count
+tensors (filled from pinned host memory before each replay) and an f32
+``[vocab]`` last-logits buffer.  Every graph keeps its temporaries in
+the engine's one graph memory pool; none holds a live output there, and
+the graphs run one at a time, so they share it in any order.  Sampling
+and the radix copies stay eager, so each request keeps its own
+``torch.Generator``.  ``capture_counts`` (the reference's
+``trace_counts``, same keys) counts captures, each reported as a
+``compile`` event and in ``serving.compiles``.  CPU engines and meshes
+over several CUDA devices run the same bodies eagerly;
+``decode_graph_reason`` / ``prefill_graph_reason`` say why.
 
 Host plane: ONE device->host readback per step phase — the decode
 harvest reads the sampled token vector once, and a step that completes
@@ -170,24 +181,19 @@ class _Slot:
 
 
 class _Prefill:
-    """A request mid-prefill: its slot is allocated, its context grows in
-    a per-request staging cache (per-layer [1, max_seq] k/v rows seeded
-    from the radix cache's matched blocks), and the scheduler's chunk
-    plan drives one decode_step append per chunk."""
+    """A request mid-prefill: its slot is allocated, its radix match
+    pinned, and the scheduler's chunk plan drives one decode_step append
+    per chunk into the engine's staging lane once it heads the queue."""
 
-    __slots__ = ("req", "slot", "ks", "vs", "plan", "next_chunk", "match",
-                 "last_logits")
+    __slots__ = ("req", "slot", "plan", "next_chunk", "match")
 
-    def __init__(self, req: Request, slot: int, ks, vs, plan,
+    def __init__(self, req: Request, slot: int, plan,
                  match: Optional[MatchResult]):
         self.req = req
         self.slot = slot
-        self.ks = ks                # staging caches, appended per chunk
-        self.vs = vs
         self.plan = plan            # [(offset, width, valid), ...]
         self.next_chunk = 0
         self.match = match
-        self.last_logits = None     # final chunk's last-token logits
 
     @property
     def done(self) -> bool:
@@ -242,14 +248,20 @@ class EngineCore:
         self.closed = False
         # the compiled-program plane: captures per step program (the
         # reference's trace_counts) and the host seconds they took, the
-        # baseline _record_events diffs against, and the decode steps whose
-        # body ran eagerly (every step where decode_graph_reason is set,
-        # else the capture's warm-up)
+        # baseline _record_events diffs against, the decode steps and
+        # prefill chunks whose body ran eagerly (every one where the
+        # graph reason is set, else each capture's warm-up), the graphs
+        # (one decode, one prefill per chunk width), each width's capture
+        # seconds, and the memory pool every graph of the engine shares
         self.capture_counts = {"prefill": 0, "decode": 0, "verify": 0}
         self.capture_seconds = dict.fromkeys(self.capture_counts, 0.0)
         self._compile_seen = dict(self.capture_counts)
         self.eager_decode_steps = 0
+        self.eager_prefill_chunks = 0
         self._decode_graph = None
+        self._prefill_graphs: Dict[int, "torch.cuda.CUDAGraph"] = {}
+        self.prefill_capture_seconds: Dict[int, float] = {}
+        self._graph_pool = None
         # ---- tensor-parallel serving (serving/tp.py): tp > 1 shards the
         # whole device plane over a 1-D mesh of `devices` (the first tp
         # CUDA devices by default).  Every construction check runs BEFORE
@@ -293,6 +305,11 @@ class EngineCore:
         self.scheduler = Scheduler(num_slots, self.pool.max_seq,
                                    min_bucket=min_bucket,
                                    max_prefills_per_step=max_prefills_per_step)
+        # the committed prefill widths, pinned once (the reference's
+        # :426): every chunk plan's width lies in it, and the prefill
+        # graphs are drawn from it
+        self._warm_buckets = frozenset(self.warm_buckets())
+        self._build_prefill_buffers()
         # fused decode-block path (kernels/decode_block.py,
         # kernels/decode_block_tp.py): opt-in, resolved once here from
         # static legality (shapes, dtype, shared memory plan) and reported
@@ -310,7 +327,9 @@ class EngineCore:
             active=self.decode_path in ("fused", "tp_fused_block"),
             reason=self.decode_fallback_reason, step=self._step_index,
             tp=tensor_parallel)
-        self.decode_graph_reason = self._resolve_decode_graph()
+        # one rule for both planes: why nothing is captured (None: it is)
+        self.decode_graph_reason = self.prefill_graph_reason = \
+            self._resolve_decode_graph()
 
     def _build_device_plane(self, max_seq, enable_prefix_cache: bool,
                             block_len: int, prefix_blocks) -> None:
@@ -338,6 +357,16 @@ class EngineCore:
                 self.metrics.tracer.event, lane=self.metrics.engine_lane)
         self._slots: Dict[int, _Slot] = {}
         self._prefills: List[_Prefill] = []      # FCFS, mid-prefill
+        # the ONE staging lane every prefill appends into: per layer
+        # [1, max_seq, kv_heads, head_dim] k and v (per-shard lists under
+        # a mesh), copied into the request's slot at adopt
+        if self.mesh is not None:
+            self._lane_ks, self._lane_vs = init_staging(self.tp_weights,
+                                                        self.pool.max_seq)
+        else:
+            caches = model.init_cache(1, self.pool.max_seq)
+            self._lane_ks = [c[0] for c in caches]
+            self._lane_vs = [c[1] for c in caches]
         # per-slot device row state (fixed [num_slots] shapes)
         self._last_tok = torch.zeros((num_slots,), dtype=torch.int32,
                                      device=self.device)
@@ -360,14 +389,69 @@ class EngineCore:
         self._mask_dev: Optional[torch.Tensor] = None
         self._mask_dirty = False
 
+    def _build_prefill_buffers(self) -> None:
+        """The prefill body's fixed inputs and output: ONE int64 device
+        buffer holding the chunk's ``[1]`` offset, its ``[1]`` valid
+        count and ``[1, max_width]`` token ids (so one host->device copy
+        fills all three), and the f32 ``[vocab]`` logits of the last
+        valid token."""
+        width = max(self._warm_buckets)
+        self._prefill_io = torch.zeros((2 + width,), dtype=torch.int64,
+                                       device=self.device)
+        self._prefill_off = self._prefill_io[0:1]
+        self._prefill_valid = self._prefill_io[1:2]
+        self._prefill_ids = self._prefill_io[2:].view(1, width)
+        self._prefill_logits = torch.zeros(
+            (int(self.model.cfg.vocab_size),), dtype=torch.float32,
+            device=self.device)
+
+    def warm_buckets(self) -> Tuple[int, ...]:
+        """The committed prefill chunk-width set (the reference's
+        ``warm_buckets``, same enumeration): every width
+        ``Scheduler.chunk_plan`` can emit for this configuration, over
+        every reachable plan start (0, any block-aligned radix-cache
+        match, and each chunk-stride position past those), for both the
+        chunked rung and the chunking-disabled one of the reference's
+        degradation ladder.  The engine pins it at construction; its
+        prefill graphs are drawn from it, at most one per width."""
+        max_seq = self.pool.max_seq
+        mb = max(self.scheduler.min_bucket, 1)
+        chunk = self.prefill_chunk
+        starts = {0}
+        if self.block_pool is not None:
+            starts.update(range(0, max_seq, self.block_pool.block_len))
+        positions = set(starts)
+        if chunk is not None:
+            for s in starts:
+                positions.update(range(s, max_seq, chunk))
+        widths = set()
+        for pos in positions:
+            cap = max_seq - pos
+            if cap < 1:
+                continue
+            # bucket_length values are {mb * 2^k} capped at the row
+            # remainder: the ladder once per start
+            b = mb
+            while True:
+                widths.add(min(b, cap))
+                if chunk is not None:
+                    widths.add(min(b, cap, chunk))
+                if b >= cap:
+                    break
+                b *= 2
+        if chunk is not None:
+            widths.add(chunk)
+        return tuple(sorted(widths))
+
     def close(self) -> None:
-        """Drop the engine's device buffers (KV slabs, staging rows, row
-        state) and its decode graph so their memory can be reused; the
-        engine serves nothing afterwards."""
+        """Drop the engine's device buffers (KV slabs, staging lane, row
+        state) and its graphs so their memory can be reused; the engine
+        serves nothing afterwards."""
         self._decode_graph = None
-        for st in self._prefills:
-            st.ks = st.vs = None
+        self._prefill_graphs = {}
+        self._graph_pool = None
         self._prefills = []
+        self._lane_ks = self._lane_vs = []
         self.pool.ks = self.pool.vs = []
         if self.block_pool is not None:
             self.block_pool.bks = self.block_pool.bvs = []
@@ -397,10 +481,11 @@ class EngineCore:
         return self.prefix_cache.match_length(prompt)
 
     def _begin_prefill(self, req: Request) -> None:
-        """Claim a slot, match + pin the longest cached prefix, seed the
-        staging cache from its block rows, and queue the suffix's chunk
-        plan.  No model FLOPs run here.  The slot and the pinned radix
-        path go back to their pools if anything between claim and
+        """Claim a slot, match + pin the longest cached prefix, and queue
+        the suffix's chunk plan.  No device work runs here: the pinned
+        blocks are gathered into the staging lane when the request heads
+        the prefill queue (``_load_lane``).  The slot and the pinned
+        radix path go back to their pools if anything between claim and
         placement raises."""
         t_admit = time.perf_counter()
         slot = self.pool.alloc()
@@ -413,16 +498,6 @@ class EngineCore:
                 match = self.prefix_cache.match(req.prompt)
                 matched = match.tokens
                 t_match1 = time.perf_counter()
-            t_gather0 = time.perf_counter()
-            if matched:
-                ks, vs = self.prefix_cache.load_staging(match)
-            elif self.mesh is not None:
-                ks, vs = init_staging(self.tp_weights, self.pool.max_seq)
-            else:
-                caches = self.model.init_cache(1, self.pool.max_seq)
-                ks = [c[0] for c in caches]
-                vs = [c[1] for c in caches]
-            t_gather1 = time.perf_counter()
             plan = self.scheduler.chunk_plan(matched, req.prompt_len,
                                              self.prefill_chunk)
             self.scheduler.place(req, slot)
@@ -433,7 +508,6 @@ class EngineCore:
                 self.metrics.on_prefix_hit(matched)
             req.admit_time = t_admit
             self.metrics.on_queue_wait(t_admit - req.arrival_time)
-            self.metrics.on_gather(t_gather1 - t_gather0)
             tracer = self.metrics.tracer
             if tracer.enabled:
                 lane = self._lane(req)
@@ -443,9 +517,7 @@ class EngineCore:
                 if self.prefix_cache is not None:
                     tracer.add_span("prefix_match", lane, t_match0,
                                     t_match1, hit_tokens=matched)
-                tracer.add_span("gather", lane, t_gather0, t_gather1,
-                                hit=bool(matched))
-            self._prefills.append(_Prefill(req, slot, ks, vs, plan, match))
+            self._prefills.append(_Prefill(req, slot, plan, match))
             self.progress_counter += 1          # admission = progress
         except BaseException:
             if match is not None:
@@ -453,17 +525,52 @@ class EngineCore:
             self.pool.free(slot)
             raise
 
+    def _load_lane(self, st: _Prefill) -> None:
+        """``st`` now heads the prefill queue: seed the staging lane with
+        its pinned radix match (one in-place gather that overwrites every
+        row), or zero it on a miss, so no row of an earlier request is
+        left where this one's queries could read it."""
+        t0 = time.perf_counter()
+        hit = st.match is not None and st.match.tokens > 0
+        if hit:
+            self.prefix_cache.load_staging(st.match, self._lane_ks,
+                                           self._lane_vs)
+        else:
+            for row in (*self._lane_ks, *self._lane_vs):
+                for shard in (row if isinstance(row, list) else [row]):
+                    shard.zero_()
+        t1 = time.perf_counter()
+        self.metrics.on_gather(t1 - t0)
+        self.metrics.tracer.add_span("gather", self._lane(st.req), t0, t1,
+                                     hit=hit)
+
     def _run_chunk(self, st: _Prefill) -> None:
         """Run one prefill chunk of ``st`` (queued on the device; no
-        readback)."""
+        readback): the host fills the offset, valid count and ids in one
+        copy from pinned memory, then the body runs through its width's
+        graph on a card, eagerly elsewhere."""
+        if st.next_chunk == 0:
+            self._load_lane(st)
         off, width, valid = st.plan[st.next_chunk]
+        if width not in self._warm_buckets:
+            raise RuntimeError(
+                f"prefill width {width} is outside the committed bucket "
+                f"set {sorted(self._warm_buckets)}: warm_buckets() and "
+                f"chunk_plan disagree")
         t0 = time.perf_counter()
-        ids = np.zeros((1, width), np.int64)
-        ids[0, :valid] = np.asarray(st.req.prompt[off:off + valid],
-                                    np.int64)
-        caches = [(k, v, off) for k, v in zip(st.ks, st.vs)]
-        logits, _ = self._forward(torch.as_tensor(ids).to(self.device),
-                                  caches, off)
+        host = torch.zeros((2 + width,), dtype=torch.int64,
+                           pin_memory=self._prefill_io.is_cuda)
+        buf = host.numpy()
+        buf[0], buf[1] = off, valid
+        buf[2:2 + valid] = st.req.prompt[off:off + valid]
+        # pinned memory: the copy is queued, not waited for; the host
+        # allocator keeps the block until the copy has run
+        self._prefill_io[:2 + width].copy_(host, non_blocking=True)
+        if self.prefill_graph_reason is None:
+            self._prefill_graph_chunk(width)
+        else:
+            self._prefill_body(width)
+            self.eager_prefill_chunks += 1
         t1 = time.perf_counter()
         st.next_chunk += 1
         st.req.prefill_chunks += 1
@@ -472,12 +579,36 @@ class EngineCore:
         self.metrics.tracer.add_span(
             "prefill_chunk", self._lane(st.req), t0, t1,
             chunk=st.next_chunk - 1, width=width, tokens=valid)
-        if st.done:
-            st.last_logits = logits[0, valid - 1].float()
+
+    def _prefill_body(self, width: int) -> None:
+        """ONE prefill chunk of ``width`` tokens on fixed buffers: the ids
+        at the offset the ``[1]`` tensor holds, appended into the staging
+        lane in place; the logits over the whole chunk, then the row at
+        ``valid - 1`` picked on the device into the f32 last-logits
+        buffer (the reference's form: the LM head runs on every row).
+        This is what each width's prefill graph captures."""
+        off = self._prefill_off
+        caches = [(k, v, off) for k, v in zip(self._lane_ks, self._lane_vs)]
+        logits, _ = self._forward(self._prefill_ids[:, :width], caches, off)
+        self._prefill_logits.copy_(
+            logits[0].index_select(0, self._prefill_valid - 1)[0])
+
+    def _prefill_graph_chunk(self, width: int) -> None:
+        """The prefill body through its width's CUDA graph: the first
+        chunk of each width runs the body eagerly and captures it, later
+        ones replay the graph."""
+        graph, seconds = self._graphed(
+            self._prefill_graphs.get(width),
+            functools.partial(self._prefill_body, width), "prefill",
+            f"the width-{width} prefill chunk")
+        self._prefill_graphs[width] = graph
+        if seconds is not None:
+            self.eager_prefill_chunks += 1
+            self.prefill_capture_seconds[width] = seconds
 
     def _complete_prefill(self, st: _Prefill):
         """Final chunk done: sample the first token from the request's own
-        generator and adopt the staging row into the pool slot.  Returns
+        generator and adopt the staging lane into the pool slot.  Returns
         ``(st, first_token)``; the caller batches the readbacks
         (``_flush_staged``) and only then publishes the prompt blocks to
         the radix cache, so KV whose prefill produced non-finite logits
@@ -493,12 +624,13 @@ class EngineCore:
             self._mask_dirty = True
             mask = torch.as_tensor(self._mask_host[slot][None]).to(
                 self.device)
-        first = sample_rows([gen], st.last_logits[None], [s.do_sample],
-                            [s.temperature], [s.top_k], [s.top_p],
-                            mask=mask)
-        first = finite_or_sentinel(st.last_logits[None], first)
-        self.pool.adopt(slot, list(zip(st.ks, st.vs)), req.prompt_len)
-        st.ks = st.vs = None                    # staging rows retire
+        # queued before the next chunk overwrites the lane or the logits
+        last = self._prefill_logits[None]
+        first = sample_rows([gen], last, [s.do_sample], [s.temperature],
+                            [s.top_k], [s.top_p], mask=mask)
+        first = finite_or_sentinel(last, first)
+        self.pool.adopt(slot, list(zip(self._lane_ks, self._lane_vs)),
+                        req.prompt_len)
         self._slots[slot] = _Slot(req, match=st.match)
         self._last_tok[slot] = first[0]
         self._gens[slot] = gen
@@ -654,45 +786,58 @@ class EngineCore:
             pool.seq_pos.add_(1)
         self._logits.copy_(logits[:, 0])
 
-    def _decode_graph_step(self) -> None:
-        """The decode body through this engine's CUDA graph on the
-        device's capture stream, joined to the current stream on both
-        sides (prefill chunks and ``pool.adopt`` write the slabs there).
-        The first call runs the body eagerly — that IS this step — and
-        then captures it; every later call replays the graph.  A failure
-        raises, naming the step: nothing serves eagerly instead."""
+    def _graphed(self, graph, body, program: str, what: str):
+        """``body`` through ``graph`` on the device's capture stream,
+        joined to the current stream on both sides (the host's input
+        copies, ``pool.adopt`` and sampling run there).  With no graph yet
+        the body runs eagerly — that IS this call's work, and it sizes the
+        kernels' per-stream workspaces — and is then captured into a new
+        graph from the engine's memory pool, counted in
+        ``capture_counts[program]``.  Returns ``(graph, capture seconds
+        or None after a replay)``.  A failure raises, naming ``what`` and
+        the engine step: nothing serves eagerly instead."""
         stream = _capture_stream(self.device)
         current = torch.cuda.current_stream(self.device)
         stream.wait_stream(current)
-        what = "replay" if self._decode_graph is not None else "capture"
+        verb = "replay" if graph is not None else "capture"
         try:
-            if self._decode_graph is not None:
-                with torch.cuda.stream(stream):
-                    self._decode_graph.replay()
-                return
             with torch.cuda.stream(stream):
-                self._decode_body()
-                self.eager_decode_steps += 1
+                if graph is not None:
+                    graph.replay()
+                    return graph, None
+                body()
                 # capture_begin / capture_end rather than torch.cuda.graph,
                 # whose device sync, gc.collect and empty_cache would land
-                # on the requests still prefilling
+                # on the requests in flight
                 t0 = time.perf_counter()
+                if self._graph_pool is None:
+                    self._graph_pool = torch.cuda.graph_pool_handle()
                 graph = torch.cuda.CUDAGraph()
-                graph.capture_begin()
+                graph.capture_begin(pool=self._graph_pool)
                 try:
-                    self._decode_body()
+                    body()
                 finally:
                     graph.capture_end()
-            self._decode_graph = graph
-            self.capture_counts["decode"] += 1
-            self.capture_seconds["decode"] += time.perf_counter() - t0
+                seconds = time.perf_counter() - t0
+            self.capture_counts[program] += 1
+            self.capture_seconds[program] += seconds
+            return graph, seconds
         except Exception as e:
             raise RuntimeError(
-                f"engine step {self._step_in_flight}: CUDA graph {what} of "
-                f"the {self.decode_path!r} decode step on {self.device} "
-                f"failed: {e}") from e
+                f"engine step {self._step_in_flight}: CUDA graph {verb} of "
+                f"{what} on {self.device} failed: {e}") from e
         finally:
             current.wait_stream(stream)
+
+    def _decode_graph_step(self) -> None:
+        """The decode body through this engine's CUDA graph: captured at
+        the first decode step (whose body runs eagerly first), replayed
+        at every later one."""
+        self._decode_graph, seconds = self._graphed(
+            self._decode_graph, self._decode_body, "decode",
+            f"the {self.decode_path!r} decode step")
+        if seconds is not None:
+            self.eager_decode_steps += 1
 
     def _decode_dispatch(self) -> torch.Tensor:
         """ONE fixed-shape decode step over every slot — the body (its
@@ -924,7 +1069,8 @@ class EngineCore:
                        reason: str) -> None:
         """Unwind one MID-PREFILL request (cancel / deadline): drop it
         from the prefill queue, return its slot and radix pin, stamp the
-        terminal status.  Its staging rows die with the last reference."""
+        terminal status.  The staging lane stays: the next head reloads
+        it before its first chunk."""
         if st in self._prefills:
             self._prefills.remove(st)
         self._slots.pop(st.slot, None)
@@ -938,7 +1084,7 @@ class EngineCore:
     def cancel(self, request_id: int, status: str = "cancelled",
                reason: str = "cancelled by client") -> bool:
         """Unwind one request in ANY state — queued, mid-prefill, or
-        decoding — freeing its slot, staging rows and radix pin at once.
+        decoding — freeing its slot and radix pin at once.
         Returns True when it was found in flight (False: unknown or
         already terminal)."""
         req = self.scheduler.remove_waiting(request_id)

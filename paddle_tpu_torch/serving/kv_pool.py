@@ -15,16 +15,16 @@ them in place; the port updates the same tensors in place directly
 allocation for the engine's lifetime.
 
 With a tensor-parallel ``mesh`` (serving/tp.py) every slot slab, block
-slab and staging row is a per-shard list instead of one tensor: member
-``d`` is a contiguous ``[rows, len, kv_heads/tp, head_dim]`` holding
-shard ``d``'s kv-head group on its device (the reference's
+slab and the staging lane is a per-shard list instead of one tensor:
+member ``d`` is a contiguous ``[rows, len, kv_heads/tp, head_dim]``
+holding shard ``d``'s kv-head group on its device (the reference's
 ``KV_SLAB_SPEC``, the slabs split on the kv-head axis).  Copies between
 the pools run shard by shard, never across shards.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List
 
 import numpy as np
 import torch
@@ -155,9 +155,10 @@ class BlockPool:
     (serving/prefix_cache.py) owns which block holds which token span —
     this class owns only the device memory and the two copies:
 
-      * ``load_row(idx)`` — gather ``max_seq // block_len`` block rows
-        into fresh ``[1, max_seq]`` staging rows (ids past the true match
-        gather stale rows that ``seq_lens`` masks downstream);
+      * ``load_row_into(idx, ks, vs)`` — gather ``max_seq // block_len``
+        block rows in place into the engine's ``[1, max_seq]`` staging
+        lane (ids past the true match gather stale rows that ``seq_lens``
+        masks downstream);
       * ``store_row(pool, slot, dest)`` — split pool slot ``slot``'s row
         into blocks and write block j to ``dest[j]``; entries equal to
         ``num_blocks`` are dropped, so one call writes any subset of a
@@ -222,17 +223,16 @@ class BlockPool:
         self._free.append(block)
 
     # ------------------------------------------------------------ copies
-    def load_row(self, idx) -> Tuple[List[torch.Tensor], List[torch.Tensor]]:
+    def load_row_into(self, idx, ks, vs) -> None:
         """Gather blocks ``idx`` ([blocks_per_row] ids, padded past the
-        match with any value) into per-layer ``[1, max_seq, h, d]``
-        staging rows (per-shard lists under a mesh)."""
+        match with any value) in place into the per-layer ``[1, max_seq,
+        h, d]`` staging rows ``ks`` / ``vs`` (per-shard lists under a
+        mesh), overwriting every row of them."""
         idx = torch.as_tensor(np.asarray(idx, np.int64))
-
-        def gather(b):
-            rows = [gather_block_rows(s, idx.to(s.device))[None]
-                    for s in _shards(b)]
-            return rows if isinstance(b, list) else rows[0]
-        return [gather(b) for b in self.bks], [gather(b) for b in self.bvs]
+        for blocks, rows in ((self.bks, ks), (self.bvs, vs)):
+            for b, row in zip(blocks, rows):
+                for s, r in zip(_shards(b), _shards(row)):
+                    gather_block_rows(s, idx.to(s.device), out=r[0])
 
     def store_row(self, pool: KVPool, slot: int, dest) -> None:
         """Write pool slot ``slot``'s row into block rows ``dest``

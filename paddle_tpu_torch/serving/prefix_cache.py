@@ -9,9 +9,9 @@ token ids maps block-aligned prefixes to rows of a second fixed-shape KV
 slab (``kv_pool.BlockPool``), so admission
 
   1. matches the longest cached prefix (block granularity),
-  2. gathers the matched block rows into the request's staging cache
-     with one gather (``BlockPool.load_row`` — no recompute, no
-     reallocation), and
+  2. gathers the matched block rows into the engine's staging lane with
+     one gather once the request heads the prefill queue
+     (``BlockPool.load_row_into`` — no recompute, no allocation), and
   3. prefills ONLY the uncached suffix at its pow2 bucket.
 
 Tree shape: each edge carries exactly ``block_len`` token ids (the block
@@ -19,13 +19,16 @@ key), each node owns exactly one block row — a radix tree quantised to
 block granularity, which is what makes node<->device-row ownership
 one-to-one and the device copies fixed-shape.  All tree state is plain
 host data: matching/insertion touch the device only through the block
-pool's two copies (gather into staging, scatter out of a slot).  This is
-the port's own copy of paddle_tpu/serving/prefix_cache.py.
+pool's two copies (gather into the staging lane, scatter out of a
+slot).  This is the port's own copy of
+paddle_tpu/serving/prefix_cache.py.
 
 Lifecycle:
   * ``match()``   pins the matched path (refcount +1 per node) until the
     engine calls ``release()`` at request finish — a pinned block can
-    never be evicted while a live request's admission copied from it;
+    never be evicted while a live request will gather it (at admission
+    the engine pins; the gather runs when the request heads the
+    prefill queue);
   * ``insert()``  walks the prompt's full blocks after its prefill
     completes, copies the freshly computed blocks out of the request's
     pool slot (``BlockPool.store_row``) and extends the tree; when the
@@ -164,12 +167,13 @@ class PrefixCache:
             n.refcount -= 1
 
     # ------------------------------------------------------------- load
-    def load_staging(self, mr: MatchResult):
-        """Gather the matched blocks into fresh per-layer
-        ``[1, max_seq, h, d]`` staging rows."""
+    def load_staging(self, mr: MatchResult, ks, vs) -> None:
+        """Gather the matched blocks in place into the per-layer
+        ``[1, max_seq, h, d]`` staging rows ``ks`` / ``vs`` (the engine's
+        one staging lane)."""
         idx = np.zeros((self.max_match_blocks,), np.int32)
         idx[:len(mr.blocks)] = mr.blocks
-        return self.pool.load_row(idx)
+        self.pool.load_row_into(idx, ks, vs)
 
     # ------------------------------------------------------------ insert
     def insert(self, tokens, kv_pool: KVPool, slot: int) -> int:

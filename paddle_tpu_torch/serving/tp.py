@@ -427,7 +427,7 @@ def build_tp_decode_program(bundle, *, pallas_block: bool = False,
 
 
 def init_staging(bundle, max_seq: int) -> Tuple[list, list]:
-    """A request's zero staging rows: per layer the per-shard ``[1,
+    """The engine's zero staging lane: per layer the per-shard ``[1,
     max_seq, kv_heads/tp, head_dim]`` k and v."""
     mesh, arch, shards = bundle["mesh"], bundle["arch"], bundle["shards"]
     shape = (1, max_seq, arch["kv_heads"], arch["head_dim"])

@@ -53,10 +53,14 @@ def test_one_capture_per_engine_on_the_card(path):
         eng.run_until_complete(200)
         tokens[where] = [list(eng.purge(r).tokens) for r in rids]
         if where == "cuda":
+            # beside one capture per prefill chunk width
+            prefill = len(eng.core._prefill_graphs)
             assert eng.decode_graph_reason is None
-            assert eng.core.capture_counts == {**ZERO, "decode": 1}
-            assert eng.registry.get("serving.compiles").value == 1
-            assert len(eng.tracer.events("compile")) == 1
+            assert eng.core.capture_counts == {**ZERO, "decode": 1,
+                                               "prefill": prefill}
+            assert eng.registry.get("serving.compiles").value == prefill + 1
+            assert sum(attrs["count"] for *_, attrs in
+                       eng.tracer.events("compile")) == prefill + 1
             assert eng.core.eager_decode_steps == 1
             assert eng.core.capture_seconds["decode"] > 0
         eng.close()
