@@ -78,6 +78,30 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      ``tp_fused_block``, the same requests as the tp=1 phases, with the
      launch counts held to their equations (the two shards share the
      card: the ring hops are copies on it, no interconnect is measured);
+  6d. serving:spec — speculative decoding at full width and depth on four
+     engines (gpt3_6_7b unfused and fused, llama_7b unfused, gpt3_6_7b at
+     tp=2 ``tp_fused_block``), each at ``spec_k=4`` and at ``spec_k=0``
+     on the reference's speculative traffic (8 slots, 16 requests of 64
+     greedy tokens, a 256-token prefix tiled from a 4-token phrase, then
+     32-token turns tiled from 2 words), a warm-up pass and a measured
+     pass: one verify capture per engine, ``serving.compiles`` the sum of
+     the captures, the launch equations; a replayed verify step's logits
+     and window K/V rows bit-identical to its eager body's; the verify
+     logits at each window position within a stated bound of sequential
+     decode steps over the same tokens, the greedy argmax equal wherever
+     the sequential top-2 gap exceeds twice the largest difference or
+     twice that bound (at least one past the bound), a wrong verify step
+     planted (the window one position late) above the bound;
+     ``decode_attention`` at the verify width on the engine's own cache
+     against its plain version, and the plain version with the causal
+     tail off above the same element limit.  Reports decode tokens/s against
+     spec_k=0, the acceptance rate, verify and decode step p50 and the
+     requests whose tokens equal spec_k=0's; then ``decode_attention`` at
+     the verify width (8 x 5 queries) at 1024 and 3072 cached rows timed
+     against the split kernel's decode call and its bound, and
+     ``decode_block_attn`` at gpt3_6_7b width at 2048 and 3072 rows
+     (each head's output within its elements' own limit, a dropped tile
+     and a missed fresh row planted in the plain version above it);
   7. train kernels — on an emptied card, the three flash-attention
      kernels (forward, dq, dk/dv) and fused AdamW against their plain
      versions over a sweep (flash: f32 / bf16 / f16, head_dim 64 / 128,
@@ -496,6 +520,60 @@ def attn_call(fn, x, k, v, pos, kw, **extra):
               rope_sin=kw.get("rope_sin"), **extra)
 
 
+def attn_reading(got, want, head_dim: int) -> float:
+    """``row_reading`` of a ``decode_block_attn`` output ``[B, 1, H*Dh]``
+    with one head of one slot as a row."""
+    return row_reading(got.reshape(got.shape[0], -1, head_dim),
+                       want.reshape(want.shape[0], -1, head_dim))
+
+
+def attn_faults(x, k, v, pos, kw, block_k, want) -> dict:
+    """Two planted faults of ``decode_block_attn``, made by its plain
+    version with a wrong attention call: the last full ``block_k`` tile
+    before each slot's fresh row dropped, and the fresh row itself missed
+    (``pos`` keys in place of ``pos + 1``).  Each must read above 1
+    against ``want`` (``attn_reading``): the check fails it.  Their
+    readings."""
+    import torch
+    from paddle_tpu_torch.kernels import decode_block as db
+    right = db.decode_attention_reference
+
+    def tile_dropped(q, kc, vc, lens, scale=None, causal_tail=True):
+        kpos = torch.arange(kc.shape[1], device=kc.device)[None, :]
+        end = ((lens.long() - 1) // block_k * block_k)[:, None]
+        keep = (kpos < end - block_k) | (kpos >= end)
+        rep = q.shape[2] // kc.shape[2]
+        if scale is None:
+            scale = q.shape[-1] ** -0.5
+        s = torch.einsum("bqhd,bshd->bhqs", q.float(),
+                         kc.repeat_interleave(rep, 2).float()) * scale
+        s = s.masked_fill(~(keep & (kpos < lens.long()[:, None]))
+                          [:, None, None, :], float("-inf"))
+        return torch.einsum("bhqs,bshd->bqhd", torch.softmax(s, -1),
+                            vc.repeat_interleave(rep, 2).float()
+                            ).to(q.dtype)
+
+    def fresh_missed(q, kc, vc, lens, scale=None, causal_tail=True):
+        return right(q, kc, vc, lens - 1, scale=scale,
+                     causal_tail=causal_tail)
+
+    out = {}
+    for name, wrong in (("tile dropped", tile_dropped),
+                        ("fresh row missed", fresh_missed)):
+        db.decode_attention_reference = wrong
+        try:
+            bad, _, _ = attn_call(db.decode_block_attn_reference, x,
+                                  k.clone(), v.clone(), pos, kw)
+        finally:
+            db.decode_attention_reference = right
+        out[name] = attn_reading(bad, want, kw["head_dim"])
+        if out[name] <= 1.0:
+            raise AssertionError(f"decode_block_attn: the planted fault "
+                                 f"{name} reads only {out[name]}: the check "
+                                 f"cannot see it")
+    return out
+
+
 def mlp_call(fn, x, attn, kw, **extra):
     """``decode_block_mlp`` (or its plain version ``fn``) on a layer's
     keywords."""
@@ -700,12 +778,18 @@ def phase_block_kernels(card: str):
             torch.cuda.synchronize()
             errs = {"attn": (a1.float() - ar.float()).abs().max().item(),
                     "mlp": (m1.float() - mr.float()).abs().max().item()}
-            for half, got, want in (("attn", a1, ar), ("mlp", m1, mr)):
-                if not torch.allclose(got.float(), want.float(),
-                                      **tol[torch.bfloat16]):
-                    raise AssertionError(f"decode_block_{half} disagrees at "
-                                         f"the {what}: max_abs_err "
-                                         f"{errs[half]}")
+            # the attention output element by element (one head as a
+            # row), and two planted faults of it that must read above
+            attn_read = attn_reading(a1, ar, dh)
+            if attn_read > 1.0:
+                raise AssertionError(f"decode_block_attn disagrees at the "
+                                     f"{what}: element reading {attn_read}, "
+                                     f"max_abs_err {errs['attn']}")
+            attn_fault = attn_faults(x, k, v, pos, kw, bk, ar)
+            if not torch.allclose(m1.float(), mr.float(),
+                                  **tol[torch.bfloat16]):
+                raise AssertionError(f"decode_block_mlp disagrees at the "
+                                     f"{what}: max_abs_err {errs['mlp']}")
             # the fresh rows are 4096-long f32 dot products summed in
             # another order, so a value near 0 (cancellation) may miss one
             # bf16 ulp of itself: 1e-5 of the largest value plus one ulp
@@ -758,11 +842,17 @@ def phase_block_kernels(card: str):
                 "bound_bytes": bounds[half + "_bytes"],
                 "max_abs_err": errs[half], "layer_ms": times["layer"],
                 "unfused_layer_ms": times["unfused_layer"], "shape": shape}
+            if half == "attn":
+                rec[half][model].update(element_reading=attn_read,
+                                        planted_fault_readings=attn_fault)
             log(f"[kernels] decode_block_{half} {shape}: kernel "
                 f"{times[half]:.4f} ms, plain {times[half + '_plain']:.4f} "
                 f"ms, bound {bound:.4f} ms ({bound_by}, "
                 f"{bounds[half + '_bytes'] / 1e6:.1f} MB); max abs err "
-                f"{errs[half]:.3g} (card: {card})")
+                f"{errs[half]:.3g}"
+                + (f", element reading {attn_read:.3g}, planted faults read "
+                   f"{json.dumps(attn_fault)}" if half == "attn" else "")
+                + f" (card: {card})")
         log(f"[kernels] one {model} layer at that shape: fused pair "
             f"{times['layer']:.4f} ms, unfused layer forward "
             f"{times['unfused_layer']:.4f} ms, bound "
@@ -2072,6 +2162,699 @@ def phase_serving_tp(card: str, tp1: dict):
     return out
 
 
+# ------------------------------------------------- speculative decoding
+# the reference's speculative traffic (bench.py's speculative serving row):
+# 8 slots, 16 greedy requests of 64 new tokens at spec_k 4; each prompt a
+# 256-token prefix tiled from one 4-token phrase, then a 32-token turn
+# tiled from 2 words of its own
+SPEC_K = 4
+SPEC_SLOTS, SPEC_REQUESTS, SPEC_NEW = 8, 16, 64
+SPEC_PREFIX, SPEC_TURN = 256, 32
+# the one-step check's bound: each verify window position's bf16 logits
+# against a sequential decode step's over the same tokens (every layer,
+# GEMMs of 8 x 5 rows against 8, attention by the chunk kernel against the
+# split kernel or the fused block), each row within this share of its
+# largest |logit| (8 bf16 ulps of it).  On an H100 the two differ by
+# 1.0-1.7 % of it at every position (32 layers of bf16 residual), and a
+# window read one position late by 7 % (gpt3_6_7b's random greedy output
+# makes its positions alike) to 57 % (llama_7b); the attention's causal
+# tail off moves them 1.6-2.4 %, inside the bf16 spread, so the element
+# checks of decode_attention at the verify width are what see that fault
+SPEC_LOGIT_BOUND = 2.0 ** -5
+# decode_attention at the verify width: 8 slots x 5 queries of 32 heads x
+# 128 (gpt3_6_7b and llama_7b) over a 4096-row cache at these lengths
+VERIFY_HEADS, VERIFY_HEAD_DIM, VERIFY_S_MAX = 32, 128, 4096
+VERIFY_ROWS = (1024, 3072)
+# decode_block_attn (row 2) at gpt3_6_7b width over a 4096-row cache at
+# these positions: the cache lengths where the fused step lost to the
+# unfused one
+BLOCK_LONG_S_MAX = 4096
+BLOCK_LONG_ROWS = (2048, 3072)
+# the engines of the phase: (label, family, fused_decode, tp)
+SPEC_ENGINES = (("gpt_unfused", "gpt", False, 1),
+                ("gpt_fused", "gpt", True, 1),
+                ("llama_unfused", "llama", False, 1),
+                ("gpt_tp2_tp_fused_block", "gpt", True, TP))
+
+
+def serving_kernels() -> tuple:
+    """Every kernel wrapper a serving run may launch."""
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    from paddle_tpu_torch.kernels.decode_attention import decode_attention
+    from paddle_tpu_torch.kernels.decode_block import (decode_block_attn,
+                                                       decode_block_mlp)
+    from paddle_tpu_torch.kernels.decode_block_tp import (
+        decode_block_attn_tp, ring_entry_hop, ring_exit_hop)
+    return (decode_attention, decode_block_attn, decode_block_mlp,
+            *(getattr(fn, k) for k in NORM_KERNELS), ring_entry_hop,
+            ring_exit_hop, decode_block_attn_tp)
+
+
+def spec_prompts(vocab: int) -> list:
+    """The speculative traffic's 16 prompts, drawn as the reference draws
+    them (``RandomState(13)``: the phrase, then each turn's 2 words)."""
+    import numpy as np
+    rs = np.random.RandomState(13)
+    prefix = np.tile(rs.randint(0, vocab, (4,)), SPEC_PREFIX // 4)
+    return [np.concatenate([prefix, np.tile(rs.randint(0, vocab, (2,)),
+                                            SPEC_TURN // 2)])
+            for _ in range(SPEC_REQUESTS)]
+
+
+def spec_want(eng, layers: int, tp: int, fused: bool) -> dict:
+    """The launch equations of a speculative engine's run, from its pass
+    counts (the eager call before each capture, and the capture; never a
+    replay): prefill chunks and verify steps run ``decode_attention`` and
+    the model's norms (at tp=2 on each shard; verify through the ring
+    program on a ``tp_fused_block`` engine), decode steps the path's own
+    decode kernels."""
+    core = eng.core
+    pp = core.eager_prefill_chunks + core.capture_counts["prefill"]
+    dp = core.eager_decode_steps + core.capture_counts["decode"]
+    vp = core.eager_verify_steps + core.capture_counts["verify"]
+    llama = hasattr(core.model, "llama")
+    norm = "rms_norm_fwd" if llama else "layer_norm_fwd"
+    want = {k.__name__: 0 for k in serving_kernels()}
+    if tp == 1:
+        unfused = pp + vp + (0 if fused else dp)
+        want["decode_attention"] = layers * unfused
+        want[norm] = (2 * layers + 1) * unfused + (dp if fused else 0)
+        if fused:
+            want["decode_block_attn"] = want["decode_block_mlp"] = \
+                layers * dp
+    else:
+        want["decode_attention"] = layers * tp * (pp + vp)
+        want[norm] = (2 * layers + 1) * tp * (pp + dp + vp)
+        want["ring_entry_hop"] = want["ring_exit_hop"] = \
+            layers * 2 * tp * tp * dp
+        want["decode_block_attn_tp"] = layers * tp * dp
+    return want
+
+
+def spec_serve(model, card: str, label: str, spec_k: int, fused: bool,
+               tp: int = 1):
+    """Serve the speculative traffic twice on one ``ServingEngine(
+    num_slots=8, spec_k=spec_k)`` of ``model`` (the reference's protocol:
+    a warm-up pass that captures the graphs, then the measured pass of the
+    same prompts), every launch count set to 0 just before the first pass
+    and read just after the second and held to ``spec_want``.  Times each
+    decode-only step of the measured pass on the host clock (its readback
+    waits for the card), as a verify step where drafts were proposed, else
+    a decode step.  Returns ``(engine, result)``; the caller closes the
+    engine."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.serving import ServingEngine
+
+    kernels = serving_kernels()
+    tp_kw = {} if tp == 1 else dict(tensor_parallel=tp,
+                                    devices=TP_DEVICES[:tp])
+    eng = ServingEngine(model, num_slots=SPEC_SLOTS, fused_decode=fused,
+                        spec_k=spec_k, **tp_kw)
+    path = ("fused" if fused else "unfused") if tp == 1 else \
+        ("tp_fused_block" if fused else "tp_fused")
+    tag = f"[serving:spec:{label}:k{spec_k}]"
+    if eng.decode_path != path or eng.spec_on != (spec_k > 0):
+        raise AssertionError(f"{tag} engine resolved {eng.decode_path!r} "
+                             f"(spec_on {eng.spec_on}, "
+                             f"{eng.spec_fallback_reason!r})")
+    prompts = spec_prompts(model.cfg.vocab_size)
+    drafts = eng.registry.get("spec.draft_tokens")
+    step_ms = {"verify": [], "decode": []}
+
+    def serve(timed: bool):
+        rids = [eng.submit(p, max_new_tokens=SPEC_NEW) for p in prompts]
+        core = eng.core
+        t0 = time.perf_counter()
+        while True:
+            decode_only = not core._prefills and not core.scheduler.waiting
+            before = drafts.value
+            t = time.perf_counter()
+            left = eng.step()
+            if timed and decode_only:
+                kind = "verify" if drafts.value > before else "decode"
+                step_ms[kind].append((time.perf_counter() - t) * 1e3)
+            if not left:
+                break
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return [eng.purge(r) for r in rids], wall
+
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    _, warm_s = serve(False)
+    # the window's counters and events restart with the measured pass
+    compiles = eng.registry.get("serving.compiles").value
+    compiled = sum(a["count"] for *_, a in eng.tracer.events("compile"))
+    eng.metrics.reset()
+    outs, wall = serve(True)
+    torch.cuda.synchronize()
+    launches = {k.__name__: k.launches for k in kernels}
+    compiles += eng.registry.get("serving.compiles").value
+    compiled += sum(a["count"] for *_, a in eng.tracer.events("compile"))
+    core = eng.core
+    want = spec_want(eng, model.cfg.num_layers, tp, fused)
+    if launches != want:
+        raise AssertionError(f"{tag} kernel launches {launches} != {want}: "
+                             f"the main path bypassed a kernel")
+    # one capture a program that ran (each after one eager call):
+    # verify on a speculative engine, decode where a step proposed no
+    # draft, one prefill graph a chunk width
+    counts = dict(core.capture_counts)
+    eager = {"prefill": core.eager_prefill_chunks,
+             "decode": core.eager_decode_steps,
+             "verify": core.eager_verify_steps}
+    want_counts = {"prefill": len(core._prefill_graphs),
+                   "decode": min(eager["decode"], 1),
+                   "verify": int(spec_k > 0)}
+    if counts != want_counts or eager != counts or \
+            compiles != sum(counts.values()) or compiled != compiles or \
+            eng.decode_graph_reason is not None:
+        raise AssertionError(f"{tag} captures {counts} (want "
+                             f"{want_counts}), eager calls {eager}, "
+                             f"serving.compiles {compiles}, compile events "
+                             f"{compiled}, graph reason "
+                             f"{eng.decode_graph_reason!r}")
+    for out in outs:
+        if not (out.status == "finished" and len(out.tokens) == SPEC_NEW
+                and all(0 <= t < model.cfg.vocab_size for t in out.tokens)):
+            raise AssertionError(f"{tag} request {out.request_id} did not "
+                                 f"finish with {SPEC_NEW} in-vocab tokens: "
+                                 f"{out}")
+    m = eng.metrics_dict()
+    med = {kind: float(np.median(v)) if v else None
+           for kind, v in step_ms.items()}
+    res = {"decode_path": eng.decode_path, "tp": tp, "spec_k": spec_k,
+           "tokens": [o.tokens for o in outs],
+           "tokens_generated": m["tokens_generated"], "wall_s": wall,
+           "warm_up_s": warm_s,
+           "tokens_per_s": m["tokens_generated"] / wall,
+           "engine_tokens_per_sec": m["tokens_per_sec"],
+           "steps": m["steps"],
+           "verify_step_ms_p50": med["verify"],
+           "decode_step_ms_p50": med["decode"],
+           "verify_steps_timed": len(step_ms["verify"]),
+           "decode_steps_timed": len(step_ms["decode"]),
+           "spec_draft_tokens": m["spec_draft_tokens"],
+           "spec_accepted_tokens": m["spec_accepted_tokens"],
+           "spec_acceptance_rate": m["spec_acceptance_rate"],
+           "capture_counts": counts, "serving.compiles": compiles,
+           "capture_ms": {p: s * 1e3 for p, s in
+                          core.capture_seconds.items()},
+           "launches": launches}
+    log(f"{tag} {eng.decode_path}: {SPEC_REQUESTS} requests x {SPEC_NEW} "
+        f"tokens, measured pass {wall:.3f} s, {res['tokens_per_s']:.1f} "
+        f"tokens/s, {m['steps']} steps; verify step p50 "
+        f"{med['verify']} ms ({len(step_ms['verify'])}), decode step p50 "
+        f"{med['decode']} ms ({len(step_ms['decode'])}); acceptance "
+        f"{m['spec_acceptance_rate']} ({m['spec_accepted_tokens']} of "
+        f"{m['spec_draft_tokens']} drafts); captures {counts} == "
+        f"serving.compiles {compiles}; launches {json.dumps(launches)} "
+        f"(card: {card}{TP_NOTE if tp > 1 else ''})")
+    return eng, res
+
+
+def _on_capture_stream(core, fn) -> None:
+    """``fn()`` on the engine's capture stream, joined to the current
+    stream both ways (as the capture's eager warm-up runs a body)."""
+    import torch
+    from paddle_tpu_torch.serving.engine import _capture_stream
+    stream = _capture_stream(core.device)
+    current = torch.cuda.current_stream()
+    stream.wait_stream(current)
+    with torch.cuda.stream(stream):
+        fn()
+    current.wait_stream(stream)
+
+
+def causal_tail_off_logits(core):
+    """The engine's verify body run eagerly from its current state with a
+    planted fault: its attention calls by the plain version with the
+    causal tail off (each window query sees every window row).  A copy of
+    the logits it leaves; the caller restores the window's rows."""
+    from paddle_tpu_torch.kernels.decode_attention import (
+        decode_attention_reference)
+    from paddle_tpu_torch.models import gpt, llama
+    from paddle_tpu_torch.serving import tp
+    mods = (gpt, llama, tp)
+    right = [m.decode_attention_auto for m in mods]
+
+    def wrong(q, kc, vc, lens, scale=None, causal_tail=True):
+        return decode_attention_reference(q, kc, vc, lens, scale=scale,
+                                          causal_tail=False)
+    for m in mods:
+        m.decode_attention_auto = wrong
+    try:
+        _on_capture_stream(core, core._verify_body)
+        return core._verify_logits.clone()
+    finally:
+        for m, fn in zip(mods, right):
+            m.decode_attention_auto = fn
+
+
+def verify_checks(eng, card: str, label: str) -> dict:
+    """On a speculative engine whose 8 slots all decode (fresh requests of
+    the traffic's shape), with every slot's window filled to spec_k
+    tokens (its draft, then random ids):
+
+      * the verify graph's replay against the verify body run eagerly from
+        the same state: logits and the window's K/V rows bit-identical,
+        ``seq_pos`` left as it was; both timed with CUDA events;
+      * the one-step check: spec_k + 1 sequential decode steps (the
+        engine's decode body, eagerly) over the same tokens from the same
+        state, each position's logits within ``SPEC_LOGIT_BOUND`` of its
+        row's largest |logit|; the greedy argmax equal wherever the
+        sequential top-2 gap is above twice the largest difference or
+        twice that bound (one position of the latter at least); a
+        planted wrong verify step (the window one position late) above
+        it, and one recorded (the causal tail off:
+        ``causal_tail_off_logits``);
+      * ``decode_attention`` at the verify width on the engine's own
+        layer-0 slab (shard 0) at the window's lengths against its plain
+        version (``row_reading`` <= 1), and the plain version with the
+        causal tail off above that limit.
+
+    The state is restored after each check (``seq_pos``, the last tokens,
+    the window rows); the requests then finish."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_reference)
+    core, pool = eng.core, eng.core.pool
+    k, n = core.spec_k, core.num_slots
+    vocab = core.model.cfg.vocab_size
+    tag = f"[spec:{label}]"
+    rs = np.random.RandomState(29)
+    prefix = spec_prompts(vocab)[0][:SPEC_PREFIX]
+    rids = [eng.submit(np.concatenate([prefix, rs.randint(0, vocab,
+                                                          (SPEC_TURN,))]),
+                       max_new_tokens=4 * (k + 1)) for _ in range(n)]
+    while core._prefills or core.scheduler.waiting:
+        eng.step()
+    torch.cuda.synchronize()
+    if len(core._slots) != n:
+        raise AssertionError(f"{tag} {len(core._slots)} of {n} slots busy")
+    host = np.zeros((n, k + 1), np.int64)
+    host[:, :k] = rs.randint(0, vocab, (n, k))
+    spec = core._propose_drafts()
+    if spec is not None:
+        d, lens, _ = spec
+        for r in range(n):
+            host[r, :lens[r]] = d[r, :lens[r]]
+    host[:, k] = k
+    core._verify_io.copy_(torch.from_numpy(host))
+    pos0, tok0 = pool.seq_pos.clone(), core._last_tok.clone()
+    slabs = [t for row in (*pool.ks, *pool.vs)
+             for t in (row if isinstance(row, list) else [row])]
+    dev = slabs[0].device
+    rows = torch.arange(n, device=dev)[:, None]
+    cols = pos0.to(dev).long()[:, None] + torch.arange(k + 1, device=dev)
+
+    def window():
+        return [s[rows, cols] for s in slabs]
+    saved = window()
+
+    def restore():
+        pool.seq_pos.copy_(pos0)
+        core._last_tok.copy_(tok0)
+        for s, r in zip(slabs, saved):
+            s[rows, cols] = r
+
+    runs = {}
+    for name, fn in (("replay", core._verify_graph_step),
+                     ("eager", lambda: _on_capture_stream(
+                         core, core._verify_body))):
+        restore()
+        fn()
+        torch.cuda.synchronize()
+        runs[name] = {"logits": core._verify_logits.clone(),
+                      "rows": window(),
+                      "pos_kept": torch.equal(pool.seq_pos, pos0),
+                      "ms": time_ms(fn, iters=5, warmup=2, windows=3)}
+    r, e = runs["replay"], runs["eager"]
+    exact = torch.equal(r["logits"], e["logits"]) and all(
+        torch.equal(a, b) for a, b in zip(r["rows"], e["rows"]))
+    if not (exact and r["pos_kept"] and e["pos_kept"]):
+        raise AssertionError(f"{tag} a replayed verify step differs from its "
+                             f"eager body (bit-identical {exact}) or moved "
+                             f"seq_pos ({r['pos_kept']}, {e['pos_kept']})")
+    # sequential decode over the window's tokens from the same state
+    restore()
+    ids = torch.cat([tok0[:, None].long(), core._verify_io[:, :k]], dim=1)
+    seq = []
+    t0 = time.perf_counter()
+    for t in range(k + 1):
+        core._last_tok.copy_(ids[:, t])
+        _on_capture_stream(core, core._decode_body)
+        seq.append(core._logits.clone())
+    torch.cuda.synchronize()
+    seq_s = time.perf_counter() - t0
+    restore()
+    torch.cuda.synchronize()
+    seq = torch.stack(seq, dim=1)
+    ver = r["logits"]
+    limit = SPEC_LOGIT_BOUND * seq.abs().amax(-1)        # [n, k + 1]
+
+    def logit_reading(got, want, lim):
+        return ((got - want).abs().amax(-1) / lim).max().item()
+    reading = logit_reading(ver, seq, limit)
+    max_diff = (ver - seq).abs().max().item()
+    # the greedy argmax wherever the sequential top-2 gap exceeds twice
+    # the largest difference or twice the bound (a verify within the
+    # bound picks the same token there), at one position of the latter
+    # at least: a set that does not shrink as the difference grows
+    top2 = seq.topk(2, dim=-1).values
+    gap = top2[..., 0] - top2[..., 1]
+    past_bound = gap > 2 * limit
+    sure = (gap > 2 * max_diff) | past_bound
+    agree = ver.argmax(-1) == seq.argmax(-1)
+    # two planted wrong verify steps held to the same bound: the window
+    # read one position late, which must read above it, and the eager
+    # verify body with its attention's causal tail off (each window query
+    # sees every window row, by the plain version), recorded only: it
+    # stays inside the bf16 spread (``SPEC_LOGIT_BOUND``)
+    faults = {"window shifted by one": logit_reading(
+        ver[:, 1:], seq[:, :-1], limit[:, :-1])}
+    faults["causal tail off"] = logit_reading(
+        causal_tail_off_logits(core), seq, limit)
+    restore()
+    torch.cuda.synchronize()
+    log(f"{tag} verify logits against {k + 1} sequential decode steps of "
+        f"the same tokens: max abs diff {max_diff:.4g}, reading "
+        f"{reading:.3g} of the bound ({SPEC_LOGIT_BOUND} x each row's "
+        f"largest |logit|); argmax equal at {int(agree[sure].sum())} of "
+        f"{int(sure.sum())} positions (of {sure.numel()}) whose top-2 gap "
+        f"exceeds twice the largest difference or, {int(past_bound.sum())}"
+        f" of them, twice the bound; planted wrong verify steps read "
+        f"{json.dumps(faults)} (the first wanted above 1) (card: {card})")
+    if reading > 1.0 or not bool(agree[sure].all()) or \
+            not bool(past_bound.any()):
+        raise AssertionError(
+            f"{tag} verify logits against sequential decode: reading "
+            f"{reading} (bound {SPEC_LOGIT_BOUND} of each row's largest "
+            f"|logit|), max abs diff {max_diff}; argmax equal at "
+            f"{int(agree[sure].sum())} of {int(sure.sum())} positions whose "
+            f"top-2 gap exceeds twice it or twice the bound, "
+            f"{int(past_bound.sum())} past the bound (at least one wanted)")
+    if faults["window shifted by one"] <= 1.0:
+        raise AssertionError(f"{tag} the planted wrong verify step (the "
+                             f"window shifted by one) reads only "
+                             f"{faults['window shifted by one']} of the "
+                             f"bound {SPEC_LOGIT_BOUND}: the check cannot "
+                             f"see it")
+    # decode_attention at the verify width on the engine's own cache
+    slab_k, slab_v = slabs[0], slabs[len(slabs) // 2]
+    cfg = core.model.cfg
+    rep = cfg.num_heads // (getattr(cfg, "kv_heads", None) or cfg.num_heads)
+    g = torch.Generator(device=dev)
+    g.manual_seed(31)
+    q = torch.randn((n, k + 1, slab_k.shape[2] * rep, slab_k.shape[3]),
+                    generator=g, device=dev).to(slab_k.dtype)
+    lens = (pos0.to(dev) + k + 1).to(torch.int32)
+    got = decode_attention(q, slab_k, slab_v, lens)
+    want = decode_attention_reference(q, slab_k, slab_v, lens)
+    torch.cuda.synchronize()
+    attn_read = row_reading(got, want)
+    attn_err = (got.float() - want.float()).abs().max().item()
+    # a planted fault the element check must see: the causal tail off
+    tail_off = row_reading(decode_attention_reference(
+        q, slab_k, slab_v, lens, causal_tail=False), want)
+    if attn_read > 1.0 or tail_off <= 1.0:
+        raise AssertionError(f"{tag} decode_attention at the verify width "
+                             f"q{list(q.shape)} over the engine's slab: "
+                             f"element reading {attn_read} (max abs err "
+                             f"{attn_err}); the plain version with the "
+                             f"causal tail off reads {tail_off} (want > 1)")
+    eng.run_until_complete()
+    for rid in rids:
+        eng.purge(rid)
+    out = {"bit_identical": True, "replay_ms": r["ms"], "eager_ms": e["ms"],
+           "sequential_decode_s": seq_s,
+           "logit_reading": reading, "logit_max_abs_diff": max_diff,
+           "logit_bound": SPEC_LOGIT_BOUND,
+           "planted_fault_readings": faults,
+           "argmax_checked": int(sure.sum()),
+           "argmax_past_bound": int(past_bound.sum()),
+           "argmax_positions": int(sure.numel()),
+           "attention_reading": attn_read, "attention_max_abs_err": attn_err,
+           "attention_causal_tail_off_reading": tail_off,
+           "attention_q": list(q.shape), "attention_lens": lens.tolist()}
+    log(f"{tag} replayed verify step vs its eager body from the same state: "
+        f"logits and the {len(slabs)} window K/V row blocks bit-identical, "
+        f"seq_pos kept; CUDA events {r['ms']:.3f} ms a replay, "
+        f"{e['ms']:.3f} ms an eager body; the logits within the bound of "
+        f"sequential decode (above).  decode_attention q{list(q.shape)} "
+        f"over the engine's slab at lengths {lens.tolist()}: element reading "
+        f"{attn_read:.3g}, the causal tail off (planted, plain version) "
+        f"{tail_off:.3g} (card: {card})")
+    return out
+
+
+def verify_attention(card: str) -> dict:
+    """``decode_attention`` at the verify width (8 slots x 5 queries of 32
+    heads x 128, bf16, over a 4096-row cache) at ``VERIFY_ROWS`` cached
+    rows: at ragged lengths with the causal tail (a row shorter than the
+    window included) and at the timed uniform lengths against the plain
+    version (``row_reading`` <= 1), two calls bit-identical, the plain
+    version with the causal tail off above that limit at the ragged
+    lengths; timed (CUDA events and torch.profiler) beside the plain
+    version, the bound, the split kernel's decode call over the same
+    cache (sq = 1) and SDPA."""
+    import torch
+    from paddle_tpu_torch.kernels.decode_attention import (
+        decode_attention, decode_attention_reference)
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(37)
+    b, sq = SPEC_SLOTS, SPEC_K + 1
+    h, d, s_max = VERIFY_HEADS, VERIFY_HEAD_DIM, VERIFY_S_MAX
+
+    def r(shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+    q, q1 = r((b, sq, h, d)), r((b, 1, h, d))
+    k, v = r((b, s_max, h, d)), r((b, s_max, h, d))
+    out = {}
+    for rows in VERIFY_ROWS:
+        ragged = [rows, rows - 1, rows - 3, rows - 127, rows - 128,
+                  rows // 2 + 7, sq, 3]
+        uniform = [rows] * b
+        reads = {}
+        for name, lens in (("uniform", uniform), ("ragged", ragged)):
+            lens = torch.tensor(lens, dtype=torch.int32, device=dev)
+            got = decode_attention(q, k, v, lens)
+            again = decode_attention(q, k, v, lens)
+            want = decode_attention_reference(q, k, v, lens)
+            torch.cuda.synchronize()
+            reads[name] = row_reading(got, want)
+            err = (got.float() - want.float()).abs().max().item()
+            if reads[name] > 1.0 or not torch.equal(got, again):
+                raise AssertionError(
+                    f"decode_attention at the verify width q{list(q.shape)} "
+                    f"kv{list(k.shape)} lengths {lens.tolist()}: element "
+                    f"reading {reads[name]} (max abs err {err}), two calls "
+                    f"bit-identical {torch.equal(got, again)}")
+        # a planted fault the element check must see: the plain version
+        # with the causal tail off, at the ragged lengths
+        tail_off = row_reading(decode_attention_reference(
+            q, k, v, lens, causal_tail=False), want)
+        if tail_off <= 1.0:
+            raise AssertionError(f"decode_attention at the verify width: "
+                                 f"the causal tail off reads only {tail_off}")
+        lens = torch.tensor(uniform, dtype=torch.int32, device=dev)
+        call = lambda: decode_attention(q, k, v, lens)
+        split = lambda: decode_attention(q1, k, v, lens)
+        bound, bound_by = attention_bound(q, k, lens)
+        split_bound, _ = attention_bound(q1, k, lens)
+        rec = {"ms": time_ms(call), "device_ms": device_ms(call),
+               "plain_ms": time_ms(lambda: decode_attention_reference(
+                   q, k, v, lens)),
+               "bound_ms": bound, "bound_by": bound_by,
+               "library_ms": time_ms(sdpa_call(q, k, v, lens)),
+               "split_ms": time_ms(split), "split_device_ms":
+                   device_ms(split), "split_bound_ms": split_bound,
+               "element_reading": max(reads.values()),
+               "causal_tail_off_reading": tail_off,
+               "q": [b, sq, h, d], "kv": [b, s_max, h, d], "rows": rows,
+               "ragged_lens": ragged}
+        rec["over_split"] = rec["device_ms"] / rec["split_device_ms"]
+        rec["over_bound"] = rec["device_ms"] / bound
+        out[f"verify_{rows}"] = rec
+        log(f"[kernels] decode_attention at the verify width q{[b, sq, h, d]}"
+            f" kv{[b, s_max, h, d]} bf16, {rows} rows: kernel "
+            f"{rec['ms']:.4f} ms (device {rec['device_ms']:.4f}), plain "
+            f"{rec['plain_ms']:.4f}, sdpa {rec['library_ms']:.4f}, bound "
+            f"{bound:.4f} ({bound_by}; device time {rec['over_bound']:.2f}x "
+            f"it); decode_split_kernel at sq = 1 over the same cache "
+            f"{rec['split_ms']:.4f} (device {rec['split_device_ms']:.4f}, "
+            f"bound {split_bound:.4f}): {rec['over_split']:.2f}x; element "
+            f"reading {rec['element_reading']:.3g} (ragged lengths "
+            f"{ragged} too; the causal tail off there, planted in the plain "
+            f"version, {tail_off:.3g}) (card: {card})")
+    return out
+
+
+def block_attn_long(card: str) -> dict:
+    """``decode_block_attn`` (row 2) at gpt3_6_7b width over 8 slots of a
+    4096-row cache at ``BLOCK_LONG_ROWS``: against its plain version
+    (``attn_reading`` <= 1, two planted faults above it:
+    ``attn_faults``), then timed (CUDA events and torch.profiler)
+    beside the plain version, its bound, the unfused path's attention at
+    the same cache (``decode_attention`` at sq = 1) and the unfused layer
+    forward."""
+    import torch
+    from paddle_tpu_torch.kernels.decode_attention import decode_attention
+    from paddle_tpu_torch.kernels.decode_block import (
+        decode_block_attn, decode_block_attn_reference, plan_decode_block)
+    from paddle_tpu_torch.models import gpt3_6_7b
+    from paddle_tpu_torch.models.gpt import GPTBlock
+    dev = torch.device(DEVICE)
+    g = torch.Generator(device=dev)
+    g.manual_seed(41)
+    cfg = gpt3_6_7b()
+    b, s_max, h, dh = SPEC_SLOTS, BLOCK_LONG_S_MAX, cfg.num_heads, \
+        cfg.head_dim
+    layer = GPTBlock(cfg, device=dev, dtype=torch.bfloat16,
+                     generator=g).eval()
+    kw = layer.decode_block_weights()
+    plan, why = plan_decode_block(
+        max_seq=s_max, hidden=cfg.hidden_size, heads=h, kv_heads=h,
+        head_dim=dh, ffn=cfg.ffn_size, batch=b, itemsize=2, gated=False)
+    if plan is None:
+        raise AssertionError(f"no decode-block plan at gpt3_6_7b width, "
+                             f"S_max {s_max}: {why}")
+    bk = plan["block_k"]
+    x = torch.randn((b, 1, cfg.hidden_size), generator=g,
+                    device=dev).to(torch.bfloat16)
+    k = torch.randn((b, s_max, h, dh), generator=g,
+                    device=dev).to(torch.bfloat16)
+    v = torch.randn_like(k)
+    q1 = torch.randn((b, 1, h, dh), generator=g,
+                     device=dev).to(torch.bfloat16)
+    out = {}
+    with torch.no_grad():
+        for rows in BLOCK_LONG_ROWS:
+            pos = torch.full((b,), rows, dtype=torch.int32, device=dev)
+            got, _, _ = attn_call(decode_block_attn, x, k.clone(), v.clone(),
+                                  pos, kw, block_k=bk)
+            want, _, _ = attn_call(decode_block_attn_reference, x, k.clone(),
+                                   v.clone(), pos, kw)
+            torch.cuda.synchronize()
+            err = (got.float() - want.float()).abs().max().item()
+            read = attn_reading(got, want, dh)
+            if read > 1.0:
+                raise AssertionError(f"decode_block_attn at {rows} rows "
+                                     f"disagrees: element reading {read}, "
+                                     f"max_abs_err {err}")
+            faults = attn_faults(x, k, v, pos, kw, bk, want)
+            call = lambda: attn_call(decode_block_attn, x, k, v, pos, kw,
+                                     block_k=bk)
+            lens = pos + 1
+            split = lambda: decode_attention(q1, k, v, lens)
+            bound, bound_by = block_bounds(x, kw, pos.tolist(), s_max)["attn"]
+            rec = {"ms": time_ms(call), "device_ms": device_ms(call),
+                   "plain_ms": time_ms(lambda: attn_call(
+                       decode_block_attn_reference, x, k, v, pos, kw)),
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "library_ms": None, "max_abs_err": err,
+                   "element_reading": read,
+                   "planted_fault_readings": faults,
+                   "split_attention_device_ms": device_ms(split),
+                   "unfused_layer_ms": time_ms(lambda: layer(x, (k, v,
+                                                                 pos))),
+                   "rows": rows, "kv": [b, s_max, h, dh], "block_k": bk}
+            rec["over_bound"] = rec["device_ms"] / bound
+            out[f"rows_{rows}"] = rec
+            log(f"[kernels] decode_block_attn at gpt3_6_7b width, 8 slots "
+                f"at {rows} of {s_max} rows: kernel {rec['ms']:.4f} ms "
+                f"(device {rec['device_ms']:.4f}, {rec['over_bound']:.2f}x "
+                f"the bound {bound:.4f}, {bound_by}), plain "
+                f"{rec['plain_ms']:.4f}; the unfused path's attention alone "
+                f"(decode_split_kernel) device "
+                f"{rec['split_attention_device_ms']:.4f}, the unfused layer "
+                f"{rec['unfused_layer_ms']:.4f}; max abs err {err:.3g}, "
+                f"element reading {read:.3g} (one head as a row); planted "
+                f"faults read {json.dumps(faults)} (want > 1) (card: "
+                f"{card})")
+    del layer, k, v
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_serving_spec(card: str) -> dict:
+    """Speculative decoding at full width and depth (random bf16 weights
+    from a seeded generator on the card), on the engines of
+    ``SPEC_ENGINES``: gpt3_6_7b unfused and fused on one model, llama_7b
+    unfused, and gpt3_6_7b at tp=2 ``tp_fused_block`` (both shards on the
+    card) on a fresh model.  Each serves the speculative traffic at
+    ``spec_k=4`` and at ``spec_k=0`` (``spec_serve``: one verify capture,
+    ``serving.compiles`` the sum of the captures, the launch equations),
+    then ``verify_checks`` on the speculative engine.  Reports decode
+    tokens/s against spec_k=0, the acceptance rate, verify against decode
+    step p50 and the token agreement with spec_k=0; then times
+    ``decode_attention`` at the verify width (``verify_attention``) and
+    ``decode_block_attn`` at long caches (``block_attn_long``)."""
+    import torch
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         gpt3_6_7b, llama_7b)
+
+    def build(family):
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(1234)
+        if family == "gpt":
+            return GPTForCausalLM(gpt3_6_7b(), device=DEVICE,
+                                  generator=gen).eval()
+        return LlamaForCausalLM(llama_7b(), device=DEVICE,
+                                generator=gen).eval()
+
+    out = {"engines": {}}
+    model, built = None, None
+    for label, family, fused, tp in SPEC_ENGINES:
+        if built != (family, tp):
+            # a tensor-parallel engine re-lays its model: its own model
+            model = None
+            free_card()
+            model, built = build(family), (family, tp)
+        runs = {}
+        for spec_k in (SPEC_K, 0):
+            eng, runs[spec_k] = spec_serve(model, card, label, spec_k,
+                                           fused, tp)
+            if spec_k:
+                runs[spec_k]["checks"] = verify_checks(eng, card, label)
+            eng.close()
+            eng = None
+        s, base = runs[SPEC_K], runs[0]
+        got, want = s.pop("tokens"), base.pop("tokens")
+        same = [a == b for a, b in zip(got, want)]
+        first = next((i for i, ok in enumerate(same) if not ok), None)
+        # the first divergence: (request, token index, spec, spec_k=0)
+        where = None
+        if first is not None:
+            a, b = got[first], want[first]
+            t = next(i for i, (x, y) in enumerate(zip(a, b)) if x != y)
+            where = [first, t, a[t], b[t]]
+        rec = {"spec": s, "base": base,
+               "requests_identical": sum(same),
+               "first_divergence": where,
+               "tokens_per_s_ratio": s["tokens_per_s"] / base["tokens_per_s"]}
+        out["engines"][label] = rec
+        log(f"[serving:spec:{label}] spec_k={SPEC_K} vs 0 on the same model "
+            f"and traffic: {s['tokens_per_s']:.1f} vs "
+            f"{base['tokens_per_s']:.1f} decode tokens/s "
+            f"({rec['tokens_per_s_ratio']:.3f}x), acceptance "
+            f"{s['spec_acceptance_rate']}, verify step p50 "
+            f"{s['verify_step_ms_p50']} ms vs decode step p50 "
+            f"{base['decode_step_ms_p50']} ms; requests identical "
+            f"{sum(same)} of {len(same)}, first divergence (request, token, "
+            f"spec, spec_k=0) {where} "
+            f"(card: {card}{TP_NOTE if tp > 1 else ''})")
+    model = None
+    free_card()
+    out["verify_attention"] = verify_attention(card)
+    out["block_attn_long"] = block_attn_long(card)
+    return out
+
+
 def plan_widths(eng, served) -> set:
     """The distinct prefill chunk widths that requests ``served``
     (``(prompt length, prefix hit tokens)`` pairs) ran on ``eng``: their
@@ -2111,12 +2894,6 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
 
     import numpy as np
     import torch
-    from paddle_tpu_torch.kernels import fused_norm as fn
-    from paddle_tpu_torch.kernels.decode_attention import decode_attention
-    from paddle_tpu_torch.kernels.decode_block import (decode_block_attn,
-                                                       decode_block_mlp)
-    from paddle_tpu_torch.kernels.decode_block_tp import (
-        decode_block_attn_tp, ring_entry_hop, ring_exit_hop)
     from paddle_tpu_torch.serving import SamplingParams, ServingEngine
 
     cfg = model.cfg
@@ -2157,9 +2934,7 @@ def serve_run(model, card: str, fused: bool, waves, tp: int = 1):
             step_ms.append((time.perf_counter() - t) * 1e3)
         return left
 
-    kernels = (decode_attention, decode_block_attn, decode_block_mlp,
-               *(getattr(fn, k) for k in NORM_KERNELS), ring_entry_hop,
-               ring_exit_hop, decode_block_attn_tp)
+    kernels = serving_kernels()
     # where a slow capture's host time goes: each graph instantiation
     # (``capture_end``) and each garbage collection of the run, timed
     stalls = {"capture_end_ms": [], "gc_ms": []}
@@ -4822,6 +5597,10 @@ def main() -> int:
     tp_recs = run_phase("tp kernels", phase_tp_kernels, card)
     tp_runs = run_phase("serving:tp", phase_serving_tp, card,
                         {"gpt": runs, "llama": llama_runs})
+    # speculative decoding on four engines, then decode_attention at the
+    # verify width and the fused block's attention at long caches
+    free_card()
+    spec = run_phase("serving:spec", phase_serving_spec, card)
     # the train phases start from an empty card
     free_card()
     train_recs = run_phase("train kernels", phase_train_kernels, card)
@@ -4839,6 +5618,9 @@ def main() -> int:
     (llama_u, llama_serving_u), (llama_f, llama_serving_f) = (
         llama_runs["unfused"], llama_runs["fused"])
     d = rec["decode"]
+    # the speculative engines' runs (their spec_k=4 engines)
+    spec_l = {label: r["spec"]["launches"]
+              for label, r in spec["engines"].items()}
     kernels = [{
         "name": "decode_attention",
         "route": "cuda",
@@ -4851,7 +5633,9 @@ def main() -> int:
         "launches_by_path": {"unfused": launches_u["decode_attention"],
                              "fused": launches_f["decode_attention"],
                              "llama_unfused": llama_u["decode_attention"],
-                             "llama_fused": llama_f["decode_attention"]},
+                             "llama_fused": llama_f["decode_attention"],
+                             **{f"spec_{k}": v["decode_attention"]
+                                for k, v in spec_l.items()}},
         "max_abs_err": err,
         "ms": d["ms"], "device_ms": d["device_ms"],
         "plain_ms": d["plain_ms"],
@@ -4865,6 +5649,8 @@ def main() -> int:
         "sweep_cases": rec["sweep_cases"],
         "sweep_max_abs_err": rec["sweep_max_abs_err"],
         "sass": rec["sass"],
+        # the verify step's shape: 8 slots x 5 queries at 1024 / 3072 rows
+        "verify": spec["verify_attention"],
     }]
     for half, line in (("attn", 313), ("mlp", 562)):
         name = f"decode_block_{half}"
@@ -4876,7 +5662,8 @@ def main() -> int:
             "replaces": f"paddle_tpu/kernels/decode_block.py:{line}",
             "launches": launches_f[name],
             "launches_by_path": {"fused": launches_f[name],
-                                 "llama_fused": llama_f[name]},
+                                 "llama_fused": llama_f[name],
+                                 "spec_gpt_fused": spec_l["gpt_fused"][name]},
             "max_abs_err": r["max_abs_err"],
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
@@ -4886,6 +5673,9 @@ def main() -> int:
             "sweep_max_abs_err": r["sweep_max_abs_err"],
             "shape": r["shape"],
             "llama_7b": r["llama_7b"],
+            # the attention half at gpt3_6_7b width over longer caches
+            **({"long_cache": spec["block_attn_long"]} if half == "attn"
+               else {}),
             # the GEMV of its projections, alone at each projection's shape
             "gemv": {k: gemv_rec["shapes"][k] for k in GEMV_BY_KERNEL[name]},
             "gemv_checks": {k: gemv_rec[k] for k in (
@@ -4922,10 +5712,13 @@ def main() -> int:
     # for RMSNorm, GPT serving (unfused) and training for LayerNorm
     by_path = {
         "rms_norm_fwd": {"llama_unfused": llama_u, "llama_fused": llama_f,
-                         "llama_train": llama_launches},
+                         "llama_train": llama_launches,
+                         "spec_llama_unfused": spec_l["llama_unfused"]},
         "rms_norm_bwd": {"llama_train": llama_launches},
         "layer_norm_fwd": {"unfused": launches_u, "fused": launches_f,
-                           "train": train_launches},
+                           "train": train_launches,
+                           **{f"spec_{k}": v for k, v in spec_l.items()
+                              if k.startswith("gpt")}},
         "layer_norm_bwd": {"train": train_launches},
     }
     for name, line in zip(NORM_KERNELS, (22, 30, 167, 179)):
@@ -4953,7 +5746,9 @@ def main() -> int:
     tp_launches = {"tp_fused_block": tp_runs["gpt"]["tp_fused_block"][0],
                    "tp_fused": tp_runs["gpt"]["tp_fused"][0],
                    "llama_tp_fused_block":
-                       tp_runs["llama"]["tp_fused_block"][0]}
+                       tp_runs["llama"]["tp_fused_block"][0],
+                   "spec_gpt_tp2_tp_fused_block":
+                       spec_l["gpt_tp2_tp_fused_block"]}
     for name, line in (("ring_entry_hop", 194), ("ring_exit_hop", 263),
                        ("decode_block_attn_tp", 368)):
         paths = {path: counts[name] for path, counts in tp_launches.items()}
@@ -4981,8 +5776,10 @@ def main() -> int:
             serving[f"{'' if family == 'gpt' else 'llama_'}tp{TP}_{path}"] = \
                 res
     log(f"[done] {time.perf_counter() - t_start:.1f} s; serving "
-        f"{json.dumps(serving)}; train {json.dumps(train)}; llama train "
-        f"{json.dumps(llama_train)}; tiny serving {json.dumps(tiny)}")
+        f"{json.dumps(serving)}; speculative serving "
+        f"{json.dumps(spec['engines'])}; train {json.dumps(train)}; "
+        f"llama train {json.dumps(llama_train)}; tiny serving "
+        f"{json.dumps(tiny)}")
     log(json.dumps({"kernels": kernels}))
     log(card)
     log(json.dumps({"ok": True, "device": {

@@ -10,9 +10,12 @@ from .metrics import ServingMetrics
 from .prefix_cache import MatchResult, PrefixCache
 from .scheduler import (PRIORITIES, Request, SamplingParams, Scheduler,
                         bucket_length)
+from .spec import NGramDraftTable
 
 __all__ = ["ServingEngine", "RequestOutput", "EngineCore", "sample_rows",
            "finite_or_sentinel", "NONFINITE_SENTINEL", "EngineStalledError",
            "RequestRejected", "KVPool", "BlockPool", "ServingMetrics",
            "PrefixCache", "MatchResult", "PRIORITIES", "Request",
-           "SamplingParams", "Scheduler", "bucket_length"]
+           "SamplingParams", "Scheduler", "bucket_length",
+           # speculative decoding
+           "NGramDraftTable"]

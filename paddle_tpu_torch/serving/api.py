@@ -88,6 +88,15 @@ class ServingEngine:
     programs: ``tp_fused_block`` (the sharded decode-block kernels, with
     ``fused_decode``) or ``tp_fused`` (the composed ring); otherwise, or
     when they are not legal, it runs ``unfused``.
+
+    ``spec_k > 0`` arms speculative decoding: per-request n-gram drafts
+    (``serving/spec.py``) checked by ONE batched ``[num_slots,
+    spec_k+1]`` verify step (one CUDA graph per engine on a card), with
+    matched sampling on each request's own generator.  The token streams
+    equal ``spec_k=0``'s exactly where the verify logits are bit-identical
+    to the decode step's (f32 on the CPU); in bf16 on a card they agree
+    within a bound, and a near-tie may pick another token.  ``spec_on`` /
+    ``spec_fallback_reason`` say what was resolved.
     """
 
     def __init__(self, model, num_slots: int = 8,
@@ -103,7 +112,8 @@ class ServingEngine:
                  max_queue: Optional[int] = None,
                  tensor_parallel: int = 1,
                  collective_fusion: bool = True,
-                 devices=None):
+                 devices=None,
+                 spec_k: int = 0):
         self.core = EngineCore(
             model, num_slots=num_slots, max_seq=max_seq,
             min_bucket=min_bucket,
@@ -115,7 +125,8 @@ class ServingEngine:
             metrics=ServingMetrics(registry=registry, tracer=tracer),
             max_queue=max_queue, fused_decode=fused_decode,
             tensor_parallel=tensor_parallel,
-            collective_fusion=collective_fusion, devices=devices)
+            collective_fusion=collective_fusion, devices=devices,
+            spec_k=spec_k)
         self._requests = {}
 
     # -------------------------------------------------------- submission
@@ -339,6 +350,30 @@ class ServingEngine:
         path (None when a ring program is active or the engine has one
         shard)."""
         return self.core.tp_fusion_reason
+
+    @property
+    def spec_k(self) -> int:
+        """The requested speculative draft length (0 = speculation off);
+        ``spec_on`` / ``spec_fallback_reason`` report what the engine
+        resolved."""
+        return self.core.spec_k
+
+    @property
+    def spec_on(self) -> bool:
+        """Is speculative decoding active: requested (``spec_k > 0``),
+        resolved viable at construction, and not bypassed since."""
+        return self.core.spec_on and not self.core.spec_bypass
+
+    @property
+    def spec_fallback_reason(self) -> Optional[str]:
+        """Why speculation is off (None while it is on)."""
+        return self.core.spec_fallback_reason
+
+    @property
+    def spec_acceptance_rate(self) -> Optional[float]:
+        """Accepted / drafted over the current metrics window (None before
+        the first speculative step)."""
+        return self.core.metrics.spec_acceptance_rate
 
     def metrics_dict(self) -> dict:
         out = self.core.metrics.snapshot()

@@ -32,19 +32,32 @@ Device work per step:
     no-ops: their rows decode garbage nothing reads, every row's
     position advances by one, and a free row's write lands clamped at
     its row end (models/kv_cache.py) until the next adopt overwrites the
-    row wholesale.
+    row wholesale;
+  * ``verify`` (speculative decoding, ``spec_k > 0``) — in place of a
+    decode step when some slot's n-gram table (serving/spec.py) proposes
+    a draft: ONE ``[num_slots, spec_k+1]`` forward over every slot's
+    window (its last token, then its draft) at its own position, into an
+    f32 ``[num_slots, spec_k+1, vocab]`` logits buffer.  Matched sampling
+    then draws each window position as sequential decode would, accepts
+    the longest draft prefix the draws reproduce, and advances each row
+    by its accepted length + 1.
 
-The compiled-program plane: the reference compiles ONE decode program
-and one prefill program per chunk width (``warm_buckets``).  On a single
-CUDA device the engine captures its decode step as one CUDA graph at its
-first decode step, and its prefill chunk as one CUDA graph per width at
-the first chunk of that width, and replays them after.  Each captured
-body reads and writes only buffers whose addresses never change: decode
-the KV slabs, ``pool.seq_pos`` advanced in place, the last-token vector
-and a ``[num_slots, vocab]`` f32 logits buffer; prefill the staging
-lane, a ``[1, max_width]`` ids buffer, ``[1]`` offset and valid-count
-tensors (filled from pinned host memory before each replay) and an f32
-``[vocab]`` last-logits buffer.  Every graph keeps its temporaries in
+The compiled-program plane: the reference compiles ONE decode program,
+one prefill program per chunk width (``warm_buckets``) and, with
+``spec_k``, ONE verify program.  On a single CUDA device the engine
+captures its decode step as one CUDA graph at its first decode step, its
+prefill chunk as one CUDA graph per width at the first chunk of that
+width and its verify step as one CUDA graph at its first verify step,
+and replays them after.  Each captured body reads and writes only
+buffers whose addresses never change: decode the KV slabs,
+``pool.seq_pos`` advanced in place, the last-token vector and a
+``[num_slots, vocab]`` f32 logits buffer; prefill the staging lane, a
+``[1, max_width]`` ids buffer, ``[1]`` offset and valid-count tensors
+(filled from pinned host memory before each replay) and an f32
+``[vocab]`` last-logits buffer; verify the slabs (the window's rows;
+``seq_pos`` is read, not advanced), the last-token vector, a
+``[num_slots, spec_k+1]`` drafts-and-lengths buffer (filled from pinned
+host memory) and the f32 window logits.  Every graph keeps its temporaries in
 the engine's one graph memory pool; none holds a live output there, and
 the graphs run one at a time, so they share it in any order.  Sampling
 and the radix copies stay eager, so each request keeps its own
@@ -65,8 +78,13 @@ Sampling: greedy rows take the argmax; sampling rows apply
 ``torch.Generator`` (seeded from ``SamplingParams.seed``) in token order,
 the discipline of ``models.generation.generate`` — so a single-request
 engine run reproduces the port's ``generate(seed=...)``, sampling
-included.  A ``torch.Generator`` does not reproduce ``jax.random``
-streams, so seeded tokens differ from the JAX engine's by design.
+included.  A verify step draws every window position in order and
+snapshots each generator after each draw; once the accepted lengths are
+read back it restores the state after draw ``accepted + 1``, the draws
+sequential decode would have made, so speculative and sequential runs
+emit the same seeded tokens.  A ``torch.Generator`` does not reproduce
+``jax.random`` streams, so seeded tokens differ from the JAX engine's by
+design.
 """
 
 from __future__ import annotations
@@ -86,9 +104,10 @@ from .kv_pool import BlockPool, KVPool
 from .metrics import ServingMetrics
 from .prefix_cache import MatchResult, PrefixCache
 from .scheduler import Request, Scheduler
+from .spec import NGramDraftTable
 from .tp import (build_serving_mesh, build_tp_decode_program,
-                 build_tp_forward, init_staging, shard_model_params,
-                 tp_decode_supported)
+                 build_tp_forward, build_tp_verify_program, init_staging,
+                 shard_model_params, tp_decode_supported)
 
 __all__ = ["EngineCore", "sample_rows", "finite_or_sentinel",
            "NONFINITE_SENTINEL"]
@@ -173,11 +192,17 @@ def sample_rows(generators: Sequence[Optional[torch.Generator]],
 class _Slot:
     """Host mirror of one occupied pool slot."""
 
-    __slots__ = ("req", "match")
+    __slots__ = ("req", "pos", "match", "draft", "allowed")
 
-    def __init__(self, req: Request, match: Optional[MatchResult] = None):
+    def __init__(self, req: Request, prompt_len: int,
+                 match: Optional[MatchResult] = None,
+                 draft: Optional[NGramDraftTable] = None,
+                 allowed: Optional[frozenset] = None):
         self.req = req
+        self.pos = prompt_len       # cache length == next write offset
         self.match = match          # pinned radix-cache path, if any
+        self.draft = draft          # the request's n-gram table (spec)
+        self.allowed = allowed      # allowed token ids (constrained)
 
 
 class _Prefill:
@@ -219,7 +244,10 @@ class EngineCore:
                  fused_decode: bool = False,
                  tensor_parallel: int = 1,
                  collective_fusion: bool = True,
-                 devices=None):
+                 devices=None,
+                 spec_k: int = 0):
+        if spec_k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if prefill_chunk is not None and prefill_chunk < min_bucket:
             raise ValueError(
                 f"prefill_chunk {prefill_chunk} must be >= min_bucket "
@@ -238,6 +266,15 @@ class EngineCore:
         self.max_prefill_tokens_per_step = max_prefill_tokens_per_step
         self.max_queue = max_queue
         self.metrics = metrics or ServingMetrics()
+        # speculative decoding: spec_k > 0 arms per-slot n-gram drafts
+        # (serving/spec.py) checked by ONE [num_slots, spec_k+1] verify
+        # step; spec_on / spec_fallback_reason resolve with the decode
+        # path, and spec_bypass is the run-time kill switch the
+        # degradation ladder will set (not ported yet)
+        self.spec_k = spec_k
+        self.spec_on = False
+        self.spec_fallback_reason: Optional[str] = None
+        self.spec_bypass = False
         # monotone work marker: tokens emitted, admissions, prefill
         # chunks and terminal dispositions all bump it — the
         # run_until_complete stall detector watches it flatline
@@ -248,17 +285,20 @@ class EngineCore:
         self.closed = False
         # the compiled-program plane: captures per step program (the
         # reference's trace_counts) and the host seconds they took, the
-        # baseline _record_events diffs against, the decode steps and
-        # prefill chunks whose body ran eagerly (every one where the
-        # graph reason is set, else each capture's warm-up), the graphs
-        # (one decode, one prefill per chunk width), each width's capture
-        # seconds, and the memory pool every graph of the engine shares
+        # baseline _record_events diffs against, the decode steps,
+        # prefill chunks and verify steps whose body ran eagerly (every
+        # one where the graph reason is set, else each capture's
+        # warm-up), the graphs (one decode, one prefill per chunk width,
+        # one verify), each width's capture seconds, and the memory pool
+        # every graph of the engine shares
         self.capture_counts = {"prefill": 0, "decode": 0, "verify": 0}
         self.capture_seconds = dict.fromkeys(self.capture_counts, 0.0)
         self._compile_seen = dict(self.capture_counts)
         self.eager_decode_steps = 0
         self.eager_prefill_chunks = 0
+        self.eager_verify_steps = 0
         self._decode_graph = None
+        self._verify_graph = None
         self._prefill_graphs: Dict[int, "torch.cuda.CUDAGraph"] = {}
         self.prefill_capture_seconds: Dict[int, float] = {}
         self._graph_pool = None
@@ -323,6 +363,12 @@ class EngineCore:
                 self.tp_weights,
                 pallas_block=self.decode_path == "tp_fused_block",
                 batch=self.num_slots, max_seq=self.pool.max_seq)
+        self._tp_verify_program = None
+        if self.spec_on:
+            self._build_verify_buffers()
+            if self.decode_path in ("tp_fused", "tp_fused_block"):
+                self._tp_verify_program = build_tp_verify_program(
+                    self.tp_weights, width=self.spec_k + 1)
         self.metrics.on_decode_block(
             active=self.decode_path in ("fused", "tp_fused_block"),
             reason=self.decode_fallback_reason, step=self._step_index,
@@ -405,6 +451,21 @@ class EngineCore:
             (int(self.model.cfg.vocab_size),), dtype=torch.float32,
             device=self.device)
 
+    def _build_verify_buffers(self) -> None:
+        """The verify body's fixed inputs and output: an int64 ``[num_slots,
+        spec_k+1]`` buffer of each slot's draft (zero-padded) and, in the
+        last column, its length (one host->device copy fills it); the
+        ``[num_slots, spec_k+1]`` window ids the body assembles from the
+        last-token vector and the drafts; the f32 ``[num_slots,
+        spec_k+1, vocab]`` window logits."""
+        width = self.spec_k + 1
+        self._verify_io = torch.zeros((self.num_slots, width),
+                                      dtype=torch.int64, device=self.device)
+        self._verify_ids = torch.zeros_like(self._verify_io)
+        self._verify_logits = torch.zeros(
+            (self.num_slots, width, int(self.model.cfg.vocab_size)),
+            dtype=torch.float32, device=self.device)
+
     def warm_buckets(self) -> Tuple[int, ...]:
         """The committed prefill chunk-width set (the reference's
         ``warm_buckets``, same enumeration): every width
@@ -448,6 +509,7 @@ class EngineCore:
         state) and its graphs so their memory can be reused; the engine
         serves nothing afterwards."""
         self._decode_graph = None
+        self._verify_graph = None
         self._prefill_graphs = {}
         self._graph_pool = None
         self._prefills = []
@@ -616,8 +678,10 @@ class EngineCore:
         req, slot, s = st.req, st.slot, st.req.sampling
         gen = torch.Generator(device=self.device)
         gen.manual_seed(s.seed)
-        mask = None
+        mask = allowed = None
         if req.allowed_tokens is not None:
+            # the host set gates draft proposals
+            allowed = frozenset(int(t) for t in req.allowed_tokens)
             self._mask_host[slot] = False
             self._mask_host[slot, np.asarray(req.allowed_tokens,
                                              np.int64)] = True
@@ -629,9 +693,14 @@ class EngineCore:
         first = sample_rows([gen], last, [s.do_sample], [s.temperature],
                             [s.top_k], [s.top_p], mask=mask)
         first = finite_or_sentinel(last, first)
+        draft = None
+        if self.spec_on:
+            draft = NGramDraftTable()
+            draft.seed(req.prompt)
         self.pool.adopt(slot, list(zip(self._lane_ks, self._lane_vs)),
                         req.prompt_len)
-        self._slots[slot] = _Slot(req, match=st.match)
+        self._slots[slot] = _Slot(req, req.prompt_len, match=st.match,
+                                  draft=draft, allowed=allowed)
         self._last_tok[slot] = first[0]
         self._gens[slot] = gen
         self._do_sample[slot] = s.do_sample
@@ -725,7 +794,25 @@ class EngineCore:
         ``tp_fusion_reason``), else ``unfused`` (the Megatron body); every
         rung keeps serving.  Returns ``(path, fallback_reason)``; the
         reason is None when a fused-block path engages or the flag is
-        off."""
+        off.
+
+        The speculative leg resolves here too, statically: ``spec_on`` /
+        ``spec_fallback_reason`` say why speculation is armed or not for
+        this engine shape (the per-step row-end gate of
+        ``_propose_drafts`` and ``spec_bypass`` are the only run-time
+        fallbacks)."""
+        if self.spec_k == 0:
+            self.spec_on = False
+            self.spec_fallback_reason = \
+                "spec_k=0 (speculation not requested)"
+        elif self.pool.max_seq <= self.spec_k + 1:
+            self.spec_on = False
+            self.spec_fallback_reason = (
+                f"max_seq {self.pool.max_seq} leaves no room for a "
+                f"spec_k={self.spec_k} verify window")
+        else:
+            self.spec_on = True
+            self.spec_fallback_reason = None
         if self.tensor_parallel > 1:
             reason = None
             if self.fused_decode:
@@ -839,15 +926,20 @@ class EngineCore:
         if seconds is not None:
             self.eager_decode_steps += 1
 
+    def _sync_mask(self) -> None:
+        """Upload the constrained-decoding mask if a row changed (None on
+        the device while every row is unconstrained)."""
+        if self._mask_dirty:
+            self._mask_dev = None if self._mask_host.all() else \
+                torch.as_tensor(self._mask_host).to(self.device)
+            self._mask_dirty = False
+
     def _decode_dispatch(self) -> torch.Tensor:
         """ONE fixed-shape decode step over every slot — the body (its
         graph on a card), then eager sampling; returns the sampled token
         vector STILL ON THE DEVICE — the caller performs the step's single
         readback."""
-        if self._mask_dirty:
-            self._mask_dev = None if self._mask_host.all() else \
-                torch.as_tensor(self._mask_host).to(self.device)
-            self._mask_dirty = False
+        self._sync_mask()
         if self.decode_graph_reason is None:
             self._decode_graph_step()
         else:
@@ -861,6 +953,136 @@ class EngineCore:
         # existing single readback
         self._last_tok.copy_(finite_or_sentinel(lg, nxt))
         return self._last_tok
+
+    # ----------------------------------------- speculative decode (spec)
+    def _verify_body(self) -> None:
+        """ONE fixed-shape verify step over every slot, reading and
+        writing only buffers whose addresses never change: the window ids
+        (``_last_tok``, then the drafts of ``_verify_io``) run through the
+        engine's forward at width ``spec_k+1`` at each slot's
+        ``pool.seq_pos``, appending the window's K/V rows into the slabs,
+        into the f32 window logits.  ``seq_pos`` is not advanced: the
+        acceptance tail advances it by each slot's accepted length + 1,
+        which also hides the rejected rows until the next append
+        overwrites them.  This is what the verify graph captures.
+
+        The forward is ``self._forward`` (``model.decode_step`` at tp=1,
+        fused engines too, since the fused block takes one token a slot;
+        the Megatron body on a tensor-parallel ``unfused`` engine), or
+        the ring verify program on ``tp_fused`` / ``tp_fused_block``."""
+        pool = self.pool
+        ids = self._verify_ids
+        ids[:, 0].copy_(self._last_tok)
+        ids[:, 1:].copy_(self._verify_io[:, :-1])
+        if self._tp_verify_program is not None:
+            logits = self._tp_verify_program(pool.ks, pool.vs, pool.seq_pos,
+                                             ids)
+        else:
+            caches = [(k, v, pool.seq_pos) for k, v in zip(pool.ks, pool.vs)]
+            logits, _ = self._forward(ids, caches, pool.seq_pos)
+        self._verify_logits.copy_(logits)
+
+    def _verify_tail(self):
+        """Matched-sampling acceptance over the window logits (eager, after
+        the body): for t = 0..spec_k every row selects a token from
+        position t exactly as the t-th sequential decode step would
+        (``sample_rows`` with the constrained mask, its own generator for
+        a sampling row, then ``finite_or_sentinel``), and each sampling
+        row's generator state is snapshot after each draw.  A row accepts
+        the longest draft prefix those tokens reproduce (a cumulative
+        product of the matches below its draft length; a sentinel never
+        matches a draft), advances ``seq_pos`` by accepted + 1 and keeps
+        ``committed[accepted]`` as its last token, all on the device.
+        Returns the packed ``[num_slots, spec_k+2]`` commit rows (the
+        window's tokens, then the accepted length) STILL ON THE DEVICE,
+        and the snapshots ``(rows, states)`` for ``_restore_generators``."""
+        k = self.spec_k
+        lg = self._verify_logits
+        rows = np.flatnonzero(self._do_sample)
+        cols, states = [], []
+        for t in range(k + 1):
+            tok = sample_rows(self._gens, lg[:, t], self._do_sample,
+                              self._temperature, self._top_k, self._top_p,
+                              mask=self._mask_dev)
+            cols.append(finite_or_sentinel(lg[:, t], tok))
+            states.append([self._gens[r].get_state() for r in rows])
+        committed = torch.stack(cols, dim=1)
+        drafts, lens = self._verify_io[:, :k], self._verify_io[:, k]
+        valid = torch.arange(k, device=lens.device)[None, :] < lens[:, None]
+        match = (committed[:, :k] == drafts) & valid
+        accepted = torch.cumprod(match.long(), dim=1).sum(dim=1)
+        self.pool.seq_pos.add_((accepted + 1).to(self.pool.seq_pos.dtype))
+        self._last_tok.copy_(committed.gather(1, accepted[:, None])[:, 0])
+        packed = torch.cat([committed, accepted[:, None]], dim=1)
+        return packed, (rows, states)
+
+    def _restore_generators(self, snapshots, accepted: np.ndarray) -> None:
+        """After the readback: each sampling row's generator goes back to
+        its state after draw ``accepted + 1`` of the window, the draws
+        sequential decode would have made for the tokens it commits."""
+        rows, states = snapshots
+        for i, r in enumerate(rows):
+            self._gens[r].set_state(states[int(accepted[r])][i])
+
+    def _verify_graph_step(self) -> None:
+        """The verify body through this engine's CUDA graph: captured at
+        the first verify step (whose body runs eagerly first), replayed at
+        every later one."""
+        self._verify_graph, seconds = self._graphed(
+            self._verify_graph, self._verify_body, "verify",
+            f"the {self.decode_path!r} engine's verify step")
+        if seconds is not None:
+            self.eager_verify_steps += 1
+
+    def _verify_dispatch(self, drafts: np.ndarray, draft_len: np.ndarray):
+        """ONE fixed-shape verify step over every slot: the drafts and
+        their lengths in one copy from pinned memory, the body (its graph
+        on a card), then the eager acceptance tail.  Returns the packed
+        commit rows STILL ON THE DEVICE (the caller performs the step's
+        single readback) and the generator snapshots."""
+        self._sync_mask()
+        k = self.spec_k
+        host = torch.zeros((self.num_slots, k + 1), dtype=torch.int64,
+                           pin_memory=self._verify_io.is_cuda)
+        buf = host.numpy()
+        buf[:, :k], buf[:, k] = drafts, draft_len
+        self._verify_io.copy_(host, non_blocking=True)
+        if self.decode_graph_reason is None:
+            self._verify_graph_step()
+        else:
+            self._verify_body()
+            self.eager_verify_steps += 1
+        return self._verify_tail()
+
+    def _propose_drafts(self):
+        """Host draft phase: ask every active slot's n-gram table for up
+        to ``spec_k`` tokens.  Returns ``(drafts [num_slots, spec_k],
+        draft_len [num_slots], total_drafted)``, or None when this step
+        runs the normal decode instead: speculation off or bypassed,
+        nothing proposed anywhere, or ANY occupied slot within
+        ``spec_k+1`` rows of its row end (``append_kv`` clamps a window's
+        start at ``max_seq - width``, which would overwrite that row's
+        valid KV; such a slot is about to reach max_seq anyway)."""
+        if not self.spec_on or self.spec_bypass or not self._slots:
+            return None
+        k = self.spec_k
+        limit = self.pool.max_seq - k - 1
+        drafts = np.zeros((self.num_slots, k), np.int64)
+        lens = np.zeros((self.num_slots,), np.int64)
+        total = 0
+        for slot, st in self._slots.items():
+            if st.pos > limit:
+                return None
+            if st.draft is None or st.req.finished:
+                continue
+            toks = st.draft.propose(k, allowed=st.allowed)
+            if toks:
+                drafts[slot, :len(toks)] = toks
+                lens[slot] = len(toks)
+                total += len(toks)
+        if total == 0:
+            return None
+        return drafts, lens, total
 
     # -------------------------------------------------------- step loop
     @torch.no_grad()
@@ -906,20 +1128,39 @@ class EngineCore:
             phases = [("admission", t0, t_admit),
                       ("prefill", t_admit, t_prefill)]
             if self._slots:
-                nxt = self._decode_dispatch()
+                # the speculative draft phase (host): None -> a decode
+                # step, else ONE verify step commits up to spec_k+1
+                # tokens a slot
+                spec = self._propose_drafts()
+                if spec is not None:
+                    drafts, draft_len, drafted = spec
+                    nxt, snapshots = self._verify_dispatch(drafts, draft_len)
+                else:
+                    nxt = self._decode_dispatch()
                 t_decode = time.perf_counter()
                 toks = nxt.cpu().numpy()   # THE per-step device readback
                 t_readback = time.perf_counter()
+                if spec is not None:
+                    self._restore_generators(snapshots,
+                                             toks[:, self.spec_k + 1])
                 # every slot's device state already advanced: a raise for
                 # one slot (a stream callback) must not drop the later
                 # slots' tokens — finish the loop, then re-raise
                 harvest_exc = None
+                accepted_total = 0
                 for slot in sorted(self._slots):
                     st = self._slots.get(slot)
                     if st is None:
                         continue   # reentrantly cancelled mid-loop
                     try:
-                        new_tokens += self._harvest(slot, int(toks[slot]))
+                        if spec is None:
+                            new_tokens += self._harvest(slot,
+                                                        int(toks[slot]))
+                        else:
+                            a = int(toks[slot, self.spec_k + 1])
+                            accepted_total += a
+                            new_tokens += self._harvest_window(
+                                slot, toks[slot, :a + 1])
                     except Exception as e:
                         self.metrics.on_fault("harvest", repr(e),
                                               step=step_i)
@@ -927,6 +1168,8 @@ class EngineCore:
                                        f"token emit failed: {e!r}")
                         if harvest_exc is None:
                             harvest_exc = e
+                if spec is not None:
+                    self.metrics.on_spec(int(drafted), accepted_total)
                 phases += [("decode_dispatch", t_prefill, t_decode),
                            ("readback", t_decode, t_readback)]
                 if self.decode_path in ("fused", "tp_fused_block"):
@@ -970,6 +1213,10 @@ class EngineCore:
         st = self._slots[slot]
         req = st.req
         req.tokens.append(tok)
+        if st.draft is not None:
+            # the n-gram table learns every COMMITTED token, after the
+            # step's readback
+            st.draft.observe(tok)
         self.progress_counter += 1              # token out = progress
         now = time.perf_counter()
         if first_token:
@@ -1009,8 +1256,29 @@ class EngineCore:
                                   step=self._step_in_flight)
             self._finalize(st.req, "failed", "non-finite logits in decode")
             return 0
+        st.pos += 1
         self._emit(slot, tok)
         return 1
+
+    def _harvest_window(self, slot: int, toks) -> int:
+        """Commit one slot's verify window — its accepted draft prefix
+        plus the bonus token — through the same per-token path as
+        sequential decode (:meth:`_harvest`), in order.  The loop stops
+        where the sequential engine would have stopped stepping: eos /
+        length, the non-finite sentinel, a reentrant cancel.  A truncated
+        tail is dropped: the slot is evicted this same step, so its device
+        state (advanced by the whole accepted length) is never read
+        again."""
+        emitted = 0
+        for tok in toks:
+            st = self._slots.get(slot)
+            if st is None or st.req.finished:
+                break
+            got = self._harvest(slot, int(tok))
+            if got == 0:
+                break              # the sentinel failed the request
+            emitted += got
+        return emitted
 
     # --------------------------------------------- terminal dispositions
     def _finalize(self, req: Request, status: str, reason: str,
@@ -1176,6 +1444,7 @@ class EngineCore:
             "seq_pos": self.pool.seq_pos.cpu().tolist(),
             "progress_counter": self.progress_counter,
             "steps": self._step_index,
+            "speculation": self.spec_on and not self.spec_bypass,
         }
 
     def run_until_complete(self, max_steps: Optional[int] = None,

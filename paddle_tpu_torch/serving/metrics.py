@@ -135,6 +135,14 @@ class ServingMetrics:
         self._c_faults = c("serving.faults",
                            "faults observed (non-finite logits, failed "
                            "token emits)")
+        # speculative decoding: draft tokens proposed vs draft tokens the
+        # verify step accepted; accepted / drafted is the acceptance rate
+        self._c_spec_draft = c("spec.draft_tokens",
+                               "draft tokens proposed by the n-gram "
+                               "tables (verify-window fill)")
+        self._c_spec_accept = c("spec.accepted_tokens",
+                                "draft tokens the verify step accepted "
+                                "(free decode steps)")
         self._phase_h: Dict[str, Histogram] = {}
         self._zero_local()
 
@@ -147,6 +155,8 @@ class ServingMetrics:
         self._tokens_local = 0
         self._steps_local = 0
         self._finished_local = 0
+        self._spec_draft_local = 0
+        self._spec_accept_local = 0
 
     def reset(self) -> None:
         """Zero THIS engine's instruments and drop the tracer's recorded
@@ -255,6 +265,21 @@ class ServingMetrics:
         self.tracer.event("request_" + status,
                           lane=self.request_lane(request_id),
                           t=now, request=request_id, reason=reason)
+
+    def on_spec(self, drafted: int, accepted: int) -> None:
+        """One speculative step's draft / accept tally (after the harvest
+        of its verify windows)."""
+        self._c_spec_draft.inc(drafted)
+        self._c_spec_accept.inc(accepted)
+        self._spec_draft_local += drafted
+        self._spec_accept_local += accepted
+
+    def on_spec_disable(self, reason: str) -> None:
+        """Speculation was turned off at run time: a ``spec_disable``
+        event on the engine lane marks where the engine fell back to one
+        token per step."""
+        self.tracer.event("spec_disable", lane=self.engine_lane,
+                          reason=reason[:200])
 
     def on_fault(self, site: str, error: str, step: int = 0) -> None:
         self._c_faults.inc()
@@ -400,6 +425,14 @@ class ServingMetrics:
             return None
         return self._queue_depth_sum / self._steps_local
 
+    @property
+    def spec_acceptance_rate(self) -> Optional[float]:
+        """Accepted / drafted over THIS engine's window (None until the
+        first speculative step)."""
+        if self._spec_draft_local <= 0:
+            return None
+        return self._spec_accept_local / self._spec_draft_local
+
     # ---------------------------------------------------------- snapshot
     def snapshot(self) -> Dict[str, object]:
         """The reference's engine-counter dict, for the instruments the
@@ -430,4 +463,7 @@ class ServingMetrics:
             "requests_failed": self._c_failed.value,
             "requests_rejected": self._c_rejected.value,
             "faults": self._c_faults.value,
+            "spec_draft_tokens": self._c_spec_draft.value,
+            "spec_accepted_tokens": self._c_spec_accept.value,
+            "spec_acceptance_rate": r(self.spec_acceptance_rate),
         }

@@ -60,7 +60,7 @@ from ..nn import functional as F
 
 __all__ = ["build_serving_mesh", "serving_param_specs", "shard_model_params",
            "sharded_zeros", "tp_decode_supported", "build_tp_decode_program",
-           "build_tp_forward", "init_staging"]
+           "build_tp_verify_program", "build_tp_forward", "init_staging"]
 
 # the axis each leaf of the tp_decode_weights bundle splits on over the
 # mesh (None: replicated).  tp_decode_weights arranges the globals so that
@@ -326,19 +326,27 @@ def build_tp_forward(bundle):
 
 
 # ------------------------------------------------- fused decode programs
-def _tp_layer(xs, pks, pvs, poss, blks, arch, ropes, mesh: Mesh):
+def _tp_layer(xs, pks, pvs, poss, blks, arch, ropes, mesh: Mesh,
+              s: int = 1):
     """One layer of the composed ring decode (``tp_fused``): the entry
     all-gather ring fused with the QKV / MLP-up products, the exit
     reduce-scatter ring with the out-proj / MLP-down products, the
-    shard's attention through ``decode_attention``.  ``xs[d] [B/tp, D]``
-    is the slot-sharded residual."""
+    shard's attention through ``decode_attention``.  ``s`` is the
+    per-slot token width: 1 for the decode program, the ``spec_k+1``
+    window for the verify program.  ``xs[d] [B*s/tp, D]`` is the
+    slot-sharded residual, its rows slot-major; they fold back to ``[B,
+    s, ...]`` only around attention, where query t of a slot's window
+    sees keys up to ``pos + t``."""
     h1 = [arch_norm(x, blk["n1w"], blk["n1b"], arch)
           for x, blk in zip(xs, blks)]
     qkv = allgather_matmul(h1, [blk["wqkv"] for blk in blks], mesh)
-    attn = [_local_attention(_bias(t, blk["bqkv"])[:, None], pks[d], pvs[d],
+    attn = []
+    for d, (t, blk) in enumerate(zip(qkv, blks)):
+        t = _bias(t, blk["bqkv"])
+        a = _local_attention(t.reshape(-1, s, t.shape[-1]), pks[d], pvs[d],
                              poss[d], None if ropes is None else ropes[d],
-                             arch, mesh.size)[:, 0]
-            for d, (t, blk) in enumerate(zip(qkv, blks))]
+                             arch, mesh.size)
+        attn.append(a.reshape(-1, a.shape[-1]))
     o = matmul_reduce_scatter(attn, [blk["wo"] for blk in blks], mesh)
     xs = [x + _bias(oo, blk["bo"]) for x, oo, blk in zip(xs, o, blks)]
     h2 = [arch_norm(x, blk["n2w"], blk["n2b"], arch)
@@ -347,6 +355,55 @@ def _tp_layer(xs, pks, pvs, poss, blks, arch, ropes, mesh: Mesh):
     act = [_act(_bias(u, blk["bup"]), arch) for u, blk in zip(up, blks)]
     dn = matmul_reduce_scatter(act, [blk["wdown"] for blk in blks], mesh)
     return [x + _bias(m, blk["bdown"]) for x, m, blk in zip(xs, dn, blks)]
+
+
+def _ring_forward(bundle, ks, vs, seq_pos: torch.Tensor, ids: torch.Tensor,
+                  pallas_block: bool = False) -> torch.Tensor:
+    """The ring programs' forward over ``ids [B, s]`` at per-row
+    positions ``seq_pos [B]``: embedding (masked vocab-shard lookup +
+    psum), the residual slot-sharded ``[B*s/tp, D]`` (slot-major) through
+    the layers, the final norm, logits against each shard's vocab columns
+    gathered onto the controller as ``[B, s, V]``.  The slabs are
+    appended in place; ``seq_pos`` is left as it is.  ``pallas_block``
+    (``s`` = 1 only) runs the layers on the sharded decode-block
+    kernels."""
+    from ..kernels.decode_block_tp import tp_fused_block_layer
+    mesh, arch, shards = bundle["mesh"], bundle["arch"], bundle["shards"]
+    tp = mesh.size
+    b, s = ids.shape
+    b_l = b // tp
+    x = _embed(shards, ids, seq_pos, mesh)
+    poss = [seq_pos.to(dev) for dev in mesh.devices]
+    ropes = None
+    if arch["rope"]:
+        if pallas_block:
+            # full-width f32 tables (halves duplicated) at each slot's
+            # position: the kernel applies rotary in f32
+            ropes = []
+            for p in poss:
+                cos, sin = _rope_tables(p, arch["head_dim"],
+                                        arch["rope_theta"], torch.float32)
+                ropes.append((torch.cat([cos, cos], dim=-1),
+                              torch.cat([sin, sin], dim=-1)))
+        else:
+            ropes = [_rope_tables(_positions(p, s, p.device),
+                                  arch["head_dim"], arch["rope_theta"],
+                                  xx.dtype) for p, xx in zip(poss, x)]
+    # slot-shard the residual stream: shard d's slot-major row chunk
+    xs = [xx[d * b_l:(d + 1) * b_l].reshape(b_l * s, -1)
+          for d, xx in enumerate(x)]
+    for li in range(len(shards[0]["blocks"])):
+        blks = [sh["blocks"][li] for sh in shards]
+        if pallas_block:
+            xs, _, _ = tp_fused_block_layer(xs, ks[li], vs[li], poss, blks,
+                                            arch, ropes, mesh)
+        else:
+            xs = _tp_layer(xs, ks[li], vs[li], poss, blks, arch, ropes, mesh,
+                           s=s)
+    xf = [arch_norm(x, sh["nfw"], sh["nfb"], arch)
+          for x, sh in zip(xs, shards)]
+    logits = allgather_matmul(xf, [_head(sh) for sh in shards], mesh)
+    return _gather_logits(logits, mesh).view(b, s, -1)
 
 
 def build_tp_decode_program(bundle, *, pallas_block: bool = False,
@@ -368,7 +425,6 @@ def build_tp_decode_program(bundle, *, pallas_block: bool = False,
     at ``batch`` / ``max_seq`` — callers gate on
     ``decode_block.resolve_fused_decode(tp=...)`` first."""
     from ..kernels.decode_block import plan_decode_block
-    from ..kernels.decode_block_tp import tp_fused_block_layer
     mesh, arch, shards = bundle["mesh"], bundle["arch"], bundle["shards"]
     tp = mesh.size
     if pallas_block:
@@ -388,40 +444,35 @@ def build_tp_decode_program(bundle, *, pallas_block: bool = False,
 
     @torch.no_grad()
     def program(ks, vs, seq_pos: torch.Tensor, last_tok: torch.Tensor):
-        b = last_tok.shape[0]
-        b_l = b // tp
-        x = _embed(shards, last_tok[:, None], seq_pos, mesh)
-        poss = [seq_pos.to(dev) for dev in mesh.devices]
-        ropes = None
-        if arch["rope"]:
-            if pallas_block:
-                # full-width f32 tables (halves duplicated) at each slot's
-                # position: the kernel applies rotary in f32
-                ropes = []
-                for p in poss:
-                    cos, sin = _rope_tables(p, arch["head_dim"],
-                                            arch["rope_theta"], torch.float32)
-                    ropes.append((torch.cat([cos, cos], dim=-1),
-                                  torch.cat([sin, sin], dim=-1)))
-            else:
-                ropes = [_rope_tables(p[:, None], arch["head_dim"],
-                                      arch["rope_theta"], xx.dtype)
-                         for p, xx in zip(poss, x)]
-        # slot-shard the residual stream: shard d's row chunk
-        xs = [xx[d * b_l:(d + 1) * b_l, 0] for d, xx in enumerate(x)]
-        for li in range(len(shards[0]["blocks"])):
-            blks = [sh["blocks"][li] for sh in shards]
-            if pallas_block:
-                xs, _, _ = tp_fused_block_layer(xs, ks[li], vs[li], poss,
-                                                blks, arch, ropes, mesh)
-            else:
-                xs = _tp_layer(xs, ks[li], vs[li], poss, blks, arch, ropes,
-                               mesh)
-        xf = [arch_norm(x, sh["nfw"], sh["nfb"], arch)
-              for x, sh in zip(xs, shards)]
-        logits = allgather_matmul(xf, [_head(sh) for sh in shards], mesh)
+        logits = _ring_forward(bundle, ks, vs, seq_pos, last_tok[:, None],
+                               pallas_block=pallas_block)
         seq_pos.add_(1)
-        return _gather_logits(logits, mesh)[:, None, :], ks, vs, seq_pos
+        return logits, ks, vs, seq_pos
+
+    return program
+
+
+def build_tp_verify_program(bundle, *, width: int):
+    """The engine's ring verify program over a :func:`shard_model_params`
+    bundle (speculative decoding): ``program(ks, vs, seq_pos, ids) ->
+    logits [B, width, V]`` with ``ids [B, width]`` each slot's last
+    committed token followed by its draft window, at each slot's own
+    ``seq_pos``.  The window's K/V rows are appended into the slabs in
+    place; ``seq_pos`` is NOT advanced (the engine advances it by each
+    slot's accepted length + 1).  The layers are the composed ring's
+    :func:`_tp_layer` at width ``width``; a ``tp_fused_block`` engine
+    verifies through this program too (its block kernels take one token
+    a slot) and keeps the kernels for its decode steps."""
+    if width < 2:
+        raise ValueError(f"verify width must be >= 2 (spec_k >= 1), "
+                         f"got {width}")
+
+    @torch.no_grad()
+    def program(ks, vs, seq_pos: torch.Tensor, ids: torch.Tensor):
+        if ids.shape[1] != width:
+            raise ValueError(f"verify program built for width {width}, "
+                             f"got ids {tuple(ids.shape)}")
+        return _ring_forward(bundle, ks, vs, seq_pos, ids)
 
     return program
 

@@ -51,6 +51,7 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
                 "paddle_tpu_torch.obs.tracing",
                 "paddle_tpu_torch.distributed.mesh",
                 "paddle_tpu_torch.serving.tp",
+                "paddle_tpu_torch.serving.spec",
                 "paddle_tpu_torch.kernels.collective_matmul",
                 "paddle_tpu_torch.kernels.decode_block_tp"):
         assert mod in res["imported"]
