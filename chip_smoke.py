@@ -102,6 +102,21 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      ``decode_block_attn`` at gpt3_6_7b width at 2048 and 3072 rows
      (each head's output within its elements' own limit, a dropped tile
      and a missed fresh row planted in the plain version above it);
+  6e. serving:chaos — fault-tolerant serving at full width and depth
+     (``FaultToleranceConfig(backoff_base_s=0)``, a ``FaultInjector``, 8
+     slots, 12 requests of 8 greedy tokens and a follow-up request):
+     ``nan_logits`` on gpt3_6_7b unfused, fused, unfused at spec_k=4 (on
+     a verify step) and tp=2 ``tp_fused_block`` fails exactly the
+     poisoned request, every other request and the follow-up on the
+     poisoned slot equal a fault-free run's; ``step`` x (retries + 1)
+     quarantines gpt3_6_7b unfused, llama_7b (max_seq 4096: the rebuild
+     must free the old plane first to fit) and tp=2 ``tp_fused``: the
+     in-flight requests fail, the queued ones equal a fault-free run's,
+     one decode capture more, the rebuild's peak memory under the first
+     build's plus the graph pool, its seconds; the ``fused_decode`` rung
+     (fused -> unfused, ``tp_fused_block`` -> ``tp_fused``) with one new
+     decode capture and the follow-up equal to the new path's; the
+     ``spec_verify`` rung: no verify replay after it;
   7. train kernels — on an emptied card, the three flash-attention
      kernels (forward, dq, dk/dv) and fused AdamW against their plain
      versions over a sweep (flash: f32 / bf16 / f16, head_dim 64 / 128,
@@ -2855,6 +2870,403 @@ def phase_serving_spec(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------- fault-tolerant serving
+# the chaos phase's traffic on every engine: 12 greedy requests of 8 tokens
+# on 8 slots (4 wait in the queue), prompts of 65-128 random tokens (one
+# chunk width, 128, and no radix hit), then follow-up requests after the
+# wave; the speculative engines' prompts are 3-token phrases tiled, so
+# their n-gram tables draft
+CHAOS_KW = dict(num_slots=8, block_len=16, prefill_chunk=512)
+CHAOS_REQUESTS, CHAOS_NEW = 12, 8
+# the nan_logits fault fires at this hit of its site (each step with a
+# live slot is one): the 4th such step, a decode (or verify) step over
+# the first requests with the rest still prefilling or queued
+CHAOS_POISON_AT = 3
+
+
+def chaos_prompts(vocab: int, seed: int, tiled: bool = False) -> list:
+    """The wave's prompts, then one follow-up prompt a slot."""
+    import numpy as np
+    rs = np.random.RandomState(seed)
+    out = []
+    for _ in range(CHAOS_REQUESTS + CHAOS_KW["num_slots"]):
+        n = int(rs.randint(65, 129))
+        p = rs.randint(0, vocab, (3 if tiled else n,))
+        out.append(np.tile(p, n // 3 + 1)[:n] if tiled else p)
+    return out
+
+
+def chaos_engine(model, tp: int, **kw):
+    """One engine of the phase: ``CHAOS_KW``, the watchdog with no backoff
+    sleep, an injector; tp=2 on both shards of the card."""
+    from paddle_tpu_torch.serving import (FaultInjector,
+                                          FaultToleranceConfig,
+                                          ServingEngine)
+    tp_kw = {} if tp == 1 else dict(tensor_parallel=tp,
+                                    devices=TP_DEVICES[:tp])
+    return ServingEngine(model, **CHAOS_KW, **tp_kw, **kw,
+                         fault_tolerance=FaultToleranceConfig(
+                             backoff_base_s=0.0),
+                         faults=FaultInjector())
+
+
+def chaos_serve(eng, prompts, cancel=None):
+    """Serve ``prompts`` to the end on ``eng``; with ``cancel = (i, n)``
+    cancel request ``i`` right after ``n`` steps.  Returns the outputs and,
+    per request, the steps after which it was terminal."""
+    rids = [eng.submit(p, max_new_tokens=CHAOS_NEW) for p in prompts]
+    steps, done_at = 0, [None] * len(rids)
+    while eng.core.scheduler.has_work():
+        eng.step()
+        steps += 1
+        for i, rid in enumerate(rids):
+            if done_at[i] is None and eng.result(rid).finished:
+                done_at[i] = steps
+        if cancel is not None and steps == cancel[1]:
+            eng.cancel(rids[cancel[0]])
+        if steps > 600:
+            raise AssertionError(
+                f"serving did not drain: {eng.core.stall_snapshot()}")
+    return [eng.result(r) for r in rids], done_at
+
+
+def chaos_clean(model, tp: int, prompts, cancel=None, follow: int = 1,
+                **kw):
+    """A fault-free engine's greedy tokens for the wave (``cancel`` as in
+    ``chaos_serve``), then for the first ``follow`` follow-up requests
+    served together."""
+    eng = chaos_engine(model, tp, **kw)
+    outs, _ = chaos_serve(eng, prompts[:CHAOS_REQUESTS], cancel)
+    follow, _ = chaos_serve(
+        eng, prompts[CHAOS_REQUESTS:CHAOS_REQUESTS + follow])
+    if eng.metrics_dict()["faults"] or any(
+            o.status not in ("finished", "cancelled") for o in outs + follow):
+        raise AssertionError(f"clean run failed: {outs + follow}")
+    eng.close()
+    return [o.tokens for o in outs + follow]
+
+
+def _chaos_check(tag: str, ok: bool, what) -> None:
+    if not ok:
+        raise AssertionError(f"{tag} {what}")
+
+
+def chaos_nan(model, tp: int, label: str, card: str, tiled: bool = False,
+              **kw) -> dict:
+    """``nan_logits`` on one engine: NaN written in place into the lowest
+    live slot's K row at the ``CHAOS_POISON_AT``-th step with a live slot.
+    Exactly that slot's request fails with "non-finite"; every other
+    request equals a fault-free engine's run in which that request is
+    cancelled right after the step it failed at (a speculative step's
+    kind, verify or decode, depends on every slot's drafts, so the clean
+    run keeps the same batch); follow-up requests fill the slots up to
+    the poisoned one, and the one on it, once ``adopt`` rewrote it, equals
+    the clean run's like the others."""
+    import torch
+    tag = f"[serving:chaos:{label}:nan_logits]"
+    vocab = model.cfg.vocab_size
+    prompts = chaos_prompts(vocab, 71, tiled)
+    kernels = serving_kernels()
+    for k in kernels:
+        k.launches = 0
+    eng = chaos_engine(model, tp, **kw)
+    core = eng.core
+    poisoned, verified = [], []
+    poison, verify = core._poison_slot, core._verify_dispatch
+
+    def poison_slot(slot, step_i):
+        poisoned.append((slot, step_i, core._slots[slot].req.request_id))
+        poison(slot, step_i)
+
+    def verify_dispatch(*a):
+        verified.append(core._step_in_flight)
+        return verify(*a)
+
+    core._poison_slot, core._verify_dispatch = poison_slot, verify_dispatch
+    core.faults.enable("nan_logits", at=CHAOS_POISON_AT)
+    try:
+        outs, done_at = chaos_serve(eng, prompts[:CHAOS_REQUESTS])
+    finally:
+        core.faults.disable("nan_logits")
+    _chaos_check(tag, len(poisoned) == 1, f"poisoned {poisoned}")
+    slot, step_i, victim = poisoned[0]
+    rids = [eng.submit(p, max_new_tokens=CHAOS_NEW)
+            for p in prompts[CHAOS_REQUESTS:CHAOS_REQUESTS + slot + 1]]
+    eng.step()
+    follow_slot = next(s for s, r in core.scheduler.running.items()
+                       if r.request_id == rids[-1])
+    eng.run_until_complete(200)
+    follow = [eng.result(r) for r in rids]
+    launches = {k.__name__: k.launches for k in kernels}
+    path, spec_on = eng.decode_path, eng.spec_on
+    eng.close()
+    eng = core = None
+    failed_after = done_at[victim]
+    want = chaos_clean(model, tp, prompts, cancel=(victim, failed_after),
+                       follow=slot + 1, **kw)
+    kind = "verify" if step_i in verified else "decode"
+    _chaos_check(tag, kind == ("verify" if spec_on else "decode"),
+                 f"the poisoned step ran {kind}")
+    _chaos_check(tag, outs[victim].status == "failed"
+                 and "non-finite" in outs[victim].status_reason,
+                 f"poisoned request: {outs[victim]}")
+    same = [o.status == "finished" and o.tokens == w
+            for i, (o, w) in enumerate(zip(outs + follow, want))
+            if i != victim]
+    _chaos_check(tag, all(same), f"requests equal to the clean run: {same}")
+    _chaos_check(tag, follow_slot == slot,
+                 f"the last follow-up took slot {follow_slot}, not the "
+                 f"poisoned {slot}")
+    attn = {"unfused": "decode_attention", "fused": "decode_block_attn",
+            "tp_fused_block": "decode_block_attn_tp"}[path]
+    _chaos_check(tag, launches[attn] > 0, f"launches {launches}")
+    res = {"decode_path": path, "spec": spec_on, "poisoned_slot": slot,
+           "poisoned_step": step_i, "poisoned_step_kind": kind,
+           "poisoned_request": victim, "failed_after_steps": failed_after,
+           "requests_equal": sum(same) + 1, "attention_wrapper": attn,
+           "launches": launches}
+    log(f"{tag} {path}{' spec_k=4' if spec_on else ''}: NaN into slot "
+        f"{slot} K row 0 at engine step {step_i} ({kind}); request "
+        f"{victim} failed ({outs[victim].status_reason!r}) after "
+        f"{failed_after} steps; {sum(same)} of {len(same)} others, "
+        f"{len(follow)} follow-ups included (the last on slot "
+        f"{follow_slot}), equal the clean run; {attn} launches "
+        f"{launches[attn]}"
+        f" (card: {card}{TP_NOTE if tp > 1 else ''})")
+    return res
+
+
+def chaos_quarantine(model, tp: int, label: str, card: str,
+                     want: list) -> dict:
+    """``step`` fires (max_step_retries + 1) times in a row after the
+    first decode step: 3 retries, then a quarantine.  The 8 in-flight
+    requests fail with "quarantine", the 4 queued ones equal ``want`` (a
+    fault-free engine's), ``capture_counts["decode"]`` goes up by one
+    across the rebuild and the prefill captures by at most one a width
+    served after it.  The rebuild's device memory: allocated before it,
+    its peak, after it, against the first build's peak plus the graph
+    pool (a rebuild that allocated before it freed would add a plane)."""
+    import torch
+    tag = f"[serving:chaos:{label}:quarantine]"
+    prompts = chaos_prompts(model.cfg.vocab_size, 71)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = chaos_engine(model, tp)
+    torch.cuda.synchronize()
+    build_peak = torch.cuda.max_memory_allocated()
+    core = eng.core
+    mem, counts = {}, []
+    rebuild = core._rebuild_device_plane
+
+    def rebuild_device_plane():
+        torch.cuda.synchronize()
+        counts.append(dict(core.capture_counts))
+        mem["pool_gb"] = pool_gb(core._graph_pool) or 0.0
+        mem["before"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rebuild()
+        torch.cuda.synchronize()
+        mem["seconds"] = time.perf_counter() - t0
+        mem["peak"] = torch.cuda.max_memory_allocated()
+        mem["after"] = torch.cuda.memory_allocated()
+
+    core._rebuild_device_plane = rebuild_device_plane
+    retries = core.ft.max_step_retries
+    core.faults.enable("step", at=1, times=retries + 1)
+    try:
+        outs, _ = chaos_serve(eng, prompts[:CHAOS_REQUESTS])
+    finally:
+        core.faults.disable("step")
+    m = eng.metrics_dict()
+    after = dict(core.capture_counts)
+    path, widths = eng.decode_path, len(core._prefill_graphs)
+    eng.close()
+    eng = core = None
+    inflight, queued = outs[:CHAOS_KW["num_slots"]], outs[CHAOS_KW["num_slots"]:]
+    _chaos_check(tag, m["quarantines"] == 1 and m["step_retries"] == retries
+                 and len(counts) == 1, f"metrics {m}")
+    _chaos_check(tag, all(o.status == "failed" and "quarantine" in
+                          o.status_reason for o in inflight),
+                 f"in-flight: {[(o.status, o.status_reason) for o in inflight]}")
+    same = [o.status == "finished" and o.tokens == w
+            for o, w in zip(queued, want[CHAOS_KW["num_slots"]:])]
+    _chaos_check(tag, all(same), f"queued requests equal clean: {same}")
+    before = counts[0]
+    _chaos_check(tag, before["decode"] == 1 and after["decode"] == 2
+                 and before["prefill"] <= after["prefill"]
+                 <= before["prefill"] + widths,
+                 f"captures {before} -> {after}")
+    bound = build_peak + mem["pool_gb"] * 1e9
+    _chaos_check(tag, mem["peak"] <= bound,
+                 f"rebuild peak {mem['peak'] / 1e9:.3f} GB over the first "
+                 f"build's {build_peak / 1e9:.3f} GB + graph pool "
+                 f"{mem['pool_gb']:.3f} GB")
+    gb = {k: mem[k] / 1e9 for k in ("before", "peak", "after")}
+    res = {"decode_path": path, "captures_before": before,
+           "captures_after": after, "rebuild_s": mem["seconds"],
+           "build_peak_gb": build_peak / 1e9, "pool_gb": mem["pool_gb"],
+           **{f"{k}_gb": v for k, v in gb.items()},
+           "queued_equal": sum(same)}
+    log(f"{tag} {path}: {retries} retries then one quarantine; "
+        f"{len(inflight)} in-flight failed, {sum(same)} of {len(queued)} "
+        f"queued equal the clean run; captures {before} -> {after}; "
+        f"memory allocated before {gb['before']:.3f} GB, rebuild peak "
+        f"{gb['peak']:.3f} GB (first build's peak {build_peak / 1e9:.3f} GB"
+        f" + graph pool {mem['pool_gb']:.3f} GB), after "
+        f"{gb['after']:.3f} GB; rebuild {mem['seconds']:.3f} s "
+        f"(card: {card}{TP_NOTE if tp > 1 else ''})")
+    return res
+
+
+def chaos_fused_rung(model, tp: int, label: str, card: str,
+                     want: list) -> dict:
+    """Two ``step`` faults on a fused engine after its first decode
+    steps: the ``fused_decode`` rung drops the decode graph and moves the
+    engine to ``unfused`` (tp=1) or ``tp_fused`` (tp=2); one new decode
+    capture follows, every request finishes, and the follow-up request
+    (all on the new path) equals ``want`` (that path's fault-free
+    run)."""
+    tag = f"[serving:chaos:{label}:fused_decode_rung]"
+    prompts = chaos_prompts(model.cfg.vocab_size, 71)
+    eng = chaos_engine(model, tp, fused_decode=True)
+    core = eng.core
+    first = eng.decode_path
+    core.faults.enable("step", at=2, times=2)
+    try:
+        outs, _ = chaos_serve(eng, prompts[:CHAOS_REQUESTS])
+    finally:
+        core.faults.disable("step")
+    follow, _ = chaos_serve(eng, prompts[CHAOS_REQUESTS:CHAOS_REQUESTS + 1])
+    path, reason = eng.decode_path, eng.decode_fallback_reason
+    counts = dict(core.capture_counts)
+    degraded = eng.degraded_subsystems
+    eng.close()
+    eng = core = None
+    _chaos_check(tag, first == ("fused" if tp == 1 else "tp_fused_block")
+                 and path == ("unfused" if tp == 1 else "tp_fused")
+                 and reason.startswith("degraded")
+                 and degraded == ("fused_decode",),
+                 f"{first} -> {path} ({reason!r}, {degraded})")
+    _chaos_check(tag, counts["decode"] == 2, f"captures {counts}")
+    _chaos_check(tag, all(o.status == "finished" for o in outs),
+                 f"statuses {[o.status for o in outs]}")
+    _chaos_check(tag, follow[0].tokens == want[CHAOS_REQUESTS],
+                 f"follow-up {follow[0].tokens} vs {want[CHAOS_REQUESTS]}")
+    log(f"{tag} {first} -> {path} ({reason[:60]!r}); captures {counts}; "
+        f"{len(outs)} requests finished; the follow-up equals a fault-free "
+        f"{path} engine's (card: {card}{TP_NOTE if tp > 1 else ''})")
+    return {"from": first, "to": path, "captures": counts}
+
+
+def chaos_spec_rung(model, label: str, card: str) -> dict:
+    """Two ``spec_verify`` faults after two verify steps: speculation is
+    bypassed, no verify replay runs after, every request finishes, a
+    second wave drafts nothing."""
+    tag = f"[serving:chaos:{label}:spec_verify_rung]"
+    prompts = chaos_prompts(model.cfg.vocab_size, 72, tiled=True)
+    eng = chaos_engine(model, 1, spec_k=SPEC_K)
+    core = eng.core
+    calls, after = [], []
+    step = core._verify_graph_step
+
+    def verify_graph_step():
+        (after if core.spec_bypass else calls).append(core._step_in_flight)
+        step()
+
+    core._verify_graph_step = verify_graph_step
+    core.faults.enable("spec_verify", at=2, times=2)
+    try:
+        outs, _ = chaos_serve(eng, prompts[:CHAOS_REQUESTS])
+    finally:
+        core.faults.disable("spec_verify")
+    drafted = eng.metrics_dict()["spec_draft_tokens"]
+    more, _ = chaos_serve(eng, prompts[CHAOS_REQUESTS:])
+    m = eng.metrics_dict()
+    counts = dict(core.capture_counts)
+    bypass, reason = core.spec_bypass, eng.spec_fallback_reason
+    eng.close()
+    eng = core = None
+    _chaos_check(tag, bypass and reason.startswith("degraded"),
+                 f"bypass {bypass} ({reason!r})")
+    _chaos_check(tag, len(calls) == 2 and not after
+                 and counts["verify"] == 1
+                 and m["spec_draft_tokens"] == drafted,
+                 f"verify graph calls {calls} then {after}, captures "
+                 f"{counts}, drafts {drafted} -> {m['spec_draft_tokens']}")
+    _chaos_check(tag, all(o.status == "finished" for o in outs + more),
+                 f"statuses {[o.status for o in outs + more]}")
+    log(f"{tag} spec_verify faults 2 -> spec_bypass ({reason[:60]!r}); "
+        f"verify graph ran at steps {calls}, none after; captures {counts};"
+        f" {len(outs) + len(more)} requests finished (card: {card})")
+    return {"verify_steps": calls, "captures": counts}
+
+
+def phase_serving_chaos(card: str) -> dict:
+    """Fault-tolerant serving at full width and depth (random bf16 weights
+    from a seeded generator on the card), each engine ``CHAOS_KW`` with
+    ``FaultToleranceConfig(backoff_base_s=0)`` and a ``FaultInjector``,
+    closed before the next is built: gpt3_6_7b unfused, fused and unfused
+    at ``spec_k=4`` (``nan_logits``), unfused (quarantine), fused (the
+    ``fused_decode`` rung) and at ``spec_k=4`` (the ``spec_verify`` rung);
+    llama_7b at max_seq 4096 unfused (quarantine: two planes and the
+    weights would not fit on the card); gpt3_6_7b at tp=2 on both shards
+    of the card, ``tp_fused_block`` (``nan_logits``, the rung to
+    ``tp_fused``) and ``tp_fused`` (quarantine).  Each quarantine resets
+    the peak memory statistics to read its rebuild's peak, so the peak
+    ``run_phase`` prints covers only what follows the last one."""
+    import torch
+    from paddle_tpu_torch.models import (GPTForCausalLM, LlamaForCausalLM,
+                                         gpt3_6_7b, llama_7b)
+
+    def build(family):
+        gen = torch.Generator(device=DEVICE)
+        gen.manual_seed(1234)
+        if family == "gpt":
+            return GPTForCausalLM(gpt3_6_7b(), device=DEVICE,
+                                  generator=gen).eval()
+        return LlamaForCausalLM(llama_7b(), device=DEVICE,
+                                generator=gen).eval()
+
+    out = {}
+    model = build("gpt")
+    vocab = model.cfg.vocab_size
+    want = chaos_clean(model, 1, chaos_prompts(vocab, 71))
+    for label, kw in (("gpt_unfused", {}),
+                      ("gpt_fused", dict(fused_decode=True)),
+                      ("gpt_unfused_spec", dict(spec_k=SPEC_K))):
+        out[f"{label}:nan_logits"] = chaos_nan(
+            model, 1, label, card, tiled="spec" in label, **kw)
+    out["gpt_unfused:quarantine"] = chaos_quarantine(model, 1, "gpt_unfused",
+                                                     card, want)
+    out["gpt_fused:fused_decode_rung"] = chaos_fused_rung(
+        model, 1, "gpt_fused", card, want)
+    out["gpt_unfused_spec:spec_verify_rung"] = chaos_spec_rung(
+        model, "gpt_unfused_spec", card)
+    model = None
+    free_card()
+    model = build("llama")
+    want = chaos_clean(model, 1, chaos_prompts(model.cfg.vocab_size, 71))
+    out["llama_unfused:quarantine"] = chaos_quarantine(
+        model, 1, "llama_unfused", card, want)
+    model = None
+    free_card()
+    # a tensor-parallel engine re-lays its model: a fresh one, shared by
+    # the tp engines on this mesh
+    model = build("gpt")
+    want = chaos_clean(model, TP, chaos_prompts(vocab, 71))
+    label = f"gpt_tp{TP}"
+    out[f"{label}_tp_fused_block:nan_logits"] = chaos_nan(
+        model, TP, f"{label}_tp_fused_block", card, fused_decode=True)
+    out[f"{label}_tp_fused:quarantine"] = chaos_quarantine(
+        model, TP, f"{label}_tp_fused", card, want)
+    out[f"{label}_tp_fused_block:fused_decode_rung"] = chaos_fused_rung(
+        model, TP, f"{label}_tp_fused_block", card, want)
+    model = None
+    free_card()
+    return out
+
+
 def plan_widths(eng, served) -> set:
     """The distinct prefill chunk widths that requests ``served``
     (``(prompt length, prefix hit tokens)`` pairs) ran on ``eng``: their
@@ -5601,6 +6013,9 @@ def main() -> int:
     # verify width and the fused block's attention at long caches
     free_card()
     spec = run_phase("serving:spec", phase_serving_spec, card)
+    # fault-tolerant serving: injected faults on full-width engines
+    free_card()
+    chaos = run_phase("serving:chaos", phase_serving_chaos, card)
     # the train phases start from an empty card
     free_card()
     train_recs = run_phase("train kernels", phase_train_kernels, card)
@@ -5777,7 +6192,8 @@ def main() -> int:
                 res
     log(f"[done] {time.perf_counter() - t_start:.1f} s; serving "
         f"{json.dumps(serving)}; speculative serving "
-        f"{json.dumps(spec['engines'])}; train {json.dumps(train)}; "
+        f"{json.dumps(spec['engines'])}; fault-tolerant serving "
+        f"{json.dumps(chaos)}; train {json.dumps(train)}; "
         f"llama train {json.dumps(llama_train)}; tiny serving "
         f"{json.dumps(tiny)}")
     log(json.dumps({"kernels": kernels}))

@@ -5,6 +5,9 @@ from .api import RequestOutput, ServingEngine
 from .engine import (NONFINITE_SENTINEL, EngineCore, finite_or_sentinel,
                      sample_rows)
 from .errors import EngineStalledError, RequestRejected
+from .faults import POINTS, FaultError, FaultInjector
+from .health import (DegradationLadder, EngineHealth, FaultToleranceConfig,
+                     SUBSYSTEMS)
 from .kv_pool import BlockPool, KVPool
 from .metrics import ServingMetrics
 from .prefix_cache import MatchResult, PrefixCache
@@ -18,4 +21,7 @@ __all__ = ["ServingEngine", "RequestOutput", "EngineCore", "sample_rows",
            "PrefixCache", "MatchResult", "PRIORITIES", "Request",
            "SamplingParams", "Scheduler", "bucket_length",
            # speculative decoding
-           "NGramDraftTable"]
+           "NGramDraftTable",
+           # fault tolerance
+           "FaultError", "FaultInjector", "POINTS", "FaultToleranceConfig",
+           "DegradationLadder", "EngineHealth", "SUBSYSTEMS"]

@@ -26,6 +26,7 @@ import numpy as np
 
 from .engine import EngineCore
 from .errors import RequestRejected
+from .health import FaultToleranceConfig
 from .metrics import ServingMetrics
 from .scheduler import PRIORITIES, Request, SamplingParams
 
@@ -74,9 +75,15 @@ class ServingEngine:
     they are legal at this engine's shape; ``decode_path`` /
     ``decode_fallback_reason`` say what was resolved.  The parameters
     after ``prefix_blocks`` are keyword-only: the reference has
-    ``record_events``, ``fault_tolerance`` and ``faults`` among them,
-    which the port does not have yet, so a positional call there would
-    bind to other parameters.
+    ``record_events`` among them, which the port does not have, so a
+    positional call there would bind to another parameter.
+
+    ``fault_tolerance=FaultToleranceConfig(...)`` turns ``step()`` into
+    the watchdog boundary (serving/health.py): step retries with
+    backoff, the degradation ladder, the quarantine rebuild of the
+    device plane and the circuit breaker; ``health`` and
+    ``degraded_subsystems`` report its state.  ``faults=FaultInjector()``
+    (serving/faults.py) arms named injection points for chaos tests.
 
     ``tensor_parallel > 1`` shards the engine over a 1-D mesh of
     ``devices`` (default: the first ``tensor_parallel`` CUDA devices; it
@@ -109,6 +116,8 @@ class ServingEngine:
                  prefix_blocks: Optional[int] = None, *,
                  registry=None, tracer=None,
                  fused_decode: bool = False,
+                 fault_tolerance: Optional[FaultToleranceConfig] = None,
+                 faults=None,
                  max_queue: Optional[int] = None,
                  tensor_parallel: int = 1,
                  collective_fusion: bool = True,
@@ -126,7 +135,7 @@ class ServingEngine:
             max_queue=max_queue, fused_decode=fused_decode,
             tensor_parallel=tensor_parallel,
             collective_fusion=collective_fusion, devices=devices,
-            spec_k=spec_k)
+            spec_k=spec_k, fault_tolerance=fault_tolerance, faults=faults)
         self._requests = {}
 
     # -------------------------------------------------------- submission
@@ -374,6 +383,20 @@ class ServingEngine:
         """Accepted / drafted over the current metrics window (None before
         the first speculative step)."""
         return self.core.metrics.spec_acceptance_rate
+
+    @property
+    def health(self):
+        """The engine's :class:`~paddle_tpu_torch.serving.health.
+        EngineHealth` state machine (``.state`` is ``healthy | degraded |
+        quarantined | circuit_open``)."""
+        return self.core.health
+
+    @property
+    def degraded_subsystems(self):
+        """The optional subsystems the degradation ladder has disabled (a
+        subset of ``("prefix_cache", "chunked_prefill", "fused_decode",
+        "spec_verify")``; empty = full service)."""
+        return self.core.ladder.disabled_subsystems
 
     def metrics_dict(self) -> dict:
         out = self.core.metrics.snapshot()

@@ -85,6 +85,24 @@ sequential decode would have made, so speculative and sequential runs
 emit the same seeded tokens.  A ``torch.Generator`` does not reproduce
 ``jax.random`` streams, so seeded tokens differ from the JAX engine's by
 design.
+
+Fault tolerance (``fault_tolerance=FaultToleranceConfig(...)``,
+serving/health.py): ``step()`` becomes the watchdog boundary.  A step
+that raises is attributed and never propagates: a fault of an optional
+subsystem (the prefix cache, chunked prefill, the fused decode path,
+speculation) counts toward the degradation ladder, which disables it at
+its threshold; any other fault costs one backed-off retry, and a spent
+retry budget quarantines the engine: in-flight requests fail, the device
+plane is rebuilt, queued requests are served on the new one.  A prefill
+fault fails only its request; a radix-cache fault degrades that request
+to a miss.  Too many quarantines open the circuit: everything queued
+fails and ``submit`` rejects with ``circuit_open``.  The rebuild frees
+before it allocates: the graphs and their pool, then the slabs, the
+block slab, the staging lane and the I/O buffers, then the new plane,
+whose graphs are captured again at first use (``capture_counts`` keeps
+counting).  ``faults=FaultInjector()`` (serving/faults.py) arms named
+injection points in the engine, the pools and the prefix cache.  Without
+a config the engine raises as before.
 """
 
 from __future__ import annotations
@@ -100,6 +118,7 @@ from ..kernels.decode_block import resolve_fused_decode
 from ..models.generation import _categorical, _filter_top_p
 from ..models.gpt import check_weights_held
 from .errors import EngineStalledError, RequestRejected
+from .health import DegradationLadder, EngineHealth, FaultToleranceConfig
 from .kv_pool import BlockPool, KVPool
 from .metrics import ServingMetrics
 from .prefix_cache import MatchResult, PrefixCache
@@ -245,7 +264,9 @@ class EngineCore:
                  tensor_parallel: int = 1,
                  collective_fusion: bool = True,
                  devices=None,
-                 spec_k: int = 0):
+                 spec_k: int = 0,
+                 fault_tolerance: Optional[FaultToleranceConfig] = None,
+                 faults=None):
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if prefill_chunk is not None and prefill_chunk < min_bucket:
@@ -264,13 +285,25 @@ class EngineCore:
         self.num_slots = num_slots
         self.prefill_chunk = prefill_chunk
         self.max_prefill_tokens_per_step = max_prefill_tokens_per_step
-        self.max_queue = max_queue
         self.metrics = metrics or ServingMetrics()
+        # the watchdog (serving/health.py) engages only with an explicit
+        # config; the injector (serving/faults.py) reaches the pools and
+        # the prefix cache through _build_device_plane
+        self.faults = faults
+        self.fault_tolerant = fault_tolerance is not None
+        self.ft = fault_tolerance if fault_tolerance is not None \
+            else FaultToleranceConfig()
+        self.health = EngineHealth(self.ft)
+        self.ladder = DegradationLadder(self.ft.ladder_threshold)
+        self.prefix_bypass = False              # ladder: cache disabled
+        self._fault_phase: Optional[str] = None  # watchdog attribution
+        self.max_queue = max_queue if max_queue is not None \
+            else self.ft.max_queue
         # speculative decoding: spec_k > 0 arms per-slot n-gram drafts
         # (serving/spec.py) checked by ONE [num_slots, spec_k+1] verify
         # step; spec_on / spec_fallback_reason resolve with the decode
         # path, and spec_bypass is the run-time kill switch the
-        # degradation ladder will set (not ported yet)
+        # degradation ladder's spec_verify rung sets
         self.spec_k = spec_k
         self.spec_on = False
         self.spec_fallback_reason: Optional[str] = None
@@ -340,8 +373,13 @@ class EngineCore:
             self.device = self.mesh.devices[0]
             self._forward = build_tp_forward(self.tp_weights)
         self.metrics.set_tp_degree(tensor_parallel)
-        self._build_device_plane(max_seq, enable_prefix_cache, block_len,
-                                 prefix_blocks)
+        # the device plane's construction arguments, kept so that a
+        # quarantine builds it again the same way
+        self._max_seq_arg = max_seq
+        self._enable_prefix_cache = enable_prefix_cache
+        self._block_len_arg = block_len
+        self._prefix_blocks_arg = prefix_blocks
+        self._build_device_plane()
         self.scheduler = Scheduler(num_slots, self.pool.max_seq,
                                    min_bucket=min_bucket,
                                    max_prefills_per_step=max_prefills_per_step)
@@ -377,28 +415,35 @@ class EngineCore:
         self.decode_graph_reason = self.prefill_graph_reason = \
             self._resolve_decode_graph()
 
-    def _build_device_plane(self, max_seq, enable_prefix_cache: bool,
-                            block_len: int, prefix_blocks) -> None:
+    def _build_device_plane(self) -> None:
         """Allocate everything that lives on the device or mirrors it: the
-        KV pools, the prefix cache and the per-slot row state."""
+        KV pools, the prefix cache, the staging lane and the per-slot row
+        state (at construction, and again at each quarantine).  Once the
+        ladder has bypassed the prefix cache no block slab is built:
+        nothing would read or write it again."""
         model, num_slots = self.model, self.num_slots
-        self.pool = KVPool.create(model, num_slots, max_seq, mesh=self.mesh)
+        self.pool = KVPool.create(model, num_slots, self._max_seq_arg,
+                                  mesh=self.mesh)
+        self.pool.faults = self.faults
         self.prefix_cache: Optional[PrefixCache] = None
         self.block_pool: Optional[BlockPool] = None
-        if enable_prefix_cache:
+        if self._enable_prefix_cache and not self.prefix_bypass:
             # block_len must tile the slot row: round DOWN to a pow2, then
             # halve until it divides max_seq
-            block_len = 1 << (block_len.bit_length() - 1)
+            block_len = 1 << (self._block_len_arg.bit_length() - 1)
             while block_len > 1 and self.pool.max_seq % block_len:
                 block_len //= 2
             # default pool size: as many blocks as the slot pool has rows
             # of context — a second slab the size of the first
-            nb = prefix_blocks if prefix_blocks is not None else \
+            nb = self._prefix_blocks_arg \
+                if self._prefix_blocks_arg is not None else \
                 num_slots * (self.pool.max_seq // block_len)
             self.block_pool = BlockPool.create(model, nb, block_len,
                                                self.pool.max_seq,
                                                mesh=self.mesh)
+            self.block_pool.faults = self.faults
             self.prefix_cache = PrefixCache(self.block_pool)
+            self.prefix_cache.faults = self.faults
             self.prefix_cache.on_event = functools.partial(
                 self.metrics.tracer.event, lane=self.metrics.engine_lane)
         self._slots: Dict[int, _Slot] = {}
@@ -505,20 +550,54 @@ class EngineCore:
         return tuple(sorted(widths))
 
     def close(self) -> None:
-        """Drop the engine's device buffers (KV slabs, staging lane, row
-        state) and its graphs so their memory can be reused; the engine
-        serves nothing afterwards."""
+        """Drop the engine's graphs and device buffers (KV slabs, staging
+        lane, row state) so their memory can be reused; the engine serves
+        nothing afterwards."""
+        self._drop_graphs(prefill=True)
+        self._prefills = []
+        self._release_device_plane()
+        self.closed = True
+
+    def _drop_graphs(self, prefill: bool) -> None:
+        """Forget the decode and verify graphs, and with ``prefill`` the
+        prefill graphs and the memory pool they all share, once no replay
+        is left in flight on the card; each is captured again at its next
+        use."""
+        if self.decode_graph_reason is None:
+            torch.cuda.synchronize(self.device)
         self._decode_graph = None
         self._verify_graph = None
-        self._prefill_graphs = {}
-        self._graph_pool = None
-        self._prefills = []
+        if prefill:
+            self._prefill_graphs = {}
+            self._graph_pool = None
+
+    def _release_device_plane(self) -> None:
+        """Drop every device buffer of the plane: the slot slabs, the block
+        slab, the staging lane, the logits, the mask and the prefill and
+        verify I/O buffers (the graphs that read them are dropped first)."""
         self._lane_ks = self._lane_vs = []
         self.pool.ks = self.pool.vs = []
         if self.block_pool is not None:
             self.block_pool.bks = self.block_pool.bvs = []
-        self._mask_dev = None
-        self.closed = True
+        self._logits = self._mask_dev = None
+        self._prefill_io = self._prefill_off = self._prefill_valid = None
+        self._prefill_ids = self._prefill_logits = None
+        self._verify_io = self._verify_ids = self._verify_logits = None
+
+    def _rebuild_device_plane(self) -> None:
+        """The quarantine's rebuild, releasing before it allocates: at
+        full width one plane (slot slabs, block slab, lane) is about as
+        large as the weights, and two of them with the weights need more
+        than the card holds.  The graphs and their pool go first, then the
+        old plane; then the new plane and the I/O buffers, whose graphs
+        are captured again at first use.  The scheduler, the queue, the
+        metrics, the health state and ``capture_counts`` stay."""
+        self._drop_graphs(prefill=True)
+        self._release_device_plane()
+        self._build_device_plane()
+        self._build_prefill_buffers()
+        if self.spec_on:
+            self._build_verify_buffers()
 
     def _lane(self, req: Request) -> int:
         return self.metrics.request_lane(req.request_id)
@@ -529,18 +608,32 @@ class EngineCore:
         width of its first chunk, after the radix-cache match shrinks the
         suffix."""
         matched = self.prefix_cache.match_length(req.prompt) \
-            if self.prefix_cache is not None else 0
+            if self._cache_active else 0
         plan = self.scheduler.chunk_plan(matched, req.prompt_len,
                                          self.prefill_chunk)
         return plan[0][1]
 
+    @property
+    def _cache_active(self) -> bool:
+        """The prefix cache exists and the ladder has not bypassed it."""
+        return self.prefix_cache is not None and not self.prefix_bypass
+
     def prefix_probe(self, prompt) -> int:
         """Longest radix-cached prefix of ``prompt`` in tokens, without
         admitting, pinning, or touching the device (0 when the cache is
-        off or cold)."""
-        if self.prefix_cache is None:
+        off, bypassed by the degradation ladder, or cold)."""
+        if not self._cache_active:
             return 0
         return self.prefix_cache.match_length(prompt)
+
+    def _contained_cache_fault(self, match: Optional[MatchResult],
+                               exc: Exception) -> None:
+        """A prefix-cache operation raised under the watchdog: unpin what
+        was matched and count the fault toward the ladder (which bypasses
+        the cache at its threshold); the caller goes on as a miss."""
+        if match is not None:
+            self.prefix_cache.release(match)
+        self._subsystem_fault("prefix_cache", exc)
 
     def _begin_prefill(self, req: Request) -> None:
         """Claim a slot, match + pin the longest cached prefix, and queue
@@ -555,19 +648,25 @@ class EngineCore:
         try:
             matched = 0
             t_match0 = t_match1 = t_admit
-            if self.prefix_cache is not None:
+            if self._cache_active:
                 t_match0 = time.perf_counter()
-                match = self.prefix_cache.match(req.prompt)
-                matched = match.tokens
+                try:
+                    match = self.prefix_cache.match(req.prompt)
+                    matched = match.tokens
+                except Exception as e:
+                    if not self.fault_tolerant:
+                        raise
+                    self._contained_cache_fault(match, e)
+                    match, matched = None, 0
                 t_match1 = time.perf_counter()
             plan = self.scheduler.chunk_plan(matched, req.prompt_len,
                                              self.prefill_chunk)
             self.scheduler.place(req, slot)
-            # hit/telemetry accounting only after placement: a failed
-            # admission is requeued and retried, and must not count twice
-            if matched:
-                req.prefix_hit_tokens = matched
-                self.metrics.on_prefix_hit(matched)
+            # only after placement: a failed admission is requeued and
+            # retried.  The hit counters move when the gather lands
+            # (_load_lane), where a contained gather fault still turns
+            # the hit into a miss
+            req.prefix_hit_tokens = matched
             req.admit_time = t_admit
             self.metrics.on_queue_wait(t_admit - req.arrival_time)
             tracer = self.metrics.tracer
@@ -576,7 +675,7 @@ class EngineCore:
                 tracer.set_lane_name(lane, f"request {req.request_id}")
                 tracer.add_span("queued", lane, req.arrival_time, t_admit,
                                 prompt_len=req.prompt_len)
-                if self.prefix_cache is not None:
+                if self._cache_active:
                     tracer.add_span("prefix_match", lane, t_match0,
                                     t_match1, hit_tokens=matched)
             self._prefills.append(_Prefill(req, slot, plan, match))
@@ -591,13 +690,29 @@ class EngineCore:
         """``st`` now heads the prefill queue: seed the staging lane with
         its pinned radix match (one in-place gather that overwrites every
         row), or zero it on a miss, so no row of an earlier request is
-        left where this one's queries could read it."""
+        left where this one's queries could read it.
+
+        Under the watchdog a gather that raises degrades the request to a
+        miss here, as the reference's admission-time gather does: the pin
+        is released, the fault counted toward the ladder, the lane zeroed
+        and the suffix planned again from token 0, with no hit counted."""
         t0 = time.perf_counter()
         hit = st.match is not None and st.match.tokens > 0
         if hit:
-            self.prefix_cache.load_staging(st.match, self._lane_ks,
-                                           self._lane_vs)
-        else:
+            try:
+                self.prefix_cache.load_staging(st.match, self._lane_ks,
+                                               self._lane_vs)
+            except Exception as e:
+                if not self.fault_tolerant:
+                    raise
+                self._contained_cache_fault(st.match, e)
+                st.match, hit = None, False
+                st.req.prefix_hit_tokens = 0
+                st.plan = self.scheduler.chunk_plan(
+                    0, st.req.prompt_len, self.prefill_chunk)
+            else:
+                self.metrics.on_prefix_hit(st.match.tokens)
+        if not hit:
             for row in (*self._lane_ks, *self._lane_vs):
                 for shard in (row if isinstance(row, list) else [row]):
                     shard.zero_()
@@ -713,15 +828,28 @@ class EngineCore:
     def _advance_one(self, st: _Prefill, staged: List) -> None:
         """Advance one mid-prefill request — to completion without
         chunking, by exactly one chunk with it — appending the completed
-        ``(st, first_token)`` to ``staged``."""
-        if self.prefill_chunk is None:
-            while not st.done:
+        ``(st, first_token)`` to ``staged``.  Under the watchdog a prefill
+        fault fails only this request (its lane content is lost, the
+        engine's state is not): a chunked request's fault counts toward
+        the ``chunked_prefill`` rung, any other as a ``prefill`` fault."""
+        try:
+            if self.prefill_chunk is None:
+                while not st.done:
+                    self._run_chunk(st)
+            else:
                 self._run_chunk(st)
-        else:
-            self._run_chunk(st)
-        if st.done:
-            self._prefills.remove(st)
-            staged.append(self._complete_prefill(st))
+            if st.done:
+                self._prefills.remove(st)
+                staged.append(self._complete_prefill(st))
+        except Exception as e:
+            if not self.fault_tolerant:
+                raise
+            self._abort_prefill(st, "failed", f"prefill fault: {e!r}")
+            if self.prefill_chunk is not None:
+                self._subsystem_fault("chunked_prefill", e)
+            else:
+                self.metrics.on_fault("prefill", repr(e),
+                                      step=self._step_in_flight)
 
     def _advance_prefills(self) -> int:
         """Run this step's prefill work: without chunking every pending
@@ -760,10 +888,19 @@ class EngineCore:
                 self._finalize(st.req, "failed",
                                "non-finite logits at prefill completion")
                 continue   # slot reclaimed by _evict_finished this step
-            if self.prefix_cache is not None:
-                self.prefix_cache.insert(st.req.prompt, self.pool, st.slot)
+            if self._cache_active:
+                try:
+                    self.prefix_cache.insert(st.req.prompt, self.pool,
+                                             st.slot)
+                except Exception as e:
+                    if not self.fault_tolerant:
+                        raise
+                    # the insert is an optimization: count the fault (the
+                    # ladder may bypass the cache) and keep the request
+                    self._subsystem_fault("prefix_cache", e)
             # a raise for one request must not drop the others' first
             # tokens: finish the loop, then re-raise the first error
+            # (under the watchdog the request's failure contains it)
             try:
                 self._emit(st.slot, tok, first_token=True)
             except Exception as e:
@@ -775,7 +912,7 @@ class EngineCore:
                     flush_exc = e
                 continue
             emitted += 1
-        if flush_exc is not None:
+        if flush_exc is not None and not self.fault_tolerant:
             raise flush_exc
         return emitted
 
@@ -919,10 +1056,20 @@ class EngineCore:
     def _decode_graph_step(self) -> None:
         """The decode body through this engine's CUDA graph: captured at
         the first decode step (whose body runs eagerly first), replayed
-        at every later one."""
-        self._decode_graph, seconds = self._graphed(
-            self._decode_graph, self._decode_body, "decode",
-            f"the {self.decode_path!r} decode step")
+        at every later one.  A capture that raises leaves no graph, and
+        ``pool.seq_pos`` where the step found it (its eager run had
+        advanced it), so the watchdog's retry decodes the same step
+        again and captures anew."""
+        pos = self.pool.seq_pos.clone() if self._decode_graph is None \
+            else None
+        try:
+            self._decode_graph, seconds = self._graphed(
+                self._decode_graph, self._decode_body, "decode",
+                f"the {self.decode_path!r} decode step")
+        except Exception:
+            if pos is not None:
+                self.pool.seq_pos.copy_(pos)
+            raise
         if seconds is not None:
             self.eager_decode_steps += 1
 
@@ -1090,19 +1237,52 @@ class EngineCore:
         """One engine iteration: admit (radix match + staging), advance
         prefill chunks, one decode step over all active slots, harvest
         tokens / evict finished.  Returns the number of requests still in
-        flight (prefilling + running + queued).  The step's phase
-        breakdown lands as ``step.*`` spans and per-phase histograms; the
-        per-slot token readback is the step's only device sync."""
+        flight (prefilling + running + queued).
+
+        With ``fault_tolerance`` this is the watchdog boundary: a step
+        that raises is attributed (an optional subsystem -> the
+        degradation ladder; the core -> a backed-off retry, then a
+        quarantine) and does not propagate; a rebuild that raises does.
+        With the circuit open a step does nothing.  A closed engine
+        raises, and is never retried."""
         if self.closed:
             raise RuntimeError("engine is closed")
+        if not self.fault_tolerant:
+            return self._step_body()
+        if self.health.circuit_open:
+            return self.scheduler.active + self.scheduler.queue_depth
+        try:
+            out = self._step_body()
+        except Exception as e:
+            return self._on_step_fault(e)
+        self.health.on_step_ok()
+        self._publish_health()
+        return out
+
+    def _step_body(self) -> int:
+        """The raw step.  Its phase breakdown lands as ``step.*`` spans and
+        per-phase histograms; the per-slot token readback is the step's
+        only device sync.  The injection points of the decode region fire
+        after the draft phase and before any dispatch, so a retried step
+        finds nothing mutated and every generator where sequential decode
+        left it."""
         t0 = time.perf_counter()
         tracer = self.metrics.tracer
         step_i = self._step_index
         self._step_index += 1
         self._step_in_flight = step_i
+        self._fault_phase = None
         skips_before = self.scheduler.total_head_skips
         new_tokens = 0
         phases = []
+        faults = self.faults
+        if faults is not None:
+            armed = faults.check("slow_step")
+            if armed is not None:
+                self.metrics.on_fault(
+                    "slow_step", f"injected {armed.seconds}s stall",
+                    step=step_i)
+                time.sleep(armed.seconds)
         sp = tracer.begin_span("serving.step",
                                lane=self.metrics.engine_lane, step=step_i)
         try:
@@ -1128,10 +1308,26 @@ class EngineCore:
             phases = [("admission", t0, t_admit),
                       ("prefill", t_admit, t_prefill)]
             if self._slots:
+                if faults is not None \
+                        and faults.check("nan_logits") is not None:
+                    self._poison_slot(min(self._slots), step_i)
                 # the speculative draft phase (host): None -> a decode
                 # step, else ONE verify step commits up to spec_k+1
                 # tokens a slot
                 spec = self._propose_drafts()
+                # a decode fault is not one slot's: the watchdog
+                # attributes it to the decode path (a ladder rung when
+                # fused or speculating, a retry otherwise)
+                if spec is not None:
+                    self._fault_phase = "spec_verify"
+                else:
+                    self._fault_phase = "fused_decode" \
+                        if self.decode_path in ("fused", "tp_fused_block") \
+                        else "decode"
+                if faults is not None:
+                    faults.fire("step")
+                    if spec is not None:
+                        faults.fire("spec_verify")
                 if spec is not None:
                     drafts, draft_len, drafted = spec
                     nxt, snapshots = self._verify_dispatch(drafts, draft_len)
@@ -1140,6 +1336,7 @@ class EngineCore:
                 t_decode = time.perf_counter()
                 toks = nxt.cpu().numpy()   # THE per-step device readback
                 t_readback = time.perf_counter()
+                self._fault_phase = None
                 if spec is not None:
                     self._restore_generators(snapshots,
                                              toks[:, self.spec_k + 1])
@@ -1176,7 +1373,9 @@ class EngineCore:
                     self.metrics.on_decode_block_step(t_decode - t_prefill)
                 if self.tensor_parallel > 1:
                     self.metrics.on_collective(t_readback - t_prefill)
-                if harvest_exc is not None:
+                # under the watchdog the failed request already contains
+                # it: a retry would re-run a step every slot has advanced
+                if harvest_exc is not None and not self.fault_tolerant:
                     raise harvest_exc
             self._evict_finished()
         finally:
@@ -1209,6 +1408,153 @@ class EngineCore:
             tracer.event("head_of_line_skip", lane=self.metrics.engine_lane,
                          count=skips - skips_before, step=step_i)
 
+    def _poison_slot(self, slot: int, step_i: int) -> None:
+        """Chaos only: write NaN over position 0 of ``slot``'s layer-0 K
+        row, in place (shard 0 under a mesh), so every graph keeps its
+        addresses and the next decode or verify replay reads the poison.
+        Attention spreads it into that row's logits, the non-finite check
+        turns them into the sentinel, and the harvest fails exactly that
+        request; the next ``adopt`` rewrites the row."""
+        k0 = self.pool.ks[0]
+        (k0[0] if isinstance(k0, list) else k0)[slot, 0].fill_(float("nan"))
+        self.metrics.on_fault("nan_logits",
+                              f"injected NaN into slot {slot} KV",
+                              step=step_i)
+
+    # ------------------------------------------------ watchdog / recovery
+    def _publish_health(self) -> None:
+        self.health.degraded = self.ladder.level > 0
+        self.metrics.on_health_state(self.health.state,
+                                     self.health.state_code,
+                                     step=self._step_in_flight)
+
+    def _on_step_fault(self, exc: Exception) -> int:
+        """A step raised under the watchdog.  A fault of the speculative
+        or the fused decode path feeds the ladder (plain decode is always
+        there); any other costs one retry from the backoff budget, and a
+        spent budget quarantines.  The step's own handlers already
+        unwound its state (admission requeues its batch, prefill faults
+        fail their request), so a retry is just the next step after the
+        backoff sleep."""
+        step_i = self._step_in_flight
+        phase = self._fault_phase or "step"
+        if phase == "spec_verify" and self.spec_on \
+                and not self.spec_bypass:
+            self._subsystem_fault("spec_verify", exc)
+        elif phase == "fused_decode" \
+                and self.decode_path in ("fused", "tp_fused_block"):
+            self._subsystem_fault("fused_decode", exc)
+        else:
+            self.metrics.on_fault(phase, repr(exc), step=step_i)
+            backoff = self.health.record_step_fault(repr(exc))
+            if backoff is None:
+                self._quarantine(f"{phase} fault: {exc!r}")
+            else:
+                self.metrics.on_retry(self.health.consecutive_faults,
+                                      backoff, step=step_i)
+                if backoff > 0:
+                    time.sleep(backoff)
+        self._publish_health()
+        return self.scheduler.active + self.scheduler.queue_depth
+
+    def _subsystem_fault(self, subsystem: str, exc: Exception) -> None:
+        """Count one fault against an optional subsystem; at the ladder's
+        threshold the subsystem is disabled (the fault site already
+        contained the failure)."""
+        self.metrics.on_fault(subsystem, repr(exc),
+                              step=self._step_in_flight)
+        if self.ladder.record_fault(subsystem):
+            self._disable_subsystem(subsystem, repr(exc))
+
+    def _disable_subsystem(self, subsystem: str, reason: str) -> None:
+        """Apply one rung of the degradation ladder, for the engine's
+        lifetime.  The rungs that change the step program drop its graphs
+        (captured again at the next step): the decode path and, with it,
+        the verify graph."""
+        if subsystem == "prefix_cache":
+            # matches and inserts stop; live pins release as their
+            # requests finish
+            self.prefix_bypass = True
+        elif subsystem == "chunked_prefill":
+            # whole-bucket prefill; every width it plans is already in
+            # warm_buckets() and fits the prefill buffers
+            self.prefill_chunk = None
+        elif subsystem == "fused_decode":
+            if self.tensor_parallel > 1:
+                # the sharded-block rung falls to the composed ring when it
+                # is legal, the Megatron body otherwise: the resolve order
+                ok, tp_reason = tp_decode_supported(
+                    self.model, self.tensor_parallel, self.num_slots) \
+                    if self.collective_fusion \
+                    else (False, "collective_fusion disabled")
+                self.decode_path = "tp_fused" if ok else "unfused"
+                self.tp_fusion_reason = None if ok else tp_reason
+                self._tp_program = build_tp_decode_program(
+                    self.tp_weights, pallas_block=False,
+                    batch=self.num_slots, max_seq=self.pool.max_seq) \
+                    if ok else None
+                if not ok:
+                    # the ring verify program serves both ring rungs
+                    self._tp_verify_program = None
+            else:
+                self.decode_path = "unfused"
+            self.decode_fallback_reason = f"degraded: {reason}"
+            self._drop_graphs(prefill=False)
+        elif subsystem == "spec_verify":
+            # one committed token a step; the draft tables stay on their
+            # slots (host state nothing reads)
+            self.spec_bypass = True
+            self.spec_fallback_reason = f"degraded: {reason}"
+            self.metrics.on_spec_disable(reason)
+        else:
+            raise ValueError(f"unknown subsystem {subsystem!r}")
+        self.health.degraded = True
+        self.metrics.on_degrade(subsystem, self.ladder.level, reason)
+
+    def _quarantine(self, reason: str) -> None:
+        """The retry budget is spent: fail the in-flight requests (their
+        device state is suspect), rebuild the device plane, keep the
+        queued requests for the new one.  The rebuild raises through
+        ``step()``: a sticky CUDA error is not recoverable in-process."""
+        step_i = self._step_in_flight
+        q = self.health.enter_quarantine(reason)
+        try:
+            self.metrics.on_quarantine("enter", reason, step=step_i)
+            now = time.perf_counter()
+            for st in list(self._prefills):
+                self._abort_prefill(st, "failed", f"quarantine: {reason}")
+            for slot in list(self._slots):
+                req = self._slots[slot].req
+                if not req.finished:
+                    self._finalize(req, "failed", f"quarantine: {reason}",
+                                   now=now)
+                elif req.status is None:
+                    # finished normally (eos / length) this very step and
+                    # not yet evicted: settle it as finished
+                    self._finalize(req, "finished", req.finish_reason,
+                                   now=now)
+                self._release_slot(slot, now)
+            self._rebuild_device_plane()
+            if self.health.circuit_open:
+                self._open_circuit(reason)
+        finally:
+            seconds = self.health.leave_quarantine(q)
+            self.metrics.on_quarantine("leave", reason, step=step_i,
+                                       seconds=seconds)
+
+    def _open_circuit(self, reason: str) -> None:
+        """Too many quarantines inside the breaker's window: stop
+        flapping.  Everything queued fails, ``submit`` rejects with
+        ``circuit_open`` and ``step`` does nothing; an operator replaces
+        the engine."""
+        self.metrics.tracer.event("circuit_open",
+                                  lane=self.metrics.engine_lane,
+                                  reason=reason[:200],
+                                  step=self._step_in_flight)
+        while self.scheduler.waiting:
+            req = self.scheduler.waiting.popleft()
+            self._finalize(req, "failed", f"circuit open: {reason}")
+
     def _emit(self, slot: int, tok: int, first_token: bool = False) -> None:
         st = self._slots[slot]
         req = st.req
@@ -1234,7 +1580,20 @@ class EngineCore:
             self.metrics.on_output_token(now - req.last_token_time)
         req.last_token_time = now
         if req.stream is not None:
-            req.stream(req, tok)
+            try:
+                req.stream(req, tok)
+            except Exception as e:
+                # the client's sink broke, not the engine: under the
+                # watchdog fail exactly this request (its token is
+                # recorded); a retry would re-run a step every other slot
+                # has already advanced
+                if not self.fault_tolerant:
+                    raise
+                self.metrics.on_fault("stream", repr(e),
+                                      step=self._step_in_flight)
+                self._finalize(req, "failed",
+                               f"stream callback raised: {e!r}")
+                return
         eos = req.eos_token_id
         if eos is not None and tok == eos:
             req.finished, req.finish_reason = True, "eos"
@@ -1394,10 +1753,12 @@ class EngineCore:
 
     # ------------------------------------------------ submit-time gates
     def check_admission(self, req: Request) -> None:
-        """Submit-time backpressure: bounded queue (``max_queue``) and
-        SLO-aware rejection when the projected TTFT already exceeds the
-        request's deadline.  Raises :class:`RequestRejected` with a
-        live-metrics retry hint."""
+        """Submit-time backpressure: fail fast once the circuit is open,
+        bounded queue (``max_queue``), and SLO-aware rejection when the
+        projected TTFT already exceeds the request's deadline.  Raises
+        :class:`RequestRejected` with a live-metrics retry hint."""
+        if self.fault_tolerant and self.health.circuit_open:
+            self._reject(req, "circuit_open", None)
         if self.max_queue is not None \
                 and self.scheduler.queue_depth >= self.max_queue:
             excess = self.scheduler.queue_depth - self.max_queue + 1
@@ -1442,6 +1803,8 @@ class EngineCore:
             "free_blocks": None if self.block_pool is None
             else self.block_pool.free_blocks,
             "seq_pos": self.pool.seq_pos.cpu().tolist(),
+            "health": self.health.state,
+            "degraded_subsystems": list(self.ladder.disabled_subsystems),
             "progress_counter": self.progress_counter,
             "steps": self._step_index,
             "speculation": self.spec_on and not self.spec_bypass,

@@ -5,8 +5,8 @@ The contract is that
 no request ever ends ambiguously and no failure mode spins silently —
 these exception types are the loud half of that contract.  Validation
 errors at ``submit()`` stay plain ``ValueError``s (caller bugs);
-capacity/SLO rejections raise :class:`RequestRejected` (healthy-system
-backpressure, carrying the retry hint); a wedged step loop raises
+capacity/SLO/circuit rejections raise :class:`RequestRejected`
+(backpressure, carrying the retry hint); a wedged step loop raises
 :class:`EngineStalledError` (engine bug or unrecoverable fault, carrying
 the diagnostic snapshot).
 """
@@ -22,11 +22,13 @@ class RequestRejected(RuntimeError):
     """``submit()`` refused the request — backpressure, not failure.
 
     ``reason`` is ``"queue_full"`` (the bounded submit queue is at
-    ``max_queue``) or ``"slo_unattainable"`` (projected TTFT already
-    exceeds the request's ``ttft_deadline_s`` at submit time).
+    ``max_queue``), ``"slo_unattainable"`` (projected TTFT already
+    exceeds the request's ``ttft_deadline_s`` at submit time) or
+    ``"circuit_open"`` (the watchdog's circuit breaker tripped: the
+    engine fails fast until an operator replaces it).
     ``retry_after_s`` is the live-metrics-derived hint, always finite
     and clamped (``serving.metrics.MAX_RETRY_AFTER_S``; None when the
-    engine has no throughput history yet).  ``output`` is the terminal
+    engine has no throughput history yet, and for ``circuit_open``).  ``output`` is the terminal
     :class:`~paddle_tpu_torch.serving.api.RequestOutput` view with
     ``status="rejected"`` so callers that log every request still see an
     unambiguous terminal record.

@@ -89,6 +89,8 @@ class KVPool:
         # lifetime slot-churn counters (reported by metrics_dict)
         self.alloc_count = 0
         self.free_count = 0
+        # chaos hook (serving/faults.py): None in production
+        self.faults = None
 
     @classmethod
     def create(cls, model, num_slots: int, max_seq=None,
@@ -113,6 +115,8 @@ class KVPool:
     def alloc(self) -> int:
         """Claim a free slot (lowest index first).  Raises if the pool is
         full — the scheduler gates admission on ``free_slots``."""
+        if self.faults is not None:
+            self.faults.fire("kv_alloc")
         if not self._free:
             raise RuntimeError("KVPool exhausted: no free slot")
         self.alloc_count += 1
@@ -192,6 +196,8 @@ class BlockPool:
         self.bks: List = _slabs(shape, dtype, device, mesh, num_layers)
         self.bvs: List = _slabs(shape, dtype, device, mesh, num_layers)
         self._free: List[int] = list(range(num_blocks - 1, -1, -1))
+        # chaos hook (serving/faults.py): None in production
+        self.faults = None
 
     @classmethod
     def create(cls, model, num_blocks: int, block_len: int,
@@ -211,6 +217,8 @@ class BlockPool:
         return self.num_blocks - len(self._free)
 
     def alloc(self) -> int:
+        if self.faults is not None:
+            self.faults.fire("block_alloc")
         if not self._free:
             raise RuntimeError("BlockPool exhausted: no free block")
         return self._free.pop()
@@ -228,6 +236,8 @@ class BlockPool:
         match with any value) in place into the per-layer ``[1, max_seq,
         h, d]`` staging rows ``ks`` / ``vs`` (per-shard lists under a
         mesh), overwriting every row of them."""
+        if self.faults is not None:
+            self.faults.fire("gather")
         idx = torch.as_tensor(np.asarray(idx, np.int64))
         for blocks, rows in ((self.bks, ks), (self.bvs, vs)):
             for b, row in zip(blocks, rows):
@@ -238,6 +248,8 @@ class BlockPool:
         """Write pool slot ``slot``'s row into block rows ``dest``
         ([blocks_per_row] host ints; entries == num_blocks are dropped),
         in place."""
+        if self.faults is not None:
+            self.faults.fire("scatter")
         dest = np.asarray(dest, np.int64)
         for blocks, slabs in ((self.bks, pool.ks), (self.bvs, pool.vs)):
             for b, k in zip(blocks, slabs):

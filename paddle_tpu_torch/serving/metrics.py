@@ -131,10 +131,24 @@ class ServingMetrics:
         self._c_failed = c("serving.requests_failed",
                            "requests terminally failed")
         self._c_rejected = c("serving.requests_rejected",
-                             "submissions refused (backpressure/SLO)")
+                             "submissions refused (backpressure/SLO/"
+                             "circuit)")
         self._c_faults = c("serving.faults",
-                           "faults observed (non-finite logits, failed "
-                           "token emits)")
+                           "faults observed by the watchdog (injected "
+                           "or real)")
+        self._c_retries = c("serving.step_retries",
+                            "watchdog step retries (backoff sleeps)")
+        self._c_quarantines = c("serving.quarantines",
+                                "quarantine rebuilds of the device plane")
+        # zeroed by reset() like the rest; a fault-tolerant engine
+        # publishes the state again at the end of every step
+        self._g_health = g("serving.health_state",
+                           "0 healthy / 1 degraded / 2 quarantined / "
+                           "3 circuit_open")
+        self._g_degradation = g("serving.degradation_level",
+                                "optional subsystems disabled by the "
+                                "degradation ladder")
+        self._last_health_state: Optional[str] = None
         # speculative decoding: draft tokens proposed vs draft tokens the
         # verify step accepted; accepted / drafted is the acceptance rate
         self._c_spec_draft = c("spec.draft_tokens",
@@ -282,9 +296,48 @@ class ServingMetrics:
                           reason=reason[:200])
 
     def on_fault(self, site: str, error: str, step: int = 0) -> None:
+        """One fault (injected or real) attributed to ``site``: an
+        injection point or a subsystem name."""
         self._c_faults.inc()
         self.tracer.event("fault", lane=self.engine_lane, site=site,
                           error=error[:200], step=step)
+
+    def on_retry(self, attempt: int, backoff_s: float,
+                 step: int = 0) -> None:
+        self._c_retries.inc()
+        self.tracer.event("step_retry", lane=self.engine_lane,
+                          attempt=attempt, backoff_s=round(backoff_s, 4),
+                          step=step)
+
+    def on_degrade(self, subsystem: str, level: int, reason: str) -> None:
+        """The degradation ladder disabled an optional subsystem: the gauge
+        holds the ladder level, the event says which and why."""
+        self._g_degradation.set(level)
+        self.tracer.event("degrade", lane=self.engine_lane,
+                          subsystem=subsystem, level=level,
+                          reason=reason[:200])
+
+    def on_health_state(self, state: str, code: int,
+                        step: int = 0) -> None:
+        """The gauge holds the latest state; the event fires only on a
+        transition."""
+        self._g_health.set(code)
+        if state != self._last_health_state:
+            self.tracer.event("health_state", lane=self.engine_lane,
+                              state=state, step=step)
+            self._last_health_state = state
+
+    def on_quarantine(self, phase: str, reason: str, step: int = 0,
+                      seconds: Optional[float] = None) -> None:
+        """``phase`` is ``"enter"`` or ``"leave"``; one quarantine counts
+        once, on enter; leave carries the rebuild's seconds."""
+        if phase == "enter":
+            self._c_quarantines.inc()
+        attrs = {"reason": reason[:200], "step": step}
+        if seconds is not None:
+            attrs["seconds"] = round(seconds, 4)
+        self.tracer.event(f"quarantine_{phase}", lane=self.engine_lane,
+                          **attrs)
 
     # -------------------------------------------- admission projections
     @property
@@ -463,6 +516,10 @@ class ServingMetrics:
             "requests_failed": self._c_failed.value,
             "requests_rejected": self._c_rejected.value,
             "faults": self._c_faults.value,
+            "step_retries": self._c_retries.value,
+            "quarantines": self._c_quarantines.value,
+            "health_state": self._g_health.value,
+            "degradation_level": self._g_degradation.value,
             "spec_draft_tokens": self._c_spec_draft.value,
             "spec_accepted_tokens": self._c_spec_accept.value,
             "spec_acceptance_rate": r(self.spec_acceptance_rate),

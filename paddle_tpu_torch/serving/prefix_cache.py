@@ -92,6 +92,8 @@ class PrefixCache:
         # optional event sink ``fn(name, **attrs)`` — the engine points
         # this at its tracer so LRU evictions land in the event log
         self.on_event = None
+        # chaos hook (serving/faults.py): None in production
+        self.faults = None
         # observability (engine merges these into its metrics snapshot)
         self.hits = 0
         self.misses = 0
@@ -182,13 +184,16 @@ class PrefixCache:
         path nodes are reused (and touched for LRU); new nodes allocate
         block rows, evicting LRU unpinned leaves when the pool is full.
         Returns the number of NEW blocks written (0 = fully cached
-        already, or nothing evictable)."""
+        already, or nothing evictable).  If a block claim or the copy
+        raises, the nodes this call created are unlinked and their blocks
+        freed before the error propagates: no node ever points at a block
+        row its KV never reached."""
         toks = np.asarray(tokens, np.int32).reshape(-1)
         n_full = min(len(toks) // self.block_len, self.pool.blocks_per_row)
         dest = np.full((self.pool.blocks_per_row,), self.pool.num_blocks,
                        np.int32)                      # OOB = dropped
         node = self.root
-        new = 0
+        created: List[_Node] = []
         # transient pin: eviction pressure from THIS insert must never
         # take a node on the path being inserted (an LRU pass could
         # otherwise reap the leaf created two iterations ago, aliasing
@@ -203,22 +208,31 @@ class PrefixCache:
                         break                         # graceful partial
                     child = _Node(key, block, node)
                     node.children[key] = child
+                    created.append(child)
                     dest[j] = block
-                    new += 1
                 child.refcount += 1
                 pinned.append(child)
                 self._bump(child)
                 node = child
+            if created:
+                self.pool.store_row(kv_pool, slot, dest)
+        except BaseException:
+            # the created nodes are the path's tail: unlink leaf first
+            for n in reversed(created):
+                del n.parent.children[n.key]
+                self.pool.free(n.block)
+            raise
         finally:
             for n in pinned:
                 n.refcount -= 1
-        if new:
-            self.pool.store_row(kv_pool, slot, dest)
-            self.inserted_blocks += new
-        return new
+        self.inserted_blocks += len(created)
+        return len(created)
 
     # ---------------------------------------------------------- eviction
     def _alloc_block(self) -> Optional[int]:
+        if self.faults is not None \
+                and self.faults.check("block_exhausted") is not None:
+            return None      # injected exhaustion: graceful partial path
         if self.pool.free_blocks:
             return self.pool.alloc()
         victim = self._lru_unpinned_leaf()
