@@ -117,6 +117,25 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      (fused -> unfused, ``tp_fused_block`` -> ``tp_fused``) with one new
      decode capture and the follow-up equal to the new path's; the
      ``spec_verify`` rung: no verify replay after it;
+  6f. serving:durable — the journal and the AOT store on gpt3_6_7b at
+     full width and depth, unfused, ``spec_k=4``: a cold engine serves
+     the 8 serving requests; ``build_engine_store`` captures the 130
+     legs (128 prefill widths, decode, verify) on a build engine, which
+     then serves them and a second pass uninterrupted; a warm engine on
+     the store with a ``Journal`` attaches every leg at construction
+     (``aot_status`` warm, ``aot.loads`` 130, 2 launches a leg), serves
+     with no capture and no launch, tokens and first decode / verify
+     logits equal to the cold engine's, its ledger conserved; its
+     journal crashes mid-way through the second pass, a fresh warm
+     engine takes ids past the old ones and serves ``replay()``, each
+     stream completing the first incarnation's into the uninterrupted
+     run's; a ``step`` fault quarantines it: the rebuild re-attaches with
+     no capture, the queued requests equal the fault-free run's, one
+     terminal record for each failed request; a child process with no
+     ``nvcc`` and an empty build directory installs the store's
+     libraries and serves one request with the parent's tokens.
+     Prints attach seconds, the graph pool, first-pass TTFT warm and
+     cold, the rebuild's seconds and peak, the store's size;
   7. train kernels — on an emptied card, the three flash-attention
      kernels (forward, dq, dk/dv) and fused AdamW against their plain
      versions over a sweep (flash: f32 / bf16 / f16, head_dim 64 / 128,
@@ -3267,6 +3286,573 @@ def phase_serving_chaos(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------ serving:durable
+# the durable phase's engine: ENGINE_KW, unfused, speculating
+DURABLE_KW = dict(ENGINE_KW, spec_k=SPEC_K)
+# the journal's crash lands after this many steps of the second burst
+DURABLE_CRASH_AFTER = 6
+
+
+def durable_requests(vocab: int, pass_i: int) -> list:
+    """The 8 serving requests of ``SERVE_WAVES["gpt"]`` as ``serve_run``
+    draws pass ``pass_i``'s: ``(prompt, sampling, wave)``, 32 new tokens
+    each.  Passes 2 and up are the first wave's lengths and samplings
+    with no shared prefix: pass 2 the 4 requests queued behind the
+    quarantine, pass 3's third (700 tokens, seeded) the no-nvcc child's
+    request."""
+    import numpy as np
+    from paddle_tpu_torch.serving import SamplingParams
+    rs = np.random.RandomState(7 + 100 * pass_i)
+    prefix = rs.randint(0, vocab, (512,))
+    out = []
+    waves = SERVE_WAVES["gpt"] if pass_i < 2 else SERVE_WAVES["gpt"][:1]
+    for wave_i, wave in enumerate(waves):
+        for n, shared, seed in wave:
+            shared = shared and pass_i < 2
+            sp = SamplingParams() if seed is None else SamplingParams(
+                do_sample=True, temperature=0.8, top_k=50, top_p=0.95,
+                seed=seed)
+            own = rs.randint(0, vocab, (n - 512 if shared else n,))
+            out.append((np.concatenate([prefix, own]) if shared else own,
+                        sp, wave_i))
+    return out
+
+
+def durable_serve(eng, requests, waves: bool = True, stop_after=None):
+    """Serve ``requests`` on ``eng``: with ``waves`` the second wave is
+    submitted once the first request has its first token (as
+    ``serve_run``), else all at once.  ``stop_after`` steps stops early.
+    Returns the request ids and the first decode and verify steps'
+    logits (copies, as the step wrote them)."""
+    core = eng.core
+    first = {}
+    dispatch = {"decode": core._decode_dispatch,
+                "verify": core._verify_dispatch}
+
+    def wrap(kind, buf):
+        def call(*a):
+            out = dispatch[kind](*a)
+            if kind not in first:
+                first[kind] = getattr(core, buf).clone()
+            return out
+        return call
+
+    core._decode_dispatch = wrap("decode", "_logits")
+    core._verify_dispatch = wrap("verify", "_verify_logits")
+    rids = [eng.submit(p, max_new_tokens=32, sampling=sp)
+            for p, sp, w in requests if not waves or w == 0]
+    steps = 0
+    try:
+        if waves:
+            while not eng.result(rids[0]).tokens:
+                eng.step()
+                steps += 1
+            rids += [eng.submit(p, max_new_tokens=32, sampling=sp)
+                     for p, sp, w in requests if w == 1]
+        while eng.core.scheduler.has_work():
+            if stop_after is not None and steps >= stop_after:
+                break
+            eng.step()
+            steps += 1
+            if steps > 600:
+                raise AssertionError(f"serving did not drain: "
+                                     f"{core.stall_snapshot()}")
+    finally:
+        del core._decode_dispatch, core._verify_dispatch
+    return rids, first
+
+
+def _ttft_ms(eng, rids) -> dict:
+    import numpy as np
+    t = [eng.result(r).ttft_s * 1e3 for r in rids]
+    return {"p50": float(np.percentile(t, 50)),
+            "p99": float(np.percentile(t, 99))}
+
+
+def durable_child(pkg: str, store_dir: str, request: str) -> int:
+    """``--durable-child``: a process whose ``PATH`` holds no ``nvcc``,
+    with ``CUDA_HOME`` unset and the package copied to ``pkg`` with an
+    empty kernel build directory.  It opens the store, builds the warm
+    engine (which installs the store's libraries into that directory and
+    captures every leg), serves the one request of ``request`` (a JSON
+    file) and prints what it saw as the last line.  ``nvcc`` is replaced
+    by a raise, so any compile fails the run."""
+    sys.path.insert(0, pkg)
+    import numpy as np
+    import torch
+    import paddle_tpu_torch
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_6_7b
+    from paddle_tpu_torch.serving import (AOTStore, SamplingParams,
+                                          ServingEngine)
+
+    def no_nvcc():
+        raise RuntimeError("nvcc called in the no-compiler child")
+
+    _build._nvcc = no_nvcc
+    here = os.path.realpath(paddle_tpu_torch.__file__)
+    if not here.startswith(os.path.realpath(pkg)):
+        raise AssertionError(f"imported {here}, not the copy in {pkg}")
+    before = sorted(os.listdir(_build._BUILD))
+    with open(request) as f:
+        req = json.load(f)
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1234)
+    model = GPTForCausalLM(gpt3_6_7b(), device=DEVICE, generator=gen).eval()
+    store = AOTStore.open(store_dir)
+    try:
+        t0 = time.perf_counter()
+        eng = ServingEngine(model, **DURABLE_KW, aot_store=store)
+        attach_s = time.perf_counter() - t0
+        rid = eng.submit(np.asarray(req["prompt"]), max_new_tokens=32,
+                         sampling=SamplingParams(**req["sampling"]))
+        eng.run_until_complete(400)
+        out = eng.result(rid)
+        res = {"tokens": out.tokens, "status": out.status,
+               "aot_status": eng.aot_status,
+               "captures": dict(eng.core.capture_counts),
+               "attach_s": attach_s,
+               "build_dir_before": before,
+               "build_dir_after": sorted(os.listdir(_build._BUILD)),
+               "loaded": sorted(_build._loaded),
+               "nvcc_on_path": [d for d in os.environ["PATH"].split(":")
+                                if os.path.exists(os.path.join(d, "nvcc"))],
+               "cuda_home": os.environ.get("CUDA_HOME")}
+        eng.close()
+    finally:
+        store.close()
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+def durable_quarantine(eng, faults, vocab: int, queued_q):
+    """A quarantine on ``eng``: 8 requests in flight and the 4 of
+    ``queued_q`` queued behind them, then a ``step`` fault from the first
+    step on, past the watchdog's retries.  The in-flight prompts are 16
+    tokens, so that no n-gram draft is likely at their first tokens: a
+    fault on a speculative step is the spec_verify rung's, not a retry
+    toward the quarantine.  Returns the in-flight and queued ids and the
+    rebuild's reading: seconds, the clock at its end, and the allocated
+    memory before, at its peak and after."""
+    import numpy as np
+    import torch
+
+    core = eng.core
+    mem = {}
+    rebuild = core._rebuild_device_plane
+
+    def rebuild_device_plane():
+        torch.cuda.synchronize()
+        mem["before"] = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        t = time.perf_counter()
+        rebuild()
+        torch.cuda.synchronize()
+        mem["end"] = time.perf_counter()
+        mem["seconds"] = mem["end"] - t
+        mem["peak"] = torch.cuda.max_memory_allocated()
+        mem["after"] = torch.cuda.memory_allocated()
+
+    core._rebuild_device_plane = rebuild_device_plane
+    rs = np.random.RandomState(31)
+    inflight = [eng.submit(rs.randint(0, vocab, (16,)), max_new_tokens=32)
+                for _ in range(8)]
+    queued = [eng.submit(p, max_new_tokens=32, sampling=sp)
+              for p, sp, _ in queued_q]
+    # from the first pass: a live slot then holds its first token only,
+    # and a greedy random model drafts once it repeats a token
+    faults.enable("step", at=0, times=core.ft.max_step_retries + 1)
+    try:
+        eng.run_until_complete(600)
+    finally:
+        faults.disable("step")
+        del core._rebuild_device_plane
+    return inflight, queued, mem
+
+
+def phase_serving_durable(card: str) -> dict:
+    """The journal and the AOT store on one gpt3_6_7b model at full width
+    and depth (random bf16 weights from a seeded generator, ``DURABLE_KW``:
+    unfused, ``spec_k=4``), one engine at a time:
+
+      1. cold: an engine without a store serves the 8 serving requests
+         (capturing each graph at first use);
+      2. build: ``build_engine_store`` on a build engine captures every
+         leg and stores the libraries they launched; the build engine, now
+         holding every graph, serves the 8 requests and then 8 more (a
+         second pass's prompts, all at once) with no journal;
+      3. warm: an engine on ``AOTStore.open`` with a ``Journal``: status
+         ``"warm"``, ``aot.loads`` one a committed width + decode +
+         verify, the attach's launches 2 a leg (its eager run and its
+         capture), ``capture_counts`` zero and no launch while it serves,
+         tokens equal to the cold engine's and the build engine's, first decode
+         and verify logits bit-identical to the cold engine's; the ledger
+         conserved; then the second pass, its journal crashed after
+         ``DURABLE_CRASH_AFTER`` steps;
+      4. replay: the journal reopened, a fresh warm engine (watchdog,
+         injector) takes ids past the old ones and serves the ``replay()``
+         records: each stream, positions below the journaled mark dropped,
+         completes the first incarnation's into the uninterrupted run's;
+         then a ``step`` fault quarantines it: the rebuild re-attaches
+         with no capture, the queued requests equal the fault-free run's,
+         the journal holds one terminal for each failed request; then the
+         same quarantine on an engine without a store, whose queued
+         requests capture their graphs at first use;
+      5. no nvcc: a child process with no compiler and an empty build
+         directory attaches the store and serves one request with the
+         parent's tokens.
+
+    Prints attach seconds, the graph pool, first-pass TTFT warm against
+    cold, the rebuild's seconds and peak memory, the queued requests' TTFT
+    after the quarantine with and without a store, and the store's
+    size."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.kernels import _build
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_6_7b
+    from paddle_tpu_torch.serving import (AOTStore, FaultInjector,
+                                          FaultToleranceConfig, Journal,
+                                          SamplingParams, ServingEngine,
+                                          build_engine_store)
+
+    tag = "[serving:durable]"
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1234)
+    model = GPTForCausalLM(gpt3_6_7b(), device=DEVICE, generator=gen).eval()
+    cfg = model.cfg
+    layers = cfg.num_layers
+    pass_a, pass_b, queued_q = (durable_requests(cfg.vocab_size, i)
+                                for i in range(3))
+    child_req = durable_requests(cfg.vocab_size, 3)[2:3]
+    kernels = serving_kernels()
+    root = tempfile.mkdtemp(prefix="durable-", dir=str(_build._BUILD))
+    store_dir, journal_dir = (os.path.join(root, d)
+                              for d in ("store", "journal"))
+    out = {}
+    try:
+        # 1. cold
+        eng = ServingEngine(model, **DURABLE_KW)
+        rids, cold_first = durable_serve(eng, pass_a)
+        cold = [eng.result(r).tokens for r in rids]
+        cold_caps = dict(eng.core.capture_counts)
+        out["cold_ttft_ms"] = _ttft_ms(eng, rids)
+        eng.close()
+        _chaos_check(tag, cold_caps["prefill"] > 0 and cold_caps["decode"] == 1
+               and cold_caps["verify"] == 1, f"cold captures {cold_caps}")
+
+        # 2. build, then the build engine serves, uninterrupted, the no-nvcc
+        # child's request alone and the 4 requests the quarantine will
+        # queue together, each as that engine will serve it (a
+        # speculative engine's tokens follow its batches: a verify step
+        # runs where any slot drafts), then both passes
+        eng = ServingEngine(model, **DURABLE_KW)
+        t0 = time.perf_counter()
+        index = build_engine_store(store_dir, eng.core)
+        out["build_s"] = time.perf_counter() - t0
+        rids, _ = durable_serve(eng, child_req, waves=False)
+        child_want = eng.result(rids[0]).tokens
+        rids, _ = durable_serve(eng, queued_q, waves=False)
+        queued_want = [eng.result(r).tokens for r in rids]
+        rids, _ = durable_serve(eng, pass_a)
+        built = [eng.result(r).tokens for r in rids]
+        rids, _ = durable_serve(eng, pass_b, waves=False)
+        uninterrupted = [eng.result(r).tokens for r in rids]
+        built_caps = dict(eng.core.capture_counts)
+        eng.close()
+        n_legs = len(index["programs"])
+        _chaos_check(tag, built == cold, "the build engine's tokens differ from the "
+               "cold engine's")
+        _chaos_check(tag, built_caps == dict(prefill=0, decode=0, verify=0),
+               f"the build engine captured on the request path: {built_caps}")
+
+        # 3. warm, with a journal
+        free_card()
+        store = AOTStore.open(store_dir)
+        out["store_mb"] = store.nbytes() / 1e6
+        out["store_libraries"] = sorted(store.libraries())
+        journal = Journal.open(journal_dir)
+        for k in kernels:
+            k.launches = 0
+        torch.cuda.synchronize()
+        free0 = torch.cuda.mem_get_info()[0]
+        alloc0 = torch.cuda.memory_allocated()
+        reserved0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        eng = ServingEngine(model, **DURABLE_KW, aot_store=store,
+                            journal=journal)
+        torch.cuda.synchronize()
+        construct_s = time.perf_counter() - t0
+        core = eng.core
+        attach = {k.__name__: k.launches for k in kernels}
+        reg = eng.registry
+        widths = len(core._warm_buckets)
+        out.update(
+            widths=widths, legs=n_legs, construct_s=construct_s,
+            attach_s=reg.get("aot.load_s").value,
+            aot_loads=reg.get("aot.loads").value,
+            pool_gb=pool_gb(core._graph_pool),
+            plane_gb=(torch.cuda.memory_allocated() - alloc0) / 1e9,
+            reserved_gb=(torch.cuda.memory_reserved() - reserved0) / 1e9,
+            card_used_gb=(free0 - torch.cuda.mem_get_info()[0]) / 1e9)
+        _chaos_check(tag, eng.aot_status == "warm" and widths == 128
+               and out["aot_loads"] == widths + 2 == n_legs,
+               f"aot_status {eng.aot_status}, loads {out['aot_loads']}, "
+               f"widths {widths}, legs {n_legs}")
+        want = {k.__name__: 0 for k in kernels}
+        want["decode_attention"] = layers * 2 * n_legs
+        want["layer_norm_fwd"] = (2 * layers + 1) * 2 * n_legs
+        _chaos_check(tag, attach == want, f"attach launches {attach} != {want}")
+        for k in kernels:
+            k.launches = 0
+        rids, warm_first = durable_serve(eng, pass_a)
+        warm = [eng.result(r).tokens for r in rids]
+        served = {k.__name__: k.launches for k in kernels}
+        out["warm_ttft_ms"] = _ttft_ms(eng, rids)
+        _chaos_check(tag, dict(core.capture_counts) == built_caps
+               and reg.get("serving.compiles").value == 0,
+               f"warm captures {core.capture_counts}")
+        _chaos_check(tag, not any(served.values()),
+               f"launches while the warm engine served: {served}")
+        _chaos_check(tag, warm == cold, "warm tokens differ from the cold "
+               "engine's")
+        same_logits = {k: torch.equal(warm_first[k], cold_first[k])
+                       for k in cold_first}
+        _chaos_check(tag, set(same_logits) == {"decode", "verify"}
+               and all(same_logits.values()),
+               f"first-step logits bit-identical: {same_logits}")
+        ledger = journal.ledger()
+        conserved = all(ledger[r]["submits"] == ledger[r]["terminals"] == 1
+                        and ledger[r]["delivered"] == len(warm[i])
+                        and ledger[r]["status"] == "finished"
+                        for i, r in enumerate(rids))
+        _chaos_check(tag, conserved and len(ledger) == len(rids),
+               f"ledger {ledger}")
+        log(f"{tag} cold {json.dumps(cold_caps)} captures on the request "
+            f"path; build of {n_legs} legs ({widths} prefill widths, "
+            f"decode, verify) {out['build_s']:.2f} s, store "
+            f"{out['store_mb']:.2f} MB with libraries "
+            f"{out['store_libraries']}; warm engine constructed in "
+            f"{construct_s:.2f} s (attach {out['attach_s']:.2f} s, "
+            f"aot.loads {out['aot_loads']}), graph pool {out['pool_gb']} "
+            f"GB, allocated {out['plane_gb']:.3f} GB, reserved by the "
+            f"allocator {out['reserved_gb']:.3f} GB, card memory used "
+            f"{out['card_used_gb']:.3f} GB by the construction (the rest "
+            f"outside the allocator: the instantiated graphs); "
+            f"first-pass TTFT p50 / p99 warm {out['warm_ttft_ms']['p50']:.1f}"
+            f" / {out['warm_ttft_ms']['p99']:.1f} ms vs cold "
+            f"{out['cold_ttft_ms']['p50']:.1f} / "
+            f"{out['cold_ttft_ms']['p99']:.1f} ms; warm captures "
+            f"{json.dumps(dict(core.capture_counts))}, no launch while "
+            f"serving, 8 of 8 requests and the first decode / verify "
+            f"logits equal the cold engine's; journal ledger conserved "
+            f"(card: {card})")
+
+        # the second pass, crashed mid-burst
+        rids_b, _ = durable_serve(eng, pass_b, waves=False,
+                                  stop_after=DURABLE_CRASH_AFTER)
+        seen = {r: list(eng.result(r).tokens) for r in rids_b}
+        journal.crash()
+        eng.close()
+        eng = core = None
+        journal = Journal.open(journal_dir)
+        replay = journal.replay()
+        old_max = max(journal.state)
+        _chaos_check(tag, replay and set(replay) <= set(rids_b),
+               f"replay ids {sorted(replay)} of {rids_b}")
+
+        # 4. replay on a fresh warm engine, then a quarantine on it
+        faults = FaultInjector()
+        eng = ServingEngine(model, **DURABLE_KW, aot_store=store,
+                            journal=journal, faults=faults,
+                            fault_tolerance=FaultToleranceConfig(
+                                backoff_base_s=0.0))
+        core = eng.core
+        new_ids, merged = {}, {}
+        for old in sorted(replay):
+            rec = replay[old]["record"]
+            new_ids[old] = eng.submit(
+                rec["prompt"], max_new_tokens=rec["max_new_tokens"],
+                sampling=SamplingParams(**rec["sampling"]),
+                eos_token_id=rec["eos_token_id"])
+        _chaos_check(tag, min(new_ids.values()) > old_max,
+               f"new ids {sorted(new_ids.values())} not past {old_max}")
+        eng.run_until_complete(600)
+        for old, new in new_ids.items():
+            mark = replay[old]["delivered"]
+            again = eng.result(new).tokens
+            want_b = uninterrupted[rids_b.index(old)]
+            _chaos_check(tag, seen[old][:mark] == want_b[:mark]
+                   and again[:mark] == want_b[:mark],
+                   f"request {old}: the replay's first {mark} positions")
+            merged[old] = seen[old][:mark] + again[mark:]
+            _chaos_check(tag, merged[old] == want_b,
+                   f"request {old}: merged stream differs from the "
+                   f"uninterrupted run")
+        done_b = [r for r in rids_b if r not in replay]
+        _chaos_check(tag, all(seen[r] == uninterrupted[rids_b.index(r)]
+                        for r in done_b),
+               "a request settled before the crash differs")
+        out["replay"] = {"settled_before_crash": len(done_b),
+                         "replayed": len(replay),
+                         "marks": {int(o): replay[o]["delivered"]
+                                   for o in replay},
+                         "seen_at_crash": {int(o): len(seen[o])
+                                           for o in replay}}
+        log(f"{tag} journal crashed after {DURABLE_CRASH_AFTER} steps of "
+            f"the second pass: {len(done_b)} requests settled, "
+            f"{len(replay)} replayed on a fresh warm engine (ids from "
+            f"{min(new_ids.values())}, past {old_max}); journaled marks "
+            f"{json.dumps(out['replay']['marks'])} of tokens seen "
+            f"{json.dumps(out['replay']['seen_at_crash'])}; every stream, "
+            f"positions below its mark dropped, completes the first "
+            f"incarnation's into the uninterrupted run's (card: {card})")
+
+        loads0 = eng.registry.get("aot.loads").value
+        inflight, queued, mem = durable_quarantine(eng, faults, cfg.vocab_size,
+                                                   queued_q)
+        retries = core.ft.max_step_retries
+        m = eng.metrics_dict()
+        ledger = journal.ledger()
+        _chaos_check(tag, m["quarantines"] == 1 and "seconds" in mem
+               and not eng.degraded_subsystems,
+               f"metrics {m}, degraded {eng.degraded_subsystems}")
+        q_ttft = [eng.result(r).ttft_s * 1e3 for r in queued]
+        after_rebuild = [(eng._requests[r].first_token_time - mem["end"])
+                         * 1e3 for r in queued]
+        _chaos_check(tag, eng.aot_status == "warm" and eng.registry.get(
+            "aot.loads").value == loads0 + n_legs
+               and dict(core.capture_counts) == built_caps,
+               f"re-attach: {eng.aot_status}, loads "
+               f"{eng.registry.get('aot.loads').value}, captures "
+               f"{core.capture_counts}")
+        _chaos_check(tag, all(eng.result(r).status == "failed" for r in inflight),
+               "in-flight requests not failed")
+        _chaos_check(tag, [eng.result(r).tokens for r in queued] == queued_want,
+               "queued requests differ from the fault-free run")
+        _chaos_check(tag, all(ledger[r]["terminals"] == 1
+                        and ledger[r]["status"] == "failed"
+                        for r in inflight)
+               and all(ledger[r]["submits"] == ledger[r]["terminals"] == 1
+                       for r in inflight + queued + list(new_ids.values())),
+               "journal terminals after the quarantine")
+        out["quarantine"] = {
+            "rebuild_s": mem["seconds"],
+            **{f"{k}_gb": mem[k] / 1e9 for k in ("before", "peak",
+                                                 "after")},
+            "queued_ttft_ms": q_ttft,
+            "queued_first_token_after_rebuild_ms": after_rebuild}
+        log(f"{tag} quarantine after {retries} retries: 8 in flight failed"
+            f" (one terminal record each), 4 queued equal the fault-free "
+            f"run; rebuild with re-attach {mem['seconds']:.2f} s, memory "
+            f"before {mem['before'] / 1e9:.3f} GB, peak "
+            f"{mem['peak'] / 1e9:.3f} GB, after {mem['after'] / 1e9:.3f}"
+            f" GB; captures {json.dumps(dict(core.capture_counts))}; "
+            f"queued TTFT {[round(t, 1) for t in q_ttft]} ms, first token "
+            f"{[round(t, 1) for t in after_rebuild]} ms after the rebuild"
+            f" (card: {card})")
+        eng.close()
+        eng = core = None
+        journal.close()
+        store.close()
+
+        # the same quarantine on an engine without a store: the same
+        # settings, requests and fault; its rebuild attaches nothing, and
+        # the queued requests capture each graph they need at first use
+        free_card()
+        faults = FaultInjector()
+        journal = Journal.open(os.path.join(root, "journal-no-store"))
+        eng = ServingEngine(model, **DURABLE_KW, journal=journal,
+                            faults=faults,
+                            fault_tolerance=FaultToleranceConfig(
+                                backoff_base_s=0.0))
+        inflight, queued, mem = durable_quarantine(eng, faults,
+                                                   cfg.vocab_size, queued_q)
+        m = eng.metrics_dict()
+        _chaos_check(tag, m["quarantines"] == 1 and "seconds" in mem
+                     and not eng.degraded_subsystems,
+                     f"no store: metrics {m}, degraded "
+                     f"{eng.degraded_subsystems}")
+        _chaos_check(tag, all(eng.result(r).status == "failed"
+                              for r in inflight)
+                     and [eng.result(r).tokens for r in queued]
+                     == queued_want,
+                     "no store: in-flight requests not failed, or queued "
+                     "requests differ from the fault-free run")
+        caps = dict(eng.core.capture_counts)
+        out["quarantine_no_store"] = {
+            "rebuild_s": mem["seconds"],
+            "queued_ttft_ms": [eng.result(r).ttft_s * 1e3 for r in queued],
+            "queued_first_token_after_rebuild_ms": [
+                (eng._requests[r].first_token_time - mem["end"]) * 1e3
+                for r in queued],
+            "captures": caps}
+        q = out["quarantine_no_store"]
+        log(f"{tag} the same quarantine without a store: rebuild "
+            f"{mem['seconds']:.3f} s, then {json.dumps(caps)} captures at "
+            f"first use; queued TTFT "
+            f"{[round(t, 1) for t in q['queued_ttft_ms']]} ms, first token "
+            f"{[round(t, 1) for t in q['queued_first_token_after_rebuild_ms']]}"
+            f" ms after the rebuild; queued requests equal the fault-free "
+            f"run (card: {card})")
+        eng.close()
+        eng = None
+        journal.close()
+
+        # 5. no nvcc: a child with no compiler and an empty build directory
+        free_card()
+        pkg = os.path.join(root, "pkg")
+        shutil.copytree(os.path.join(HERE, "paddle_tpu_torch"),
+                        os.path.join(pkg, "paddle_tpu_torch"),
+                        ignore=shutil.ignore_patterns("_build",
+                                                      "__pycache__"))
+        os.mkdir(os.path.join(pkg, "paddle_tpu_torch", "kernels", "_build"))
+        prompt, sp, _ = child_req[0]
+        request = os.path.join(root, "request.json")
+        with open(request, "w") as f:
+            json.dump({"prompt": [int(t) for t in prompt],
+                       "sampling": {k: getattr(sp, k) for k in (
+                           "do_sample", "temperature", "top_k", "top_p",
+                           "seed")}}, f)
+        env = {k: v for k, v in os.environ.items()
+               if k not in ("CUDA_HOME", "CUDA_PATH")}
+        env["PATH"] = ":".join(
+            d for d in env.get("PATH", "").split(":")
+            if d and not os.path.exists(os.path.join(d, "nvcc")))
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--durable-child", pkg, store_dir, request],
+            env=env, capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"{tag} the no-nvcc child failed "
+                                 f"({proc.returncode}): {proc.stderr[-3000:]}")
+        child = json.loads(proc.stdout.strip().splitlines()[-1])
+        libs = sorted(f for f in child["build_dir_after"]
+                      if f.endswith(".so"))
+        _chaos_check(tag, child["tokens"] == child_want
+               and child["aot_status"] == "warm"
+               and child["captures"] == built_caps
+               and child["build_dir_before"] == []
+               and len(libs) == len(out["store_libraries"])
+               and not child["nvcc_on_path"] and child["cuda_home"] is None,
+               f"child {child}")
+        out["child"] = {"seconds": child_s, "attach_s": child["attach_s"],
+                        "installed": libs}
+        log(f"{tag} no-nvcc child (PATH without nvcc, CUDA_HOME unset, "
+            f"nvcc replaced by a raise, empty build directory): installed "
+            f"{libs}, attached in {child['attach_s']:.2f} s, served 1 "
+            f"request equal to the parent's; {child_s:.1f} s in all "
+            f"(card: {card})")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["launches_attach"] = attach
+    return out
+
+
 def plan_widths(eng, served) -> set:
     """The distinct prefill chunk widths that requests ``served``
     (``(prompt length, prefix hit tokens)`` pairs) ran on ``eng``: their
@@ -6016,6 +6602,10 @@ def main() -> int:
     # fault-tolerant serving: injected faults on full-width engines
     free_card()
     chaos = run_phase("serving:chaos", phase_serving_chaos, card)
+    # the journal and the AOT store: a warm engine, a crash and its replay,
+    # a quarantine's re-attach, a host with no compiler
+    free_card()
+    durable = run_phase("serving:durable", phase_serving_durable, card)
     # the train phases start from an empty card
     free_card()
     train_recs = run_phase("train kernels", phase_train_kernels, card)
@@ -6050,7 +6640,10 @@ def main() -> int:
                              "llama_unfused": llama_u["decode_attention"],
                              "llama_fused": llama_f["decode_attention"],
                              **{f"spec_{k}": v["decode_attention"]
-                                for k, v in spec_l.items()}},
+                                for k, v in spec_l.items()},
+                             "durable_attach":
+                                 durable["launches_attach"][
+                                     "decode_attention"]},
         "max_abs_err": err,
         "ms": d["ms"], "device_ms": d["device_ms"],
         "plain_ms": d["plain_ms"],
@@ -6132,6 +6725,7 @@ def main() -> int:
         "rms_norm_bwd": {"llama_train": llama_launches},
         "layer_norm_fwd": {"unfused": launches_u, "fused": launches_f,
                            "train": train_launches,
+                           "durable_attach": durable["launches_attach"],
                            **{f"spec_{k}": v for k, v in spec_l.items()
                               if k.startswith("gpt")}},
         "layer_norm_bwd": {"train": train_launches},
@@ -6193,7 +6787,8 @@ def main() -> int:
     log(f"[done] {time.perf_counter() - t_start:.1f} s; serving "
         f"{json.dumps(serving)}; speculative serving "
         f"{json.dumps(spec['engines'])}; fault-tolerant serving "
-        f"{json.dumps(chaos)}; train {json.dumps(train)}; "
+        f"{json.dumps(chaos)}; durable serving {json.dumps(durable)}; "
+        f"train {json.dumps(train)}; "
         f"llama train {json.dumps(llama_train)}; tiny serving "
         f"{json.dumps(tiny)}")
     log(json.dumps({"kernels": kernels}))
@@ -6209,4 +6804,6 @@ if __name__ == "__main__":
         sys.exit(serve_ab(sys.argv[2]))
     if sys.argv[1:2] == ["--ab-child"]:
         sys.exit(ab_child(sys.argv[2]))
+    if sys.argv[1:2] == ["--durable-child"]:
+        sys.exit(durable_child(*sys.argv[2:5]))
     sys.exit(main())

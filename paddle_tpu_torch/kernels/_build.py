@@ -6,7 +6,9 @@ shared library with a plain C interface, at first use, into
 the source, the shared headers (``csrc/*.cuh``) and the flags, so an
 edited source or header rebuilds and a stale build is never loaded.
 Libraries are loaded with ``ctypes``; every exported function declares
-its ``argtypes`` and ``restype`` here.
+its ``argtypes`` and ``restype`` here.  ``install`` puts a library built
+on another host (the AOT store's copy, serving/aot.py) in place, after
+which ``load`` finds it and compiles nothing.
 
 Nothing is compiled or loaded when this module is imported.
 """
@@ -19,10 +21,11 @@ import os
 import shutil
 import subprocess
 import time
+import zlib
 from pathlib import Path
 from typing import Dict, Iterable, List
 
-__all__ = ["NVCC_FLAGS", "build", "load"]
+__all__ = ["NVCC_FLAGS", "build", "install", "library_key", "load"]
 
 _HERE = Path(__file__).resolve().parent
 _CSRC = _HERE / "csrc"
@@ -129,13 +132,41 @@ def _nvcc() -> str:
                        "the port's CUDA kernels are built at first use")
 
 
-def _library_path(name: str) -> Path:
+def library_key(name: str) -> str:
+    """The 16 hex digits in the name of ``csrc/<name>.cu``'s library: a
+    hash of the source, the shared headers and the flags."""
     src = (_CSRC / f"{name}.cu").read_bytes()
     # the shared headers too: an edited header rebuilds every source
     for header in sorted(_CSRC.glob("*.cuh")):
         src += header.read_bytes()
     key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return _BUILD / f"lib{name}-{key[:16]}.so"
+    return key[:16]
+
+
+def _library_path(name: str) -> Path:
+    return _BUILD / f"lib{name}-{library_key(name)}.so"
+
+
+def install(name: str, payload: bytes, crc: int) -> bool:
+    """Put a library built elsewhere (the AOT store's copy) where
+    :func:`load` finds it, so that ``load(name)`` runs no ``nvcc``.
+    ``payload`` must match its ``crc32``; it is written to a temporary
+    file, synced and renamed into place, and only when no library of
+    this key is there yet.  Returns True when it wrote the file."""
+    if zlib.crc32(payload) != crc:
+        raise ValueError(f"library {name}: payload fails its crc32 "
+                         f"check; nothing installed")
+    out = _library_path(name)
+    if out.exists():
+        return False
+    _BUILD.mkdir(exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    with open(tmp, "wb") as f:
+        f.write(payload)
+        f.flush()
+        os.fsync(f.fileno())
+    os.replace(tmp, out)     # atomic: a reader sees all of it or none
+    return True
 
 
 def build(names: Iterable[str]) -> Dict[str, float]:

@@ -1,6 +1,8 @@
 """Continuous-batching serving on one card (counterpart of
 paddle_tpu/serving at tensor-parallel degree 1)."""
 
+from .aot import (AOTStore, AOTStoreError, AOTStoreWriter,
+                  aot_fingerprint, build_engine_store, engine_aot_context)
 from .api import RequestOutput, ServingEngine
 from .engine import (NONFINITE_SENTINEL, EngineCore, finite_or_sentinel,
                      sample_rows)
@@ -8,6 +10,7 @@ from .errors import EngineStalledError, RequestRejected
 from .faults import POINTS, FaultError, FaultInjector
 from .health import (DegradationLadder, EngineHealth, FaultToleranceConfig,
                      SUBSYSTEMS)
+from .journal import RECORD_KINDS, Journal, JournalError
 from .kv_pool import BlockPool, KVPool
 from .metrics import ServingMetrics
 from .prefix_cache import MatchResult, PrefixCache
@@ -24,4 +27,8 @@ __all__ = ["ServingEngine", "RequestOutput", "EngineCore", "sample_rows",
            "NGramDraftTable",
            # fault tolerance
            "FaultError", "FaultInjector", "POINTS", "FaultToleranceConfig",
-           "DegradationLadder", "EngineHealth", "SUBSYSTEMS"]
+           "DegradationLadder", "EngineHealth", "SUBSYSTEMS",
+           # the durable request journal and the AOT store
+           "Journal", "JournalError", "RECORD_KINDS", "AOTStore",
+           "AOTStoreWriter", "AOTStoreError", "build_engine_store",
+           "engine_aot_context", "aot_fingerprint"]

@@ -104,6 +104,16 @@ class ServingEngine:
     to the decode step's (f32 on the CPU); in bf16 on a card they agree
     within a bound, and a near-tie may pick another token.  ``spec_on`` /
     ``spec_fallback_reason`` say what was resolved.
+
+    ``journal=Journal.open(dir)`` (serving/journal.py) records every
+    accepted request (``submit``, with its sampling spec and seed), the
+    delivered marks once a step (``progress``) and each request's end
+    (``terminal``, exactly once); the engine's ids start past those a
+    reopened journal holds.  ``aot_store=AOTStore.open(dir)``
+    (serving/aot.py) is attached at construction and after each
+    quarantine's rebuild: the kernel libraries of every leg installed and,
+    on a card, every graph captured before any request; ``aot_status``
+    says how that went.
     """
 
     def __init__(self, model, num_slots: int = 8,
@@ -122,6 +132,8 @@ class ServingEngine:
                  tensor_parallel: int = 1,
                  collective_fusion: bool = True,
                  devices=None,
+                 journal=None,
+                 aot_store=None,
                  spec_k: int = 0):
         self.core = EngineCore(
             model, num_slots=num_slots, max_seq=max_seq,
@@ -135,7 +147,15 @@ class ServingEngine:
             max_queue=max_queue, fused_decode=fused_decode,
             tensor_parallel=tensor_parallel,
             collective_fusion=collective_fusion, devices=devices,
-            spec_k=spec_k, fault_tolerance=fault_tolerance, faults=faults)
+            spec_k=spec_k, fault_tolerance=fault_tolerance, faults=faults,
+            journal=journal, aot_store=aot_store)
+        if journal is not None:
+            journal.bind_metrics(self.core.metrics.registry)
+            if journal.state:
+                # a reopened journal already holds request ids: this
+                # engine's start past them, or the ledger would alias a
+                # new request with a dead run's
+                self.core.scheduler.start_ids(max(journal.state) + 1)
         self._requests = {}
 
     # -------------------------------------------------------- submission
@@ -215,6 +235,14 @@ class ServingEngine:
         sched.submit(req)
         self._requests[req.request_id] = req
         self.core.metrics.on_submit()
+        if self.core.journal is not None:
+            # journaled only after acceptance: a rejected submission raised
+            # above and owes the ledger nothing
+            self.core.journal.append_submit(
+                req.request_id, req.prompt, max_new_tokens,
+                sampling=dataclasses.asdict(sampling),
+                eos_token_id=eos_token_id, deadline_s=deadline_s,
+                ttft_deadline_s=ttft_deadline_s, priority=priority)
         return req.request_id
 
     def cancel(self, request_id: int) -> RequestOutput:
@@ -383,6 +411,15 @@ class ServingEngine:
         """Accepted / drafted over the current metrics window (None before
         the first speculative step)."""
         return self.core.metrics.spec_acceptance_rate
+
+    @property
+    def aot_status(self) -> Optional[str]:
+        """How the attached AOT store went: ``"warm"`` (every leg
+        attached: its libraries installed and, on a card, its graph
+        captured), ``"partial"`` / ``"empty"`` (some / no leg; the rest
+        capture at first use), ``"skew"`` (the store was built for another
+        configuration: nothing attached), None without a store."""
+        return self.core.aot_status
 
     @property
     def health(self):

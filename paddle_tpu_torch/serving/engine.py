@@ -103,6 +103,26 @@ whose graphs are captured again at first use (``capture_counts`` keeps
 counting).  ``faults=FaultInjector()`` (serving/faults.py) arms named
 injection points in the engine, the pools and the prefix cache.  Without
 a config the engine raises as before.
+
+Durability (``journal=Journal.open(dir)``, serving/journal.py): the
+engine writes one batched ``progress`` record of the delivered marks at
+the end of each step and exactly one ``terminal`` record a request, in
+``_finalize`` (the ``submit`` record is the facade's, after acceptance).
+The journal is host code; nothing it does touches the device.
+
+The AOT store (``aot_store=AOTStore.open(dir)``, serving/aot.py): the
+engine attaches it at construction and again at the end of each
+quarantine's rebuild, before any request.  A store whose fingerprint
+matches installs the kernel libraries of every leg (so a host with no
+``nvcc`` builds nothing) and, where the engine captures graphs (one
+card), captures every leg's graph there and then: each committed prefill width, the decode step and, with
+speculation, the verify step, each from an eager run of its body on the
+plane's own buffers, after which the plane's state is put back as a
+fresh plane has it.  Attach captures count in ``aot.loads`` /
+``aot.load_s``, not in ``capture_counts``: with a warm store no capture
+lands on a request.  A skewed store, an absent leg or a leg whose read
+fails leaves that leg to capture at first use, with an ``aot_miss`` /
+``aot_fallback`` event; a failed install or capture raises.
 """
 
 from __future__ import annotations
@@ -114,9 +134,12 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..kernels import _build
 from ..kernels.decode_block import resolve_fused_decode
 from ..models.generation import _categorical, _filter_top_p
 from ..models.gpt import check_weights_held
+from .aot import (AOTStoreError, aot_fingerprint, engine_aot_context,
+                  engine_legs)
 from .errors import EngineStalledError, RequestRejected
 from .health import DegradationLadder, EngineHealth, FaultToleranceConfig
 from .kv_pool import BlockPool, KVPool
@@ -266,7 +289,9 @@ class EngineCore:
                  devices=None,
                  spec_k: int = 0,
                  fault_tolerance: Optional[FaultToleranceConfig] = None,
-                 faults=None):
+                 faults=None,
+                 journal=None,
+                 aot_store=None):
         if spec_k < 0:
             raise ValueError(f"spec_k must be >= 0, got {spec_k}")
         if prefill_chunk is not None and prefill_chunk < min_bucket:
@@ -299,6 +324,16 @@ class EngineCore:
         self._fault_phase: Optional[str] = None  # watchdog attribution
         self.max_queue = max_queue if max_queue is not None \
             else self.ft.max_queue
+        # the durable request journal (serving/journal.py) and the
+        # delivered marks it last recorded per live request
+        self.journal = journal
+        self._journal_hwm: Dict[int, int] = {}
+        # the AOT store (serving/aot.py): attached at the end of
+        # construction and of each rebuild; aot_status says how that went
+        # ("warm" | "partial" | "empty" | "skew", None without a store)
+        self.aot_store = aot_store
+        self.aot_status: Optional[str] = None
+        self._aot_context = None
         # speculative decoding: spec_k > 0 arms per-slot n-gram drafts
         # (serving/spec.py) checked by ONE [num_slots, spec_k+1] verify
         # step; spec_on / spec_fallback_reason resolve with the decode
@@ -414,6 +449,10 @@ class EngineCore:
         # one rule for both planes: why nothing is captured (None: it is)
         self.decode_graph_reason = self.prefill_graph_reason = \
             self._resolve_decode_graph()
+        if aot_store is not None:
+            # the engine as constructed: a rebuild attaches against it
+            self._aot_context = engine_aot_context(self)
+            self._attach_aot()
 
     def _build_device_plane(self) -> None:
         """Allocate everything that lives on the device or mirrors it: the
@@ -590,14 +629,17 @@ class EngineCore:
         large as the weights, and two of them with the weights need more
         than the card holds.  The graphs and their pool go first, then the
         old plane; then the new plane and the I/O buffers, whose graphs
-        are captured again at first use.  The scheduler, the queue, the
-        metrics, the health state and ``capture_counts`` stay."""
+        are captured again at first use, or at once when an AOT store is
+        attached.  The scheduler, the queue, the metrics, the health state
+        and ``capture_counts`` stay."""
         self._drop_graphs(prefill=True)
         self._release_device_plane()
         self._build_device_plane()
         self._build_prefill_buffers()
         if self.spec_on:
             self._build_verify_buffers()
+        if self.aot_store is not None:
+            self._attach_aot()
 
     def _lane(self, req: Request) -> int:
         return self.metrics.request_lane(req.request_id)
@@ -730,7 +772,10 @@ class EngineCore:
             self._load_lane(st)
         off, width, valid = st.plan[st.next_chunk]
         if width not in self._warm_buckets:
-            raise RuntimeError(
+            # with a store attached the committed-width contract is the
+            # store's: loud as a store error
+            raise (AOTStoreError if self.aot_store is not None
+                   else RuntimeError)(
                 f"prefill width {width} is outside the committed bucket "
                 f"set {sorted(self._warm_buckets)}: warm_buckets() and "
                 f"chunk_plan disagree")
@@ -1010,15 +1055,17 @@ class EngineCore:
             pool.seq_pos.add_(1)
         self._logits.copy_(logits[:, 0])
 
-    def _graphed(self, graph, body, program: str, what: str):
+    def _graphed(self, graph, body, program: str, what: str,
+                 count: bool = True):
         """``body`` through ``graph`` on the device's capture stream,
         joined to the current stream on both sides (the host's input
         copies, ``pool.adopt`` and sampling run there).  With no graph yet
         the body runs eagerly — that IS this call's work, and it sizes the
         kernels' per-stream workspaces — and is then captured into a new
         graph from the engine's memory pool, counted in
-        ``capture_counts[program]``.  Returns ``(graph, capture seconds
-        or None after a replay)``.  A failure raises, naming ``what`` and
+        ``capture_counts[program]`` (not with ``count=False``: an AOT
+        attach).  Returns ``(graph, capture seconds or None after a
+        replay)``.  A failure raises, naming ``what`` and
         the engine step: nothing serves eagerly instead."""
         stream = _capture_stream(self.device)
         current = torch.cuda.current_stream(self.device)
@@ -1043,8 +1090,9 @@ class EngineCore:
                 finally:
                     graph.capture_end()
                 seconds = time.perf_counter() - t0
-            self.capture_counts[program] += 1
-            self.capture_seconds[program] += seconds
+            if count:
+                self.capture_counts[program] += 1
+                self.capture_seconds[program] += seconds
             return graph, seconds
         except Exception as e:
             raise RuntimeError(
@@ -1231,6 +1279,113 @@ class EngineCore:
             return None
         return drafts, lens, total
 
+    # ---------------------------------------------------------- AOT store
+    def _attach_aot(self) -> None:
+        """Attach the AOT store: every leg of the plane (serving/aot.py)
+        through :meth:`_attach_leg`, then the plane's state put back as a
+        fresh plane has it.  A fingerprint that differs attaches nothing
+        (``aot_status == "skew"``, one ``aot_miss``): every leg captures at
+        first use.  A width set that differs under a matching fingerprint
+        raises: the build and the engine disagree on ``warm_buckets()``."""
+        store = self.aot_store
+        t0 = time.perf_counter()
+        self.aot_status = None
+        fp = aot_fingerprint(self._aot_context)
+        if fp != store.fingerprint:
+            self.aot_status = "skew"
+            self.metrics.on_aot_miss(
+                "store", f"fingerprint skew: engine {fp[:12]}, store "
+                         f"{store.fingerprint[:12]}")
+            return
+        committed = tuple(sorted(self._warm_buckets))
+        if tuple(store.widths) != committed:
+            raise AOTStoreError(
+                f"committed width drift under a matching fingerprint: "
+                f"store built for widths {list(store.widths)}, the engine "
+                f"commits {list(committed)}: the build and the engine disagree "
+                f"on warm_buckets()")
+        legs = engine_legs(self)
+        loads = sum(self._attach_leg(leg) for leg in legs)
+        if self.decode_graph_reason is None:
+            self._reset_plane_state()
+        self.aot_status = "warm" if loads == len(legs) else \
+            ("partial" if loads else "empty")
+        if loads:
+            self.metrics.on_aot_load(loads, time.perf_counter() - t0,
+                                     build_s=store.build_seconds)
+
+    def _attach_leg(self, leg: str) -> bool:
+        """Attach ONE leg: read it (CRC-checked), install its libraries,
+        and where the engine captures graphs capture its graph.  Returns
+        False, with an ``aot_miss`` / ``aot_fallback`` event, when the leg
+        is absent or its read fails: it then captures at first use.  An
+        install or a capture that fails raises."""
+        store = self.aot_store
+        if not store.has(leg):
+            self.metrics.on_aot_miss(leg, "not in store")
+            return False
+        try:
+            if self.faults is not None:
+                self.faults.fire("aot_load")
+            _, libs = store.read_leg(leg)
+        except Exception as e:
+            self.metrics.on_aot_fallback(leg, repr(e))
+            return False
+        for lib, (payload, crc) in libs.items():
+            _build.install(lib, payload, crc)
+        if self.decode_graph_reason is None:
+            self._run_leg(leg, capture=True)
+        return True
+
+    def _run_leg(self, leg: str, capture: bool) -> None:
+        """Run ``leg``'s body now, off the request path, eagerly on the
+        plane's own buffers (a prefill chunk of one valid token at offset
+        0), and with ``capture`` then capture it into the engine's graph
+        pool.  Not counted in ``capture_counts``."""
+        kind, _, key = leg.partition(":")
+        if kind == "prefill":
+            width = int(key[1:])
+            self._prefill_io.zero_()
+            self._prefill_valid.fill_(1)
+            body = functools.partial(self._prefill_body, width)
+            what = f"the width-{width} prefill chunk"
+        elif kind == "decode":
+            body, what = self._decode_body, \
+                f"the {self.decode_path!r} decode step"
+        elif kind == "verify":
+            self._verify_io.zero_()
+            body, what = self._verify_body, \
+                f"the {self.decode_path!r} engine's verify step"
+        else:
+            raise AOTStoreError(f"unknown leg {leg!r}")
+        if not capture:
+            body()
+            return
+        graph, _ = self._graphed(None, body, kind, what, count=False)
+        if kind == "prefill":
+            self._prefill_graphs[width] = graph
+        elif kind == "decode":
+            self._decode_graph = graph
+        else:
+            self._verify_graph = graph
+
+    def _reset_plane_state(self) -> None:
+        """Put back what the legs' eager runs changed, as a fresh plane
+        has it: ``seq_pos``, the last-token vector, the staging lane, the
+        I/O buffers and the logits.  The slab rows the decode and verify
+        bodies wrote lie at each slot's position 0 onwards, which a slot
+        writes again before it reads (``adopt`` copies a whole row)."""
+        self.pool.seq_pos.zero_()
+        self._last_tok.zero_()
+        for row in (*self._lane_ks, *self._lane_vs):
+            for shard in (row if isinstance(row, list) else [row]):
+                shard.zero_()
+        for name in ("_logits", "_prefill_io", "_prefill_logits",
+                     "_verify_io", "_verify_ids", "_verify_logits"):
+            buf = getattr(self, name, None)
+            if buf is not None:
+                buf.zero_()
+
     # -------------------------------------------------------- step loop
     @torch.no_grad()
     def step(self) -> int:
@@ -1378,6 +1533,8 @@ class EngineCore:
                 if harvest_exc is not None and not self.fault_tolerant:
                     raise harvest_exc
             self._evict_finished()
+            if self.journal is not None:
+                self._journal_progress()
         finally:
             tracer.end_span(sp)
         self._record_events(step_i, skips_before)
@@ -1388,6 +1545,18 @@ class EngineCore:
             step_seconds=time.perf_counter() - t0,
             step_index=step_i, phases=phases)
         return self.scheduler.active + self.scheduler.queue_depth
+
+    def _journal_progress(self) -> None:
+        """This step's delivered marks as ONE journal record, from host
+        ints the harvest already holds.  It runs after eviction, so a
+        request that finished this step is covered by its terminal record
+        instead."""
+        updates = {}
+        for st in self._slots.values():
+            rid, n = st.req.request_id, len(st.req.tokens)
+            if n and self._journal_hwm.get(rid) != n:
+                updates[rid] = self._journal_hwm[rid] = n
+        self.journal.append_progress(updates)
 
     def _record_events(self, step_i: int, skips_before: int) -> None:
         """This step's discrete happenings as event-log entries:
@@ -1659,6 +1828,12 @@ class EngineCore:
         else:
             self.metrics.on_terminal(status, reason, req.request_id,
                                      now=now)
+        if self.journal is not None:
+            # exactly ONE terminal record a request: the guard above makes
+            # this the only stamping path
+            self._journal_hwm.pop(req.request_id, None)
+            self.journal.append_terminal(req.request_id, status, reason,
+                                         delivered=len(req.tokens))
         tracer = self.metrics.tracer
         if tracer.enabled:
             lane = self._lane(req)

@@ -5,10 +5,11 @@ serves).
 The engine's recovery paths (the watchdog's retry, the degradation
 ladder, the quarantine rebuild and the circuit breaker of
 serving/health.py) are only trustworthy if they are driven.  This module
-names injection points threaded through the engine, the KV pools and the
-prefix cache, each firing on a configured hit count, behind a hook that
-costs one attribute test when off (every site guards with ``if faults is
-not None``; production engines hold no injector).
+names injection points threaded through the engine, the KV pools, the
+prefix cache, the journal and the AOT store, each firing on a configured
+hit count, behind a hook that costs one attribute test when off (every
+site guards with ``if faults is not None``; production engines hold no
+injector).
 
 Injection points (``POINTS``):
 
@@ -29,15 +30,31 @@ Injection points (``POINTS``):
                       device's logits fires
   ``slow_step``       the engine sleeps ``seconds`` at the top of the
                       step (a straggler; drives the deadline checks)
+  ``journal_write``   ``Journal._write`` raises before the record's
+                      frame lands: the journal queues the record for
+                      retry and no request fails (serving/journal.py;
+                      arm on the injector passed to ``Journal.open``)
+  ``journal_fsync``   ``Journal._sync`` raises at the fsync: the bytes
+                      stay in the OS cache and the next sync covers them
+  ``journal_replay``  the open scan raises while folding a record: one
+                      fault retries the scan from scratch, a persistent
+                      one raises ``JournalError``
+  ``aot_load``        the engine's attach of ONE leg of the AOT store
+                      raises before the leg is read (serving/aot.py; arm
+                      on the engine's injector): that leg is captured at
+                      first use instead
+  ``aot_store_corrupt`` ``AOTStore`` reports a leg's read corrupt (the
+                      path a CRC mismatch takes; arm on the injector
+                      passed to ``AOTStore.open``)
   ``spec_verify``     the engine raises on a speculative step, after the
                       draft phase and before the verify dispatch (nothing
                       mutated yet): the ladder's ``spec_verify`` rung
   =================  ====================================================
 
-The reference has twelve more sites (the fleet handoff, replica spawn /
-crash / slow, the hedge, the journal and the AOT store); they join with
-their modules.  Until then ``enable`` on one of them raises like any
-unknown site.
+The reference has seven more sites, those of the fleet (the handoff's
+three stages, replica spawn / crash / slow, the hedge); they join with
+the fleet.  Until then ``enable`` on one of them raises like any unknown
+site.
 
 Faults are armed per site with ``enable(site, at=..., times=...)``: the
 site's hit counter increments on every pass through the hook, and the
@@ -56,7 +73,14 @@ from typing import Dict, Optional
 __all__ = ["FaultError", "FaultInjector", "POINTS"]
 
 POINTS = ("kv_alloc", "block_alloc", "block_exhausted", "gather",
-          "scatter", "step", "nan_logits", "slow_step", "spec_verify")
+          "scatter", "step", "nan_logits", "slow_step",
+          # the durable request journal (arm on the injector passed to
+          # Journal.open) and the AOT store (aot_load on the engine's
+          # injector, aot_store_corrupt on the one passed to
+          # AOTStore.open)
+          "journal_write", "journal_fsync", "journal_replay",
+          "aot_load", "aot_store_corrupt",
+          "spec_verify")
 
 
 class FaultError(RuntimeError):

@@ -157,6 +157,29 @@ class ServingMetrics:
         self._c_spec_accept = c("spec.accepted_tokens",
                                 "draft tokens the verify step accepted "
                                 "(free decode steps)")
+        # the AOT store (serving/aot.py): attach accounting.  The counters
+        # reset with the window; the two gauges are the engine's lifetime
+        # facts (how long its last attach took, how long the store's
+        # build took) and bind outside self._own, like serving.tp_degree:
+        # nothing would publish them again after a reset
+        self._c_aot_loads = c("aot.loads",
+                              "legs attached from the AOT store (their "
+                              "graphs captured at attach, not at first "
+                              "use)")
+        self._c_aot_misses = c("aot.misses",
+                               "AOT lookups with no usable leg "
+                               "(fingerprint skew / leg not in store)")
+        self._c_aot_fallbacks = c("aot.fallbacks",
+                                  "AOT leg attaches that failed (corrupt "
+                                  "object, injected fault) and left the "
+                                  "leg to capture at first use")
+        self._g_aot_load_s = reg.gauge("aot.load_s",
+                                       "wall seconds the engine's last "
+                                       "attach spent")
+        self._g_aot_build_s = reg.gauge("aot.build_s",
+                                        "wall seconds the attached "
+                                        "store's build spent on its "
+                                        "legs (from the store index)")
         self._phase_h: Dict[str, Histogram] = {}
         self._zero_local()
 
@@ -223,6 +246,35 @@ class ServingMetrics:
                           active=active,
                           reason=reason if reason is not None else "",
                           step=step, tp=tp)
+
+    def on_aot_load(self, programs: int, seconds: float,
+                    build_s: Optional[float] = None) -> None:
+        """The engine finished an attach: ``programs`` legs of the AOT
+        store attached in ``seconds`` of wall time (``build_s``: the
+        store's recorded build time, published as the ``aot.build_s``
+        gauge).  Lands as an ``aot_load`` event on the engine lane."""
+        self._c_aot_loads.inc(programs)
+        self._g_aot_load_s.set(seconds)
+        if build_s is not None:
+            self._g_aot_build_s.set(build_s)
+        self.tracer.event("aot_load", lane=self.engine_lane,
+                          programs=programs, seconds=round(seconds, 6))
+
+    def on_aot_miss(self, program: str, reason: str) -> None:
+        """An AOT lookup found no usable leg (store fingerprint skew, or
+        ``program``'s leg absent): the engine captures at first use.  A
+        degradation event (``aot_miss``), never an error."""
+        self._c_aot_misses.inc()
+        self.tracer.event("aot_miss", lane=self.engine_lane,
+                          program=program, reason=reason)
+
+    def on_aot_fallback(self, program: str, reason: str) -> None:
+        """An attach of ``program``'s leg failed (a corrupt object, an
+        injected ``aot_load`` fault) and the leg captures at first use.
+        Lands as an ``aot_fallback`` event."""
+        self._c_aot_fallbacks.inc()
+        self.tracer.event("aot_fallback", lane=self.engine_lane,
+                          program=program, reason=reason)
 
     def on_decode_block_step(self, seconds: float) -> None:
         """One fused-path decode dispatch's wall time (the engine calls

@@ -198,6 +198,13 @@ class Scheduler:
     def next_request_id(self) -> int:
         return next(self._ids)
 
+    def start_ids(self, start: int) -> None:
+        """Advance the request-id counter so ids begin at ``start``: an
+        engine reopening a durable journal must never reuse an id the
+        journal already holds (the ledger would alias two requests).
+        Only legal before any id was handed out."""
+        self._ids = itertools.count(start)
+
     # --------------------------------------------------------- admission
     def bucket(self, prompt_len: int) -> int:
         return bucket_length(prompt_len, self.min_bucket, self.max_seq)

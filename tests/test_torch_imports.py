@@ -53,5 +53,8 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
                 "paddle_tpu_torch.serving.tp",
                 "paddle_tpu_torch.serving.spec",
                 "paddle_tpu_torch.kernels.collective_matmul",
-                "paddle_tpu_torch.kernels.decode_block_tp"):
+                "paddle_tpu_torch.kernels.decode_block_tp",
+                "paddle_tpu_torch.serving.journal",
+                "paddle_tpu_torch.serving.aot",
+                "paddle_tpu_torch.serving.aot.__main__"):
         assert mod in res["imported"]
