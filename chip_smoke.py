@@ -3853,6 +3853,429 @@ def phase_serving_durable(card: str) -> dict:
     return out
 
 
+# ------------------------------------------------------- serving:fleet
+# the fleet's traffic: a 512-token system prompt with varied tails (prefix
+# affinity); long prompts, handed off in the disaggregated fleet (the
+# blocks before the prefill's last 512-token chunk move, and the decode
+# replica runs that chunk again), and short ones, routed direct
+FLEET_NEW = 16
+FLEET_PREFIX = 512
+FLEET_TAILS = (40, 88, 136, 184, 232, 280)
+FLEET_LONG = (1030, 1036, 1040, 1536)
+FLEET_SHORT = (96, 200, 300)
+FLEET_THRESHOLD = 1024
+# the straggler: replica 0 sleeps this long inside each of its timed steps
+# for this many fleet steps, against requests of this deadline and length
+FLEET_SLOW_S, FLEET_SLOW_STEPS = 0.3, 10
+FLEET_DEADLINE_S, FLEET_SLOW_NEW = 5.0, 32
+FLEET_SITES = ("handoff_gather", "handoff_scatter", "handoff_commit")
+
+
+def fleet_traffic(vocab: int) -> dict:
+    """Every request of the phase, by name: ``(prompt, max_new_tokens)``,
+    drawn from seeded generators."""
+    import numpy as np
+    rs = np.random.RandomState(19)
+    prefix = rs.randint(0, vocab, (FLEET_PREFIX,))
+    out = {f"tail{i}": (np.concatenate([prefix, rs.randint(0, vocab, (n,))]),
+                        FLEET_NEW) for i, n in enumerate(FLEET_TAILS)}
+    for wave in ("b1", "b2"):
+        for i, n in enumerate(FLEET_LONG):
+            out[f"{wave}_long{i}"] = (rs.randint(0, vocab, (n,)), FLEET_NEW)
+        for i, n in enumerate(FLEET_SHORT):
+            out[f"{wave}_short{i}"] = (rs.randint(0, vocab, (n,)), FLEET_NEW)
+    for site in FLEET_SITES:
+        out[site] = (rs.randint(0, vocab, (1033,)), FLEET_NEW)
+    for i in range(2):
+        out[f"slow{i}"] = (rs.randint(0, vocab, (128,)), FLEET_SLOW_NEW)
+    for i in range(4):
+        out[f"kill{i}"] = (rs.randint(0, vocab, (160 + 32 * i,)), FLEET_NEW)
+    for i in range(3):
+        out[f"scale{i}"] = (rs.randint(0, vocab, (144,)), FLEET_NEW)
+    return out
+
+
+class FleetClient:
+    """The client side of a router's requests: each request's submit time,
+    first-token time and every token its stream delivered."""
+
+    def __init__(self, router, traffic: dict):
+        self.router, self.traffic = router, traffic
+        self.fids, self.sub, self.first, self.seen = {}, {}, {}, {}
+
+    def submit(self, key: str, **kw) -> int:
+        prompt, new = self.traffic[key]
+        self.seen[key] = []
+
+        def stream(req, tok):
+            self.first.setdefault(key, time.perf_counter())
+            self.seen[key].append(int(tok))
+        self.sub[key] = time.perf_counter()
+        self.fids[key] = self.router.submit(prompt, max_new_tokens=new,
+                                            stream=stream, **kw)
+        return self.fids[key]
+
+    def replica(self, key: str) -> int:
+        return self.router._requests[self.fids[key]].replica
+
+    def ttft_ms(self, keys) -> list:
+        return [(self.first[k] - self.sub[k]) * 1e3 for k in keys]
+
+    def check(self, tag: str, want: dict, keys) -> None:
+        """Each request finished with the single engine's greedy tokens,
+        and its stream delivered each of them once."""
+        for k in keys:
+            out = self.router.result(self.fids[k])
+            _chaos_check(tag, out.status == "finished"
+                         and list(out.tokens) == want[k]
+                         and self.seen[k] == want[k],
+                         f"{k}: {out.status} ({out.status_reason}), tokens "
+                         f"{list(out.tokens)}, streamed {self.seen[k]}, "
+                         f"single engine {want[k]}")
+
+
+def fleet_captures(router) -> list:
+    return [dict(h.engine.core.capture_counts) for h in router.replicas]
+
+
+def timed_handoffs(router, bytes_per_token: int, records: list) -> None:
+    """Time every transfer attempt of ``router``'s KV handoffs (the card
+    synchronized on both sides) and hold each to its promise: no replica
+    captures a graph for it."""
+    import torch
+    mgr = router._handoffs
+    transfer = mgr.transfer
+
+    def run(rec, src, dst, prompt):
+        caps = fleet_captures(router)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ok = transfer(rec, src, dst, prompt)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        if fleet_captures(router) != caps:
+            raise AssertionError(
+                f"[serving:fleet] a handoff captured a graph: {caps} -> "
+                f"{fleet_captures(router)}")
+        nbytes = rec.tokens * bytes_per_token
+        records.append({"fleet_id": rec.fleet_id, "ms": ms,
+                        "tokens": rec.tokens, "blocks": rec.blocks_moved,
+                        "bytes": nbytes, "ok": ok,
+                        # the gather reads and writes the tokens' K/V once,
+                        # the radix insert's scatter again
+                        "bound_ms": 4 * nbytes / HBM_BYTES_PER_S * 1e3})
+        return ok
+    mgr.transfer = run
+
+
+def phase_serving_fleet(card: str) -> dict:
+    """The fleet tier at gpt3_6_7b width and depth (random bf16 weights
+    from a seeded generator), every replica ``ENGINE_KW``, unfused, the
+    watchdog with no backoff sleep, all sharing the one model:
+
+      0. one engine serves every request of the phase (``fleet_traffic``)
+         in the fleet's order: the greedy tokens every fleet request is
+         held to;
+      1. a unified fleet of two replicas (``Router.build``): the system
+         prompt's first request, then its tails, which affinity lands on
+         the warmed replica; two waves of long and short prompts (TTFT);
+         ``replica_slow`` stretches replica 0's steps: it is marked slow
+         and the deadline-at-risk request there is hedged once, the race
+         resolved; a ``kill`` of replica 1 mid-decode re-attributes its
+         requests, each stream delivering every token once; an
+         ``Autoscaler`` spawns its replacement behind a warm-up gate (the
+         dead replica's memory returned first), the spawned replica
+         serves, then retires through drain once the fleet idles;
+      2. a disaggregated fleet (one ``prefill``, one ``decode`` replica,
+         ``prefill_threshold`` 1024): the same two waves, each long prompt
+         prefilled on the prefill replica and its blocks handed off to the
+         decode replica (each transfer timed; no replica captures a graph
+         for it), the short ones direct; then one injection each of
+         ``handoff_gather``, ``handoff_scatter`` and ``handoff_commit``.
+         ``fleet_accounting`` reads baseline on both replicas and the
+         handoff ledger conserves.
+
+    The serving kernels' counts are zeroed before step 1 and read after
+    step 2.  Prints each handoff's ms and bytes, the long prompts' TTFT
+    p50 through either fleet, the memory each replica adds beside the
+    shared weights, the peak, and each replica's capture counts."""
+    import statistics
+
+    import torch
+    from paddle_tpu_torch.models import GPTForCausalLM, gpt3_6_7b
+    from paddle_tpu_torch.serving import (Autoscaler, FaultInjector,
+                                          FaultToleranceConfig, Router,
+                                          ServingEngine, fleet_accounting)
+
+    tag = "[serving:fleet]"
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(1234)
+    model = GPTForCausalLM(gpt3_6_7b(), device=DEVICE, generator=gen).eval()
+    cfg = model.cfg
+    kv_heads = getattr(cfg, "kv_heads", None) or cfg.num_heads
+    bytes_per_token = (cfg.num_layers * 2 * kv_heads * cfg.head_dim
+                       * model.dtype.itemsize)
+    traffic = fleet_traffic(cfg.vocab_size)
+    weights_gb = torch.cuda.memory_allocated() / 1e9
+    ft = FaultToleranceConfig(backoff_base_s=0.0)
+    out = {"weights_gb": weights_gb}
+
+    # 0. the single engine, in the fleet's order: the system prompt's first
+    # request alone, so the tails find it cached as on the warmed replica
+    eng = ServingEngine(model, **ENGINE_KW)
+    want = {}
+    for group in (["tail0"], [k for k in traffic if k != "tail0"]):
+        rids = {k: eng.submit(traffic[k][0], max_new_tokens=traffic[k][1])
+                for k in group}
+        eng.run_until_complete(4000)
+        want.update({k: list(eng.result(r).tokens) for k, r in rids.items()})
+    eng.close()
+    eng = None
+    free_card()
+
+    kernels = serving_kernels()
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+
+    # 1. the unified fleet
+    before = torch.cuda.memory_allocated()
+    fi = FaultInjector()
+    # the straggler detector stays off while the waves capture their
+    # graphs (a capture's step would read as a straggler's), on for the
+    # straggler
+    router = Router.build(lambda: model, replicas=2, faults=fi,
+                          slow_threshold=1e9, slow_hysteresis=2,
+                          fault_tolerance=ft, **ENGINE_KW)
+    out["replica_gb"] = (torch.cuda.memory_allocated() - before) / 2 / 1e9
+    c = FleetClient(router, traffic)
+    c.submit("tail0")
+    router.run_until_complete(4000)
+    tails = [f"tail{i}" for i in range(1, len(FLEET_TAILS))]
+    for k in tails:
+        c.submit(k)
+    router.run_until_complete(4000)
+    warm = c.replica("tail0")
+    _chaos_check(tag, all(c.replica(k) == warm for k in tails),
+                 f"tails off the warmed replica {warm}: "
+                 f"{[c.replica(k) for k in tails]}")
+    hit = router.metrics_dict()["prefix_hit_tokens"]
+    _chaos_check(tag, hit >= FLEET_PREFIX * len(tails),
+                 f"router prefix hit tokens {hit}")
+    c.check(tag, want, ["tail0", *tails])
+    log(f"{tag} unified: the system prompt's {len(tails)} tails all landed "
+        f"on replica {warm}, which had cached it ({hit} prefix hit tokens); "
+        f"each replica adds {out['replica_gb']:.3f} GB beside the "
+        f"{weights_gb:.3f} GB of shared weights (card: {card})")
+    long_keys = {w: [f"{w}_long{i}" for i in range(len(FLEET_LONG))]
+                 for w in ("b1", "b2")}
+    waves = {w: [*long_keys[w], *(f"{w}_short{i}"
+                                  for i in range(len(FLEET_SHORT)))]
+             for w in ("b1", "b2")}
+    ttft = {}
+    for w, keys in waves.items():
+        for k in keys:
+            c.submit(k)
+        router.run_until_complete(4000)
+        c.check(tag, want, keys)
+        ttft[f"unified_{w}"] = c.ttft_ms(long_keys[w])
+
+    # the straggler and its hedge
+    router.slow_threshold = 3.0
+    fi.enable("replica_slow", times=FLEET_SLOW_STEPS, seconds=FLEET_SLOW_S)
+    try:
+        for k in ("slow0", "slow1"):
+            c.submit(k, deadline_s=FLEET_DEADLINE_S)
+        router.run_until_complete(4000)
+    finally:
+        fi.disable("replica_slow")
+    marked = [e[3]["replica"] for e in router.tracer.events("straggler_mark")]
+    fr = router._requests[c.fids["slow0"]]
+    m = router.metrics_dict()
+    _chaos_check(tag, marked[:1] == [0] and fr.hedged and fr.hedge_rid < 0
+                 and m["hedges"] == 1 and m["hedges_failed"] == 0
+                 and [c.replica(k) for k in ("slow0", "slow1")]
+                 in ([0, 1], [1, 1]),
+                 f"straggler: marked {marked}, hedges {m['hedges']}, "
+                 f"failed {m['hedges_failed']}, wins {m['hedge_wins']}")
+    c.check(tag, want, ["slow0", "slow1"])
+    out["straggler"] = {"marked": marked, "hedges": m["hedges"],
+                        "hedge_wins": m["hedge_wins"],
+                        "ewma_s": [round(h.step_ewma_s, 4)
+                                   for h in router.replicas]}
+    log(f"{tag} replica_slow ({FLEET_SLOW_S} s in each of {FLEET_SLOW_STEPS} "
+        f"steps of replica 0): marked slow {marked}, 1 hedge issued and "
+        f"resolved ({'the hedge' if m['hedge_wins'] else 'the primary'} "
+        f"finished first), tokens equal (card: {card})")
+
+    # a kill mid-decode
+    keys = [f"kill{i}" for i in range(4)]
+    for k in keys:
+        c.submit(k)
+    while min(len(c.seen[k]) for k in keys) < 3:
+        router.step()
+    victim = 1
+    moved = [k for k in keys if c.replica(k) == victim]
+    delivered = {k: len(c.seen[k]) for k in moved}
+    n = router.kill(victim)
+    router.run_until_complete(4000)
+    c.check(tag, want, keys)
+    _chaos_check(tag, n == len(moved) > 0
+                 and all(c.replica(k) == 0 for k in keys),
+                 f"kill: {n} re-attributed of {moved}")
+    out["kill"] = {"reattributed": n, "delivered_before": delivered}
+    log(f"{tag} kill of replica {victim} mid-decode: {n} requests "
+        f"re-attributed to replica 0 after {delivered} tokens, every "
+        f"stream delivered each token once, tokens equal (card: {card})")
+    # a dead process's memory returns to the card
+    router.replicas[victim].engine.close()
+    free_card()
+
+    # the autoscaler: the killed replica's replacement behind the gate,
+    # then its retirement once the fleet idles
+    warmed = {}
+
+    def warmup(e):
+        warmed["tokens"] = e.serve_batch([traffic["scale0"][0]],
+                                         max_new_tokens=FLEET_NEW)[0].tokens
+
+    scaler = Autoscaler(
+        router, lambda: ServingEngine(model, registry=router.registry,
+                                      tracer=router.tracer,
+                                      fault_tolerance=ft, **ENGINE_KW),
+        warmup_fn=warmup, max_decode=2, hysteresis_steps=2,
+        cooldown_steps=2)
+    router.step()
+    spawned = len(router.replicas) - 1
+    _chaos_check(tag, spawned == 2 and warmed.get("tokens") == want["scale0"],
+                 f"autoscaler: replicas {router.replicas}, warm-up "
+                 f"{warmed}")
+    for k in ("scale1", "scale2"):
+        c.submit(k)
+    _chaos_check(tag, c.replica("scale2") == spawned,
+                 f"the spawned replica took no request: "
+                 f"{[c.replica(k) for k in ('scale1', 'scale2')]}")
+    router.run_until_complete(4000)
+    c.check(tag, want, ["scale1", "scale2"])
+    for _ in range(16):
+        if router.replicas[spawned].retired:
+            break
+        router.step()
+    snap = scaler.snapshot()
+    _chaos_check(tag, router.replicas[spawned].retired
+                 and snap["spawns"] == 1 and snap["retires"] == 1,
+                 f"autoscaler {snap}")
+    acc = fleet_accounting(router)
+    _chaos_check(tag, acc["ok"] and acc["killed_replicas"] == 1,
+                 f"unified accounting {acc}")
+    out["unified_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["unified_captures"] = fleet_captures(router)
+    log(f"{tag} autoscaler: 1 spawn (the killed replica's replacement, "
+        f"warm-up request equal), served a request, 1 retire through "
+        f"drain; peak memory with two live replicas "
+        f"{out['unified_peak_gb']:.3f} GB; capture counts by replica "
+        f"{out['unified_captures']} (card: {card})")
+    router.close()
+    router = c = scaler = None
+    free_card()
+
+    # 2. the disaggregated fleet
+    fi = FaultInjector()
+    router = Router.build(lambda: model, replicas=2,
+                          roles=("prefill", "decode"),
+                          prefill_threshold=FLEET_THRESHOLD, faults=fi,
+                          fault_tolerance=ft, **ENGINE_KW)
+    handoffs = []
+    timed_handoffs(router, bytes_per_token, handoffs)
+    c = FleetClient(router, traffic)
+    for w, keys in waves.items():
+        for k in keys:
+            c.submit(k)
+        stages = {k: router._requests[c.fids[k]].role_stage for k in keys}
+        _chaos_check(tag, all(stages[k] == "prefill" for k in long_keys[w])
+                     and all(stages[k] == "decode" for k in keys
+                             if k not in long_keys[w]),
+                     f"disaggregated routing {stages}")
+        router.run_until_complete(4000)
+        c.check(tag, want, keys)
+        ttft[f"disagg_{w}"] = c.ttft_ms(long_keys[w])
+        chunk = ENGINE_KW["prefill_chunk"]
+        for k in long_keys[w]:
+            fr = router._requests[c.fids[k]]
+            hit = router.result(c.fids[k]).prefix_hit_tokens
+            _chaos_check(tag, fr.replica == 1 and fr.handoffs == 1
+                         and hit == (len(traffic[k][0]) - 1) // chunk * chunk,
+                         f"{k}: on replica {fr.replica} after "
+                         f"{fr.handoffs} handoffs, decode-side hit {hit}")
+    mgr = router._handoffs
+    _chaos_check(tag, mgr.committed == len(handoffs) == 2 * len(FLEET_LONG)
+                 and all(h["ok"] and h["blocks"] == h["tokens"]
+                         // ENGINE_KW["block_len"] > 0 for h in handoffs),
+                 f"handoffs {handoffs}, committed {mgr.committed}")
+    for h in handoffs:
+        log(f"{tag} handoff of fleet id {h['fleet_id']}: {h['tokens']} "
+            f"tokens, {h['blocks']} blocks, {h['bytes'] / 1e6:.1f} MB of "
+            f"K/V, {h['ms']:.3f} ms (bound {h['bound_ms']:.4f} ms) "
+            f"(card: {card})")
+    for w in ("b1", "b2"):
+        u, d = (statistics.median(ttft[f"{s}_{w}"])
+                for s in ("unified", "disagg"))
+        log(f"{tag} TTFT p50 of the {len(FLEET_LONG)} long prompts, wave "
+            f"{w}: disaggregated {d:.1f} ms, unified {u:.1f} ms (card: "
+            f"{card})")
+    # the three handoff sites, one injection each
+    sites = {}
+    for site in FLEET_SITES:
+        ledger = (mgr.committed, mgr.aborted, mgr.retries)
+        fi.enable(site)
+        try:
+            c.submit(site)
+            router.run_until_complete(4000)
+        finally:
+            fi.disable(site)
+        c.check(tag, want, [site])
+        moved = [(mgr.committed, mgr.aborted, mgr.retries)[i] - ledger[i]
+                 for i in range(3)]
+        sites[site] = {"fired": fi.fired[site],
+                       "committed": moved[0], "aborted": moved[1],
+                       "retries": moved[2],
+                       "attempts": [h["ok"] for h in handoffs
+                                    if h["fleet_id"] == c.fids[site]]}
+        # one gather or scatter fault retries to a commit; a commit fault
+        # aborts with the blocks landed, and the request re-prefills
+        _chaos_check(tag, fi.fired[site] == 1 and moved == (
+            [0, 1, 0] if site == "handoff_commit" else [1, 0, 1]),
+            f"{site}: {sites[site]}")
+    acc = fleet_accounting(router)
+    _chaos_check(tag, acc["ok"] and all(r["ok"] for r in acc["replicas"])
+                 and acc["handoffs_staged"] == acc["handoffs_committed"]
+                 + acc["handoffs_aborted"] and acc["handoffs_aborted"] == 1,
+                 f"disaggregated accounting {acc}")
+    out["disagg_captures"] = fleet_captures(router)
+    log(f"{tag} injections {json.dumps(sites)}: every request finished "
+        f"with the single engine's tokens; ledger staged "
+        f"{acc['handoffs_staged']} = committed {acc['handoffs_committed']} "
+        f"+ aborted {acc['handoffs_aborted']}; both replicas at baseline; "
+        f"capture counts by replica {out['disagg_captures']} (card: {card})")
+    router.close()
+    router = c = None
+    out["launches"] = {k.__name__: k.launches for k in kernels}
+    for name in ("decode_attention", "layer_norm_fwd"):
+        _chaos_check(tag, out["launches"][name] > 0,
+                     f"{name} never launched: {out['launches']}")
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    out["handoffs"] = handoffs
+    out["ttft_ms"] = ttft
+    out["sites"] = sites
+    log(f"{tag} peak device memory {out['peak_gb']:.3f} GB with two "
+        f"replicas (each {out['replica_gb']:.3f} GB) on "
+        f"{weights_gb:.3f} GB of shared weights; launches "
+        f"{json.dumps(out['launches'])} (card: {card})")
+    model = None
+    free_card()
+    return out
+
+
 def plan_widths(eng, served) -> set:
     """The distinct prefill chunk widths that requests ``served``
     (``(prompt length, prefix hit tokens)`` pairs) ran on ``eng``: their
@@ -6606,6 +7029,10 @@ def main() -> int:
     # a quarantine's re-attach, a host with no compiler
     free_card()
     durable = run_phase("serving:durable", phase_serving_durable, card)
+    # the fleet tier: replicas on the one model, the KV handoff, failover,
+    # hedging, the autoscaler
+    free_card()
+    fleet = run_phase("serving:fleet", phase_serving_fleet, card)
     # the train phases start from an empty card
     free_card()
     train_recs = run_phase("train kernels", phase_train_kernels, card)
@@ -6643,7 +7070,8 @@ def main() -> int:
                                 for k, v in spec_l.items()},
                              "durable_attach":
                                  durable["launches_attach"][
-                                     "decode_attention"]},
+                                     "decode_attention"],
+                             "fleet": fleet["launches"]["decode_attention"]},
         "max_abs_err": err,
         "ms": d["ms"], "device_ms": d["device_ms"],
         "plain_ms": d["plain_ms"],
@@ -6726,6 +7154,7 @@ def main() -> int:
         "layer_norm_fwd": {"unfused": launches_u, "fused": launches_f,
                            "train": train_launches,
                            "durable_attach": durable["launches_attach"],
+                           "fleet": fleet["launches"],
                            **{f"spec_{k}": v for k, v in spec_l.items()
                               if k.startswith("gpt")}},
         "layer_norm_bwd": {"train": train_launches},
@@ -6788,6 +7217,7 @@ def main() -> int:
         f"{json.dumps(serving)}; speculative serving "
         f"{json.dumps(spec['engines'])}; fault-tolerant serving "
         f"{json.dumps(chaos)}; durable serving {json.dumps(durable)}; "
+        f"fleet serving {json.dumps(fleet)}; "
         f"train {json.dumps(train)}; "
         f"llama train {json.dumps(llama_train)}; tiny serving "
         f"{json.dumps(tiny)}")

@@ -114,6 +114,9 @@ class ServingEngine:
     quarantine's rebuild: the kernel libraries of every leg installed and,
     on a card, every graph captured before any request; ``aot_status``
     says how that went.
+
+    ``role`` (``"unified"``, ``"prefill"`` or ``"decode"``) is the fleet
+    role a :class:`~paddle_tpu_torch.serving.router.Router` routes by.
     """
 
     def __init__(self, model, num_slots: int = 8,
@@ -132,9 +135,17 @@ class ServingEngine:
                  tensor_parallel: int = 1,
                  collective_fusion: bool = True,
                  devices=None,
+                 role: str = "unified",
                  journal=None,
                  aot_store=None,
                  spec_k: int = 0):
+        if role not in ("prefill", "decode", "unified"):
+            raise ValueError(
+                f"role must be 'prefill', 'decode' or 'unified', "
+                f"got {role!r}")
+        # the fleet role (serving/router.py reads it when its roles= is
+        # omitted); the engine itself behaves the same in every role
+        self.role = role
         self.core = EngineCore(
             model, num_slots=num_slots, max_seq=max_seq,
             min_bucket=min_bucket,

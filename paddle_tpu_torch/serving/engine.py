@@ -668,6 +668,81 @@ class EngineCore:
             return 0
         return self.prefix_cache.match_length(prompt)
 
+    # ------------------------------------------------ fleet KV handoff
+    # The disaggregated fleet (serving/router.py, serving/handoff.py)
+    # moves a finished prompt's radix blocks from a prefill replica to a
+    # decode replica through these halves.  Both are eager copies on the
+    # current stream, like the radix cache's own: the handoff captures no
+    # graph on either engine.
+
+    def export_prompt_kv(self, prompt,
+                         hit_tokens: int = 0) -> Optional[MatchResult]:
+        """Prefill-side half: pin the cached block path of ``prompt``'s
+        rows before the last prefill chunk this engine ran it with (the
+        chunk plan from its radix hit ``hit_tokens``), so the transfer
+        window cannot lose it to LRU eviction.  The decode replica then
+        runs that last chunk again at the same offset and width, and the
+        first token it regenerates is this engine's bit for bit: given
+        every full block, it would run only the rows past them, at
+        another width, and a 16-bit product of another shape can round
+        another way and pick another first token than the one the client
+        already has.  (Exact when ``prefill_chunk`` is a multiple of the
+        block length; without chunking only ``hit_tokens`` move.)  Returns
+        the pinned :class:`MatchResult` (``tokens == 0`` when nothing
+        moves), or None when the cache is off or bypassed.  Hand it back
+        to :meth:`release_export` on every path."""
+        if not self._cache_active:
+            return None
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        start = self.scheduler.chunk_plan(hit_tokens, prompt.size,
+                                          self.prefill_chunk)[-1][0]
+        return self.prefix_cache.match(prompt[:start + 1], count_stats=False)
+
+    def export_gather(self, match: MatchResult):
+        """The pinned blocks' gather, for the destination to run:
+        ``gather(ks, vs)`` copies them into the first ``match.tokens``
+        positions of the given per-layer slot rows (``KVPool.slot_rows``
+        of the destination's transient slot).  Nothing is copied or
+        allocated until then: the port gathers straight into the
+        destination's slot, where the reference fills fresh
+        ``[1, max_seq]`` staging rows per transfer."""
+        return functools.partial(self.block_pool.gather_blocks_into,
+                                 list(match.blocks))
+
+    def release_export(self, match: Optional[MatchResult]) -> None:
+        """Unpin an export (idempotent).  After a quarantine without a
+        prefix cache the pinned nodes belong to a discarded tree, and the
+        release is a no-op."""
+        if match is not None and self.prefix_cache is not None:
+            self.prefix_cache.release(match)
+
+    def adopt_prompt_kv(self, prompt, gather, tokens: int,
+                        faults=None) -> int:
+        """Decode-side half: land ``tokens`` transferred prompt tokens in
+        THIS engine's radix cache.  ``gather`` (the source's
+        :meth:`export_gather`) writes them into a transient pool slot,
+        the scatter's source, which is freed on every path.  Returns the
+        number of new blocks written (0: cache off or bypassed, or all
+        of them cached here already).  Raises when no slot is free (the
+        router defers on ``pool.free_slots``).  ``faults`` is the
+        router's injector: ``handoff_scatter`` fires after the slot
+        claim, before any block lands."""
+        if not self._cache_active or tokens < self.block_pool.block_len:
+            return 0
+        if tokens > self.pool.max_seq:
+            raise ValueError(
+                f"{tokens} transferred tokens exceed this replica's max_seq "
+                f"{self.pool.max_seq}")
+        slot = self.pool.alloc()
+        try:
+            if faults is not None:
+                faults.fire("handoff_scatter")
+            gather(*self.pool.slot_rows(slot))
+            return self.prefix_cache.insert(np.asarray(prompt)[:tokens],
+                                            self.pool, slot)
+        finally:
+            self.pool.free(slot)
+
     def _contained_cache_fault(self, match: Optional[MatchResult],
                                exc: Exception) -> None:
         """A prefix-cache operation raised under the watchdog: unpin what

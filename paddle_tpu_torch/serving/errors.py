@@ -13,7 +13,7 @@ the diagnostic snapshot).
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 __all__ = ["RequestRejected", "EngineStalledError"]
 
@@ -32,16 +32,22 @@ class RequestRejected(RuntimeError):
     :class:`~paddle_tpu_torch.serving.api.RequestOutput` view with
     ``status="rejected"`` so callers that log every request still see an
     unambiguous terminal record.
+
+    ``per_replica`` (a fleet rejection where every eligible replica
+    refused) carries each replica's own rejection, a list of
+    ``{"replica", "reason", "retry_after_s"}`` dicts in try order.
     """
 
     def __init__(self, reason: str, retry_after_s: Optional[float] = None,
-                 output=None):
+                 output=None,
+                 per_replica: Optional[List[Dict[str, object]]] = None):
         hint = "" if retry_after_s is None \
             else f" (retry after ~{retry_after_s:.3f}s)"
         super().__init__(f"request rejected: {reason}{hint}")
         self.reason = reason
         self.retry_after_s = retry_after_s
         self.output = output
+        self.per_replica = per_replica
 
 
 class EngineStalledError(RuntimeError):

@@ -1,12 +1,12 @@
 """Deterministic fault injection for the serving engine's chaos tests (the
-port's own copy of paddle_tpu/serving/faults.py, for the sites the port
-serves).
+port's own copy of paddle_tpu/serving/faults.py, all 21 of its sites).
 
 The engine's recovery paths (the watchdog's retry, the degradation
 ladder, the quarantine rebuild and the circuit breaker of
 serving/health.py) are only trustworthy if they are driven.  This module
 names injection points threaded through the engine, the KV pools, the
-prefix cache, the journal and the AOT store, each firing on a configured
+prefix cache, the journal, the AOT store and the fleet tier (the router,
+the KV handoff and the autoscaler), each firing on a configured
 hit count, behind a hook that costs one attribute test when off (every
 site guards with ``if faults is not None``; production engines hold no
 injector).
@@ -30,6 +30,19 @@ Injection points (``POINTS``):
                       device's logits fires
   ``slow_step``       the engine sleeps ``seconds`` at the top of the
                       step (a straggler; drives the deadline checks)
+  ``handoff_gather``  the fleet's KV handoff raises before the source's
+                      pinned blocks are read, before any destination
+                      state exists (serving/handoff.py; arm on the
+                      injector passed to ``Router``)
+  ``handoff_scatter`` ``EngineCore.adopt_prompt_kv`` raises after the
+                      destination's transient slot is claimed, before
+                      any block lands (the slot is freed on every path)
+  ``handoff_commit``  ``HandoffManager.commit`` raises after the blocks
+                      landed, before the source pin is released: the
+                      handoff aborts and the request re-prefills
+  ``replica_spawn``   ``Autoscaler.spawn`` raises before the factory
+                      runs: the router's topology is untouched (arm on
+                      the injector passed to ``Autoscaler``)
   ``journal_write``   ``Journal._write`` raises before the record's
                       frame lands: the journal queues the record for
                       retry and no request fails (serving/journal.py;
@@ -39,6 +52,13 @@ Injection points (``POINTS``):
   ``journal_replay``  the open scan raises while folding a record: one
                       fault retries the scan from scratch, a persistent
                       one raises ``JournalError``
+  ``replica_crash``   ``Router.step`` kills the lowest-index live replica
+                      (a simulated SIGKILL: no drain, no close)
+  ``replica_slow``    ``Router.step`` sleeps ``seconds`` inside the
+                      lowest-index live replica's timed step (a
+                      straggler seen by the router, engine untouched)
+  ``hedge_submit``    ``Router.issue_hedge`` drops the duplicate before it
+                      lands anywhere: the hedge fails closed
   ``aot_load``        the engine's attach of ONE leg of the AOT store
                       raises before the leg is read (serving/aot.py; arm
                       on the engine's injector): that leg is captured at
@@ -50,11 +70,6 @@ Injection points (``POINTS``):
                       draft phase and before the verify dispatch (nothing
                       mutated yet): the ladder's ``spec_verify`` rung
   =================  ====================================================
-
-The reference has seven more sites, those of the fleet (the handoff's
-three stages, replica spawn / crash / slow, the hedge); they join with
-the fleet.  Until then ``enable`` on one of them raises like any unknown
-site.
 
 Faults are armed per site with ``enable(site, at=..., times=...)``: the
 site's hit counter increments on every pass through the hook, and the
@@ -74,11 +89,19 @@ __all__ = ["FaultError", "FaultInjector", "POINTS"]
 
 POINTS = ("kv_alloc", "block_alloc", "block_exhausted", "gather",
           "scatter", "step", "nan_logits", "slow_step",
+          # the fleet's KV handoff stages and the autoscaler's spawn:
+          # router-level sites (arm on the injector passed to Router /
+          # Autoscaler, not on a replica engine's)
+          "handoff_gather", "handoff_scatter", "handoff_commit",
+          "replica_spawn",
           # the durable request journal (arm on the injector passed to
-          # Journal.open) and the AOT store (aot_load on the engine's
-          # injector, aot_store_corrupt on the one passed to
-          # AOTStore.open)
+          # Journal.open) and the router's simulated replica SIGKILL
           "journal_write", "journal_fsync", "journal_replay",
+          "replica_crash",
+          # the router's straggler and hedge-submission sites
+          "replica_slow", "hedge_submit",
+          # the AOT store (aot_load on the engine's injector,
+          # aot_store_corrupt on the one passed to AOTStore.open)
           "aot_load", "aot_store_corrupt",
           "spec_verify")
 
@@ -120,7 +143,8 @@ class FaultInjector:
                seconds: float = 0.0) -> None:
         """Arm ``site`` to fire on its next ``times`` hits starting at hit
         ``at`` (counted from the site's current hit count: ``at=0`` is the
-        very next pass).  ``seconds`` parameterises ``slow_step``."""
+        very next pass).  ``seconds`` parameterises ``slow_step`` and
+        ``replica_slow``."""
         if site not in POINTS:
             raise ValueError(
                 f"unknown fault site {site!r}; known: {POINTS}")

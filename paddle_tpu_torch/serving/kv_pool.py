@@ -140,16 +140,27 @@ class KVPool:
         self._free = list(range(self.num_slots - 1, -1, -1))
         self.seq_pos.zero_()
 
-    def adopt(self, slot: int, layer_caches, length: int) -> None:
+    def adopt(self, slot: int, layer_caches, length: int,
+              set_pos: bool = True) -> None:
         """Copy a freshly prefilled single-request cache (per-layer
         ``(k [1, max_seq, h, d], v, ...)`` tuples) into ``slot`` and
-        record its ``length`` valid positions."""
+        record its ``length`` valid positions (``set_pos=False`` skips
+        the position write, for a slot no decode reads)."""
         for i, layer in enumerate(layer_caches):
             for dst, src in zip(_shards(self.ks[i]), _shards(layer[0])):
                 dst[slot].copy_(src[0])
             for dst, src in zip(_shards(self.vs[i]), _shards(layer[1])):
                 dst[slot].copy_(src[0])
-        self.seq_pos[slot] = length
+        if set_pos:
+            self.seq_pos[slot] = length
+
+    def slot_rows(self, slot: int):
+        """``slot``'s per-layer ``[max_seq, h, d]`` k and v rows, views into
+        the slabs (per-shard lists under a mesh)."""
+        def rows(slabs):
+            return [[s[slot] for s in x] if isinstance(x, list) else x[slot]
+                    for x in slabs]
+        return rows(self.ks), rows(self.vs)
 
 
 class BlockPool:
@@ -243,6 +254,35 @@ class BlockPool:
             for b, row in zip(blocks, rows):
                 for s, r in zip(_shards(b), _shards(row)):
                     gather_block_rows(s, idx.to(s.device), out=r[0])
+
+    def gather_blocks_into(self, blocks, ks, vs) -> None:
+        """Gather block rows ``blocks`` (ids in prefix order) in place into
+        the first ``len(blocks) * block_len`` positions of the per-layer
+        ``[rows, h, d]`` rows ``ks`` / ``vs`` (per-shard lists under a
+        mesh, split as this pool's slabs are, on the same devices): the
+        fleet's KV handoff, straight into another engine's slot rows.  A
+        destination laid out otherwise raises (the handoff then aborts to
+        a re-prefill)."""
+        if self.faults is not None:
+            self.faults.fire("gather")
+        n = len(blocks) * self.block_len
+        ids = np.asarray(blocks, np.int64)
+        on: dict = {}
+        for slabs, rows in ((self.bks, ks), (self.bvs, vs)):
+            for b, row in zip(slabs, rows):
+                src, dst = _shards(b), _shards(row)
+                if [s.device for s in src] != [r.device for r in dst]:
+                    raise ValueError(
+                        f"the destination's K/V lies on "
+                        f"{[str(r.device) for r in dst]}, this block pool's "
+                        f"on {[str(s.device) for s in src]}: a handoff "
+                        f"needs the same devices and kv-head split")
+                for s, r in zip(src, dst):
+                    idx = on.get(s.device)
+                    if idx is None:
+                        idx = on[s.device] = torch.as_tensor(ids).to(
+                            s.device)
+                    gather_block_rows(s, idx, out=r[:n])
 
     def store_row(self, pool: KVPool, slot: int, dest) -> None:
         """Write pool slot ``slot``'s row into block rows ``dest``

@@ -133,9 +133,12 @@ class PrefixCache:
             n += self.block_len
         return n
 
-    def match(self, tokens) -> MatchResult:
+    def match(self, tokens, count_stats: bool = True) -> MatchResult:
         """Longest cached block-aligned prefix of ``tokens``; pins every
-        node on the path (refcount +1) until :meth:`release`."""
+        node on the path (refcount +1) until :meth:`release`.  The fleet's
+        KV handoff pins its export this way (no request on this engine
+        holds it) and passes ``count_stats=False`` so the transfer does
+        not count as an admission hit or miss."""
         toks = np.asarray(tokens, np.int32).reshape(-1)
         path: List[_Node] = []
         node = self.root
@@ -149,11 +152,12 @@ class PrefixCache:
             n.refcount += 1
             self._bump(n)
         matched = len(path) * self.block_len
-        if path:
-            self.hits += 1
-            self.hit_tokens += matched
-        else:
-            self.misses += 1
+        if count_stats:
+            if path:
+                self.hits += 1
+                self.hit_tokens += matched
+            else:
+                self.misses += 1
         return MatchResult(tokens=matched,
                            blocks=[n.block for n in path], _nodes=path)
 

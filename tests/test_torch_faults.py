@@ -61,18 +61,16 @@ def test_injector_rejects_bad_arming(kw):
 
 
 def test_injector_knows_only_the_ported_sites():
-    """The nine ported sites are the reference's, in its order; arming
-    one of the reference's other sites (fleet, journal, AOT) raises and
-    names the sites the port knows."""
-    assert set(port_faults.POINTS) < set(jax_faults.POINTS)
-    assert list(port_faults.POINTS) == [p for p in jax_faults.POINTS
-                                        if p in port_faults.POINTS]
-    for site in set(jax_faults.POINTS) - set(port_faults.POINTS):
-        with pytest.raises(ValueError, match="unknown fault site") as ei:
-            port_faults.FaultInjector().enable(site)
-        assert "spec_verify" in str(ei.value)
-    with pytest.raises(ValueError, match="unknown fault site"):
+    """The port knows every one of the reference's 21 sites, in its
+    order (the fleet's seven joined with the router); arming an unknown
+    site raises and names the known ones."""
+    assert port_faults.POINTS == jax_faults.POINTS
+    assert len(port_faults.POINTS) == 21
+    for site in port_faults.POINTS:
+        port_faults.FaultInjector().enable(site)
+    with pytest.raises(ValueError, match="unknown fault site") as ei:
         port_faults.FaultInjector().enable("bogus")
+    assert "hedge_submit" in str(ei.value)
 
 
 @pytest.mark.parametrize("kw", [

@@ -117,7 +117,7 @@ def test_autograd_matches_jax_grad_gqa_rows_without_keys():
         out = jax_flash_attention(q, k, v, causal=True, block_q=BLOCK,
                                   block_k=BLOCK, interpret=True)
         return jnp.sum(out * w)
-    jval, jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2))(
+    jval, jgrads = jax.jit(jax.value_and_grad(jloss, argnums=(0, 1, 2)))(
         *(jnp.asarray(x) for x in (q, k, v)))
 
     tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))

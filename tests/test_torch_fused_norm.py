@@ -88,10 +88,10 @@ def test_rms_norm_matches_pallas(rows, h, block, dtype):
     def jfn(x_, w_):
         return fused_rms_norm_pallas(x_, w_, EPS, interpret=True,
                                      block_rows=block)
-    want = jfn(jx, jw)
-    jdx, jdw = jax.grad(lambda a, c: jnp.sum(
+    want = jax.jit(jfn)(jx, jw)
+    jdx, jdw = jax.jit(jax.grad(lambda a, c: jnp.sum(
         jfn(a, c).astype(jnp.float32) * jg.astype(jnp.float32)),
-        argnums=(0, 1))(jx, jw)
+        argnums=(0, 1)))(jx, jw)
     y, (dx, dw) = _torch_run(
         lambda a, c: fn.RMSNormFunction.apply(a, c, EPS), (x, w), g)
     assert y.dtype == dtype and dx.dtype == dtype and dw.dtype == dtype
@@ -108,10 +108,10 @@ def test_layer_norm_matches_pallas(rows, h, block, dtype):
     def jfn(x_, w_, b_):
         return fused_layer_norm_pallas(x_, w_, b_, EPS, interpret=True,
                                        block_rows=block)
-    want = jfn(jx, jw, jb)
-    jdx, jdw, jdb = jax.grad(lambda a, c, d: jnp.sum(
+    want = jax.jit(jfn)(jx, jw, jb)
+    jdx, jdw, jdb = jax.jit(jax.grad(lambda a, c, d: jnp.sum(
         jfn(a, c, d).astype(jnp.float32) * jg.astype(jnp.float32)),
-        argnums=(0, 1, 2))(jx, jw, jb)
+        argnums=(0, 1, 2)))(jx, jw, jb)
     y, (dx, dw, db) = _torch_run(
         lambda a, c, d: fn.LayerNormFunction.apply(a, c, d, EPS),
         (x, w, b), g)

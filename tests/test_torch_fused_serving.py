@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import paddle_tpu
@@ -61,7 +62,7 @@ def test_fused_decode_step_matches_jax(models):
     caches = [(rs.randn(b, s, 4, 16).astype(np.float32) * 0.5,
                rs.randn(b, s, 4, 16).astype(np.float32) * 0.5)
               for _ in range(2)]
-    jl, jc = jm.fused_decode_step(
+    jl, jc = jax.jit(jm.fused_decode_step)(
         jnp.asarray(ids), [(jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos))
                            for k, v in caches], jnp.asarray(pos))
     tl, tc = tm.fused_decode_step(

@@ -9,6 +9,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import paddle_tpu
@@ -63,8 +64,8 @@ def test_uncached_logits_match_jax(models):
     ids = _ids((2, 13))
     with torch.no_grad():
         got = tm(torch.as_tensor(ids)).numpy()
-    np.testing.assert_allclose(got, np.asarray(jm(jnp.asarray(ids))),
-                               atol=ATOL)
+    want = jax.jit(lambda i: jm(i))(jnp.asarray(ids))
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
 
 
 def test_decode_step_scalar_and_per_row_positions(models):
@@ -72,7 +73,11 @@ def test_decode_step_scalar_and_per_row_positions(models):
     ids = _ids((3, 9), seed=1)
     jc = jm.init_cache(3, 24)
     tc = tm.init_cache(3, 24)
-    jl, jc = jm.decode_step(jnp.asarray(ids), jc, 0)
+    # the reference side under jit, as it serves (eager dispatch of every
+    # op costs seconds here)
+    step = jax.jit(jm.decode_step)
+    jl, jc = jax.jit(lambda i, c: jm.decode_step(i, c, 0))(jnp.asarray(ids),
+                                                           jc)
     tl, tc = tm.decode_step(torch.as_tensor(ids), tc, 0)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
     # one more token per row at ragged per-row positions
@@ -80,7 +85,7 @@ def test_decode_step_scalar_and_per_row_positions(models):
     nxt = _ids((3, 1), seed=2)
     jc = [(c[0], c[1], jnp.asarray(pos)) for c in jc]
     tc = [(c[0], c[1], torch.as_tensor(pos)) for c in tc]
-    jl, jc = jm.decode_step(jnp.asarray(nxt), jc, jnp.asarray(pos))
+    jl, jc = step(jnp.asarray(nxt), jc, jnp.asarray(pos))
     tl, tc = tm.decode_step(torch.as_tensor(nxt), tc, torch.as_tensor(pos))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
     for (jk, jv, jp), (tk, tv, tp) in zip(jc, tc):
@@ -107,14 +112,17 @@ def test_positions_past_the_table_give_nan_rows(models):
 def test_greedy_generate_matches_jax(models):
     jm, tm, _ = models
     ids = _ids((2, 7), seed=4)
-    want = np.asarray(jm.generate(jnp.asarray(ids), max_new_tokens=8))
+    want = np.asarray(jax.jit(lambda i: jm.generate(i, max_new_tokens=8))(
+        jnp.asarray(ids)))
     got = tm.generate(ids, max_new_tokens=8).numpy()
     np.testing.assert_array_equal(got, want)
     # ragged right-padded prompts, and eos with pad fill
     lens = np.array([4, 7], np.int32)
     eos = int(want[0, 9])
     kw = dict(max_new_tokens=6, eos_token_id=eos, pad_token_id=1)
-    want = np.asarray(jm.generate(jnp.asarray(ids), prompt_lens=lens, **kw))
+    want = np.asarray(jax.jit(lambda i, n: jm.generate(i, prompt_lens=n,
+                                                       **kw))(
+        jnp.asarray(ids), jnp.asarray(lens)))
     got = tm.generate(ids, prompt_lens=lens, **kw).numpy()
     np.testing.assert_array_equal(got, want)
 

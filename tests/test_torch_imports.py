@@ -2,9 +2,11 @@
 
 Runs in a fresh interpreter: import ``paddle_tpu_torch`` and every one
 of its submodules, then assert that no ``jax*`` and no ``paddle_tpu`` /
-``paddle_tpu.*`` module was loaded.
+``paddle_tpu.*`` module was loaded.  Every import statement of the port
+and of ``chip_smoke.py``, those inside functions included, is read too.
 """
 
+import ast
 import json
 import os
 import subprocess
@@ -56,5 +58,34 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
                 "paddle_tpu_torch.kernels.decode_block_tp",
                 "paddle_tpu_torch.serving.journal",
                 "paddle_tpu_torch.serving.aot",
-                "paddle_tpu_torch.serving.aot.__main__"):
+                "paddle_tpu_torch.serving.aot.__main__",
+                "paddle_tpu_torch.serving.router",
+                "paddle_tpu_torch.serving.fleet",
+                "paddle_tpu_torch.serving.handoff",
+                "paddle_tpu_torch.serving.autoscaler"):
         assert mod in res["imported"]
+
+
+def test_no_import_statement_names_jax_or_the_reference():
+    """Imports a phase or a function makes when it runs are held to the
+    same rule as the module-level ones: the port and ``chip_smoke.py``
+    name no ``jax*`` and no ``paddle_tpu`` / ``paddle_tpu.*`` module."""
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, names in os.walk(os.path.join(REPO, "paddle_tpu_torch")):
+        dirs[:] = [d for d in dirs if d != "_build"]      # build outputs
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    bad = []
+    for path in files:
+        with open(path) as f:
+            tree = ast.parse(f.read(), path)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0:
+                names = [node.module]
+            else:
+                continue
+            bad += [(path, node.lineno, n) for n in names
+                    if n.split(".")[0] in ("jax", "jaxlib", "paddle_tpu")]
+    assert len(files) > 60
+    assert bad == []

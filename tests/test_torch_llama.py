@@ -111,8 +111,8 @@ def test_uncached_logits_match_jax(models):
     ids = _ids((2, 13))
     with torch.no_grad():
         got = tm(torch.as_tensor(ids)).numpy()
-    np.testing.assert_allclose(got, np.asarray(jm(jnp.asarray(ids))),
-                               atol=ATOL)
+    want = jax.jit(lambda i: jm(i))(jnp.asarray(ids))
+    np.testing.assert_allclose(got, np.asarray(want), atol=ATOL)
 
 
 def test_loss_and_every_gradient_match_jax(models):
@@ -124,7 +124,7 @@ def test_loss_and_every_gradient_match_jax(models):
     def loss_fn(p):
         with bind_state(jm, p, buffers):
             return jm.loss(jnp.asarray(x), jnp.asarray(y))
-    jloss, jgrads = jax.value_and_grad(loss_fn)(params)
+    jloss, jgrads = jax.jit(jax.value_and_grad(loss_fn))(params)
     tm = LlamaForCausalLM(llama_tiny(), device="cpu").train()
     tm.load_state_dict(state_dict_from_jax(arrays, "cpu", "float32"))
     loss = tm.loss(torch.as_tensor(x), torch.as_tensor(y))
@@ -143,7 +143,11 @@ def test_decode_step_scalar_and_per_row_positions(models):
     jc = jm.init_cache(3, 24)
     tc = tm.init_cache(3, 24)
     assert tuple(tc[0][0].shape) == (3, 24, 2, 16)      # kv heads, no repeat
-    jl, jc = jm.decode_step(jnp.asarray(ids), jc, 0)
+    # the reference side under jit, as it serves (eager dispatch of every
+    # op costs seconds here)
+    step = jax.jit(jm.decode_step)
+    jl, jc = jax.jit(lambda i, c: jm.decode_step(i, c, 0))(jnp.asarray(ids),
+                                                           jc)
     tl, tc = tm.decode_step(torch.as_tensor(ids), tc, 0)
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
     # one more token per row at ragged per-row positions
@@ -151,7 +155,7 @@ def test_decode_step_scalar_and_per_row_positions(models):
     nxt = _ids((3, 1), seed=2)
     jc = [(c[0], c[1], jnp.asarray(pos)) for c in jc]
     tc = [(c[0], c[1], torch.as_tensor(pos)) for c in tc]
-    jl, jc = jm.decode_step(jnp.asarray(nxt), jc, jnp.asarray(pos))
+    jl, jc = step(jnp.asarray(nxt), jc, jnp.asarray(pos))
     tl, tc = tm.decode_step(torch.as_tensor(nxt), tc, torch.as_tensor(pos))
     np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=ATOL)
     for (jk, jv, jp), (tk, tv, tp) in zip(jc, tc):
@@ -163,12 +167,14 @@ def test_decode_step_scalar_and_per_row_positions(models):
 def test_greedy_generate_matches_jax(models):
     jm, tm, _ = models
     ids = _ids((2, 7), seed=4)
-    want = np.asarray(jm.generate(jnp.asarray(ids), max_new_tokens=8))
+    want = np.asarray(jax.jit(lambda i: jm.generate(i, max_new_tokens=8))(
+        jnp.asarray(ids)))
     got = tm.generate(ids, max_new_tokens=8).numpy()
     np.testing.assert_array_equal(got, want)
     lens = np.array([4, 7], np.int32)
-    want = np.asarray(jm.generate(jnp.asarray(ids), max_new_tokens=6,
-                                  prompt_lens=lens))
+    want = np.asarray(jax.jit(lambda i, n: jm.generate(
+        i, max_new_tokens=6, prompt_lens=n))(jnp.asarray(ids),
+                                             jnp.asarray(lens)))
     got = tm.generate(ids, max_new_tokens=6, prompt_lens=lens).numpy()
     np.testing.assert_array_equal(got, want)
 

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import paddle_tpu
@@ -74,7 +75,7 @@ def test_fused_decode_step_matches_jax(models):
     def torch_caches():
         return [(torch.as_tensor(k).clone(), torch.as_tensor(v).clone(),
                  torch.as_tensor(pos)) for k, v in caches]
-    jl, jc = jm.fused_decode_step(
+    jl, jc = jax.jit(jm.fused_decode_step)(
         jnp.asarray(ids), [(jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos))
                            for k, v in caches], jnp.asarray(pos))
     tl, tc = tm.fused_decode_step(torch.as_tensor(ids), torch_caches(),

@@ -14,6 +14,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 import paddle_tpu
@@ -228,8 +229,8 @@ def test_generate_output_scores_match_jax(models):
     logits [batch, new, vocab] agree at atol 1e-4 (summation order)."""
     jm, tm = models
     ids = np.random.RandomState(8).randint(0, 256, (2, 6))
-    want_seq, want_scores = jm.generate(jnp.asarray(ids), max_new_tokens=5,
-                                        output_scores=True)
+    want_seq, want_scores = jax.jit(lambda i: jm.generate(
+        i, max_new_tokens=5, output_scores=True))(jnp.asarray(ids))
     seq, scores = tm.generate(ids, max_new_tokens=5, output_scores=True)
     np.testing.assert_array_equal(seq.numpy(), np.asarray(want_seq))
     assert scores.dtype == torch.float32

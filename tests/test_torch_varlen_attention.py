@@ -78,8 +78,8 @@ def test_varlen_out_and_grads_match_pallas_interpret(pattern, causal):
     def jloss(q, k, v):
         out = jax_varlen(q, k, v, qs, ks, causal=causal, interpret=True)
         return jnp.sum(out * w), out
-    (_, jout), jgrads = jax.value_and_grad(jloss, argnums=(0, 1, 2),
-                                           has_aux=True)(
+    (_, jout), jgrads = jax.jit(jax.value_and_grad(
+        jloss, argnums=(0, 1, 2), has_aux=True))(
         *(jnp.asarray(x) for x in (q, k, v)))
 
     tq, tk, tv = (torch.tensor(x, requires_grad=True) for x in (q, k, v))
