@@ -168,7 +168,21 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
   9. train parity — an f32 model of gpt_small width at 2 layers: two
      ``FusedAdamW`` train steps on the card and on the CPU (plain
      versions) from the same weights agree;
- 10. Llama train — ``LlamaForCausalLM(llama_7b())`` with 12 of its 32
+ 10. hybrid train — ``fleet.init`` + ``get_hybrid_communicate_group()`` +
+     ``GPTHybridTrainer`` with every rank on the one card: f32 parity at
+     gpt_small width (4 layers, seq 256, TF32 off, ``FusedAdamW``) of the
+     serial trainer against ``{dp 2, mp 2, pp 2}`` (2 microbatches) and
+     ``{pp 2, sharding 2}`` (ZeRO-3, VPP 2, 4 microbatches): losses at the
+     reference oracle's rtol 2e-4 / 2e-3, every parameter within Adam's
+     2·lr a step; then gpt3_6_7b widths at 8 of 32 layers, bf16, batch 4 x
+     2048, ``FusedAdamW(multi_precision=True)``, the serial trainer, ``{mp
+     2, pp 2}`` (4 microbatches, ZeRO-1) and ``{pp 2, sharding 2}`` (ZeRO-3,
+     VPP 2, 4 microbatches): 2 warm-up and 6 timed steps each, the counts
+     zeroed just before and read just after and held to the layout's
+     prediction (``hybrid_want``), step 1's loss within 1e-2 of the serial
+     trainer's; step p50, tokens/s, model-FLOP share, memory after the
+     build and at the peak;
+ 11. Llama train — ``LlamaForCausalLM(llama_7b())`` with 12 of its 32
      layers, batch 1 x 4096: forward, ``loss``, backward, one
      ``FusedAdamW(multi_precision=True)`` step; 2 warm-up and 6 counted
      steps (each flash kernel 12, each RMSNorm kernel 25, fused_adamw 111
@@ -6423,6 +6437,243 @@ def phase_train_parity(family: str) -> dict:
             "param_elements_beyond_1e-6": off, "param_elements": total}
 
 
+HYBRID_LAYERS = 8
+HYBRID_BATCH, HYBRID_SEQ = 4, 2048
+HYBRID_WARMUP, HYBRID_STEPS = 2, 6
+# (label, hybrid_configs or None for the serial trainer, microbatches,
+# zero_stage, vpp)
+HYBRID_RUNS = (("serial", None, 1, 1, 1),
+               ("mp2_pp2", {"mp_degree": 2, "pp_degree": 2}, 4, 1, 1),
+               ("pp2_sharding2_zero3_vpp2",
+                {"pp_degree": 2, "sharding_degree": 2}, 4, 3, 2))
+HYBRID_PARITY = (("dp2_mp2_pp2",
+                  {"dp_degree": 2, "mp_degree": 2, "pp_degree": 2}, 2, 1, 1),
+                 HYBRID_RUNS[2])
+HYBRID_PARITY_LAYERS, HYBRID_PARITY_BATCH, HYBRID_PARITY_SEQ = 4, 8, 256
+HYBRID_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                  "flash_attention_bwd_dkv", "layer_norm_fwd",
+                  "layer_norm_bwd", "fused_adamw")
+
+
+def hybrid_trainer(cfg, hybrid, microbatches, zero, vpp, opt, seed: int):
+    """``GPTHybridTrainer`` as a fleet script builds it: the strategy's
+    ``hybrid_configs``, ``fleet.init`` with every rank on this card,
+    ``get_hybrid_communicate_group()``; ``hybrid=None`` is the serial
+    trainer.  The weights come from a generator seeded with ``seed``, so
+    every configuration starts from the same ones."""
+    import math
+
+    import torch
+    from paddle_tpu_torch.distributed import (DistributedStrategy, fleet,
+                                              get_hybrid_communicate_group)
+    from paddle_tpu_torch.models import GPTHybridTrainer
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(seed)
+    if hybrid is None:
+        return GPTHybridTrainer(cfg, optimizer=opt, device=DEVICE,
+                                generator=gen)
+    s = DistributedStrategy()
+    s.hybrid_configs = hybrid
+    fleet.init(is_collective=True, strategy=s,
+               devices=[DEVICE] * math.prod(hybrid.values()))
+    return GPTHybridTrainer(cfg, get_hybrid_communicate_group(), opt,
+                            microbatches=microbatches, zero_stage=zero,
+                            vpp=vpp, generator=gen)
+
+
+def hybrid_want(cfg, hybrid, microbatches, zero, vpp, batch) -> dict:
+    """Each kernel's launches in one train step, from the layout: the
+    microbatch rows each batch group (dp x sharding) takes (XLA's split:
+    ceil(rows / groups), none for a group past the rows), each block's
+    attention and norms once per mp rank, ln_f once per vocab shard (mp x
+    pp), and one AdamW launch per slice updated, once per card: a block
+    of an mp-split tensor, the wte / wpe rows over mp x pp, ZeRO's slices
+    (the ``sharding`` dim ``shard_opt_state_specs`` picks on the stacked
+    layout; the stacked layer dim hands whole blocks to one rank)."""
+    deg = {a: (hybrid or {}).get(f"{a}_degree", 1)
+           for a in ("dp", "mp", "pp", "sharding")}
+    mp, S, D = deg["mp"], deg["pp"], deg["sharding"]
+    G, L = deg["dp"] * D, cfg.num_layers
+    M = microbatches if S > 1 else 1
+    mb = batch // M
+    per = -(-mb // G)
+    units = M * sum(1 for g in range(G) if g * per < mb)
+    vocab = mp * S if hybrid else 1
+    h, f = cfg.hidden_size, cfg.ffn_size
+    interleave = S > 1 and vpp > 1
+    K = L // (S * vpp) if interleave else L // S
+    # per block: (shape, mp-split dim or None)
+    block = [((h,), None)] * 4 + [((h, 3 * h), 1), ((3 * h,), 0),
+                                  ((h, h), 0), ((h,), None),
+                                  ((h, f), 1), ((f,), 0), ((f, h), 0),
+                                  ((h,), None)]
+    lead = (S * vpp, K) if interleave else (L,)
+    adamw = 0
+    for shape, split in block:
+        blocks = mp if (hybrid and split is not None) else 1
+        taken = ([S > 1, False] if interleave else [S > 1]) + \
+            [i == split for i in range(len(shape))]
+        slices = 1
+        if hybrid and D > 1:
+            for i, n in enumerate(lead + shape):
+                if not taken[i] and n % D == 0 and n >= D:
+                    slices = 1 if i < len(lead) else D
+                    break
+        adamw += L * blocks * slices
+    for shape, rows in (((cfg.vocab_size, h), True),
+                        ((cfg.max_seq_len, h), True), ((h,), False),
+                        ((h,), False)):
+        blocks = vocab if rows else 1
+        free = shape[1:] if rows and hybrid else shape
+        slices = D if hybrid and D > 1 and any(
+            n % D == 0 and n >= D for n in free) else 1
+        adamw += blocks * slices
+    flash = L * units * mp
+    norms = units * (2 * L * mp + vocab)
+    return {"flash_attention_fwd": flash, "flash_attention_bwd_dq": flash,
+            "flash_attention_bwd_dkv": flash, "layer_norm_fwd": norms,
+            "layer_norm_bwd": norms, "fused_adamw": adamw}
+
+
+def _hybrid_params_close(got: dict, want: dict, bound: float) -> tuple:
+    worst, off, total = 0.0, 0, 0
+    for k, w in want.items():
+        diff = (got[k].detach().float().cpu() - w.float().cpu()).abs()
+        worst = max(worst, diff.max().item())
+        off += int((diff > 1e-6).sum())
+        total += diff.numel()
+    return worst <= bound, worst, off, total
+
+
+def phase_train_hybrid(card: str) -> dict:
+    """The hybrid-parallel trainer through the entry points a fleet script
+    calls, every rank on this card: the f32 parity checks, then the
+    gpt3_6_7b-width runs (``HYBRID_RUNS``), one trainer at a time, each
+    freed before the next is built.  Returns the records and each run's
+    launches over the timed steps."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_adamw as fw
+    from paddle_tpu_torch.models import gpt3_6_7b, gpt_small
+    from paddle_tpu_torch.optimizer import FusedAdamW
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = [getattr(fa, k) for k in HYBRID_KERNELS[:3]] + \
+        [getattr(fn, k) for k in HYBRID_KERNELS[3:5]] + [fw.fused_adamw]
+    out = {"parity": {}, "runs": {}}
+    # f32 parity at gpt_small width
+    lr, steps = 1e-4, 2
+    cfg = dataclasses.replace(gpt_small(), num_layers=HYBRID_PARITY_LAYERS)
+    ref = hybrid_trainer(cfg, None, 1, 1, 1, FusedAdamW(learning_rate=lr), 7)
+    ids, labels = ref.make_batch(HYBRID_PARITY_BATCH, HYBRID_PARITY_SEQ,
+                                 seed=2)
+    want_losses = [float(ref.train_step(ids, labels)) for _ in range(steps)]
+    want_params = {k: v.detach().cpu() for k, v in ref.state_dict().items()}
+    del ref
+    free_card()
+    for label, hybrid, m, zero, vpp in HYBRID_PARITY:
+        tr = hybrid_trainer(cfg, hybrid, m, zero, vpp,
+                            FusedAdamW(learning_rate=lr), 7)
+        losses = [float(tr.train_step(ids, labels)) for _ in range(steps)]
+        ok, worst, off, total = _hybrid_params_close(
+            tr.state_dict(), want_params, 2 * lr * steps)
+        rel = [abs(a - b) / abs(b) for a, b in zip(losses, want_losses)]
+        log(f"[train:hybrid] parity {label} (gpt_small width, "
+            f"{cfg.num_layers} layers, f32, seq {HYBRID_PARITY_SEQ}, batch "
+            f"{HYBRID_PARITY_BATCH}, {m} microbatches, zero {zero}, vpp "
+            f"{vpp}): losses {losses} vs serial {want_losses} (relative "
+            f"{rel}); parameters max diff {worst:.3g} (bound 2·lr·steps = "
+            f"{2 * lr * steps:.1g}), {off} of {total} elements beyond 1e-6")
+        if not (rel[0] <= 2e-4 and rel[1] <= 2e-3 and ok):
+            raise AssertionError(f"[train:hybrid] parity {label}: losses "
+                                 f"{losses} vs {want_losses}, parameter "
+                                 f"max diff {worst}")
+        out["parity"][label] = {"losses": losses, "serial": want_losses,
+                                "relative": rel, "param_max_diff": worst,
+                                "beyond_1e-6": off, "elements": total}
+        del tr
+        topology.set_hybrid_communicate_group(None)
+        free_card()
+    # gpt3_6_7b widths at HYBRID_LAYERS layers
+    cfg = dataclasses.replace(gpt3_6_7b(), num_layers=HYBRID_LAYERS)
+    launches = {}
+    serial_first = None
+    for label, hybrid, m, zero, vpp in HYBRID_RUNS:
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tr = hybrid_trainer(cfg, hybrid, m, zero, vpp,
+                            FusedAdamW(learning_rate=TRAIN_LR,
+                                       multi_precision=True), 4321)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        built_gb = (torch.cuda.memory_allocated() - base) / 1e9
+        ids, labels = tr.make_batch(HYBRID_BATCH, HYBRID_SEQ, seed=0)
+        losses = [float(tr.train_step(ids, labels))
+                  for _ in range(HYBRID_WARMUP)]
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        step_ms = []
+        for _ in range(HYBRID_STEPS):
+            t = time.perf_counter()
+            losses.append(float(tr.train_step(ids, labels)))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        got = {name: k.launches for name, k in zip(HYBRID_KERNELS, kernels)}
+        want = {k: v * HYBRID_STEPS for k, v in hybrid_want(
+            cfg, hybrid, m, zero, vpp, HYBRID_BATCH).items()}
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        n_params = cfg.num_params()
+        p50 = float(np.median(step_ms))
+        tok_s = HYBRID_BATCH * HYBRID_SEQ / (p50 / 1e3)
+        flops = 6 * n_params + 12 * cfg.num_layers * cfg.hidden_size * \
+            HYBRID_SEQ
+        mfu = flops * tok_s / PEAK_FLOPS["bfloat16"]
+        if serial_first is None:
+            serial_first = losses[0]
+        gap = abs(losses[0] - serial_first) / abs(serial_first)
+        rec = {"hybrid": hybrid, "microbatches": m, "zero_stage": zero,
+               "vpp": vpp, "losses": losses, "step1_gap": gap,
+               "step_ms": step_ms, "step_ms_p50": p50, "tokens_per_s": tok_s,
+               "mfu": mfu, "built_gb": built_gb, "peak_gb": peak_gb,
+               "build_s": build_s, "stage_calls": tr.stage_calls,
+               "launches_per_step": {k: v / HYBRID_STEPS
+                                     for k, v in got.items()},
+               "launches_per_step_want": {k: v / HYBRID_STEPS
+                                          for k, v in want.items()}}
+        out["runs"][label] = rec
+        log(f"[train:hybrid] {label} (gpt3_6_7b widths, {cfg.num_layers} "
+            f"of 32 layers, bf16, batch {HYBRID_BATCH} x {HYBRID_SEQ}, "
+            f"{m} microbatches, zero {zero}, vpp {vpp}): step p50 "
+            f"{p50:.1f} ms ({[round(x, 1) for x in step_ms]}), "
+            f"{tok_s:.0f} tokens/s, model-FLOP share {mfu:.3f}; memory "
+            f"after the build {built_gb:.2f} GB (built in {build_s:.1f} s), "
+            f"peak {peak_gb:.2f} GB; losses {[round(x, 5) for x in losses]}"
+            f", step 1 relative gap to serial {gap:.2e}; launches a step "
+            f"{json.dumps(rec['launches_per_step'])} (want "
+            f"{json.dumps(rec['launches_per_step_want'])}) (card: {card})")
+        if got != want:
+            raise AssertionError(f"[train:hybrid] {label}: launches {got} "
+                                 f"!= the layout's {want}")
+        if not all(np.isfinite(losses)) or gap >= 1e-2:
+            raise AssertionError(f"[train:hybrid] {label}: losses {losses} "
+                                 f"(step 1 gap to serial {gap})")
+        launches[label] = got
+        rec["profile"] = profile_train(tr.train_step, ids, labels, card,
+                                       f"hybrid:{label}")
+        del tr
+        topology.set_hybrid_communicate_group(None)
+    free_card()
+    return launches, out
+
+
 def run_phase(name: str, fn, *args):
     """``fn(*args)``, then its wall time and its peak device memory (the
     peak is reset just before it)."""
@@ -7041,6 +7292,9 @@ def main() -> int:
     train["parity"] = run_phase("train-parity:gpt", phase_train_parity,
                                 "gpt")
     free_card()
+    hybrid_launches, hybrid = run_phase("train:hybrid", phase_train_hybrid,
+                                        card)
+    free_card()
     llama_launches, llama_train = run_phase("train:llama", phase_train, card,
                                             "llama")
     llama_train["parity"] = llama_parity
@@ -7130,7 +7384,9 @@ def main() -> int:
             "replaces": f"paddle_tpu/kernels/{src}.py:{line}",
             "launches": train_launches[name],
             "launches_by_path": {"train": train_launches[name],
-                                 "llama_train": llama_launches[name]},
+                                 "llama_train": llama_launches[name],
+                                 **{f"hybrid_{k}": v[name]
+                                    for k, v in hybrid_launches.items()}},
             **train_recs[name]})
     # the segment-id variant: the packed flash_attn_unpadded call
     for name, line in (("flash_attention_fwd", 77),
@@ -7153,11 +7409,15 @@ def main() -> int:
         "rms_norm_bwd": {"llama_train": llama_launches},
         "layer_norm_fwd": {"unfused": launches_u, "fused": launches_f,
                            "train": train_launches,
+                           **{f"hybrid_{k}": v
+                              for k, v in hybrid_launches.items()},
                            "durable_attach": durable["launches_attach"],
                            "fleet": fleet["launches"],
                            **{f"spec_{k}": v for k, v in spec_l.items()
                               if k.startswith("gpt")}},
-        "layer_norm_bwd": {"train": train_launches},
+        "layer_norm_bwd": {"train": train_launches,
+                           **{f"hybrid_{k}": v
+                              for k, v in hybrid_launches.items()}},
     }
     for name, line in zip(NORM_KERNELS, (22, 30, 167, 179)):
         paths = {path: counts[name] for path, counts in by_path[name].items()}
@@ -7218,7 +7478,7 @@ def main() -> int:
         f"{json.dumps(spec['engines'])}; fault-tolerant serving "
         f"{json.dumps(chaos)}; durable serving {json.dumps(durable)}; "
         f"fleet serving {json.dumps(fleet)}; "
-        f"train {json.dumps(train)}; "
+        f"train {json.dumps(train)}; hybrid train {json.dumps(hybrid)}; "
         f"llama train {json.dumps(llama_train)}; tiny serving "
         f"{json.dumps(tiny)}")
     log(json.dumps({"kernels": kernels}))

@@ -1,5 +1,12 @@
-from . import meta_parallel
-from .mesh import Mesh, all_gather, ppermute, psum, psum_scatter
+from . import meta_parallel, pipelining, sharding_utils, topology
+from .fleet import fleet
+from .mesh import Grid, Mesh, all_gather, ppermute, psum, psum_scatter
+from .strategy import DistributedStrategy
+from .topology import (CommunicateTopology, HybridCommunicateGroup,
+                       ParallelAxis, get_hybrid_communicate_group)
 
-__all__ = ["meta_parallel", "Mesh", "psum", "all_gather", "ppermute",
-           "psum_scatter"]
+__all__ = ["meta_parallel", "pipelining", "sharding_utils", "topology",
+           "fleet", "DistributedStrategy", "CommunicateTopology",
+           "HybridCommunicateGroup", "ParallelAxis",
+           "get_hybrid_communicate_group", "Mesh", "Grid", "psum",
+           "all_gather", "ppermute", "psum_scatter"]

@@ -25,15 +25,22 @@ with several cards the same code places shard ``d`` on ``cuda:d`` and a
 hop is a peer copy.  Collectives return fresh tensors; replicated results
 of shards on one device may share storage, and nothing updates them in
 place.
+
+:class:`Grid` is the named N-D grid the hybrid-parallel topology lays its
+ranks over (the reference's N-D ``Mesh`` with named axes): rank ``r`` sits
+at the row-major coordinate of its shape and runs on ``devices[r]``; the
+ranks of one axis's group form a 1-D :class:`Mesh` for the collectives
+above.
 """
 
 from __future__ import annotations
 
-from typing import Iterable, List, Sequence, Tuple, Union
+import math
+from typing import Dict, Iterable, List, Sequence, Tuple, Union
 
 import torch
 
-__all__ = ["Mesh", "psum", "all_gather", "ppermute", "psum_scatter"]
+__all__ = ["Mesh", "Grid", "psum", "all_gather", "ppermute", "psum_scatter"]
 
 Device = Union[str, torch.device]
 
@@ -68,6 +75,64 @@ class Mesh:
         """``x`` on every shard's device (shared where it already lies
         there)."""
         return [x.to(d) for d in self.devices]
+
+
+class Grid:
+    """Ranks laid over named axes: rank ``r`` is the row-major index of its
+    coordinate in ``shape`` (axes in ``axis_names`` order) and runs on
+    ``devices[r]``.  A device may repeat (several ranks on one card)."""
+
+    def __init__(self, devices: Iterable[Device], axis_names: Sequence[str],
+                 shape: Sequence[int]):
+        self.devices: List[torch.device] = [_device(d) for d in devices]
+        self.axis_names = tuple(axis_names)
+        self.dims = tuple(int(n) for n in shape)
+        if len(self.axis_names) != len(self.dims):
+            raise ValueError(f"{len(self.axis_names)} axis names for a "
+                             f"{len(self.dims)}-D shape")
+        if len(self.devices) != math.prod(self.dims):
+            raise ValueError(f"{len(self.devices)} devices for a grid of "
+                             f"{math.prod(self.dims)} ranks {self.shape}")
+
+    @property
+    def shape(self) -> Dict[str, int]:
+        return dict(zip(self.axis_names, self.dims))
+
+    @property
+    def size(self) -> int:
+        return len(self.devices)
+
+    def __repr__(self) -> str:
+        return f"Grid({self.shape}, {[str(d) for d in self.devices]})"
+
+    def coord(self, rank: int) -> Dict[str, int]:
+        out = {}
+        for name, n in reversed(list(zip(self.axis_names, self.dims))):
+            rank, out[name] = divmod(rank, n)
+        return {name: out[name] for name in self.axis_names}
+
+    def rank(self, **coord: int) -> int:
+        """The rank at ``coord`` (an axis left out is at 0)."""
+        r = 0
+        for name, n in zip(self.axis_names, self.dims):
+            c = coord.get(name, 0)
+            if not 0 <= c < n:
+                raise ValueError(f"{name}={c} outside the axis of {n}")
+            r = r * n + c
+        return r
+
+    def device(self, rank: int) -> torch.device:
+        return self.devices[rank]
+
+    def axis_ranks(self, axis: str, rank: int) -> List[int]:
+        """The ranks of ``rank``'s group along ``axis`` (every other
+        coordinate fixed), in axis order."""
+        c = self.coord(rank)
+        return [self.rank(**{**c, axis: i}) for i in range(self.shape[axis])]
+
+    def axis_mesh(self, axis: str, rank: int) -> Mesh:
+        """``rank``'s group along ``axis`` as a 1-D mesh."""
+        return Mesh([self.devices[r] for r in self.axis_ranks(axis, rank)])
 
 
 def _check(xs: Sequence[torch.Tensor], mesh: Mesh) -> None:

@@ -1,5 +1,7 @@
-from .mp_layers import (ColumnParallelLinear, RowParallelLinear,
-                        VocabParallelEmbedding, parallel_cross_entropy)
+from .mp_layers import (ColumnParallelLinear, ParallelCrossEntropy,
+                        RowParallelLinear, VocabParallelEmbedding,
+                        parallel_cross_entropy, sharded_row_take, split)
 
 __all__ = ["ColumnParallelLinear", "RowParallelLinear",
-           "VocabParallelEmbedding", "parallel_cross_entropy"]
+           "VocabParallelEmbedding", "ParallelCrossEntropy",
+           "parallel_cross_entropy", "sharded_row_take", "split"]

@@ -1,4 +1,5 @@
-from .convert import state_dict_from_jax
+from .convert import (hybrid_state_from_jax, jax_trainer_arrays,
+                      state_dict_from_jax)
 from .generation import generate
 from .gpt import (GPTBlock, GPTConfig, GPTForCausalLM, GPTModel, gpt3_6_7b,
                   gpt_small, gpt_tiny)
@@ -10,4 +11,5 @@ __all__ = ["GPTConfig", "GPTBlock", "GPTModel", "GPTForCausalLM",
            "GPTHybridTrainer", "LlamaConfig", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "gpt_tiny", "gpt_small",
            "gpt3_6_7b", "llama_tiny", "llama_7b", "generate",
-           "state_dict_from_jax"]
+           "state_dict_from_jax", "jax_trainer_arrays",
+           "hybrid_state_from_jax"]

@@ -3,14 +3,17 @@
 The port keeps the reference's parameter names and layouts (``[in, out]``
 Linear weights, ``[vocab, h]`` embeddings), so conversion is a key-for-key
 copy, checked against the parameter table of the model's config.  The
-family is read from the key prefix: ``gpt.`` or ``llama.``.
+family is read from the key prefix: ``gpt.`` or ``llama.``.  The JAX
+hybrid trainer's state (non-block leaves and stacked blocks) unstacks into
+the same keys (:func:`jax_trainer_arrays`), and :func:`hybrid_state_from_jax`
+lays either form into the port trainer's rank blocks.
 """
 
 from __future__ import annotations
 
 import math
 import re
-from typing import Dict, Mapping, Tuple, Union
+from typing import Dict, List, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -19,7 +22,8 @@ from ..device import resolve_device, resolve_dtype
 from .gpt import GPTConfig
 from .llama import LlamaConfig
 
-__all__ = ["state_dict_from_jax"]
+__all__ = ["state_dict_from_jax", "jax_trainer_arrays",
+           "hybrid_state_from_jax"]
 
 
 def _gpt_shapes(cfg: GPTConfig) -> Dict[str, Tuple[int, ...]]:
@@ -142,3 +146,48 @@ def state_dict_from_jax(arrays: Mapping[str, np.ndarray],
     dtype = resolve_dtype(dtype)
     return {k: torch.as_tensor(np.array(arrays[k], dtype=np.float32)).to(
         device=device, dtype=dtype) for k in want}
+
+
+def jax_trainer_arrays(pnb: Mapping[str, np.ndarray],
+                       pblk: Mapping[str, np.ndarray],
+                       n_stages: int = 1) -> Dict[str, np.ndarray]:
+    """The JAX ``GPTHybridTrainer``'s ``(pnb, pblk)`` as the model's
+    per-layer arrays: ``pblk``'s stacked ``[L, ...]`` blocks, or under VPP
+    its ``[S·V, K, ...]`` chunks in ``stack_interleaved`` order (row
+    ``s·V + v`` holds chunk ``v·S + s``, layers ``[c·K, (c+1)·K)``), with
+    ``S = n_stages``."""
+    out = {k: np.asarray(v) for k, v in pnb.items()}
+    interleaved = np.ndim(pblk["ln_1.weight"]) == 3
+    for suffix, arr in pblk.items():
+        a = np.asarray(arr)
+        if not interleaved:
+            for i in range(a.shape[0]):
+                out[f"gpt.h.{i}.{suffix}"] = a[i]
+            continue
+        S, K = n_stages, a.shape[1]
+        V = a.shape[0] // S
+        order = [v * S + s for s in range(S) for v in range(V)]
+        for row, c in enumerate(order):
+            for k in range(K):
+                out[f"gpt.h.{c * K + k}.{suffix}"] = a[row, k]
+    return out
+
+
+def hybrid_state_from_jax(params, trainer,
+                          n_stages: Optional[int] = None
+                          ) -> List[Dict[str, torch.Tensor]]:
+    """Lay JAX GPT parameters into the port ``GPTHybridTrainer``'s rank
+    blocks, so both packages start the same step from the same weights.
+    ``params`` is the JAX model's state (``{key: array}``) or the JAX
+    trainer's ``(pnb, pblk)`` (:func:`jax_trainer_arrays`, with
+    ``n_stages`` its pp degree, by default ``trainer``'s).  Keys and
+    shapes are checked as in :func:`state_dict_from_jax`.  Returns each
+    rank's blocks (``trainer.rank_state``); a serial trainer's model
+    loads the weights and its state dict is the one entry."""
+    if isinstance(params, tuple):
+        params = jax_trainer_arrays(*params, n_stages=n_stages or trainer.S)
+    trainer.load_state_dict(state_dict_from_jax(
+        params, trainer.device, trainer.dtype, cfg=trainer.cfg))
+    if trainer.grid is None:
+        return [trainer.state_dict()]
+    return [trainer.rank_state(r) for r in range(trainer.grid.size)]

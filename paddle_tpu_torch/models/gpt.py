@@ -114,6 +114,24 @@ class GPTBlock(nn.Module):
                                     cache_lens(pos, s, b, device=x.device))
         return self.out_proj(out.reshape(b, s, h)), (k, v, pos + s)
 
+    def partial(self, x: torch.Tensor, half: str) -> torch.Tensor:
+        """One mp rank's share of half the block, before the row-parallel
+        sum (the hybrid trainer's Megatron body): ``"attn"`` is ln_1 ->
+        QKV -> causal attention over the block's heads -> ``@
+        out_proj.weight``; ``"mlp"`` is ln_2 -> fc_in -> GELU (tanh) -> ``@
+        fc_out.weight``.  With an mp shard's weights (QKV columns
+        ``[q_d | k_d | v_d]`` of its head group) the heads and ffn columns
+        are the shard's; the caller sums the partials over the group, then
+        adds the bias and the residual."""
+        if half == "mlp":
+            return torch.matmul(gelu(self.fc_in(self.ln_2(x)),
+                                     approximate=True), self.fc_out.weight)
+        b, s, _ = x.shape
+        qkv = self.qkv(self.ln_1(x)).view(b, s, 3, -1, self.cfg.head_dim)
+        out = scaled_dot_product_attention(qkv[:, :, 0], qkv[:, :, 1],
+                                           qkv[:, :, 2], is_causal=True)
+        return torch.matmul(out.reshape(b, s, -1), self.out_proj.weight)
+
     def forward(self, x: torch.Tensor, cache: Optional[Cache] = None):
         a, new_cache = self._attn(self.ln_1(x), cache)
         x = x + self.drop(a)

@@ -1,68 +1,599 @@
-"""GPT trainer on one card (counterpart of paddle_tpu/models/trainer.py).
+"""GPT trainer, serial or hybrid-parallel (counterpart of
+paddle_tpu/models/trainer.py).
 
-The reference's ``GPTHybridTrainer`` compiles one program covering dp,
-tp, sp, ZeRO and pp over a mesh.  This port runs the tp=1, single-card
-case eagerly: forward (attention through the flash kernels), the mean
-``parallel_cross_entropy`` loss, ``backward()``, one optimizer step (one
-``fused_adamw`` launch per parameter tensor with ``FusedAdamW``) and
-clearing the gradients.  It keeps the reference's name, constructor order
-and ``make_batch`` draw.  Not ported yet (ROADMAP queue 1): any parallel
-degree > 1, the stacked-block scan, and ``remat``.
+``GPTHybridTrainer(cfg, hcg, optimizer, microbatches, zero_stage, vpp)``
+keeps the reference's constructor, ``make_batch`` draw and layout; the
+step is eager: ``train_step(ids, labels) -> loss``.
+
+* ``hcg=None`` (or a group whose every degree is 1): one
+  ``GPTForCausalLM`` on ``device`` (the card by default), forward with
+  attention through the flash kernels, the mean ``parallel_cross_entropy``,
+  ``backward()``, one optimizer step, gradients cleared.
+* a hybrid group (``fleet.init`` + ``get_hybrid_communicate_group()``):
+  the reference's layout over the group's rank grid, driven from this one
+  process.  The model is built once on rank 0's device and split tensor by
+  tensor into rank blocks by the reference's specs: Megatron columns /
+  rows over ``mp`` (QKV columns head-aligned, ``[q_d | k_d | v_d]``), the
+  ``wte`` / ``wpe`` rows over ``mp`` and ``pp`` (the tied head is the
+  second use of ``wte``), each stage's blocks (``L/S`` of them, or ``V``
+  round-robin chunks under VPP), the batch over ``dp x sharding`` within
+  each microbatch.  Every rank runs its share: its rows, its heads and
+  ffn columns (``GPTBlock.partial``, the row-parallel partials summed over
+  the mp group), its stage's blocks (``distributed/pipelining.py``: only
+  the ``S·M`` pairs that carry data), its vocab shard of the head and
+  the vocab-parallel cross entropy.  One ``backward()`` of the global mean
+  gives every gradient summed over microbatches and the batch groups.
+* ZeRO (``sharding_degree > 1``): the optimizer state of a tensor splits
+  over ``sharding`` along the dim ``shard_opt_state_specs`` picks; stage 3
+  also stores the weights split and gathers them at use.  Each rank
+  updates its slice in place with the bound optimizer (one ``fused_adamw``
+  launch a slice with ``FusedAdamW``).  A tensor whose ZeRO dim is not its
+  first is stored with that dim moved first, and the compute reads it
+  through the matching view, so every slice the kernel writes in place is
+  contiguous.
+
+A value replicated over ranks on one device is held once there: the
+ranks share the tensor, and autograd sums their gradient contributions,
+which is the dp / sharding gradient all-reduce.  Replicas on different
+devices sum their gradients explicitly and ZeRO slices are copied between
+them after the update.  Not ported (ROADMAP queue 1): ``sep`` / context
+parallelism, ``ep`` (``GPTMoEHybridTrainer``), ``sp``, ``remat`` and, in
+the hybrid path, dropout.
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple, Union
+import dataclasses
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+from torch import nn
 
-from .gpt import GPTConfig, GPTForCausalLM
+from ..distributed.mesh import Mesh, psum
+from ..distributed.meta_parallel.mp_layers import (parallel_cross_entropy,
+                                                   sharded_row_take)
+from ..distributed.pipelining import (pipeline_apply,
+                                      pipeline_apply_interleaved)
+from ..distributed.sharding_utils import (P, get_param_specs, shard_block,
+                                          shard_index, spec_axes, zero_dim)
+from ..nn.functional import layer_norm
+from .gpt import GPTBlock, GPTConfig, GPTForCausalLM
 
 __all__ = ["GPTHybridTrainer"]
 
-_DEGREES = ("get_data_parallel_world_size",
-            "get_model_parallel_world_size",
-            "get_pipe_parallel_world_size",
-            "get_sharding_parallel_world_size",
-            "get_sep_parallel_world_size")
+
+class _BlockShard(nn.Module):
+    """``functional_call`` target: ``GPTBlock.partial`` with a rank's
+    weights."""
+
+    def __init__(self, block: GPTBlock):
+        super().__init__()
+        self.block = block
+
+    def forward(self, x: torch.Tensor, half: str) -> torch.Tensor:
+        return self.block.partial(x, half)
+
+
+@dataclasses.dataclass
+class _Layout:
+    """Where one parameter lives: its spec over the grid (mp, pp), the
+    stage of its block (None: every stage) and its ZeRO split: ``zdim``
+    (the dim of the per-rank block, stored first) or ``owner`` (the
+    sharding rank holding a whole block: the reference splits the stacked
+    layer dim)."""
+    spec: P
+    stage: Optional[int]
+    zdim: Optional[int] = None
+    owner: Optional[int] = None
+
+
+def _bias(t: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
+    return t if b is None else t + b
 
 
 class GPTHybridTrainer:
-    """``GPTHybridTrainer(cfg, hcg=None, optimizer=None, *, device=None,
-    generator=None)``: builds ``GPTForCausalLM(cfg)`` on ``device`` (the
-    card by default) in ``cfg.dtype`` and binds ``optimizer`` to it.
-    ``hcg`` may be None or a group whose every parallel degree is 1."""
+    BLOCK_PREFIX = "gpt.h."
+    KEY_WTE = "gpt.wte.weight"
+    KEY_WPE = "gpt.wpe.weight"
+    KEY_LNF_W = "gpt.ln_f.weight"
+    KEY_LNF_B = "gpt.ln_f.bias"
 
-    def __init__(self, cfg: GPTConfig, hcg=None, optimizer=None, *,
-                 device: Union[None, str, torch.device] = None,
+    def __init__(self, cfg: GPTConfig, hcg=None, optimizer=None,
+                 microbatches: int = 1, zero_stage: int = 1, vpp: int = 1,
+                 *, device: Union[None, str, torch.device] = None,
                  generator: Optional[torch.Generator] = None):
-        if hcg is not None:
-            for getter in _DEGREES:
-                fn = getattr(hcg, getter, None)
-                if fn is not None and fn() > 1:
-                    raise NotImplementedError(
-                        f"{getter}() = {fn()}: parallel training is not "
-                        f"ported yet (ROADMAP queue 1); the trainer runs "
-                        f"on one card")
         if optimizer is None:
             raise ValueError("GPTHybridTrainer needs an optimizer, e.g. "
                              "FusedAdamW(learning_rate=1e-4, "
                              "multi_precision=True)")
         self.cfg = cfg
-        self.model = GPTForCausalLM(cfg, device=device,
-                                    generator=generator).train()
-        self.opt = optimizer.bind(self.model)
+        self.hcg = hcg
+        self.M = microbatches
+        self.zero = zero_stage
+        self.V = max(vpp, 1)
+        self.S = 1 if hcg is None else hcg.get_pipe_parallel_world_size()
+        if hcg is not None:
+            self._check_group(hcg)
+        # stage-body calls of the pipelined forward (no bubble ticks)
+        self.stage_calls = 0
+        serial = hcg is None or all(n == 1 for n in hcg.degrees().values())
+        if serial:
+            if hcg is not None:
+                if device is not None:
+                    raise ValueError("the hybrid group places the trainer: "
+                                     "pass devices= to fleet.init, not "
+                                     "device=")
+                device = hcg.grid.device(0)
+            self.grid = None
+            self.model = GPTForCausalLM(cfg, device=device,
+                                        generator=generator).train()
+            self.opt = optimizer.bind(self.model)
+            return
+        if device is not None:
+            raise ValueError("the hybrid group places the ranks: pass "
+                             "devices= to fleet.init, not device=")
+        self.model = None
+        self.opt = optimizer
+        self._build(generator)
 
+    def _check_group(self, hcg) -> None:
+        cfg = self.cfg
+        if hcg.get_sep_parallel_world_size() > 1:
+            raise NotImplementedError(
+                f"sep_degree={hcg.get_sep_parallel_world_size()}: context "
+                f"parallelism is not ported yet (ROADMAP queue 1 item 9)")
+        if hcg.get_expert_parallel_world_size() > 1:
+            raise NotImplementedError(
+                f"ep_degree={hcg.get_expert_parallel_world_size()}: expert "
+                f"parallelism (GPTMoEHybridTrainer) is not ported yet "
+                f"(ROADMAP queue 1 item 10)")
+        if self.S > 1 and cfg.num_layers % (self.S * self.V):
+            raise ValueError(
+                f"num_layers={cfg.num_layers} must divide evenly into "
+                f"pp_degree={self.S} x vpp={self.V} chunks (reference "
+                f"PipelineLayer uniform segmentation has the same "
+                f"requirement)")
+        if self.V > 1 and self.S > 1 and self.M % self.S:
+            raise ValueError("interleaved schedule needs microbatches "
+                             "divisible by pp_degree")
+        if self.zero not in (0, 1, 2, 3):
+            raise ValueError(f"zero_stage must be 0-3, got {self.zero}")
+        if any(n > 1 for n in hcg.degrees().values()):
+            if cfg.dropout or cfg.attn_dropout:
+                raise NotImplementedError(
+                    "dropout in the hybrid-parallel trainer is not ported "
+                    "yet (ROADMAP queue 1 item 5); set dropout=0 and "
+                    "attn_dropout=0")
+            if not cfg.tie_embeddings:
+                raise NotImplementedError(
+                    "the hybrid-parallel trainer's head is the tied wte "
+                    "table, as the reference's; set tie_embeddings=True")
+
+    # ------------------------------------------------------------ layout
+    def _build(self, generator) -> None:
+        cfg, hcg = self.cfg, self.hcg
+        grid = self.grid = hcg.grid
+        self.mp = hcg.get_model_parallel_world_size()
+        self.D = hcg.get_sharding_parallel_world_size()
+        self.G = hcg.get_data_parallel_world_size() * self.D
+        S, V, L = self.S, self.V, cfg.num_layers
+        self.interleave = S > 1 and V > 1
+        self.K = L // (S * V) if self.interleave else L // S
+        model = GPTForCausalLM(cfg, device=grid.device(0),
+                               generator=generator)
+        self._dtype = model.dtype
+        specs = get_param_specs(model)
+        # wte / wpe rows extend over pp: each stage holds 1/S of the table
+        # and the tied head's vocab shards ride mp x pp (trainer.py:98-131)
+        if S > 1:
+            for k in (self.KEY_WTE, self.KEY_WPE):
+                old = specs[k]
+                specs[k] = P(spec_axes(old[0]) + ("pp",), *old[1:])
+        self._vocab_axes = spec_axes(specs[self.KEY_WTE][0])
+        self._layout: Dict[str, _Layout] = {}
+        shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        stacked_specs, stacked_shapes = {}, {}
+        for n, shape in shapes.items():
+            spec = P(*(tuple(specs[n]) + (None,) * (len(shape)
+                                                     - len(specs[n]))))
+            if not n.startswith(self.BLOCK_PREFIX):
+                self._layout[n] = _Layout(spec, None)
+                stacked_specs[n], stacked_shapes[n] = spec, shape
+                continue
+            i, suffix = n[len(self.BLOCK_PREFIX):].split(".", 1)
+            self._layout[n] = _Layout(spec, self._stage_of(int(i)))
+            lead = (("pp", None) if self.interleave else
+                    ("pp" if S > 1 else None,))
+            dims = ((S * V, self.K) if self.interleave else (L,))
+            stacked_specs[suffix] = P(*lead, *spec)
+            stacked_shapes[suffix] = dims + shape
+        if self.D > 1:
+            for n, lay in self._layout.items():
+                self._zero_split(n, lay, stacked_shapes, stacked_specs)
+        self._template = _BlockShard(GPTBlock(cfg, device=torch.device(
+            "meta"), dtype=self._dtype, generator=None))
+        self._store: Dict[tuple, torch.Tensor] = {}
+        self._held: Dict[tuple, Optional[tuple]] = {}
+        self._views: Dict[tuple, torch.Tensor] = {}
+        self._unit_list = None
+        self._opt_state = None
+        self._place(dict(model.named_parameters()))
+        del model
+
+    def _stage_of(self, layer: int) -> int:
+        if self.interleave:
+            return (layer // self.K) % self.S
+        return layer // self.K
+
+    def _zero_split(self, n: str, lay: _Layout, shapes, specs) -> None:
+        """Map ZeRO's dim of the stacked layout (``shard_opt_state_specs``'
+        rule) onto the per-rank block: the stacked layer dim (plain, pp=1)
+        or the chunk's block dim (VPP) gives whole blocks to one sharding
+        rank; any other dim splits each block."""
+        block = n.startswith(self.BLOCK_PREFIX)
+        key = n.split(".", 3)[3] if block else n
+        d = zero_dim(shapes[key], specs[key], self.D)
+        if d is None:
+            return
+        lead = (2 if self.interleave else 1) if block else 0
+        if d >= lead:
+            lay.zdim = d - lead
+            return
+        i = int(n.split(".")[2])
+        per = (self.K if self.interleave else self.cfg.num_layers) // self.D
+        lay.owner = (i % self.K if self.interleave else i) // per
+
+    def _qkv_arranged(self, n: str, t: torch.Tensor) -> torch.Tensor:
+        """The QKV weight / bias with each mp shard's head group
+        contiguous, ``[q_0 k_0 v_0 | q_1 k_1 v_1 | ...]`` (the column
+        order ``tp_decode_weights`` uses)."""
+        if self.mp == 1 or not n.endswith(("qkv.weight", "qkv.bias")):
+            return t
+        h = self.cfg.hidden_size
+        q, k, v = t.split(h, dim=-1)
+        parts = zip(q.chunk(self.mp, -1), k.chunk(self.mp, -1),
+                    v.chunk(self.mp, -1))
+        return torch.cat([x for trio in parts for x in trio], dim=-1)
+
+    def _qkv_restored(self, n: str, t: torch.Tensor) -> torch.Tensor:
+        if self.mp == 1 or not n.endswith(("qkv.weight", "qkv.bias")):
+            return t
+        per = t.chunk(self.mp, -1)
+        trios = [x.chunk(3, -1) for x in per]
+        return torch.cat([torch.cat([tr[j] for tr in trios], -1)
+                          for j in range(3)], -1)
+
+    def _ranks_of(self, n: str) -> List[int]:
+        stage = self._layout[n].stage
+        return [r for r in range(self.grid.size)
+                if stage is None or self.grid.coord(r)["pp"] == stage]
+
+    def _block_index(self, n: str, r: int) -> tuple:
+        lay = self._layout[n]
+        return shard_index(lay.spec, len(lay.spec), self.grid, r)
+
+    def _holds(self, n: str, r: int) -> Optional[tuple]:
+        """The store key ``(name, block index, piece, device)`` of what
+        rank ``r`` keeps of ``n``: piece None for the whole block, under
+        stage 3 the rank's ZeRO slice or ``"own"`` (None: nothing, a block
+        another sharding rank owns)."""
+        if (n, r) not in self._held:
+            lay, grid = self._layout[n], self.grid
+            s = grid.coord(r)["sharding"]
+            piece = None
+            if self.zero >= 3 and lay.zdim is not None:
+                piece = s
+            elif self.zero >= 3 and lay.owner is not None:
+                piece = "own" if s == lay.owner else False
+            self._held[(n, r)] = None if piece is False else (
+                n, self._block_index(n, r), piece, grid.device(r))
+        return self._held[(n, r)]
+
+    def _place(self, params: Dict[str, nn.Parameter]) -> None:
+        """Split the full weights into the rank blocks, releasing each full
+        tensor as soon as its blocks exist."""
+        with torch.no_grad():
+            for n, p in params.items():
+                self._write(n, p.detach())
+                p.data = torch.empty(0, dtype=p.dtype, device=p.device)
+        for t in self._store.values():
+            t.requires_grad_(True)
+
+    def _write(self, n: str, full: torch.Tensor) -> None:
+        """Lay ``full`` (the reference's global layout) into the blocks of
+        ``n``: new leaves at build, copied in place afterwards."""
+        lay = self._layout[n]
+        full = self._qkv_arranged(n, full)
+        done = set()
+        for r in self._ranks_of(n):
+            key = self._holds(n, r)
+            if key is None or key in done:
+                continue
+            done.add(key)
+            blk = shard_block(full, key[1])
+            if lay.zdim is not None:
+                blk = blk.movedim(lay.zdim, 0)
+                if isinstance(key[2], int):
+                    blk = blk.chunk(self.D, 0)[key[2]]
+            if key not in self._store:
+                self._store[key] = torch.empty(blk.shape, dtype=blk.dtype,
+                                               device=key[3])
+            self._store[key].copy_(blk)
+
+    # ------------------------------------------------------------ weights
+    def _group_rank(self, r: int, **coord) -> int:
+        c = self.grid.coord(r)
+        c.update(coord)
+        return self.grid.rank(**c)
+
+    def _param(self, n: str, r: int) -> torch.Tensor:
+        """Rank ``r``'s block of ``n`` in its logical layout, for this
+        step: gathered over the sharding group under stage 3 (once per
+        device and step: the gathered value is replicated)."""
+        lay, grid = self._layout[n], self.grid
+        key = self._holds(n, r)
+        dev = grid.device(r)
+        vkey = (n, self._block_index(n, r), dev)
+        t = self._views.get(vkey)
+        if t is not None:
+            return t
+        if key is not None and key[2] is None:
+            t = self._store[key]
+        elif lay.owner is not None:
+            src = self._group_rank(r, sharding=lay.owner)
+            t = self._store[self._holds(n, src)].to(dev)
+        else:
+            t = torch.cat([self._store[self._holds(n, q)].to(dev)
+                           for q in grid.axis_ranks("sharding", r)])
+        if lay.zdim is not None:
+            t = t.movedim(0, lay.zdim)
+        self._views[vkey] = t
+        return t
+
+    def _block_params(self, layer: int, r: int) -> Dict[str, torch.Tensor]:
+        pre = f"{self.BLOCK_PREFIX}{layer}."
+        return {f"block.{n[len(pre):]}": self._param(n, r)
+                for n in self._layout if n.startswith(pre)}
+
+    # ------------------------------------------------------------ forward
+    def _rank(self, g: int, stage: int, d: int) -> int:
+        dp, sh = divmod(g, self.D)
+        return self.grid.rank(dp=dp, pp=stage, sharding=sh, mp=d)
+
+    def _vocab_ranks(self, g: int) -> List[int]:
+        """The ranks of batch group ``g`` holding the vocab shards of
+        ``wte`` / ``wpe`` and of the head, in shard order."""
+        pp = "pp" in self._vocab_axes
+        return [self._rank(g, j % self.S if pp else 0,
+                           j // self.S if pp else j)
+                for j in range(self.mp * (self.S if pp else 1))]
+
+    def _mesh(self, ranks: List[int]) -> Mesh:
+        return Mesh([self.grid.device(r) for r in ranks])
+
+    def _block(self, layer: int, g: int, stage: int,
+               xs: List[torch.Tensor]) -> List[torch.Tensor]:
+        """One block over the mp group of (``g``, ``stage``): each rank's
+        partial of the attention, summed over the group, bias, residual;
+        then the MLP likewise."""
+        ranks = [self._rank(g, stage, d) for d in range(self.mp)]
+        mesh = self._mesh(ranks)
+        prm = [self._block_params(layer, r) for r in ranks]
+        fc = torch.func.functional_call
+        for half, bias in (("attn", "block.out_proj.bias"),
+                           ("mlp", "block.fc_out.bias")):
+            parts = [fc(self._template, p, (x, half))
+                     for p, x in zip(prm, xs)]
+            xs = [x + _bias(o, p.get(bias))
+                  for x, o, p in zip(xs, psum(parts, mesh), prm)]
+        return xs
+
+    def _stage_body(self, g: int):
+        def body(entry, xs):
+            stage, layers = entry
+            self.stage_calls += 1
+            for i in layers:
+                xs = self._block(i, g, stage, xs)
+            return xs
+        return body
+
+    def _hop(self, g: int):
+        def hop(xs, stage):
+            return [x.to(self.grid.device(self._rank(g, stage, d)))
+                    for d, x in enumerate(xs)]
+        return hop
+
+    def _embed(self, g: int, ids: torch.Tensor) -> List[torch.Tensor]:
+        """Token + position rows of ``ids`` for batch group ``g``: masked
+        lookups in each vocab shard summed over the shards, then handed to
+        the stage-0 mp ranks."""
+        ranks = self._vocab_ranks(g)
+        mesh = self._mesh(ranks)
+        pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+        tok = sharded_row_take([self._param(self.KEY_WTE, r) for r in ranks],
+                               ids, mesh)
+        at = sharded_row_take([self._param(self.KEY_WPE, r) for r in ranks],
+                              pos, mesh)
+        xs = [a + b for a, b in zip(tok, at)]
+        return self._hop(g)([xs[ranks.index(self._rank(g, 0, d))]
+                             for d in range(self.mp)], 0)
+
+    def _final_loss(self, g: int, xs: List[torch.Tensor],
+                    labels: torch.Tensor) -> torch.Tensor:
+        """Summed token loss of one microbatch of group ``g``: ln_f and the
+        tied head on each vocab shard's rank, then the vocab-parallel
+        cross entropy."""
+        cfg = self.cfg
+        ranks = self._vocab_ranks(g)
+        logits = []
+        for r in ranks:
+            x = xs[self.grid.coord(r)["mp"]].to(self.grid.device(r))
+            x = layer_norm(x, cfg.hidden_size, self._param(self.KEY_LNF_W, r),
+                           self._param(self.KEY_LNF_B, r),
+                           cfg.layer_norm_eps)
+            logits.append(torch.matmul(x, self._param(self.KEY_WTE, r).t()))
+        per_tok = parallel_cross_entropy(logits, labels,
+                                         mesh=self._mesh(ranks))[0]
+        return per_tok.sum()
+
+    def _stage_entries(self) -> list:
+        """Per pipeline slot, ``(stage, its layers)``: ``S`` stages of
+        ``L/S`` blocks, or under VPP the ``S·V`` chunks in the reference's
+        ``stack_interleaved`` order."""
+        S, V, K = self.S, self.V, self.K
+        if not self.interleave:
+            return [(s, range(s * K, (s + 1) * K)) for s in range(S)]
+        return [(s, range(c * K, (c + 1) * K))
+                for s in range(S) for c in (v * S + s for v in range(V))]
+
+    def _loss(self, ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The global mean token loss, with every rank's share in one
+        autograd graph."""
+        B, s = ids.shape
+        M = self.M if self.S > 1 else 1
+        if B % M:
+            raise ValueError(f"batch {B} does not split into {M} "
+                             f"microbatches")
+        mb = B // M
+        per = -(-mb // self.G)        # rows a batch group takes, as XLA
+        dev0 = self.grid.device(0)
+        total = torch.zeros((), dtype=torch.float32, device=dev0)
+        entries = self._stage_entries()
+        for g in range(self.G):
+            rows = [(m * mb + g * per, min(m * mb + (g + 1) * per,
+                                           (m + 1) * mb)) for m in range(M)]
+            rows = [(lo, hi) for lo, hi in rows if lo < hi]
+            if not rows:
+                continue
+            xs = [self._embed(g, ids[lo:hi]) for lo, hi in rows]
+            run = pipeline_apply_interleaved if self.interleave \
+                else pipeline_apply
+            extra = (self.V,) if self.interleave else ()
+            outs = run(self._stage_body(g), entries, xs, self.S, *extra,
+                       hop=self._hop(g))
+            for (lo, hi), out in zip(rows, outs):
+                total = total + self._final_loss(g, out,
+                                                 labels[lo:hi]).to(dev0)
+        return total / (B * s)
+
+    # ------------------------------------------------------------ update
+    def _units(self) -> List[tuple]:
+        """Every slice a rank updates, once per device: ``(state key,
+        optimizer name, store key, slice or None)``."""
+        out, seen = [], set()
+        for n, lay in self._layout.items():
+            name = n.split(".", 3)[3] if n.startswith(self.BLOCK_PREFIX) \
+                else n
+            for r in self._ranks_of(n):
+                key = self._holds(n, r)
+                if key is None:
+                    continue
+                s = self.grid.coord(r)["sharding"]
+                cut = None
+                if key[2] is None and lay.zdim is not None:
+                    cut = s
+                elif key[2] is None and lay.owner is not None:
+                    if s != lay.owner:
+                        continue
+                unit = key[:2] + (cut if cut is not None else key[2],
+                                  key[3])
+                if unit not in seen:
+                    seen.add(unit)
+                    out.append((unit, name, key, cut))
+        return out
+
+    def _operands(self, key: tuple, cut: Optional[int], grad: bool):
+        t = self._store[key]
+        if grad:
+            t = t.grad
+            if t is None:
+                return None
+        return t if cut is None else t.chunk(self.D, 0)[cut]
+
+    def _sum_replica_grads(self) -> None:
+        """Gradients of one block held on several devices (replicas over
+        dp / sharding / mp ranks there) are summed and shared."""
+        groups: Dict[tuple, List[tuple]] = {}
+        for key in self._store:
+            groups.setdefault(key[:3], []).append(key)
+        for keys in groups.values():
+            ts = [self._store[k] for k in keys]
+            if len(ts) > 1 and all(t.grad is not None for t in ts):
+                total = psum([t.grad for t in ts],
+                             Mesh([k[3] for k in keys]))
+                for t, g in zip(ts, total):
+                    t.grad = g.clone()
+
+    def _share_slices(self, updated: Dict[tuple, torch.device]) -> None:
+        """ZeRO 1-2 across devices: each replica takes the slices it did
+        not update from a device that did (the all-gather)."""
+        for key, t in self._store.items():
+            lay = self._layout[key[0]]
+            if key[2] is not None or (lay.zdim is None and lay.owner is None):
+                continue
+            cuts = range(self.D) if lay.zdim is not None else (None,)
+            for c in cuts:
+                src = updated.get((key[0], key[1], c if c is not None
+                                   else lay.owner))
+                if src is None or src == key[3]:
+                    continue
+                other = self._store[key[:3] + (src,)]
+                if c is None:
+                    t.data.copy_(other.data)
+                else:
+                    t.data.chunk(self.D, 0)[c].copy_(
+                        other.data.chunk(self.D, 0)[c])
+
+    @torch.no_grad()
+    def _update(self) -> None:
+        if self._unit_list is None:
+            self._unit_list = self._units()
+        units = self._unit_list
+        if self._opt_state is None:
+            self._opt_state = {"step": 0, "slots": {}, "master": {}}
+            for unit, _, key, cut in units:
+                slots, master = self.opt.init_tensor_state(
+                    self._operands(key, cut, False))
+                self._opt_state["slots"][unit] = slots
+                self._opt_state["master"][unit] = master
+        spread = len({key[3] for key in self._store}) > 1
+        if spread:
+            self._sum_replica_grads()
+        st = self._opt_state
+        updated = {}
+        for unit, name, key, cut in units:
+            g = self._operands(key, cut, True)
+            if g is None:
+                continue
+            self.opt.update_tensor(name, self._operands(key, cut, False), g,
+                                   st["slots"][unit], st["master"][unit],
+                                   st["step"])
+            updated.setdefault(key[:2] + (cut if cut is not None
+                                          else self._layout[key[0]].owner,),
+                               key[3])
+        if spread and self.D > 1 and self.zero < 3:
+            self._share_slices(updated)
+        st["step"] += 1
+        for t in self._store.values():
+            t.grad = None
+
+    # ------------------------------------------------------------ the API
     @property
     def device(self) -> torch.device:
-        return self.model.device
+        return self.model.device if self.grid is None else \
+            self.grid.device(0)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.model.dtype if self.grid is None else self._dtype
 
     def make_batch(self, batch: int, seq: Optional[int] = None,
                    seed: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
-        """``(ids, labels)`` ``[batch, seq]`` int64 on the model's device:
-        the reference's draw (trainer.py:361-373), ``RandomState(seed)
-        .randint(0, vocab, (batch, seq + 1))`` shifted by one."""
+        """``(ids, labels)`` ``[batch, seq]`` int64 on rank 0's device (the
+        model's, serial): the reference's draw (trainer.py:361-373),
+        ``RandomState(seed).randint(0, vocab, (batch, seq + 1))`` shifted
+        by one.  The step hands each rank its rows."""
         seq = seq or self.cfg.max_seq_len
         ids = np.random.RandomState(seed).randint(
             0, self.cfg.vocab_size, (batch, seq + 1))
@@ -74,8 +605,86 @@ class GPTHybridTrainer:
         """Forward, loss, backward, one optimizer step, gradients cleared.
         Returns the step's loss (a detached 0-dim f32 tensor; reading it
         synchronises with the card)."""
-        loss = self.model.loss(ids, labels)
-        loss.backward()
-        self.opt.step()
-        self.opt.clear_grad()
+        if self.grid is None:
+            loss = self.model.loss(ids, labels)
+            loss.backward()
+            self.opt.step()
+            self.opt.clear_grad()
+            return loss.detach()
+        self._views.clear()
+        try:
+            loss = self._loss(ids, labels)
+            loss.backward()
+        finally:
+            self._views.clear()
+        self._update()
         return loss.detach()
+
+    # ------------------------------------------------- state in and out
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """Every parameter in the reference model's names and global
+        layout (serial: the model's own; hybrid: the rank blocks put
+        together on rank 0's device)."""
+        if self.grid is None:
+            return self.model.state_dict()
+        out = {}
+        dev0 = self.grid.device(0)
+        with torch.no_grad():
+            for n, lay in self._layout.items():
+                blocks = {}
+                for r in self._ranks_of(n):
+                    idx = self._block_index(n, r)
+                    if idx not in blocks:
+                        blocks[idx] = self._param(n, r).detach().to(dev0)
+                self._views.clear()
+                out[n] = self._qkv_restored(n, _assemble(blocks))
+        return out
+
+    def load_state_dict(self, state: Dict[str, torch.Tensor]) -> None:
+        """Lay the reference-layout parameters ``state`` (every name of the
+        model) into the rank blocks in place; the optimizer state starts
+        over."""
+        if self.grid is None:
+            self.model.load_state_dict(state)
+            return
+        missing = set(self._layout) - set(state)
+        extra = set(state) - set(self._layout)
+        if missing or extra:
+            raise KeyError(f"state names: missing {sorted(missing)}, "
+                           f"unexpected {sorted(extra)}")
+        with torch.no_grad():
+            for n in self._layout:
+                self._write(n, state[n].to(self.grid.device(0),
+                                           self._dtype))
+        self._opt_state = None
+
+    def rank_state(self, rank: int) -> Dict[str, torch.Tensor]:
+        """What rank ``rank`` stores of each parameter it holds (its block,
+        or its ZeRO-3 slice of it; under stage 3 nothing of a block another
+        sharding rank owns)."""
+        out = {}
+        for n in self._layout:
+            if rank in self._ranks_of(n):
+                key = self._holds(n, rank)
+                if key is not None:
+                    out[n] = self._store[key]
+        return out
+
+
+def _assemble(blocks: Dict[tuple, torch.Tensor]) -> torch.Tensor:
+    """Put the blocks keyed by ``shard_index`` back into one tensor."""
+    if len(blocks) == 1:
+        return next(iter(blocks.values())).clone()
+    any_idx = next(iter(blocks))
+    ndim = len(any_idx)
+    # fold the last split dim first, then the earlier ones
+    for d in reversed(range(ndim)):
+        if any_idx[d][1] == 1:
+            continue
+        merged = {}
+        for idx in sorted(blocks, key=lambda k: k[d][0]):
+            rest = idx[:d] + ((0, 1),) + idx[d + 1:]
+            merged.setdefault(rest, []).append(blocks[idx])
+        blocks = {k: torch.cat(v, dim=d) for k, v in merged.items()}
+        any_idx = next(iter(blocks))
+    return next(iter(blocks.values()))

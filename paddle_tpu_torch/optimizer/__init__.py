@@ -2,5 +2,6 @@
 
 from .adam import Adam, AdamW, FusedAdamW
 from .optimizer import Optimizer
+from .sgd import SGD
 
-__all__ = ["Optimizer", "Adam", "AdamW", "FusedAdamW"]
+__all__ = ["Optimizer", "SGD", "Adam", "AdamW", "FusedAdamW"]

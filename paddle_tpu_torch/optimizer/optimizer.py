@@ -82,14 +82,33 @@ class Optimizer:
         return self._state
 
     def _init_state(self, params) -> dict:
-        def master(p):
-            if self.multi_precision and p.dtype in (torch.float16,
-                                                    torch.bfloat16):
-                return p.detach().float().clone()
-            return None
         return {"step": 0,
                 "slots": {n: self._init_slot(p) for n, p in params},
-                "master": {n: master(p) for n, p in params}}
+                "master": {n: self._master_of(p) for n, p in params}}
+
+    def _master_of(self, p) -> Optional[torch.Tensor]:
+        if self.multi_precision and p.dtype in (torch.float16,
+                                                torch.bfloat16):
+            return p.detach().float().clone()
+        return None
+
+    # ------------------------------------------------- per-tensor state
+    # The hybrid trainer keeps its own state per rank block (a ZeRO slice
+    # of a parameter, or the whole one) and updates each block in place.
+    def init_tensor_state(self, p: torch.Tensor
+                          ) -> Tuple[dict, Optional[torch.Tensor]]:
+        """``(slots, master)`` for one tensor, as ``step()`` keeps them per
+        bound parameter."""
+        return self._init_slot(p), self._master_of(p)
+
+    @torch.no_grad()
+    def update_tensor(self, name: str, p: torch.Tensor, g: torch.Tensor,
+                      slots: dict, master: Optional[torch.Tensor],
+                      step: int) -> None:
+        """One update of ``p`` (a view included) from ``g`` in place, with
+        the state of :meth:`init_tensor_state`; ``step`` counts the updates
+        done before."""
+        self._apply(name, p, g, slots, master, self._lr, step)
 
     # ------------------------------------------------------------ decay
     def _decay_coef(self) -> float:

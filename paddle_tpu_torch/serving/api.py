@@ -177,7 +177,8 @@ class ServingEngine:
                deadline_s: Optional[float] = None,
                ttft_deadline_s: Optional[float] = None,
                priority: str = "interactive",
-               allowed_tokens: Optional[Sequence[int]] = None) -> int:
+               allowed_tokens: Optional[Sequence[int]] = None, *,
+               plan_start: Optional[int] = None) -> int:
         """Queue one request; returns its id (admission happens inside a
         later ``step()``).
 
@@ -187,7 +188,13 @@ class ServingEngine:
         :class:`RequestRejected` with a retry-after hint.
         ``deadline_s``/``ttft_deadline_s`` are seconds relative to this
         call, checked every step.  ``allowed_tokens`` constrains decoding
-        to a token set through a per-slot vocab mask."""
+        to a token set through a per-slot vocab mask.
+
+        ``plan_start`` is for the fleet router's regenerations (failover,
+        hedge, recovery): the first attempt's radix hit.  The match is
+        capped there, rows below it this engine lacks prefill first, and
+        the rows from it on run in the first attempt's chunks, so a 16-bit
+        prefill regenerates the first attempt's tokens."""
         if self.core.closed:
             raise RuntimeError("engine is closed")
         prompt = np.asarray(prompt, np.int32).reshape(-1)
@@ -226,6 +233,8 @@ class ServingEngine:
                 raise ValueError(
                     f"allowed_tokens must lie in [0, {vocab}) — got "
                     f"range [{lo}, {hi}]")
+        if plan_start is not None:
+            self.core.check_plan_start(plan_start, prompt.size)
         sched = self.core.scheduler
         req = Request(request_id=sched.next_request_id(),
                       prompt=prompt, max_new_tokens=max_new_tokens,
@@ -234,7 +243,8 @@ class ServingEngine:
                       priority=priority,
                       deadline_s=deadline_s,
                       ttft_deadline_s=ttft_deadline_s,
-                      allowed_tokens=allowed_tokens)
+                      allowed_tokens=allowed_tokens,
+                      plan_start=plan_start)
         try:
             self.core.check_admission(req)
         except RequestRejected as e:

@@ -649,11 +649,42 @@ class EngineCore:
         """Tokens of prefill work admitting ``req`` costs THIS step: the
         width of its first chunk, after the radix-cache match shrinks the
         suffix."""
-        matched = self.prefix_cache.match_length(req.prompt) \
+        matched = self.prefix_cache.match_length(self._match_span(req)) \
             if self._cache_active else 0
-        plan = self.scheduler.chunk_plan(matched, req.prompt_len,
-                                         self.prefill_chunk)
-        return plan[0][1]
+        return self._plan(req, matched)[0][1]
+
+    def _match_span(self, req: Request):
+        """The prompt rows the radix match may cover: all of them, or up
+        to a regeneration's plan start."""
+        if req.plan_start is None:
+            return req.prompt
+        return req.prompt[:req.plan_start + 1]
+
+    def _plan(self, req: Request, matched: int):
+        """The chunk plan of ``req`` after a radix match of ``matched``
+        rows.  A regeneration whose match stops short of its plan start
+        first prefills ``[matched, start)``, then runs ``[start,
+        prompt_len)`` in the first attempt's chunks."""
+        start = req.plan_start
+        if start is None or matched >= start:
+            return self.scheduler.chunk_plan(matched, req.prompt_len,
+                                             self.prefill_chunk)
+        return (self.scheduler.chunk_plan(matched, start, self.prefill_chunk)
+                + self.scheduler.chunk_plan(start, req.prompt_len,
+                                            self.prefill_chunk))
+
+    def check_plan_start(self, start: int, prompt_len: int) -> None:
+        """A regeneration's plan start must lie in the prompt, on a radix
+        block boundary (it is a radix hit): else its chunks could leave
+        the committed width set."""
+        block = self.block_pool.block_len if self.block_pool is not None \
+            else None
+        if not 0 <= start < prompt_len or (start and (
+                block is None or start % block)):
+            raise ValueError(
+                f"plan_start {start} must be 0 or a multiple of this "
+                f"engine's radix block length ({block}) below the prompt "
+                f"length {prompt_len}")
 
     @property
     def _cache_active(self) -> bool:
@@ -768,7 +799,7 @@ class EngineCore:
             if self._cache_active:
                 t_match0 = time.perf_counter()
                 try:
-                    match = self.prefix_cache.match(req.prompt)
+                    match = self.prefix_cache.match(self._match_span(req))
                     matched = match.tokens
                 except Exception as e:
                     if not self.fault_tolerant:
@@ -776,8 +807,7 @@ class EngineCore:
                     self._contained_cache_fault(match, e)
                     match, matched = None, 0
                 t_match1 = time.perf_counter()
-            plan = self.scheduler.chunk_plan(matched, req.prompt_len,
-                                             self.prefill_chunk)
+            plan = self._plan(req, matched)
             self.scheduler.place(req, slot)
             # only after placement: a failed admission is requeued and
             # retried.  The hit counters move when the gather lands
@@ -825,8 +855,7 @@ class EngineCore:
                 self._contained_cache_fault(st.match, e)
                 st.match, hit = None, False
                 st.req.prefix_hit_tokens = 0
-                st.plan = self.scheduler.chunk_plan(
-                    0, st.req.prompt_len, self.prefill_chunk)
+                st.plan = self._plan(st.req, 0)
             else:
                 self.metrics.on_prefix_hit(st.match.tokens)
         if not hit:

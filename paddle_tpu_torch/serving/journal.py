@@ -91,7 +91,7 @@ class _Ledger:
     conservation ledger)."""
 
     __slots__ = ("submits", "terminals", "delivered", "status", "reason",
-                 "record")
+                 "record", "plan_start")
 
     def __init__(self):
         self.submits = 0
@@ -100,6 +100,7 @@ class _Ledger:
         self.status: Optional[str] = None
         self.reason: Optional[str] = None
         self.record: Optional[dict] = None   # the submit payload
+        self.plan_start: Optional[int] = None  # the router's, see below
 
     @property
     def terminal(self) -> bool:
@@ -258,6 +259,8 @@ class Journal:
                 led.delivered = max(led.delivered, int(hwm))
                 if ids is not None:
                     ids.add(int(rid))
+            for rid, start in rec.get("plan_start", {}).items():
+                state.setdefault(int(rid), _Ledger()).plan_start = int(start)
             return
         rid = int(rec["id"])
         led = state.setdefault(rid, _Ledger())
@@ -305,16 +308,22 @@ class Journal:
             "priority": str(priority),
         }, sync=True)
 
-    def append_progress(self, delivered: Dict[int, int]) -> None:
+    def append_progress(self, delivered: Dict[int, int],
+                        plan_starts: Optional[Dict[int, int]] = None
+                        ) -> None:
         """Journal this step's delivered high-water marks — ONE record
         for the whole batch, synced only at the ``fsync_batch``
-        cadence."""
+        cadence.  ``plan_starts`` carries a fleet request's chunk-plan
+        start with its first delivered mark, so a recovery regenerates
+        it in the same chunks."""
         if not delivered:
             return
-        self._append({"kind": "progress",
-                      "delivered": {str(k): int(v)
-                                    for k, v in delivered.items()}},
-                     sync=False)
+        rec = {"kind": "progress",
+               "delivered": {str(k): int(v) for k, v in delivered.items()}}
+        if plan_starts:
+            rec["plan_start"] = {str(k): int(v)
+                                 for k, v in plan_starts.items()}
+        self._append(rec, sync=False)
 
     def append_terminal(self, request_id: int, status: str, reason: str,
                         delivered: Optional[int] = None) -> None:
@@ -481,7 +490,8 @@ class Journal:
 
     def replay(self) -> Dict[int, dict]:
         """The recovery input: every NON-terminal submit's journaled
-        view — ``{id: {"record": <submit payload>, "delivered": hwm}}``
+        view — ``{id: {"record": <submit payload>, "delivered": hwm}}``,
+        with ``"plan_start"`` where the router journaled one
         (requests with a terminal record are done; progress-only ids —
         their submit record failed to land — cannot be replayed and are
         skipped)."""
@@ -491,6 +501,9 @@ class Journal:
                 continue
             out[rid] = {"record": dict(led.record),
                         "delivered": led.delivered}
+            if led.plan_start is not None:
+                # a fleet request's chunk-plan start (the router's)
+                out[rid]["plan_start"] = led.plan_start
         return out
 
     def ledger(self) -> Dict[int, Dict[str, object]]:

@@ -187,7 +187,8 @@ class _FleetRequest:
                  "engine_rid", "attempts", "delivered", "history",
                  "role_stage", "handoffs", "override", "priority",
                  "hedge_replica", "hedge_rid", "hedged",
-                 "journal_hwm", "journaled_submit", "journaled_terminal")
+                 "journal_hwm", "journaled_submit", "journaled_terminal",
+                 "plan_start", "journaled_plan")
 
     def __init__(self, fleet_id: int, prompt: np.ndarray,
                  max_new_tokens: int, sampling, eos_token_id,
@@ -232,6 +233,11 @@ class _FleetRequest:
         self.journal_hwm = 0
         self.journaled_submit = False
         self.journaled_terminal = False
+        # the radix hit the attempt that delivered the first token planned
+        # its chunks from (None until a token is delivered): every
+        # regeneration runs the rows from it in the same chunks
+        self.plan_start: Optional[int] = None
+        self.journaled_plan = False
 
 
 class _RouterMetrics:
@@ -958,6 +964,8 @@ class Router:
                                                 "interactive"))
             fr.journaled_submit = True     # this IS the journaled submit
             fr.delivered = fr.journal_hwm = delivered
+            fr.plan_start = info.get("plan_start")
+            fr.journaled_plan = fr.plan_start is not None
             fr.submit_time = time.perf_counter()
             # charge the downtime against the budgets: elapsed wall
             # clock since the original submission, deadlines relative
@@ -1241,12 +1249,15 @@ class Router:
     def _journal_progress(self) -> None:
         """Batch this step's delivered high-water marks into ONE journal
         record (host ints the dedup wrapper already tracks)."""
-        updates = {}
+        updates, starts = {}, {}
         for fid in self._live:
             fr = self._requests[fid]
             if fr.delivered > fr.journal_hwm:
                 updates[fid] = fr.journal_hwm = fr.delivered
-        self.journal.append_progress(updates)
+                if fr.plan_start is not None and not fr.journaled_plan:
+                    starts[fid] = fr.plan_start
+                    fr.journaled_plan = True
+        self.journal.append_progress(updates, plan_starts=starts)
 
     def _reject(self, fleet_id: int, prompt: np.ndarray, reason: str,
                 retry_after_s: Optional[float],
@@ -1276,7 +1287,8 @@ class Router:
 
     def _submit_to(self, h: ReplicaHandle, fr: _FleetRequest,
                    now: Optional[float] = None,
-                   max_new: Optional[int] = None) -> int:
+                   max_new: Optional[int] = None,
+                   regenerate: bool = True) -> int:
         """Submit (or RE-submit, on failover/handoff) one fleet request
         to a replica, with the deadline budgets shrunk by the time
         already spent — a failover must not silently grant a fresh
@@ -1284,7 +1296,15 @@ class Router:
         carries no TTFT deadline into the retry (the client's TTFT was
         met).  ``max_new`` overrides the client's budget — the
         prefill-stage submission caps at ONE token (the TTFT token; the
-        decode phase regenerates it deduped and continues)."""
+        decode phase regenerates it deduped and continues).
+
+        A regeneration (failover, hedge, recovery) carries the first
+        attempt's plan start: the target runs the rows from it in that
+        attempt's chunks, whatever its own radix cache holds, so a 16-bit
+        prefill regenerates the delivered tokens and the dedup mark never
+        splices two continuations.  The handoff's decode submission passes
+        ``regenerate=False``: its export rule already reruns the prefill's
+        last chunk at the same offset and width."""
         if now is None:
             now = time.perf_counter()
         elapsed = max(now - fr.submit_time, 0.0)
@@ -1302,7 +1322,8 @@ class Router:
             sampling=fr.sampling, eos_token_id=fr.eos_token_id,
             stream=self._fleet_stream(fr),
             deadline_s=deadline, ttft_deadline_s=ttft,
-            priority=fr.priority)
+            priority=fr.priority,
+            plan_start=fr.plan_start if regenerate else None)
 
     def _fleet_stream(self, fr: _FleetRequest) -> Callable:
         """The exactly-once dedup wrapper: every replica attempt streams
@@ -1311,6 +1332,8 @@ class Router:
         swallowed, so the client sees each token position once."""
         def cb(req, tok):
             pos = len(req.tokens) - 1   # _emit appends before calling
+            if fr.plan_start is None:
+                fr.plan_start = req.prefix_hit_tokens
             if pos < fr.delivered:
                 return
             fr.delivered = pos + 1
@@ -1972,7 +1995,7 @@ class Router:
         src, src_rid = fr.replica, fr.engine_rid
         for h in targets:
             try:
-                rid = self._submit_to(h, fr, now=now)
+                rid = self._submit_to(h, fr, now=now, regenerate=False)
             except RequestRejected:
                 continue
             fr.history.append((src, src_rid, why))

@@ -117,6 +117,10 @@ class Request:
     last_token_time: Optional[float] = None  # previous emit (TPOT)
     prefix_hit_tokens: int = 0               # prompt tokens served from
     prefill_chunks: int = 0                  # the radix cache / chunks run
+    # a regeneration's plan start (the router's failover, hedge and
+    # recovery): the first attempt's radix hit, below which this engine's
+    # match is capped and from which its chunks are the first attempt's
+    plan_start: Optional[int] = None
 
     @property
     def prompt_len(self) -> int:

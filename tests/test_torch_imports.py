@@ -62,7 +62,14 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
                 "paddle_tpu_torch.serving.router",
                 "paddle_tpu_torch.serving.fleet",
                 "paddle_tpu_torch.serving.handoff",
-                "paddle_tpu_torch.serving.autoscaler"):
+                "paddle_tpu_torch.serving.autoscaler",
+                "paddle_tpu_torch.distributed.topology",
+                "paddle_tpu_torch.distributed.strategy",
+                "paddle_tpu_torch.distributed.fleet",
+                "paddle_tpu_torch.distributed.sharding_utils",
+                "paddle_tpu_torch.distributed.pipelining",
+                "paddle_tpu_torch.distributed.meta_parallel.mp_layers",
+                "paddle_tpu_torch.optimizer.sgd"):
         assert mod in res["imported"]
 
 

@@ -133,13 +133,20 @@ def test_loss_is_mean_parallel_cross_entropy_with_ignore_index(jax_run):
 
 
 def test_trainer_refuses_parallel_degrees_and_needs_an_optimizer():
-    class Hcg:
-        def get_data_parallel_world_size(self):
-            return 2
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        GPTHybridTrainer(gpt_tiny(), Hcg(), AdamW(), device="cpu")
+    """The degrees the port's trainer does not take yet raise, naming
+    their ROADMAP item (dp / mp / pp / sharding are taken:
+    tests/test_torch_hybrid.py); every trainer needs an optimizer."""
+    from paddle_tpu_torch.distributed import HybridCommunicateGroup
+    for kw, item in (({"sep_degree": 2}, "item 9"),
+                     ({"ep_degree": 2}, "item 10")):
+        hcg = HybridCommunicateGroup(devices=["cpu"] * 2, **kw)
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
+            GPTHybridTrainer(gpt_tiny(), hcg, AdamW())
     with pytest.raises(ValueError, match="optimizer"):
         GPTHybridTrainer(gpt_tiny(), device="cpu")
+    with pytest.raises(ValueError, match="optimizer"):
+        GPTHybridTrainer(gpt_tiny(), HybridCommunicateGroup(
+            dp_degree=2, devices=["cpu"] * 2))
 
 
 def test_decode_attention_refuses_inputs_that_require_grad():
