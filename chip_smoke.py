@@ -182,6 +182,24 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      prediction (``hybrid_want``), step 1's loss within 1e-2 of the serial
      trainer's; step p50, tokens/s, model-FLOP share, memory after the
      build and at the peak;
+ 10b. example train — the reference's fleet example
+     (``paddle_tpu_torch/examples/train_gpt_hybrid.py``) on the card: (a)
+     its flow (``fleet.init``, ``hcg.get_mesh()``, ``sp=True,
+     remat=True``, ``FusedAdamW(multi_precision=True, grad_clip=
+     ClipGradByGlobalNorm(1.0))``) at gpt3_6_7b widths, 8 of 32 layers,
+     bf16, batch 4 x 2048, ``{mp 2, pp 2}``, 4 microbatches: step 1's loss
+     against ``sp=False, remat=False`` from the same weights (within
+     1e-2), 2 warm-up and 6 timed steps with the counts zeroed just before
+     and read just after and held to ``hybrid_want`` (the flash and
+     LayerNorm forwards twice a block), step p50, tokens/s, model-FLOP
+     share, memory after the build and at the peak, one step profiled with
+     the clip's device time; (b) the serial trainer with remat at 20
+     layers, batch 2 x 2048, 2 steps, its peak memory; (c) auto-resume at
+     2 layers: the example script trains 4 steps straight, then 2 steps
+     under ``{mp 2, pp 2}``, ``save_auto_resume`` (free disk checked
+     first), a serial trainer, ``load_auto_resume``, 2 steps within 1e-2
+     of the straight run's, the bytes written and the seconds to save and
+     load.  The train phases before it pass ``remat=False``;
  11. Llama train — ``LlamaForCausalLM(llama_7b())`` with 12 of its 32
      layers, batch 1 x 4096: forward, ``loss``, backward, one
      ``FusedAdamW(multi_precision=True)`` step; 2 warm-up and 6 counted
@@ -6178,7 +6196,8 @@ def phase_train(card: str, family: str):
     optimizer = FusedAdamW(learning_rate=TRAIN_LR, multi_precision=True)
     tag = f"[train:{family}]"
     if family == "gpt":
-        cfg = dataclasses.replace(gpt3_6_7b(), num_layers=TRAIN_LAYERS)
+        cfg = dataclasses.replace(gpt3_6_7b(remat=False),
+                                  num_layers=TRAIN_LAYERS)
         batch, seq = TRAIN_BATCH, TRAIN_SEQ
         tr = GPTHybridTrainer(cfg, optimizer=optimizer, device=DEVICE,
                               generator=gen)
@@ -6192,7 +6211,8 @@ def phase_train(card: str, family: str):
         nonzero = [n for n, _ in model.named_parameters()
                    if n.endswith("qkv.weight")]
     else:
-        cfg = dataclasses.replace(llama_7b(), num_layers=TRAIN_LAYERS)
+        cfg = dataclasses.replace(llama_7b(), num_layers=TRAIN_LAYERS,
+                                  remat=False)
         batch, seq = LLAMA_TRAIN_BATCH, LLAMA_TRAIN_SEQ
         model = LlamaForCausalLM(cfg, device=DEVICE, generator=gen).train()
         opt = optimizer.bind(model)
@@ -6305,6 +6325,7 @@ def profile_train(step, ids, labels, card: str, family: str) -> dict:
     share (summed kernel time over wall time) and the kernels that take
     the most device time."""
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -6317,6 +6338,14 @@ def profile_train(step, ids, labels, card: str, family: str) -> dict:
     kernels = kernel_ms(prof)
     busy_ms = sum(kernels.values())
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    # the trainer's own ranges (the clip): the device time of the kernels
+    # launched inside each, summed over the step
+    ranges = {}
+    for e in prof.events():
+        if e.name.startswith("GPTHybridTrainer.") and \
+                e.device_type == DeviceType.CPU:
+            ranges[e.name] = ranges.get(e.name, 0.0) + \
+                e.device_time_total / 1e3
     # kernel time by kind: cuBLAS GEMMs, the port's flash and AdamW
     # kernels, and everything else (eager elementwise, reductions, copies)
     kinds = {"gemm": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
@@ -6333,6 +6362,8 @@ def profile_train(step, ids, labels, card: str, family: str) -> dict:
            "busy_share": busy_ms / wall_ms if wall_ms else None,
            "device_ms_by_kind": by_kind,
            "top_kernels_ms": {k[:90]: v for k, v in top}}
+    if busy_ms:
+        out["ranges_ms"] = ranges
     if busy_ms == 0.0:
         log(f"[profile:train:{family}] the profiler saw no device time: "
             f"device busy share not measured")
@@ -6393,8 +6424,8 @@ def phase_train_parity(family: str) -> dict:
         if family == "gpt":
             gen = torch.Generator(device=where)
             gen.manual_seed(6)
-            tr = GPTHybridTrainer(dataclasses.replace(gpt_small(),
-                                                      num_layers=2),
+            cfg = dataclasses.replace(gpt_small(remat=False), num_layers=2)
+            tr = GPTHybridTrainer(cfg,
                                   optimizer=FusedAdamW(learning_rate=lr),
                                   device=where, generator=gen)
             model = tr.model
@@ -6489,7 +6520,11 @@ def hybrid_want(cfg, hybrid, microbatches, zero, vpp, batch) -> dict:
     pp), and one AdamW launch per slice updated, once per card: a block
     of an mp-split tensor, the wte / wpe rows over mp x pp, ZeRO's slices
     (the ``sharding`` dim ``shard_opt_state_specs`` picks on the stacked
-    layout; the stacked layer dim hands whole blocks to one rank)."""
+    layout; the stacked layer dim hands whole blocks to one rank).  Under
+    ``cfg.remat`` the backward runs each block's forward again: its flash
+    forward and its two LayerNorm forwards twice a step (ln_f once).
+    ``cfg.sp`` changes no count (each rank's norms run on its s/mp
+    rows)."""
     deg = {a: (hybrid or {}).get(f"{a}_degree", 1)
            for a in ("dp", "mp", "pp", "sharding")}
     mp, S, D = deg["mp"], deg["pp"], deg["sharding"]
@@ -6530,8 +6565,11 @@ def hybrid_want(cfg, hybrid, microbatches, zero, vpp, batch) -> dict:
         adamw += blocks * slices
     flash = L * units * mp
     norms = units * (2 * L * mp + vocab)
-    return {"flash_attention_fwd": flash, "flash_attention_bwd_dq": flash,
-            "flash_attention_bwd_dkv": flash, "layer_norm_fwd": norms,
+    rec = 2 if cfg.remat else 1
+    return {"flash_attention_fwd": rec * flash,
+            "flash_attention_bwd_dq": flash,
+            "flash_attention_bwd_dkv": flash,
+            "layer_norm_fwd": units * (rec * 2 * L * mp + vocab),
             "layer_norm_bwd": norms, "fused_adamw": adamw}
 
 
@@ -6568,7 +6606,8 @@ def phase_train_hybrid(card: str) -> dict:
     out = {"parity": {}, "runs": {}}
     # f32 parity at gpt_small width
     lr, steps = 1e-4, 2
-    cfg = dataclasses.replace(gpt_small(), num_layers=HYBRID_PARITY_LAYERS)
+    cfg = dataclasses.replace(gpt_small(remat=False),
+                              num_layers=HYBRID_PARITY_LAYERS)
     ref = hybrid_trainer(cfg, None, 1, 1, 1, FusedAdamW(learning_rate=lr), 7)
     ids, labels = ref.make_batch(HYBRID_PARITY_BATCH, HYBRID_PARITY_SEQ,
                                  seed=2)
@@ -6600,7 +6639,8 @@ def phase_train_hybrid(card: str) -> dict:
         topology.set_hybrid_communicate_group(None)
         free_card()
     # gpt3_6_7b widths at HYBRID_LAYERS layers
-    cfg = dataclasses.replace(gpt3_6_7b(), num_layers=HYBRID_LAYERS)
+    cfg = dataclasses.replace(gpt3_6_7b(remat=False),
+                              num_layers=HYBRID_LAYERS)
     launches = {}
     serial_first = None
     for label, hybrid, m, zero, vpp in HYBRID_RUNS:
@@ -6671,6 +6711,283 @@ def phase_train_hybrid(card: str) -> dict:
         del tr
         topology.set_hybrid_communicate_group(None)
     free_card()
+    return launches, out
+
+
+EXAMPLE_HYBRID = {"mp_degree": 2, "pp_degree": 2}
+EXAMPLE_LR, EXAMPLE_CLIP = 1e-3, 1.0
+# (a): the first steps held against sp=False, remat=False from the same
+# weights, each loss to this relative gap: 5x the larger reading PERF.md
+# records (step 1 is exact; after an update sp's backward sums the mp
+# ranks' bf16 gradients in another order, and Adam moves the elements
+# whose gradient is rounding noise by up to 2 lr)
+EXAMPLE_PARITY_STEPS, EXAMPLE_GAP_LIMIT = 3, 1e-3
+# (b): the deepest serial depth whose remat peak PERF.md reckons under
+# ~72 GB, at a batch whose no-remat peak it reckons well over 80 GB
+REMAT_DEEP_LAYERS, REMAT_DEEP_STEPS = 18, 2
+REMAT_DEEP_BATCH, REMAT_DEEP_SEQ = 8, 2048
+# (c): auto-resume at 2 layers (the least that splits over pp 2), steps
+# 3-4 to this relative gap from the straight run's (5x the larger
+# reading PERF.md records)
+RESUME_LAYERS, RESUME_GAP_LIMIT = 2, 1e-4
+
+
+def example_optimizer():
+    """The optimizer of ``paddle_tpu_torch/examples/train_gpt_hybrid.py``
+    for a bf16 config: ``FusedAdamW(learning_rate=1e-3, grad_clip=
+    ClipGradByGlobalNorm(1.0), multi_precision=True)``."""
+    from paddle_tpu_torch.optimizer import ClipGradByGlobalNorm, FusedAdamW
+    return FusedAdamW(learning_rate=EXAMPLE_LR, multi_precision=True,
+                      grad_clip=ClipGradByGlobalNorm(EXAMPLE_CLIP))
+
+
+def example_main_path(card: str, kernels) -> tuple:
+    """(a): the example's flow at gpt3_6_7b widths, ``HYBRID_LAYERS``
+    layers (as ``phase_train_hybrid``'s ``{mp 2, pp 2}`` run), bf16, batch
+    4 x 2048, ``{mp 2, pp 2}``, 4 microbatches,
+    ``sp=True, remat=True``, the clipped ``FusedAdamW``, every rank on the
+    card.  First ``EXAMPLE_PARITY_STEPS`` steps with ``sp=False,
+    remat=False`` from the same weights (the same arithmetic), held to the
+    example's first steps (the later ones after the clipped updates, so
+    they read sp's and remat's backward and the clip); then 2 warm-up and
+    6 timed steps, the
+    counts zeroed just before and read just after and held to
+    ``hybrid_want``; one step profiled, the clip's own device time from
+    its ``record_function`` range."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import (get_hybrid_communicate_group,
+                                              topology)
+    from paddle_tpu_torch.models import gpt3_6_7b
+    from paddle_tpu_torch.models.trainer import CLIP_RANGE
+    tag = "[train:example]"
+    m = max(2 * EXAMPLE_HYBRID["pp_degree"], 2)
+    base = dataclasses.replace(gpt3_6_7b(), num_layers=HYBRID_LAYERS)
+    plain_cfg = dataclasses.replace(base, sp=False, remat=False)
+    tr = hybrid_trainer(plain_cfg, EXAMPLE_HYBRID, m, 1, 1,
+                        example_optimizer(), 4321)
+    ids, labels = tr.make_batch(HYBRID_BATCH, HYBRID_SEQ, seed=0)
+    plain = [float(tr.train_step(ids, labels))
+             for _ in range(EXAMPLE_PARITY_STEPS)]
+    del tr
+    topology.set_hybrid_communicate_group(None)
+    free_card()
+    cfg = dataclasses.replace(base, sp=True, remat=True)
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    tr = hybrid_trainer(cfg, EXAMPLE_HYBRID, m, 1, 1, example_optimizer(),
+                        4321)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    built_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+    mesh = dict(get_hybrid_communicate_group().get_mesh().shape)
+    losses = [float(tr.train_step(ids, labels))
+              for _ in range(HYBRID_WARMUP)]
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.launches = 0
+    step_ms = []
+    for _ in range(HYBRID_STEPS):
+        t = time.perf_counter()
+        losses.append(float(tr.train_step(ids, labels)))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    got = {name: k.launches for name, k in zip(HYBRID_KERNELS, kernels)}
+    want = {k: v * HYBRID_STEPS for k, v in hybrid_want(
+        cfg, EXAMPLE_HYBRID, m, 1, 1, HYBRID_BATCH).items()}
+    peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    p50 = float(np.median(step_ms))
+    tok_s = HYBRID_BATCH * HYBRID_SEQ / (p50 / 1e3)
+    flops = 6 * cfg.num_params() + 12 * cfg.num_layers * cfg.hidden_size * \
+        HYBRID_SEQ
+    mfu = flops * tok_s / PEAK_FLOPS["bfloat16"]
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses, plain)]
+    rec = {"mesh": mesh, "microbatches": m, "sp": True, "remat": True,
+           "clip": EXAMPLE_CLIP, "losses": losses, "plain_losses": plain,
+           "plain_gaps": gaps, "plain_gap_limit": EXAMPLE_GAP_LIMIT,
+           "step_ms": step_ms, "step_ms_p50": p50, "tokens_per_s": tok_s,
+           "mfu": mfu, "built_gb": built_gb, "peak_gb": peak_gb,
+           "build_s": build_s, "stage_calls": tr.stage_calls,
+           "launches_per_step": {k: v / HYBRID_STEPS for k, v in got.items()},
+           "launches_per_step_want": {k: v / HYBRID_STEPS
+                                      for k, v in want.items()}}
+    log(f"{tag} mesh {json.dumps(mesh)}; gpt3_6_7b widths, "
+        f"{cfg.num_layers} of 32 layers, bf16, batch {HYBRID_BATCH} x "
+        f"{HYBRID_SEQ}, {m} microbatches, sp, remat, FusedAdamW with "
+        f"ClipGradByGlobalNorm({EXAMPLE_CLIP}): step p50 {p50:.1f} ms "
+        f"({[round(x, 1) for x in step_ms]}), {tok_s:.0f} tokens/s, "
+        f"model-FLOP share {mfu:.3f}; memory after the build {built_gb:.2f} "
+        f"GB (built in {build_s:.1f} s), peak {peak_gb:.2f} GB; losses "
+        f"{[round(x, 5) for x in losses]}, relative gaps of steps 1-"
+        f"{EXAMPLE_PARITY_STEPS} to sp=False remat=False "
+        f"{[f'{x:.2e}' for x in gaps]} ({plain}, limit "
+        f"{EXAMPLE_GAP_LIMIT}); launches a step "
+        f"{json.dumps(rec['launches_per_step'])} (want "
+        f"{json.dumps(rec['launches_per_step_want'])}) (card: {card})")
+    if got != want:
+        raise AssertionError(f"{tag} launches {got} != the layout's {want}")
+    if not all(np.isfinite(losses)) or not max(gaps) <= EXAMPLE_GAP_LIMIT:
+        raise AssertionError(f"{tag} losses {losses} (gaps {gaps} to "
+                             f"sp=False, remat=False: {plain})")
+    prof = profile_train(tr.train_step, ids, labels, card, "example")
+    rec["profile"] = prof
+    clip_ms = prof.get("ranges_ms", {}).get(CLIP_RANGE)
+    rec["clip_device_ms"] = clip_ms
+    log(f"{tag} the clip's device time in the profiled step (its "
+        f"record_function range): "
+        f"{'not measured' if clip_ms is None else f'{clip_ms:.3f} ms'} "
+        f"(card: {card})")
+    del tr
+    topology.set_hybrid_communicate_group(None)
+    return got, rec
+
+
+def example_remat_deep(card: str) -> dict:
+    """(b): the serial trainer at ``REMAT_DEEP_LAYERS`` layers of gpt3_6_7b
+    width, batch ``REMAT_DEEP_BATCH`` x ``REMAT_DEEP_SEQ``, ``remat=True``,
+    the clipped ``FusedAdamW``,
+    ``REMAT_DEEP_STEPS`` steps: the peak device memory (the no-remat run
+    at this depth is not made; PERF.md reckons both)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.models import gpt3_6_7b
+    tag = "[train:example]"
+    cfg = dataclasses.replace(gpt3_6_7b(remat=True),
+                              num_layers=REMAT_DEEP_LAYERS)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    tr = hybrid_trainer(cfg, None, 1, 1, 1, example_optimizer(), 4321)
+    ids, labels = tr.make_batch(REMAT_DEEP_BATCH, REMAT_DEEP_SEQ, seed=0)
+    step_ms, losses = [], []
+    for _ in range(REMAT_DEEP_STEPS):
+        t = time.perf_counter()
+        losses.append(float(tr.train_step(ids, labels)))
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    peak_gb = (torch.cuda.max_memory_allocated() - mem0) / 1e9
+    rec = {"layers": cfg.num_layers, "params": cfg.num_params(),
+           "batch": REMAT_DEEP_BATCH, "seq": REMAT_DEEP_SEQ,
+           "losses": losses,
+           "step_ms": step_ms, "peak_gb": peak_gb}
+    log(f"{tag} remat, serial, gpt3_6_7b widths at {cfg.num_layers} of 32 "
+        f"layers ({cfg.num_params() / 1e9:.3f}B params), batch "
+        f"{REMAT_DEEP_BATCH} x {REMAT_DEEP_SEQ}: peak {peak_gb:.2f} GB, steps "
+        f"{[round(x, 1) for x in step_ms]} ms, losses "
+        f"{[round(x, 5) for x in losses]} (card: {card})")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"{tag} remat deep run: losses {losses}")
+    del tr
+    free_card()
+    return rec
+
+
+def example_resume(card: str) -> dict:
+    """(c): at gpt3_6_7b width with ``RESUME_LAYERS`` layers, the example
+    script (``paddle_tpu_torch.examples.train_gpt_hybrid.main``) trains 4
+    steps straight under ``{mp 2, pp 2}``; then the same flow trains 2
+    steps under ``{mp 2, pp 2}``, ``save_auto_resume``, a serial trainer,
+    ``load_auto_resume``, 2 more steps, whose losses must come within
+    ``RESUME_GAP_LIMIT`` (relative) of the straight run's steps 3-4.  The checkpoint goes to a
+    temporary directory, checked for room first and removed after."""
+    import dataclasses
+    import shutil
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.distributed import topology
+    from paddle_tpu_torch.distributed.fleet_utils import (load_auto_resume,
+                                                          save_auto_resume)
+    from paddle_tpu_torch.examples.train_gpt_hybrid import main
+    from paddle_tpu_torch.models import gpt3_6_7b
+    tag = "[train:example]"
+    batch, seq = HYBRID_BATCH, HYBRID_SEQ
+    args = ["--config", "gpt3_6_7b", "--layers", str(RESUME_LAYERS),
+            "--batch", str(batch), "--seq", str(seq), "--mp", "2", "--pp",
+            "2", "--steps", "4", "--device", DEVICE]
+    straight = [loss for _, loss in main(args)]
+    topology.set_hybrid_communicate_group(None)
+    free_card()
+    # what the example builds for these flags
+    cfg = dataclasses.replace(gpt3_6_7b(sp=True, remat=True),
+                              num_layers=RESUME_LAYERS)
+    # the train state: bf16 weights written as float32, f32 masters and
+    # moments, 16 B a parameter
+    need = 16 * cfg.num_params()
+    root = tempfile.mkdtemp(prefix="train_example_ckpt_")
+    try:
+        free = shutil.disk_usage(root).free
+        if free < 2 * need:
+            raise RuntimeError(f"{tag} {free / 1e9:.1f} GB free under {root}, "
+                               f"the checkpoint needs {need / 1e9:.1f} GB "
+                               f"(twice that asked for)")
+        tr = hybrid_trainer(cfg, EXAMPLE_HYBRID, 4, 1, 1, example_optimizer(),
+                            0)
+        ids, labels = tr.make_batch(batch, seq)
+        losses = [float(tr.train_step(ids, labels)) for _ in range(2)]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        path = save_auto_resume(tr.train_state(), root, step=2)
+        save_s = time.perf_counter() - t0
+        written = sum(os.path.getsize(os.path.join(path, f))
+                      for f in os.listdir(path))
+        del tr
+        topology.set_hybrid_communicate_group(None)
+        free_card()
+        serial = dataclasses.replace(cfg, sp=False)
+        tr = hybrid_trainer(serial, None, 1, 1, 1, example_optimizer(), 1)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, step = load_auto_resume(tr.train_state(), root)
+        tr.load_train_state(state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        del state
+        if step != 2:
+            raise AssertionError(f"{tag} resumed at step {step}, saved at 2")
+        losses += [float(tr.train_step(ids, labels)) for _ in range(2)]
+        del tr
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    gaps = [abs(a - b) / abs(b) for a, b in zip(losses[2:], straight[2:])]
+    rec = {"layers": RESUME_LAYERS, "batch": batch, "seq": seq,
+           "straight": straight, "resumed": losses, "gaps": gaps,
+           "bytes_written": written, "save_s": save_s, "load_s": load_s,
+           "free_bytes": free}
+    log(f"{tag} auto-resume, gpt3_6_7b widths at {RESUME_LAYERS} layers, "
+        f"batch {batch} x {seq}: the example straight {straight}; 2 steps "
+        f"under {{mp 2, pp 2}}, saved {written / 1e9:.3f} GB in {save_s:.2f} "
+        f"s, loaded into the serial trainer in {load_s:.2f} s, then 2 steps: "
+        f"{losses} (relative gaps at steps 3-4 {gaps}) (card: {card})")
+    if not max(gaps) <= RESUME_GAP_LIMIT:
+        raise AssertionError(f"{tag} resumed losses {losses[2:]} vs the "
+                             f"straight run's {straight[2:]}")
+    free_card()
+    return rec
+
+
+def phase_train_example(card: str) -> tuple:
+    """The reference's fleet example on the port: (a) its main path at
+    gpt3_6_7b width, (b) what remat is for, (c) auto-resume across
+    layouts.  Returns (a)'s launches over its timed steps and the
+    records."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_adamw as fw
+    from paddle_tpu_torch.kernels import fused_norm as fn
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    kernels = [getattr(fa, k) for k in HYBRID_KERNELS[:3]] + \
+        [getattr(fn, k) for k in HYBRID_KERNELS[3:5]] + [fw.fused_adamw]
+    free_card()
+    launches, main_path = example_main_path(card, kernels)
+    out = {"main": main_path}
+    out["remat_deep"] = example_remat_deep(card)
+    out["resume"] = example_resume(card)
     return launches, out
 
 
@@ -7295,6 +7612,9 @@ def main() -> int:
     hybrid_launches, hybrid = run_phase("train:hybrid", phase_train_hybrid,
                                         card)
     free_card()
+    example_launches, example = run_phase("train:example",
+                                          phase_train_example, card)
+    free_card()
     llama_launches, llama_train = run_phase("train:llama", phase_train, card,
                                             "llama")
     llama_train["parity"] = llama_parity
@@ -7386,7 +7706,8 @@ def main() -> int:
             "launches_by_path": {"train": train_launches[name],
                                  "llama_train": llama_launches[name],
                                  **{f"hybrid_{k}": v[name]
-                                    for k, v in hybrid_launches.items()}},
+                                    for k, v in hybrid_launches.items()},
+                                 "example": example_launches[name]},
             **train_recs[name]})
     # the segment-id variant: the packed flash_attn_unpadded call
     for name, line in (("flash_attention_fwd", 77),
@@ -7411,13 +7732,15 @@ def main() -> int:
                            "train": train_launches,
                            **{f"hybrid_{k}": v
                               for k, v in hybrid_launches.items()},
+                           "example": example_launches,
                            "durable_attach": durable["launches_attach"],
                            "fleet": fleet["launches"],
                            **{f"spec_{k}": v for k, v in spec_l.items()
                               if k.startswith("gpt")}},
         "layer_norm_bwd": {"train": train_launches,
                            **{f"hybrid_{k}": v
-                              for k, v in hybrid_launches.items()}},
+                              for k, v in hybrid_launches.items()},
+                           "example": example_launches},
     }
     for name, line in zip(NORM_KERNELS, (22, 30, 167, 179)):
         paths = {path: counts[name] for path, counts in by_path[name].items()}
@@ -7479,6 +7802,7 @@ def main() -> int:
         f"{json.dumps(chaos)}; durable serving {json.dumps(durable)}; "
         f"fleet serving {json.dumps(fleet)}; "
         f"train {json.dumps(train)}; hybrid train {json.dumps(hybrid)}; "
+        f"example train {json.dumps(example)}; "
         f"llama train {json.dumps(llama_train)}; tiny serving "
         f"{json.dumps(tiny)}")
     log(json.dumps({"kernels": kernels}))

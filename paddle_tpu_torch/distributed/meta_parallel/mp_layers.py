@@ -27,6 +27,7 @@ from typing import List, Optional, Sequence, Union
 import torch
 from torch import nn
 
+from ...device import resolve_device
 from ...nn.functional.input import embedding
 from ...nn.layers.common import Linear
 from ..mesh import Mesh, psum
@@ -38,38 +39,82 @@ __all__ = ["ColumnParallelLinear", "RowParallelLinear",
            "parallel_cross_entropy", "sharded_row_take", "split"]
 
 
+def _mp_axis(mp_group) -> str:
+    """The grid axis a layer splits over: ``mp_group``'s name, else
+    ``"mp"`` (mp_layers.py:36)."""
+    if mp_group is not None and hasattr(mp_group, "name"):
+        return mp_group.name
+    return "mp"
+
+
+def _no_weight_attr(weight_attr) -> None:
+    if weight_attr is not None:
+        raise NotImplementedError(
+            "weight_attr: ParamAttr and the initializer zoo are not ported "
+            "yet (ROADMAP queue 1 item 10); the port draws weights from the "
+            "reference's default initializers and an explicit generator=")
+
+
 class _Linear(Linear):
     """``y = x @ weight + bias`` with ``weight [in, out]`` (the reference's
-    ``F.linear`` layout); bias starts at zero."""
+    ``F.linear`` layout), XavierNormal-initialised; the bias starts at
+    zero."""
 
-    def __init__(self, in_features: int, out_features: int,
-                 has_bias: bool = True, *, device: torch.device,
-                 dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+    def __init__(self, in_features: int, out_features: int, weight_attr,
+                 has_bias: bool, mp_group, *, device, dtype, generator):
+        _no_weight_attr(weight_attr)
         super().__init__(in_features, out_features,
                          bias_attr=None if has_bias else False,
-                         device=device, dtype=dtype, generator=generator)
+                         device=resolve_device(device), dtype=dtype,
+                         generator=generator)
+        self._axis = _mp_axis(mp_group)
 
 
 class ColumnParallelLinear(_Linear):
     """Linear whose ``[in, out]`` weight (and bias) split on the output
-    columns over mp (mp_layers.py:52)."""
+    columns over mp (mp_layers.py:52), with the reference's constructor
+    (``weight_attr`` only None: queue 1 item 10).  The layer holds its
+    whole weight under the single controller, so ``gather_output`` (the
+    reference's output layout: replicated, or mp-sharded to feed a
+    ``RowParallelLinear``) and ``fuse_matmul_bias`` change no arithmetic;
+    the hybrid trainer splits the weight by the spec."""
 
-    def __init__(self, *args, **kw):
-        super().__init__(*args, **kw)
-        set_param_spec(self, "weight", P(None, "mp"))
+    def __init__(self, in_features: int, out_features: int,
+                 weight_attr=None, has_bias: bool = True,
+                 gather_output: bool = True, fuse_matmul_bias: bool = False,
+                 mp_group=None, name=None, *,
+                 device: Union[None, str, torch.device] = None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_features, out_features, weight_attr, has_bias,
+                         mp_group, device=device, dtype=dtype,
+                         generator=generator)
+        self.gather_output = gather_output
+        set_param_spec(self, "weight", P(None, self._axis))
         if self.bias is not None:
-            set_param_spec(self, "bias", P("mp"))
+            set_param_spec(self, "bias", P(self._axis))
 
 
 class RowParallelLinear(_Linear):
     """Linear whose ``[in, out]`` weight splits on the input rows over mp;
     the partial products are summed over the group, then the replicated
-    bias is added (mp_layers.py:84)."""
+    bias is added (mp_layers.py:84), with the reference's constructor.  The
+    layer holds its whole weight under the single controller, so
+    ``input_is_parallel`` (the input arrives mp-sharded on its features)
+    and ``fuse_matmul_bias`` change no arithmetic."""
 
-    def __init__(self, *args, **kw):
-        super().__init__(*args, **kw)
-        set_param_spec(self, "weight", P("mp", None))
+    def __init__(self, in_features: int, out_features: int,
+                 weight_attr=None, has_bias: bool = True,
+                 input_is_parallel: bool = False,
+                 fuse_matmul_bias: bool = False, mp_group=None, name=None,
+                 *, device: Union[None, str, torch.device] = None,
+                 dtype: torch.dtype = torch.float32,
+                 generator: Optional[torch.Generator] = None):
+        super().__init__(in_features, out_features, weight_attr, has_bias,
+                         mp_group, device=device, dtype=dtype,
+                         generator=generator)
+        self.input_is_parallel = input_is_parallel
+        set_param_spec(self, "weight", P(self._axis, None))
         if self.bias is not None:
             set_param_spec(self, "bias", P())
 
@@ -79,19 +124,23 @@ class VocabParallelEmbedding(nn.Module):
     (mp_layers.py:137): a negative id wraps once (numpy-style), and an id
     that is still out of range yields a NaN row.  Nothing raises, and on
     the card no device-side assert can fire: every gathered index is
-    clamped in range before the lookup and the fill is applied after."""
+    clamped in range before the lookup and the fill is applied after.
+    The reference's constructor; the table splits on its rows over mp."""
 
-    def __init__(self, num_embeddings: int, embedding_dim: int, *,
-                 device: torch.device, dtype: torch.dtype = torch.float32,
+    def __init__(self, num_embeddings: int, embedding_dim: int,
+                 weight_attr=None, mp_group=None, name=None, *,
+                 device: Union[None, str, torch.device] = None,
+                 dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        _no_weight_attr(weight_attr)
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
-        w = torch.empty((num_embeddings, embedding_dim), device=device,
-                        dtype=dtype)
+        w = torch.empty((num_embeddings, embedding_dim),
+                        device=resolve_device(device), dtype=dtype)
         w.normal_(0.0, 0.02, generator=generator)
         self.weight = nn.Parameter(w)
-        set_param_spec(self, "weight", P("mp", None))
+        set_param_spec(self, "weight", P(_mp_axis(mp_group), None))
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:
         return embedding(ids, self.weight)

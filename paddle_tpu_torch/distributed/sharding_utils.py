@@ -11,14 +11,15 @@ device, ``Mesh.replicate``'s rule).
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from .mesh import Grid
 
-__all__ = ["P", "set_param_spec", "get_param_specs", "spec_axes",
-           "shard_index", "shard_block", "shard_state",
+__all__ = ["P", "ShardedTensor", "set_param_spec", "get_param_specs",
+           "spec_axes", "shard_index", "shard_block", "shard_state",
            "shard_opt_state_specs", "zero_dim"]
 
 
@@ -30,6 +31,17 @@ class P(tuple):
 
     def __repr__(self) -> str:
         return f"P{tuple(self)!r}"
+
+
+@dataclasses.dataclass
+class ShardedTensor:
+    """A global tensor of ``shape`` held in ``pieces``, each ``(global
+    offset, local tensor)``, every element in exactly one piece: a value
+    whose replicas are listed once (what the shard-aware checkpoint writes,
+    and the layout it loads into)."""
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    pieces: List[Tuple[Tuple[int, ...], torch.Tensor]]
 
 
 def set_param_spec(layer, name: str, spec: P) -> None:

@@ -168,6 +168,16 @@ class HybridCommunicateGroup:
     def grid(self) -> Grid:
         return self._grid
 
+    @property
+    def mesh(self) -> Grid:
+        """The rank grid (the reference's ``Mesh``, topology.py:201-205):
+        ``dict(hcg.get_mesh().shape)`` maps each axis name to its degree in
+        the reference's order."""
+        return self._grid
+
+    def get_mesh(self) -> Grid:
+        return self._grid
+
     def topology(self) -> CommunicateTopology:
         return self._topo
 

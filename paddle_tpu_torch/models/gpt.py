@@ -23,6 +23,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device, resolve_dtype
+from ..distributed.recompute import remat_wrap
 from ..distributed.meta_parallel.mp_layers import (
     ColumnParallelLinear, RowParallelLinear, VocabParallelEmbedding,
     parallel_cross_entropy)
@@ -52,6 +53,18 @@ class GPTConfig:
     tie_embeddings: bool = True
     dtype: str = "float32"
     use_bias: bool = True
+    # parallel / runtime knobs (gpt.py:61-67)
+    sp: bool = False          # sequence-parallel activations between blocks
+    # recompute per block in the training forward: False | True (full) |
+    # a policy name (distributed/recompute.py)
+    remat: Union[bool, str] = True
+    cp: Optional[str] = None  # context parallelism: not ported
+
+    def __post_init__(self):
+        if self.cp is not None:
+            raise NotImplementedError(
+                f"cp={self.cp!r}: context parallelism is not ported yet "
+                f"(ROADMAP queue 1 item 9); set cp=None")
 
     @property
     def head_dim(self) -> int:
@@ -80,15 +93,19 @@ class GPTBlock(nn.Module):
         h = cfg.hidden_size
         kw = dict(device=device, dtype=dtype)
         self.ln_1 = LayerNorm(h, epsilon=cfg.layer_norm_eps, **kw)
-        self.qkv = ColumnParallelLinear(h, 3 * h, has_bias=cfg.use_bias,
+        self.qkv = ColumnParallelLinear(h, 3 * h, gather_output=False,
+                                        has_bias=cfg.use_bias,
                                         generator=generator, **kw)
-        self.out_proj = RowParallelLinear(h, h, has_bias=cfg.use_bias,
+        self.out_proj = RowParallelLinear(h, h, input_is_parallel=True,
+                                          has_bias=cfg.use_bias,
                                           generator=generator, **kw)
         self.ln_2 = LayerNorm(h, epsilon=cfg.layer_norm_eps, **kw)
         self.fc_in = ColumnParallelLinear(h, cfg.ffn_size,
+                                          gather_output=False,
                                           has_bias=cfg.use_bias,
                                           generator=generator, **kw)
         self.fc_out = RowParallelLinear(cfg.ffn_size, h,
+                                        input_is_parallel=True,
                                         has_bias=cfg.use_bias,
                                         generator=generator, **kw)
         self.drop = Dropout(cfg.dropout, generator=generator)
@@ -116,18 +133,18 @@ class GPTBlock(nn.Module):
 
     def partial(self, x: torch.Tensor, half: str) -> torch.Tensor:
         """One mp rank's share of half the block, before the row-parallel
-        sum (the hybrid trainer's Megatron body): ``"attn"`` is ln_1 ->
-        QKV -> causal attention over the block's heads -> ``@
-        out_proj.weight``; ``"mlp"`` is ln_2 -> fc_in -> GELU (tanh) -> ``@
-        fc_out.weight``.  With an mp shard's weights (QKV columns
-        ``[q_d | k_d | v_d]`` of its head group) the heads and ffn columns
-        are the shard's; the caller sums the partials over the group, then
-        adds the bias and the residual."""
+        sum (the hybrid trainer's Megatron body), on ``x`` already through
+        the half's LayerNorm: ``"attn"`` is QKV -> causal attention over
+        the block's heads -> ``@ out_proj.weight``; ``"mlp"`` is fc_in ->
+        GELU (tanh) -> ``@ fc_out.weight``.  With an mp shard's weights
+        (QKV columns ``[q_d | k_d | v_d]`` of its head group) the heads and
+        ffn columns are the shard's; the caller sums the partials over the
+        group, then adds the bias and the residual."""
         if half == "mlp":
-            return torch.matmul(gelu(self.fc_in(self.ln_2(x)),
-                                     approximate=True), self.fc_out.weight)
+            return torch.matmul(gelu(self.fc_in(x), approximate=True),
+                                self.fc_out.weight)
         b, s, _ = x.shape
-        qkv = self.qkv(self.ln_1(x)).view(b, s, 3, -1, self.cfg.head_dim)
+        qkv = self.qkv(x).view(b, s, 3, -1, self.cfg.head_dim)
         out = scaled_dot_product_attention(qkv[:, :, 0], qkv[:, :, 1],
                                            qkv[:, :, 2], is_causal=True)
         return torch.matmul(out.reshape(b, s, -1), self.out_proj.weight)
@@ -210,9 +227,12 @@ class GPTModel(nn.Module):
                 caches: Optional[List[Cache]] = None):
         x = self.embed(input_ids)
         new_caches = []
+        # cfg.remat per block in the training forward; a no-grad or cached
+        # forward never recomputes (gpt.py:211-220)
+        remat = self.cfg.remat if torch.is_grad_enabled() else False
         for i, block in enumerate(self.h):
             if caches is None:
-                x = block(x)
+                x = remat_wrap(block, remat)(x)
             else:
                 x, c = block(x, caches[i])
                 new_caches.append(c)

@@ -17,8 +17,10 @@ through the decode-block kernel pair.  All three read kv head
 own heads: the reference's ``jnp.repeat`` of the cache (a broadcast under
 XLA) would be a copy of ``[B, S_max, H, D]`` per layer per step here.
 
-Not ported yet (ROADMAP): ``llama_shard_fn`` (tensor-parallel
-training), ``remat``, ``chunked_loss``.
+``cfg.remat`` recomputes each layer in the uncached training forward
+(``distributed/recompute.py``; off by default, as in the reference).
+Not ported yet (ROADMAP): ``llama_shard_fn`` (tensor-parallel training),
+``chunked_loss``.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device, resolve_dtype
+from ..distributed.recompute import remat_wrap
 from ..kernels.decode_attention import decode_attention_auto
 from ..kernels.decode_block import decode_block_layer, fusion_legal
 from ..nn.functional import scaled_dot_product_attention, silu
@@ -58,6 +61,9 @@ class LlamaConfig:
     rope_theta: float = 10000.0
     dropout: float = 0.0
     dtype: str = "float32"
+    # recompute per layer in the training forward: False | True | a
+    # policy name (distributed/recompute.py; llama.py:52-53)
+    remat: Union[bool, str] = False
 
     @property
     def kv_heads(self) -> int:
@@ -249,9 +255,10 @@ class LlamaModel(nn.Module):
         pos = _positions(position_offset, input_ids.shape[1], x.device)
         cos, sin = _rope_tables(pos, cfg.head_dim, cfg.rope_theta, x.dtype)
         new_caches = []
+        remat = cfg.remat if torch.is_grad_enabled() else False
         for i, layer in enumerate(self.layers):
             if caches is None:
-                x = layer(x, cos, sin)
+                x = remat_wrap(layer, remat)(x, cos, sin)
             else:
                 x, c = layer(x, cos, sin, caches[i])
                 new_caches.append(c)

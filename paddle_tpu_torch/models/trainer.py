@@ -32,13 +32,40 @@ step is eager: ``train_step(ids, labels) -> loss``.
   through the matching view, so every slice the kernel writes in place is
   contiguous.
 
+* ``cfg.sp`` at mp > 1 (sequence parallelism): between blocks each mp
+  rank holds its ``s/mp`` rows of the residual (the layout of the
+  reference's block code, ``[b, s/mp, h]``); each rank normalises its
+  rows, the rows are gathered before QKV / fc_in, the out_proj / fc_out
+  partials are reduced and scattered on the sequence, and the bias and the
+  residual add run on the rank's rows.  The embedding hands each stage-0
+  rank its rows; the head gathers them.
+* ``cfg.remat``: each block, across its mp ranks, runs under
+  ``distributed.recompute.remat_wrap`` (the reference wraps
+  ``_block_apply``), so the backward runs its forward again.
+* the optimizer's ``grad_clip``: the reference trainer updates the
+  non-block tensors and the block stack in two ``update`` calls
+  (trainer.py:340-341), so a global-norm clip takes one norm for each of
+  the two groups; the port does the same, over the logical gradient
+  (each element once: a replica once, each ZeRO slice once).  The rate is
+  ``optimizer.get_lr()``, read once a step.
+
 A value replicated over ranks on one device is held once there: the
 ranks share the tensor, and autograd sums their gradient contributions,
 which is the dp / sharding gradient all-reduce.  Replicas on different
 devices sum their gradients explicitly and ZeRO slices are copied between
-them after the update.  Not ported (ROADMAP queue 1): ``sep`` / context
-parallelism, ``ep`` (``GPTMoEHybridTrainer``), ``sp``, ``remat`` and, in
-the hybrid path, dropout.
+them after the update.
+
+``train_state()`` is every tensor a resumed step depends on (parameters,
+the optimizer's slots, masters and step, the scheduler's state) by name,
+in the reference's global layout, each element once (pieces of a
+``ShardedTensor`` for the hybrid layout), viewing the trainer's own
+storage.  ``fleet_utils.save_auto_resume`` writes it; ``load_auto_resume``
+fills it in place from a checkpoint of any layout, and
+``load_train_state`` then copies the replicas and sets the step and the
+scheduler.
+
+Not ported (ROADMAP queue 1): ``sep`` / context parallelism, ``ep``
+(``GPTMoEHybridTrainer``) and, in the hybrid path, dropout.
 """
 
 from __future__ import annotations
@@ -49,18 +76,27 @@ from typing import Dict, List, Optional, Tuple, Union
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ..distributed.mesh import Mesh, psum
 from ..distributed.meta_parallel.mp_layers import (parallel_cross_entropy,
                                                    sharded_row_take)
+from ..distributed.meta_parallel.sequence_parallel import (all_gather,
+                                                           reduce_scatter,
+                                                           scatter)
 from ..distributed.pipelining import (pipeline_apply,
                                       pipeline_apply_interleaved)
-from ..distributed.sharding_utils import (P, get_param_specs, shard_block,
-                                          shard_index, spec_axes, zero_dim)
+from ..distributed.recompute import remat_wrap
+from ..distributed.sharding_utils import (P, ShardedTensor, get_param_specs,
+                                          shard_block, shard_index,
+                                          spec_axes, zero_dim)
 from ..nn.functional import layer_norm
 from .gpt import GPTBlock, GPTConfig, GPTForCausalLM
 
 __all__ = ["GPTHybridTrainer"]
+
+# the profiler range around the clip's work in a hybrid step
+CLIP_RANGE = "GPTHybridTrainer.clip"
 
 
 class _BlockShard(nn.Module):
@@ -90,6 +126,12 @@ class _Layout:
 
 def _bias(t: torch.Tensor, b: Optional[torch.Tensor]) -> torch.Tensor:
     return t if b is None else t + b
+
+
+def _ptrs(x) -> List[int]:
+    """Where a tensor's or a ``ShardedTensor``'s pieces' data start."""
+    return [t.data_ptr() for _, t in x.pieces] \
+        if isinstance(x, ShardedTensor) else [x.data_ptr()]
 
 
 class GPTHybridTrainer:
@@ -136,6 +178,10 @@ class GPTHybridTrainer:
         self.model = None
         self.opt = optimizer
         self._build(generator)
+        self.sp = cfg.sp and self.mp > 1
+        # the hybrid path refuses dropout: no generator to replay
+        self._block_run = remat_wrap(self._block_body, cfg.remat,
+                                     generators=[])
 
     def _check_group(self, hcg) -> None:
         cfg = self.cfg
@@ -192,7 +238,8 @@ class GPTHybridTrainer:
                 specs[k] = P(spec_axes(old[0]) + ("pp",), *old[1:])
         self._vocab_axes = spec_axes(specs[self.KEY_WTE][0])
         self._layout: Dict[str, _Layout] = {}
-        shapes = {n: tuple(p.shape) for n, p in model.named_parameters()}
+        shapes = self._shapes = {n: tuple(p.shape)
+                                 for n, p in model.named_parameters()}
         stacked_specs, stacked_shapes = {}, {}
         for n, shape in shapes.items():
             spec = P(*(tuple(specs[n]) + (None,) * (len(shape)
@@ -374,19 +421,31 @@ class GPTHybridTrainer:
 
     def _block(self, layer: int, g: int, stage: int,
                xs: List[torch.Tensor]) -> List[torch.Tensor]:
-        """One block over the mp group of (``g``, ``stage``): each rank's
-        partial of the attention, summed over the group, bias, residual;
-        then the MLP likewise."""
+        """One block over the mp group of (``g``, ``stage``), recomputed in
+        the backward under ``cfg.remat``."""
         ranks = [self._rank(g, stage, d) for d in range(self.mp)]
-        mesh = self._mesh(ranks)
         prm = [self._block_params(layer, r) for r in ranks]
-        fc = torch.func.functional_call
+        return self._block_run(self._mesh(ranks), xs, prm)
+
+    def _block_body(self, mesh: Mesh, xs: List[torch.Tensor],
+                    prm: List[Dict[str, torch.Tensor]]) -> List[torch.Tensor]:
+        """Each rank's rows through the half's LayerNorm, then each rank's
+        partial of the attention summed over the group (under sp the normed
+        rows gathered on the sequence first, the partials reduced and
+        scattered on it), bias, residual; then the MLP likewise."""
+        cfg, fc = self.cfg, torch.func.functional_call
         for half, bias in (("attn", "block.out_proj.bias"),
                            ("mlp", "block.fc_out.bias")):
-            parts = [fc(self._template, p, (x, half))
-                     for p, x in zip(prm, xs)]
+            ln = "block.ln_2" if half == "mlp" else "block.ln_1"
+            hs = [layer_norm(x, cfg.hidden_size, p[f"{ln}.weight"],
+                             p[f"{ln}.bias"], cfg.layer_norm_eps)
+                  for p, x in zip(prm, xs)]
+            if self.sp:
+                hs = all_gather(hs, mesh)
+            outs = [fc(self._template, p, (h, half)) for p, h in zip(prm, hs)]
+            outs = reduce_scatter(outs, mesh) if self.sp else psum(outs, mesh)
             xs = [x + _bias(o, p.get(bias))
-                  for x, o, p in zip(xs, psum(parts, mesh), prm)]
+                  for x, o, p in zip(xs, outs, prm)]
         return xs
 
     def _stage_body(self, g: int):
@@ -407,7 +466,7 @@ class GPTHybridTrainer:
     def _embed(self, g: int, ids: torch.Tensor) -> List[torch.Tensor]:
         """Token + position rows of ``ids`` for batch group ``g``: masked
         lookups in each vocab shard summed over the shards, then handed to
-        the stage-0 mp ranks."""
+        the stage-0 mp ranks (under sp each rank its rows)."""
         ranks = self._vocab_ranks(g)
         mesh = self._mesh(ranks)
         pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
@@ -416,15 +475,21 @@ class GPTHybridTrainer:
         at = sharded_row_take([self._param(self.KEY_WPE, r) for r in ranks],
                               pos, mesh)
         xs = [a + b for a, b in zip(tok, at)]
-        return self._hop(g)([xs[ranks.index(self._rank(g, 0, d))]
-                             for d in range(self.mp)], 0)
+        xs = [xs[ranks.index(self._rank(g, 0, d))] for d in range(self.mp)]
+        if self.sp:
+            xs = scatter(xs, self._mesh([self._rank(g, 0, d)
+                                         for d in range(self.mp)]))
+        return self._hop(g)(xs, 0)
 
     def _final_loss(self, g: int, xs: List[torch.Tensor],
                     labels: torch.Tensor) -> torch.Tensor:
         """Summed token loss of one microbatch of group ``g``: ln_f and the
         tied head on each vocab shard's rank, then the vocab-parallel
-        cross entropy."""
+        cross entropy (under sp the last stage's rows gathered first)."""
         cfg = self.cfg
+        if self.sp:
+            xs = all_gather(xs, self._mesh([self._rank(g, self.S - 1, d)
+                                            for d in range(self.mp)]))
         ranks = self._vocab_ranks(g)
         logits = []
         for r in ranks:
@@ -455,6 +520,10 @@ class GPTHybridTrainer:
         if B % M:
             raise ValueError(f"batch {B} does not split into {M} "
                              f"microbatches")
+        if self.sp and s % self.mp:
+            raise ValueError(f"sequence parallelism splits the sequence "
+                             f"({s}) over mp_degree={self.mp}: it must "
+                             f"divide evenly")
         mb = B // M
         per = -(-mb // self.G)        # rows a batch group takes, as XLA
         dev0 = self.grid.device(0)
@@ -545,30 +614,62 @@ class GPTHybridTrainer:
                     t.data.chunk(self.D, 0)[c].copy_(
                         other.data.chunk(self.D, 0)[c])
 
-    @torch.no_grad()
-    def _update(self) -> None:
+    def _tensor_of(self, name: str) -> Tuple[str, str]:
+        """``(update group, reference tensor)`` of a parameter: the
+        reference trainer's two ``update`` calls, the non-block tensors and
+        the stacked blocks, whose tensor is the block suffix
+        (trainer.py:340-341; clip.py's ``tensor_of``)."""
+        if name.startswith(self.BLOCK_PREFIX):
+            return "blocks", name.split(".", 3)[3]
+        return "nonblock", name
+
+    def _opt_state_made(self) -> dict:
+        """The optimizer state, per unit of :meth:`_units`, made at first
+        use."""
         if self._unit_list is None:
             self._unit_list = self._units()
-        units = self._unit_list
         if self._opt_state is None:
             self._opt_state = {"step": 0, "slots": {}, "master": {}}
-            for unit, _, key, cut in units:
+            for unit, _, key, cut in self._unit_list:
                 slots, master = self.opt.init_tensor_state(
                     self._operands(key, cut, False))
                 self._opt_state["slots"][unit] = slots
                 self._opt_state["master"][unit] = master
+        return self._opt_state
+
+    @torch.no_grad()
+    def _update(self) -> None:
+        st = self._opt_state_made()
+        units = self._unit_list
         spread = len({key[3] for key in self._store}) > 1
         if spread:
             self._sum_replica_grads()
-        st = self._opt_state
+        grads = {}
+        for unit, _, key, cut in units:
+            g = self._operands(key, cut, True)
+            if g is not None:
+                grads[unit] = g
+        clip = self.opt.grad_clip
+        if clip is not None:
+            # the norms over the logical gradient: each slice once (a
+            # replica's units on other devices hold the same sum)
+            once = {}
+            for unit, g in grads.items():
+                once.setdefault(unit[:3], g)
+            with record_function(CLIP_RANGE):
+                scales = clip.scales(once, lambda u: self._tensor_of(u[0]))
+        lr = self.opt.get_lr()
         updated = {}
         for unit, name, key, cut in units:
-            g = self._operands(key, cut, True)
+            g = grads.get(unit)
             if g is None:
                 continue
+            if clip is not None:
+                with record_function(CLIP_RANGE):
+                    g = clip.clip_one(g, scales[unit[:3]])
             self.opt.update_tensor(name, self._operands(key, cut, False), g,
                                    st["slots"][unit], st["master"][unit],
-                                   st["step"])
+                                   st["step"], lr)
             updated.setdefault(key[:2] + (cut if cut is not None
                                           else self._layout[key[0]].owner,),
                                key[3])
@@ -608,7 +709,7 @@ class GPTHybridTrainer:
         if self.grid is None:
             loss = self.model.loss(ids, labels)
             loss.backward()
-            self.opt.step()
+            self.opt.step(tensor_of=self._tensor_of)
             self.opt.clear_grad()
             return loss.detach()
         self._views.clear()
@@ -657,6 +758,133 @@ class GPTHybridTrainer:
                 self._write(n, state[n].to(self.grid.device(0),
                                            self._dtype))
         self._opt_state = None
+
+    def _global_pieces(self, n: str, idx: tuple, cut: Optional[int],
+                       t: torch.Tensor) -> List[tuple]:
+        """``t``, the store's block ``idx`` of ``n`` (its ZeRO slice ``cut``
+        when not None; stored ZeRO dim first), as ``(global offset,
+        view)`` pieces of the reference's global tensor: QKV's arranged
+        columns ``[q_d | k_d | v_d]`` are three pieces."""
+        lay, shape = self._layout[n], self._shapes[n]
+        if lay.zdim is not None:
+            t = t.movedim(0, lay.zdim)
+        off = [i * (shape[d] // c) for d, (i, c) in enumerate(idx)]
+        if cut is not None:
+            off[lay.zdim] += cut * t.shape[lay.zdim]
+        if self.mp == 1 or not n.endswith(("qkv.weight", "qkv.bias")):
+            return [(tuple(off), t)]
+        h, w = self.cfg.hidden_size, t.shape[-1] // 3
+        d = off[-1] // (3 * w)
+        return [(tuple(off[:-1]) + (j * h + d * w,), t.narrow(-1, j * w, w))
+                for j in range(3)]
+
+    def _state_pieces(self) -> Dict[str, List[tuple]]:
+        """Per train-state name, the pieces of this layout, each element
+        once: the first store key (parameters) or unit (optimizer state)
+        of each ``(name, block, slice)``; the others hold replicas."""
+        st = self._opt_state_made()
+        pieces: Dict[str, List[tuple]] = {}
+        seen = set()
+        for key, t in self._store.items():
+            if key[:3] not in seen:
+                seen.add(key[:3])
+                cut = key[2] if isinstance(key[2], int) else None
+                pieces.setdefault(key[0], []).extend(
+                    self._global_pieces(key[0], key[1], cut, t.detach()))
+        seen = set()
+        for unit, *_ in self._unit_list:
+            if unit[:3] in seen:
+                continue
+            seen.add(unit[:3])
+            n, cut = unit[0], unit[2] if isinstance(unit[2], int) else None
+            per = dict(st["slots"][unit])
+            if st["master"][unit] is not None:
+                per["master"] = st["master"][unit]
+            for k, v in per.items():
+                pieces.setdefault(f"opt.{k}.{n}", []).extend(
+                    self._global_pieces(n, unit[1], cut, v))
+        return pieces
+
+    def train_state(self) -> Dict[str, object]:
+        """Every tensor a resumed step depends on, by name, in the
+        reference's global layout: the parameters (the model's names),
+        ``opt.{slot}.{name}`` and ``opt.master.{name}`` (the optimizer's
+        slots and f32 masters, made now if no step ran yet), ``opt.step``
+        and ``lr.{key}`` (the scheduler's state).  Serial: the tensors
+        themselves; hybrid: ``ShardedTensor``s whose pieces view the rank
+        blocks, each element once."""
+        out: Dict[str, object] = {}
+        if self.grid is None:
+            st = self.opt.state
+            for n, p in self.model.named_parameters():
+                out[n] = p.detach()
+                for k, v in st["slots"][n].items():
+                    out[f"opt.{k}.{n}"] = v
+                if st["master"][n] is not None:
+                    out[f"opt.master.{n}"] = st["master"][n]
+        else:
+            st = self._opt_state_made()
+            for name, ps in self._state_pieces().items():
+                base = name.split(".", 2)[2] if name.startswith("opt.") \
+                    else name
+                out[name] = ShardedTensor(self._shapes[base], ps[0][1].dtype,
+                                          ps)
+        out["opt.step"] = torch.tensor(st["step"], dtype=torch.int64)
+        for k, v in self.opt.state_dict()["lr"].items():
+            out[f"lr.{k}"] = torch.tensor(
+                float("nan") if v is None else v,
+                dtype=torch.float64 if v is None or isinstance(v, float)
+                else torch.int64)
+        return out
+
+    @torch.no_grad()
+    def load_train_state(self, sd: Dict[str, object]) -> None:
+        """Finish a resume: ``sd`` is this trainer's ``train_state()``
+        filled in place (``checkpoint.load_state_dict`` / ``fleet_utils.
+        load_auto_resume``, from a checkpoint of any layout); copy the
+        blocks onto their replicas and set the optimizer's step and the
+        scheduler's state, so the next step continues the run that saved
+        it."""
+        target = self.train_state()
+        missing = sorted(set(target) - set(sd))
+        if missing:
+            raise KeyError(f"train state lacks {missing}")
+        for name, dst in target.items():
+            if name == "opt.step" or name.startswith("lr."):
+                continue
+            if _ptrs(sd[name]) != _ptrs(dst):
+                raise ValueError(
+                    f"{name}: not this trainer's state; fill "
+                    f"trainer.train_state() through checkpoint."
+                    f"load_state_dict(state, path)")
+        if self.grid is not None:
+            self._copy_replicas()
+        st = self.opt.state if self.grid is None else self._opt_state
+        st["step"] = int(sd["opt.step"])
+        lr = {}
+        for k, v in sd.items():
+            if k.startswith("lr."):
+                x = v.item()
+                lr[k[3:]] = None if isinstance(x, float) and x != x else x
+        self.opt.set_state_dict({"lr": lr})
+
+    def _copy_replicas(self) -> None:
+        """Copy each block, slice and optimizer state the train state
+        listed once onto the replicas of it on other devices."""
+        first: Dict[tuple, torch.Tensor] = {}
+        for key, t in self._store.items():
+            src = first.setdefault(key[:3], t)
+            if src is not t:
+                t.data.copy_(src.data)
+        st, firsts = self._opt_state, {}
+        for unit, *_ in self._unit_list:
+            src = firsts.setdefault(unit[:3], unit)
+            if src == unit:
+                continue
+            for k, v in st["slots"][unit].items():
+                v.copy_(st["slots"][src][k])
+            if st["master"][unit] is not None:
+                st["master"][unit].copy_(st["master"][src])
 
     def rank_state(self, rank: int) -> Dict[str, torch.Tensor]:
         """What rank ``rank`` stores of each parameter it holds (its block,

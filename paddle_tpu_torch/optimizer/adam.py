@@ -70,7 +70,10 @@ class FusedAdamW(AdamW):
     moments, and the low-precision parameter of a master are written in
     the same pass.  The decay is folded into the kernel (``wd = 0`` for a
     name ``apply_decay_param_fun`` excludes); the gradient is read in its
-    own dtype and cast inside."""
+    own dtype and cast inside.  ``grad_clip`` runs before the launch, as
+    for every optimizer: the clipped gradient is ``g`` times the scale in
+    f32, cast back to ``g``'s dtype (the reference's rounding), so the
+    scale is not folded into the kernel."""
 
     def _apply(self, name, p, g, slots, master, lr, step) -> None:
         target = master if master is not None else p

@@ -11,11 +11,12 @@ State names are the reference's: ``state["step"]`` (updates done),
 ``state["slots"][name]`` (``moment1`` / ``moment2`` for Adam),
 ``state["master"][name]`` (an f32 copy of a bf16/f16 parameter under
 ``multi_precision``, else None).  The update order is the reference's
-(:105-125): the update runs on the master when there is one, with the
-gradient cast to f32, and the parameter is then cast back to its dtype.
-
-Not ported yet (ROADMAP queue 1): ``grad_clip`` and LR schedulers;
-constructing with either raises.
+(:105-125): the gradients are clipped (``grad_clip``, a clipper of
+``optimizer/clip.py``), the update runs on the master when there is one,
+with the gradient cast to f32, and the parameter is then cast back to its
+dtype.  ``learning_rate`` is a float or a scheduler of
+``optimizer/lr.py``; each step reads ``get_lr()`` (:170-178), and the
+script steps the scheduler.
 """
 
 from __future__ import annotations
@@ -24,6 +25,9 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 from torch import nn
+
+from .clip import GradClipBase, TensorOf
+from .lr import make_scheduler
 
 __all__ = ["Optimizer"]
 
@@ -40,16 +44,12 @@ class Optimizer:
     def __init__(self, learning_rate=0.001, parameters=None,
                  weight_decay=None, grad_clip=None,
                  multi_precision: bool = False):
-        if grad_clip is not None:
-            raise NotImplementedError(
-                "grad_clip is not ported yet (ROADMAP queue 1); pass "
-                "grad_clip=None")
-        if isinstance(learning_rate, bool) or \
-                not isinstance(learning_rate, (int, float)):
-            raise NotImplementedError(
-                "LR schedulers are not ported yet (ROADMAP queue 1); pass "
-                "a float learning_rate")
-        self._lr = float(learning_rate)
+        if grad_clip is not None and not isinstance(grad_clip, GradClipBase):
+            raise TypeError(f"grad_clip must be a clipper of optimizer.clip "
+                            f"(ClipGradByGlobalNorm, ...), got "
+                            f"{type(grad_clip).__name__}")
+        self._lr_sched = make_scheduler(learning_rate)
+        self.grad_clip = grad_clip
         self.weight_decay = (float(weight_decay)
                              if isinstance(weight_decay, (int, float))
                              else weight_decay)
@@ -104,11 +104,12 @@ class Optimizer:
     @torch.no_grad()
     def update_tensor(self, name: str, p: torch.Tensor, g: torch.Tensor,
                       slots: dict, master: Optional[torch.Tensor],
-                      step: int) -> None:
+                      step: int, lr: float) -> None:
         """One update of ``p`` (a view included) from ``g`` in place, with
         the state of :meth:`init_tensor_state`; ``step`` counts the updates
-        done before."""
-        self._apply(name, p, g, slots, master, self._lr, step)
+        done before.  The caller has clipped ``g`` and read ``lr`` for this
+        step (the hybrid trainer: ``get_lr()`` once a step)."""
+        self._apply(name, p, g, slots, master, lr, step)
 
     # ------------------------------------------------------------ decay
     def _decay_coef(self) -> float:
@@ -126,17 +127,30 @@ class Optimizer:
 
     # ------------------------------------------------------------ update
     @torch.no_grad()
-    def step(self, grads: Optional[Dict[str, torch.Tensor]] = None) -> None:
+    def step(self, grads: Optional[Dict[str, torch.Tensor]] = None,
+             tensor_of: Optional[TensorOf] = None) -> None:
         """One update of every bound parameter that has a gradient, in
-        place: ``grads[name]`` when a dict is given, else ``p.grad``."""
+        place: ``grads[name]`` when a dict is given, else ``p.grad``.  The
+        gradients are clipped first, all of them under one global norm
+        (``tensor_of``: the groups of ``clip.py``; the trainer passes the
+        reference trainer's two), one at a time before its update; then
+        the update at ``get_lr()``."""
         state = self.state
         t = state["step"]
+        have = {}
         for name, p in self._bound():
             g = p.grad if grads is None else grads.get(name)
-            if g is None:
-                continue
+            if g is not None:
+                have[name] = (p, g)
+        clip = self.grad_clip
+        scales = clip.scales({n: g for n, (_, g) in have.items()},
+                             tensor_of) if clip is not None else None
+        lr = self.get_lr()
+        for name, (p, g) in have.items():
+            if clip is not None:
+                g = clip.clip_one(g, scales[name])
             self._apply(name, p, g, state["slots"][name],
-                        state["master"][name], self._lr, t)
+                        state["master"][name], lr, t)
         state["step"] = t + 1
 
     def _apply(self, name, p, g, slots, master, lr, step) -> None:
@@ -162,3 +176,22 @@ class Optimizer:
         """Drop the bound parameters' gradients."""
         for _, p in self._bound():
             p.grad = None
+
+    # ------------------------------------------------------------ rate
+    def get_lr(self) -> float:
+        return self._lr_sched.get_lr()
+
+    def set_lr(self, value: float) -> None:
+        """A constant rate from now on (replaces a scheduler)."""
+        self._lr_sched = make_scheduler(float(value))
+
+    def state_dict(self) -> dict:
+        """``{"state": the state (None before the first step), "lr": the
+        scheduler's state}`` (optimizer.py:211-216)."""
+        return {"state": self._state, "lr": self._lr_sched.state_dict()}
+
+    def set_state_dict(self, sd: dict) -> None:
+        if "state" in sd:
+            self._state = sd["state"]
+        if "lr" in sd:
+            self._lr_sched.set_state_dict(sd["lr"])

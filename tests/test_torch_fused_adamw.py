@@ -143,9 +143,12 @@ def test_fused_adamw_matches_jax_fused_adamw(problem):
 
 
 def test_optimizer_refuses_what_is_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """``grad_clip`` and schedulers are ported: what is refused now is a
+    clip that is no clipper and a rate that is neither a float nor a
+    scheduler."""
+    with pytest.raises(TypeError, match="ClipGradByGlobalNorm"):
         AdamW(learning_rate=1e-3, grad_clip=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="LRScheduler"):
         FusedAdamW(learning_rate=object())
     with pytest.raises(ValueError, match="bind"):
         AdamW(learning_rate=1e-3).step()

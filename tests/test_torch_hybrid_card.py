@@ -21,8 +21,9 @@ from paddle_tpu_torch.optimizer import SGD
 
 pytestmark = pytest.mark.cuda
 
+# remat off: one flash forward a block, microbatch and mp rank
 CFG = dataclasses.replace(gpt_tiny(), hidden_size=256, num_heads=4,
-                          num_layers=4)
+                          num_layers=4, remat=False)
 
 
 @pytest.fixture

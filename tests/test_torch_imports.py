@@ -69,7 +69,18 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
                 "paddle_tpu_torch.distributed.sharding_utils",
                 "paddle_tpu_torch.distributed.pipelining",
                 "paddle_tpu_torch.distributed.meta_parallel.mp_layers",
-                "paddle_tpu_torch.optimizer.sgd"):
+                "paddle_tpu_torch.optimizer.sgd",
+                "paddle_tpu_torch.optimizer.clip",
+                "paddle_tpu_torch.optimizer.lr",
+                "paddle_tpu_torch.distributed.recompute",
+                "paddle_tpu_torch.distributed.fleet_utils",
+                "paddle_tpu_torch.distributed.checkpoint",
+                "paddle_tpu_torch.distributed.checkpoint.metadata",
+                "paddle_tpu_torch.distributed.checkpoint.save_state_dict",
+                "paddle_tpu_torch.distributed.checkpoint.load_state_dict",
+                "paddle_tpu_torch.distributed.meta_parallel."
+                "sequence_parallel",
+                "paddle_tpu_torch.examples.train_gpt_hybrid"):
         assert mod in res["imported"]
 
 
