@@ -53,7 +53,11 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      a replayed prefill chunk's last logits and K/V rows the eager
      body's bit for bit, with the same kernels under torch.profiler;
      TTFT cold and warm, capture ms per width, each prefill chunk's wall
-     time and busy share;
+     time and busy share; on GPT, the unfused engine's warm-up requests
+     again on two fresh engines, the second ``record_events=True`` under
+     the port's ``Profiler``: the same ``capture_counts``, one
+     ``serving.step`` event a step and each request's lane in the
+     export, its source gone after ``close()``;
   4. parity — an f32 model of gpt_small width at 2 layers: the fused
      and unfused engines' greedy tokens equal ``generate``'s for 3
      requests;
@@ -200,6 +204,21 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      first), a serial trainer, ``load_auto_resume``, 2 steps within 1e-2
      of the straight run's, the bytes written and the seconds to save and
      load.  The train phases before it pass ``remat=False``;
+ 10c. semi-auto train — the reference's semi-auto Llama example
+     (``paddle_tpu_torch/examples/train_llama_semi_auto.py``): llama_7b
+     widths at 12 of 32 layers, bf16, batch 4 x 2048, the example's loss
+     and ``AdamW(1e-3)``, built serial (``process_mesh=None``) and
+     through ``shard_layer(llama_shard_fn)`` over ``dp 2 x mp 4`` (every
+     rank on the card) from the same weights: rows 4-8 against their
+     plain versions at the path's shapes and timed beside their bounds;
+     4 ``Engine.fit`` steps each, the counts zeroed just before and read
+     just after and held to ``semi_auto_want`` (flash L x dp x mp, RMSNorm
+     2L + 1 a step), every gradient of step 1 and each step's loss held
+     sharded against serial, step p50, tokens/s, model-FLOP share, peak
+     memory; then 4 sharded steps under the port's
+     ``Profiler`` (GPU target, ``scheduler=(1, 3)``,
+     ``export_chrome_tracing``): the export holds the host events and
+     rows 4-8's kernels, ``summary()`` and the device busy share printed;
  11. Llama train — ``LlamaForCausalLM(llama_7b())`` with 12 of its 32
      layers, batch 1 x 4096: forward, ``loss``, backward, one
      ``FusedAdamW(multi_precision=True)`` step; 2 warm-up and 6 counted
@@ -2159,6 +2178,9 @@ def phase_serving(card: str, family: str):
     runs = {path: serve_run(model, card, fused=path == "fused",
                             waves=SERVE_WAVES[family])
             for path in ("unfused", "fused")}
+    if family == "gpt":
+        runs["unfused"][1]["record_events"] = serving_record_events(
+            model, card, warm)
     u, f = runs["unfused"][1], runs["fused"][1]
     log(f"[serving:{family}] fused vs unfused on the same model and "
         f"requests: decode step p50 {f['decode_step_ms_p50']} vs "
@@ -2168,6 +2190,64 @@ def phase_serving(card: str, family: str):
     del model
     torch.cuda.empty_cache()
     return runs
+
+
+def serving_record_events(model, card: str, prompts) -> dict:
+    """The unfused engine's requests served twice on fresh engines, the
+    second with ``record_events=True`` under the port's ``Profiler``
+    (host events only: ``targets=[ProfilerTarget.CPU]``, so no device
+    tracer runs through the graph captures): both capture their graphs
+    exactly as often, the export holds one ``serving.step`` event a step
+    and each request's lane, and ``close()`` detaches the engine's
+    source."""
+    import shutil
+    import tempfile
+
+    from paddle_tpu_torch.profiler import (Profiler, ProfilerTarget,
+                                           export_chrome_tracing,
+                                           load_profiler_result)
+    from paddle_tpu_torch.profiler import profiler as prof_mod
+    from paddle_tpu_torch.serving import ServingEngine
+    tag = "[serving:gpt:record_events]"
+    eng = ServingEngine(model, **ENGINE_KW)
+    eng.serve_batch(prompts, max_new_tokens=8)
+    want = dict(eng.core.capture_counts)
+    eng.close()
+    root = tempfile.mkdtemp(prefix="record_events_")
+    try:
+        eng = ServingEngine(model, record_events=True, **ENGINE_KW)
+        source = eng.core.metrics.tracer.chrome_events
+        p = Profiler(targets=[ProfilerTarget.CPU],
+                     trace_dir=os.path.join(root, "device"),
+                     on_trace_ready=export_chrome_tracing(
+                         os.path.join(root, "export")))
+        with p:
+            eng.serve_batch(prompts, max_new_tokens=8)
+        got = dict(eng.core.capture_counts)
+        steps = eng.core._step_index
+        events = load_profiler_result(p.last_export)["traceEvents"]
+        eng.close()
+        attached = source in prof_mod._trace_sources
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    step_events = sum(1 for e in events if e.get("cat") == "host"
+                      and e["name"] == "serving.step")
+    lanes = len({e["tid"] for e in events if e.get("cat") == "request"})
+    ranges = sum(1 for e in events if e.get("cat") == "user_annotation"
+                 and e.get("name") == "serving.step")
+    rec = {"capture_counts": got, "capture_counts_without": want,
+           "steps": steps, "serving_step_events": step_events,
+           "record_function_ranges": ranges, "request_lanes": lanes,
+           "attached_after_close": attached}
+    log(f"{tag} {len(prompts)} requests of 8 tokens: capture_counts "
+        f"{json.dumps(got)} (record_events=False {json.dumps(want)}), "
+        f"{step_events} serving.step host events and {ranges} record_function "
+        f"ranges for {steps} steps, {lanes} request lanes in the export; "
+        f"source attached after close(): {attached} (card: {card})")
+    if got != want or step_events != steps or ranges != steps \
+            or lanes != len(prompts) or attached:
+        raise AssertionError(f"{tag} {json.dumps(rec)}")
+    return rec
 
 
 def phase_serving_tp(card: str, tp1: dict):
@@ -6991,6 +7071,370 @@ def phase_train_example(card: str) -> tuple:
     return launches, out
 
 
+SEMI_LAYERS = 12
+SEMI_BATCH, SEMI_SEQ = 4, 2048
+SEMI_DP, SEMI_MP = 2, 4
+# steps of each build: every step's loss compared, p50 over the later ones
+SEMI_STEPS, SEMI_SEED = 4, 4321
+# step 1's relative loss gap, sharded against serial from the same
+# weights: the same arithmetic but the o / down products summed over 4
+# bf16 partials; 5x the larger reading PERF.md records (4.551e-6)
+SEMI_GAP_LIMIT = 2.3e-5
+# the relative gap of each later step's loss (after AdamW updates, where
+# Adam moves the elements whose gradient is bf16 rounding noise by up to
+# lr either way); 5x the larger reading PERF.md records (5.371e-3)
+SEMI_LATER_GAP_LIMIT = 2.7e-2
+# step 1's gradients, sharded against serial: the largest relative L2 gap
+# over the parameters (bf16 activations rounded in another order, through
+# 12 layers and back; 7e-7 in f32); 5x the larger reading PERF.md
+# records (2.752e-2)
+SEMI_GRAD_GAP_LIMIT = 1.4e-1
+SEMI_KERNELS = ("flash_attention_fwd", "flash_attention_bwd_dq",
+                "flash_attention_bwd_dkv", "rms_norm_fwd", "rms_norm_bwd")
+# the device kernels the profiled steps must show (rows 4-8)
+SEMI_TRACE_KERNELS = ("fwd_wgmma_kernel", "dq_wgmma_kernel",
+                      "dkv_wgmma_kernel", "rms_fwd_kernel",
+                      "norm_bwd_rows_kernel", "norm_bwd_sum_kernel")
+SEMI_HOST_EVENTS = ("semi_auto.step", "Engine.forward", "Engine.backward",
+                    "Engine.optimizer")
+
+
+def semi_auto_want(cfg, dp: int, mp: int) -> dict:
+    """Each kernel's launches in one Engine step: every decoder layer's
+    attention once per (dp, mp) rank (each rank's rows and heads); the
+    2L + 1 RMSNorms once over all rows (replicated weights, held once),
+    forward and backward."""
+    flash = cfg.num_layers * dp * mp
+    norms = 2 * cfg.num_layers + 1
+    return {"flash_attention_fwd": flash, "flash_attention_bwd_dq": flash,
+            "flash_attention_bwd_dkv": flash, "rms_norm_fwd": norms,
+            "rms_norm_bwd": norms}
+
+
+def semi_auto_kernels(card: str, cfg) -> dict:
+    """Rows 4-8 at this path's shapes against their plain versions: the
+    flash kernels on one rank's q / k / v [b / dp, s, heads / mp,
+    head_dim] bf16 causal, the RMSNorm pair on all rows [b·s, h] bf16;
+    each timed there (CUDA events) beside its bound."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(5)
+    b, h = SEMI_BATCH // SEMI_DP, cfg.num_heads // SEMI_MP
+    q, k, v, do = _flash_case(g, torch.bfloat16, b, SEMI_SEQ, SEMI_SEQ, h,
+                              h, cfg.head_dim)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ro, rl = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    rdq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                              causal=True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    rdk, rdv = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                    causal=True)
+    torch.cuda.synchronize()
+    shape = f"[{b}, {SEMI_SEQ}, {h}, {cfg.head_dim}] bf16 causal"
+    rec = {}
+    for name, pairs, lses, call in (
+            ("flash_attention_fwd", ((out, ro),), ((lse, rl),),
+             lambda: fa.flash_attention_fwd(q, k, v, causal=True)),
+            ("flash_attention_bwd_dq", ((dq, rdq),), (),
+             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                               causal=True)),
+            ("flash_attention_bwd_dkv", ((dk, rdk), (dv, rdv)), (),
+             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                causal=True))):
+        err, rel, read = check_pairs(f"[train:semi_auto] {name} at {shape}",
+                                     torch.bfloat16, pairs, lses)
+        bound, by = flash_bounds(b, SEMI_SEQ, SEMI_SEQ, h, h, cfg.head_dim,
+                                 True, 2)[name]
+        rec[name] = {"shape": shape, "max_abs_err": err, "rel_err": rel,
+                     "reading": read, "ms": time_ms(call),
+                     "bound_ms": bound, "bound_by": by}
+    rows = SEMI_BATCH * SEMI_SEQ
+    x = torch.randn(rows, cfg.hidden_size, generator=g,
+                    device=DEVICE).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(cfg.hidden_size, generator=g,
+                               device=DEVICE)).to(torch.bfloat16)
+    gy = torch.randn(rows, cfg.hidden_size, generator=g,
+                     device=DEVICE).to(torch.bfloat16)
+    y, rstd = fn.rms_norm_fwd(x, w, cfg.rms_norm_eps)
+    ry, rrstd = fn.rms_norm_fwd_reference(x, w, cfg.rms_norm_eps)
+    dx, dw = fn.rms_norm_bwd(x, w, rrstd, gy)
+    rdx, rdw = fn.rms_norm_bwd_reference(x, w, rrstd, gy)
+    torch.cuda.synchronize()
+    shape = f"[{rows}, {cfg.hidden_size}] bf16"
+    for name, outs, call in (
+            ("rms_norm_fwd", (("y", y, ry, 1e-5), ("rstd", rstd, rrstd,
+                                                   1e-5)),
+             lambda: fn.rms_norm_fwd(x, w, cfg.rms_norm_eps)),
+            ("rms_norm_bwd", (("dx", dx, rdx, 1e-5), ("dw", dw, rdw, 1e-4)),
+             lambda: fn.rms_norm_bwd(x, w, rrstd, gy))):
+        err = 0.0
+        for out_name, got, want, rel in outs:
+            if norm_excess(got, want, rel) > 0:
+                raise AssertionError(f"[train:semi_auto] {name} {out_name} "
+                                     f"disagrees with its plain version at "
+                                     f"{shape}")
+            err = max(err, (got.float() - want.float()).abs().max().item())
+        bound, by = norm_bound(name, rows, cfg.hidden_size, 2, 2)
+        rec[name] = {"shape": shape, "max_abs_err": err, "ms": time_ms(call),
+                     "bound_ms": bound, "bound_by": by}
+    log(f"[train:semi_auto] rows 4-8 at this path's shapes against their "
+        f"plain versions (flash: FLASH_REL and each element within its own "
+        f"limit; RMSNorm: 1e-5 / dw 1e-4 of max(1, max |plain|) plus an "
+        f"ulp): {json.dumps(rec)} (card: {card})")
+    return rec
+
+
+def on_first_update(eng, fn) -> None:
+    """Call ``fn`` with the model's gradients by name once, at the first
+    optimizer step of ``eng``: after the backward, before the update."""
+    opt = eng.optimizer
+    step = opt.step
+
+    def first_step():
+        opt.step = step
+        fn({n: p.grad for n, p in eng.model.named_parameters()
+            if p.grad is not None})
+        return step()
+    opt.step = first_step
+
+
+def semi_auto_run(cfg, mesh, data, kernels, label: str,
+                  step1_grads=None) -> dict:
+    """Build the example's model (a generator seeded with ``SEMI_SEED``)
+    and Engine, serial or sharded over ``mesh``, and run ``SEMI_STEPS``
+    ``fit`` steps with the counts zeroed just before and read just after;
+    ``step1_grads`` (if given) is called with step 1's gradients by name.
+    Returns the engine with the run's record."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.examples import train_llama_semi_auto as ex
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    model, eng = ex.build(cfg, mesh, torch.device(DEVICE), SEMI_SEED)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    built_gb = (torch.cuda.memory_allocated() - mem0) / 1e9
+    if step1_grads is not None:
+        on_first_update(eng, step1_grads)
+    for k in kernels:
+        k.launches = 0
+    losses, step_ms = [], []
+    for _ in range(SEMI_STEPS):
+        t = time.perf_counter()
+        losses += eng.fit(data)          # reads the loss: one sync a step
+        step_ms.append((time.perf_counter() - t) * 1e3)
+    torch.cuda.synchronize()
+    got = {name: k.launches for name, k in zip(SEMI_KERNELS, kernels)}
+    p50 = float(np.median(step_ms[1:]))
+    tok_s = SEMI_BATCH * SEMI_SEQ / (p50 / 1e3)
+    flops = 6 * cfg.num_params() + 12 * cfg.num_layers * cfg.hidden_size * \
+        SEMI_SEQ
+    return model, eng, {
+        "label": label, "losses": losses, "step_ms": step_ms,
+        "step_ms_p50": p50, "tokens_per_s": tok_s,
+        "mfu": flops * tok_s / PEAK_FLOPS["bfloat16"],
+        "built_gb": built_gb, "build_s": build_s,
+        "peak_gb": (torch.cuda.max_memory_allocated() - mem0) / 1e9,
+        "launches": got}
+
+
+def semi_auto_profile(eng, data, card: str) -> dict:
+    """Four ``fit`` steps under the port's ``Profiler(targets=[GPU],
+    scheduler=(1, 3), on_trace_ready=export_chrome_tracing(dir))``: steps
+    1-2 recorded (host ``RecordEvent``s and the CUDA trace), the merged
+    export checked for the host events and rows 4-8's kernels; the device
+    busy share is the union of the kernel intervals over the recorded
+    steps' wall time."""
+    import shutil
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.profiler import (Profiler, ProfilerTarget,
+                                           RecordEvent,
+                                           export_chrome_tracing,
+                                           load_profiler_result)
+    tag = "[train:semi_auto]"
+    root = tempfile.mkdtemp(prefix="semi_auto_profile_")
+    try:
+        # the GPU target alone: CUDA activity (kernels, copies), no CPU
+        # op records to slow the host; the host events are the profiler's
+        p = Profiler(targets=[ProfilerTarget.GPU],
+                     scheduler=(1, 3), trace_dir=os.path.join(root, "device"),
+                     on_trace_ready=export_chrome_tracing(
+                         os.path.join(root, "export")))
+        walls = []
+        torch.cuda.synchronize()
+        with p:
+            for _ in range(4):
+                t = time.perf_counter()
+                with RecordEvent("semi_auto.step"):
+                    eng.fit(data)
+                walls.append((time.perf_counter() - t) * 1e3)
+                p.step()
+        if p.last_export is None:
+            raise AssertionError(f"{tag} the profiler exported no trace")
+        events = load_profiler_result(p.last_export)["traceEvents"]
+        host = {e["name"] for e in events if e.get("cat") == "host"}
+        kernels = [e for e in events if e.get("cat") == "kernel"]
+        names = {e["name"] for e in kernels}
+        missing_host = [n for n in SEMI_HOST_EVENTS if n not in host]
+        missing = [k for k in SEMI_TRACE_KERNELS
+                   if not any(k in n for n in names)]
+        spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                       for e in kernels)
+        busy_us, end = 0.0, None
+        for a, b in spans:
+            if end is None or a > end:
+                busy_us += b - a
+                end = b
+            elif b > end:
+                busy_us += b - end
+                end = b
+        wall = walls[1] + walls[2]
+        p.summary(device_rows=12)      # printed by the profiler
+        out = {"walls_ms": walls, "recorded_wall_ms": wall,
+               "kernel_events": len(kernels),
+               "busy_ms": busy_us / 1e3,
+               "busy_share": busy_us / 1e3 / wall if wall else None,
+               "host_events": sorted(host),
+               "export_mb": os.path.getsize(p.last_export) / 1e6}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    log(f"{tag} the port's Profiler over steps 1-2 of 4: {len(kernels)} "
+        f"kernel events, {out['busy_ms']:.1f} ms of kernels (union) in "
+        f"{wall:.1f} ms of wall, device busy share {out['busy_share']:.3f}; "
+        f"host events {sorted(host)}; export {out['export_mb']:.1f} MB "
+        f"(card: {card})")
+    if missing_host or missing:
+        raise AssertionError(f"{tag} the profiler's export lacks host events "
+                             f"{missing_host} or kernels {missing}")
+    return out
+
+
+def phase_train_semi_auto(card: str) -> tuple:
+    """The reference's semi-auto Llama example on the port
+    (``paddle_tpu_torch/examples/train_llama_semi_auto.py``): llama_7b
+    widths at ``SEMI_LAYERS`` of 32 layers, bf16, batch ``SEMI_BATCH`` x
+    ``SEMI_SEQ``, the example's loss and ``AdamW(1e-3)``, built twice from
+    the same weights: ``process_mesh=None`` (serial), then
+    ``shard_layer(llama_shard_fn)`` over ``dp 2 x mp 4`` with every rank on
+    this card.  Rows 4-8 at the path's shapes against their plain
+    versions; ``SEMI_STEPS`` steps each, step 1's gradients and every
+    step's loss held sharded against serial, launches held to
+    ``semi_auto_want``, step p50, tokens/s, model-FLOP share, memory;
+    then two sharded steps under the port's ``Profiler``.  Returns the
+    sharded run's launches over its steps and the records."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.examples import train_llama_semi_auto as ex
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    from paddle_tpu_torch.models import llama_7b
+    from paddle_tpu_torch.models.llama import LlamaDecoderLayer
+    tag = "[train:semi_auto]"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(llama_7b(), num_layers=SEMI_LAYERS)
+    kernels = [getattr(fa, k) for k in SEMI_KERNELS[:3]] + \
+        [getattr(fn, k) for k in SEMI_KERNELS[3:]]
+    out = {"kernels": semi_auto_kernels(card, cfg)}
+    data = ex.batches(cfg.vocab_size, SEMI_BATCH, SEMI_SEQ, 1)
+    ref = {}     # on the host, so the builds' peaks stay their own
+
+    def keep(grads):
+        ref.update({n: g.detach().to("cpu", copy=True)
+                    for n, g in grads.items()})
+    model, eng, serial = semi_auto_run(cfg, None, data, kernels, "serial",
+                                       keep)
+    del model, eng
+    mesh = ex.process_mesh(SEMI_DP, SEMI_MP, DEVICE)
+    grad_gaps = {}
+
+    def against_serial(grads):
+        if set(grads) != set(ref):
+            raise AssertionError(f"{tag} step 1's gradients: sharded "
+                                 f"{sorted(set(grads) ^ set(ref))} differ")
+        for n, g in grads.items():
+            want = ref.pop(n).to(g.device).float()
+            grad_gaps[n] = float((g.float() - want).norm() / want.norm())
+    calls0 = LlamaDecoderLayer.partial_calls
+    model, eng, sharded = semi_auto_run(cfg, mesh, data, kernels,
+                                        f"dp{SEMI_DP}_mp{SEMI_MP}",
+                                        against_serial)
+    calls = LlamaDecoderLayer.partial_calls - calls0
+    gaps = [abs(a - b) / abs(b)
+            for a, b in zip(sharded["losses"], serial["losses"])]
+    gap = gaps[0]
+    worst = max(grad_gaps, key=grad_gaps.get)
+    out.update(serial=serial, sharded=sharded, step1_gap=gap,
+               gap_limit=SEMI_GAP_LIMIT, step_gaps=gaps,
+               later_gap_limit=SEMI_LATER_GAP_LIMIT,
+               grad_gap_max=grad_gaps[worst], grad_gap_worst=worst,
+               grad_gap_limit=SEMI_GRAD_GAP_LIMIT,
+               grad_gaps=grad_gaps, partial_calls=calls,
+               params=cfg.num_params())
+    for run, (dp, mp) in ((serial, (1, 1)), (sharded, (SEMI_DP, SEMI_MP))):
+        want = {k: v * SEMI_STEPS
+                for k, v in semi_auto_want(cfg, dp, mp).items()}
+        run["launches_want"] = want
+        log(f"{tag} {run['label']}: llama_7b widths, {cfg.num_layers} of 32 "
+            f"layers ({cfg.num_params() / 1e9:.3f}B params), bf16, batch "
+            f"{SEMI_BATCH} x {SEMI_SEQ}, AdamW(1e-3): step p50 "
+            f"{run['step_ms_p50']:.1f} ms ({[round(x, 1) for x in run['step_ms']]}"
+            f"), {run['tokens_per_s']:.0f} tokens/s, model-FLOP share "
+            f"{run['mfu']:.3f}; memory after the build {run['built_gb']:.2f} "
+            f"GB (built in {run['build_s']:.1f} s), peak {run['peak_gb']:.2f} "
+            f"GB; losses {[round(x, 5) for x in run['losses']]}; launches "
+            f"over {SEMI_STEPS} steps {json.dumps(run['launches'])} (want "
+            f"{json.dumps(want)}) (card: {card})")
+        if run["launches"] != want:
+            raise AssertionError(f"{tag} {run['label']} launches "
+                                 f"{run['launches']} != {want}")
+        if not all(np.isfinite(run["losses"])):
+            raise AssertionError(f"{tag} {run['label']} losses "
+                                 f"{run['losses']}")
+    log(f"{tag} dp {SEMI_DP} x mp {SEMI_MP} against serial from the same "
+        f"weights: step 1's loss, relative gap {gap:.3e} (limit "
+        f"{SEMI_GAP_LIMIT}); steps 2-{SEMI_STEPS}' losses "
+        f"{[f'{x:.3e}' for x in gaps[1:]]} (limit {SEMI_LATER_GAP_LIMIT}); "
+        f"step 1's gradients, the largest relative L2 gap of "
+        f"{len(grad_gaps)} {grad_gaps[worst]:.3e} ({worst}; median "
+        f"{float(np.median(list(grad_gaps.values()))):.3e}; limit "
+        f"{SEMI_GRAD_GAP_LIMIT}); the per-rank decoder body ran {calls} times "
+        f"({SEMI_STEPS} steps x {cfg.num_layers} layers x 2 halves x "
+        f"{SEMI_DP * SEMI_MP} ranks = "
+        f"{SEMI_STEPS * cfg.num_layers * 2 * SEMI_DP * SEMI_MP})")
+    if not gap <= SEMI_GAP_LIMIT:
+        raise AssertionError(f"{tag} step 1's loss {sharded['losses'][0]} vs "
+                             f"serial {serial['losses'][0]}")
+    if not max(gaps[1:]) <= SEMI_LATER_GAP_LIMIT:
+        raise AssertionError(f"{tag} losses {sharded['losses']} vs serial "
+                             f"{serial['losses']}")
+    if not all(g <= SEMI_GRAD_GAP_LIMIT for g in grad_gaps.values()):
+        raise AssertionError(f"{tag} step 1's gradient of {worst}: relative "
+                             f"gap {grad_gaps[worst]} from serial")
+    if calls != SEMI_STEPS * cfg.num_layers * 2 * SEMI_DP * SEMI_MP:
+        raise AssertionError(f"{tag} the per-rank body ran {calls} times")
+    out["profile"] = prof = semi_auto_profile(eng, data, card)
+    # the profiled window's kernels against the unprofiled step p50
+    prof["kernel_ms_per_step"] = prof["busy_ms"] / 2
+    prof["kernel_share_of_p50"] = prof["busy_ms"] / 2 / \
+        sharded["step_ms_p50"]
+    log(f"{tag} kernels {prof['kernel_ms_per_step']:.1f} ms a step against "
+        f"the unprofiled step p50 {sharded['step_ms_p50']:.1f} ms: "
+        f"{prof['kernel_share_of_p50']:.3f}")
+    del model, eng
+    free_card()
+    return sharded["launches"], out
+
+
 def run_phase(name: str, fn, *args):
     """``fn(*args)``, then its wall time and its peak device memory (the
     peak is reset just before it)."""
@@ -7614,6 +8058,10 @@ def main() -> int:
     free_card()
     example_launches, example = run_phase("train:example",
                                           phase_train_example, card)
+    # the semi-auto Engine (llama_7b widths, dp 2 x mp 4) and the profiler
+    free_card()
+    semi_launches, semi = run_phase("train:semi_auto", phase_train_semi_auto,
+                                    card)
     free_card()
     llama_launches, llama_train = run_phase("train:llama", phase_train, card,
                                             "llama")
@@ -7707,8 +8155,11 @@ def main() -> int:
                                  "llama_train": llama_launches[name],
                                  **{f"hybrid_{k}": v[name]
                                     for k, v in hybrid_launches.items()},
-                                 "example": example_launches[name]},
+                                 "example": example_launches[name],
+                                 "semi_auto": semi_launches.get(name, 0)},
             **train_recs[name]})
+        if name in semi["kernels"]:
+            kernels[-1]["semi_auto"] = semi["kernels"][name]
     # the segment-id variant: the packed flash_attn_unpadded call
     for name, line in (("flash_attention_fwd", 77),
                        ("flash_attention_bwd_dq", 199),
@@ -7726,8 +8177,10 @@ def main() -> int:
     by_path = {
         "rms_norm_fwd": {"llama_unfused": llama_u, "llama_fused": llama_f,
                          "llama_train": llama_launches,
+                         "semi_auto": semi_launches,
                          "spec_llama_unfused": spec_l["llama_unfused"]},
-        "rms_norm_bwd": {"llama_train": llama_launches},
+        "rms_norm_bwd": {"llama_train": llama_launches,
+                         "semi_auto": semi_launches},
         "layer_norm_fwd": {"unfused": launches_u, "fused": launches_f,
                            "train": train_launches,
                            **{f"hybrid_{k}": v
@@ -7752,6 +8205,8 @@ def main() -> int:
             "launches": next(iter(paths.values())),
             "launches_by_path": paths,
             **norm_recs[name]})
+        if name in semi["kernels"]:
+            kernels[-1]["semi_auto"] = semi["kernels"][name]
         if name == "layer_norm_fwd":
             # rows in registers; a row over 1024 16-byte groups re-read
             kernels[-1]["kernels"] = ["ln_fwd_rows_kernel",
@@ -7803,6 +8258,7 @@ def main() -> int:
         f"fleet serving {json.dumps(fleet)}; "
         f"train {json.dumps(train)}; hybrid train {json.dumps(hybrid)}; "
         f"example train {json.dumps(example)}; "
+        f"semi-auto train {json.dumps(semi)}; "
         f"llama train {json.dumps(llama_train)}; tiny serving "
         f"{json.dumps(tiny)}")
     log(json.dumps({"kernels": kernels}))

@@ -18,6 +18,7 @@ from typing import Dict, Sequence
 import numpy as np
 import torch
 
+from ...device import from_host_array
 from ..sharding_utils import ShardedTensor
 from .metadata import Metadata, TensorMeta
 
@@ -99,8 +100,7 @@ def _assemble(tm: TensorMeta, reader: _ShardReader,
             f"checkpoint does not fully cover tensor {tm.name!r} region at "
             f"{list(offset)} of shape {list(shape)} (missing "
             f"{int((~covered).sum())} elements)")
-    t = torch.from_numpy(out)
-    return t.to(torch.bfloat16) if bf16 else t
+    return from_host_array(out, tm.dtype)
 
 
 def load_state_dict(state_dict: Dict[str, object], path: str,

@@ -10,8 +10,8 @@ writer (``PADDLE_TRAINER_ID``, 0 for the single controller) writes
 16-bit floats: numpy has no bfloat16 without ``ml_dtypes``, which the
 port does not depend on.  The reference writes a bf16 array as its raw bits
 (``<V2``), which its own loader cannot cast back; the port writes a bf16
-piece widened to float32 (exact) under the dtype name ``"bfloat16"``,
-which both loaders read, and reads the reference's raw bits.
+piece widened to float32 (exact) under the dtype name ``"bfloat16"``
+(``device.host_array``), which both loaders read, and reads the reference's raw bits.
 
 ``async_save=True``: the device-to-host snapshot is taken before the call
 returns, so the saved state is the state at the call; the files are
@@ -29,6 +29,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from ...device import dtype_name, host_array
 from ..sharding_utils import ShardedTensor
 from .metadata import Metadata, ShardMeta, TensorMeta
 
@@ -71,20 +72,6 @@ def wait_for_pending_saves(path: Optional[str] = None) -> None:
             p.join_and_raise()
 
 
-def _dtype_name(dtype: torch.dtype) -> str:
-    """numpy's name of a torch dtype (``torch.bfloat16`` -> ``"bfloat16"``)."""
-    return str(dtype).split(".")[-1]
-
-
-def _host(t: torch.Tensor) -> np.ndarray:
-    """A copy of ``t`` on the host as numpy (bf16 widened to float32): a
-    snapshot, even of a host tensor updated in place later."""
-    t = t.detach()
-    if t.dtype == torch.bfloat16:
-        t = t.float()
-    return t.to("cpu", copy=True).contiguous().numpy()
-
-
 def _pieces(x):
     if isinstance(x, ShardedTensor):
         return tuple(x.shape), x.dtype, x.pieces
@@ -123,10 +110,10 @@ def _save_locked(state_dict, path, apath, async_save, extra):
         shape, dtype, pieces = _pieces(x)
         tm = md.tensors[name] = TensorMeta(name=name,
                                            global_shape=list(shape),
-                                           dtype=_dtype_name(dtype))
+                                           dtype=dtype_name(dtype))
         for i, (offset, t) in enumerate(pieces):
             key = f"{name}.shard{i}"
-            arrays[key] = _host(t)
+            arrays[key] = host_array(t)
             tm.shards.append(ShardMeta(file=data_file, key=key,
                                        global_offset=[int(o) for o in offset],
                                        local_shape=list(t.shape)))

@@ -19,8 +19,13 @@ XLA) would be a copy of ``[B, S_max, H, D]`` per layer per step here.
 
 ``cfg.remat`` recomputes each layer in the uncached training forward
 (``distributed/recompute.py``; off by default, as in the reference).
-Not ported yet (ROADMAP): ``llama_shard_fn`` (tensor-parallel training),
-``chunked_loss``.
+
+``llama_shard_fn(mesh)`` is the reference's semi-auto tensor-parallel
+plan for ``dist.shard_layer``; under it the auto-parallel Engine runs
+each decoder layer through :meth:`LlamaDecoderLayer.forward_ranks`, each
+mp rank's heads and ffn columns (:meth:`LlamaDecoderLayer.partial`) with
+the row-parallel partials summed over the mp group.  Not ported yet
+(ROADMAP): ``chunked_loss``.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ import torch
 from torch import nn
 
 from ..device import resolve_device, resolve_dtype
+from ..distributed.mesh import Mesh, all_gather, psum
 from ..distributed.recompute import remat_wrap
 from ..kernels.decode_attention import decode_attention_auto
 from ..kernels.decode_block import decode_block_layer, fusion_legal
@@ -42,7 +48,7 @@ from .kv_cache import append_kv, cache_lens
 
 __all__ = ["LlamaConfig", "LlamaAttention", "LlamaMLP", "LlamaDecoderLayer",
            "LlamaModel", "LlamaForCausalLM", "apply_rotary_pos_emb",
-           "llama_tiny", "llama_7b"]
+           "llama_shard_fn", "llama_tiny", "llama_7b"]
 
 Cache = Tuple[torch.Tensor, torch.Tensor, Union[int, torch.Tensor]]
 Pos = Union[int, torch.Tensor]
@@ -202,6 +208,102 @@ class LlamaDecoderLayer(nn.Module):
         x = x + self.drop(self.mlp(self.post_attention_layernorm(x)))
         if cache is not None:
             return x, new_cache
+        return x
+
+    # the per-rank body's layout (the Engine reads it): these sublayers'
+    # weights split on their columns (Shard(1)) and on their rows
+    # (Shard(0)) over one mesh dim, everything else replicated
+    RANK_COLUMNS = ("self_attn.q_proj", "self_attn.k_proj",
+                    "self_attn.v_proj", "mlp.gate_proj", "mlp.up_proj")
+    RANK_ROWS = ("self_attn.o_proj", "mlp.down_proj")
+    # calls of partial() since the process started
+    partial_calls = 0
+
+    def check_ranks(self, mp: int) -> None:
+        """Raise unless the heads and the ffn columns split over ``mp``
+        ranks (the kv heads need not: forward_ranks gathers them)."""
+        cfg = self.cfg
+        for what, n in (("num_heads", cfg.num_heads),
+                        ("intermediate_size", cfg.intermediate_size)):
+            if n % mp:
+                raise ValueError(
+                    f"LlamaConfig.{what} {n} does not split over the {mp} "
+                    f"tensor-parallel ranks: each rank runs whole heads and "
+                    f"an equal share of the ffn columns")
+
+    def partial(self, x: torch.Tensor, half: str, w: dict,
+                cos: Optional[torch.Tensor] = None,
+                sin: Optional[torch.Tensor] = None,
+                kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                ) -> torch.Tensor:
+        """One mp rank's share of half the layer, before the row-parallel
+        sum, on ``x`` already through the half's RMSNorm (after
+        ``GPTBlock.partial``): ``"attn"`` is the rank's q (and k / v)
+        columns -> rotary -> causal attention over its heads -> ``@``
+        its ``o_proj`` rows; ``"mlp"`` is its gate / up columns -> SwiGLU
+        -> ``@`` its ``down_proj`` rows.  ``w`` holds the rank's pieces
+        (``q k v o gate up down``); ``kv`` the rank's K / V heads when the
+        caller gathered them (kv heads that do not split over the ranks)."""
+        LlamaDecoderLayer.partial_calls += 1
+        if half == "mlp":
+            return torch.matmul(silu(torch.matmul(x, w["gate"]))
+                                * torch.matmul(x, w["up"]), w["down"])
+        b, s, _ = x.shape
+        d = self.cfg.head_dim
+        q = torch.matmul(x, w["q"]).view(b, s, -1, d)
+        if kv is None:
+            kv = (torch.matmul(x, w["k"]).view(b, s, -1, d),
+                  torch.matmul(x, w["v"]).view(b, s, -1, d))
+        k, v = kv
+        q = apply_rotary_pos_emb(q, cos, sin)
+        k = apply_rotary_pos_emb(k, cos, sin)
+        out = scaled_dot_product_attention(q, k, v, is_causal=True)
+        return torch.matmul(out.reshape(b, s, -1), w["o"])
+
+    def _gathered_kv(self, hs, ws, mesh: Mesh) -> list:
+        """Each rank's K / V heads when the kv heads do not split over the
+        ranks: the ranks' K / V columns gathered over the group, then for
+        each rank the kv head of each of its q heads (``h // (H / KVH)``),
+        so the rank's attention is exact."""
+        cfg = self.cfg
+        b, s, _ = hs[0].shape
+        d, mp = cfg.head_dim, mesh.size
+        ks = all_gather([torch.matmul(h, w["k"]) for h, w in zip(hs, ws)],
+                        mesh, dim=-1)
+        vs = all_gather([torch.matmul(h, w["v"]) for h, w in zip(hs, ws)],
+                        mesh, dim=-1)
+        per, group = cfg.num_heads // mp, cfg.num_heads // cfg.kv_heads
+        out = []
+        for r in range(mp):
+            idx = [hd // group for hd in range(r * per, (r + 1) * per)]
+            out.append((ks[r].view(b, s, cfg.kv_heads, d)[:, :, idx],
+                        vs[r].view(b, s, cfg.kv_heads, d)[:, :, idx]))
+        return out
+
+    def forward_ranks(self, x: torch.Tensor, cos: torch.Tensor,
+                      sin: torch.Tensor, groups) -> torch.Tensor:
+        """The layer under ``llama_shard_fn``'s placements: both RMSNorms
+        once over all rows (replicated weights, held once); for each data
+        group ``(rows, ws, mesh)`` each mp rank of ``mesh`` runs its rows
+        through its half-layer partials (``ws``: the ranks' pieces), summed
+        over the group with ``psum``; then the residual adds."""
+        mp = groups[0][2].size
+        self.check_ranks(mp)
+        gather_kv = self.cfg.kv_heads % mp != 0
+        for half, norm in (("attn", self.input_layernorm),
+                           ("mlp", self.post_attention_layernorm)):
+            h = norm(x)
+            parts = []
+            for rows, ws, mesh in groups:
+                hs = mesh.replicate(h[rows])
+                kvs = self._gathered_kv(hs, ws, mesh) \
+                    if half == "attn" and gather_kv else [None] * mp
+                outs = [self.partial(hr, half, w, cos.to(hr.device),
+                                     sin.to(hr.device), kv)
+                        for hr, w, kv in zip(hs, ws, kvs)]
+                parts.append(psum(outs, mesh)[0].to(x.device))
+            x = x + self.drop(torch.cat(parts) if len(parts) > 1
+                              else parts[0])
         return x
 
     def decode_block_weights(self) -> dict:
@@ -436,6 +538,42 @@ class LlamaForCausalLM(nn.Module):
             "head": self.lm_head.weight.detach(),
             "nfw": self.llama.norm.weight.detach(), "nfb": None,
             "blocks": blocks}
+
+
+def llama_shard_fn(mesh, dp_axis: str = "dp", mp_axis: str = "mp"):
+    """A ``shard_fn`` for ``dist.shard_layer`` (llama.py:379-406):
+    Megatron placement over ``mp_axis`` (q / k / v / gate / up columns
+    ``Shard(1)``, o / down rows ``Shard(0)``, the embedding split on its
+    hidden dim, ``lm_head`` on the vocab), everything else replicated (dp
+    comes from the batch).  Raises when the heads or the ffn columns do
+    not split over the mp ranks."""
+    from ..distributed.auto_parallel import Replicate, Shard, shard_tensor
+
+    mp_dim = mesh.dim_names.index(mp_axis)
+    mp = mesh.shape[mp_dim]
+
+    def place(sub, pname, tensor_dim):
+        p = sub._parameters.get(pname)
+        if p is None:
+            return
+        pl = [Replicate()] * mesh.ndim
+        pl[mp_dim] = Shard(tensor_dim)
+        sub._parameters[pname] = shard_tensor(p, mesh, pl)
+
+    def shard_fn(name, sub, m):
+        leaf = name.rsplit(".", 1)[-1]
+        if isinstance(sub, LlamaDecoderLayer):
+            sub.check_ranks(mp)
+        if leaf in ("q_proj", "k_proj", "v_proj", "gate_proj", "up_proj"):
+            place(sub, "weight", 1)   # column parallel: [h, out/mp]
+        elif leaf in ("o_proj", "down_proj"):
+            place(sub, "weight", 0)   # row parallel: [in/mp, h]
+        elif leaf == "embed_tokens":
+            place(sub, "weight", 1)   # hidden-sharded embedding
+        elif leaf == "lm_head":
+            place(sub, "weight", 1)   # vocab-parallel logits
+
+    return shard_fn
 
 
 def llama_tiny(**kw) -> LlamaConfig:

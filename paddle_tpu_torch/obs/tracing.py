@@ -19,10 +19,10 @@ A :class:`Tracer` records two kinds of host-side facts:
     head-of-line skips, slot churn) via ``tracer.event(name, ...)``.
 
 All timestamps are ``time.perf_counter()`` seconds; :meth:`chrome_events`
-renders every lane as a labelled row of a Chrome trace.  The port's own
-copy of paddle_tpu/obs/tracing.py, without the reference's profiler
-hook (``install_profiler_source``), since the port has no profiler
-module yet.
+renders every lane as a labelled row of a Chrome trace, and
+:meth:`Tracer.install_profiler_source` merges those rows into every
+``profiler`` chrome export.  The port's own copy of
+paddle_tpu/obs/tracing.py.
 
 Memory is bounded: spans and events live in fixed-size rings (oldest
 evicted first) and lane labels in a capped map — a month-long serving
@@ -85,6 +85,7 @@ class Tracer:
         self._lane_names: "OrderedDict[int, str]" = OrderedDict()
         self._pinned_names: Dict[int, str] = {}
         self._next_lane_base = 0
+        self._install_count = 0
 
     def claim_lane_block(self) -> int:
         """Reserve a disjoint lane range for one producer; every caller
@@ -211,3 +212,22 @@ class Tracer:
                 "args": {"name": label},
             })
         return out
+
+    def install_profiler_source(self) -> None:
+        """Merge this tracer's lanes into every later ``profiler`` chrome
+        export.  Install / remove pairs are refcounted: a shared tracer
+        stays exported until every engine that installed it has removed
+        it (one engine's ``close()`` must not blind the rest of a
+        fleet)."""
+        if self._install_count == 0:
+            from ..profiler.profiler import register_trace_source
+            register_trace_source(self.chrome_events)
+        self._install_count += 1
+
+    def remove_profiler_source(self) -> None:
+        if self._install_count == 0:
+            return
+        self._install_count -= 1
+        if self._install_count == 0:
+            from ..profiler.profiler import unregister_trace_source
+            unregister_trace_source(self.chrome_events)

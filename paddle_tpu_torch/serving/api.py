@@ -74,9 +74,10 @@ class ServingEngine:
     kernels (kernels/decode_block.py) where the model supports them and
     they are legal at this engine's shape; ``decode_path`` /
     ``decode_fallback_reason`` say what was resolved.  The parameters
-    after ``prefix_blocks`` are keyword-only: the reference has
-    ``record_events`` among them, which the port does not have, so a
-    positional call there would bind to another parameter.
+    after ``prefix_blocks`` are keyword-only.  ``record_events=True`` runs
+    each step inside a ``profiler.RecordEvent("serving.step")`` and merges
+    the tracer's request lanes into every ``profiler`` chrome export
+    until :meth:`close`.
 
     ``fault_tolerance=FaultToleranceConfig(...)`` turns ``step()`` into
     the watchdog boundary (serving/health.py): step retries with
@@ -127,6 +128,7 @@ class ServingEngine:
                  enable_prefix_cache: bool = True,
                  block_len: int = 16,
                  prefix_blocks: Optional[int] = None, *,
+                 record_events: bool = False,
                  registry=None, tracer=None,
                  fused_decode: bool = False,
                  fault_tolerance: Optional[FaultToleranceConfig] = None,
@@ -154,7 +156,8 @@ class ServingEngine:
             max_prefill_tokens_per_step=max_prefill_tokens_per_step,
             enable_prefix_cache=enable_prefix_cache,
             block_len=block_len, prefix_blocks=prefix_blocks,
-            metrics=ServingMetrics(registry=registry, tracer=tracer),
+            metrics=ServingMetrics(record_events=record_events,
+                                   registry=registry, tracer=tracer),
             max_queue=max_queue, fused_decode=fused_decode,
             tensor_parallel=tensor_parallel,
             collective_fusion=collective_fusion, devices=devices,
@@ -467,6 +470,8 @@ class ServingEngine:
 
     def close(self) -> None:
         """Release the engine's device memory (KV slabs, staging lane,
-        graphs); results already produced stay readable, new work is
-        refused."""
+        graphs) and detach its telemetry from the profiler's export
+        sources (``record_events``); results already produced stay
+        readable, new work is refused."""
         self.core.close()
+        self.core.metrics.close()

@@ -301,7 +301,8 @@ class Autoscaler:
             if engine is not None:
                 # the factory succeeded but the warmup raised: close the
                 # half-built engine, or every failed spawn would keep a
-                # device plane alive
+                # device plane (and a record_events engine its profiler
+                # source) alive
                 try:
                     engine.close()
                 except Exception:

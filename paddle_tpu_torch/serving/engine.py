@@ -138,6 +138,7 @@ from ..kernels import _build
 from ..kernels.decode_block import resolve_fused_decode
 from ..models.generation import _categorical, _filter_top_p
 from ..models.gpt import check_weights_held
+from ..profiler import RecordEvent
 from .aot import (AOTStoreError, aot_fingerprint, engine_aot_context,
                   engine_legs)
 from .errors import EngineStalledError, RequestRejected
@@ -1542,6 +1543,12 @@ class EngineCore:
                     "slow_step", f"injected {armed.seconds}s stall",
                     step=step_i)
                 time.sleep(armed.seconds)
+        ann = None
+        if self.metrics.record_events:
+            # a host range around the step; it launches no device work,
+            # so a graph captured inside the step holds nothing of it
+            ann = RecordEvent("serving.step")
+            ann.begin()
         sp = tracer.begin_span("serving.step",
                                lane=self.metrics.engine_lane, step=step_i)
         try:
@@ -1641,6 +1648,8 @@ class EngineCore:
                 self._journal_progress()
         finally:
             tracer.end_span(sp)
+            if ann is not None:
+                ann.end()
         self._record_events(step_i, skips_before)
         self.metrics.record_step(
             active_slots=len(self._slots), num_slots=self.num_slots,

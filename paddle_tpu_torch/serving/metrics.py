@@ -33,8 +33,13 @@ MAX_PROJECTED_TTFT_S = 3600.0
 
 
 class ServingMetrics:
-    def __init__(self, registry: Optional[MetricsRegistry] = None,
+    def __init__(self, record_events: bool = False,
+                 registry: Optional[MetricsRegistry] = None,
                  tracer: Optional[Tracer] = None):
+        # record_events=True runs each engine step inside a
+        # profiler.RecordEvent and merges the tracer's request lanes into
+        # every profiler chrome export
+        self.record_events = record_events
         self.registry = registry if registry is not None \
             else MetricsRegistry()
         self.tracer = tracer if tracer is not None else Tracer()
@@ -43,7 +48,17 @@ class ServingMetrics:
         self.engine_lane = self.tracer.claim_lane_block()
         self.tracer.set_lane_name(self.engine_lane, "serving.engine",
                                   pin=True)
+        if record_events:
+            self.tracer.install_profiler_source()
         self._bind()
+
+    def close(self) -> None:
+        """Detach from the profiler's export sources.  Only balances what
+        ``__init__`` installed, once: a ``record_events=False`` engine's
+        close never decrements a shared tracer's count for its peers."""
+        if self.record_events:
+            self.record_events = False
+            self.tracer.remove_profiler_source()
 
     def request_lane(self, request_id: int) -> int:
         """Tracer lane for one request, folded into this engine's lane

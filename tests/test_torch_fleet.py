@@ -24,6 +24,8 @@ token reaching the client once.  Card-only checks are in
 ``tests/test_torch_fleet_card.py``.
 """
 
+import time
+
 import numpy as np
 import pytest
 
@@ -319,13 +321,25 @@ def test_tp_replicas_share_one_sharded_model(models):
 def test_port_straggler_is_marked_and_cleared(models):
     """``replica_slow`` stretches replica 0's timed steps: the detector
     marks it slow against its peer, new work routes to the peer while the
-    mark stands, and the mark clears once its steps are fast again."""
+    mark stands, and the mark clears once its steps are fast again.
+
+    The stretch is sized from this host's own step times (4 warm-up fleet
+    steps, both replicas serving): 10x the median fleet step of the last
+    three (about 20x one replica's step), at least 0.2 s, so the victim's
+    EWMA crosses the 3x bar however loaded the host is."""
     fi = port_serving.FaultInjector()
     r = port_serving.Router.build(lambda: models["port"], replicas=2,
                                   faults=fi, slow_hysteresis=2,
                                   **ENGINE_KW)
     fids = [r.submit(p, max_new_tokens=40) for p in _prompts(10, (5, 6))]
-    fi.enable("replica_slow", times=6, seconds=0.2)
+    took = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        r.step()
+        took.append(time.perf_counter() - t0)
+    assert not r.replicas[0].engine.health.slow
+    stretch = max(0.2, 10 * float(np.median(took[1:])))
+    fi.enable("replica_slow", times=6, seconds=stretch)
     try:
         for _ in range(6):
             r.step()

@@ -80,7 +80,19 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
                 "paddle_tpu_torch.distributed.checkpoint.load_state_dict",
                 "paddle_tpu_torch.distributed.meta_parallel."
                 "sequence_parallel",
-                "paddle_tpu_torch.examples.train_gpt_hybrid"):
+                "paddle_tpu_torch.examples.train_gpt_hybrid",
+                "paddle_tpu_torch.profiler",
+                "paddle_tpu_torch.profiler.profiler",
+                "paddle_tpu_torch.distributed.auto_parallel",
+                "paddle_tpu_torch.distributed.auto_parallel.placement",
+                "paddle_tpu_torch.distributed.auto_parallel.spmd_rules",
+                "paddle_tpu_torch.distributed.auto_parallel.strategy",
+                "paddle_tpu_torch.distributed.auto_parallel.api",
+                "paddle_tpu_torch.distributed.auto_parallel.engine",
+                "paddle_tpu_torch.framework",
+                "paddle_tpu_torch.framework.io",
+                "paddle_tpu_torch.metric",
+                "paddle_tpu_torch.examples.train_llama_semi_auto"):
         assert mod in res["imported"]
 
 
