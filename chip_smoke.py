@@ -219,6 +219,24 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      ``Profiler`` (GPU target, ``scheduler=(1, 3)``,
      ``export_chrome_tracing``): the export holds the host events and
      rows 4-8's kernels, ``summary()`` and the device busy share printed;
+ 10d. moe train — the reference's expert-parallel GPT-MoE
+     (``GPTMoEHybridTrainer``) at the repo's production MoE width
+     (gpt3_6_7b widths, 8 experts, top-2 naive gate, capacity 1.25, aux
+     0.01, bf16) cut to 2 of 32 layers, batch 4 x 2048,
+     ``FusedAdamW(multi_precision=True)``: rows 4-6 and 9-11 against their
+     plain versions at the path's shapes and timed beside their bounds and
+     a library call; the serial trainer, ``{ep 2, pp 2, sharding 2}``
+     (ZeRO-1, 2 microbatches) and ``{dp 2, ep 2, mp 2}``, every rank on the
+     card, built from the same weights and freed in turn: step 1 at
+     microbatches 1 against serial (the loss within 1e-2, the share of
+     tokens whose top-2 set flips a layer), 4 timed steps with the counts
+     zeroed just before and read just after and held to ``moe_want``,
+     step p50, tokens/s, the model-FLOP share over the active parameters,
+     memory, ``expert_util`` / ``token_keep_rate`` a layer; one step of
+     the serial and the example's layout under the port's ``Profiler``
+     split into dense GEMMs, expert bmm, dispatch and combine, flash,
+     norms, AdamW and the rest; then ``examples/train_moe_ep.py`` at its
+     defaults on the card;
  11. Llama train — ``LlamaForCausalLM(llama_7b())`` with 12 of its 32
      layers, batch 1 x 4096: forward, ``loss``, backward, one
      ``FusedAdamW(multi_precision=True)`` step; 2 warm-up and 6 counted
@@ -247,6 +265,7 @@ the attention kernels) with the other's build.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -7152,6 +7171,19 @@ def semi_auto_kernels(card: str, cfg) -> dict:
         rec[name] = {"shape": shape, "max_abs_err": err, "rel_err": rel,
                      "reading": read, "ms": time_ms(call),
                      "bound_ms": bound, "bound_by": by}
+    # the library yardstick at this shape: SDPA's forward, and its
+    # backward (dq, dk and dv together, on a retained graph)
+    import torch.nn.functional as F
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    rec["flash_attention_fwd"]["library_ms"] = time_ms(
+        lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        rec[name]["library_ms_dq_dkv_together"] = lib_bwd
+    del o_lib, qt, kt, vt
     rows = SEMI_BATCH * SEMI_SEQ
     x = torch.randn(rows, cfg.hidden_size, generator=g,
                     device=DEVICE).to(torch.bfloat16)
@@ -7433,6 +7465,550 @@ def phase_train_semi_auto(card: str) -> tuple:
     del model, eng
     free_card()
     return sharded["launches"], out
+
+
+# ------------------------------------------------- expert-parallel MoE
+# the repo's production MoE layout (scripts/aot_northstar.py's MoE leg):
+# GPT-MoE at gpt3_6_7b widths, 8 experts, top-2 naive gate, capacity
+# factor 1.25, aux weight 0.01, bf16, cut to MOE_LAYERS of 32 layers
+MOE_LAYERS = 2
+MOE_BATCH, MOE_SEQ = 4, 2048
+MOE_WARMUP, MOE_STEPS = 1, 4
+# (label, hybrid_configs or None for the serial trainer, microbatches of
+# the timed steps; step 1 against serial runs at microbatches 1)
+MOE_RUNS = (("serial", None, 1),
+            ("ep2_pp2_sharding2",
+             {"ep_degree": 2, "pp_degree": 2, "sharding_degree": 2}, 2),
+            ("dp2_ep2_mp2",
+             {"dp_degree": 2, "ep_degree": 2, "mp_degree": 2}, 1))
+# step 1's relative loss gap to serial: 5x the larger reading of the
+# first run (3.914e-5, {dp 2, ep 2, mp 2}; PERF.md), whose limit
+# was 1e-2
+MOE_GAP_LIMIT = 1.96e-4
+MOE_SEED = 4321
+# the profile's kinds: the port's kernels by name, then the MoE ranges of
+# the forward and the autograd nodes of their backward
+MOE_GEMM = ("nvjet", "gemm", "cutlass", "sm90_xmma")
+MOE_EXPERT_OPS = ("moe.experts", "BmmBackward0", "BaddbmmBackward0")
+MOE_ROUTE_OPS = ("moe.dispatch", "moe.combine", "_DispatchBackward",
+                 "_CombineBackward")
+
+
+def moe_config():
+    from paddle_tpu_torch.models import GPTMoEConfig
+    return GPTMoEConfig(vocab_size=50304, hidden_size=4096, num_heads=32,
+                        max_seq_len=2048, num_layers=MOE_LAYERS,
+                        num_experts=8, top_k=2, gate="naive", moe_every=1,
+                        capacity_factor=1.25, aux_weight=0.01,
+                        dtype="bfloat16")
+
+
+def moe_params(cfg) -> tuple:
+    """``(all parameters, active parameters a token)``: the active count
+    is what one token's forward multiplies through, attention, the gate,
+    ``top_k`` experts' w0 / w1 and the tied head (capacity padding is no
+    useful work)."""
+    h, f, E = cfg.hidden_size, cfg.ffn_size, cfg.num_experts
+    attn = 4 * h * h + 4 * h
+    expert = 2 * h * f + f + h
+    tables = (cfg.vocab_size + cfg.max_seq_len) * h
+    total = cfg.num_layers * (attn + 4 * h + h * E + E * expert) + tables \
+        + 2 * h
+    active = cfg.num_layers * (attn + h * E + cfg.top_k * 2 * h * f) + \
+        cfg.vocab_size * h
+    return total, active
+
+
+def moe_want(cfg, hybrid, microbatches, batch) -> dict:
+    """Each kernel's launches in one train step, from the layout: the
+    microbatch rows each batch group (dp x sharding) takes (ceil(rows /
+    groups)), each block's attention and its two LayerNorms once per
+    (microbatch, group) (attention and norms stay whole over mp and ep),
+    ln_f once per vocab shard (pp); one AdamW launch per slice updated,
+    once on the card: a block of an expert tensor over ep and mp, the
+    wte / wpe rows over pp, ZeRO's slices (the first free dim of the
+    stacked layout that splits over ``sharding``; the stacked layer dim
+    hands whole blocks to one rank).  Serial: one launch a parameter
+    tensor."""
+    deg = {a: (hybrid or {}).get(f"{a}_degree", 1)
+           for a in ("dp", "pp", "sharding", "ep", "mp")}
+    S, D, L = deg["pp"], deg["sharding"], cfg.num_layers
+    G = deg["dp"] * D
+    M = microbatches if S > 1 else 1
+    mb = batch // M
+    per = -(-mb // G)
+    units = M * sum(1 for g in range(G) if g * per < mb)
+    h, f, E = cfg.hidden_size, cfg.ffn_size, cfg.num_experts
+    X = "ep" if deg["ep"] > 1 else "dp"
+    mp = "mp" if deg["mp"] > 1 else None
+    block = [((h,), ())] * 4 + [((h, 3 * h), ()), ((3 * h,), ()),
+                                ((h, h), ()), ((h,), ()), ((h, E), ()),
+                                ((E, h, f), (X, None, mp)),
+                                ((E, f), (X, mp)),
+                                ((E, f, h), (X, mp, None)),
+                                ((E, h), (X, None))]
+    nonblock = [((cfg.vocab_size, h), ("pp" if S > 1 else None, None)),
+                ((cfg.max_seq_len, h), ("pp" if S > 1 else None, None)),
+                ((h,), ()), ((h,), ())]
+    if hybrid is None:
+        adamw = L * len(block) + len(nonblock)
+    else:
+        adamw = 0
+        for lead, items in (((L,), block), ((), nonblock)):
+            for shape, spec in items:
+                spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+                blocks = math.prod(deg[a] for a in spec if a)
+                full = lead + shape
+                fspec = (("pp" if S > 1 else None),) * len(lead) + spec
+                slices = 1
+                if D > 1:
+                    for i, n in enumerate(full):
+                        if fspec[i] is None and n % D == 0 and n >= D:
+                            slices = 1 if i < len(lead) else D
+                            break
+                adamw += (L if lead else 1) * blocks * slices
+    vocab = S if hybrid and S > 1 else 1
+    flash = L * units
+    norms = units * (2 * L + vocab)
+    return {"flash_attention_fwd": flash, "flash_attention_bwd_dq": flash,
+            "flash_attention_bwd_dkv": flash, "layer_norm_fwd": norms,
+            "layer_norm_bwd": norms, "fused_adamw": adamw}
+
+
+def moe_trainer(cfg, hybrid, microbatches: int, opt):
+    """``GPTMoEHybridTrainer`` as a fleet script builds it (every rank on
+    this card), weights from a generator seeded with ``MOE_SEED``."""
+    import torch
+    from paddle_tpu_torch.distributed import (DistributedStrategy, fleet,
+                                              get_hybrid_communicate_group)
+    from paddle_tpu_torch.models import GPTMoEHybridTrainer
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(MOE_SEED)
+    if hybrid is None:
+        return GPTMoEHybridTrainer(cfg, optimizer=opt, device=DEVICE,
+                                   generator=gen)
+    s = DistributedStrategy()
+    s.hybrid_configs = hybrid
+    fleet.init(is_collective=True, strategy=s,
+               devices=[DEVICE] * math.prod(hybrid.values()))
+    return GPTMoEHybridTrainer(cfg, get_hybrid_communicate_group(), opt,
+                               microbatches=microbatches, generator=gen)
+
+
+def moe_kernels(card: str, cfg) -> dict:
+    """Rows 4-6 and 9-11 at this path's shapes against their plain
+    versions, each timed there (CUDA events) beside its bound and a
+    library call: the flash kernels on one batch group's q / k / v [1,
+    2048, 32, 128] bf16 causal (views of the fused QKV), the LayerNorm
+    pair on its rows [2048, 4096] bf16, fused AdamW on the largest slice
+    the example's layout updates (one ep block of w0, its ZeRO half: [4,
+    2048, 16384], f32 master, bf16 gradient and parameter)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    from paddle_tpu_torch.kernels.fused_adamw import (fused_adamw,
+                                                      fused_adamw_reference)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(6)
+    h, d, s = cfg.num_heads, cfg.head_dim, MOE_SEQ
+    q, k, v, do = _flash_case(g, torch.bfloat16, 1, s, s, h, h, d,
+                              packed=True)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+    ro, rl = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    rdq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
+                                              causal=True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+    rdk, rdv = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
+                                                    causal=True)
+    torch.cuda.synchronize()
+    shape = f"[1, {s}, {h}, {d}] bf16 causal (views of a fused QKV)"
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    lib_bwd = time_ms(lambda: torch.autograd.grad(
+        o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
+    del o_lib, qt, kt, vt
+    rec = {}
+    for name, pairs, lses, call, plain in (
+            ("flash_attention_fwd", ((out, ro),), ((lse, rl),),
+             lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+             lambda: fa.flash_attention_fwd_reference(q, k, v,
+                                                      causal=True)),
+            ("flash_attention_bwd_dq", ((dq, rdq),), (),
+             lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
+                                               causal=True),
+             lambda: fa.flash_attention_bwd_dq_reference(
+                 q, k, v, do, lse, delta, causal=True)),
+            ("flash_attention_bwd_dkv", ((dk, rdk), (dv, rdv)), (),
+             lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                                causal=True),
+             lambda: fa.flash_attention_bwd_dkv_reference(
+                 q, k, v, do, lse, delta, causal=True))):
+        err, rel, read = check_pairs(f"[train:moe] {name} at {shape}",
+                                     torch.bfloat16, pairs, lses)
+        bound, by = flash_bounds(1, s, s, h, h, d, True, 2)[name]
+        rec[name] = {"shape": shape, "max_abs_err": err, "rel_err": rel,
+                     "reading": read, "ms": time_ms(call),
+                     "plain_ms": time_ms(plain, iters=3, warmup=2,
+                                         windows=3),
+                     "bound_ms": bound, "bound_by": by,
+                     "library_ms": lib_fwd if name.endswith("fwd") else None}
+        if not name.endswith("fwd"):
+            rec[name]["library_ms_dq_dkv_together"] = lib_bwd
+    del q, k, v, do, out, lse, delta, dq, dk, dv, ro, rl, rdq, rdk, rdv
+    rows, hid = s, cfg.hidden_size
+    x = torch.randn(rows, hid, generator=g, device=DEVICE).to(torch.bfloat16)
+    w = (1 + 0.1 * torch.randn(hid, generator=g, device=DEVICE)).to(
+        torch.bfloat16)
+    b = (0.1 * torch.randn(hid, generator=g, device=DEVICE)).to(
+        torch.bfloat16)
+    gy = torch.randn(rows, hid, generator=g, device=DEVICE).to(
+        torch.bfloat16)
+    calls = norm_calls(x, w, b, gy)
+    _, mean, rstd = fn.layer_norm_fwd_reference(x, w, b, NORM_EPS)
+    shape = f"[{rows}, {hid}] bf16"
+    lib = time_ms(lambda: F.layer_norm(x, (hid,), w, b, NORM_EPS))
+    xl = x.detach().requires_grad_()
+    wl, bl = w.detach().requires_grad_(), b.detach().requires_grad_()
+    yl = F.layer_norm(xl, (hid,), wl, bl, NORM_EPS)
+    lib_b = time_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), gy,
+                                                retain_graph=True))
+    del yl, xl, wl, bl
+    for name, call, plain in (
+            ("layer_norm_fwd", lambda: fn.layer_norm_fwd(x, w, b, NORM_EPS),
+             lambda: fn.layer_norm_fwd_reference(x, w, b, NORM_EPS)),
+            ("layer_norm_bwd",
+             lambda: fn.layer_norm_bwd(x, w, mean, rstd, gy),
+             lambda: fn.layer_norm_bwd_reference(x, w, mean, rstd, gy))):
+        err = 0.0
+        for out_name, got, want, rel in calls[name]:
+            if norm_excess(got, want, rel) > 0:
+                raise AssertionError(f"[train:moe] {name} {out_name} "
+                                     f"disagrees with its plain version at "
+                                     f"{shape}")
+            err = max(err, (got.float() - want.float()).abs().max().item())
+        bound, by = norm_bound(name, rows, hid, 2, 2)
+        rec[name] = {"shape": shape, "max_abs_err": err, "ms": time_ms(call),
+                     "plain_ms": time_ms(plain, iters=5, warmup=2,
+                                         windows=3),
+                     "bound_ms": bound, "bound_by": by,
+                     "library_ms": lib if name.endswith("fwd") else lib_b}
+    del x, w, b, gy, calls, mean, rstd
+    E_l, half, f = cfg.num_experts // 2, cfg.hidden_size // 2, cfg.ffn_size
+    numel = E_l * half * f
+    master = torch.randn(numel, generator=g, device=DEVICE)
+    grad = torch.randn(numel, generator=g, device=DEVICE).to(torch.bfloat16)
+    m = torch.randn(numel, generator=g, device=DEVICE) * 1e-2
+    v2 = torch.rand(numel, generator=g, device=DEVICE) * 1e-3
+    low = master.to(torch.bfloat16)
+    kw = dict(lr=TRAIN_LR, weight_decay=0.01, step=3)
+    ref = [t.clone() for t in (master, m, v2, low)]
+    fused_adamw(master, grad, m, v2, low=low, **kw)
+    fused_adamw_reference(ref[0], grad, ref[1], ref[2], low=ref[3], **kw)
+    torch.cuda.synchronize()
+    err = 0.0
+    for nm, got, want in zip(("p", "m", "v", "low"), (master, m, v2, low),
+                             ref):
+        ok = torch.allclose(got, want, rtol=1e-6, atol=1e-7) \
+            if got.dtype == torch.float32 else _ulp_ok(got, want, got.dtype)
+        if not ok:
+            raise AssertionError(f"[train:moe] fused_adamw disagrees with its "
+                                 f"plain version on {nm} at [{E_l}, {half}, "
+                                 f"{f}]")
+        err = max(err, (got.float() - want.float()).abs().max().item())
+    del ref
+    tp = torch.nn.Parameter(master.clone())
+    tp.grad = grad.float()
+    topt = torch.optim.AdamW([tp], lr=TRAIN_LR, weight_decay=0.01,
+                             fused=True)
+    adam_lib = time_ms(topt.step, iters=5, warmup=2, windows=3)
+    del tp, topt
+    nbytes = numel * 28
+    rec["fused_adamw"] = {
+        "shape": f"[{E_l}, {half}, {f}]: f32 master, bf16 grad, f32 m/v, "
+                 f"bf16 parameter copy (28 B per element)",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: fused_adamw(master, grad, m, v2, low=low,
+                                          **kw), iters=5, warmup=2,
+                      windows=3),
+        "plain_ms": time_ms(lambda: fused_adamw_reference(
+            master, grad, m, v2, low=low, **kw), iters=2, warmup=1,
+            windows=3),
+        "bound_ms": nbytes / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": adam_lib}
+    del master, grad, m, v2, low
+    torch.cuda.empty_cache()
+    log(f"[train:moe] rows 4-6, 9-11 at this path's shapes against their "
+        f"plain versions (flash: FLASH_REL and each element within its own "
+        f"limit; LayerNorm: 1e-5 / dw, db 1e-4 of max(1, max |plain|) plus "
+        f"an ulp; AdamW: f32 rtol 1e-6, bf16 one ulp), each timed beside its "
+        f"plain version, bound and library call: {json.dumps(rec)} "
+        f"(card: {card})")
+    return rec
+
+
+def moe_kinds(events) -> tuple:
+    """``(device ms by kind, busy ms, kernels)`` of a chrome trace's
+    events: each kernel's kind from its name and from the ops and ranges
+    open on its launching thread at its launch (``moe_profile``)."""
+    launch, ops = {}, {}
+    for e in events:
+        if e.get("ph") != "X":
+            continue
+        cat = e.get("cat")
+        if cat in ("cuda_runtime", "cuda_driver") and \
+                "correlation" in e.get("args", {}):
+            launch[e["args"]["correlation"]] = (e["tid"], float(e["ts"]))
+        elif cat in ("cpu_op", "user_annotation"):
+            ops.setdefault(e["tid"], []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                 e["name"]))
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    # the ops open at each launch: a sweep over each thread's nested ops
+    at = {}
+    for tid, items in ops.items():
+        items.sort(key=lambda x: (x[0], -x[1]))
+        calls = sorted((ts, c) for c, (t, ts) in launch.items() if t == tid)
+        stack, i = [], 0
+        for ts, c in calls:
+            while i < len(items) and items[i][0] <= ts:
+                while stack and stack[-1][1] < items[i][0]:
+                    stack.pop()
+                stack.append(items[i])
+                i += 1
+            while stack and stack[-1][1] < ts:
+                stack.pop()
+            at[c] = [n for _, _, n in stack]
+    kinds = ("flash", "norms", "adamw", "dispatch_combine", "expert_bmm",
+             "dense_gemm", "rest")
+    ms = {k: 0.0 for k in kinds}
+    rest = {}
+    for e in kernels:
+        name = e["name"]
+        opened = at.get(e.get("args", {}).get("correlation"), [])
+        gemm = any(x in name for x in MOE_GEMM)
+        if any(x in name for x in ("fwd_wgmma_kernel", "dq_wgmma_kernel",
+                                   "dkv_wgmma_kernel")):
+            kind = "flash"
+        elif any(x in name for x in ("ln_fwd_", "norm_bwd_")):
+            kind = "norms"
+        elif "adamw_kernel" in name:
+            kind = "adamw"
+        elif any(any(r in o for r in MOE_ROUTE_OPS) for o in opened):
+            kind = "dispatch_combine"
+        elif gemm and any(any(r in o for r in MOE_EXPERT_OPS)
+                          for o in opened):
+            kind = "expert_bmm"
+        elif gemm:
+            kind = "dense_gemm"
+        else:
+            kind = "rest"
+            rest[name] = rest.get(name, 0.0) + float(e["dur"]) / 1e3
+        ms[kind] += float(e["dur"]) / 1e3
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in kernels)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    ms["rest_top"] = dict(sorted(rest.items(), key=lambda kv: -kv[1])[:8])
+    return ms, busy / 1e3, kernels
+
+
+def moe_profile(tr, ids, labels, card: str, label: str) -> dict:
+    """One step under the port's ``Profiler`` (CPU and GPU targets,
+    ``scheduler=(1, 2)``: step 0 closed, step 1 recorded): each kernel's
+    device time by kind, from the op and range enclosing its launch.
+    Kinds: flash, norms and AdamW (the port's kernels), dispatch and
+    combine (kernels under the ``moe.dispatch`` / ``moe.combine`` ranges
+    and their backward nodes), expert bmm (GEMMs under ``moe.experts``
+    and the bmm / baddbmm backward nodes), dense GEMMs (every other
+    GEMM), the rest; and the busy share, the union of the kernel
+    intervals over the recorded step's wall time."""
+    import shutil
+    import tempfile
+
+    import torch
+    from paddle_tpu_torch.profiler import Profiler, ProfilerTarget
+    root = tempfile.mkdtemp(prefix="moe_profile_")
+    try:
+        p = Profiler(targets=[ProfilerTarget.CPU, ProfilerTarget.GPU],
+                     scheduler=(1, 2), trace_dir=root)
+        walls = []
+        torch.cuda.synchronize()
+        with p:
+            for _ in range(2):
+                t = time.perf_counter()
+                float(tr.train_step(ids, labels))
+                walls.append((time.perf_counter() - t) * 1e3)
+                p.step()
+        events = p.device_events()
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ms, busy_ms, kernels = moe_kinds(events)
+    top = {k[:90]: v for k, v in ms.pop("rest_top").items()}
+    out = {"wall_ms": walls[1], "kernel_events": len(kernels),
+           "device_ms_by_kind": ms, "device_ms": sum(ms.values()),
+           "rest_top_ms": top,
+           "busy_ms": busy_ms,
+           "busy_share": busy_ms / walls[1] if walls[1] else None}
+    log(f"[train:moe] {label}: one step under the port's Profiler: "
+        f"{walls[1]:.1f} ms wall, {len(kernels)} kernels, "
+        f"{out['busy_ms']:.1f} ms busy (share {out['busy_share']:.3f}); "
+        f"device ms by kind "
+        f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}; the rest's "
+        f"largest {json.dumps({k: round(v, 3) for k, v in top.items()})} "
+        f"(card: {card})")
+    if not kernels or ms["expert_bmm"] <= 0 or ms["dispatch_combine"] <= 0 \
+            or ms["flash"] <= 0:
+        raise AssertionError(f"[train:moe] {label}: the profile shows no "
+                             f"expert bmm, dispatch / combine or flash time: "
+                             f"{json.dumps(ms)}")
+    return out
+
+
+def phase_train_moe(card: str) -> tuple:
+    """The reference's expert-parallel GPT-MoE training on the port at the
+    repo's production MoE width (``moe_config``: gpt3_6_7b widths, 8
+    experts, top-2, cut to ``MOE_LAYERS`` of 32 layers), bf16, batch
+    ``MOE_BATCH`` x ``MOE_SEQ``, ``FusedAdamW(multi_precision=True)``,
+    every rank on this card: rows 4-6 and 9-11 at the path's shapes; then
+    the serial trainer, ``{ep 2, pp 2, sharding 2}`` (ZeRO-1, the
+    example's layout) and ``{dp 2, ep 2, mp 2}``, each built from the same
+    weights and freed in turn: step 1 at microbatches 1 against serial
+    (the loss, and the share of tokens whose top-k set differs, layer by
+    layer), ``MOE_WARMUP`` and ``MOE_STEPS`` timed steps (layout 2 at 2
+    microbatches) with the counts zeroed just before and read just after
+    and held to ``moe_want``; step p50, tokens/s, the model-FLOP share
+    over the active parameters, memory after the build and at the peak,
+    ``expert_util`` and ``token_keep_rate`` per layer; one step of the
+    serial and of the example's layout under the port's ``Profiler``;
+    then the example script at its defaults on the card.  Returns each
+    run's launches over its timed steps and the records."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch.distributed import moe, topology
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_adamw as fw
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    from paddle_tpu_torch.optimizer import FusedAdamW
+    tag = "[train:moe]"
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = moe_config()
+    kernels = [getattr(fa, k) for k in HYBRID_KERNELS[:3]] + \
+        [getattr(fn, k) for k in HYBRID_KERNELS[3:5]] + [fw.fused_adamw]
+    total, active = moe_params(cfg)
+    out = {"kernels": moe_kernels(card, cfg), "runs": {},
+           "params": total, "active_params": active}
+    launches = {}
+    serial_loss = serial_routes = None
+    route = moe.moe_route
+    for label, hybrid, m in MOE_RUNS:
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        tr = moe_trainer(cfg, hybrid, 1, FusedAdamW(
+            learning_rate=TRAIN_LR, multi_precision=True))
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        built_gb = (torch.cuda.memory_allocated() - base) / 1e9
+        ids, labels = tr.make_batch(MOE_BATCH, MOE_SEQ, seed=0)
+        routes = []
+
+        def spy(val, idx, E, C):
+            routes.append(idx.detach().sort(-1).values.cpu())
+            return route(val, idx, E, C)
+        moe.moe_route = spy
+        try:
+            losses = [float(tr.train_step(ids, labels))]
+        finally:
+            moe.moe_route = route
+        if serial_loss is None:
+            serial_loss, serial_routes = losses[0], routes
+        gap = abs(losses[0] - serial_loss) / abs(serial_loss)
+        flips = [float((a != b).any(-1).float().mean())
+                 for a, b in zip(routes, serial_routes)]
+        tr.M = m
+        losses += [float(tr.train_step(ids, labels))
+                   for _ in range(MOE_WARMUP)]
+        torch.cuda.synchronize()
+        for k in kernels:
+            k.launches = 0
+        step_ms = []
+        for _ in range(MOE_STEPS):
+            t = time.perf_counter()
+            losses.append(float(tr.train_step(ids, labels)))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        got = {name: k.launches for name, k in zip(HYBRID_KERNELS, kernels)}
+        want = {k: v * MOE_STEPS for k, v in moe_want(
+            cfg, hybrid, m, MOE_BATCH).items()}
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        p50 = float(np.median(step_ms))
+        tok_s = MOE_BATCH * MOE_SEQ / (p50 / 1e3)
+        flops = 6 * active + 12 * cfg.num_layers * cfg.hidden_size * MOE_SEQ
+        mfu = flops * tok_s / PEAK_FLOPS["bfloat16"]
+        routing = tr.routing()
+        rec = {"hybrid": hybrid, "microbatches": m, "losses": losses,
+               "step1_gap": gap, "gap_limit": MOE_GAP_LIMIT,
+               "routing_flip_share": flips, "step_ms": step_ms,
+               "step_ms_p50": p50, "tokens_per_s": tok_s,
+               "active_mfu": mfu, "built_gb": built_gb, "peak_gb": peak_gb,
+               "build_s": build_s, "stage_calls": getattr(
+                   tr, "stage_calls", None), **routing,
+               "launches_per_step": {k: v / MOE_STEPS
+                                     for k, v in got.items()},
+               "launches_per_step_want": {k: v / MOE_STEPS
+                                          for k, v in want.items()}}
+        out["runs"][label] = rec
+        log(f"{tag} {label} (gpt3_6_7b widths, 8 experts top-2, "
+            f"{cfg.num_layers} of 32 layers, {total / 1e9:.3f}B params, "
+            f"{active / 1e9:.3f}B active a token, bf16, batch {MOE_BATCH} x "
+            f"{MOE_SEQ}, {m} microbatches): step 1 loss {losses[0]:.6f}, "
+            f"relative gap to serial {gap:.3e} (limit {MOE_GAP_LIMIT}), "
+            f"tokens whose top-2 set differs from serial's, by layer, "
+            f"{flips}; step p50 {p50:.1f} ms "
+            f"({[round(x, 1) for x in step_ms]}), {tok_s:.0f} tokens/s, "
+            f"active model-FLOP share {mfu:.3f}; memory after the build "
+            f"{built_gb:.2f} GB (built in {build_s:.1f} s), peak "
+            f"{peak_gb:.2f} GB; expert_util {routing['expert_util']}, "
+            f"token_keep_rate {routing['token_keep_rate']}; losses "
+            f"{[round(x, 5) for x in losses]}; launches a step "
+            f"{json.dumps(rec['launches_per_step'])} (want "
+            f"{json.dumps(rec['launches_per_step_want'])}) (card: {card})")
+        if got != want:
+            raise AssertionError(f"{tag} {label}: launches {got} != the "
+                                 f"layout's {want}")
+        if not all(np.isfinite(losses)) or not gap <= MOE_GAP_LIMIT:
+            raise AssertionError(f"{tag} {label}: losses {losses} (step 1 "
+                                 f"gap to serial {gap})")
+        launches[label] = got
+        if label in ("serial", "ep2_pp2_sharding2"):
+            rec["profile"] = moe_profile(tr, ids, labels, card, label)
+        del tr
+        topology.set_hybrid_communicate_group(None)
+    free_card()
+    # the example at its defaults on the card
+    from paddle_tpu_torch.examples import train_moe_ep
+    t0 = time.perf_counter()
+    ex = train_moe_ep.main([])
+    out["example"] = {"losses": ex, "seconds": time.perf_counter() - t0}
+    log(f"{tag} paddle_tpu_torch/examples/train_moe_ep.py at its defaults on "
+        f"{DEVICE} (ep 2 x pp 2 x sharding 2, gpt_moe_tiny, 5 steps): losses "
+        f"{[round(x, 4) for x in ex]} in {out['example']['seconds']:.1f} s")
+    topology.set_hybrid_communicate_group(None)
+    free_card()
+    return launches, out
 
 
 def run_phase(name: str, fn, *args):
@@ -8062,6 +8638,9 @@ def main() -> int:
     free_card()
     semi_launches, semi = run_phase("train:semi_auto", phase_train_semi_auto,
                                     card)
+    # expert-parallel GPT-MoE at the production MoE width
+    free_card()
+    moe_launches, moe_train = run_phase("train:moe", phase_train_moe, card)
     free_card()
     llama_launches, llama_train = run_phase("train:llama", phase_train, card,
                                             "llama")
@@ -8156,10 +8735,13 @@ def main() -> int:
                                  **{f"hybrid_{k}": v[name]
                                     for k, v in hybrid_launches.items()},
                                  "example": example_launches[name],
-                                 "semi_auto": semi_launches.get(name, 0)},
+                                 "semi_auto": semi_launches.get(name, 0),
+                                 **{f"moe_{k}": v[name]
+                                    for k, v in moe_launches.items()}},
             **train_recs[name]})
         if name in semi["kernels"]:
             kernels[-1]["semi_auto"] = semi["kernels"][name]
+        kernels[-1]["moe"] = moe_train["kernels"][name]
     # the segment-id variant: the packed flash_attn_unpadded call
     for name, line in (("flash_attention_fwd", 77),
                        ("flash_attention_bwd_dq", 199),
@@ -8185,6 +8767,8 @@ def main() -> int:
                            "train": train_launches,
                            **{f"hybrid_{k}": v
                               for k, v in hybrid_launches.items()},
+                           **{f"moe_{k}": v
+                              for k, v in moe_launches.items()},
                            "example": example_launches,
                            "durable_attach": durable["launches_attach"],
                            "fleet": fleet["launches"],
@@ -8193,6 +8777,8 @@ def main() -> int:
         "layer_norm_bwd": {"train": train_launches,
                            **{f"hybrid_{k}": v
                               for k, v in hybrid_launches.items()},
+                           **{f"moe_{k}": v
+                              for k, v in moe_launches.items()},
                            "example": example_launches},
     }
     for name, line in zip(NORM_KERNELS, (22, 30, 167, 179)):
@@ -8207,6 +8793,8 @@ def main() -> int:
             **norm_recs[name]})
         if name in semi["kernels"]:
             kernels[-1]["semi_auto"] = semi["kernels"][name]
+        if name in moe_train["kernels"]:
+            kernels[-1]["moe"] = moe_train["kernels"][name]
         if name == "layer_norm_fwd":
             # rows in registers; a row over 1024 16-byte groups re-read
             kernels[-1]["kernels"] = ["ln_fwd_rows_kernel",
@@ -8259,6 +8847,7 @@ def main() -> int:
         f"train {json.dumps(train)}; hybrid train {json.dumps(hybrid)}; "
         f"example train {json.dumps(example)}; "
         f"semi-auto train {json.dumps(semi)}; "
+        f"moe train {json.dumps(moe_train)}; "
         f"llama train {json.dumps(llama_train)}; tiny serving "
         f"{json.dumps(tiny)}")
     log(json.dumps({"kernels": kernels}))

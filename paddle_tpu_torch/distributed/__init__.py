@@ -24,3 +24,13 @@ __all__ = ["auto_parallel", "checkpoint", "fleet_utils", "meta_parallel",
            "shard_optimizer", "unshard_dtensor", "get_placements",
            "shard_dataloader", "to_static", "DistModel", "Engine",
            "set_mesh", "get_mesh"]
+
+
+def __getattr__(name):
+    # the MoE stack loads on first use (distributed/__init__.py:72)
+    if name == "moe":
+        import importlib
+        mod = importlib.import_module(".moe", __name__)
+        globals()[name] = mod
+        return mod
+    raise AttributeError(name)

@@ -1,12 +1,15 @@
-"""Carry GPT and Llama weights from the JAX package into the port.
+"""Carry GPT, GPT-MoE and Llama weights from the JAX package into the
+port.
 
 The port keeps the reference's parameter names and layouts (``[in, out]``
-Linear weights, ``[vocab, h]`` embeddings), so conversion is a key-for-key
-copy, checked against the parameter table of the model's config.  The
-family is read from the key prefix: ``gpt.`` or ``llama.``.  The JAX
-hybrid trainer's state (non-block leaves and stacked blocks) unstacks into
-the same keys (:func:`jax_trainer_arrays`), and :func:`hybrid_state_from_jax`
-lays either form into the port trainer's rank blocks.
+Linear weights, ``[vocab, h]`` embeddings, the experts' ``stacked__*``
+``[E, ...]`` tensors), so conversion is a key-for-key copy, checked
+against the parameter table of the model's config.  The family is read
+from the keys: ``gpt.`` (GPT), ``llama.`` (Llama) or a top-level
+``wte.weight`` (GPT-MoE).  The JAX hybrid trainers' state (non-block
+leaves and stacked blocks) unstacks into the same keys
+(:func:`jax_trainer_arrays`), and :func:`hybrid_state_from_jax` lays
+either form into the port trainer's rank blocks.
 """
 
 from __future__ import annotations
@@ -20,6 +23,7 @@ import torch
 
 from ..device import resolve_device, resolve_dtype
 from .gpt import GPTConfig
+from .gpt_moe import GPTMoEConfig
 from .llama import LlamaConfig
 
 __all__ = ["state_dict_from_jax", "jax_trainer_arrays",
@@ -48,6 +52,56 @@ def _gpt_shapes(cfg: GPTConfig) -> Dict[str, Tuple[int, ...]]:
     if not cfg.tie_embeddings:
         out["lm_head.weight"] = (h, cfg.vocab_size)
     return out
+
+
+def _gpt_moe_shapes(cfg: GPTMoEConfig) -> Dict[str, Tuple[int, ...]]:
+    """Every parameter name of ``GPTMoEForCausalLM(cfg)`` with its
+    shape."""
+    h, f, e = cfg.hidden_size, cfg.ffn_size, cfg.num_experts
+    out = {"wte.weight": (cfg.vocab_size, h),
+           "wpe.weight": (cfg.max_seq_len, h)}
+    for i in range(cfg.num_layers):
+        p = f"h.{i}."
+        for name, shape in (("ln_1.weight", (h,)), ("ln_1.bias", (h,)),
+                            ("qkv.weight", (h, 3 * h)), ("qkv.bias", (3 * h,)),
+                            ("out_proj.weight", (h, h)),
+                            ("out_proj.bias", (h,)), ("ln_2.weight", (h,)),
+                            ("ln_2.bias", (h,))):
+            out[p + name] = shape
+        if i % cfg.moe_every == cfg.moe_every - 1:
+            out[p + "ffn.gate.gate_weight"] = (h, e)
+            for name, shape in (("w0", (e, h, f)), ("b0", (e, f)),
+                                ("w1", (e, f, h)), ("b1", (e, h))):
+                out[p + "ffn.experts.stacked__" + name] = shape
+        else:
+            for name, shape in (("fc_in.weight", (h, f)), ("fc_in.bias", (f,)),
+                                ("fc_out.weight", (f, h)),
+                                ("fc_out.bias", (h,))):
+                out[p + name] = shape
+    out["ln_f.weight"] = (h,)
+    out["ln_f.bias"] = (h,)
+    return out
+
+
+def _infer_gpt_moe(arrays: Mapping[str, np.ndarray]) -> GPTMoEConfig:
+    for key in ("wte.weight", "wpe.weight"):
+        if key not in arrays:
+            raise KeyError(f"missing key in the JAX arrays: {key!r}")
+    vocab, h = np.shape(arrays["wte.weight"])
+    layers = _layers(arrays, r"h\.(\d+)\.")
+    moe = sorted(int(m.group(1)) for k in arrays
+                 if (m := re.match(r"h\.(\d+)\.ffn\.gate\.gate_weight$",
+                                   k)))
+    if not moe:
+        raise KeyError("no MoE layer (h.{i}.ffn.gate.gate_weight) in the "
+                       "JAX arrays")
+    w0 = np.shape(arrays[f"h.{moe[0]}.ffn.experts.stacked__w0"])
+    # the head count is not in the arrays and the table does not depend
+    # on it
+    return GPTMoEConfig(
+        vocab_size=vocab, hidden_size=h, num_layers=layers, num_heads=1,
+        max_seq_len=np.shape(arrays["wpe.weight"])[0], ffn_mult=w0[2] // h,
+        num_experts=w0[0], moe_every=moe[0] + 1)
 
 
 def _llama_shapes(cfg: LlamaConfig) -> Dict[str, Tuple[int, ...]]:
@@ -111,22 +165,29 @@ def _infer_config(arrays: Mapping[str, np.ndarray]) -> GPTConfig:
 def state_dict_from_jax(arrays: Mapping[str, np.ndarray],
                         device: Union[None, str, torch.device],
                         dtype: Union[None, str, torch.dtype],
-                        cfg: Union[None, GPTConfig, LlamaConfig] = None
+                        cfg: Union[None, GPTConfig, GPTMoEConfig,
+                                   LlamaConfig] = None
                         ) -> Dict[str, torch.Tensor]:
-    """Tensors on ``device`` in ``dtype`` for the JAX GPT or Llama
-    parameters ``arrays`` (``{k: np.asarray(v) for k, v in
+    """Tensors on ``device`` in ``dtype`` for the JAX GPT, GPT-MoE or
+    Llama parameters ``arrays`` (``{k: np.asarray(v) for k, v in
     jax_model.state_dict().items()}``), ready for
     ``model.load_state_dict``.
 
     The family is the one ``cfg`` names or, when ``cfg`` is None, the one
-    the keys name (any key under ``llama.``: Llama, else GPT).  The keys
+    the keys name (any key under ``llama.``: Llama; a top-level
+    ``wte.weight``: GPT-MoE; else GPT).  The keys
     and shapes are checked against the config's parameter table
     (inferred from the arrays when ``cfg`` is None): a missing or unexpected
     key raises ``KeyError`` and a shape mismatch ``ValueError``, each
     naming the key."""
     llama = isinstance(cfg, LlamaConfig) if cfg is not None else \
         any(k.startswith("llama.") for k in arrays)
-    if llama:
+    moe = isinstance(cfg, GPTMoEConfig) if cfg is not None else \
+        "wte.weight" in arrays
+    if moe:
+        want = _gpt_moe_shapes(cfg if cfg is not None
+                               else _infer_gpt_moe(arrays))
+    elif llama:
         want = _llama_shapes(cfg if cfg is not None
                              else _infer_llama(arrays))
     else:
@@ -151,33 +212,35 @@ def state_dict_from_jax(arrays: Mapping[str, np.ndarray],
 def jax_trainer_arrays(pnb: Mapping[str, np.ndarray],
                        pblk: Mapping[str, np.ndarray],
                        n_stages: int = 1) -> Dict[str, np.ndarray]:
-    """The JAX ``GPTHybridTrainer``'s ``(pnb, pblk)`` as the model's
-    per-layer arrays: ``pblk``'s stacked ``[L, ...]`` blocks, or under VPP
-    its ``[S·V, K, ...]`` chunks in ``stack_interleaved`` order (row
-    ``s·V + v`` holds chunk ``v·S + s``, layers ``[c·K, (c+1)·K)``), with
-    ``S = n_stages``."""
+    """The JAX ``GPTHybridTrainer``'s (or ``GPTMoEHybridTrainer``'s)
+    ``(pnb, pblk)`` as the model's per-layer arrays: ``pblk``'s stacked
+    ``[L, ...]`` blocks, or under VPP its ``[S·V, K, ...]`` chunks in
+    ``stack_interleaved`` order (row ``s·V + v`` holds chunk ``v·S + s``,
+    layers ``[c·K, (c+1)·K)``), with ``S = n_stages``."""
     out = {k: np.asarray(v) for k, v in pnb.items()}
+    pre = "h." if "wte.weight" in pnb else "gpt.h."
     interleaved = np.ndim(pblk["ln_1.weight"]) == 3
     for suffix, arr in pblk.items():
         a = np.asarray(arr)
         if not interleaved:
             for i in range(a.shape[0]):
-                out[f"gpt.h.{i}.{suffix}"] = a[i]
+                out[f"{pre}{i}.{suffix}"] = a[i]
             continue
         S, K = n_stages, a.shape[1]
         V = a.shape[0] // S
         order = [v * S + s for s in range(S) for v in range(V)]
         for row, c in enumerate(order):
             for k in range(K):
-                out[f"gpt.h.{c * K + k}.{suffix}"] = a[row, k]
+                out[f"{pre}{c * K + k}.{suffix}"] = a[row, k]
     return out
 
 
 def hybrid_state_from_jax(params, trainer,
                           n_stages: Optional[int] = None
                           ) -> List[Dict[str, torch.Tensor]]:
-    """Lay JAX GPT parameters into the port ``GPTHybridTrainer``'s rank
-    blocks, so both packages start the same step from the same weights.
+    """Lay JAX GPT or GPT-MoE parameters into the port
+    ``GPTHybridTrainer``'s (``GPTMoEHybridTrainer``'s) rank blocks, so
+    both packages start the same step from the same weights.
     ``params`` is the JAX model's state (``{key: array}``) or the JAX
     trainer's ``(pnb, pblk)`` (:func:`jax_trainer_arrays`, with
     ``n_stages`` its pp degree, by default ``trainer``'s).  Keys and

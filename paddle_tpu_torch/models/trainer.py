@@ -64,13 +64,21 @@ fills it in place from a checkpoint of any layout, and
 ``load_train_state`` then copies the replicas and sets the step and the
 scheduler.
 
-Not ported (ROADMAP queue 1): ``sep`` / context parallelism, ``ep``
-(``GPTMoEHybridTrainer``) and, in the hybrid path, dropout.
+``ep_degree > 1`` on the dense GPT is the reference's layout: no
+parameter carries an ``ep`` spec and the batch does not split over
+``ep``, so the ep ranks hold replicas and the step computes on ep rank 0.
+
+``GPTMoEHybridTrainer`` (below) trains ``GPTMoEForCausalLM`` over the same
+grid with the experts split over ``ep`` (or ``dp`` when ep is 1) and mp.
+
+Not ported (ROADMAP queue 1): ``sep`` / context parallelism and, in the
+hybrid path, dropout.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -78,6 +86,7 @@ import torch
 from torch import nn
 from torch.profiler import record_function
 
+from ..distributed import moe
 from ..distributed.mesh import Mesh, psum
 from ..distributed.meta_parallel.mp_layers import (parallel_cross_entropy,
                                                    sharded_row_take)
@@ -92,8 +101,10 @@ from ..distributed.sharding_utils import (P, ShardedTensor, get_param_specs,
                                           spec_axes, zero_dim)
 from ..nn.functional import layer_norm
 from .gpt import GPTBlock, GPTConfig, GPTForCausalLM
+from .gpt_moe import (GPTMoEConfig, GPTMoEForCausalLM, attention,
+                      replay_generators)
 
-__all__ = ["GPTHybridTrainer"]
+__all__ = ["GPTHybridTrainer", "GPTMoEHybridTrainer"]
 
 # the profiler range around the clip's work in a hybrid step
 CLIP_RANGE = "GPTHybridTrainer.clip"
@@ -168,8 +179,7 @@ class GPTHybridTrainer:
                                      "device=")
                 device = hcg.grid.device(0)
             self.grid = None
-            self.model = GPTForCausalLM(cfg, device=device,
-                                        generator=generator).train()
+            self.model = self._make_model(device, generator).train()
             self.opt = optimizer.bind(self.model)
             return
         if device is not None:
@@ -178,10 +188,22 @@ class GPTHybridTrainer:
         self.model = None
         self.opt = optimizer
         self._build(generator)
-        self.sp = cfg.sp and self.mp > 1
-        # the hybrid path refuses dropout: no generator to replay
+        self.sp = getattr(cfg, "sp", False) and self.mp > 1
+        # the hybrid path refuses dropout: it replays only what the block
+        # itself draws
         self._block_run = remat_wrap(self._block_body, cfg.remat,
-                                     generators=[])
+                                     generators=self._replay_generators())
+
+    def _make_model(self, device, generator) -> nn.Module:
+        return GPTForCausalLM(self.cfg, device=device, generator=generator)
+
+    def _make_template(self, model: nn.Module) -> nn.Module:
+        """What the per-rank block body calls with a rank's weights."""
+        return _BlockShard(GPTBlock(self.cfg, device=torch.device("meta"),
+                                    dtype=self._dtype, generator=None))
+
+    def _replay_generators(self) -> list:
+        return []
 
     def _check_group(self, hcg) -> None:
         cfg = self.cfg
@@ -189,11 +211,6 @@ class GPTHybridTrainer:
             raise NotImplementedError(
                 f"sep_degree={hcg.get_sep_parallel_world_size()}: context "
                 f"parallelism is not ported yet (ROADMAP queue 1 item 9)")
-        if hcg.get_expert_parallel_world_size() > 1:
-            raise NotImplementedError(
-                f"ep_degree={hcg.get_expert_parallel_world_size()}: expert "
-                f"parallelism (GPTMoEHybridTrainer) is not ported yet "
-                f"(ROADMAP queue 1 item 10)")
         if self.S > 1 and cfg.num_layers % (self.S * self.V):
             raise ValueError(
                 f"num_layers={cfg.num_layers} must divide evenly into "
@@ -206,12 +223,12 @@ class GPTHybridTrainer:
         if self.zero not in (0, 1, 2, 3):
             raise ValueError(f"zero_stage must be 0-3, got {self.zero}")
         if any(n > 1 for n in hcg.degrees().values()):
-            if cfg.dropout or cfg.attn_dropout:
+            if cfg.dropout or getattr(cfg, "attn_dropout", 0.0):
                 raise NotImplementedError(
                     "dropout in the hybrid-parallel trainer is not ported "
                     "yet (ROADMAP queue 1 item 5); set dropout=0 and "
                     "attn_dropout=0")
-            if not cfg.tie_embeddings:
+            if not getattr(cfg, "tie_embeddings", True):
                 raise NotImplementedError(
                     "the hybrid-parallel trainer's head is the tied wte "
                     "table, as the reference's; set tie_embeddings=True")
@@ -226,17 +243,17 @@ class GPTHybridTrainer:
         S, V, L = self.S, self.V, cfg.num_layers
         self.interleave = S > 1 and V > 1
         self.K = L // (S * V) if self.interleave else L // S
-        model = GPTForCausalLM(cfg, device=grid.device(0),
-                               generator=generator)
+        model = self._make_model(grid.device(0), generator)
         self._dtype = model.dtype
         specs = get_param_specs(model)
         # wte / wpe rows extend over pp: each stage holds 1/S of the table
         # and the tied head's vocab shards ride mp x pp (trainer.py:98-131)
         if S > 1:
             for k in (self.KEY_WTE, self.KEY_WPE):
-                old = specs[k]
+                old = tuple(specs[k]) or (None,)
                 specs[k] = P(spec_axes(old[0]) + ("pp",), *old[1:])
-        self._vocab_axes = spec_axes(specs[self.KEY_WTE][0])
+        self._vocab_axes = spec_axes((tuple(specs[self.KEY_WTE])
+                                      or (None,))[0])
         self._layout: Dict[str, _Layout] = {}
         shapes = self._shapes = {n: tuple(p.shape)
                                  for n, p in model.named_parameters()}
@@ -248,8 +265,8 @@ class GPTHybridTrainer:
                 self._layout[n] = _Layout(spec, None)
                 stacked_specs[n], stacked_shapes[n] = spec, shape
                 continue
-            i, suffix = n[len(self.BLOCK_PREFIX):].split(".", 1)
-            self._layout[n] = _Layout(spec, self._stage_of(int(i)))
+            suffix = self._suffix(n)
+            self._layout[n] = _Layout(spec, self._stage_of(self._layer_of(n)))
             lead = (("pp", None) if self.interleave else
                     ("pp" if S > 1 else None,))
             dims = ((S * V, self.K) if self.interleave else (L,))
@@ -258,8 +275,7 @@ class GPTHybridTrainer:
         if self.D > 1:
             for n, lay in self._layout.items():
                 self._zero_split(n, lay, stacked_shapes, stacked_specs)
-        self._template = _BlockShard(GPTBlock(cfg, device=torch.device(
-            "meta"), dtype=self._dtype, generator=None))
+        self._template = self._make_template(model)
         self._store: Dict[tuple, torch.Tensor] = {}
         self._held: Dict[tuple, Optional[tuple]] = {}
         self._views: Dict[tuple, torch.Tensor] = {}
@@ -267,6 +283,13 @@ class GPTHybridTrainer:
         self._opt_state = None
         self._place(dict(model.named_parameters()))
         del model
+
+    def _suffix(self, n: str) -> str:
+        """A block parameter's name within its block."""
+        return n[len(self.BLOCK_PREFIX):].split(".", 1)[1]
+
+    def _layer_of(self, n: str) -> int:
+        return int(n[len(self.BLOCK_PREFIX):].split(".", 1)[0])
 
     def _stage_of(self, layer: int) -> int:
         if self.interleave:
@@ -279,7 +302,7 @@ class GPTHybridTrainer:
         or the chunk's block dim (VPP) gives whole blocks to one sharding
         rank; any other dim splits each block."""
         block = n.startswith(self.BLOCK_PREFIX)
-        key = n.split(".", 3)[3] if block else n
+        key = self._suffix(n) if block else n
         d = zero_dim(shapes[key], specs[key], self.D)
         if d is None:
             return
@@ -287,15 +310,21 @@ class GPTHybridTrainer:
         if d >= lead:
             lay.zdim = d - lead
             return
-        i = int(n.split(".")[2])
+        i = self._layer_of(n)
         per = (self.K if self.interleave else self.cfg.num_layers) // self.D
         lay.owner = (i % self.K if self.interleave else i) // per
+
+    def _arranged(self, n: str) -> bool:
+        """Whether ``n`` is a QKV weight / bias split on its columns over
+        mp, stored with each shard's head group contiguous."""
+        return self.mp > 1 and n.endswith(("qkv.weight", "qkv.bias")) \
+            and "mp" in spec_axes(self._layout[n].spec[-1])
 
     def _qkv_arranged(self, n: str, t: torch.Tensor) -> torch.Tensor:
         """The QKV weight / bias with each mp shard's head group
         contiguous, ``[q_0 k_0 v_0 | q_1 k_1 v_1 | ...]`` (the column
         order ``tp_decode_weights`` uses)."""
-        if self.mp == 1 or not n.endswith(("qkv.weight", "qkv.bias")):
+        if not self._arranged(n):
             return t
         h = self.cfg.hidden_size
         q, k, v = t.split(h, dim=-1)
@@ -304,7 +333,7 @@ class GPTHybridTrainer:
         return torch.cat([x for trio in parts for x in trio], dim=-1)
 
     def _qkv_restored(self, n: str, t: torch.Tensor) -> torch.Tensor:
-        if self.mp == 1 or not n.endswith(("qkv.weight", "qkv.bias")):
+        if not self._arranged(n):
             return t
         per = t.chunk(self.mp, -1)
         trios = [x.chunk(3, -1) for x in per]
@@ -410,11 +439,17 @@ class GPTHybridTrainer:
 
     def _vocab_ranks(self, g: int) -> List[int]:
         """The ranks of batch group ``g`` holding the vocab shards of
-        ``wte`` / ``wpe`` and of the head, in shard order."""
-        pp = "pp" in self._vocab_axes
-        return [self._rank(g, j % self.S if pp else 0,
-                           j // self.S if pp else j)
-                for j in range(self.mp * (self.S if pp else 1))]
+        ``wte`` / ``wpe`` and of the head, in shard order (the table's row
+        axes, the first major)."""
+        axes = self._vocab_axes
+        dims = [self.grid.shape[a] for a in axes]
+        out = []
+        for j in range(math.prod(dims)):
+            c = {}
+            for a, n in reversed(list(zip(axes, dims))):
+                j, c[a] = divmod(j, n)
+            out.append(self._rank(g, c.get("pp", 0), c.get("mp", 0)))
+        return out
 
     def _mesh(self, ranks: List[int]) -> Mesh:
         return Mesh([self.grid.device(r) for r in ranks])
@@ -552,7 +587,7 @@ class GPTHybridTrainer:
         optimizer name, store key, slice or None)``."""
         out, seen = [], set()
         for n, lay in self._layout.items():
-            name = n.split(".", 3)[3] if n.startswith(self.BLOCK_PREFIX) \
+            name = self._suffix(n) if n.startswith(self.BLOCK_PREFIX) \
                 else n
             for r in self._ranks_of(n):
                 key = self._holds(n, r)
@@ -582,17 +617,21 @@ class GPTHybridTrainer:
 
     def _sum_replica_grads(self) -> None:
         """Gradients of one block held on several devices (replicas over
-        dp / sharding / mp ranks there) are summed and shared."""
+        dp / sharding / mp / ep ranks there) are summed and shared; a
+        replica that took no part in the step (an ep replica of the dense
+        GPT, a copy of an expert block another batch group computes) gets
+        the sum too."""
         groups: Dict[tuple, List[tuple]] = {}
         for key in self._store:
             groups.setdefault(key[:3], []).append(key)
         for keys in groups.values():
             ts = [self._store[k] for k in keys]
-            if len(ts) > 1 and all(t.grad is not None for t in ts):
-                total = psum([t.grad for t in ts],
-                             Mesh([k[3] for k in keys]))
-                for t, g in zip(ts, total):
-                    t.grad = g.clone()
+            got = [t for t in ts if t.grad is not None]
+            if len(ts) > 1 and got:
+                total = psum([t.grad for t in got],
+                             Mesh([t.device for t in got]))[0]
+                for t in ts:
+                    t.grad = total.to(t.device, copy=True)
 
     def _share_slices(self, updated: Dict[tuple, torch.device]) -> None:
         """ZeRO 1-2 across devices: each replica takes the slices it did
@@ -620,7 +659,7 @@ class GPTHybridTrainer:
         the stacked blocks, whose tensor is the block suffix
         (trainer.py:340-341; clip.py's ``tensor_of``)."""
         if name.startswith(self.BLOCK_PREFIX):
-            return "blocks", name.split(".", 3)[3]
+            return "blocks", self._suffix(name)
         return "nonblock", name
 
     def _opt_state_made(self) -> dict:
@@ -771,7 +810,7 @@ class GPTHybridTrainer:
         off = [i * (shape[d] // c) for d, (i, c) in enumerate(idx)]
         if cut is not None:
             off[lay.zdim] += cut * t.shape[lay.zdim]
-        if self.mp == 1 or not n.endswith(("qkv.weight", "qkv.bias")):
+        if not self._arranged(n):
             return [(tuple(off), t)]
         h, w = self.cfg.hidden_size, t.shape[-1] // 3
         d = off[-1] // (3 * w)
@@ -916,3 +955,266 @@ def _assemble(blocks: Dict[tuple, torch.Tensor]) -> torch.Tensor:
         blocks = {k: torch.cat(v, dim=d) for k, v in merged.items()}
         any_idx = next(iter(blocks))
     return next(iter(blocks.values()))
+
+
+class GPTMoEHybridTrainer(GPTHybridTrainer):
+    """GPT-MoE over the hybrid grid (counterpart of trainer.py:383-474):
+    ``GPTMoEForCausalLM`` with dp x pp x ZeRO x ep x mp.
+
+    The constructor, ``make_batch``, ``train_step`` and the state API are
+    ``GPTHybridTrainer``'s.  The blocks must be uniform
+    (``cfg.moe_every == 1``, the pipeline's requirement).  With an mp
+    degree above 1 the experts take the Megatron split over ``mp``
+    (``cfg.mp_group = "mp"``, on the trainer's copy of ``cfg``), and they
+    split over ``ep`` (``dp`` when ep is 1: ``_ep_axis``'s rule).  The
+    attention weights, the norms, the gate and the tables carry no mp
+    spec; with pp > 1 ``wte`` / ``wpe`` split their rows over ``pp`` and
+    the head's cross entropy runs over those vocab shards.
+
+    A step, for each microbatch, runs the pipeline with the hidden state
+    of every batch group (dp x sharding) and the gates' aux loss as the
+    carry (the reference's ``{"h", "aux"}``): each batch group's rows
+    through attention and the norms on its own ranks; then, per MoE layer,
+    the router's logits of each group's rows, gathered in row order so
+    the softmax, the top-k, the aux loss, the capacity and the arrival
+    order run over the whole microbatch (the reference's single program
+    sees every token of it); dispatch gathers each expert block's rows
+    onto the block's ranks (``expert axis = j``), the mp ranks of the
+    block each run their columns and their w1 partials are summed over
+    mp; combine gathers the blocks' outputs in expert order onto each
+    group.  The batch aux is the mean over microbatches with pp > 1
+    (trainer.py:455-461) and the exact sum without pp (trainer.py:463-
+    475; microbatches then do not split the batch).  With microbatches >
+    1 the capacity is per microbatch, as the reference's.
+
+    Per layer, ``expert_util`` and ``token_keep_rate`` hold the last
+    step's readings (their mean over its microbatches), as 0-dim tensors;
+    ``routing()`` reads them."""
+
+    BLOCK_PREFIX = "h."
+    KEY_WTE = "wte.weight"
+    KEY_WPE = "wpe.weight"
+    KEY_LNF_W = "ln_f.weight"
+    KEY_LNF_B = "ln_f.bias"
+
+    def __init__(self, cfg: GPTMoEConfig, hcg=None, optimizer=None,
+                 microbatches: int = 1, zero_stage: int = 1, vpp: int = 1,
+                 *, device: Union[None, str, torch.device] = None,
+                 generator: Optional[torch.Generator] = None):
+        if cfg.moe_every != 1:
+            raise ValueError(
+                "GPTMoEHybridTrainer needs uniform blocks: set "
+                "cfg.moe_every = 1 (every block MoE), the pipeline's "
+                "structurally identical stages, like the reference "
+                "PipelineLayer's uniform segmentation")
+        if hcg is not None:
+            ep = hcg.get_expert_parallel_world_size()
+            mp = hcg.get_model_parallel_world_size()
+            cfg = dataclasses.replace(
+                cfg, moe_group=cfg.moe_group if cfg.moe_group is not None
+                else ("ep" if ep > 1 else "dp"),
+                mp_group="mp" if cfg.mp_group is None and mp > 1
+                else cfg.mp_group)
+        self.expert_util: List[Optional[torch.Tensor]] = \
+            [None] * cfg.num_layers
+        self.token_keep_rate: List[Optional[torch.Tensor]] = \
+            [None] * cfg.num_layers
+        super().__init__(cfg, hcg, optimizer, microbatches, zero_stage, vpp,
+                         device=device, generator=generator)
+
+    def _check_group(self, hcg) -> None:
+        super()._check_group(hcg)
+        axis = moe._ep_axis(self.cfg.moe_group)
+        if axis not in ("ep", "dp", "sharding"):
+            raise ValueError(f"moe_group {axis!r}: the experts split over "
+                             f"ep, dp or sharding")
+        n = hcg.grid.shape[axis]
+        if self.cfg.num_experts % n:
+            raise ValueError(f"num_experts={self.cfg.num_experts} must "
+                             f"divide evenly over the {axis} axis of {n}")
+
+    def _make_model(self, device, generator) -> nn.Module:
+        return GPTMoEForCausalLM(self.cfg, device=device,
+                                 generator=generator)
+
+    def _make_template(self, model: nn.Module) -> nn.Module:
+        """Block 0's ``MoELayer``: its gate's ``select`` (which uses no
+        weight), capacity factors, activation and expert axis."""
+        return model.h[0].ffn
+
+    def _replay_generators(self) -> list:
+        return replay_generators(self._template)
+
+    # ------------------------------------------------------------ forward
+    def _embed(self, g: int, ids: torch.Tensor) -> torch.Tensor:
+        """Token + position rows of ``ids`` for batch group ``g`` on its
+        stage-0 rank (masked lookups summed over the tables' row shards
+        when pp splits them)."""
+        ranks = self._vocab_ranks(g)
+        mesh = self._mesh(ranks)
+        pos = torch.arange(ids.shape[1], device=ids.device)[None, :]
+        tok = sharded_row_take([self._param(self.KEY_WTE, r) for r in ranks],
+                               ids, mesh)[0]
+        at = sharded_row_take([self._param(self.KEY_WPE, r) for r in ranks],
+                              pos, mesh)[0]
+        return (tok + at).to(self.grid.device(self._rank(g, 0, 0)))
+
+    def _carry_hop(self, carry, stage: int):
+        xs, aux = carry
+        return ({g: x.to(self.grid.device(self._rank(g, stage, 0)))
+                 for g, x in xs.items()}, aux)
+
+    def _expert_rank(self, stage: int, j: int, d: int) -> int:
+        """The rank computing expert block ``j``'s mp shard ``d``: expert
+        axis at ``j``, the other batch axes at 0."""
+        return self.grid.rank(pp=stage, mp=d, **{self._template._axis: j})
+
+    def _block_body(self, i: int, stage: int, xs: Dict[int, torch.Tensor]):
+        """Layer ``i`` on every batch group's rows: ``({group: hidden},
+        the gate's aux loss)``."""
+        cfg, h = self.cfg, self.cfg.hidden_size
+        pre = f"{self.BLOCK_PREFIX}{i}."
+        out, hs = {}, {}
+        for g, x in xs.items():
+            r = self._rank(g, stage, 0)
+
+            def p(name):
+                return self._param(pre + name, r)
+            a = layer_norm(x, h, p("ln_1.weight"), p("ln_1.bias"),
+                           cfg.layer_norm_eps)
+            x = x + attention(a, p("qkv.weight"), p("qkv.bias"),
+                              p("out_proj.weight"), p("out_proj.bias"),
+                              cfg.num_heads)
+            out[g] = x
+            hs[g] = layer_norm(x, h, p("ln_2.weight"), p("ln_2.bias"),
+                               cfg.layer_norm_eps)
+        ms, aux = self._moe(i, stage, hs)
+        return {g: out[g] + ms[g] for g in out}, aux
+
+    def _moe(self, i: int, stage: int, hs: Dict[int, torch.Tensor]):
+        """Layer ``i``'s MoE over every group's rows of one microbatch."""
+        tpl, grid = self._template, self.grid
+        E, k, h = tpl.num_expert, tpl.top_k, self.cfg.hidden_size
+        pre = f"{self.BLOCK_PREFIX}{i}.ffn."
+        groups = list(hs)
+        toks = {g: hs[g].reshape(-1, h) for g in groups}
+        dev_r = toks[groups[0]].device
+        with record_function(moe.GATE_RANGE):
+            logits = _cat([moe.gate_logits(toks[g], self._param(
+                pre + "gate.gate_weight", self._rank(g, stage, 0))).to(dev_r)
+                for g in groups])
+            val, idx = tpl.gate.select(logits)
+        S = logits.shape[0]
+        route = moe.moe_route(val, idx, E, tpl.capacity(S))
+        C = route.capacity
+        kept = route.n_kept.detach().float()
+        self._readings[i].append((kept / (E * C), kept / (S * k)))
+        n_blk = grid.shape[tpl._axis]
+        rows = (E // n_blk) * C
+        tok_at: Dict[torch.device, torch.Tensor] = {}
+        outs = []
+        for j in range(n_blk):
+            ranks = [self._expert_rank(stage, j, d) for d in range(self.mp)]
+            dev = grid.device(ranks[0])
+            if dev not in tok_at:
+                tok_at[dev] = _cat([toks[g].to(dev) for g in groups])
+            with record_function(moe.DISPATCH_RANGE):
+                xin = moe.dispatch(tok_at[dev], route.slot_token[
+                    j * rows:(j + 1) * rows].to(dev)).view(-1, C, h)
+            with record_function(moe.EXPERTS_RANGE):
+                parts = []
+                for r in ranks:
+                    def p(name):
+                        return self._param(pre + "experts.stacked__" + name,
+                                           r)
+                    parts.append(moe.experts_partial(
+                        xin.to(grid.device(r)), p("w0"), p("b0"), p("w1"),
+                        tpl.experts.activation))
+                y = psum(parts, self._mesh(ranks))[0] + \
+                    self._param(pre + "experts.stacked__b1",
+                                ranks[0]).unsqueeze(1)
+            outs.append(y.reshape(rows, h))
+        res, full_at, off = {}, {}, 0
+        for g in groups:
+            n, dev = toks[g].shape[0], toks[g].device
+            if dev not in full_at:
+                full_at[dev] = _cat([o.to(dev) for o in outs])
+            with record_function(moe.COMBINE_RANGE):
+                res[g] = moe.combine(full_at[dev],
+                                     route.slot[off:off + n].to(dev),
+                                     route.gv[off:off + n].to(dev)
+                                     ).view_as(hs[g])
+            off += n
+        return res, tpl.gate.aux_loss
+
+    def _loss(self, ids: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+        """The mean token loss plus ``aux_weight`` times the batch aux, with
+        every rank's share in one autograd graph."""
+        B, s = ids.shape
+        M = self.M if self.S > 1 else 1
+        if B % M:
+            raise ValueError(f"batch {B} does not split into {M} "
+                             f"microbatches")
+        mb = B // M
+        per = -(-mb // self.G)        # rows a batch group takes, as XLA
+        dev0 = self.grid.device(0)
+        self._readings = [[] for _ in range(self.cfg.num_layers)]
+        carries, spans = [], []
+        for m in range(M):
+            rows = {g: (m * mb + g * per, min(m * mb + (g + 1) * per,
+                                              (m + 1) * mb))
+                    for g in range(self.G)}
+            rows = {g: r for g, r in rows.items() if r[0] < r[1]}
+            spans.append(rows)
+            carries.append(({g: self._embed(g, ids[lo:hi])
+                             for g, (lo, hi) in rows.items()},
+                            torch.zeros((), dtype=torch.float32,
+                                        device=dev0)))
+
+        def body(entry, carry):
+            stage, layers = entry
+            self.stage_calls += 1
+            xs, aux = carry
+            for i in layers:
+                xs, a = self._block_run(i, stage, xs)
+                aux = aux + a.to(aux.device)
+            return xs, aux
+        run = pipeline_apply_interleaved if self.interleave \
+            else pipeline_apply
+        extra = (self.V,) if self.interleave else ()
+        outs = run(body, self._stage_entries(), carries, self.S, *extra,
+                   hop=self._carry_hop)
+        for i, got in enumerate(self._readings):
+            if got:
+                self.expert_util[i] = torch.stack([u for u, _ in got]).mean()
+                self.token_keep_rate[i] = torch.stack(
+                    [t for _, t in got]).mean()
+        total = torch.zeros((), dtype=torch.float32, device=dev0)
+        aux = torch.zeros((), dtype=torch.float32, device=dev0)
+        for rows, (xs, a) in zip(spans, outs):
+            for g, (lo, hi) in rows.items():
+                total = total + self._final_loss(g, [xs[g]],
+                                                 labels[lo:hi]).to(dev0)
+            aux = aux + a
+        return total / (B * s) + self.cfg.aux_weight * (aux / M)
+
+    def train_step(self, ids: torch.Tensor,
+                   labels: torch.Tensor) -> torch.Tensor:
+        loss = super().train_step(ids, labels)
+        if self.grid is None:
+            for i, layer in self.model.moe_layers().items():
+                self.expert_util[i] = layer.expert_util
+                self.token_keep_rate[i] = layer.token_keep_rate
+        return loss
+
+    def routing(self) -> Dict[str, List[Optional[float]]]:
+        """The last step's ``expert_util`` and ``token_keep_rate`` per
+        layer, as floats (reading them synchronises with the card)."""
+        return {name: [None if t is None else float(t) for t in vals]
+                for name, vals in (("expert_util", self.expert_util),
+                                   ("token_keep_rate",
+                                    self.token_keep_rate))}
+
+
+def _cat(ts: List[torch.Tensor]) -> torch.Tensor:
+    return ts[0] if len(ts) == 1 else torch.cat(ts)

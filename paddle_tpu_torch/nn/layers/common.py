@@ -61,20 +61,22 @@ class Linear(nn.Module):
 
 
 class Embedding(nn.Module):
-    """A ``[num_embeddings, embedding_dim]`` table drawn from N(0, 1), the
-    reference's default, looked up with ``jnp.take``'s fill semantics
+    """A ``[num_embeddings, embedding_dim]`` table drawn from N(0, std²)
+    (the reference's default std is 1; GPT-MoE passes 0.02, its
+    ``ParamAttr``), looked up with ``jnp.take``'s fill semantics
     (:func:`..functional.embedding`).  ``padding_idx`` is not ported: no
     model of the port uses it."""
 
     def __init__(self, num_embeddings: int, embedding_dim: int, *,
                  device: torch.device, dtype: torch.dtype = torch.float32,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None,
+                 std: float = 1.0):
         super().__init__()
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         w = torch.empty((num_embeddings, embedding_dim), device=device,
                         dtype=dtype)
-        w.normal_(0.0, 1.0, generator=generator)
+        w.normal_(0.0, std, generator=generator)
         self.weight = nn.Parameter(w)
 
     def forward(self, ids: torch.Tensor) -> torch.Tensor:

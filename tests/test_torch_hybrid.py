@@ -165,13 +165,16 @@ def test_hybrid_matches_the_jax_serial_trainer(jax_serial, hybrid, layers,
 @pytest.mark.parametrize("hybrid,zero", [
     ({"dp_degree": 2, "mp_degree": 2, "pp_degree": 2}, 1),
     ({"sharding_degree": 2, "mp_degree": 2}, 1),
-    ({"sharding_degree": 2, "dp_degree": 2}, 3)],
-    ids=["dp2_mp2_pp2", "sharding2_mp2_zero1", "sharding2_dp2_zero3"])
+    ({"sharding_degree": 2, "dp_degree": 2}, 3),
+    ({"dp_degree": 2, "ep_degree": 2}, 1)],
+    ids=["dp2_mp2_pp2", "sharding2_mp2_zero1", "sharding2_dp2_zero3",
+         "dp2_ep2"])
 def test_replicas_on_distinct_devices_sum_and_share(hybrid, zero):
     """Ranks on two devices (``cpu`` and ``cpu:0`` are distinct device
     keys on one host) hold a replicated block twice: their gradients are
     summed and ZeRO-1's updated slices copied across, so three steps equal
-    the serial trainer's."""
+    the serial trainer's.  At ep 2 the ep replicas (on the second device)
+    take no part in the step and are given the sum."""
     cfg = gpt_tiny()
     gen = torch.Generator()
     gen.manual_seed(3)
@@ -243,8 +246,6 @@ def test_refusals_and_value_errors():
     opt = SGD(learning_rate=0.1)
     with pytest.raises(NotImplementedError, match="item 9"):
         GPTHybridTrainer(gpt_tiny(), group(sep_degree=2), opt)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        GPTHybridTrainer(gpt_tiny(), group(ep_degree=2), opt)
     with pytest.raises(ValueError, match="num_layers"):
         GPTHybridTrainer(gpt_tiny(), group(pp_degree=2), opt, vpp=2)
     with pytest.raises(ValueError, match="microbatches"):

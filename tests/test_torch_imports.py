@@ -92,7 +92,13 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
                 "paddle_tpu_torch.framework",
                 "paddle_tpu_torch.framework.io",
                 "paddle_tpu_torch.metric",
-                "paddle_tpu_torch.examples.train_llama_semi_auto"):
+                "paddle_tpu_torch.examples.train_llama_semi_auto",
+                "paddle_tpu_torch.distributed.moe",
+                "paddle_tpu_torch.models.gpt_moe",
+                "paddle_tpu_torch.incubate.distributed",
+                "paddle_tpu_torch.incubate.distributed.models",
+                "paddle_tpu_torch.incubate.distributed.models.moe",
+                "paddle_tpu_torch.examples.train_moe_ep"):
         assert mod in res["imported"]
 
 

@@ -133,15 +133,18 @@ def test_loss_is_mean_parallel_cross_entropy_with_ignore_index(jax_run):
 
 
 def test_trainer_refuses_parallel_degrees_and_needs_an_optimizer():
-    """The degrees the port's trainer does not take yet raise, naming
-    their ROADMAP item (dp / mp / pp / sharding are taken:
-    tests/test_torch_hybrid.py); every trainer needs an optimizer."""
+    """The degree the port's trainer does not take yet raises, naming its
+    ROADMAP item (dp / mp / pp / sharding are taken:
+    tests/test_torch_hybrid.py; ep, replicated as the reference's:
+    tests/test_torch_moe_hybrid.py); every trainer needs an
+    optimizer."""
     from paddle_tpu_torch.distributed import HybridCommunicateGroup
-    for kw, item in (({"sep_degree": 2}, "item 9"),
-                     ({"ep_degree": 2}, "item 10")):
-        hcg = HybridCommunicateGroup(devices=["cpu"] * 2, **kw)
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
-            GPTHybridTrainer(gpt_tiny(), hcg, AdamW())
+    hcg = HybridCommunicateGroup(devices=["cpu"] * 2, sep_degree=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP.*item 9"):
+        GPTHybridTrainer(gpt_tiny(), hcg, AdamW())
+    hcg = HybridCommunicateGroup(devices=["cpu"] * 2, ep_degree=2)
+    tr = GPTHybridTrainer(gpt_tiny(), hcg, AdamW())
+    assert tr.rank_state(1) == tr.rank_state(0)     # ep ranks: replicas
     with pytest.raises(ValueError, match="optimizer"):
         GPTHybridTrainer(gpt_tiny(), device="cpu")
     with pytest.raises(ValueError, match="optimizer"):
