@@ -237,6 +237,27 @@ Phases, each of which raises (exit code != 0, no final line) on failure:
      split into dense GEMMs, expert bmm, dispatch and combine, flash,
      norms, AdamW and the rest; then ``examples/train_moe_ep.py`` at its
      defaults on the card;
+ 10e. wmt train — BASELINE config #2, the ``nn.Transformer``
+     encoder-decoder at the repo's WMT row (a shared 32k x 512 embedding,
+     Transformer-base 6 + 6, a 32k head; 76.9M parameters in 255
+     tensors), bf16, batch 32 x 512, ``FusedAdamW(NoamDecay(512, 4000),
+     beta2 0.997, epsilon 1e-9, multi_precision=True)``, seeded token
+     ids: rows 4-6 and 9-11 against their plain versions at the phase's
+     shapes (row 4 also at decoding's one query row against 1, 7, 32
+     and 512 keys) and timed beside their bounds and a library call;
+     step 1 in f32 against bf16 at dropout 0; (a) the recipe (padded
+     sources, the key-padding and causal masks, ``cross_entropy`` with
+     the pad ignored and label smoothing 0.1, dropout 0.1 everywhere:
+     every attention call dense) and (b) the flash route (attention
+     dropout 0, full-length sources: 12 flash calls and 6 dense a
+     forward), 2 warm-up and 6 timed
+     steps each with the counts zeroed just before and read just after
+     and held to ``wmt_want``: step p50, tokens/s, the model-FLOP share,
+     peak memory, one step under torch.profiler by kind (GEMM, dense
+     attention, cross entropy, LayerNorm, AdamW, flash, the rest); (b)
+     one MHA call flash against dense; (c) cached decoding
+     (``decoder.gen_cache``, 32 steps of one token for the 32 rows) held
+     to the uncached causal decoder, ms a step;
  11. Llama train — ``LlamaForCausalLM(llama_7b())`` with 12 of its 32
      layers, batch 1 x 4096: forward, ``loss``, backward, one
      ``FusedAdamW(multi_precision=True)`` step; 2 warm-up and 6 counted
@@ -7595,63 +7616,59 @@ def moe_trainer(cfg, hybrid, microbatches: int, opt):
                                microbatches=microbatches, generator=gen)
 
 
-def moe_kernels(card: str, cfg) -> dict:
-    """Rows 4-6 and 9-11 at this path's shapes against their plain
-    versions, each timed there (CUDA events) beside its bound and a
-    library call: the flash kernels on one batch group's q / k / v [1,
-    2048, 32, 128] bf16 causal (views of the fused QKV), the LayerNorm
-    pair on its rows [2048, 4096] bf16, fused AdamW on the largest slice
-    the example's layout updates (one ep block of w0, its ZeRO half: [4,
-    2048, 16384], f32 master, bf16 gradient and parameter)."""
+def flash_rows(tag: str, g, b: int, s: int, h: int, d: int, causal: bool,
+               packed: bool = False) -> dict:
+    """Rows 4-6 on random bf16 q / k / v / dO ``[b, s, h, d]`` (views of
+    a fused QKV with ``packed``) against their plain versions (``FLASH_
+    REL`` and each element within its own limit), each timed (CUDA
+    events) beside its plain version, its bound and SDPA (the backward's
+    dq, dk and dv together on a retained graph)."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
-    from paddle_tpu_torch.kernels import fused_norm as fn
-    from paddle_tpu_torch.kernels.fused_adamw import (fused_adamw,
-                                                      fused_adamw_reference)
-    g = torch.Generator(device=DEVICE)
-    g.manual_seed(6)
-    h, d, s = cfg.num_heads, cfg.head_dim, MOE_SEQ
-    q, k, v, do = _flash_case(g, torch.bfloat16, 1, s, s, h, h, d,
-                              packed=True)
-    out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-    ro, rl = fa.flash_attention_fwd_reference(q, k, v, causal=True)
+    q, k, v, do = _flash_case(g, torch.bfloat16, b, s, s, h, h, d,
+                              packed=packed)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    ro, rl = fa.flash_attention_fwd_reference(q, k, v, causal=causal)
     delta = (do.float() * out.float()).sum(-1).transpose(1, 2).contiguous()
-    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=True)
+    dq = fa.flash_attention_bwd_dq(q, k, v, do, lse, delta, causal=causal)
     rdq = fa.flash_attention_bwd_dq_reference(q, k, v, do, lse, delta,
-                                              causal=True)
-    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal=True)
+                                              causal=causal)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
+                                        causal=causal)
     rdk, rdv = fa.flash_attention_bwd_dkv_reference(q, k, v, do, lse, delta,
-                                                    causal=True)
+                                                    causal=causal)
     torch.cuda.synchronize()
-    shape = f"[1, {s}, {h}, {d}] bf16 causal (views of a fused QKV)"
+    shape = f"[{b}, {s}, {h}, {d}] bf16 " + \
+        ("causal" if causal else "non-causal") + \
+        (" (views of a fused QKV)" if packed else "")
     qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
                   for x in (q, k, v))
     lib_fwd = time_ms(lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, is_causal=True))
-    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+        qt, kt, vt, is_causal=causal))
+    o_lib = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
     lib_bwd = time_ms(lambda: torch.autograd.grad(
         o_lib, (qt, kt, vt), do.transpose(1, 2), retain_graph=True))
     del o_lib, qt, kt, vt
     rec = {}
     for name, pairs, lses, call, plain in (
             ("flash_attention_fwd", ((out, ro),), ((lse, rl),),
-             lambda: fa.flash_attention_fwd(q, k, v, causal=True),
+             lambda: fa.flash_attention_fwd(q, k, v, causal=causal),
              lambda: fa.flash_attention_fwd_reference(q, k, v,
-                                                      causal=True)),
+                                                      causal=causal)),
             ("flash_attention_bwd_dq", ((dq, rdq),), (),
              lambda: fa.flash_attention_bwd_dq(q, k, v, do, lse, delta,
-                                               causal=True),
+                                               causal=causal),
              lambda: fa.flash_attention_bwd_dq_reference(
-                 q, k, v, do, lse, delta, causal=True)),
+                 q, k, v, do, lse, delta, causal=causal)),
             ("flash_attention_bwd_dkv", ((dk, rdk), (dv, rdv)), (),
              lambda: fa.flash_attention_bwd_dkv(q, k, v, do, lse, delta,
-                                                causal=True),
+                                                causal=causal),
              lambda: fa.flash_attention_bwd_dkv_reference(
-                 q, k, v, do, lse, delta, causal=True))):
-        err, rel, read = check_pairs(f"[train:moe] {name} at {shape}",
+                 q, k, v, do, lse, delta, causal=causal))):
+        err, rel, read = check_pairs(f"{tag} {name} at {shape}",
                                      torch.bfloat16, pairs, lses)
-        bound, by = flash_bounds(1, s, s, h, h, d, True, 2)[name]
+        bound, by = flash_bounds(b, s, s, h, h, d, causal, 2)[name]
         rec[name] = {"shape": shape, "max_abs_err": err, "rel_err": rel,
                      "reading": read, "ms": time_ms(call),
                      "plain_ms": time_ms(plain, iters=3, warmup=2,
@@ -7660,8 +7677,53 @@ def moe_kernels(card: str, cfg) -> dict:
                      "library_ms": lib_fwd if name.endswith("fwd") else None}
         if not name.endswith("fwd"):
             rec[name]["library_ms_dq_dkv_together"] = lib_bwd
-    del q, k, v, do, out, lse, delta, dq, dk, dv, ro, rl, rdq, rdk, rdv
-    rows, hid = s, cfg.hidden_size
+    return rec
+
+
+def flash_decode_rows(tag: str, g, b: int, h: int, d: int,
+                      lengths) -> dict:
+    """Row 4 at cached decoding's self-attention shape: one bf16 query row
+    ``[b, 1, h, d]`` against each of ``lengths`` keys, non-causal, against
+    its plain version (``FLASH_REL``, each element within its own limit,
+    the lse within 1e-4 relative), each timed (CUDA events) beside its
+    plain version, its bound and SDPA."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    rec = {}
+    for sk in lengths:
+        q, k, v, _ = _flash_case(g, torch.bfloat16, b, 1, sk, h, h, d)
+        out, lse = fa.flash_attention_fwd(q, k, v)
+        ro, rl = fa.flash_attention_fwd_reference(q, k, v)
+        torch.cuda.synchronize()
+        shape = f"q [{b}, 1, {h}, {d}], k / v [{b}, {sk}, {h}, {d}] bf16 " \
+            f"non-causal"
+        err, rel, read = check_pairs(f"{tag} flash_attention_fwd at "
+                                     f"{shape}", torch.bfloat16,
+                                     ((out, ro),), ((lse, rl),))
+        qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+        bound, by = flash_bounds(b, 1, sk, h, h, d, False,
+                                 2)["flash_attention_fwd"]
+        rec[f"sq1_sk{sk}"] = {
+            "shape": shape, "max_abs_err": err, "rel_err": rel,
+            "reading": read,
+            "ms": time_ms(lambda: fa.flash_attention_fwd(q, k, v)),
+            "plain_ms": time_ms(lambda: fa.flash_attention_fwd_reference(
+                q, k, v), iters=5, warmup=2, windows=3),
+            "bound_ms": bound, "bound_by": by,
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt))}
+    return rec
+
+
+def layer_norm_rows(tag: str, g, rows: int, hid: int) -> dict:
+    """Rows 9-10 on random bf16 rows ``[rows, hid]`` against their plain
+    versions (``norm_calls``' limits), each timed (CUDA events) beside its
+    plain version, its bound and ``F.layer_norm`` (its autograd backward
+    for row 10)."""
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import fused_norm as fn
     x = torch.randn(rows, hid, generator=g, device=DEVICE).to(torch.bfloat16)
     w = (1 + 0.1 * torch.randn(hid, generator=g, device=DEVICE)).to(
         torch.bfloat16)
@@ -7679,6 +7741,7 @@ def moe_kernels(card: str, cfg) -> dict:
     lib_b = time_ms(lambda: torch.autograd.grad(yl, (xl, wl, bl), gy,
                                                 retain_graph=True))
     del yl, xl, wl, bl
+    rec = {}
     for name, call, plain in (
             ("layer_norm_fwd", lambda: fn.layer_norm_fwd(x, w, b, NORM_EPS),
              lambda: fn.layer_norm_fwd_reference(x, w, b, NORM_EPS)),
@@ -7688,9 +7751,8 @@ def moe_kernels(card: str, cfg) -> dict:
         err = 0.0
         for out_name, got, want, rel in calls[name]:
             if norm_excess(got, want, rel) > 0:
-                raise AssertionError(f"[train:moe] {name} {out_name} "
-                                     f"disagrees with its plain version at "
-                                     f"{shape}")
+                raise AssertionError(f"{tag} {name} {out_name} disagrees "
+                                     f"with its plain version at {shape}")
             err = max(err, (got.float() - want.float()).abs().max().item())
         bound, by = norm_bound(name, rows, hid, 2, 2)
         rec[name] = {"shape": shape, "max_abs_err": err, "ms": time_ms(call),
@@ -7698,7 +7760,25 @@ def moe_kernels(card: str, cfg) -> dict:
                                          windows=3),
                      "bound_ms": bound, "bound_by": by,
                      "library_ms": lib if name.endswith("fwd") else lib_b}
-    del x, w, b, gy, calls, mean, rstd
+    return rec
+
+
+def moe_kernels(card: str, cfg) -> dict:
+    """Rows 4-6 and 9-11 at this path's shapes against their plain
+    versions, each timed there (CUDA events) beside its bound and a
+    library call: the flash kernels on one batch group's q / k / v [1,
+    2048, 32, 128] bf16 causal (views of the fused QKV), the LayerNorm
+    pair on its rows [2048, 4096] bf16, fused AdamW on the largest slice
+    the example's layout updates (one ep block of w0, its ZeRO half: [4,
+    2048, 16384], f32 master, bf16 gradient and parameter)."""
+    import torch
+    from paddle_tpu_torch.kernels.fused_adamw import (fused_adamw,
+                                                      fused_adamw_reference)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(6)
+    rec = {**flash_rows("[train:moe]", g, 1, MOE_SEQ, cfg.num_heads,
+                        cfg.head_dim, True, packed=True),
+           **layer_norm_rows("[train:moe]", g, MOE_SEQ, cfg.hidden_size)}
     E_l, half, f = cfg.num_experts // 2, cfg.hidden_size // 2, cfg.ffn_size
     numel = E_l * half * f
     master = torch.randn(numel, generator=g, device=DEVICE)
@@ -7752,10 +7832,12 @@ def moe_kernels(card: str, cfg) -> dict:
     return rec
 
 
-def moe_kinds(events) -> tuple:
-    """``(device ms by kind, busy ms, kernels)`` of a chrome trace's
-    events: each kernel's kind from its name and from the ops and ranges
-    open on its launching thread at its launch (``moe_profile``)."""
+def ops_at_launch(events) -> tuple:
+    """``(kernels, at)`` of a chrome trace's events: its kernel events,
+    and for each launch's correlation id the ops and ranges open on the
+    launching thread at the launch, outermost first, as ``(name,
+    sequence number or None)`` (a backward node carries its forward op's
+    number)."""
     launch, ops = {}, {}
     for e in events:
         if e.get("ph") != "X":
@@ -7767,7 +7849,7 @@ def moe_kinds(events) -> tuple:
         elif cat in ("cpu_op", "user_annotation"):
             ops.setdefault(e["tid"], []).append(
                 (float(e["ts"]), float(e["ts"]) + float(e["dur"]),
-                 e["name"]))
+                 e["name"], e.get("args", {}).get("Sequence number")))
     kernels = [e for e in events if e.get("cat") == "kernel"]
     # the ops open at each launch: a sweep over each thread's nested ops
     at = {}
@@ -7783,7 +7865,31 @@ def moe_kinds(events) -> tuple:
                 i += 1
             while stack and stack[-1][1] < ts:
                 stack.pop()
-            at[c] = [n for _, _, n in stack]
+            at[c] = [(n, q) for _, _, n, q in stack]
+    return kernels, at
+
+
+def busy_ms(kernels) -> float:
+    """The union of the kernels' intervals, in ms."""
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in kernels)
+    busy, end = 0.0, None
+    for a, b in spans:
+        if end is None or a > end:
+            busy += b - a
+            end = b
+        elif b > end:
+            busy += b - end
+            end = b
+    return busy / 1e3
+
+
+def moe_kinds(events) -> tuple:
+    """``(device ms by kind, busy ms, kernels)`` of a chrome trace's
+    events: each kernel's kind from its name and from the ops and ranges
+    open on its launching thread at its launch (``moe_profile``)."""
+    kernels, stacks = ops_at_launch(events)
+    at = {c: [n for n, _ in st] for c, st in stacks.items()}
     kinds = ("flash", "norms", "adamw", "dispatch_combine", "expert_bmm",
              "dense_gemm", "rest")
     ms = {k: 0.0 for k in kinds}
@@ -7810,18 +7916,8 @@ def moe_kinds(events) -> tuple:
             kind = "rest"
             rest[name] = rest.get(name, 0.0) + float(e["dur"]) / 1e3
         ms[kind] += float(e["dur"]) / 1e3
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                   for e in kernels)
-    busy, end = 0.0, None
-    for a, b in spans:
-        if end is None or a > end:
-            busy += b - a
-            end = b
-        elif b > end:
-            busy += b - end
-            end = b
     ms["rest_top"] = dict(sorted(rest.items(), key=lambda kv: -kv[1])[:8])
-    return ms, busy / 1e3, kernels
+    return ms, busy_ms(kernels), kernels
 
 
 def moe_profile(tr, ids, labels, card: str, label: str) -> dict:
@@ -8007,6 +8103,587 @@ def phase_train_moe(card: str) -> tuple:
         f"{DEVICE} (ep 2 x pp 2 x sharding 2, gpt_moe_tiny, 5 steps): losses "
         f"{[round(x, 4) for x in ex]} in {out['example']['seconds']:.1f} s")
     topology.set_hybrid_communicate_group(None)
+    free_card()
+    return launches, out
+
+
+# ------------------------------------------------------------ train:wmt
+# BASELINE config #2 at the repo's WMT row (scripts/tpu_r5_profile.py:
+# 210-256): a shared Embedding(32000, 512), Transformer-base (6 + 6
+# layers, 8 heads, ffn 2048) and a Linear(512, 32000) head, bf16, batch
+# 32 x 512 source and target tokens, no positional encoding (as the row)
+WMT_VOCAB, WMT_D, WMT_HEADS, WMT_FFN, WMT_LAYERS = 32000, 512, 8, 2048, 6
+WMT_BATCH, WMT_SEQ = 32, 512
+WMT_PAD = 0
+# the source and target lengths of the recipe: drawn in [256, 512]
+WMT_MIN_LEN = 256
+WMT_WARMUP, WMT_STEPS = 2, 6
+WMT_SEED = 2401
+WMT_DECODE_STEPS = 32
+# the key counts at which row 4 is held at decoding's one query row: the
+# first step, a middle one, the last of (c), and a full source
+WMT_DECODE_KEYS = (1, 7, WMT_DECODE_STEPS, WMT_SEQ)
+# parameters and tensors of the row (emb 16.38M, head 16.42M, encoder
+# layers 3,152,384 each, decoder layers 4,204,032 each)
+WMT_PARAMS, WMT_TENSORS = 76938496, 255
+# step 1's relative loss gap, bf16 against f32 at dropout 0: 5x the
+# first run's reading (5.509e-7; PERF.md), whose limit was 1e-2
+WMT_PARITY_LIMIT = 2.76e-6
+# cached decoding against the uncached causal decoder, the largest logit
+# difference relative to max(1, max |logit|): 5x the first run's reading
+# (7.812e-3), whose limit was 5e-2
+WMT_DECODE_LIMIT = 3.91e-2
+# one MHA call at [32, 512] through the flash kernels against the dense
+# form: bf16's FLASH_REL
+WMT_MHA_REL = FLASH_REL["bfloat16"]
+WMT_KERNELS = HYBRID_KERNELS
+
+
+def wmt_shapes() -> list:
+    """The row's parameter shapes in ``named_parameters`` order."""
+    d, f, v = WMT_D, WMT_FFN, WMT_VOCAB
+    mha = [(d, d), (d,)] * 4
+    ffn = [(d, f), (f,), (f, d), (d,)]
+    enc = mha + ffn + [(d,)] * 4
+    dec = mha * 2 + ffn + [(d,)] * 6
+    return [(v, d)] + enc * WMT_LAYERS + dec * WMT_LAYERS + [(d, v), (v,)]
+
+
+def wmt_model(dtype, attn_dropout: float, dropout: float = 0.1):
+    """The row on the card, weights drawn from a generator seeded with
+    ``WMT_SEED`` (which every dropout then draws from), as a module with
+    the JAX ``Sequential``'s names ``emb`` / ``tr`` / ``head``."""
+    import torch
+    from paddle_tpu_torch import nn
+    gen = torch.Generator(device=DEVICE)
+    gen.manual_seed(WMT_SEED)
+    kw = dict(device=DEVICE, dtype=dtype, generator=gen)
+    m = torch.nn.Module()
+    m.emb = nn.Embedding(WMT_VOCAB, WMT_D, **kw)
+    m.tr = nn.Transformer(WMT_D, WMT_HEADS, WMT_LAYERS, WMT_LAYERS, WMT_FFN,
+                          dropout=dropout, attn_dropout=attn_dropout, **kw)
+    m.head = nn.Linear(WMT_D, WMT_VOCAB, **kw)
+    return m
+
+
+def wmt_optimizer(m) -> tuple:
+    """The recipe's ``(NoamDecay(512, 4000), FusedAdamW(beta2 0.997,
+    epsilon 1e-9, no decay, multi_precision))`` bound to ``m``."""
+    from paddle_tpu_torch.optimizer import FusedAdamW
+    from paddle_tpu_torch.optimizer.lr import NoamDecay
+    sched = NoamDecay(d_model=WMT_D, warmup_steps=4000)
+    opt = FusedAdamW(learning_rate=sched, beta1=0.9, beta2=0.997,
+                     epsilon=1e-9, weight_decay=0.0, multi_precision=True)
+    return sched, opt.bind(m)
+
+
+def wmt_batch(padded_src: bool) -> dict:
+    """Token ids drawn from ``WMT_SEED`` on the card: sources of lengths
+    in [256, 512] (full length unless ``padded_src``) padded with
+    ``WMT_PAD``, their bool key-padding mask ``[B, 1, 1, S]`` (None
+    without padding) as ``src_mask`` and ``memory_mask``; targets of
+    lengths in [256, 512] (the labels after the pad are ignored), the
+    decoder input one token behind the labels, and the causal mask."""
+    import torch
+    from paddle_tpu_torch import nn
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(WMT_SEED)
+    b, s = WMT_BATCH, WMT_SEQ
+
+    def lengths():
+        return torch.randint(WMT_MIN_LEN, s + 1, (b,), generator=g,
+                             device=DEVICE)
+    src_len, tgt_len = lengths(), lengths()
+    if not padded_src:
+        src_len = torch.full_like(src_len, s)
+    pos = torch.arange(s + 1, device=DEVICE)
+    keep = pos[None, :s] < src_len[:, None]
+    src = torch.randint(1, WMT_VOCAB, (b, s), generator=g, device=DEVICE)
+    tgt = torch.randint(1, WMT_VOCAB, (b, s + 1), generator=g,
+                        device=DEVICE)
+    tgt = torch.where(pos[None, :] <= tgt_len[:, None], tgt, WMT_PAD)
+    mask = keep[:, None, None, :] if padded_src else None
+    return {"src": torch.where(keep, src, WMT_PAD), "tgt_in": tgt[:, :s],
+            "labels": tgt[:, 1:], "src_mask": mask, "memory_mask": mask,
+            "tgt_mask": nn.Transformer.generate_square_subsequent_mask(
+                s, device=DEVICE)}
+
+
+def wmt_logits(m, batch):
+    out = m.tr(m.emb(batch["src"]), m.emb(batch["tgt_in"]),
+               batch["src_mask"], batch["tgt_mask"], batch["memory_mask"])
+    return m.head(out)
+
+
+def wmt_step(m, opt, sched, batch):
+    """One train step of the recipe: the loss (``F.cross_entropy`` with
+    ``ignore_index`` the pad and label smoothing 0.1) under the
+    ``wmt.cross_entropy`` range, backward, the update, the schedule."""
+    import torch
+    from paddle_tpu_torch.nn import functional as F
+    logits = wmt_logits(m, batch)
+    with torch.profiler.record_function("wmt.cross_entropy"):
+        loss = F.cross_entropy(logits, batch["labels"],
+                               ignore_index=WMT_PAD, label_smoothing=0.1)
+    loss.backward()
+    opt.step()
+    sched.step()
+    opt.clear_grad()
+    return loss.detach()
+
+
+def wmt_want(flash_route: bool, decode_steps: int = 0) -> dict:
+    """Each kernel's launches (and the dense attention calls) in one train
+    step, from the layout: per forward 2 LayerNorms an encoder layer and
+    3 a decoder layer; the encoder's self- and the decoder's cross
+    attention through the flash kernels on the flash route (the decoder's
+    self-attention under its causal mask is dense either way, as every
+    call is on the recipe's route); one AdamW launch a parameter tensor.
+    With ``decode_steps``: the cached decoder, a flash forward (self) and
+    a dense call (cross, under ``memory_mask``) a layer and step."""
+    L = WMT_LAYERS
+    if decode_steps:
+        n = L * decode_steps
+        return {"flash_attention_fwd": n, "flash_attention_bwd_dq": 0,
+                "flash_attention_bwd_dkv": 0, "layer_norm_fwd": 3 * n,
+                "layer_norm_bwd": 0, "fused_adamw": 0, "dense_calls": n}
+    flash = 2 * L if flash_route else 0
+    return {"flash_attention_fwd": flash, "flash_attention_bwd_dq": flash,
+            "flash_attention_bwd_dkv": flash, "layer_norm_fwd": 5 * L,
+            "layer_norm_bwd": 5 * L, "fused_adamw": len(wmt_shapes()),
+            "dense_calls": (1 if flash_route else 3) * L}
+
+
+def wmt_counters():
+    """The path's counters: the six kernels' wrappers and the dense
+    attention calls, as ``{name: (object, attribute)}``."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.kernels import fused_adamw as fw
+    from paddle_tpu_torch.kernels import fused_norm as fn
+    from paddle_tpu_torch.nn import functional as F
+    mods = (fa, fa, fa, fn, fn, fw)
+    return {**{k: (getattr(m, k), "launches")
+               for k, m in zip(WMT_KERNELS, mods)},
+            "dense_calls": (F.scaled_dot_product_attention, "dense_calls")}
+
+
+def wmt_zero(counters) -> None:
+    for obj, attr in counters.values():
+        setattr(obj, attr, 0)
+
+
+def wmt_read(counters) -> dict:
+    return {k: getattr(obj, attr) for k, (obj, attr) in counters.items()}
+
+
+def wmt_kernels(card: str) -> dict:
+    """Rows 4-6 and 9-11 at this phase's shapes against their plain
+    versions, each timed there (CUDA events) beside its bound and a
+    library call: the flash kernels on q / k / v [32, 512, 8, 64] bf16,
+    non-causal (the encoder's self- and the cross attention on the flash
+    route), the flash forward at one query row against
+    ``WMT_DECODE_KEYS`` keys (cached decoding's self-attention, under
+    row 4's ``decode``), the LayerNorm pair on the rows [16384, 512] bf16, fused
+    AdamW over the row's 255 tensors (f32 masters, bf16 gradients and
+    parameters) against ``torch.optim.AdamW(fused=True)`` over the same
+    tensors in f32."""
+    import torch
+    from paddle_tpu_torch.kernels.fused_adamw import (fused_adamw,
+                                                      fused_adamw_reference)
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(7)
+    rec = {**flash_rows("[train:wmt]", g, WMT_BATCH, WMT_SEQ, WMT_HEADS,
+                        WMT_D // WMT_HEADS, False),
+           **layer_norm_rows("[train:wmt]", g, WMT_BATCH * WMT_SEQ, WMT_D)}
+    rec["flash_attention_fwd"]["decode"] = flash_decode_rows(
+        "[train:wmt]", g, WMT_BATCH, WMT_HEADS, WMT_D // WMT_HEADS,
+        WMT_DECODE_KEYS)
+    kw = dict(lr=1e-4, beta1=0.9, beta2=0.997, epsilon=1e-9,
+              weight_decay=0.0, step=3)
+    sets = []
+    for sh in wmt_shapes():
+        master = torch.randn(sh, generator=g, device=DEVICE)
+        sets.append((master,
+                     torch.randn(sh, generator=g, device=DEVICE).to(
+                         torch.bfloat16),
+                     torch.randn(sh, generator=g, device=DEVICE) * 1e-2,
+                     torch.rand(sh, generator=g, device=DEVICE) * 1e-3,
+                     master.to(torch.bfloat16)))
+    numel = sum(t[0].numel() for t in sets)
+    err = 0.0
+    for master, grad, m, v2, low in sets:
+        ref = [t.clone() for t in (master, m, v2, low)]
+        fused_adamw(master, grad, m, v2, low=low, **kw)
+        fused_adamw_reference(ref[0], grad, ref[1], ref[2], low=ref[3], **kw)
+        for nm, got, want in zip(("p", "m", "v", "low"),
+                                 (master, m, v2, low), ref):
+            ok = torch.allclose(got, want, rtol=1e-6, atol=1e-7) \
+                if got.dtype == torch.float32 else \
+                _ulp_ok(got, want, got.dtype)
+            if not ok:
+                raise AssertionError(f"[train:wmt] fused_adamw disagrees "
+                                     f"with its plain version on {nm} at "
+                                     f"{list(master.shape)}")
+            err = max(err, (got.float() - want.float()).abs().max().item())
+    del ref
+    tps = []
+    for master, grad, *_ in sets:
+        tp = torch.nn.Parameter(master.clone())
+        tp.grad = grad.float()
+        tps.append(tp)
+    topt = torch.optim.AdamW(tps, lr=1e-4, betas=(0.9, 0.997), eps=1e-9,
+                             weight_decay=0.0, fused=True)
+    adam_lib = time_ms(topt.step, iters=5, warmup=2, windows=3)
+    del tps, topt
+    rec["fused_adamw"] = {
+        "shape": f"the row's {len(sets)} tensors ({numel} elements): f32 "
+                 f"masters, bf16 grads, f32 m/v, bf16 parameter copies "
+                 f"(28 B per element), one launch a tensor",
+        "max_abs_err": err,
+        "ms": time_ms(lambda: [fused_adamw(t[0], t[1], t[2], t[3], low=t[4],
+                                           **kw) for t in sets],
+                      iters=5, warmup=2, windows=3),
+        "plain_ms": time_ms(lambda: [fused_adamw_reference(
+            t[0], t[1], t[2], t[3], low=t[4], **kw) for t in sets],
+            iters=1, warmup=1, windows=3),
+        "bound_ms": numel * 28 / HBM_BYTES_PER_S * 1e3, "bound_by": "bytes",
+        "library_ms": adam_lib}
+    del sets
+    torch.cuda.empty_cache()
+    log(f"[train:wmt] rows 4-6, 9-11 at this phase's shapes against their "
+        f"plain versions (flash, the forward also at one query row against "
+        f"{list(WMT_DECODE_KEYS)} keys: FLASH_REL and each element within "
+        f"its own limit; LayerNorm: 1e-5 / dw, db 1e-4 of max(1, max "
+        f"|plain|) plus an ulp; AdamW: f32 rtol 1e-6, bf16 one ulp), each "
+        f"timed beside its plain version, bound and library call: "
+        f"{json.dumps(rec)} (card: {card})")
+    return rec
+
+
+def wmt_parity(card: str) -> dict:
+    """Step 1 of the recipe (batch, masks, loss and optimizer) at dropout
+    0, twice from the same weights: in f32 (TF32 off) and in bf16 (the
+    same model cast).  The relative loss gap within
+    ``WMT_PARITY_LIMIT``."""
+    import torch
+    losses = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        m = wmt_model(torch.float32, 0.0, dropout=0.0).to(dtype)
+        sched, opt = wmt_optimizer(m)
+        losses[str(dtype)] = float(wmt_step(m, opt, sched, wmt_batch(True)))
+        del m, opt
+        free_card()
+    l32, l16 = losses["torch.float32"], losses["torch.bfloat16"]
+    gap = abs(l16 - l32) / abs(l32)
+    log(f"[train:wmt] parity: step 1 at dropout 0 from the same weights, "
+        f"f32 loss {l32:.6f}, bf16 {l16:.6f}, relative gap {gap:.3e} "
+        f"(limit {WMT_PARITY_LIMIT}) (card: {card})")
+    if not math.isfinite(gap) or gap > WMT_PARITY_LIMIT:
+        raise AssertionError(f"[train:wmt] parity gap {gap} over "
+                             f"{WMT_PARITY_LIMIT}")
+    return {"loss_f32": l32, "loss_bf16": l16, "gap": gap,
+            "limit": WMT_PARITY_LIMIT}
+
+
+def wmt_kinds(events) -> tuple:
+    """``(device ms by kind, busy ms, kernels)`` of a chrome trace: the
+    port's kernels by name (flash, LayerNorm, AdamW); dense attention and
+    cross entropy by the port's ``sdpa.dense`` range (``attention.
+    DENSE_RANGE``) / the ``wmt.cross_entropy`` range open at the launch,
+    or, in the backward, by the autograd node whose sequence number
+    belongs to an op of such a range; the other GEMMs by name; the
+    rest."""
+    from paddle_tpu_torch.nn.functional.attention import DENSE_RANGE
+    kernels, at = ops_at_launch(events)
+    ranges = {DENSE_RANGE: "dense_attention",
+              "wmt.cross_entropy": "cross_entropy"}
+    # the sequence numbers of the ops inside each range
+    seqs = {kind: set() for kind in ranges.values()}
+    spans = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("name") in ranges:
+            spans.setdefault(e["tid"], []).append(
+                (float(e["ts"]), float(e["ts"]) + float(e["dur"]),
+                 ranges[e["name"]]))
+    for e in events:
+        q = e.get("args", {}).get("Sequence number")
+        if e.get("cat") != "cpu_op" or q is None:
+            continue
+        ts = float(e["ts"])
+        for a, b, kind in spans.get(e["tid"], ()):
+            if a <= ts <= b:
+                seqs[kind].add(q)
+    kinds = ("gemm", "dense_attention", "cross_entropy", "layer_norm",
+             "adamw", "flash", "rest")
+    ms = {k: 0.0 for k in kinds}
+    rest = {}
+    for e in kernels:
+        name = e["name"]
+        opened = at.get(e.get("args", {}).get("correlation"), [])
+        kind = None
+        if any(x in name for x in ("fwd_wgmma_kernel", "dq_wgmma_kernel",
+                                   "dkv_wgmma_kernel")):
+            kind = "flash"
+        elif any(x in name for x in ("ln_fwd_", "norm_bwd_")):
+            kind = "layer_norm"
+        elif "adamw_kernel" in name:
+            kind = "adamw"
+        for r, k in ranges.items():
+            if kind is None and any(
+                    n == r or ("Backward" in n and q in seqs[k])
+                    for n, q in opened):
+                kind = k
+        if kind is None:
+            kind = "gemm" if any(x in name for x in MOE_GEMM) else "rest"
+        if kind == "rest":
+            rest[name] = rest.get(name, 0.0) + float(e["dur"]) / 1e3
+        ms[kind] += float(e["dur"]) / 1e3
+    ms["rest_top"] = dict(sorted(rest.items(), key=lambda kv: -kv[1])[:8])
+    return ms, busy_ms(kernels), kernels
+
+
+def wmt_profile(m, opt, sched, batch, card: str, label: str) -> dict:
+    """One train step under torch.profiler (CPU and CUDA; a step before
+    it warms the profiler): device ms by kind (``wmt_kinds``) and the busy
+    share, the union of the kernel intervals over the step's wall
+    time."""
+    import shutil
+    import tempfile
+
+    import torch
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    walls = []
+    root = tempfile.mkdtemp(prefix="wmt_profile_")
+    path = os.path.join(root, "trace.json")
+    try:
+        torch.cuda.synchronize()
+        with torch.profiler.profile(
+                activities=acts,
+                schedule=torch.profiler.schedule(wait=0, warmup=1, active=1),
+                on_trace_ready=lambda p: p.export_chrome_trace(path)) as prof:
+            for _ in range(2):
+                t = time.perf_counter()
+                float(wmt_step(m, opt, sched, batch))
+                walls.append((time.perf_counter() - t) * 1e3)
+                prof.step()
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    ms, busy, kernels = wmt_kinds(events)
+    top = {k[:90]: v for k, v in ms.pop("rest_top").items()}
+    out = {"wall_ms": walls[1], "kernel_events": len(kernels),
+           "device_ms_by_kind": ms, "device_ms": sum(ms.values()),
+           "rest_top_ms": top, "busy_ms": busy,
+           "busy_share": busy / walls[1] if walls[1] else None}
+    log(f"[train:wmt] {label}: one step under torch.profiler: "
+        f"{walls[1]:.1f} ms wall, {len(kernels)} kernels, {busy:.1f} ms "
+        f"busy (share {out['busy_share']:.3f}); device ms by kind "
+        f"{json.dumps({k: round(v, 3) for k, v in ms.items()})}; the rest's "
+        f"largest {json.dumps({k: round(v, 3) for k, v in top.items()})} "
+        f"(card: {card})")
+    if not kernels or ms["gemm"] <= 0 or ms["layer_norm"] <= 0 \
+            or ms["adamw"] <= 0:
+        raise AssertionError(f"[train:wmt] {label}: the profile shows no "
+                             f"GEMM, LayerNorm or AdamW time: "
+                             f"{json.dumps(ms)}")
+    return out
+
+
+def wmt_mha_check(m, card: str) -> dict:
+    """One ``MultiHeadAttention`` call of the model (the first encoder
+    layer's, attention dropout 0) at [32, 512, 512] bf16 through the
+    flash kernels (no mask) and through the dense form (an all-keep
+    mask): the output and the gradients of the query input and of the
+    q / k / v / out projection weights within ``WMT_MHA_REL`` of
+    max(1, max |dense|)."""
+    import torch
+    mha = m.tr.encoder.layers[0].self_attn
+    g = torch.Generator(device=DEVICE)
+    g.manual_seed(11)
+    x = torch.randn(WMT_BATCH, WMT_SEQ, WMT_D, generator=g,
+                    device=DEVICE).to(torch.bfloat16).requires_grad_()
+    gy = torch.randn(WMT_BATCH, WMT_SEQ, WMT_D, generator=g,
+                     device=DEVICE).to(torch.bfloat16)
+    names = ("q_proj.weight", "k_proj.weight", "v_proj.weight",
+             "out_proj.weight")
+    params = dict(mha.named_parameters())
+    keep = torch.ones(WMT_BATCH, 1, 1, WMT_SEQ, dtype=torch.bool,
+                      device=DEVICE)
+    res = {}
+    for route, mask in (("flash", None), ("dense", keep)):
+        out = mha(x, attn_mask=mask)
+        res[route] = [out] + list(torch.autograd.grad(
+            out, [x] + [params[n] for n in names], gy))
+    errs = {}
+    for what, got, want in zip(("out", "d_query") + names, res["flash"],
+                               res["dense"]):
+        scale = max(1.0, want.float().abs().max().item())
+        errs[what] = (got.float() - want.float()).abs().max().item() / scale
+    log(f"[train:wmt] one MultiHeadAttention call at [{WMT_BATCH}, "
+        f"{WMT_SEQ}, {WMT_D}] bf16, flash against dense, error relative to "
+        f"max(1, max |dense|): {json.dumps(errs)} (limit {WMT_MHA_REL}) "
+        f"(card: {card})")
+    if max(errs.values()) > WMT_MHA_REL:
+        raise AssertionError(f"[train:wmt] MHA flash against dense: {errs}")
+    return {"rel_err": errs, "limit": WMT_MHA_REL}
+
+
+def wmt_decode(m, batch, card: str, counters) -> tuple:
+    """Cached decoding on the trained model in eval: the encoder's memory
+    of the padded sources, ``decoder.gen_cache(memory)``, then
+    ``WMT_DECODE_STEPS`` steps of one target token for each of the 32
+    rows (teacher-forced: the batch's decoder input), the counts zeroed
+    just before and read just after.  Every step's logits against the
+    uncached decoder over the same prefix under the causal mask, within
+    ``WMT_DECODE_LIMIT``; ms a step."""
+    import numpy as np
+    import torch
+    from paddle_tpu_torch import nn
+    n = WMT_DECODE_STEPS
+    m.eval()
+    try:
+        with torch.no_grad():
+            memory = m.tr.encoder(m.emb(batch["src"]), batch["src_mask"])
+            cache = m.tr.decoder.gen_cache(memory)
+            tgt = batch["tgt_in"][:, :n]
+            torch.cuda.synchronize()
+            wmt_zero(counters)
+            steps, step_ms = [], []
+            for t in range(n):
+                t0 = time.perf_counter()
+                out, cache = m.tr.decoder(m.emb(tgt[:, t:t + 1]), memory,
+                                          None, batch["memory_mask"], cache)
+                steps.append(m.head(out)[:, 0].float())
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t0) * 1e3)
+            got = wmt_read(counters)
+            full = m.head(m.tr.decoder(
+                m.emb(tgt), memory,
+                nn.Transformer.generate_square_subsequent_mask(
+                    n, device=DEVICE), batch["memory_mask"])).float()
+            scale = max(1.0, full.abs().max().item())
+            gap = max((s - full[:, t]).abs().max().item()
+                      for t, s in enumerate(steps)) / scale
+            agree = float((torch.stack(steps, 1).argmax(-1)
+                           == full.argmax(-1)).float().mean())
+    finally:
+        m.train()
+    want = wmt_want(False, n)
+    p50 = float(np.median(step_ms))
+    rec = {"steps": n, "rows": WMT_BATCH, "step_ms": step_ms,
+           "step_ms_p50": p50, "rel_gap": gap, "limit": WMT_DECODE_LIMIT,
+           "argmax_agree": agree, "launches": got, "launches_want": want,
+           "cache_rows": int(cache[0][0].k.shape[1])}
+    log(f"[train:wmt] (c) cached decoding, {WMT_BATCH} rows x {n} steps "
+        f"over the padded memory: step p50 {p50:.2f} ms "
+        f"({[round(x, 2) for x in step_ms[:4]]} ...), logits against the "
+        f"uncached causal decoder {gap:.3e} of max(1, max |logit|) (limit "
+        f"{WMT_DECODE_LIMIT}), argmax agreement {agree:.4f}; launches "
+        f"{json.dumps(got)} (want {json.dumps(want)}) (card: {card})")
+    if got != want:
+        raise AssertionError(f"[train:wmt] decoding launches {got} != "
+                             f"{want}")
+    if not math.isfinite(gap) or gap > WMT_DECODE_LIMIT:
+        raise AssertionError(f"[train:wmt] cached decoding gap {gap}")
+    return got, rec
+
+
+def phase_train_wmt(card: str) -> tuple:
+    """BASELINE config #2 on the port at the repo's WMT row: rows 4-6 and
+    9-11 at the phase's shapes (``wmt_kernels``); step 1 in f32 against
+    bf16 (``wmt_parity``); (a) the published recipe (padded sources,
+    key-padding and causal masks, dropout 0.1 everywhere, so every
+    attention call is dense) and (b) the flash route on the same model
+    (attention dropout 0, full-length sources: the encoder's and the
+    cross attention on the flash kernels, the decoder's causal
+    self-attention dense): ``WMT_WARMUP`` and ``WMT_STEPS`` timed steps
+    each with the counts zeroed just before and read just after and held
+    to ``wmt_want``; step p50, tokens/s (every target position, and the
+    non-pad labels), the model-FLOP share by the row's formula, peak
+    memory, one profiled step by kind; (b) one MHA call flash against
+    dense; (c) cached decoding on (a)'s model.  Returns each run's
+    launches and the records."""
+    import numpy as np
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    tag = "[train:wmt]"
+    counters = wmt_counters()
+    out = {"kernels": wmt_kernels(card), "parity": wmt_parity(card),
+           "runs": {}}
+    launches = {}
+    for label, attn_dropout, padded in (("a_recipe", 0.1, True),
+                                        ("b_flash", 0.0, False)):
+        free_card()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        m = wmt_model(torch.bfloat16, attn_dropout)
+        sched, opt = wmt_optimizer(m)
+        batch = wmt_batch(padded)
+        params = list(m.parameters())
+        n_params = sum(p.numel() for p in params)
+        if (n_params, len(params)) != (WMT_PARAMS, WMT_TENSORS) or \
+                [tuple(p.shape) for p in params] != wmt_shapes():
+            raise AssertionError(f"{tag} the row has {n_params} parameters "
+                                 f"in {len(params)} tensors")
+        losses = [float(wmt_step(m, opt, sched, batch))
+                  for _ in range(WMT_WARMUP)]
+        torch.cuda.synchronize()
+        wmt_zero(counters)
+        step_ms = []
+        for _ in range(WMT_STEPS):
+            t = time.perf_counter()
+            losses.append(float(wmt_step(m, opt, sched, batch)))
+            step_ms.append((time.perf_counter() - t) * 1e3)
+        torch.cuda.synchronize()
+        got = wmt_read(counters)
+        want = {k: v * WMT_STEPS for k, v in wmt_want(not padded).items()}
+        peak_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+        p50 = float(np.median(step_ms))
+        positions = WMT_BATCH * WMT_SEQ
+        real = int((batch["labels"] != WMT_PAD).sum())
+        tok_s = positions / (p50 / 1e3)
+        flops = 6 * n_params + 12 * 2 * WMT_LAYERS * WMT_D * WMT_SEQ
+        mfu = flops * tok_s / PEAK_FLOPS["bfloat16"]
+        rec = {"losses": losses, "step_ms": step_ms, "step_ms_p50": p50,
+               "tokens_per_s": tok_s, "target_tokens": real,
+               "nonpad_target_tokens_per_s": real / (p50 / 1e3),
+               "source_tokens": int((batch["src"] != WMT_PAD).sum()),
+               "mfu": mfu, "peak_gb": peak_gb,
+               "launches_per_step": {k: v / WMT_STEPS
+                                     for k, v in got.items()},
+               "launches_per_step_want": {k: v / WMT_STEPS
+                                          for k, v in want.items()}}
+        out["runs"][label] = rec
+        log(f"{tag} {label} (Transformer {WMT_LAYERS} + {WMT_LAYERS}, d "
+            f"{WMT_D}, {WMT_HEADS} heads, ffn {WMT_FFN}, vocab {WMT_VOCAB}, "
+            f"{n_params} parameters, bf16, batch "
+            f"{WMT_BATCH} x {WMT_SEQ}, attention dropout {attn_dropout}, "
+            f"{'padded' if padded else 'full-length'} sources "
+            f"{rec['source_tokens']} tokens, {real} target labels): step "
+            f"p50 {p50:.1f} ms ({[round(x, 1) for x in step_ms]}), "
+            f"{tok_s:.0f} tokens/s ({rec['nonpad_target_tokens_per_s']:.0f} "
+            f"non-pad target tokens/s), model-FLOP share {mfu:.3f}, peak "
+            f"{peak_gb:.2f} GB; losses {[round(x, 5) for x in losses]}; "
+            f"launches a step {json.dumps(rec['launches_per_step'])} (want "
+            f"{json.dumps(rec['launches_per_step_want'])}) (card: {card})")
+        if got != want:
+            raise AssertionError(f"{tag} {label}: launches {got} != the "
+                                 f"layout's {want}")
+        if not all(np.isfinite(losses)):
+            raise AssertionError(f"{tag} {label}: losses {losses}")
+        launches[label] = got
+        rec["profile"] = wmt_profile(m, opt, sched, batch, card, label)
+        if padded:
+            launches["c_decode"], out["decode"] = wmt_decode(
+                m, batch, card, counters)
+            if rec["profile"]["device_ms_by_kind"]["dense_attention"] <= 0:
+                raise AssertionError(f"{tag} {label}: no dense attention "
+                                     f"in the profile")
+        else:
+            rec["mha_check"] = wmt_mha_check(m, card)
+        del m, opt, sched, batch, params
     free_card()
     return launches, out
 
@@ -8641,6 +9318,9 @@ def main() -> int:
     # expert-parallel GPT-MoE at the production MoE width
     free_card()
     moe_launches, moe_train = run_phase("train:moe", phase_train_moe, card)
+    # BASELINE config #2: the nn.Transformer encoder-decoder at WMT shape
+    free_card()
+    wmt_launches, wmt = run_phase("train:wmt", phase_train_wmt, card)
     free_card()
     llama_launches, llama_train = run_phase("train:llama", phase_train, card,
                                             "llama")
@@ -8737,11 +9417,14 @@ def main() -> int:
                                  "example": example_launches[name],
                                  "semi_auto": semi_launches.get(name, 0),
                                  **{f"moe_{k}": v[name]
-                                    for k, v in moe_launches.items()}},
+                                    for k, v in moe_launches.items()},
+                                 **{f"wmt_{k}": v[name]
+                                    for k, v in wmt_launches.items()}},
             **train_recs[name]})
         if name in semi["kernels"]:
             kernels[-1]["semi_auto"] = semi["kernels"][name]
         kernels[-1]["moe"] = moe_train["kernels"][name]
+        kernels[-1]["wmt"] = wmt["kernels"][name]
     # the segment-id variant: the packed flash_attn_unpadded call
     for name, line in (("flash_attention_fwd", 77),
                        ("flash_attention_bwd_dq", 199),
@@ -8769,6 +9452,8 @@ def main() -> int:
                               for k, v in hybrid_launches.items()},
                            **{f"moe_{k}": v
                               for k, v in moe_launches.items()},
+                           **{f"wmt_{k}": v
+                              for k, v in wmt_launches.items()},
                            "example": example_launches,
                            "durable_attach": durable["launches_attach"],
                            "fleet": fleet["launches"],
@@ -8779,6 +9464,9 @@ def main() -> int:
                               for k, v in hybrid_launches.items()},
                            **{f"moe_{k}": v
                               for k, v in moe_launches.items()},
+                           **{f"wmt_{k}": v
+                              for k, v in wmt_launches.items()
+                              if k != "c_decode"},
                            "example": example_launches},
     }
     for name, line in zip(NORM_KERNELS, (22, 30, 167, 179)):
@@ -8795,6 +9483,8 @@ def main() -> int:
             kernels[-1]["semi_auto"] = semi["kernels"][name]
         if name in moe_train["kernels"]:
             kernels[-1]["moe"] = moe_train["kernels"][name]
+        if name in wmt["kernels"]:
+            kernels[-1]["wmt"] = wmt["kernels"][name]
         if name == "layer_norm_fwd":
             # rows in registers; a row over 1024 16-byte groups re-read
             kernels[-1]["kernels"] = ["ln_fwd_rows_kernel",
@@ -8848,6 +9538,7 @@ def main() -> int:
         f"example train {json.dumps(example)}; "
         f"semi-auto train {json.dumps(semi)}; "
         f"moe train {json.dumps(moe_train)}; "
+        f"wmt train {json.dumps(wmt)}; "
         f"llama train {json.dumps(llama_train)}; tiny serving "
         f"{json.dumps(tiny)}")
     log(json.dumps({"kernels": kernels}))

@@ -29,7 +29,7 @@ from torch import nn
 
 from ...device import resolve_device
 from ...nn.functional.input import embedding
-from ...nn.layers.common import Linear
+from ...nn.layers.common import Linear, check_no_weight_attr
 from ..mesh import Mesh, psum
 from ..sharding_utils import P, set_param_spec
 from ..topology import get_hybrid_communicate_group
@@ -47,14 +47,6 @@ def _mp_axis(mp_group) -> str:
     return "mp"
 
 
-def _no_weight_attr(weight_attr) -> None:
-    if weight_attr is not None:
-        raise NotImplementedError(
-            "weight_attr: ParamAttr and the initializer zoo are not ported "
-            "yet (ROADMAP queue 1 item 10); the port draws weights from the "
-            "reference's default initializers and an explicit generator=")
-
-
 class _Linear(Linear):
     """``y = x @ weight + bias`` with ``weight [in, out]`` (the reference's
     ``F.linear`` layout), XavierNormal-initialised; the bias starts at
@@ -62,7 +54,7 @@ class _Linear(Linear):
 
     def __init__(self, in_features: int, out_features: int, weight_attr,
                  has_bias: bool, mp_group, *, device, dtype, generator):
-        _no_weight_attr(weight_attr)
+        check_no_weight_attr(weight_attr)
         super().__init__(in_features, out_features,
                          bias_attr=None if has_bias else False,
                          device=resolve_device(device), dtype=dtype,
@@ -133,7 +125,7 @@ class VocabParallelEmbedding(nn.Module):
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        _no_weight_attr(weight_attr)
+        check_no_weight_attr(weight_attr)
         self.num_embeddings = num_embeddings
         self.embedding_dim = embedding_dim
         w = torch.empty((num_embeddings, embedding_dim),

@@ -9,7 +9,9 @@ from the keys: ``gpt.`` (GPT), ``llama.`` (Llama) or a top-level
 ``wte.weight`` (GPT-MoE).  The JAX hybrid trainers' state (non-block
 leaves and stacked blocks) unstacks into the same keys
 (:func:`jax_trainer_arrays`), and :func:`hybrid_state_from_jax` lays
-either form into the port trainer's rank blocks.
+either form into the port trainer's rank blocks.  Any other layer (the
+Transformer, a container of an embedding, a Transformer and a head) is
+checked against the port module itself (:func:`layer_state_from_jax`).
 """
 
 from __future__ import annotations
@@ -26,8 +28,8 @@ from .gpt import GPTConfig
 from .gpt_moe import GPTMoEConfig
 from .llama import LlamaConfig
 
-__all__ = ["state_dict_from_jax", "jax_trainer_arrays",
-           "hybrid_state_from_jax"]
+__all__ = ["state_dict_from_jax", "layer_state_from_jax",
+           "jax_trainer_arrays", "hybrid_state_from_jax"]
 
 
 def _gpt_shapes(cfg: GPTConfig) -> Dict[str, Tuple[int, ...]]:
@@ -207,6 +209,33 @@ def state_dict_from_jax(arrays: Mapping[str, np.ndarray],
     dtype = resolve_dtype(dtype)
     return {k: torch.as_tensor(np.array(arrays[k], dtype=np.float32)).to(
         device=device, dtype=dtype) for k in want}
+
+
+def layer_state_from_jax(arrays: Mapping[str, np.ndarray],
+                         module: torch.nn.Module) -> Dict[str, torch.Tensor]:
+    """The JAX parameters of any ``paddle_tpu.nn.Layer`` (``{k:
+    np.asarray(v)}`` of its state) as a state dict of ``module``, the port
+    module of the same structure: a key-for-key copy, each tensor on the
+    device and in the dtype of the module's own.  A key of the module
+    missing from ``arrays`` or one ``arrays`` has beyond it raises
+    ``KeyError``, a shape that differs ``ValueError``, each naming the
+    key."""
+    own = module.state_dict()
+    for k in own:
+        if k not in arrays:
+            raise KeyError(f"missing key in the JAX arrays: {k!r}")
+    for k in arrays:
+        if k not in own:
+            raise KeyError(f"unexpected key in the JAX arrays: {k!r}")
+    out = {}
+    for k, t in own.items():
+        got = tuple(np.shape(arrays[k]))
+        if got != tuple(t.shape):
+            raise ValueError(f"shape mismatch for {k!r}: JAX {got}, port "
+                             f"{tuple(t.shape)}")
+        out[k] = torch.as_tensor(np.array(arrays[k], dtype=np.float32)).to(
+            device=t.device, dtype=t.dtype)
+    return out
 
 
 def jax_trainer_arrays(pnb: Mapping[str, np.ndarray],

@@ -1,5 +1,11 @@
 from . import functional
-from .layers import Dropout, Embedding, LayerList, LayerNorm, Linear, RMSNorm
+from .layers import (CrossEntropyLoss, Dropout, Embedding, LayerList,
+                     LayerNorm, Linear, MultiHeadAttention, RMSNorm,
+                     Transformer, TransformerDecoder, TransformerDecoderLayer,
+                     TransformerEncoder, TransformerEncoderLayer)
 
-__all__ = ["functional", "Dropout", "Embedding", "LayerList", "LayerNorm",
-           "Linear", "RMSNorm"]
+__all__ = ["functional", "CrossEntropyLoss", "Dropout", "Embedding",
+           "LayerList", "LayerNorm", "Linear", "MultiHeadAttention",
+           "RMSNorm", "Transformer", "TransformerDecoder",
+           "TransformerDecoderLayer", "TransformerEncoder",
+           "TransformerEncoderLayer"]

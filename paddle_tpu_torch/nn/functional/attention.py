@@ -1,13 +1,17 @@
 """Attention functionals (counterpart of paddle_tpu/nn/functional/
 attention.py).  Layout is the reference's ``[batch, seq, heads, head_dim]``.
 
-``scaled_dot_product_attention`` always takes the flash path
-(``kernels/flash_attention.py``): the CUDA kernels for CUDA tensors, their
-plain versions for CPU tensors.  The reference routes to its Pallas kernel
-only at seq >= 2048 (a TPU measurement) and falls back to XLA on error;
-the port has no threshold and no fallback.  ``sdpa_reference`` is the
-dense form, kept for the tests.  ``flash_attention`` is Paddle's
-``(out, softmax)`` form of it.
+``scaled_dot_product_attention`` chooses its route by its arguments, as
+the reference does: with no ``attn_mask`` and no dropout in training it
+takes the flash path (``kernels/flash_attention.py``: the CUDA kernels for
+CUDA tensors, their plain versions for CPU tensors); otherwise the dense
+form ``sdpa_reference`` (f32 logits, the mask at the f32 minimum or
+added, dropout on the f32 probabilities), counted in
+``scaled_dot_product_attention.dense_calls`` and run under the profiler
+range ``DENSE_RANGE``.  The reference also sends
+unmasked calls below seq 2048 (a TPU measurement) to the dense form and
+falls back to it when its kernel fails; the port has no threshold and no
+fallback.  ``flash_attention`` is Paddle's ``(out, softmax)`` form of it.
 
 ``flash_attn_unpadded`` is Paddle's varlen API (total-token packed
 ``[T, H, D]`` with ``cu_seqlens``): on CUDA it takes the segment-id flash
@@ -24,12 +28,19 @@ import logging
 from typing import Optional
 
 import torch
+from torch.profiler import record_function
 
 from ...kernels.flash_attention import (flash_attention as _flash,
                                         flash_attention_varlen)
+from .common import dropout
 
 __all__ = ["flash_attention", "flash_attn_unpadded",
            "scaled_dot_product_attention", "sdpa_reference"]
+
+# the profiler range around each dense call of
+# ``scaled_dot_product_attention`` (its forward ops; their backward nodes
+# carry the same sequence numbers)
+DENSE_RANGE = "sdpa.dense"
 
 _WARNED = set()
 
@@ -40,11 +51,19 @@ def _warn_once(key: str, msg: str) -> None:
         logging.getLogger("paddle_tpu_torch").warning(msg)
 
 
-def sdpa_reference(query, key, value, is_causal: bool = False,
-                   scale: Optional[float] = None) -> torch.Tensor:
+def sdpa_reference(query, key, value, attn_mask=None,
+                   dropout_p: float = 0.0, is_causal: bool = False,
+                   scale: Optional[float] = None, training: bool = True, *,
+                   generator: Optional[torch.Generator] = None
+                   ) -> torch.Tensor:
     """Dense softmax(QK^T)V with the reference's masking (attention.py:
-    56-89): f32 logits, masked logits at the f32 minimum (not -inf),
-    probabilities cast to v's dtype before the second product."""
+    55-89): f32 logits; the causal mask and a bool ``attn_mask`` (True
+    keeps) put masked logits at the f32 minimum, never -inf, so a row
+    with every key masked averages them all as the reference does; a
+    numeric ``attn_mask`` is added in f32; softmax in f32, dropout (drawn
+    from ``generator``) on the f32 probabilities in training, which are
+    then cast to v's dtype before the second product.  ``attn_mask``
+    broadcasts against the logits ``[B, H, Sq, Sk]``."""
     b, sq, h, d = query.shape
     sk, kh = key.shape[1], key.shape[2]
     scale = scale if scale is not None else 1.0 / (d ** 0.5)
@@ -54,34 +73,49 @@ def sdpa_reference(query, key, value, is_causal: bool = False,
     if kh != h:
         k = k.repeat_interleave(h // kh, dim=1)
         v = v.repeat_interleave(h // kh, dim=1)
+    f32_min = torch.finfo(torch.float32).min
     logits = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
     if is_causal:
         i = torch.arange(sq, device=query.device)[:, None]
         j = torch.arange(sk, device=query.device)[None, :]
-        logits = logits + torch.where(j <= i + (sk - sq), 0.0,
-                                      torch.finfo(torch.float32).min)
-    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+        logits = logits + torch.where(j <= i + (sk - sq), 0.0, f32_min)
+    if attn_mask is not None:
+        if attn_mask.dtype == torch.bool:
+            logits = torch.where(attn_mask, logits, f32_min)
+        else:
+            logits = logits + attn_mask.float()
+    probs = torch.softmax(logits, dim=-1)
+    if dropout_p > 0.0 and training:
+        probs = dropout(probs, dropout_p, training=True, generator=generator)
+    probs = probs.to(v.dtype)
     return torch.matmul(probs, v).transpose(1, 2)
 
 
 def scaled_dot_product_attention(query, key, value, attn_mask=None,
                                  dropout_p: float = 0.0,
                                  is_causal: bool = False,
-                                 training: bool = True) -> torch.Tensor:
+                                 training: bool = True, name=None, *,
+                                 generator: Optional[torch.Generator] = None
+                                 ) -> torch.Tensor:
     """Parity: paddle ``F.scaled_dot_product_attention`` (``[B, S, H, D]``
-    layout), differentiable, through the flash kernels.  Raises on what
-    the flash path does not compute: an ``attn_mask``, or dropout while
-    training."""
-    if attn_mask is not None:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: attn_mask is not supported by "
-            "the port's flash path (causal or full attention only)")
-    if dropout_p > 0.0 and training:
-        raise NotImplementedError(
-            "scaled_dot_product_attention: attention dropout is not "
-            "supported by the port's flash path; pass dropout_p=0 or "
-            "training=False")
-    return _flash(query, key, value, causal=is_causal)
+    layout), differentiable.  The arguments choose the route, as in the
+    reference (attention.py:100-115): no ``attn_mask`` and no dropout in
+    training -> the flash kernels (any sequence length, no fallback: a
+    kernel failure raises); otherwise the dense ``sdpa_reference``,
+    counted in ``scaled_dot_product_attention.dense_calls``.  Attention
+    dropout draws from ``generator`` (the reference draws from its global
+    key); training with ``dropout_p > 0`` and no generator raises."""
+    if attn_mask is None and not (dropout_p > 0.0 and training):
+        return _flash(query, key, value, causal=is_causal)
+    scaled_dot_product_attention.dense_calls += 1
+    with record_function(DENSE_RANGE):
+        return sdpa_reference(query, key, value, attn_mask, dropout_p,
+                              is_causal, training=training,
+                              generator=generator)
+
+
+# calls that took the dense form since the count was last set to 0
+scaled_dot_product_attention.dense_calls = 0
 
 
 def flash_attention(query, key, value, dropout: float = 0.0,

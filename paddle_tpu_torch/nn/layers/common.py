@@ -8,14 +8,16 @@ materialised on the host.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 from torch import nn
 
+from ...device import resolve_device
+from ..functional.common import dropout
 from ..functional.input import embedding
 
-__all__ = ["Dropout", "Embedding", "Linear"]
+__all__ = ["Dropout", "Embedding", "Linear", "check_no_weight_attr"]
 
 
 def xavier_normal(shape, *, device, dtype, generator) -> nn.Parameter:
@@ -27,16 +29,33 @@ def xavier_normal(shape, *, device, dtype, generator) -> nn.Parameter:
     return nn.Parameter(w)
 
 
+def check_no_weight_attr(weight_attr) -> None:
+    """Raise on a ``weight_attr``: the port draws every weight from the
+    reference's default initializer and an explicit ``generator=``."""
+    if weight_attr is not None:
+        raise NotImplementedError(
+            "weight_attr: ParamAttr and the initializer zoo are not ported "
+            "yet (ROADMAP queue 1 item 10); the port draws weights from the "
+            "reference's default initializers and an explicit generator=")
+
+
 class Linear(nn.Module):
     """``y = x @ weight + bias`` with ``weight [in, out]`` (the reference's
     layout), XavierNormal-initialised; the bias starts at zero and
-    ``bias_attr=False`` drops it."""
+    ``bias_attr=False`` drops it.  The positional parameters are the
+    reference's (common.py:28-29: ``in_features, out_features,
+    weight_attr, bias_attr, name``); ``weight_attr`` must be None (queue 1
+    item 10).  ``device`` (default: the card, ``device.resolve_device``),
+    ``dtype`` and ``generator`` are keyword-only."""
 
     def __init__(self, in_features: int, out_features: int,
-                 bias_attr: Optional[bool] = None, *, device: torch.device,
+                 weight_attr=None, bias_attr=None, name=None, *,
+                 device: Union[None, str, torch.device] = None,
                  dtype: torch.dtype = torch.float32,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
+        check_no_weight_attr(weight_attr)
+        device = resolve_device(device)
         self.in_features = in_features
         self.out_features = out_features
         self.weight = xavier_normal((in_features, out_features),
@@ -87,28 +106,26 @@ class Embedding(nn.Module):
 
 
 class Dropout(nn.Module):
-    """Inverted ("upscale_in_train") dropout.  Identity in eval mode and
-    at ``p == 0``; otherwise it draws its mask from the explicit
-    ``generator`` it was given."""
+    """Paddle's ``Dropout(p, axis, mode)`` over :func:`..functional.
+    dropout` (``upscale_in_train`` by default).  Identity in eval mode and
+    at ``p == 0`` (``downscale_in_infer`` scales by ``1 - p`` in eval);
+    otherwise it draws its mask from the explicit ``generator`` it was
+    given."""
 
-    def __init__(self, p: float = 0.5,
+    def __init__(self, p: float = 0.5, axis=None,
+                 mode: str = "upscale_in_train", name=None, *,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
-        if not 0.0 <= p < 1.0:
-            raise ValueError(f"dropout p must lie in [0, 1), got {p}")
+        if not 0.0 <= p <= 1.0:
+            raise ValueError(f"dropout p must lie in [0, 1], got {p}")
         self.p = p
+        self.axis = axis
+        self.mode = mode
         self.generator = generator
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training or self.p == 0.0:
-            return x
-        if self.generator is None:
-            raise ValueError(
-                "Dropout with p > 0 in training mode needs an explicit "
-                "torch.Generator (Dropout(p, generator=...))")
-        keep = torch.rand(x.shape, generator=self.generator,
-                          device=x.device) >= self.p
-        return x * keep.to(x.dtype) / (1.0 - self.p)
+        return dropout(x, self.p, self.axis, self.training, self.mode,
+                       generator=self.generator)
 
     def extra_repr(self) -> str:
         return f"p={self.p}"

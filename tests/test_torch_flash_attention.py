@@ -153,16 +153,24 @@ def test_sdpa_matches_jax_sdpa_reference():
 
 
 def test_sdpa_refuses_mask_and_training_dropout():
+    """The flash path takes neither an ``attn_mask`` nor dropout in
+    training: such calls take the dense form (counted in ``dense_calls``),
+    and dropout there needs an explicit generator (it raises without
+    one).  Dropout outside training is a no-op on the flash path, as in
+    the reference."""
     x = torch.zeros(1, 4, 2, 64)
-    with pytest.raises(NotImplementedError, match="attn_mask"):
-        scaled_dot_product_attention(x, x, x,
-                                     attn_mask=torch.ones(4, 4).bool())
-    with pytest.raises(NotImplementedError, match="dropout"):
+    scaled_dot_product_attention.dense_calls = 0
+    out = scaled_dot_product_attention(x, x, x,
+                                       attn_mask=torch.ones(4, 4).bool())
+    assert out.shape == x.shape
+    assert scaled_dot_product_attention.dense_calls == 1
+    with pytest.raises(ValueError, match="generator"):
         scaled_dot_product_attention(x, x, x, dropout_p=0.1)
-    # dropout outside training is a no-op, as in the reference
+    assert scaled_dot_product_attention.dense_calls == 2
     out = scaled_dot_product_attention(x, x, x, dropout_p=0.1,
                                        training=False)
     assert out.shape == x.shape
+    assert scaled_dot_product_attention.dense_calls == 2
 
 
 @pytest.mark.parametrize("name", ("flash_attention_fwd",

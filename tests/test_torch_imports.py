@@ -98,7 +98,11 @@ def test_port_imports_no_jax_and_no_reference_package(tmp_path):
                 "paddle_tpu_torch.incubate.distributed",
                 "paddle_tpu_torch.incubate.distributed.models",
                 "paddle_tpu_torch.incubate.distributed.models.moe",
-                "paddle_tpu_torch.examples.train_moe_ep"):
+                "paddle_tpu_torch.examples.train_moe_ep",
+                "paddle_tpu_torch.nn.functional.common",
+                "paddle_tpu_torch.nn.functional.loss",
+                "paddle_tpu_torch.nn.layers.loss",
+                "paddle_tpu_torch.nn.layers.transformer"):
         assert mod in res["imported"]
 
 
